@@ -1,0 +1,113 @@
+"""Spectral function gallery: builtin ``f`` for matrix functions ``f(A)``.
+
+Counterpart of ``primate_tpu/special.py:104-128,175-``. Every builtin maps a
+tensor of quadrature nodes to a tensor, on the nodes' device.
+"""
+
+from functools import lru_cache
+from math import comb
+from typing import Any, Callable, Union
+
+import numpy as np
+import torch
+
+__all__ = ["param_callable", "softsign", "smoothstep", "exp", "step", "identity", "BUILTIN_MATRIX_FUNCTIONS"]
+
+BUILTIN_MATRIX_FUNCTIONS = ["identity", "abs", "sqrt", "log", "inv", "exp", "smoothstep", "numrank", "softsign"]
+
+
+def identity(x: Any) -> Any:
+	return x
+
+
+def softsign(q: int = 1) -> Callable:
+	"""Degree-``q`` polynomial approximant to sign(x) on [-1, 1]."""
+	J = np.append([1.0], np.cumprod([(2 * j - 1) / (2 * j) for j in np.arange(1, q + 1)]))
+
+	def _softsign(x):
+		xt = torch.atleast_1d(torch.clamp(x, -1.0, 1.0))[..., None]
+		Ic = torch.arange(q + 1, device=xt.device, dtype=xt.dtype)
+		Jc = torch.as_tensor(J, device=xt.device, dtype=xt.dtype)
+		return torch.sum(xt * (1 - xt**2) ** Ic * Jc, dim=-1)
+
+	return _softsign
+
+
+def smoothstep(a: float = 0.0, b: float = 1.0, deg: int = 3) -> Callable:
+	"""Polynomial Hermite step of odd degree ``deg``: 0 below ``a``, 1 above ``b``."""
+	if deg % 2 != 1:
+		raise ValueError("Degree must be odd")
+	d = (b - a) if a != b else 1.0
+	N = (int(deg) - 1) // 2
+	coefs = [comb(N + k, k) * comb(2 * N + 1, N - k) * ((-1.0) ** k) for k in range(N + 1)]
+
+	def _smoothstep(x):
+		y = torch.clamp((x - a) / d, 0.0, 1.0)
+		acc = torch.zeros_like(y)
+		for c in reversed(coefs):  # Horner in y, then × y^{N+1}
+			acc = acc * y + c
+		return acc * y ** (N + 1)
+
+	return _smoothstep
+
+
+def exp(t: float = 1.0) -> Callable:
+	"""Exponential ``x ↦ exp(t·x)``."""
+
+	def _exp(x):
+		return torch.exp(t * x)
+
+	return _exp
+
+
+def step(c: float = 0.0, nonnegative: bool = False) -> Callable:
+	"""Hard threshold ``x ↦ 1[x ≥ c]`` (optionally on |x|)."""
+
+	def _step(x):
+		x = torch.abs(x) if nonnegative else x
+		return torch.where(x < c, 0.0, 1.0).to(x.dtype)
+
+	return _step
+
+
+def _log_eps(x):
+	# Clamp at machine eps so logdet-style quadratures never see log(<=0).
+	return torch.log(torch.clamp(x, min=torch.finfo(x.dtype).eps))
+
+
+@lru_cache(maxsize=256)
+def _cached_builtin(fun: str, kwargs_items: tuple) -> Callable:
+	kwargs = dict(kwargs_items)
+	if fun == "abs":
+		return torch.abs
+	if fun == "sqrt":
+		return torch.sqrt
+	if fun == "log":
+		return _log_eps
+	if fun == "inv":
+		return torch.reciprocal
+	if fun == "exp":
+		return exp(t=kwargs.pop("t", 1.0))
+	if fun == "smoothstep":
+		return smoothstep(a=kwargs.pop("a", 0.0), b=kwargs.pop("b", 1.0), deg=kwargs.pop("deg", 3))
+	if fun == "softsign":
+		return softsign(q=kwargs.pop("q", 10))
+	if fun == "numrank":
+		return step(c=kwargs.pop("threshold", 1e-6), nonnegative=True)
+	raise ValueError(f"Unknown function: {fun}.")
+
+
+def param_callable(fun: Union[str, Callable, None], **kwargs) -> Callable:
+	"""Resolve a builtin function name (or pass a callable through) to a tensor function.
+
+	Builtins are memoized on (name, params), as in the JAX package.
+	"""
+	if fun is None or fun == "identity":
+		return identity
+	if callable(fun):
+		return fun
+	if not isinstance(fun, str):
+		raise TypeError("Matrix function must be a string or callable.")
+	known = {"t", "a", "b", "q", "threshold", "deg"}
+	items = tuple(sorted((k, v) for k, v in kwargs.items() if k in known))
+	return _cached_builtin(fun.lower(), items)
