@@ -1,12 +1,14 @@
-// Probe-major DIA stencil kernels for Hopper (sm_90a), float32 and float64.
+// DIA stencil kernels for Hopper (sm_90a), float32 and float64.
 //
 // Replaces the Pallas TPU kernels of primate_tpu/ops/dia_pallas.py:
 //   dia_stencil_t     <- dia_matmat_t_pallas (_dia_t_kernel): out = A X, probe-major
+//   dia_stencil       <- dia_matmat_pallas (_dia_kernel): out = A V, node-major
 //   lanczos_dia_step  <- dia_matmat_t_phys (_dia_t_phys_kernel), the Lanczos sweep's
 //                        stencil, fused here with the beta-axpy and the alpha reduction
 //
-// Layout: probe blocks are probe-major (nv, n), row-aligned bands (n_d, n) with
-// band[d][r] = A[r, r + offsets[d]]. Out-of-range neighbours (r + off outside
+// Layout: row-aligned bands (n_d, n) with band[d][r] = A[r, r + offsets[d]];
+// probe-major blocks (nv, n) for dia_stencil_t and the Lanczos step, node-major
+// blocks (n, k) for dia_stencil. Out-of-range neighbours (r + off outside
 // [0, n)) are skipped by a bounds check, so no zero-padded halo copy of the block
 // is needed and the offsets may be of any size.
 //
@@ -16,7 +18,15 @@
 // threads on consecutive r (coalesced loads of X[b, r + off]; the shifted
 // neighbour loads of one warp overlap and hit L1), each band value read once per
 // kProbes outputs. The TPU kernel's manual double-buffered DMA has no counterpart:
-// enough resident warps hide the load latency.
+// enough resident warps hide the load latency. The node-major kernel walks the
+// row-major (n, k) block in flat order instead: consecutive threads take
+// consecutive (row, column) elements, so both the output and each shifted
+// neighbour row V[r + off, :] are read and written in contiguous runs for any k
+// (no k % 128 rule), and a band value is shared by the k threads of its row.
+// Each thread keeps kNmEl outputs so every diagonal has kNmEl loads in flight.
+// Unlike the probe-major kernel's, its time grows with the number of diagonals
+// (a shifted row is k elements away, not one), so it sits well below the HBM
+// roofline; PERF.md has the measurements.
 //
 // Plain C interface: every entry point returns the cudaError_t of its launch
 // (cudaGetLastError()), and the caller raises on anything but cudaSuccess. The
@@ -61,6 +71,48 @@ __global__ void __launch_bounds__(kThreads) dia_stencil_t_kernel(const T* __rest
 #pragma unroll
     for (int p = 0; p < kProbes; ++p) {
         if (b0 + p < nv) out[(b0 + p) * n + r] = acc[p];
+    }
+}
+
+constexpr int kNmThreads = 256;  // threads per block of the node-major kernel
+constexpr int kNmEl = 8;         // output elements per thread of the node-major kernel
+constexpr int kNmElems = kNmThreads * kNmEl;  // output elements per block
+
+// out[r, c] = sum_d band[d, r] V[r + off_d, c] on a row-major (n, k) block. Block
+// (blockIdx.x, blockIdx.y) covers rows [x * rows, (x + 1) * rows) and columns
+// [y * kc, (y + 1) * kc), rows * kc <= kNmElems, walked in flat row-major order;
+// each thread takes kNmEl elements kNmThreads apart, so every diagonal issues
+// kNmEl independent loads per thread.
+template <typename T>
+__global__ void __launch_bounds__(kNmThreads) dia_stencil_kernel(const T* __restrict__ bands,
+                                                                 const int64_t* __restrict__ offsets, int n_d,
+                                                                 const T* __restrict__ V, T* __restrict__ out,
+                                                                 int64_t n, int64_t k, int rows, int kc) {
+    const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows;
+    const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kc;
+    int64_t r[kNmEl], c[kNmEl];
+    bool ok[kNmEl];
+    T acc[kNmEl];
+#pragma unroll
+    for (int j = 0; j < kNmEl; ++j) {
+        const int e = threadIdx.x + j * kNmThreads;
+        const int dr = e / kc;
+        r[j] = r0 + dr;
+        c[j] = c0 + (e - dr * kc);
+        ok[j] = e < rows * kc && r[j] < n && c[j] < k;
+        acc[j] = T(0);
+    }
+    for (int d = 0; d < n_d; ++d) {
+        const int64_t off = offsets[d];
+#pragma unroll
+        for (int j = 0; j < kNmEl; ++j) {
+            const int64_t rr = r[j] + off;
+            if (ok[j] && rr >= 0 && rr < n) acc[j] += bands[d * n + r[j]] * V[rr * k + c[j]];
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kNmEl; ++j) {
+        if (ok[j]) out[r[j] * k + c[j]] = acc[j];
     }
 }
 
@@ -131,6 +183,19 @@ cudaError_t launch_stencil(const T* bands, const int64_t* offsets, int n_d, cons
 }
 
 template <typename T>
+cudaError_t launch_stencil_nm(const T* bands, const int64_t* offsets, int n_d, const T* V, T* out, int64_t n,
+                              int64_t k, cudaStream_t stream) {
+    if (n == 0 || k == 0) return cudaSuccess;
+    const int kc = static_cast<int>(k < kNmElems ? k : kNmElems);
+    const int rows = kNmElems / kc;
+    const int64_t gx = (n + rows - 1) / rows, gy = (k + kc - 1) / kc;
+    if (gx > 0x7fffffffLL || gy > 65535) return cudaErrorInvalidConfiguration;
+    const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
+    dia_stencil_kernel<T><<<grid, kNmThreads, 0, stream>>>(bands, offsets, n_d, V, out, n, k, rows, kc);
+    return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_step(const T* bands, const int64_t* offsets, int n_d, const T* q_cur, const T* q_prev,
                         const T* beta, T* v, T* partial, int64_t nv, int64_t n, cudaStream_t stream) {
     if (nv == 0 || n == 0) return cudaSuccess;
@@ -158,6 +223,16 @@ cudaError_t dia_stencil_t_f32(const float* bands, const int64_t* offsets, int n_
 cudaError_t dia_stencil_t_f64(const double* bands, const int64_t* offsets, int n_d, const double* x, double* out,
                               int64_t nv, int64_t n, cudaStream_t stream) {
     return launch_stencil(bands, offsets, n_d, x, out, nv, n, stream);
+}
+
+cudaError_t dia_stencil_f32(const float* bands, const int64_t* offsets, int n_d, const float* V, float* out,
+                            int64_t n, int64_t k, cudaStream_t stream) {
+    return launch_stencil_nm(bands, offsets, n_d, V, out, n, k, stream);
+}
+
+cudaError_t dia_stencil_f64(const double* bands, const int64_t* offsets, int n_d, const double* V, double* out,
+                            int64_t n, int64_t k, cudaStream_t stream) {
+    return launch_stencil_nm(bands, offsets, n_d, V, out, n, k, stream);
 }
 
 cudaError_t lanczos_dia_step_f32(const float* bands, const int64_t* offsets, int n_d, const float* q_cur,

@@ -22,6 +22,7 @@ __all__ = [
 	"OrCriterion",
 	"CountCriterion",
 	"ConfidenceCriterion",
+	"ToleranceCriterion",
 	"convergence_criterion",
 	"default_trace_criterion",
 	"MeanEstimator",
@@ -148,7 +149,20 @@ class ConfidenceCriterion(ConvergenceCriterion):
 		return f"Est: {_summary(est.estimate)} +/- {moe:.3f} ({self.confidence * 100:.0f}% CI, #S:{est.n_samples})"
 
 
-CRITERIA = {"count": CountCriterion, "confidence": ConfidenceCriterion}
+class ToleranceCriterion(ConvergenceCriterion):
+	"""True when the last mean update is small: ``‖Δ‖ < atol`` or ``‖Δ‖ < rtol·‖estimate‖``
+	(``primate_tpu/estimators.py:312-331``). One device→host read per check."""
+
+	def __init__(self, rtol: float = 0.01, atol: float = 1.49e-08, ord: Union[str, float, None] = 2.0):
+		self.rtol, self.atol, self.ord = rtol, atol, ord
+
+	def check(self, snap: EstSnapshot) -> bool:
+		norm = lambda x: torch.linalg.norm(torch.atleast_1d(x), ord=self.ord)  # noqa: E731
+		err, est = (float(x) for x in torch.stack([norm(snap.delta), norm(snap.estimate)]).cpu())
+		return err < self.atol or err < self.rtol * est
+
+
+CRITERIA = {"count": CountCriterion, "confidence": ConfidenceCriterion, "tolerance": ToleranceCriterion}
 
 
 def convergence_criterion(criterion: Union[str, ConvergenceCriterion], **kwargs) -> ConvergenceCriterion:

@@ -1,7 +1,17 @@
-"""Operators on torch tensors: the protocol, DIA, and matrix functions."""
+"""Operators on torch tensors: the protocol, DIA and BSR, deflation, and matrix functions."""
 
-from .base import DenseOperator, LinearOperator, aslinop, is_valid_operator, quad_form
-from .sparse import DIAOperator
+from .base import DeflatedOperator, DenseOperator, LinearOperator, aslinop, is_valid_operator, quad_form
+from .sparse import BSROperator, DIAOperator
 from .special_ops import MatrixFunction
 
-__all__ = ["LinearOperator", "DenseOperator", "DIAOperator", "MatrixFunction", "aslinop", "is_valid_operator", "quad_form"]
+__all__ = [
+	"LinearOperator",
+	"DenseOperator",
+	"DeflatedOperator",
+	"BSROperator",
+	"DIAOperator",
+	"MatrixFunction",
+	"aslinop",
+	"is_valid_operator",
+	"quad_form",
+]

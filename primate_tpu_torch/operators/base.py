@@ -4,6 +4,7 @@ Counterpart of ``primate_tpu/operators/base.py``. Operators apply to node-major
 ``(n, k)`` blocks (``matmat``) and to probe-major ``(k, n)`` blocks
 (``matmat_t``, the layout the Lanczos sweep carries). ``lanczos_step`` is the
 sweep's per-step hook: operators with a fused kernel (``DIAOperator``) override it.
+``DeflatedOperator`` projects a subspace out of an operator (adaptive Hutch++).
 """
 
 from typing import Any, Tuple
@@ -11,7 +12,9 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-__all__ = ["LinearOperator", "DenseOperator", "aslinop", "is_valid_operator", "quad_form"]
+from ..linalg import full_f32_matmul
+
+__all__ = ["LinearOperator", "DenseOperator", "DeflatedOperator", "aslinop", "is_valid_operator", "quad_form"]
 
 
 class LinearOperator:
@@ -107,24 +110,55 @@ def aslinop(A: Any, dtype=None) -> LinearOperator:
 		return A
 	if isinstance(A, (torch.Tensor, np.ndarray)):
 		return DenseOperator(torch.as_tensor(A, dtype=dtype))
-	raise TypeError(f"Cannot interpret {type(A)} as a linear operator (sparse formats other than DIA are not ported yet)")
+	raise TypeError(
+		f"Cannot interpret {type(A)} as a linear operator (build a DIAOperator or BSROperator from a scipy "
+		"matrix; other sparse formats are not ported yet)"
+	)
 
 
 def quad_form(A: Any, V: torch.Tensor) -> torch.Tensor:
 	"""Batched quadratic forms ``diag(Vᵀ A V)`` of an ``(n, k)`` block → ``(k,)``.
 
 	Dispatches to ``A.quad`` when present (Lanczos quadrature for a
-	``MatrixFunction``). Otherwise the forms are taken probe-major through
-	``matmat_t``: a probe block drawn by ``random.sample_isotropic`` is probe-major
-	in memory, so ``V.T`` needs no copy, and a DIA operator applies its stencil kernel.
+	``MatrixFunction``). Otherwise one ``matmat`` of the block, in whichever
+	layout it lies: a DIA operator picks its probe-major or node-major kernel by
+	that layout without a copy, and an operator with only a node-major kernel
+	(BSR) takes a node-major block as it is.
 	"""
 	if hasattr(A, "quad"):
 		return torch.atleast_1d(A.quad(V))
 	op = aslinop(A)
 	V = torch.as_tensor(V, dtype=op.dtype, device=op.device)
-	Vt = (V[:, None] if V.ndim == 1 else V).T.contiguous()
-	AVt = op.matmat_t(Vt)
+	V = V[:, None] if V.ndim == 1 else V
+	AV = op.matmat(V)
 	if op.dtype.is_complex:
 		# Hermitian operator: v†Av is real — conjugate the bra, return real.
-		return torch.real(torch.sum(Vt.conj() * AVt, dim=1))
-	return torch.sum(Vt * AVt, dim=1)
+		return torch.real(torch.sum(V.conj() * AV, dim=0))
+	return torch.sum(V * AV, dim=0)
+
+
+class DeflatedOperator(LinearOperator):
+	"""Projected operator ``P A P`` with ``P = I − VVᵀ``
+	(``primate_tpu/operators/base.py:431-484`` with its default ``fill=0``).
+
+	``V (n, k)`` has orthonormal columns. ``tr(A) = tr(VᵀAV) + tr(P A P)`` for any
+	such ``V``, which is how adaptive Hutch++ spends its residual probes. The
+	projections are skinny GEMMs in full float32 (TF32 off): a truncated
+	projection leaks the deflated directions back.
+	"""
+
+	def __init__(self, A, V: torch.Tensor):
+		self.A = aslinop(A)
+		self.shape, self.dtype, self.device = self.A.shape, self.A.dtype, self.A.device
+		self.V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
+		if self.V.ndim != 2 or self.V.shape[0] != self.shape[0]:
+			raise ValueError("V must be (n, k).")
+
+	def _vh(self, W: torch.Tensor) -> torch.Tensor:
+		return (self.V.mH if self.V.is_complex() else self.V.T) @ W
+
+	def _matmat(self, W: torch.Tensor) -> torch.Tensor:
+		W = torch.as_tensor(W, dtype=self.dtype, device=self.device)
+		with full_f32_matmul():
+			AP = self.A.matmat(W - self.V @ self._vh(W))
+			return AP - self.V @ self._vh(AP)

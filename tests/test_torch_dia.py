@@ -13,11 +13,12 @@ import torch
 import jax.numpy as jnp
 
 from primate_tpu.operators.sparse import DIAOperator as JaxDIA
-from primate_tpu.ops.dia_pallas import HALO, LANE_TILE, dia_matmat_t, dia_matmat_t_phys
+from primate_tpu.ops.dia_pallas import HALO, LANE_TILE, dia_matmat, dia_matmat_t, dia_matmat_t_phys
 from primate_tpu_torch import DIAOperator, dia_from_numpy
+from primate_tpu_torch.operators import sparse
 from primate_tpu_torch.operators.base import quad_form
 from primate_tpu_torch.ops import _build
-from primate_tpu_torch.ops.dia import dia_stencil_t, lanczos_dia_step
+from primate_tpu_torch.ops.dia import dia_stencil, dia_stencil_ref, dia_stencil_t, lanczos_dia_step
 
 torch.set_num_threads(1)
 
@@ -50,6 +51,44 @@ def test_stencil_wide_band_matches_jax_xla():
 	Xt = np.random.default_rng(12).normal(size=(4, 600))
 	got = dia_stencil_t(op.bands, op.offsets_t, torch.from_numpy(Xt)).numpy()
 	np.testing.assert_allclose(got, np.asarray(jop.matmat_t(jnp.asarray(Xt))), rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype,atol", [(np.float32, 1e-5), (np.float64, 1e-10)])
+def test_node_major_stencil_matches_jax_pallas(dtype, atol):
+	"""dia_stencil vs the node-major Pallas kernel in interpret mode (k a multiple
+	of 128, as tests/test_dia.py:31-38 runs it) and vs the XLA path."""
+	A = _banded(300, [-7, -1, 0, 1, 7], seed=21).astype(dtype)
+	jop, op = _pair(A)
+	V = np.random.default_rng(22).normal(size=(300, 128)).astype(dtype)
+	got = dia_stencil(op.bands, op.offsets_t, torch.from_numpy(V))
+	assert got.dtype == torch.from_numpy(V).dtype and got.shape == (300, 128)
+	np.testing.assert_allclose(got.numpy(), np.asarray(dia_matmat(jop, jnp.asarray(V), interpret=True)), rtol=0, atol=atol)
+	np.testing.assert_allclose(got.numpy(), np.asarray(jop._matmat_jnp(jnp.asarray(V))), rtol=0, atol=atol)
+
+
+def test_node_major_stencil_any_offset_and_width():
+	# Offsets past n's middle and past the TPU's 2048-row halo, odd k, one column.
+	A = _banded(3000, [-2500, -1, 0, 3, 2100], seed=23)
+	jop, op = _pair(A)
+	for k in (1, 5):
+		V = np.random.default_rng(k).normal(size=(3000, k))
+		got = dia_stencil_ref(op.bands, op.offsets_t, torch.from_numpy(V)).numpy()
+		np.testing.assert_allclose(got, np.asarray(jop._matmat_jnp(jnp.asarray(V))), rtol=0, atol=1e-10)
+		np.testing.assert_allclose(got, A @ V, rtol=0, atol=1e-10)
+
+
+def test_matmat_picks_the_kernel_by_layout(monkeypatch):
+	"""A probe-major block takes the probe-major stencil on its transpose, a
+	node-major one the node-major stencil; neither is copied."""
+	op = DIAOperator.from_scipy(_banded(50, [-3, 0, 2], seed=24))
+	seen = []
+	for name in ("dia_stencil", "dia_stencil_t"):
+		real = getattr(sparse, name)
+		monkeypatch.setattr(sparse, name, lambda b, o, x, _n=name, _f=real: (seen.append((_n, x.is_contiguous())), _f(b, o, x))[1])
+	Vt = torch.from_numpy(np.random.default_rng(25).normal(size=(4, 50)))
+	probe_major, node_major = Vt.T, Vt.T.contiguous()
+	np.testing.assert_array_equal(op.matmat(probe_major).numpy(), op.matmat(node_major).numpy())
+	assert seen == [("dia_stencil_t", True), ("dia_stencil", True)]
 
 
 @pytest.mark.parametrize("dtype,atol", [(np.float32, 1e-4), (np.float64, 1e-10)])
@@ -128,11 +167,12 @@ def test_build_raises_and_leaves_no_partial_library(tmp_path, monkeypatch):
 		_build.build_library()
 	assert list(tmp_path.iterdir()) == []
 	assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-	# The library's name follows its sources: an edited kernel rebuilds.
+	# Each source builds its own library, named after the source's digest: an edited kernel rebuilds.
+	assert set(_build._sources()) >= {_build._CSRC / "bsr_spmm.cu", _build._CSRC / "dia_stencil.cu"}
 	src = tmp_path / "csrc"
 	src.mkdir()
 	(src / "k.cu").write_text("// a\n")
 	monkeypatch.setattr(_build, "_CSRC", src)
-	before = _build._digest()
+	before = _build._digest(src / "k.cu")
 	(src / "k.cu").write_text("// b\n")
-	assert _build._digest() != before
+	assert _build._digest(src / "k.cu") != before

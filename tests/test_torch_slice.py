@@ -108,7 +108,7 @@ def test_dense_operator_and_key_style_pdf():
 
 
 def test_import_leaves_jax_out():
-	code = "import sys, primate_tpu_torch, primate_tpu_torch.ops.dia, primate_tpu_torch.ops._build; " \
+	code = "import sys, primate_tpu_torch, primate_tpu_torch.ops.dia, primate_tpu_torch.ops.bsr, primate_tpu_torch.ops._build; " \
 		"bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'primate_tpu')]; print(bad); assert not bad"
 	r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
 	assert r.returncode == 0, r.stdout + r.stderr
