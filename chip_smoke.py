@@ -5,19 +5,21 @@
 Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
 
 1. prints the card's name and power limit, and the build time;
-2. holds each kernel against its plain PyTorch version on the card, float32 and
-   float64, at the flagship shape and at an awkward one;
+2. holds each DIA kernel and the two passes of the Lanczos step against their
+   plain PyTorch versions on the card, float32 and float64, at the flagship shape
+   and at an awkward one, and times each at the flagship shape beside its bound
+   and, where one PyTorch call computes the same function, that call (``library_ms``);
 3. runs the flagship SLQ logdet (``bench.py``'s configuration) at n = 500,000 in
-   float32: the estimate must be within 5% of the exact logdet, and the fused
-   Lanczos-step kernel must have launched deg × batches times;
+   float32: the estimate must be within 5% of the exact logdet, and both step
+   kernels must have launched deg × batches times;
 4. runs the same at n = 10,000,000 and reports wall time and peak memory;
 5. runs the plain trace ``hutch(DIAOperator(L))`` at n = 500,000: within 5σ of
    tr(L) = 3n, through the stencil kernel;
 6. holds the BSR SpMM and the node-major DIA stencil against their plain
    versions, float32 and float64, at the cell operators of phases 7 and 8
-   (k = 64 and 240) and at awkward shapes, and times kernel, plain version and
-   (for the DIA stencil) the transpose route through the probe-major kernel;
-   it runs last, on the operators that phases 7 and 8 built;
+   (k = 64 and 240) and at awkward shapes, and times kernel, plain version, bound,
+   library call and (for the DIA stencil) the transpose route through the
+   probe-major kernel; it runs last, on the operators that phases 7 and 8 built;
 7. runs BASELINE config 3's sketch estimators (``benchmarks/configs.py:73-105``)
    on ``block_random_spd(n=1,048,576)`` as a BSR operator with 8×8 tiles, at
    the scale of the SuiteSparse matrix audikw_1: each trace within 1e-3 of
@@ -26,9 +28,13 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    Laplacian ``fem_laplacian_3d(side=100)`` (n = 1,000,000, offsets ±1, ±100,
    ±10,000) as a DIA operator: trace within 1e-3, diagonals within 0.1 (relative L2).
 
-Each phase raises on failure. Measured values go out as JSON lines; the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-non-zero before printing anything.
+Each phase raises on failure. Measured values go out as JSON lines; the line
+before the last lists every kernel with its launches on its path, its error
+against its plain version, its time, its plain version's time, its bound
+(``bound_ms``: the larger of its bytes over the HBM rate and its flops over the
+float32 rate) and its library call's time (``library_ms``, null where no single
+call computes it); the last line is ``{"ok": true, "device": {...}}``. Without a
+CUDA device it exits non-zero before printing anything.
 """
 
 import json
@@ -41,18 +47,26 @@ import numpy as np
 
 DEG, PROBES, ORTH = 20, 64, 0
 N_FLAGSHIP, N_LARGE = 500_000, 10_000_000
+KERNELS = ("dia_stencil_t", "lanczos_dia_step", "lanczos_dia_residual", "bsr_spmm", "dia_stencil")
 SOURCE = {
 	"dia_stencil_t": "primate_tpu_torch/csrc/dia_stencil.cu",
 	"lanczos_dia_step": "primate_tpu_torch/csrc/dia_stencil.cu",
+	"lanczos_dia_residual": "primate_tpu_torch/csrc/dia_stencil.cu",
 	"bsr_spmm": "primate_tpu_torch/csrc/bsr_spmm.cu",
 	"dia_stencil": "primate_tpu_torch/csrc/dia_stencil.cu",
 }
 REPLACES = {
 	"dia_stencil_t": "primate_tpu/ops/dia_pallas.py:152",  # dia_matmat_t_pallas's pallas_call
-	"lanczos_dia_step": "primate_tpu/ops/dia_pallas.py:273",  # dia_matmat_t_phys's pallas_call
+	# The two passes of the Lanczos step together replace dia_matmat_t_phys's
+	# pallas_call and the XLA-fused rest of the step around it.
+	"lanczos_dia_step": "primate_tpu/ops/dia_pallas.py:273",
+	"lanczos_dia_residual": "primate_tpu/ops/dia_pallas.py:273",
 	"bsr_spmm": "primate_tpu/ops/spmm_pallas.py:96",  # bsr_matmat_pallas's pallas_call
 	"dia_stencil": "primate_tpu/ops/dia_pallas.py:93",  # dia_matmat_pallas's pallas_call
 }
+# NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside the
+# tensor cores (the kernels run FP32 FMAs on the CUDA cores).
+HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 STENCIL_TOL = {"float32": 1e-5, "float64": 1e-12}  # max-abs error over max|out|
 # Phase 7: BASELINE config 3 at audikw_1's scale (943,695 rows, 77.7M nonzeros).
 BSR_CELL = dict(n=1_048_576, bs=8, density=3.5e-5, seed=7)
@@ -94,8 +108,46 @@ def time_ms(torch, fn, reps: int = 20) -> float:
 	return start.elapsed_time(end) / reps
 
 
+def bound(bytes_: float, flops: float) -> tuple:
+	"""The least time the card could take (ms) and what sets it."""
+	t_bytes, t_flops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+	return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
+
+
+def library_ms(torch, fn, want, reps: int = 10):
+	"""Time of one PyTorch call that computes the same function (a yardstick the
+	port never calls), and its error against the plain version; (None, reason) if
+	PyTorch refuses the call."""
+	try:
+		got = fn()
+		torch.cuda.synchronize()
+	except (RuntimeError, NotImplementedError, TypeError) as e:
+		return None, f"{type(e).__name__}: {e}"[:300]
+	err = float((got.to_dense() if got.layout != torch.strided else got).sub(want).abs().max()) / float(want.abs().max())
+	return time_ms(torch, fn, reps), err
+
+
+def csr_of_dia(torch, bands, offsets, n: int):
+	"""The DIA operator as a CSR tensor on the card (the library yardstick's operand)."""
+	r = torch.arange(n, device=bands.device)
+	rows, cols, vals = [], [], []
+	for d, off in enumerate(offsets):
+		c = r + off
+		ok = (c >= 0) & (c < n)
+		rows.append(r[ok])
+		cols.append(c[ok])
+		vals.append(bands[d][ok])
+	idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+	return torch.sparse_coo_tensor(idx, torch.cat(vals), (n, n)).coalesce().to_sparse_csr()
+
+
 def check_kernels(torch, dia, dev) -> dict:
-	"""Phase 2: each kernel against its plain version on the same inputs on the card."""
+	"""Phase 2: each DIA kernel and the two step passes against their plain versions
+	on the same inputs on the card; times at the flagship shape in float32."""
+	from primate_tpu_torch.ops import _common
+	from primate_tpu_torch.ops._build import load_library
+
+	lib = load_library()
 	shapes = {"flagship": (PROBES, N_FLAGSHIP, (-1, 0, 1)), "awkward": (13, 3001, (-200, -7, 0, 7, 200))}
 	gen = torch.Generator(device=dev)
 	gen.manual_seed(0)
@@ -106,6 +158,7 @@ def check_kernels(torch, dia, dev) -> dict:
 			bands = torch.rand((len(offsets), n), generator=gen, device=dev, dtype=dtype) + 0.5
 			offs = torch.tensor(offsets, dtype=torch.int64, device=dev)
 			offs_host = offs.cpu()  # the plain versions read the offsets on the host: no sync per call
+			apply_ref = lambda q: dia.dia_stencil_t_ref(bands, offs_host, q)  # noqa: E731
 			x = torch.randn((nv, n), generator=gen, device=dev, dtype=dtype)
 			q_cur = torch.randn((nv, n), generator=gen, device=dev, dtype=dtype)
 			q_cur /= torch.linalg.vector_norm(q_cur, dim=1, keepdim=True)
@@ -113,9 +166,27 @@ def check_kernels(torch, dia, dev) -> dict:
 			q_prev /= torch.linalg.vector_norm(q_prev, dim=1, keepdim=True)
 			beta = torch.rand(nv, generator=gen, device=dev, dtype=dtype) + 0.5
 
+			def mid_sweep_state():
+				st = dia.lanczos_state(nv, dtype, dev)
+				st.scal[dia.DIV_CUR] = 2.0
+				st.scal[dia.DIV_PREV] = 0.5
+				st.scal[dia.BETA] = beta
+				return st
+
 			got, want = dia.dia_stencil_t(bands, offs, x), dia.dia_stencil_t_ref(bands, offs_host, x)
 			v, alpha = dia.lanczos_dia_step(bands, offs, q_cur, q_prev, beta)
 			v_ref, alpha_ref = dia.lanczos_dia_step_ref(bands, offs_host, q_cur, q_prev, beta)
+			# Two whole steps from the same mid-sweep state, kernels against the plain version.
+			st, st_ref = mid_sweep_state(), mid_sweep_state()
+			blocks, blocks_ref = (q_cur, q_prev), (q_cur, q_prev)
+			errs_w, errs_ab = [], []
+			for _ in range(2):
+				ab, ab_ref = torch.empty((2, nv), dtype=dtype, device=dev), torch.empty((2, nv), dtype=dtype, device=dev)
+				w = dia.lanczos_dia_sweep_step(bands, offs, *blocks, st, ab[0], ab[1], 1e-8)
+				w_ref = dia.lanczos_sweep_step_ref(apply_ref, *blocks_ref, st_ref, ab_ref[0], ab_ref[1], 1e-8)
+				blocks, blocks_ref = (w, blocks[0]), (w_ref, blocks_ref[0])
+				errs_w.append((float((w - w_ref).abs().max()), float((w - w_ref).abs().max()) / float(w_ref.abs().max())))
+				errs_ab.append(float(((ab - ab_ref).abs() / ab_ref.abs()).max()))
 			torch.cuda.synchronize()
 			err_s = float((got - want).abs().max())
 			err_v = float((v - v_ref).abs().max())
@@ -123,30 +194,52 @@ def check_kernels(torch, dia, dev) -> dict:
 			rel_s = err_s / float(want.abs().max())
 			rel_v = err_v / float(v_ref.abs().max())
 			rel_a = float(((alpha - alpha_ref).abs() / alpha_ref.abs()).max())
+			rel_w, rel_ab = max(e[1] for e in errs_w), max(errs_ab)
 			row = {"phase": "kernel_check", "shape": label, "nv": nv, "n": n, "offsets": list(offsets), "dtype": name,
-				"stencil_max_abs_err": err_s, "stencil_rel_err": rel_s, "step_v_max_abs_err": err_v,
-				"step_v_rel_err": rel_v, "alpha_max_abs_err": err_a, "alpha_rel_err": rel_a}
+				"stencil_max_abs_err": err_s, "stencil_rel_err": rel_s, "pass_a_v_max_abs_err": err_v,
+				"pass_a_v_rel_err": rel_v, "alpha_max_abs_err": err_a, "alpha_rel_err": rel_a,
+				"whole_step_v_rel_err": rel_w, "whole_step_alpha_beta_rel_err": rel_ab}
 			if label == "flagship" and dtype == torch.float32:
-				ms = {}
-				for k, kern, plain in (
-					("dia_stencil_t", lambda: dia.dia_stencil_t(bands, offs, x), lambda: dia.dia_stencil_t_ref(bands, offs_host, x)),
-					("lanczos_dia_step", lambda: dia.lanczos_dia_step(bands, offs, q_cur, q_prev, beta),
-						lambda: dia.lanczos_dia_step_ref(bands, offs_host, q_cur, q_prev, beta)),
-				):
-					p1, k1, k2, p2 = time_ms(torch, plain), time_ms(torch, kern), time_ms(torch, kern), time_ms(torch, plain)
-					ms[k] = ((k1 + k2) / 2, (p1 + p2) / 2)
-				item = 4
-				bytes_a = (2 * nv * n + len(offsets) * n) * item
-				bytes_b = (3 * nv * n + len(offsets) * n) * item
-				row.update({
-					"stencil_ms": ms["dia_stencil_t"][0], "stencil_plain_ms": ms["dia_stencil_t"][1],
-					"stencil_GBps": bytes_a / ms["dia_stencil_t"][0] / 1e6,
-					"step_ms": ms["lanczos_dia_step"][0], "step_plain_ms": ms["lanczos_dia_step"][1],
-					"step_GBps": bytes_b / ms["lanczos_dia_step"][0] / 1e6,
-				})
-				out = {"dia_stencil_t": (err_s, *ms["dia_stencil_t"]), "lanczos_dia_step": (max(err_v, err_a), *ms["lanczos_dia_step"])}
+				item, n_d = 4, len(offsets)
+				X_t = x.T
+				A_csr = csr_of_dia(torch, bands, offsets, n)
+				st, st_ref = mid_sweep_state(), mid_sweep_state()
+				ab = torch.empty((2, nv), dtype=dtype, device=dev)
+				w_a, partial, gx, vec = dia._launch_pass_a(lib, bands, offs, q_cur, q_prev, st.scal, st.ticket, ab[0])
+				w_b_ref = w_a.clone()
+				timed = {
+					"dia_stencil_t": (lambda: dia.dia_stencil_t(bands, offs, x), lambda: dia.dia_stencil_t_ref(bands, offs_host, x),
+						(2 * nv * n + n_d * n) * item, 2 * n_d * nv * n),
+					"lanczos_dia_step": (
+						lambda: dia._launch_pass_a(lib, bands, offs, q_cur, q_prev, st.scal, st.ticket, ab[0]),
+						lambda: dia.lanczos_sweep_pass_a_ref(apply_ref, q_cur, q_prev, st_ref, ab[0]),
+						(3 * nv * n + n_d * n) * item, (2 * n_d + 4) * nv * n),
+					"lanczos_dia_residual": (
+						lambda: dia._launch_pass_b(lib, q_cur, w_a, st, partial, ab[1], 1e-8, gx, vec),
+						lambda: dia.lanczos_sweep_pass_b_ref(q_cur, w_b_ref, st_ref, ab[1], 1e-8),
+						3 * nv * n * item, 4 * nv * n),
+					"whole_step": (
+						lambda: dia.lanczos_dia_sweep_step(bands, offs, q_cur, q_prev, st, ab[0], ab[1], 1e-8),
+						lambda: dia.lanczos_sweep_step_ref(apply_ref, q_cur, q_prev, st_ref, ab[0], ab[1], 1e-8),
+						(6 * nv * n + n_d * n) * item, (2 * n_d + 8) * nv * n),
+				}
+				errs = {"dia_stencil_t": err_s, "lanczos_dia_step": max(err_v, errs_w[0][0]),
+					"lanczos_dia_residual": max(e[0] for e in errs_w), "whole_step": max(e[0] for e in errs_w)}
+				for k, (kern, plain, bytes_, flops) in timed.items():
+					ms, plain_ms = _timed_pair(torch, kern, plain, 20)
+					b_ms, b_by = bound(bytes_, flops)
+					lib_ms, lib_note = (None, "no single PyTorch call computes a Lanczos step")
+					if k == "dia_stencil_t":  # the same numbers in the transposed layout: out.T = A X.T
+						lib_ms, lib_note = library_ms(torch, lambda: A_csr @ X_t, want.T)
+					row.update({f"{k}_ms": ms, f"{k}_plain_ms": plain_ms, f"{k}_bound_ms": b_ms, f"{k}_bound_by": b_by,
+						f"{k}_GBps": bytes_ / ms / 1e6, f"{k}_library_ms": lib_ms, f"{k}_library_note": lib_note})
+					out[k] = {"max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+						"library_ms": lib_ms}
+				row["scalar_launches"] = dict(_common.SCALAR_LAUNCHES)
+				del A_csr
 			emit(row)
-			if not (rel_s <= STENCIL_TOL[name] and rel_v <= STENCIL_TOL[name] and rel_a <= ALPHA_TOL[name]):
+			if not (rel_s <= STENCIL_TOL[name] and rel_v <= STENCIL_TOL[name] and rel_a <= ALPHA_TOL[name]
+				and rel_w <= STENCIL_TOL[name] and rel_ab <= ALPHA_TOL[name]):
 				raise AssertionError(f"kernel disagrees with its plain version: {row}")
 	return out
 
@@ -180,8 +273,9 @@ def flagship(torch, ptt, dia, dev, n: int, reps: int) -> dict:
 	batches = -(-PROBES // PROBES)  # count / batch
 	if not rel < 0.05:
 		raise AssertionError(f"logdet rel err {rel} at n={n}")
-	if launches["lanczos_dia_step"] != DEG * batches:
-		raise AssertionError(f"fused step launched {launches['lanczos_dia_step']} times, expected {DEG * batches}")
+	for k in ("lanczos_dia_step", "lanczos_dia_residual"):
+		if launches[k] != DEG * batches:
+			raise AssertionError(f"step kernel {k} launched {launches[k]} times, expected {DEG * batches}")
 	return row
 
 
@@ -212,6 +306,12 @@ def _bytes_bsr(op, k: int, item: int) -> int:
 	return (op.nnz + op.shape[1] * k + op.shape[0] * k) * item
 
 
+def _gathered_bytes_bsr(op, k: int, item: int) -> int:
+	"""Traffic of a BSR SpMM that gathers V afresh for every tile: the tiles, bn rows of V per tile, the output."""
+	nnzb, _, bn = op.blocks.shape
+	return (op.nnz + nnzb * bn * k + op.shape[0] * k) * item
+
+
 def _timed_pair(torch, kern, plain, reps: int) -> tuple:
 	"""Kernel and plain version by CUDA events, in the order plain, kernel, kernel, plain."""
 	p1, k1, k2, p2 = (time_ms(torch, f, reps) for f in (plain, kern, kern, plain))
@@ -220,7 +320,8 @@ def _timed_pair(torch, kern, plain, reps: int) -> tuple:
 
 def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), reps: int = 10) -> dict:
 	"""Phase 6: the BSR SpMM and the node-major DIA stencil against their plain
-	versions at the cell operators and at awkward shapes, float32 and float64."""
+	versions at the cell operators and at awkward shapes, float32 and float64;
+	float32 cell shapes timed beside their bound and their library call."""
 	import scipy.sparse as sps
 	from primate_tpu_torch.ops import bsr, dia
 
@@ -228,41 +329,60 @@ def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), rep
 	gen.manual_seed(1)
 	out = {}
 
-	def run(label, name, kern, plain, dtype, k, timed=False, bytes_=0, route=None):
+	def run(label, name, kern, plain, dtype, k, timed=None, route=None, library=None):
+		"""``timed``: (bytes, flops) of the call, for the float32 cell shapes."""
 		tname = str(dtype).removeprefix("torch.")
 		got, want = kern(), plain()
 		torch.cuda.synchronize()
 		err, rel = _rel_err(torch, got, want)
 		row = {"phase": "sparse_kernel_check", "kernel": name, "shape": label, "k": k, "dtype": tname,
 			"max_abs_err": err, "rel_err": rel, "tol": STENCIL_TOL[tname]}
-		if timed:
+		if timed is not None:
+			bytes_, flops = timed
 			ms, plain_ms = _timed_pair(torch, kern, plain, reps)
-			row.update({"ms": ms, "plain_ms": plain_ms, "GBps": bytes_ / ms / 1e6})
+			b_ms, b_by = bound(bytes_, flops)
+			lib_ms, lib_note = library_ms(torch, library, want, reps)
+			row.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "GBps": bytes_ / ms / 1e6,
+				"library_ms": lib_ms, "library_rel_err_or_error": lib_note})
 			if route is not None:
 				row["transpose_route_ms"] = time_ms(torch, route, reps)
 			if k == cell_ks[0]:
-				out[name] = (err, ms, plain_ms)
+				out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+					"library_ms": lib_ms}
 		emit(row)
 		if not rel <= STENCIL_TOL[tname]:
 			raise AssertionError(f"{name} disagrees with its plain version: {row}")
+		return row
 
+	A_csr = csr_of_dia(torch, dia_op.bands, dia_op.offsets, dia_op.shape[0])
 	for dtype in (torch.float32, torch.float64):
 		B = ptt.BSROperator(bsr_op.blocks.to(dtype), bsr_op.indices, bsr_op.indptr, bsr_op.shape)
 		D = ptt.DIAOperator(dia_op.bands.to(dtype), dia_op.offsets, dia_op.shape)
 		offs_host = D.offsets_t.cpu()
+		f32 = dtype == torch.float32
+		if f32:  # the library yardsticks, built once: cuSPARSE BSR and CSR operands
+			B_lib = torch.sparse_bsr_tensor(B.indptr, B.indices, B.blocks, size=B.pshape)
 		for k in cell_ks:
-			timed = dtype == torch.float32
+			item = 4 if f32 else 8
 			V = torch.randn((B.shape[0], k), generator=gen, device=dev, dtype=dtype)
 			args = (B.blocks, B.indptr, B.indices, V, B.shape[0])
-			run("bsr_cell", "bsr_spmm", lambda: bsr.bsr_spmm(*args), lambda: bsr.bsr_spmm_ref(*args), dtype, k,
-				timed, _bytes_bsr(B, k, V.element_size()))
+			nnzb, bm, bn = B.blocks.shape
+			row = run("bsr_cell", "bsr_spmm", lambda: bsr.bsr_spmm(*args), lambda: bsr.bsr_spmm_ref(*args), dtype, k,
+				timed=(_bytes_bsr(B, k, item), 2 * nnzb * bm * bn * k) if f32 else None,
+				library=(lambda: B_lib @ V) if f32 else None)
+			if f32:
+				gathered = _gathered_bytes_bsr(B, k, item)
+				emit({"phase": "bsr_traffic", "k": k, "least_bytes": _bytes_bsr(B, k, item), "gathered_bytes": gathered,
+					"gathered_GBps": gathered / row["ms"] / 1e6, "least_share_of_bound": row["bound_ms"] / row["ms"]})
 			del V
 			V = torch.randn((D.shape[0], k), generator=gen, device=dev, dtype=dtype)
 			run("fem_cell", "dia_stencil", lambda: dia.dia_stencil(D.bands, D.offsets_t, V),
-				lambda: dia.dia_stencil_ref(D.bands, offs_host, V), dtype, k, timed,
-				(2 * D.shape[0] * k + D.nnz) * V.element_size(),
-				route=lambda: dia.dia_stencil_t(D.bands, D.offsets_t, V.T.contiguous()).T)
+				lambda: dia.dia_stencil_ref(D.bands, offs_host, V), dtype, k,
+				timed=((2 * D.shape[0] * k + D.nnz) * item, 2 * D.nnz * k) if f32 else None,
+				route=lambda: dia.dia_stencil_t(D.bands, D.offsets_t, V.T.contiguous()).T, library=lambda: A_csr @ V)
 			del V
+		if f32:
+			del B_lib
 		# Awkward shapes: non-square tiles, 4x4, an empty block row, n not a multiple of bm.
 		rng = np.random.default_rng(2)
 		for bm, bn in ((8, 16), (4, 4), (8, 8)):
@@ -276,7 +396,7 @@ def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), rep
 			blocks = torch.tensor(S.data, dtype=dtype, device=dev)
 			indptr = torch.tensor(S.indptr, dtype=torch.int64, device=dev)
 			indices = torch.tensor(S.indices, dtype=torch.int64, device=dev)
-			for k in (1, 130, 720):
+			for k in (1, 65, 130, 720):
 				V = torch.randn((n, k), generator=gen, device=dev, dtype=dtype)
 				args = (blocks, indptr, indices, V, n)
 				run(f"bsr_{bm}x{bn}_n{n}", "bsr_spmm", lambda: bsr.bsr_spmm(*args), lambda: bsr.bsr_spmm_ref(*args), dtype, k)
@@ -419,13 +539,13 @@ def main() -> None:
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],
 		"lanczos_dia_step": flag["launches"]["lanczos_dia_step"],
+		"lanczos_dia_residual": flag["launches"]["lanczos_dia_residual"],
 		"bsr_spmm": bsr_launches,
 		"dia_stencil": dia_launches,
 	}
 	emit({"kernels": [
-		{"name": k, "route": "cuda", "source": SOURCE[k], "replaces": REPLACES[k], "launches": launches[k],
-			"max_abs_err": kernels[k][0], "ms": kernels[k][1], "plain_ms": kernels[k][2]}
-		for k in ("dia_stencil_t", "lanczos_dia_step", "bsr_spmm", "dia_stencil")
+		{"name": k, "route": "cuda", "source": SOURCE[k], "replaces": REPLACES[k], "launches": launches[k], **kernels[k]}
+		for k in KERNELS
 	]})
 	emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}})
 

@@ -1,11 +1,12 @@
 """Carry operators and estimator state across from the JAX package, as numpy arrays.
 
 This module imports neither package: it takes what ``np.asarray`` makes of a
-JAX operator's or state's arrays, e.g.::
+JAX operator's or state's arrays. Like every constructor of the port, these put
+their tensors on the card unless the caller passes ``device="cpu"``::
 
-    op = dia_from_numpy(np.asarray(jax_op.bands), jax_op.offsets, jax_op.shape, device="cuda")
+    op = dia_from_numpy(np.asarray(jax_op.bands), jax_op.offsets, jax_op.shape)
     op = bsr_from_numpy(np.asarray(jax_op.blocks), np.asarray(jax_op.indices), np.asarray(jax_op.indptr), jax_op.shape)
-    st = cov_state_from_numpy(int(s.n), np.asarray(s.mu), np.asarray(s.S))
+    st = cov_state_from_numpy(int(s.n), np.asarray(s.mu), np.asarray(s.S), device="cpu")
 """
 
 import numpy as np
@@ -17,17 +18,17 @@ from .stats import CovState
 __all__ = ["dia_from_numpy", "bsr_from_numpy", "cov_state_from_numpy"]
 
 
-def dia_from_numpy(bands, offsets, shape, *, device="cpu", dtype=None) -> DIAOperator:
+def dia_from_numpy(bands, offsets, shape, *, device="cuda", dtype=None) -> DIAOperator:
 	"""A :class:`DIAOperator` from row-aligned bands ``(n_diags, n)``, offsets and shape."""
 	return DIAOperator.from_numpy(bands, offsets, shape, dtype=dtype, device=device)
 
 
-def bsr_from_numpy(blocks, indices, indptr, shape, *, device="cpu", dtype=None) -> BSROperator:
+def bsr_from_numpy(blocks, indices, indptr, shape, *, device="cuda", dtype=None) -> BSROperator:
 	"""A :class:`BSROperator` from tiles ``(nnzb, bm, bn)``, block-column ids, block-row pointers and the logical shape."""
 	return BSROperator.from_numpy(blocks, indices, indptr, shape, dtype=dtype, device=device)
 
 
-def cov_state_from_numpy(n, mu, S, *, device="cpu", dtype=None) -> CovState:
+def cov_state_from_numpy(n, mu, S, *, device="cuda", dtype=None) -> CovState:
 	"""A Welford :class:`CovState` from a JAX ``CovState``'s ``n``, ``mu (dim,)`` and ``S (dim, dim)``."""
 	return CovState(
 		n=int(n),

@@ -1,10 +1,10 @@
 // DIA stencil kernels for Hopper (sm_90a), float32 and float64.
 //
 // Replaces the Pallas TPU kernels of primate_tpu/ops/dia_pallas.py:
-//   dia_stencil_t     <- dia_matmat_t_pallas (_dia_t_kernel): out = A X, probe-major
-//   dia_stencil       <- dia_matmat_pallas (_dia_kernel): out = A V, node-major
-//   lanczos_dia_step  <- dia_matmat_t_phys (_dia_t_phys_kernel), the Lanczos sweep's
-//                        stencil, fused here with the beta-axpy and the alpha reduction
+//   dia_stencil_t        <- dia_matmat_t_pallas (_dia_t_kernel): out = A X, probe-major
+//   dia_stencil          <- dia_matmat_pallas (_dia_kernel): out = A V, node-major
+//   lanczos_dia_step     <- dia_matmat_t_phys (_dia_t_phys_kernel), the Lanczos sweep's
+//   lanczos_dia_residual    stencil; here the whole three-term step in two passes
 //
 // Layout: row-aligned bands (n_d, n) with band[d][r] = A[r, r + offsets[d]];
 // probe-major blocks (nv, n) for dia_stencil_t and the Lanczos step, node-major
@@ -18,28 +18,51 @@
 // threads on consecutive r (coalesced loads of X[b, r + off]; the shifted
 // neighbour loads of one warp overlap and hit L1), each band value read once per
 // kProbes outputs. The TPU kernel's manual double-buffered DMA has no counterpart:
-// enough resident warps hide the load latency. The node-major kernel walks the
-// row-major (n, k) block in flat order instead: consecutive threads take
-// consecutive (row, column) elements, so both the output and each shifted
-// neighbour row V[r + off, :] are read and written in contiguous runs for any k
-// (no k % 128 rule), and a band value is shared by the k threads of its row.
-// Each thread keeps kNmEl outputs so every diagonal has kNmEl loads in flight.
-// Unlike the probe-major kernel's, its time grows with the number of diagonals
-// (a shifted row is k elements away, not one), so it sits well below the HBM
-// roofline; PERF.md has the measurements.
+// enough resident warps hide the load latency. The node-major kernel reads rows
+// r + off of V, each k elements away, so a diagonal does not share cache lines
+// with its neighbours as in the probe-major layout: it stages a ring of V rows in
+// shared memory (cp.async, 16 bytes along k) and reads the nearby diagonals from
+// there, so each row comes from memory once per block, and loads the far ones
+// directly; see dia_stencil_kernel below and PERF.md for the measurements.
+//
+// The Lanczos step (primate_tpu/lanczos.py:304-316,378-388 with orth = 0)
+//   w = A q - beta q_prev;  alpha = sum w q;  v = w - alpha q;  beta' = |v|;
+//   done |= beta' < tol;  q' = v / (beta' > tol ? beta' : inf)
+// is two passes over the (nv, n) block, with no host sync and nothing between
+// them. The sweep carries the residuals v unnormalised together with their
+// guarded divisors (a per-probe state, rows kDivCur...kAlpha below): pass A
+// divides on the fly, q = v / div, which rounds exactly as the reference's
+// normalising pass and saves that pass's read and write.
+//   pass A (lanczos_dia_step): reads v_cur (with its +-offset neighbours) and
+//     v_prev, writes w and the alpha partials;
+//   pass B (lanczos_dia_residual): reads w and v_cur, writes v = w - alpha q in
+//     place of w and the |v|^2 partials.
+// 6 nv n elements of traffic a step, plus the bands. Both passes are persistent
+// grids that walk row tiles, so a probe has gridDim.x partials (tens: the card's
+// resident blocks over the probe groups), not one per 256 rows. Each pass ends
+// with a ticket: the last block to finish sums the partials of each probe in a
+// fixed order (no floating-point atomics, so the result is deterministic) and
+// writes alpha, or beta', the done flags and the next divisors, and alphas[j] /
+// betas[j] zeroed where a probe was done. Loads and
+// stores are 16 bytes along r; a tile of q with kHalo rows on each side is staged
+// in shared memory, so neighbours at offsets up to kHalo come from there, larger
+// offsets from direct (L1/L2) loads. When n is not a multiple of the vector
+// length, or a pointer is not 16-byte aligned, the same kernels take scalar loads.
 //
 // Plain C interface: every entry point returns the cudaError_t of its launch
 // (cudaGetLastError()), and the caller raises on anything but cudaSuccess. The
 // kernels launch on the caller's stream, allocate nothing and do not synchronise.
 
 #include <cuda_runtime.h>
+#include <cmath>
 #include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // rows per block
 constexpr int kProbes = 8;     // probes per thread (and per blockIdx.y)
-constexpr int kWarps = kThreads / 32;
 
 template <typename T>
 __device__ __forceinline__ void stencil_rows(const T* __restrict__ bands, const int64_t* __restrict__ offsets,
@@ -74,45 +97,114 @@ __global__ void __launch_bounds__(kThreads) dia_stencil_t_kernel(const T* __rest
     }
 }
 
-constexpr int kNmThreads = 256;  // threads per block of the node-major kernel
-constexpr int kNmEl = 8;         // output elements per thread of the node-major kernel
-constexpr int kNmElems = kNmThreads * kNmEl;  // output elements per block
+// ---- The node-major stencil (dia_stencil) ----
+//
+// out[r, c] = sum_d band[d, r] V[r + off_d, c] on a row-major (n, k) block. The
+// work is items (part, chunk): the rows of a part, kNmPart of them, in steps of
+// kNmRows, for a column chunk of kNmLanes 16-byte vectors (128 bytes of a row).
+// A persistent grid takes the items in order, so the blocks resident at one time
+// sweep neighbouring parts together. The rows of V a block reads go through a
+// ring of kRing rows in shared memory, filled by cp.async one step ahead: rows
+// r + off for |off| up to kNmHalo (the nearby diagonals, +-1 and +-100 on the FEM
+// cell) come from the ring, so each V row is read from memory once per part
+// instead of once per such diagonal. Farther diagonals (+-10,000) are direct
+// 16-byte loads, kNmChunk of them issued together; parts are short so that the
+// blocks sweeping together read each row within a few steps of one another,
+// while it is still in L2.
+constexpr int kNmThreads = 256;
+constexpr int kNmLanes = 8;                           // 16-byte vectors of a row per block
+constexpr int kNmRows = kNmThreads / kNmLanes;        // rows per step
+constexpr int kRing = 512;                            // rows of V staged per block (a power of two)
+constexpr int kNmHalo = (kRing - 2 * kNmRows) / 2;    // offsets up to this read the ring
+constexpr int kNmChunk = 8;                           // diagonals whose loads are issued together
+constexpr int kNmPart = 768;                          // rows per part: a whole number of steps
 
-// out[r, c] = sum_d band[d, r] V[r + off_d, c] on a row-major (n, k) block. Block
-// (blockIdx.x, blockIdx.y) covers rows [x * rows, (x + 1) * rows) and columns
-// [y * kc, (y + 1) * kc), rows * kc <= kNmElems, walked in flat row-major order;
-// each thread takes kNmEl elements kNmThreads apart, so every diagonal issues
-// kNmEl independent loads per thread.
-template <typename T>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kNmThreads) dia_stencil_kernel(const T* __restrict__ bands,
                                                                  const int64_t* __restrict__ offsets, int n_d,
                                                                  const T* __restrict__ V, T* __restrict__ out,
-                                                                 int64_t n, int64_t k, int rows, int kc) {
-    const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows;
-    const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kc;
-    int64_t r[kNmEl], c[kNmEl];
-    bool ok[kNmEl];
-    T acc[kNmEl];
-#pragma unroll
-    for (int j = 0; j < kNmEl; ++j) {
-        const int e = threadIdx.x + j * kNmThreads;
-        const int dr = e / kc;
-        r[j] = r0 + dr;
-        c[j] = c0 + (e - dr * kc);
-        ok[j] = e < rows * kc && r[j] < n && c[j] < k;
-        acc[j] = T(0);
-    }
+                                                                 int64_t n, int64_t k, int64_t chunks) {
+    constexpr int VL = Vec<T>::len;
+    constexpr int KC = kNmLanes * VL;  // columns of the chunk
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* ring = reinterpret_cast<T*>(smem_raw);  // [kRing][KC]
+    const int ty = threadIdx.x / kNmLanes, lane = threadIdx.x % kNmLanes;
+    int64_t H = 0;  // the largest offset that reads the ring
     for (int d = 0; d < n_d; ++d) {
-        const int64_t off = offsets[d];
-#pragma unroll
-        for (int j = 0; j < kNmEl; ++j) {
-            const int64_t rr = r[j] + off;
-            if (ok[j] && rr >= 0 && rr < n) acc[j] += bands[d * n + r[j]] * V[rr * k + c[j]];
-        }
+        const int64_t off = __ldg(offsets + d), a = off < 0 ? -off : off;
+        if (a <= kNmHalo && a > H) H = a;
     }
+    const int64_t items = (n + kNmPart - 1) / kNmPart * chunks;
+    for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+        const int64_t c = item % chunks * KC + lane * VL;
+        const int64_t r0 = item / chunks * kNmPart;
+        const int64_t r1 = r0 + kNmPart < n ? r0 + kNmPart : n;
+        auto stage = [&](int64_t a, int64_t b) {  // rows [a, b) of V into the ring; rows outside [0, n) read 0
+            for (int64_t row = a + ty; row < b; row += kNmRows) {
+                T* dst = ring + (row & (kRing - 1)) * KC + lane * VL;
+                const bool row_ok = row >= 0 && row < n;
+                if (kVec) {
+                    const bool ok = row_ok && c < k;
+                    cp_async<16>(dst, ok ? V + row * k + c : V, ok ? 16 : 0);
+                } else {
 #pragma unroll
-    for (int j = 0; j < kNmEl; ++j) {
-        if (ok[j]) out[r[j] * k + c[j]] = acc[j];
+                    for (int e = 0; e < VL; ++e) {
+                        const bool ok = row_ok && c + e < k;
+                        cp_async<sizeof(T)>(dst + e, ok ? V + row * k + c + e : V, ok ? static_cast<int>(sizeof(T)) : 0);
+                    }
+                }
+            }
+        };
+        stage(r0 - H, r0 + kNmRows + H);
+        cp_async_commit();
+        for (int64_t rs = r0; rs < r1; rs += kNmRows) {
+            const int64_t next = rs + kNmRows + H, last = r1 + H;
+            stage(next, next + kNmRows < last ? next + kNmRows : last);  // the next step's new rows
+            cp_async_commit();
+            cp_async_wait<1>();  // this step's rows have landed (this thread's copies) ...
+            __syncthreads();     // ... and every thread's
+            const int64_t r = rs + ty;
+            if (r < r1) {
+                T acc[VL];
+#pragma unroll
+                for (int e = 0; e < VL; ++e) acc[e] = T(0);
+                for (int d0 = 0; d0 < n_d; d0 += kNmChunk) {
+                    T w[kNmChunk], x[kNmChunk][VL];
+#pragma unroll
+                    for (int j = 0; j < kNmChunk; ++j) {
+                        w[j] = T(0);
+#pragma unroll
+                        for (int e = 0; e < VL; ++e) x[j][e] = T(0);
+                        if (d0 + j >= n_d) continue;
+                        const int64_t off = __ldg(offsets + d0 + j), rr = r + off;
+                        if (rr < 0 || rr >= n) continue;
+                        w[j] = __ldg(bands + (d0 + j) * n + r);
+                        if (off >= -H && off <= H) {
+                            unpack(*reinterpret_cast<const typename Vec<T>::type*>(ring + (rr & (kRing - 1)) * KC + lane * VL), x[j]);
+                        } else if (kVec) {
+                            if (c < k) unpack(__ldg(reinterpret_cast<const typename Vec<T>::type*>(V + rr * k + c)), x[j]);
+                        } else {
+#pragma unroll
+                            for (int e = 0; e < VL; ++e) x[j][e] = c + e < k ? __ldg(V + rr * k + c + e) : T(0);
+                        }
+                    }
+#pragma unroll
+                    for (int j = 0; j < kNmChunk; ++j)
+#pragma unroll
+                        for (int e = 0; e < VL; ++e) acc[e] += w[j] * x[j][e];
+                }
+                if (kVec) {
+                    if (c < k) *reinterpret_cast<typename Vec<T>::type*>(out + r * k + c) = pack(acc);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < VL; ++e) {
+                        if (c + e < k) out[r * k + c + e] = acc[e];
+                    }
+                }
+            }
+            __syncthreads();  // the ring slots of this step are read before the next step's copies land
+        }
+        cp_async_wait<0>();
     }
 }
 
@@ -123,46 +215,230 @@ __device__ __forceinline__ T warp_sum(T v) {
     return v;
 }
 
-// v[b, r] = sum_d band[d, r] q_cur[b, r + off_d] - beta[b] q_prev[b, r], and
-// partial[b, blockIdx.x] = sum over this block's rows of v[b, r] q_cur[b, r].
-// The partials are summed by the caller: no atomics, so alpha is deterministic.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) lanczos_dia_step_kernel(
-    const T* __restrict__ bands, const int64_t* __restrict__ offsets, int n_d, const T* __restrict__ q_cur,
-    const T* __restrict__ q_prev, const T* __restrict__ beta, T* __restrict__ v, T* __restrict__ partial,
-    int64_t nv, int64_t n) {
-    __shared__ T red[kProbes][kWarps];
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-    const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kProbes;
-    T dot[kProbes];
+// ---- The Lanczos step: pass A (lanczos_dia_step) and pass B (lanczos_dia_residual) ----
+
+// Rows of the per-probe state (kStateRows, nv) the step reads and updates.
+constexpr int kDivCur = 0, kDivPrev = 1, kBeta = 2, kDone = 3, kAlpha = 4;
+constexpr int kStepThreads = 256;
+constexpr int kStepWarps = kStepThreads / 32;
+constexpr int kStepProbes = 8;  // probes per block (blockIdx.y)
+constexpr int kHalo = 16;       // rows staged on each side of a tile; a multiple of both vector lengths
+
+// Elements r .. r + len - 1 of a row of length n; those outside [0, n) read as 0.
+// kVec: one 16-byte load (n is a multiple of len and r of len, so a vector lies
+// wholly inside or wholly outside the row).
+template <typename T, bool kVec>
+__device__ __forceinline__ void load_seg(const T* row, int64_t r, int64_t n, T (&o)[Vec<T>::len]) {
+    constexpr int VL = Vec<T>::len;
+    if (kVec) {
+        if (r >= 0 && r < n) {
+            unpack(*reinterpret_cast<const typename Vec<T>::type*>(row + r), o);
+        } else {
 #pragma unroll
-    for (int p = 0; p < kProbes; ++p) dot[p] = T(0);
-    if (r < n) {  // no early return: every thread reaches the __syncthreads below
-        T acc[kProbes];
-        stencil_rows(bands, offsets, n_d, q_cur, nv, n, r, b0, acc);
+            for (int i = 0; i < VL; ++i) o[i] = T(0);
+        }
+    } else {
 #pragma unroll
-        for (int p = 0; p < kProbes; ++p) {
-            const int64_t b = b0 + p;
-            if (b < nv) {
-                const T val = acc[p] - beta[b] * q_prev[b * n + r];
-                v[b * n + r] = val;
-                dot[p] = val * q_cur[b * n + r];
-            }
+        for (int i = 0; i < VL; ++i) o[i] = (r + i >= 0 && r + i < n) ? row[r + i] : T(0);
+    }
+}
+
+template <typename T, bool kVec>
+__device__ __forceinline__ void store_seg(T* row, int64_t r, int64_t n, const T (&o)[Vec<T>::len]) {
+    constexpr int VL = Vec<T>::len;
+    if (kVec) {
+        *reinterpret_cast<typename Vec<T>::type*>(row + r) = pack(o);
+    } else {
+#pragma unroll
+        for (int i = 0; i < VL; ++i) {
+            if (r + i < n) row[r + i] = o[i];
         }
     }
+}
+
+// Block-reduce dot[p] over the block's threads in a fixed order and write it to
+// partial[(b0 + p) * gridDim.x + blockIdx.x]. Then, if a ticket is given, the
+// last block to finish returns true, after every other block's partials are visible.
+template <typename T>
+__device__ bool reduce_and_take_ticket(T (&dot)[kStepProbes], int np, int64_t b0, T* partial, unsigned* ticket) {
+    __shared__ T red[kStepProbes][kStepWarps];
+    __shared__ bool last;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-    for (int p = 0; p < kProbes; ++p) {
+    for (int p = 0; p < kStepProbes; ++p) {
         const T s = warp_sum(dot[p]);
         if (lane == 0) red[p][warp] = s;
     }
     __syncthreads();
-    if (threadIdx.x < kProbes && b0 + threadIdx.x < nv) {
+    if (threadIdx.x < np) {
         T s = T(0);
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += red[threadIdx.x][w];
+        for (int w = 0; w < kStepWarps; ++w) s += red[threadIdx.x][w];
         partial[(b0 + threadIdx.x) * gridDim.x + blockIdx.x] = s;
     }
+    if (ticket == nullptr) return false;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
+    __syncthreads();
+    if (last) __threadfence();
+    return last;
+}
+
+// Sum of partial[b, :] (gridDim.x values) in a fixed order, by one warp; lane 0 holds it.
+template <typename T>
+__device__ __forceinline__ T probe_total(const T* partial, int64_t b) {
+    T s = T(0);
+    for (int x = threadIdx.x % 32; x < static_cast<int>(gridDim.x); x += 32) s += __ldcg(partial + b * gridDim.x + x);
+    return warp_sum(s);
+}
+
+// Pass A: w[b, r] = sum_d band[d, r] q[b, r + off_d] - beta[b] q_prev[b, r] with
+// q = v_cur / div_cur, q_prev = v_prev / div_prev, and the partials of
+// alpha[b] = sum_r w q. With a ticket, the last block writes state[kAlpha] and
+// alpha_out (zero where state[kDone]).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
+    const T* __restrict__ bands, const int64_t* __restrict__ offsets, int n_d, const T* __restrict__ v_cur,
+    const T* __restrict__ v_prev, T* __restrict__ state, T* __restrict__ w, T* __restrict__ partial,
+    unsigned* __restrict__ ticket, T* __restrict__ alpha_out, int64_t nv, int64_t n) {
+    constexpr int VL = Vec<T>::len;
+    constexpr int kTile = kStepThreads * VL;
+    constexpr int kSpan = kTile + 2 * kHalo;
+    __shared__ __align__(16) T q_s[kStepProbes][kSpan];
+    __shared__ T div_s[kStepProbes], divp_s[kStepProbes], beta_s[kStepProbes];
+    const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
+    const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
+    if (threadIdx.x < np) {
+        div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
+        divp_s[threadIdx.x] = state[kDivPrev * nv + b0 + threadIdx.x];
+        beta_s[threadIdx.x] = state[kBeta * nv + b0 + threadIdx.x];
+    }
+    T dot[kStepProbes];
+#pragma unroll
+    for (int p = 0; p < kStepProbes; ++p) dot[p] = T(0);
+    const int64_t n_tiles = (n + kTile - 1) / kTile;
+    for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int64_t r0 = t * kTile;
+        __syncthreads();  // the previous tile's reads of q_s are done (and div_s is written)
+#pragma unroll
+        for (int p = 0; p < kStepProbes; ++p) {
+            if (p >= np) break;
+            const T* row = v_cur + (b0 + p) * n;
+            const T div = div_s[p];
+            for (int e = threadIdx.x; e < kSpan / VL; e += kStepThreads) {
+                T o[VL];
+                load_seg<T, kVec>(row, r0 - kHalo + e * VL, n, o);
+#pragma unroll
+                for (int i = 0; i < VL; ++i) q_s[p][e * VL + i] = o[i] / div;
+            }
+        }
+        __syncthreads();
+        const int64_t r = r0 + threadIdx.x * VL;
+        if (r >= n) continue;
+        const int loc = kHalo + threadIdx.x * VL;  // this thread's first row in q_s
+#pragma unroll
+        for (int p = 0; p < kStepProbes; ++p) {
+            if (p >= np) break;
+            const int64_t b = b0 + p;
+            T acc[VL];
+#pragma unroll
+            for (int i = 0; i < VL; ++i) acc[i] = T(0);
+            for (int d = 0; d < n_d; ++d) {
+                const int64_t off = offsets[d];
+                T band[VL];
+                load_seg<T, kVec>(bands + d * n, r, n, band);
+                if (off >= -kHalo && off <= kHalo) {
+#pragma unroll
+                    for (int i = 0; i < VL; ++i) {
+                        const int64_t c = r + i + off;
+                        if (c >= 0 && c < n) acc[i] += band[i] * q_s[p][loc + i + off];
+                    }
+                } else {
+                    const T div = div_s[p];
+#pragma unroll
+                    for (int i = 0; i < VL; ++i) {
+                        const int64_t c = r + i + off;
+                        if (c >= 0 && c < n) acc[i] += band[i] * (v_cur[b * n + c] / div);
+                    }
+                }
+            }
+            T vp[VL], out[VL];
+            load_seg<T, kVec>(v_prev + b * n, r, n, vp);
+            const T beta = beta_s[p], divp = divp_s[p];
+#pragma unroll
+            for (int i = 0; i < VL; ++i) {
+                out[i] = acc[i] - beta * (vp[i] / divp);
+                dot[p] += out[i] * q_s[p][loc + i];  // rows past n: q_s and out are 0
+            }
+            store_seg<T, kVec>(w + b * n, r, n, out);
+        }
+    }
+    if (!reduce_and_take_ticket(dot, np, b0, partial, ticket)) return;
+    for (int64_t b = threadIdx.x / 32; b < nv; b += kStepWarps) {
+        const T s = probe_total(partial, b);
+        if (threadIdx.x % 32 == 0) {
+            state[kAlpha * nv + b] = s;
+            alpha_out[b] = state[kDone * nv + b] != T(0) ? T(0) : s;
+        }
+    }
+    if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// Pass B: v = w - alpha q in place of w, with q = v_cur / div_cur, and the
+// partials of |v|^2. The last block writes beta_out (zero where done), then
+// advances the state: div_prev = div_cur, div_cur = beta' > tol ? beta' : inf,
+// beta = beta', done |= beta' < tol.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kStepThreads) lanczos_pass_b_kernel(const T* __restrict__ v_cur, T* w, T* state,
+                                                                      T* partial, unsigned* ticket, T* beta_out,
+                                                                      int64_t nv, int64_t n, T tol) {
+    constexpr int VL = Vec<T>::len;
+    constexpr int kTile = kStepThreads * VL;
+    __shared__ T div_s[kStepProbes], alpha_s[kStepProbes];
+    const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
+    const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
+    if (threadIdx.x < np) {
+        div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
+        alpha_s[threadIdx.x] = state[kAlpha * nv + b0 + threadIdx.x];
+    }
+    __syncthreads();
+    T ss[kStepProbes];
+#pragma unroll
+    for (int p = 0; p < kStepProbes; ++p) ss[p] = T(0);
+    const int64_t n_tiles = (n + kTile - 1) / kTile;
+    for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int64_t r = t * kTile + threadIdx.x * VL;
+        if (r >= n) continue;
+#pragma unroll
+        for (int p = 0; p < kStepProbes; ++p) {
+            if (p >= np) break;
+            const int64_t b = b0 + p;
+            T wv[VL], vc[VL];
+            load_seg<T, kVec>(w + b * n, r, n, wv);
+            load_seg<T, kVec>(v_cur + b * n, r, n, vc);
+            const T div = div_s[p], alpha = alpha_s[p];
+#pragma unroll
+            for (int i = 0; i < VL; ++i) {
+                wv[i] = wv[i] - alpha * (vc[i] / div);
+                ss[p] += wv[i] * wv[i];
+            }
+            store_seg<T, kVec>(w + b * n, r, n, wv);
+        }
+    }
+    if (!reduce_and_take_ticket(ss, np, b0, partial, ticket)) return;
+    for (int64_t b = threadIdx.x / 32; b < nv; b += kStepWarps) {
+        const T beta = sqrt(probe_total(partial, b));
+        if (threadIdx.x % 32 == 0) {
+            const bool done = state[kDone * nv + b] != T(0);
+            beta_out[b] = done ? T(0) : beta;
+            state[kDivPrev * nv + b] = state[kDivCur * nv + b];
+            state[kDivCur * nv + b] = beta > tol ? beta : T(INFINITY);
+            state[kBeta * nv + b] = beta;
+            state[kDone * nv + b] = (done || beta < tol) ? T(1) : T(0);
+        }
+    }
+    if (threadIdx.x == 0) *ticket = 0u;
 }
 
 inline int64_t row_blocks(int64_t n) { return (n + kThreads - 1) / kThreads; }
@@ -182,27 +458,84 @@ cudaError_t launch_stencil(const T* bands, const int64_t* offsets, int n_d, cons
     return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_stencil_nm(const T* bands, const int64_t* offsets, int n_d, const T* V, T* out, int64_t n,
-                              int64_t k, cudaStream_t stream) {
-    if (n == 0 || k == 0) return cudaSuccess;
-    const int kc = static_cast<int>(k < kNmElems ? k : kNmElems);
-    const int rows = kNmElems / kc;
-    const int64_t gx = (n + rows - 1) / rows, gy = (k + kc - 1) / kc;
-    if (gx > 0x7fffffffLL || gy > 65535) return cudaErrorInvalidConfiguration;
-    const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-    dia_stencil_kernel<T><<<grid, kNmThreads, 0, stream>>>(bands, offsets, n_d, V, out, n, k, rows, kc);
+template <typename T, bool kVec>
+cudaError_t launch_stencil_nm_as(const T* bands, const int64_t* offsets, int n_d, const T* V, T* out, int64_t n,
+                                 int64_t k, cudaStream_t stream) {
+    constexpr int KC = kNmLanes * Vec<T>::len;
+    constexpr size_t smem = static_cast<size_t>(kRing) * KC * sizeof(T);
+    auto kern = dia_stencil_kernel<T, kVec>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0, occ = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kNmThreads, smem)) != cudaSuccess) return err;
+    const int64_t chunks = (k + KC - 1) / KC;
+    const int64_t items = (n + kNmPart - 1) / kNmPart * chunks;
+    int64_t blocks = static_cast<int64_t>(sms) * (occ > 0 ? occ : 1);  // as many as the card holds at once
+    if (blocks > items) blocks = items;
+    kern<<<static_cast<unsigned>(blocks), kNmThreads, smem, stream>>>(bands, offsets, n_d, V, out, n, k, chunks);
     return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_step(const T* bands, const int64_t* offsets, int n_d, const T* q_cur, const T* q_prev,
-                        const T* beta, T* v, T* partial, int64_t nv, int64_t n, cudaStream_t stream) {
-    if (nv == 0 || n == 0) return cudaSuccess;
-    if (!grid_ok(nv, n)) return cudaErrorInvalidConfiguration;
-    const dim3 grid(static_cast<unsigned>(row_blocks(n)), static_cast<unsigned>((nv + kProbes - 1) / kProbes));
-    lanczos_dia_step_kernel<T><<<grid, kThreads, 0, stream>>>(bands, offsets, n_d, q_cur, q_prev, beta, v,
-                                                              partial, nv, n);
+cudaError_t launch_stencil_nm(const T* bands, const int64_t* offsets, int n_d, const T* V, T* out, int64_t n,
+                              int64_t k, int vec, cudaStream_t stream) {
+    if (n == 0 || k == 0) return cudaSuccess;
+    return vec ? launch_stencil_nm_as<T, true>(bands, offsets, n_d, V, out, n, k, stream)
+               : launch_stencil_nm_as<T, false>(bands, offsets, n_d, V, out, n, k, stream);
+}
+
+// Row-tile walkers per probe group of the step's persistent grid: enough blocks to
+// fill every SM at the pass-A kernel's occupancy, at most one per row tile.
+template <typename T>
+int64_t step_blocks(int64_t nv, int64_t n) {
+    int dev = 0, sms = 0, occ = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, lanczos_pass_a_kernel<T, true>, kStepThreads, 0) !=
+            cudaSuccess) {
+        return -1;
+    }
+    const int64_t groups = (nv + kStepProbes - 1) / kStepProbes;
+    const int64_t tiles = (n + kStepThreads * Vec<T>::len - 1) / (kStepThreads * Vec<T>::len);
+    int64_t gx = static_cast<int64_t>(sms) * (occ > 0 ? occ : 1) / (groups > 0 ? groups : 1);
+    if (gx > tiles) gx = tiles;
+    return gx > 0 ? gx : 1;
+}
+
+inline bool step_grid_ok(int64_t nv, int64_t n, int64_t gx) {
+    return nv > 0 && n > 0 && gx > 0 && gx <= 0x7fffffffLL && (nv + kStepProbes - 1) / kStepProbes <= 65535;
+}
+
+template <typename T>
+cudaError_t launch_pass_a(const T* bands, const int64_t* offsets, int n_d, const T* v_cur, const T* v_prev, T* state,
+                          T* w, T* partial, unsigned* ticket, T* alpha_out, int64_t nv, int64_t n, int64_t gx,
+                          int vec, cudaStream_t stream) {
+    if (!step_grid_ok(nv, n, gx)) return cudaErrorInvalidConfiguration;
+    const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>((nv + kStepProbes - 1) / kStepProbes));
+    if (vec) {
+        lanczos_pass_a_kernel<T, true><<<grid, kStepThreads, 0, stream>>>(bands, offsets, n_d, v_cur, v_prev, state, w,
+                                                                          partial, ticket, alpha_out, nv, n);
+    } else {
+        lanczos_pass_a_kernel<T, false><<<grid, kStepThreads, 0, stream>>>(bands, offsets, n_d, v_cur, v_prev, state, w,
+                                                                           partial, ticket, alpha_out, nv, n);
+    }
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_pass_b(const T* v_cur, T* w, T* state, T* partial, unsigned* ticket, T* beta_out, int64_t nv,
+                          int64_t n, double tol, int64_t gx, int vec, cudaStream_t stream) {
+    if (!step_grid_ok(nv, n, gx)) return cudaErrorInvalidConfiguration;
+    const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>((nv + kStepProbes - 1) / kStepProbes));
+    if (vec) {
+        lanczos_pass_b_kernel<T, true><<<grid, kStepThreads, 0, stream>>>(v_cur, w, state, partial, ticket, beta_out,
+                                                                          nv, n, static_cast<T>(tol));
+    } else {
+        lanczos_pass_b_kernel<T, false><<<grid, kStepThreads, 0, stream>>>(v_cur, w, state, partial, ticket, beta_out,
+                                                                           nv, n, static_cast<T>(tol));
+    }
     return cudaGetLastError();
 }
 
@@ -210,8 +543,11 @@ cudaError_t launch_step(const T* bands, const int64_t* offsets, int n_d, const T
 
 extern "C" {
 
-// Columns of the (nv, n_partials) buffer that lanczos_dia_step_* fills.
-int64_t lanczos_dia_step_partials(int64_t n) { return row_blocks(n); }
+// Columns of the (nv, columns) partials buffer that both step passes fill, and the
+// gridDim.x to launch them with; -1 if the device cannot be queried.
+int64_t lanczos_step_blocks(int64_t nv, int64_t n, int elem_bytes) {
+    return elem_bytes == 8 ? step_blocks<double>(nv, n) : step_blocks<float>(nv, n);
+}
 
 const char* primate_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
@@ -226,25 +562,39 @@ cudaError_t dia_stencil_t_f64(const double* bands, const int64_t* offsets, int n
 }
 
 cudaError_t dia_stencil_f32(const float* bands, const int64_t* offsets, int n_d, const float* V, float* out,
-                            int64_t n, int64_t k, cudaStream_t stream) {
-    return launch_stencil_nm(bands, offsets, n_d, V, out, n, k, stream);
+                            int64_t n, int64_t k, int vec, cudaStream_t stream) {
+    return launch_stencil_nm(bands, offsets, n_d, V, out, n, k, vec, stream);
 }
 
 cudaError_t dia_stencil_f64(const double* bands, const int64_t* offsets, int n_d, const double* V, double* out,
-                            int64_t n, int64_t k, cudaStream_t stream) {
-    return launch_stencil_nm(bands, offsets, n_d, V, out, n, k, stream);
+                            int64_t n, int64_t k, int vec, cudaStream_t stream) {
+    return launch_stencil_nm(bands, offsets, n_d, V, out, n, k, vec, stream);
 }
 
-cudaError_t lanczos_dia_step_f32(const float* bands, const int64_t* offsets, int n_d, const float* q_cur,
-                                 const float* q_prev, const float* beta, float* v, float* partial, int64_t nv,
-                                 int64_t n, cudaStream_t stream) {
-    return launch_step(bands, offsets, n_d, q_cur, q_prev, beta, v, partial, nv, n, stream);
+cudaError_t lanczos_dia_step_f32(const float* bands, const int64_t* offsets, int n_d, const float* v_cur,
+                                 const float* v_prev, float* state, float* w, float* partial, unsigned* ticket,
+                                 float* alpha_out, int64_t nv, int64_t n, int64_t gx, int vec, cudaStream_t stream) {
+    return launch_pass_a(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, nv, n, gx, vec,
+                         stream);
 }
 
-cudaError_t lanczos_dia_step_f64(const double* bands, const int64_t* offsets, int n_d, const double* q_cur,
-                                 const double* q_prev, const double* beta, double* v, double* partial, int64_t nv,
-                                 int64_t n, cudaStream_t stream) {
-    return launch_step(bands, offsets, n_d, q_cur, q_prev, beta, v, partial, nv, n, stream);
+cudaError_t lanczos_dia_step_f64(const double* bands, const int64_t* offsets, int n_d, const double* v_cur,
+                                 const double* v_prev, double* state, double* w, double* partial, unsigned* ticket,
+                                 double* alpha_out, int64_t nv, int64_t n, int64_t gx, int vec, cudaStream_t stream) {
+    return launch_pass_a(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, nv, n, gx, vec,
+                         stream);
+}
+
+cudaError_t lanczos_dia_residual_f32(const float* v_cur, float* w, float* state, float* partial, unsigned* ticket,
+                                     float* beta_out, int64_t nv, int64_t n, double tol, int64_t gx, int vec,
+                                     cudaStream_t stream) {
+    return launch_pass_b(v_cur, w, state, partial, ticket, beta_out, nv, n, tol, gx, vec, stream);
+}
+
+cudaError_t lanczos_dia_residual_f64(const double* v_cur, double* w, double* state, double* partial,
+                                     unsigned* ticket, double* beta_out, int64_t nv, int64_t n, double tol,
+                                     int64_t gx, int vec, cudaStream_t stream) {
+    return launch_pass_b(v_cur, w, state, partial, ticket, beta_out, nv, n, tol, gx, vec, stream);
 }
 
 }  // extern "C"

@@ -189,7 +189,7 @@ def _summary(x) -> str:
 class MeanEstimator:
 	"""Sample-mean estimator over a Welford :class:`~primate_tpu_torch.stats.CovState`."""
 
-	def __init__(self, dim: int = 1, dtype=torch.float64, device="cpu"):
+	def __init__(self, dim: int = 1, dtype=torch.float64, device="cuda"):
 		self.state = make_cov_state(dim, dtype, device)
 		self.delta = torch.full((dim,), float("inf"), dtype=dtype, device=device)
 

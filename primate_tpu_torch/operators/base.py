@@ -2,8 +2,9 @@
 
 Counterpart of ``primate_tpu/operators/base.py``. Operators apply to node-major
 ``(n, k)`` blocks (``matmat``) and to probe-major ``(k, n)`` blocks
-(``matmat_t``, the layout the Lanczos sweep carries). ``lanczos_step`` is the
-sweep's per-step hook: operators with a fused kernel (``DIAOperator``) override it.
+(``matmat_t``, the layout the Lanczos sweep carries). ``lanczos_step`` and
+``lanczos_sweep_step`` are the sweep's per-step hooks: operators with step kernels
+(``DIAOperator``) override them.
 ``DeflatedOperator`` projects a subspace out of an operator (adaptive Hutch++).
 """
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ..linalg import full_f32_matmul
+from ..ops.dia import lanczos_sweep_step_ref
 
 __all__ = ["LinearOperator", "DenseOperator", "DeflatedOperator", "aslinop", "is_valid_operator", "quad_form"]
 
@@ -52,6 +54,15 @@ class LinearOperator:
 		v = self.matmat_t(q_cur).to(acc) - beta[:, None].to(acc) * q_prev.to(acc)
 		return v, torch.sum(v * q_cur.to(acc), dim=1)
 
+	def lanczos_sweep_step(
+		self, v_cur: torch.Tensor, v_prev: torch.Tensor, state, alpha_out: torch.Tensor, beta_out: torch.Tensor,
+		residual_tol: float,
+	) -> torch.Tensor:
+		"""One whole step of a sweep without re-orthogonalisation, on residual blocks
+		carried unnormalised with their divisors in ``state``
+		(:func:`~primate_tpu_torch.ops.dia.lanczos_sweep_step_ref`; default: that plain version)."""
+		return lanczos_sweep_step_ref(self.matmat_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
+
 	def rmatvec(self, v: torch.Tensor) -> torch.Tensor:
 		# Estimation targets are symmetric; subclasses override when not.
 		return self.matvec(v)
@@ -67,12 +78,14 @@ class LinearOperator:
 class DenseOperator(LinearOperator):
 	"""Dense matrix operator.
 
-	Its products go through ``torch.matmul``. A float32 product on the card runs
-	in full float32 only while TF32 stays off for matmul, which is PyTorch's default.
+	A tensor keeps its device; anything else (a numpy array) goes to ``device``,
+	the card unless the caller passes ``device="cpu"``. Its products go through
+	``torch.matmul``. A float32 product on the card runs in full float32 only
+	while TF32 stays off for matmul, which is PyTorch's default.
 	"""
 
-	def __init__(self, A):
-		self.A = torch.as_tensor(A)
+	def __init__(self, A, device="cuda"):
+		self.A = A if isinstance(A, torch.Tensor) else torch.as_tensor(A, device=device)
 		if self.A.ndim != 2:
 			raise ValueError("Operator must be two dimensional.")
 		self.shape = tuple(self.A.shape)
@@ -104,12 +117,15 @@ def is_valid_operator(A: Any) -> torch.dtype:
 	return dtype
 
 
-def aslinop(A: Any, dtype=None) -> LinearOperator:
-	"""Coerce a tensor or numpy array into a :class:`DenseOperator`; operators pass through."""
+def aslinop(A: Any, dtype=None, device="cuda") -> LinearOperator:
+	"""Coerce a tensor or numpy array into a :class:`DenseOperator`; operators pass through.
+	A tensor keeps its device, a numpy array goes to ``device`` (the card by default)."""
 	if isinstance(A, LinearOperator):
 		return A
-	if isinstance(A, (torch.Tensor, np.ndarray)):
-		return DenseOperator(torch.as_tensor(A, dtype=dtype))
+	if isinstance(A, torch.Tensor):
+		return DenseOperator(A if dtype is None else A.to(dtype))
+	if isinstance(A, np.ndarray):
+		return DenseOperator(torch.as_tensor(A, dtype=dtype, device=device))
 	raise TypeError(
 		f"Cannot interpret {type(A)} as a linear operator (build a DIAOperator or BSROperator from a scipy "
 		"matrix; other sparse formats are not ported yet)"

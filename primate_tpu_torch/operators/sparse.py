@@ -23,7 +23,7 @@ import torch
 
 from ..ops._common import LAYOUT_COPIES
 from ..ops.bsr import block_rowids, bsr_spmm
-from ..ops.dia import dia_stencil, dia_stencil_t, lanczos_dia_step
+from ..ops.dia import dia_stencil, dia_stencil_t, lanczos_dia_step, lanczos_dia_sweep_step
 from .base import LinearOperator
 
 __all__ = ["BSROperator", "DIAOperator"]
@@ -54,12 +54,12 @@ class BSROperator(LinearOperator):
 		self.rowids = block_rowids(self.indptr)
 
 	@classmethod
-	def from_numpy(cls, blocks, indices, indptr, shape, *, dtype=None, device="cpu") -> "BSROperator":
+	def from_numpy(cls, blocks, indices, indptr, shape, *, dtype=None, device="cuda") -> "BSROperator":
 		"""From numpy tiles ``(nnzb, bm, bn)``, block-column ids and block-row pointers."""
 		return cls(torch.tensor(np.asarray(blocks), dtype=dtype, device=device), np.asarray(indices), np.asarray(indptr), shape)
 
 	@classmethod
-	def from_scipy(cls, A, blocksize: Optional[Tuple[int, int]] = None, dtype=None, device="cpu") -> "BSROperator":
+	def from_scipy(cls, A, blocksize: Optional[Tuple[int, int]] = None, dtype=None, device="cuda") -> "BSROperator":
 		"""From a scipy sparse (or dense) matrix through scipy's ``tobsr``
 		(``primate_tpu/operators/sparse.py:528-556``, its scipy path): the matrix is
 		zero-padded to whole tiles. An empty block row stores no tile: the kernel
@@ -82,7 +82,7 @@ class BSROperator(LinearOperator):
 		return op
 
 	@classmethod
-	def from_dense(cls, A, blocksize: Tuple[int, int] = (8, 128), dtype=None, device="cpu") -> "BSROperator":
+	def from_dense(cls, A, blocksize: Tuple[int, int] = (8, 128), dtype=None, device="cuda") -> "BSROperator":
 		return cls.from_scipy(np.asarray(A), blocksize=blocksize, dtype=dtype, device=device)
 
 	def _warn_fill_in(self, nnz_logical: int) -> None:
@@ -161,12 +161,12 @@ class DIAOperator(LinearOperator):
 		self.offsets_t = torch.tensor(self.offsets, dtype=torch.int64, device=self.device)
 
 	@classmethod
-	def from_numpy(cls, bands, offsets, shape, *, dtype=None, device="cpu") -> "DIAOperator":
+	def from_numpy(cls, bands, offsets, shape, *, dtype=None, device="cuda") -> "DIAOperator":
 		"""From row-aligned numpy bands ``(n_diags, n)`` (e.g. ``np.asarray(jax_op.bands)``)."""
 		return cls(torch.tensor(np.asarray(bands), dtype=dtype, device=device), offsets, shape)
 
 	@classmethod
-	def from_scipy(cls, A, dtype=None, device="cpu") -> "DIAOperator":
+	def from_scipy(cls, A, dtype=None, device="cuda") -> "DIAOperator":
 		"""From a scipy sparse matrix, through ``A.todia()`` (``primate_tpu/operators/sparse.py:731-745``)."""
 		A = A.todia()
 		n = A.shape[0]
@@ -241,5 +241,9 @@ class DIAOperator(LinearOperator):
 	def lanczos_step(
 		self, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor
 	) -> Tuple[torch.Tensor, torch.Tensor]:
-		"""Fused step ``v = A·q_cur − β·q_prev``, ``α = Σ v·q_cur`` (kernel B on the card)."""
+		"""Step ``v = A·q_cur − β·q_prev``, ``α = Σ v·q_cur`` (pass A of the step kernels on the card)."""
 		return lanczos_dia_step(self.bands, self.offsets_t, q_cur, q_prev, beta)
+
+	def lanczos_sweep_step(self, v_cur, v_prev, state, alpha_out, beta_out, residual_tol: float) -> torch.Tensor:
+		"""The whole step without re-orthogonalisation (both step kernels on the card)."""
+		return lanczos_dia_sweep_step(self.bands, self.offsets_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol)

@@ -30,6 +30,7 @@ class MatrixFunction(LinearOperator):
 		deg: Krylov expansion degree.
 		orth: re-orthogonalization count (<0 or >deg means full).
 		dtype: computation dtype (defaults to A's dtype).
+		device: where a numpy ``A`` is put, the card unless ``"cpu"`` (a tensor or operator keeps its own).
 		reorth_passes: classical Gram-Schmidt passes per re-orthogonalization.
 		kwargs: ``rtol`` (breakdown tolerance) and the builtin function's parameters (e.g. ``t`` for exp).
 	"""
@@ -42,11 +43,12 @@ class MatrixFunction(LinearOperator):
 		orth: int = 3,
 		dtype: Optional[torch.dtype] = None,
 		reorth_passes: int = 2,
+		device="cuda",
 		**kwargs,
 	):
 		if deg < 2:
 			raise ValueError("Degree must be >= 2")
-		self._A = aslinop(A, dtype=dtype)
+		self._A = aslinop(A, dtype=dtype, device=device)
 		self.shape = self._A.shape
 		self.dtype = dtype if dtype is not None else self._A.dtype
 		self.device = self._A.device

@@ -94,13 +94,15 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 		"dia_stencil": {
 			# bands, offsets, n_d, x, out, nv, n, stream
 			"dia_stencil_t": [p, p, i32, p, p, i64, i64, p],
-			# bands, offsets, n_d, q_cur, q_prev, beta, v, partial, nv, n, stream
-			"lanczos_dia_step": [p, p, i32, p, p, p, p, p, i64, i64, p],
-			# bands, offsets, n_d, V, out, n, k, stream
-			"dia_stencil": [p, p, i32, p, p, i64, i64, p],
+			# bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, nv, n, grid_x, vec, stream
+			"lanczos_dia_step": [p, p, i32, p, p, p, p, p, p, p, i64, i64, i64, i32, p],
+			# v_cur, w, state, partial, ticket, beta_out, nv, n, tol, grid_x, vec, stream
+			"lanczos_dia_residual": [p, p, p, p, p, p, i64, i64, ctypes.c_double, i64, i32, p],
+			# bands, offsets, n_d, V, out, n, k, vec, stream
+			"dia_stencil": [p, p, i32, p, p, i64, i64, i32, p],
 		},
-		# blocks, indptr, indices, V, out, n_brow, bm, bn, m, k, n_out, stream
-		"bsr_spmm": {"bsr_spmm": [p, p, p, p, p, i64, i32, i32, i64, i64, i64, p]},
+		# blocks, indptr, indices, V, out, n_brow, bm, bn, m, k, n_out, vec, stream
+		"bsr_spmm": {"bsr_spmm": [p, p, p, p, p, i64, i32, i32, i64, i64, i64, i32, p]},
 	}[stem]
 	for name, args in sigs.items():
 		for dt in ("f32", "f64"):
@@ -108,8 +110,8 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 			fn.argtypes = args
 			fn.restype = i32
 	if stem == "dia_stencil":
-		lib.lanczos_dia_step_partials.argtypes = [i64]
-		lib.lanczos_dia_step_partials.restype = i64
+		lib.lanczos_step_blocks.argtypes = [i64, i64, i32]
+		lib.lanczos_step_blocks.restype = i64
 	lib.primate_cuda_error_string.argtypes = [i32]
 	lib.primate_cuda_error_string.restype = ctypes.c_char_p
 

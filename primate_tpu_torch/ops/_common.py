@@ -2,19 +2,22 @@
 
 import torch
 
-__all__ = ["LAUNCHES", "LAYOUT_COPIES", "reset_launches"]
+__all__ = ["LAUNCHES", "LAYOUT_COPIES", "SCALAR_LAUNCHES", "reset_launches"]
 
 # Kernel launches per wrapper since the last `reset_launches()`. Each wrapper adds
 # one where it launches its kernel and nowhere else; its plain version counts nothing.
-LAUNCHES = {"dia_stencil_t": 0, "lanczos_dia_step": 0, "dia_stencil": 0, "bsr_spmm": 0}
+LAUNCHES = {"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "dia_stencil": 0, "bsr_spmm": 0}
 # Copies an operator made to hand a kernel the layout it reads (a probe-major
 # block made node-major for the BSR kernel), per kernel.
 LAYOUT_COPIES = {"bsr_spmm": 0}
+# Launches that took a kernel's scalar path: a length or a pointer that does not
+# allow its 16-byte loads and stores (see `vector_ok`).
+SCALAR_LAUNCHES = {"lanczos_dia_step": 0, "lanczos_dia_residual": 0, "dia_stencil": 0, "bsr_spmm": 0}
 
 
 def reset_launches() -> None:
-	"""Zero :data:`LAUNCHES` and :data:`LAYOUT_COPIES`."""
-	for counts in (LAUNCHES, LAYOUT_COPIES):
+	"""Zero :data:`LAUNCHES`, :data:`LAYOUT_COPIES` and :data:`SCALAR_LAUNCHES`."""
+	for counts in (LAUNCHES, LAYOUT_COPIES, SCALAR_LAUNCHES):
 		for k in counts:
 			counts[k] = 0
 
@@ -49,3 +52,9 @@ def raise_on(lib, err: int, name: str) -> None:
 
 def stream(device: torch.device) -> int:
 	return torch.cuda.current_stream(device).cuda_stream
+
+
+def vector_ok(length: int, elem_size: int, *tensors) -> bool:
+	"""Whether a kernel may move rows of ``length`` elements in 16-byte vectors:
+	the length is a whole number of vectors and every tensor starts 16-byte aligned."""
+	return length % (16 // elem_size) == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)

@@ -3,9 +3,14 @@
 :func:`bsr_spmm` runs the hand-written CUDA kernel of ``csrc/bsr_spmm.cu``, which
 replaces the Pallas TPU kernel ``bsr_matmat_pallas`` (``primate_tpu/ops/spmm_pallas.py``):
 ``out[r·bm:(r+1)·bm, :] = Σ tile @ V[col·bn:(col+1)·bn, :]`` over the stored
-tiles of each block row. One CUDA block walks ``indptr`` for its block row and
-writes each output tile once, so the TPU kernel's scalar-prefetch cap of 16,384
-tiles, its 128-lane probe padding and its fallback have no counterpart.
+tiles of each block row. A persistent grid of lane teams walks ranges of block
+rows cut by tile count, keeps several tiles' V gathers in flight through a
+``cp.async`` ring in shared memory and writes each output tile once, so the TPU
+kernel's scalar-prefetch cap of 16,384 tiles, its 128-lane probe padding and its
+fallback have no counterpart. It moves V and the output in 16-byte vectors when
+``k`` is a whole number of them and ``V``, the output and the tiles are 16-byte
+aligned, element by element otherwise; the launches that took the scalar path
+are counted in ``SCALAR_LAUNCHES["bsr_spmm"]``.
 
 The kernel reads ``V`` node-major: ``(m, k)`` contiguous, probes along the fast
 axis. The wrapper does not copy: a caller with a probe-major block makes it
@@ -17,7 +22,7 @@ CUDA tensor it launches the kernel or raises, and counts each launch in
 
 import torch
 
-from ._common import LAUNCHES, LAYOUT_COPIES, acc_dtype, check_cuda, raise_on, reset_launches, stream
+from ._common import LAUNCHES, LAYOUT_COPIES, SCALAR_LAUNCHES, acc_dtype, check_cuda, raise_on, reset_launches, stream, vector_ok
 
 __all__ = ["LAUNCHES", "LAYOUT_COPIES", "reset_launches", "bsr_spmm", "bsr_spmm_ref", "block_rowids"]
 
@@ -81,10 +86,12 @@ def bsr_spmm(blocks: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor, 
 	m, k = V.shape
 	out = torch.empty((n_out, k), dtype=V.dtype, device=V.device)
 	fn = lib.bsr_spmm_f32 if V.dtype == torch.float32 else lib.bsr_spmm_f64
+	vec = vector_ok(k, V.element_size(), blocks, V, out)
 	err = fn(
 		blocks.data_ptr(), indptr.data_ptr(), indices.data_ptr(), V.data_ptr(), out.data_ptr(),
-		n_brow, bm, bn, m, k, n_out, stream(V.device),
+		n_brow, bm, bn, m, k, n_out, int(vec), stream(V.device),
 	)
 	raise_on(lib, err, "bsr_spmm")
 	LAUNCHES["bsr_spmm"] += 1
+	SCALAR_LAUNCHES["bsr_spmm"] += not vec
 	return out

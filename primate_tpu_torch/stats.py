@@ -20,7 +20,7 @@ class CovState(NamedTuple):
 	S: torch.Tensor
 
 
-def make_cov_state(dim: int = 1, dtype=torch.float32, device="cpu") -> CovState:
+def make_cov_state(dim: int = 1, dtype=torch.float32, device="cuda") -> CovState:
 	return CovState(
 		n=0, mu=torch.zeros(dim, dtype=dtype, device=device), S=torch.zeros((dim, dim), dtype=dtype, device=device)
 	)

@@ -1,0 +1,85 @@
+"""Where the device time of the port's main calls goes, on one NVIDIA GPU.
+
+    python3 profile_port.py [--out profile_port.json]
+
+Traces with ``torch.profiler`` one call of each after a warm-up: the flagship SLQ
+logdet of ``chip_smoke.py`` at n = 500,000 and 10,000,000, and BASELINE config 3's
+sketch estimators on its 1M-row BSR cell. Prints one JSON line per call: the
+traced host wall (ms), the summed device time of its kernels (ms), the device's
+busy share of the wall, and the kernels that take the most device time (ms and
+count); writes them all to ``--out``. Needs a CUDA device; without one it exits
+non-zero.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+
+def _device_ms(evt) -> float:
+	return (getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
+
+
+def trace(torch, fn, top: int = 8) -> dict:
+	"""One warm-up call, then one traced call ending in a device sync."""
+	from torch.autograd import DeviceType
+	from torch.profiler import ProfilerActivity, profile
+
+	fn()
+	torch.cuda.synchronize()
+	with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+		t0 = time.perf_counter()
+		fn()
+		torch.cuda.synchronize()
+		wall_ms = (time.perf_counter() - t0) * 1e3
+	kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_ms(e) > 0]
+	kernels.sort(key=_device_ms, reverse=True)
+	device_ms = sum(_device_ms(e) for e in kernels)
+	return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+		"top": [{"kernel": e.key[:90], "ms": _device_ms(e), "count": e.count} for e in kernels[:top]]}
+
+
+def main() -> None:
+	ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+	ap.add_argument("--out", default="profile_port.json")
+	args = ap.parse_args()
+	import torch
+
+	if not torch.cuda.is_available():
+		sys.exit("profile_port: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
+	import chip_smoke as cs
+	import primate_tpu_torch as ptt
+	from benchmarks.matrices import block_random_spd
+
+	dev = torch.device("cuda", 0)
+	rows = []
+	for n in (cs.N_FLAGSHIP, cs.N_LARGE):
+		op = ptt.DIAOperator.from_scipy(cs.build_laplacian(n), dtype=torch.float32, device=dev)
+		M = ptt.MatrixFunction(op, fun="log", deg=cs.DEG, orth=cs.ORTH, reorth_passes=1, dtype=torch.float32)
+		row = {"call": f"flagship_{n}", **trace(torch, lambda: ptt.hutch(M, batch=cs.PROBES, converge="count", count=cs.PROBES, seed=42))}
+		print(json.dumps(row), flush=True)
+		rows.append(row)
+		del op, M
+	S = block_random_spd(**cs.BSR_CELL)
+	op = ptt.BSROperator.from_scipy(S, blocksize=(cs.BSR_CELL["bs"], cs.BSR_CELL["bs"]), dtype=torch.float32, device=dev)
+	calls = {
+		"bsr_hutchpp": lambda: ptt.hutchpp(op, m=240, seed=7),
+		"bsr_xtrace": lambda: ptt.xtrace(op, batch=64, converge="count", count=256, seed=7),
+		"bsr_xnystrace": lambda: ptt.xnystrace(op, m=720, seed=7),
+		"bsr_xdiag": lambda: ptt.xdiag(op, m=256, seed=7),
+	}
+	for name, fn in calls.items():
+		row = {"call": name, **trace(torch, fn)}
+		print(json.dumps(row), flush=True)
+		rows.append(row)
+	smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+		capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+	with open(args.out, "w") as f:
+		json.dump({"device": smi, "torch": torch.__version__, "calls": rows}, f, indent=1)
+	print(smi, flush=True)
+
+
+if __name__ == "__main__":
+	main()

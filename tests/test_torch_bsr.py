@@ -59,7 +59,7 @@ def test_matmat_matches_jax_pallas_and_xla(case):
 	with warnings.catch_warnings():
 		warnings.simplefilter("ignore")  # scattered patterns warn about fill-in on both sides
 		jop = JaxBSR.from_scipy(A, blocksize=blocksize, engine="scipy")
-		op = BSROperator.from_scipy(A, blocksize=blocksize)
+		op = BSROperator.from_scipy(A, blocksize=blocksize, device="cpu")
 	n = A.shape[0]
 	rng = np.random.default_rng(11)
 	V = rng.normal(size=n) if k == 0 else rng.normal(size=(n, k))
@@ -78,7 +78,7 @@ def test_rmatmat_todense_and_quad_form_match_jax():
 	with warnings.catch_warnings():
 		warnings.simplefilter("ignore")
 		jop = JaxBSR.from_scipy(A, blocksize=(8, 8), engine="scipy")
-		op = BSROperator.from_scipy(A, blocksize=(8, 8))
+		op = BSROperator.from_scipy(A, blocksize=(8, 8), device="cpu")
 	V = np.random.default_rng(3).normal(size=(40, 6))
 	np.testing.assert_allclose(op.rmatmat(torch.from_numpy(V)).numpy(), np.asarray(jop.rmatmat(jnp.asarray(V))), rtol=0, atol=ATOL)
 	np.testing.assert_allclose(op.rmatvec(torch.from_numpy(V[:, 0])).numpy(), A.T @ V[:, 0], rtol=0, atol=ATOL)
@@ -105,7 +105,7 @@ def test_from_numpy_of_a_jax_operator():
 	with warnings.catch_warnings():
 		warnings.simplefilter("ignore")
 		jop = JaxBSR.from_scipy(_random_sym(50, 0.1, 4), blocksize=(8, 8))
-	op = bsr_from_numpy(np.asarray(jop.blocks), np.asarray(jop.indices), np.asarray(jop.indptr), jop.shape, dtype=torch.float64)
+	op = bsr_from_numpy(np.asarray(jop.blocks), np.asarray(jop.indices), np.asarray(jop.indptr), jop.shape, dtype=torch.float64, device="cpu")
 	assert op.shape == tuple(jop.shape) and op.blocksize == (8, 8)
 	np.testing.assert_array_equal(op.todense().numpy(), np.asarray(jop.todense()))
 	V = np.random.default_rng(1).normal(size=(50, 3))
@@ -114,8 +114,8 @@ def test_from_numpy_of_a_jax_operator():
 
 def test_fill_in_warning_and_layout_copies():
 	with pytest.warns(UserWarning, match="block-structured"):
-		BSROperator.from_scipy(sps.identity(64, format="csr"), blocksize=(16, 16))
-	op = BSROperator.from_dense(np.eye(16) * 2.0, blocksize=(8, 8))
+		BSROperator.from_scipy(sps.identity(64, format="csr"), blocksize=(16, 16), device="cpu")
+	op = BSROperator.from_dense(np.eye(16) * 2.0, blocksize=(8, 8), device="cpu")
 	_common.reset_launches()
 	Vt = torch.randn(3, 16, dtype=torch.float64)
 	torch.testing.assert_close(op.matmat(Vt.T), 2.0 * Vt.T)  # probe-major: one counted copy
@@ -126,7 +126,7 @@ def test_fill_in_warning_and_layout_copies():
 def test_plain_version_chunks_over_tiles(monkeypatch):
 	"""A tile chunk smaller than the operator gives the same product."""
 	A = _random_sym(64, 0.1, 8)
-	op = BSROperator.from_scipy(A, blocksize=(4, 4))
+	op = BSROperator.from_scipy(A, blocksize=(4, 4), device="cpu")
 	V = torch.from_numpy(np.random.default_rng(9).normal(size=(64, 5)))
 	whole = bsr_spmm_ref(op.blocks, op.indptr, op.indices, V, 64)
 	import primate_tpu_torch.ops.bsr as bsr_mod

@@ -10,8 +10,9 @@ import pytest
 import scipy.sparse as sps
 import torch
 
-from primate_tpu_torch import BSROperator, DIAOperator, MatrixFunction, hutch, xtrace
-from primate_tpu_torch.ops import bsr, dia
+from primate_tpu_torch import BSROperator, DIAOperator, MatrixFunction, hutch, lanczos_block_op, xtrace
+from primate_tpu_torch.operators.base import LinearOperator
+from primate_tpu_torch.ops import _common, bsr, dia
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -58,6 +59,105 @@ def test_kernels_match_plain_versions(cuda, shape, dtype):
 	assert float(((alpha - alpha_ref).abs() / alpha_ref.abs()).max()) <= tol_a
 
 
+STEP_SHAPES = [(64, 500_000, (-1, 0, 1)), (13, 3001, (-200, -7, 0, 7, 200))]
+
+
+def _step_state(dev, nv, dtype, g):
+	"""A state in the middle of a sweep: divisors and β away from 1, one probe done."""
+	state = dia.lanczos_state(nv, dtype, dev)
+	state.scal[dia.DIV_CUR] = torch.rand(nv, generator=g, device=dev, dtype=dtype) + 0.5
+	state.scal[dia.DIV_PREV] = torch.rand(nv, generator=g, device=dev, dtype=dtype) + 0.5
+	state.scal[dia.BETA] = torch.rand(nv, generator=g, device=dev, dtype=dtype) + 0.5
+	state.scal[dia.DONE, 0] = 1.0
+	return state
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", STEP_SHAPES)
+def test_whole_step_matches_its_plain_version(cuda, shape, dtype):
+	"""Three steps of the two step kernels against the plain whole step, from the
+	same residual blocks and state: v, α, β and the advanced state."""
+	tol_v, tol_a = TOL[dtype]
+	nv, n, offsets = shape
+	bands, offs, _, v_cur, v_prev, _ = _inputs(cuda, nv, n, offsets, dtype, seed=3)
+	g = torch.Generator(device=cuda)
+	g.manual_seed(4)
+	states = [_step_state(cuda, nv, dtype, g)]
+	states.append(dia.LanczosState(states[0].scal.clone(), torch.zeros(1, dtype=torch.int32, device=cuda)))
+	blocks = [(v_cur, v_prev), (v_cur.clone(), v_prev.clone())]
+	for _ in range(3):
+		outs = []
+		for i, run in enumerate((dia.lanczos_dia_sweep_step, None)):
+			a, b = torch.empty(nv, dtype=dtype, device=cuda), torch.empty(nv, dtype=dtype, device=cuda)
+			vc, vp = blocks[i]
+			if run is None:
+				v = dia.lanczos_sweep_step_ref(lambda q: dia.dia_stencil_t_ref(bands, offs, q), vc, vp, states[i], a, b, 1e-8)
+			else:
+				before = (dia.LAUNCHES["lanczos_dia_step"], dia.LAUNCHES["lanczos_dia_residual"])
+				v = run(bands, offs, vc, vp, states[i], a, b, 1e-8)
+				assert (dia.LAUNCHES["lanczos_dia_step"], dia.LAUNCHES["lanczos_dia_residual"]) == (before[0] + 1, before[1] + 1)
+			blocks[i] = (v, vc)
+			outs.append((v, a, b))
+		torch.cuda.synchronize()
+		(v, a, b), (v_ref, a_ref, b_ref) = outs
+		assert float((v - v_ref).abs().max()) <= tol_v * float(v_ref.abs().max())
+		assert a[0] == 0 and b[0] == 0  # probe 0 was done before the first step
+		assert float(((a - a_ref).abs() / a_ref.abs().clamp_min(1e-30))[1:].max()) <= tol_a
+		assert float(((b - b_ref).abs() / b_ref.abs().clamp_min(1e-30))[1:].max()) <= tol_a
+		rows = [dia.DIV_CUR, dia.DIV_PREV, dia.BETA, dia.ALPHA]
+		rel = (states[0].scal[rows] - states[1].scal[rows]).abs() / states[1].scal[rows].abs()
+		assert float(rel[:, 1:].max()) <= tol_a
+		assert torch.equal(states[0].scal[dia.DONE], states[1].scal[dia.DONE])
+		assert int(states[0].ticket) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_whole_step_breakdown_on_the_card(cuda, dtype):
+	"""A probe in a 3-dimensional invariant subspace breaks down at step 3: on the
+	card its α and β are exactly zero afterwards, and the sweep agrees with the plain one."""
+	n = 50
+	off = -0.5 * np.ones(n - 1)
+	off[2] = 0.0
+	A = sps.diags([off, np.linspace(1.0, 4.0, n), off], [-1, 0, 1]).tocsr()
+	V0 = np.random.default_rng(1).normal(size=(n, 4))
+	V0[3:, 0] = 0.0
+	rtol = 1e-5 if dtype == torch.float32 else 1e-8  # float32 leaves β₃ at its round-off, about 1e-6
+	kw = dict(deg=8, ncv=2, orth=0, rtol=rtol)
+	got = lanczos_block_op(DIAOperator.from_scipy(A, dtype=dtype, device=cuda), torch.tensor(V0, dtype=dtype, device=cuda), **kw)
+	want = lanczos_block_op(DIAOperator.from_scipy(A, dtype=dtype, device="cpu"), torch.tensor(V0, dtype=dtype), **kw)
+	a, b = got.alphas.cpu(), got.betas.cpu()
+	assert float(b[2, 0]) < 1e-5 and bool(torch.all(a[3:, 0] == 0)) and bool(torch.all(b[3:, 0] == 0))
+	tol_a = TOL[dtype][1]
+	torch.testing.assert_close(a, want.alphas, rtol=tol_a, atol=tol_a)
+	torch.testing.assert_close(b, want.betas, rtol=tol_a, atol=tol_a)
+
+
+class _TailDIA(DIAOperator):
+	"""A DIA operator whose sweep step is the generic PyTorch one around the stencil kernel."""
+
+	lanczos_sweep_step = LinearOperator.lanczos_sweep_step
+
+
+def test_flagship_fused_step_matches_the_pytorch_tail(cuda):
+	"""The flagship's sweep (n = 500,000, deg 20, 64 probes, float32) through the two
+	step kernels against the same sweep with the step's tail in PyTorch: the same
+	probes, α and β to 1e-5 relative."""
+	n = 500_000
+	L = sps.diags([-np.ones(n - 1), 3.0 * np.ones(n), -np.ones(n - 1)], [-1, 0, 1]).tocsr()
+	op = DIAOperator.from_scipy(L, dtype=torch.float32, device=cuda)
+	tail = _TailDIA(op.bands, op.offsets, op.shape)
+	g = torch.Generator(device=cuda)
+	g.manual_seed(0)
+	V0 = (torch.randint(0, 2, (64, n), generator=g, device=cuda, dtype=torch.float32) * 2 - 1).T
+	dia.reset_launches()
+	got = lanczos_block_op(op, V0, deg=20, ncv=2, orth=0)
+	assert dia.LAUNCHES["lanczos_dia_step"] == dia.LAUNCHES["lanczos_dia_residual"] == 20
+	want = lanczos_block_op(tail, V0, deg=20, ncv=2, orth=0)
+	assert dia.LAUNCHES["lanczos_dia_step"] == 20 and dia.LAUNCHES["dia_stencil_t"] == 20
+	torch.testing.assert_close(got.alphas, want.alphas, rtol=1e-5, atol=0)
+	torch.testing.assert_close(got.betas, want.betas, rtol=1e-5, atol=0)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 	bands, offs, x, q_cur, q_prev, beta = _inputs(cuda, 4, 100, (-1, 0, 1), torch.float32)
 	with pytest.raises(TypeError):
@@ -84,8 +184,8 @@ def test_slq_on_the_card_matches_the_cpu_port(cuda):
 	kw = dict(fun="log", deg=20, orth=0)
 	dia.reset_launches()
 	got = hutch(MatrixFunction(DIAOperator.from_scipy(L, device=cuda), **kw), batch=16, converge="count", count=32, pdf=sampler())
-	assert dia.LAUNCHES["lanczos_dia_step"] == 20 * 2
-	want = hutch(MatrixFunction(DIAOperator.from_scipy(L), **kw), batch=16, converge="count", count=32, pdf=sampler())
+	assert dia.LAUNCHES["lanczos_dia_step"] == dia.LAUNCHES["lanczos_dia_residual"] == 20 * 2
+	want = hutch(MatrixFunction(DIAOperator.from_scipy(L, device="cpu"), **kw), batch=16, converge="count", count=32, pdf=sampler())
 	np.testing.assert_allclose(got, want, rtol=1e-10)
 
 
@@ -112,7 +212,7 @@ def _close_rel(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k", [1, 130, 720])
+@pytest.mark.parametrize("k", [1, 3, 64, 65, 130, 720, 1500])
 @pytest.mark.parametrize("tile", [(8, 16), (4, 4), (8, 8)])
 def test_bsr_spmm_matches_plain_version(cuda, tile, k, dtype):
 	blocks, indptr, indices, n = _bsr_arrays(cuda, dtype, *tile)
@@ -128,9 +228,61 @@ def test_bsr_spmm_matches_plain_version(cuda, tile, k, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("k", [1, 130, 720])
-def test_dia_stencil_matches_plain_version(cuda, k, dtype):
-	n, offsets = 12_000, (-10_000, -7, 0, 3, 10_000)
+@pytest.mark.parametrize("k", [64, 65])
+def test_bsr_spmm_hub_row_and_empty_rows(cuda, k, dtype):
+	"""A block row of 5,000 tiles among short and empty ones (8x8 tiles, 6,000 block rows)."""
+	rng = np.random.default_rng(7)
+	n_brow, bm = 6000, 8
+	counts = rng.integers(0, 4, n_brow)
+	counts[::7] = 0
+	counts[5] = 5000
+	cols = [np.sort(rng.choice(n_brow, c, replace=False)) for c in counts]
+	indptr = np.r_[0, np.cumsum(counts)]
+	blocks = torch.tensor(rng.normal(size=(int(indptr[-1]), bm, bm)), dtype=dtype, device=cuda)
+	indptr_t = torch.tensor(indptr, dtype=torch.int64, device=cuda)
+	indices = torch.tensor(np.concatenate(cols), dtype=torch.int64, device=cuda)
+	n = n_brow * bm - 3  # the last block row and column overhang n
+	V = torch.randn((n, k), device=cuda, dtype=dtype)
+	got = bsr.bsr_spmm(blocks, indptr_t, indices, V, n)
+	want = bsr.bsr_spmm_ref(blocks, indptr_t, indices, V, n)
+	_close_rel(got, want, dtype)
+	assert float(got[7 * bm : 8 * bm].abs().max()) == 0.0  # block row 7 is empty
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bsr_spmm_scalar_path_for_a_misaligned_block(cuda, dtype):
+	"""A V whose storage offset breaks 16-byte alignment takes the scalar path of the
+	BSR and the node-major DIA kernels, with the same result."""
+	blocks, indptr, indices, n = _bsr_arrays(cuda, dtype, 8, 8)
+	flat = torch.randn(n * 64 + 1, device=cuda, dtype=dtype)
+	V = flat[1:].view(n, 64)
+	assert V.is_contiguous() and V.data_ptr() % 16 != 0
+	before = _common.SCALAR_LAUNCHES["bsr_spmm"]
+	got = bsr.bsr_spmm(blocks, indptr, indices, V, n)
+	assert _common.SCALAR_LAUNCHES["bsr_spmm"] == before + 1
+	_close_rel(got, bsr.bsr_spmm_ref(blocks, indptr, indices, V, n), dtype)
+	before = _common.SCALAR_LAUNCHES["bsr_spmm"]
+	bsr.bsr_spmm(blocks, indptr, indices, V.clone(), n)
+	assert _common.SCALAR_LAUNCHES["bsr_spmm"] == before
+	# The node-major DIA stencil on the same misaligned block.
+	bands = torch.rand((3, n), device=cuda, dtype=dtype)
+	offs = torch.tensor([-1, 0, 1], device=cuda)
+	before = _common.SCALAR_LAUNCHES["dia_stencil"]
+	got = dia.dia_stencil(bands, offs, V)
+	assert _common.SCALAR_LAUNCHES["dia_stencil"] == before + 1
+	_close_rel(got, dia.dia_stencil_ref(bands, offs, V), dtype)
+
+
+# Offsets read from the shared-memory ring (up to 224) and loaded directly (past it);
+# more diagonals than one batch of loads (8).
+DIA_OFFSETS = [(-10_000, -7, 0, 3, 10_000), (-225, -224, -100, -9, -1, 0, 1, 9, 100, 224, 225)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 64, 65, 130, 720])
+@pytest.mark.parametrize("offsets", DIA_OFFSETS)
+def test_dia_stencil_matches_plain_version(cuda, offsets, k, dtype):
+	n = 12_000
 	g = torch.Generator(device=cuda)
 	g.manual_seed(k)
 	bands = torch.rand((len(offsets), n), generator=g, device=cuda, dtype=dtype) + 0.5

@@ -32,7 +32,7 @@ def _banded(n, offsets, seed, symmetric=False):
 
 def _pair(A):
 	"""The same scipy matrix as a JAX and as a port DIAOperator."""
-	return JaxDIA.from_scipy(A), DIAOperator.from_scipy(A)
+	return JaxDIA.from_scipy(A), DIAOperator.from_scipy(A, device="cpu")
 
 
 def test_stencil_matches_jax_pallas_and_xla():
@@ -80,7 +80,7 @@ def test_node_major_stencil_any_offset_and_width():
 def test_matmat_picks_the_kernel_by_layout(monkeypatch):
 	"""A probe-major block takes the probe-major stencil on its transpose, a
 	node-major one the node-major stencil; neither is copied."""
-	op = DIAOperator.from_scipy(_banded(50, [-3, 0, 2], seed=24))
+	op = DIAOperator.from_scipy(_banded(50, [-3, 0, 2], seed=24), device="cpu")
 	seen = []
 	for name in ("dia_stencil", "dia_stencil_t"):
 		real = getattr(sparse, name)
@@ -111,7 +111,7 @@ def test_fused_step_matches_jax_phys_kernel(dtype, atol):
 	v_want = Aq - beta[:, None] * q_prev
 	alpha_want = np.sum(v_want * q_cur, axis=1)
 
-	op = DIAOperator.from_numpy(bands, offsets, (n, n))
+	op = DIAOperator.from_numpy(bands, offsets, (n, n), device="cpu")
 	v, alpha = lanczos_dia_step(op.bands, op.offsets_t, torch.from_numpy(q_cur), torch.from_numpy(q_prev), torch.from_numpy(beta))
 	assert v.dtype == torch.from_numpy(q_cur).dtype and alpha.shape == (nv,)
 	np.testing.assert_allclose(v.numpy(), v_want, rtol=0, atol=atol)
@@ -140,7 +140,7 @@ def test_operator_applies_match_jax():
 
 def test_dia_from_numpy_of_a_jax_operator():
 	jop = JaxDIA.from_scipy(_banded(120, [-5, 0, 2], seed=5))
-	op = dia_from_numpy(np.asarray(jop.bands), jop.offsets, jop.shape, dtype=torch.float64)
+	op = dia_from_numpy(np.asarray(jop.bands), jop.offsets, jop.shape, dtype=torch.float64, device="cpu")
 	assert op.offsets == tuple(jop.offsets) and op.shape == tuple(jop.shape)
 	np.testing.assert_array_equal(op.todense().numpy(), np.asarray(jop.todense()))
 
@@ -168,11 +168,18 @@ def test_build_raises_and_leaves_no_partial_library(tmp_path, monkeypatch):
 	assert list(tmp_path.iterdir()) == []
 	assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 	# Each source builds its own library, named after the source's digest: an edited kernel rebuilds.
-	assert set(_build._sources()) >= {_build._CSRC / "bsr_spmm.cu", _build._CSRC / "dia_stencil.cu"}
+	real_sources = {_build._CSRC / "bsr_spmm.cu", _build._CSRC / "dia_stencil.cu"}
+	assert set(_build._sources()) >= real_sources
 	src = tmp_path / "csrc"
 	src.mkdir()
 	(src / "k.cu").write_text("// a\n")
 	monkeypatch.setattr(_build, "_CSRC", src)
 	before = _build._digest(src / "k.cu")
 	(src / "k.cu").write_text("// b\n")
+	assert _build._digest(src / "k.cu") != before
+	# So does an edited shared header, which every source includes.
+	for cu in real_sources:
+		assert '#include "common.cuh"' in cu.read_text(), cu
+	before = _build._digest(src / "k.cu")
+	(src / "common.cuh").write_text("// c\n")
 	assert _build._digest(src / "k.cu") != before

@@ -50,9 +50,9 @@ def _operators(kind):
 	"""(JAX operator, port operator, dense matrix) of one SPD matrix."""
 	if kind == "dia":
 		A = _banded_spd()
-		return JaxDIA.from_scipy(A), DIAOperator.from_scipy(A), A.toarray()
+		return JaxDIA.from_scipy(A), DIAOperator.from_scipy(A, device="cpu"), A.toarray()
 	A = block_random_spd(n=96, bs=8, density=0.1, seed=5).astype(np.float64)
-	return JaxBSR.from_scipy(A, blocksize=(8, 8)), BSROperator.from_scipy(A, blocksize=(8, 8)), A.toarray()
+	return JaxBSR.from_scipy(A, blocksize=(8, 8)), BSROperator.from_scipy(A, blocksize=(8, 8), device="cpu"), A.toarray()
 
 
 def _probes(key, shape, pdf):
@@ -272,7 +272,7 @@ def test_diag_adaptive_path_matches_jax():
 def test_xtrace_exact_at_full_rank_on_bsr():
 	"""tests/test_trace.py:80-96: XTrace at m = n with sphere probes is exact to rounding."""
 	A, tr = _spectrum_matrix(40)
-	op = BSROperator.from_dense(A, blocksize=(8, 8))
+	op = BSROperator.from_dense(A, blocksize=(8, 8), device="cpu")
 	assert abs(xtrace(op, seed=np.random.default_rng(1234)) - tr) <= 1e-6
 	assert abs(xtrace(op, batch=7, seed=5) - tr) <= 1e-6
 
@@ -280,14 +280,14 @@ def test_xtrace_exact_at_full_rank_on_bsr():
 def test_hutchpp_at_full_rank_and_exact_sketches_on_dia():
 	"""tests/test_trace.py:49-57: Hutch++ at m = n within 1/sqrt(n) of the trace."""
 	A, tr = _spectrum_matrix(54)
-	op = BSROperator.from_dense(A, blocksize=(8, 8))
+	op = BSROperator.from_dense(A, blocksize=(8, 8), device="cpu")
 	assert abs(hutchpp(op, m=54, seed=1) - tr) <= 1 / np.sqrt(54)
 	assert abs(hutchpp(op, m=54, seed=1, mode="full") - hutchpp(op, m=54, seed=1)) <= 1e-8
 	# Exact on a diagonal (rank-n DIA) operator once the sketch spans everything.
 	d = np.linspace(1.0, 2.0, 30)
-	dop = DIAOperator.from_scipy(sps.diags(d).tocsr())
+	dop = DIAOperator.from_scipy(sps.diags(d).tocsr(), device="cpu")
 	np.testing.assert_allclose(diagpp(dop, m=30, seed=2), d, rtol=1e-8)
-	low = DIAOperator.from_scipy(sps.diags(np.r_[d[:10], np.zeros(20)]).tocsr())  # rank 10 < m: XNysTrace is exact
+	low = DIAOperator.from_scipy(sps.diags(np.r_[d[:10], np.zeros(20)]).tocsr(), device="cpu")  # rank 10 < m: XNysTrace is exact
 	assert abs(xnystrace(low, m=12, seed=2) - d[:10].sum()) <= 1e-8 * d[:10].sum()
 	with warnings.catch_warnings():
 		warnings.simplefilter("error")

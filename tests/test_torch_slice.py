@@ -41,7 +41,7 @@ def test_slq_logdet_slice_matches_jax():
 	n = 2000
 	L = _path_laplacian(n)
 	kw = dict(batch=8, converge="count", count=32)
-	got, res = hutch(MatrixFunction(DIAOperator.from_scipy(L), "log", deg=20, orth=0), pdf=_rademacher_sampler(11), full=True, **kw)
+	got, res = hutch(MatrixFunction(DIAOperator.from_scipy(L, device="cpu"), "log", deg=20, orth=0), pdf=_rademacher_sampler(11), full=True, **kw)
 	want = pt.hutch(pt.MatrixFunction(JaxDIA.from_scipy(L), "log", deg=20, orth=0), pdf=_rademacher_sampler(11), **kw)
 	assert res.nit == 32
 	np.testing.assert_allclose(got, want, rtol=1e-10, atol=0)
@@ -51,7 +51,7 @@ def test_slq_logdet_slice_matches_jax():
 
 
 def test_resume_continues_the_same_probe_stream():
-	M = MatrixFunction(DIAOperator.from_scipy(_path_laplacian(500)), "log", deg=12, orth=0)
+	M = MatrixFunction(DIAOperator.from_scipy(_path_laplacian(500), device="cpu"), "log", deg=12, orth=0)
 	fresh, fres = hutch(M, batch=8, converge="count", count=64, seed=5, full=True)
 	_, half = hutch(M, batch=8, converge="count", count=32, seed=5, full=True)
 	resumed, rres = hutch(M, batch=8, converge="count", count=64, seed=5, full=True, resume=half)
@@ -66,7 +66,7 @@ def test_plain_trace_and_adaptive_criterion():
 	"""hutch on the DIA operator itself (the stencil through quad_form), under the
 	confidence criterion, which reads the running variance once per batch."""
 	n = 4000
-	op = DIAOperator.from_scipy(_path_laplacian(n))
+	op = DIAOperator.from_scipy(_path_laplacian(n), device="cpu")
 	est, res = hutch(op, batch=16, converge="confidence", atol=40.0, rtol=0.0, seed=3, full=True)
 	sigma = np.sqrt(res.estimator.converged_variance / res.nit)
 	assert res.nit % 16 == 0 and 16 < res.nit < 1024
@@ -96,7 +96,7 @@ def test_dense_operator_and_key_style_pdf():
 	ew = rng.uniform(0.5, 2.0, 60)
 	A = (Q * ew) @ Q.T
 	X = rng.choice([-1.0, 1.0], size=(60, 5))
-	got = MatrixFunction(A, "log", deg=30, orth=30).quad(torch.from_numpy(X))
+	got = MatrixFunction(A, "log", deg=30, orth=30, device="cpu").quad(torch.from_numpy(X))
 	want = pt.MatrixFunction(A, "log", deg=30, orth=30).quad(X)
 	np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10, atol=0)
 
@@ -105,6 +105,28 @@ def test_dense_operator_and_key_style_pdf():
 
 	est = hutch(torch.from_numpy(A), batch=20, pdf=signs, converge="count", count=2000, seed=1)
 	assert abs(est - ew.sum()) < 5 * np.sqrt(2 * np.sum(A**2) / 2000)
+
+
+def test_constructors_default_to_the_card():
+	"""Every constructor that takes a device puts its tensors on the card unless the
+	caller asks for the CPU (read from the signatures, so this holds with or without a card)."""
+	import inspect
+
+	from primate_tpu_torch import BSROperator, bsr_from_numpy, cov_state_from_numpy, dia_from_numpy
+	from primate_tpu_torch.estimators import MeanEstimator
+	from primate_tpu_torch.operators.base import DenseOperator, aslinop
+	from primate_tpu_torch.stats import make_cov_state
+
+	fns = [DIAOperator.from_numpy, DIAOperator.from_scipy, BSROperator.from_numpy, BSROperator.from_scipy,
+		BSROperator.from_dense, dia_from_numpy, bsr_from_numpy, cov_state_from_numpy, MeanEstimator, make_cov_state,
+		DenseOperator, aslinop, MatrixFunction]
+	for fn in fns:
+		assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+	# A tensor keeps its own device whatever the default; a numpy array goes where it is told.
+	A = np.eye(3)
+	assert aslinop(torch.from_numpy(A)).device.type == "cpu"
+	assert aslinop(A, device="cpu").device.type == "cpu" and DenseOperator(A, device="cpu").device.type == "cpu"
+	assert MatrixFunction(torch.from_numpy(A), "log").device.type == "cpu"
 
 
 def test_import_leaves_jax_out():
