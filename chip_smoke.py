@@ -26,7 +26,22 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    tr(S), and the BSR kernel launched once per operator application;
 8. runs Hutch++, XDiag, Diag++ and the Girard-Hutchinson diagonal on the 3-D FEM
    Laplacian ``fem_laplacian_3d(side=100)`` (n = 1,000,000, offsets ±1, ±100,
-   ±10,000) as a DIA operator: trace within 1e-3, diagonals within 0.1 (relative L2).
+   ±10,000) as a DIA operator: trace within 1e-3, diagonals within 0.1 (relative L2);
+   phase 6 also times the probe-major stencil at the shape ``diag`` gives it there;
+9. runs BASELINE config 2 in its CSR form: SLQ logdet (deg 20, orth 5, 64 probes)
+   of ``powerlaw_laplacian(n=1,000,000)`` handed in as the scipy matrix itself,
+   within ``0 ≤ logdet ≤ Σ log L_ii``, and the same call at n = 8,192 within 5% of
+   the exact logdet; times one CSR apply at k = 64 in both layouts beside its bound;
+10. runs BASELINE config 4: the heat-kernel curve ``tr exp(−τL)`` at 8 values of τ
+   on the 1000×1000 mesh Laplacian (n = 1,000,000) as a DIA operator, from one
+   sweep per batch: each within 2% of its closed form, both step kernels launched
+   deg × batches times; and the same mesh as scipy CSR through phase 9's logdet
+   call, within 5% of its closed form;
+11. computes ``exp(−L)V`` for ``V (n, 8)`` on the mesh in one pass (a stored basis)
+   and in two: each within 1e-4 (relative) of the exact ``e^{−1}·vec(E X E)``, and
+   the step kernels launched deg and 2·deg times;
+12. estimates the heat-kernel signature ``diag(exp(−τL))`` for the 8 values of τ:
+   relative L2 error below 0.1 for every τ ≤ 1, the step kernels launched.
 
 Each phase raises on failure. Measured values go out as JSON lines; the line
 before the last lists every kernel with its launches on its path, its error
@@ -71,6 +86,10 @@ STENCIL_TOL = {"float32": 1e-5, "float64": 1e-12}  # max-abs error over max|out|
 # Phase 7: BASELINE config 3 at audikw_1's scale (943,695 rows, 77.7M nonzeros).
 BSR_CELL = dict(n=1_048_576, bs=8, density=3.5e-5, seed=7)
 FEM_SIDE = 100  # phase 8: n = side**3
+# Phases 9-12: BASELINE configs 2 (CSR graph logdet) and 4 (heat kernel on a mesh).
+PL_N, PL_SMALL, MESH_SIDE = 1_000_000, 8192, 1000
+TAUS = np.geomspace(0.05, 4.0, 8)
+SLQ_CSR = dict(deg=20, orth=5, batch=64, count=64)
 TRACE_TOL, DIAG_TOL = 1e-3, 0.1
 # Node-major operator applications per call (the JAX programs' matmat count).
 BSR_APPLIES = {"hutchpp": 3, "xtrace": 8, "xnystrace": 1, "xdiag": 2}
@@ -321,7 +340,9 @@ def _timed_pair(torch, kern, plain, reps: int) -> tuple:
 def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), reps: int = 10) -> dict:
 	"""Phase 6: the BSR SpMM and the node-major DIA stencil against their plain
 	versions at the cell operators and at awkward shapes, float32 and float64;
-	float32 cell shapes timed beside their bound and their library call."""
+	float32 cell shapes timed beside their bound and their library call. Also the
+	probe-major stencil at the shape the FEM cell's ``diag`` gives it (64 × n, 7
+	diagonals), timed the same way; the ``kernels`` line keeps its flagship-shape row."""
 	import scipy.sparse as sps
 	from primate_tpu_torch.ops import bsr, dia
 
@@ -329,7 +350,7 @@ def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), rep
 	gen.manual_seed(1)
 	out = {}
 
-	def run(label, name, kern, plain, dtype, k, timed=None, route=None, library=None):
+	def run(label, name, kern, plain, dtype, k, timed=None, route=None, library=None, store=True):
 		"""``timed``: (bytes, flops) of the call, for the float32 cell shapes."""
 		tname = str(dtype).removeprefix("torch.")
 		got, want = kern(), plain()
@@ -346,7 +367,7 @@ def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), rep
 				"library_ms": lib_ms, "library_rel_err_or_error": lib_note})
 			if route is not None:
 				row["transpose_route_ms"] = time_ms(torch, route, reps)
-			if k == cell_ks[0]:
+			if k == cell_ks[0] and store:
 				out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
 					"library_ms": lib_ms}
 		emit(row)
@@ -381,6 +402,13 @@ def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), rep
 				timed=((2 * D.shape[0] * k + D.nnz) * item, 2 * D.nnz * k) if f32 else None,
 				route=lambda: dia.dia_stencil_t(D.bands, D.offsets_t, V.T.contiguous()).T, library=lambda: A_csr @ V)
 			del V
+			if k == cell_ks[0]:  # diag's probe block on the FEM cell, probe-major
+				Xt = torch.randn((k, D.shape[0]), generator=gen, device=dev, dtype=dtype)
+				run("fem_cell_probe_major", "dia_stencil_t", lambda: dia.dia_stencil_t(D.bands, D.offsets_t, Xt),
+					lambda: dia.dia_stencil_t_ref(D.bands, offs_host, Xt), dtype, k,
+					timed=((2 * D.shape[0] * k + D.nnz) * item, 2 * D.nnz * k) if f32 else None,
+					library=lambda: (A_csr @ Xt.T).T, store=False)
+				del Xt
 		if f32:
 			del B_lib
 		# Awkward shapes: non-square tiles, 4x4, an empty block row, n not a multiple of bm.
@@ -508,6 +536,182 @@ def dia_sketches(torch, ptt, dev, side: int) -> tuple:
 	return op, launches
 
 
+def mesh_laplacian(side: int):
+	"""The 5-point mesh Laplacian plus the identity, ``I + T⊗I + I⊗T`` with ``T = tridiag(−1, 2, −1)``
+	(``benchmarks/configs.py:31-38``, rebuilt here: that module imports jax)."""
+	import scipy.sparse as sps
+
+	T = sps.diags([-np.ones(side - 1), 2.0 * np.ones(side), -np.ones(side - 1)], [-1, 0, 1])
+	eye = sps.identity(side)
+	return (sps.identity(side * side) + sps.kron(T, eye) + sps.kron(eye, T)).tocsr().astype(np.float32)
+
+
+def mesh_modes(side: int) -> np.ndarray:
+	"""The eigenvalues ``μ_j = 2 − 2cos(πj/(side+1))`` of ``T``."""
+	return 2.0 - 2.0 * np.cos(np.pi * np.arange(1, side + 1) / (side + 1))
+
+
+def _csr_slq(torch, ptt, A, dev, seed: int):
+	"""Phase 9's call on a scipy matrix: the matrix function built once, the estimate timed."""
+	M = ptt.MatrixFunction(A, "log", deg=SLQ_CSR["deg"], orth=SLQ_CSR["orth"], dtype=torch.float32, device=dev)
+	return M, lambda: ptt.hutch(M, batch=SLQ_CSR["batch"], converge="count", count=SLQ_CSR["count"], seed=seed)
+
+
+def csr_slq(torch, ptt, dev) -> dict:
+	"""Phase 9: BASELINE config 2 in its CSR form on a power-law graph, float32."""
+	from benchmarks.matrices import powerlaw_laplacian
+	from primate_tpu_torch.ops import _common
+
+	t0 = time.perf_counter()
+	L = powerlaw_laplacian(n=PL_N, m=4, seed=0)
+	t_gen = time.perf_counter() - t0
+	t0 = time.perf_counter()
+	M, run = _csr_slq(torch, ptt, L, dev, seed=9)
+	torch.cuda.synchronize()
+	t_dev = time.perf_counter() - t0
+	op = M.operator
+	est, counts, copies, times, peak = _timed_calls(torch, run)
+	upper = float(np.sum(np.log(L.diagonal().astype(np.float64))))  # Hadamard: logdet ≤ Σ log L_ii
+	row = {"phase": "csr_slq", "n": PL_N, "nnz": int(L.nnz), "max_row_nnz": int(np.diff(L.indptr).max()),
+		"index_dtype": str(op.indices.dtype), "generate_s": t_gen, "to_device_s": t_dev, "estimate": est,
+		"lower": 0.0, "upper": upper, "wall_s_median": statistics.median(times), "wall_s": times,
+		"max_memory_allocated_bytes": peak, "launches": counts, "layout_copies": copies, **SLQ_CSR}
+	# One CSR apply at k = 64: node-major, probe-major (matmat_t) and a probe-major view in, node-major out.
+	k, n, item = 64, PL_N, 4
+	idx = op.indices.element_size()
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(9)
+	V = torch.randn((n, k), generator=gen, device=dev, dtype=torch.float32)
+	Vt = V.T.contiguous()
+	_common.reset_launches()
+	op.matmat_t(Vt)
+	torch.cuda.synchronize()
+	row["apply_layout_copies_probe_major"] = _common.LAYOUT_COPIES["csr_spmm"]
+	b_ms, _ = bound(op.nnz * (item + idx) + (n + 1) * idx + 2 * n * k * item, 2 * op.nnz * k)
+	row.update({"apply_k": k, "apply_node_major_ms": time_ms(torch, lambda: op.matmat(V), 10),
+		"apply_probe_major_ms": time_ms(torch, lambda: op.matmat_t(Vt), 10),
+		"apply_probe_major_view_in_ms": time_ms(torch, lambda: op.matmat(Vt.T), 10),
+		# cuSPARSE on the column-major view as it lies: the route the port does not take.
+		"library_column_major_ms": time_ms(torch, lambda: op.csr @ Vt.T, 10), "apply_bound_ms": b_ms})
+	del V, Vt
+	small = powerlaw_laplacian(n=PL_SMALL, m=4, seed=0)
+	_, run_small = _csr_slq(torch, ptt, small, dev, seed=9)
+	est_small = run_small()
+	dense = torch.tensor(small.toarray(), dtype=torch.float64, device=dev)
+	exact_small = float(torch.sum(torch.log(torch.linalg.eigvalsh(dense))))
+	row.update({"small_n": PL_SMALL, "small_estimate": est_small, "small_exact": exact_small,
+		"small_rel_err": abs(est_small - exact_small) / abs(exact_small)})
+	emit(row)
+	if not 0.0 <= est <= upper:
+		raise AssertionError(f"CSR logdet {est} outside [0, {upper}]")
+	if not row["small_rel_err"] < 0.05:
+		raise AssertionError(f"CSR logdet at n={PL_SMALL} off by {row['small_rel_err']}")
+	return row
+
+
+def heat_curve(torch, ptt, dev):
+	"""Phase 10: BASELINE config 4's heat-kernel curve on the mesh as a DIA operator, and the
+	same mesh as scipy CSR through phase 9's logdet call; float32."""
+	A = mesh_laplacian(MESH_SIDE)
+	mu = mesh_modes(MESH_SIDE)
+	op = ptt.DIAOperator.from_scipy(A, dtype=torch.float32, device=dev)
+	deg, batch = 20, 32
+	M = ptt.MatrixFunction(op, ptt.stacked("exp", -TAUS), deg=deg, orth=0)
+	est, counts, copies, times, peak = _timed_calls(torch, lambda: ptt.hutch(M, batch=batch, converge="count", count=batch, seed=10))
+	exact = np.array([np.exp(-t) * np.sum(np.exp(-t * mu)) ** 2 for t in TAUS])
+	rel = np.abs(est - exact) / exact
+	row = {"phase": "heat_curve", "n": A.shape[0], "offsets": list(op.offsets), "taus": TAUS.tolist(), "deg": deg,
+		"probes": batch, "estimates": np.asarray(est).tolist(), "exact": exact.tolist(), "rel_err": rel.tolist(),
+		"wall_s_median": statistics.median(times), "wall_s": times, "max_memory_allocated_bytes": peak, "launches": counts}
+	_, run = _csr_slq(torch, ptt, A, dev, seed=11)
+	logdet, csr_counts, csr_copies, csr_times, csr_peak = _timed_calls(torch, run)
+	exact_logdet = float(np.sum(np.log(1.0 + mu[:, None] + mu[None, :])))
+	row.update({"csr_logdet": logdet, "csr_logdet_exact": exact_logdet, "csr_rel_err": abs(logdet - exact_logdet) / exact_logdet,
+		"csr_wall_s_median": statistics.median(csr_times), "csr_wall_s": csr_times, "csr_max_memory_allocated_bytes": csr_peak,
+		"csr_layout_copies": csr_copies})
+	emit(row)
+	if not np.all(rel < 0.02):
+		raise AssertionError(f"heat-kernel curve off its closed form: {rel}")
+	for k in ("lanczos_dia_step", "lanczos_dia_residual"):
+		if counts[k] != deg:  # one batch: one sweep for the whole family
+			raise AssertionError(f"{k} launched {counts[k]} times for the heat curve, expected {deg}")
+	if not row["csr_rel_err"] < 0.05:
+		raise AssertionError(f"CSR logdet of the mesh off by {row['csr_rel_err']}")
+	return op
+
+
+def _mesh_heat_matrix(torch, dev, tau: float):
+	"""``exp(−τT)`` (1000×1000) and its diagonal, by ``eigh`` in float64 on the card."""
+	import scipy.sparse as sps
+
+	T = sps.diags([-np.ones(MESH_SIDE - 1), 2.0 * np.ones(MESH_SIDE), -np.ones(MESH_SIDE - 1)], [-1, 0, 1]).toarray()
+	w, U = torch.linalg.eigh(torch.tensor(T, dtype=torch.float64, device=dev))
+	E = (U * torch.exp(-tau * w)) @ U.T
+	return E, torch.diagonal(E)
+
+
+def fav(torch, ptt, dev, op) -> dict:
+	"""Phase 11: ``exp(−L) V`` on the mesh, one-pass and two-pass, float32, against the exact product."""
+	deg, k = 20, 8
+	n = op.shape[0]
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(11)
+	V = torch.randn((n, k), generator=gen, device=dev, dtype=torch.float32)
+	E, _ = _mesh_heat_matrix(torch, dev, 1.0)
+	X = V.double().T.reshape(k, MESH_SIDE, MESH_SIDE)
+	exact = (np.exp(-1.0) * (E @ X @ E)).reshape(k, n).T  # vec(E X E) per column, row-major
+	row = {"phase": "fav", "n": n, "k": k, "deg": deg}
+	outs = {}
+	for label, two_pass in (("one_pass", "auto"), ("two_pass", True)):
+		M = ptt.MatrixFunction(op, "exp", t=-1.0, deg=deg, orth=0, two_pass=two_pass)
+		Y, counts, _, times, peak = _timed_calls(torch, lambda: M.matmat(V))
+		err = torch.linalg.vector_norm(Y.double() - exact, dim=0) / torch.linalg.vector_norm(exact, dim=0)
+		outs[label] = Y
+		want = deg * (2 if label == "two_pass" else 1)
+		row.update({f"{label}_uses_two_pass": M._use_two_pass(k), f"{label}_rel_err_max": float(err.max()),
+			f"{label}_wall_s_median": statistics.median(times), f"{label}_wall_s": times,
+			f"{label}_max_memory_allocated_bytes": peak, f"{label}_launches": counts})
+		if not float(err.max()) < 1e-4:
+			raise AssertionError(f"f(A)V {label} off the exact product by {float(err.max())}")
+		for kern in ("lanczos_dia_step", "lanczos_dia_residual"):
+			if counts[kern] != want:
+				raise AssertionError(f"{label}: {kern} launched {counts[kern]} times, expected {want}")
+	if row["one_pass_uses_two_pass"]:
+		raise AssertionError("two_pass='auto' should keep a 640 MB basis in one pass")
+	agree = float(torch.linalg.vector_norm(outs["one_pass"] - outs["two_pass"]) / torch.linalg.vector_norm(outs["two_pass"]))
+	row["routes_rel_diff"] = agree
+	emit(row)
+	if not agree < 1e-4:
+		raise AssertionError(f"one- and two-pass f(A)V disagree by {agree}")
+	return row
+
+
+def heat_signature(torch, ptt, dev, op) -> dict:
+	"""Phase 12: the heat-kernel signature ``diag(exp(−τL))`` for all τ from shared sweeps, float32."""
+	deg, batch, iters = 20, 64, 8
+	n = op.shape[0]
+	M = ptt.MatrixFunction(op, ptt.stacked("exp", -TAUS), deg=deg, orth=0)
+	est, counts, _, times, peak = _timed_calls(torch, lambda: ptt.diag(M, batch=batch, converge="count", count=iters, seed=12))
+	if est.shape != (len(TAUS), n):
+		raise AssertionError(f"heat-kernel signature has shape {est.shape}, expected {(len(TAUS), n)}")
+	errs = []
+	for i, tau in enumerate(TAUS):
+		_, d = _mesh_heat_matrix(torch, dev, float(tau))
+		exact = (np.exp(-tau) * torch.outer(d, d).reshape(-1)).cpu().numpy()
+		errs.append(float(np.linalg.norm(est[i] - exact) / np.linalg.norm(exact)))
+	per_iter = deg * (2 if M._use_two_pass(batch) else 1)
+	row = {"phase": "heat_signature", "n": n, "taus": TAUS.tolist(), "deg": deg, "batch": batch, "iterations": iters,
+		"rel_l2_err": errs, "two_pass": M._use_two_pass(batch), "wall_s_median": statistics.median(times), "wall_s": times,
+		"max_memory_allocated_bytes": peak, "launches": counts}
+	emit(row)
+	if not all(e < DIAG_TOL for e, tau in zip(errs, TAUS) if tau <= 1.0):
+		raise AssertionError(f"heat-kernel signature off: {errs}")
+	for kern in ("lanczos_dia_step", "lanczos_dia_residual"):
+		if counts[kern] != iters * per_iter:
+			raise AssertionError(f"{kern} launched {counts[kern]} times, expected {iters * per_iter}")
+	return row
+
+
 def main() -> None:
 	import torch
 
@@ -535,6 +739,12 @@ def main() -> None:
 	bsr_op, bsr_launches = bsr_sketches(torch, ptt, dev, BSR_CELL)
 	dia_op, dia_launches = dia_sketches(torch, ptt, dev, FEM_SIDE)
 	kernels.update(check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev))
+	del bsr_op, dia_op
+
+	csr_slq(torch, ptt, dev)
+	mesh_op = heat_curve(torch, ptt, dev)
+	fav(torch, ptt, dev, mesh_op)
+	heat_signature(torch, ptt, dev, mesh_op)
 
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],

@@ -1,10 +1,18 @@
 """primate_tpu_torch — the PyTorch / CUDA port of primate_tpu, for NVIDIA Hopper (H100).
 
-The JAX package ``primate_tpu`` is the reference; this package ports two of
-its paths. Stochastic Lanczos quadrature on a banded operator::
+The JAX package ``primate_tpu`` is the reference; this package ports its
+operators, Lanczos, quadrature, matrix functions and estimators. Stochastic
+Lanczos quadrature on a banded operator::
 
     L = DIAOperator.from_scipy(A)
     hutch(MatrixFunction(L, "log", deg=20, orth=0), batch=64, converge="count", count=64)
+
+on any scipy sparse matrix (a graph Laplacian becomes a ``CSROperator``), with
+f(A)v and a stacked family of functions from one sweep::
+
+    hutch(MatrixFunction(L_scipy, "log", deg=20, orth=5), batch=64, converge="count", count=64)
+    MatrixFunction(L, "exp", t=-1.0, orth=0).matmat(V)
+    hutch(MatrixFunction(L, stacked("exp", -taus), orth=0), batch=32, converge="count", count=32)
 
 and the sketch trace and diagonal estimators on block-sparse and banded operators::
 
@@ -12,24 +20,38 @@ and the sketch trace and diagonal estimators on block-sparse and banded operator
     hutchpp(S, m=240); xtrace(S, batch=64, converge="count", count=256); xnystrace(S, m=720)
     xdiag(S, m=256); diagpp(S, m=240); diag(S, batch=64, converge="count", count=256)
 
-Every constructor that takes a ``device`` puts its tensors on the card
-(``"cuda"``) unless the caller passes ``device="cpu"``; without a card that
-default raises as torch does. A dense numpy matrix becomes an operator on the
-card too (``MatrixFunction(A, device="cpu")`` or a CPU tensor keeps it on the
-CPU), and the estimators follow their operator's device.
+Every constructor and entry point that takes a ``device`` puts its tensors on
+the card (``"cuda"``) unless the caller passes ``device="cpu"``; without a card
+that default raises as torch does. A dense numpy or scipy matrix becomes an
+operator on the card too (``MatrixFunction(A, device="cpu")`` or a CPU tensor
+keeps it on the CPU), and the estimators follow their operator's device.
 On the card the DIA stencils, the Lanczos step and the BSR SpMM run
 hand-written CUDA kernels (``csrc/``, built with nvcc at first use); on CPU
-tensors their plain PyTorch versions run. This package imports neither
-``jax`` nor ``primate_tpu``.
+tensors their plain PyTorch versions run. The CSR apply is cuSPARSE's SpMM
+through ``torch.sparse``. This package imports neither ``jax`` nor ``primate_tpu``.
 """
 
-from .convert import bsr_from_numpy, cov_state_from_numpy, dia_from_numpy
+from .convert import bsr_from_numpy, coo_from_numpy, cov_state_from_numpy, csr_from_numpy, dia_from_numpy
 from .diagonal import diag, diagpp, xdiag
-from .lanczos import lanczos_block_op
-from .operators import BSROperator, DeflatedOperator, DIAOperator, MatrixFunction
-from .random import sample_isotropic
+from .estimators import ConfidenceEstimator, ControlVariableEstimator, MeanEstimator
+from .fttr import fttr, ortho_poly
+from .integrate import lanczos_quadrature, lobatto_rule, quadrature, radau_rule
+from .lanczos import OrthogonalPolynomialBasis, lanczos, lanczos_block_op, rayleigh_ritz
+from .operators import (
+	BSROperator,
+	COOOperator,
+	CSROperator,
+	DeflatedOperator,
+	DIAOperator,
+	FunctionOperator,
+	MatrixFunction,
+	aslinop,
+	matrix_function,
+)
+from .random import Isotropic, haar, isotropic, sample_isotropic, symmetric
+from .special import param_callable, stacked
 from .trace import hutch, hutchpp, xnystrace, xtrace
-from .tridiag import eigh_tridiag
+from .tridiag import eigh_tridiag, eigvalsh_tridiag, tqli
 
 __version__ = "0.1.0"
 
@@ -42,13 +64,40 @@ __all__ = [
 	"diagpp",
 	"xdiag",
 	"MatrixFunction",
+	"matrix_function",
 	"DIAOperator",
 	"BSROperator",
+	"CSROperator",
+	"COOOperator",
 	"DeflatedOperator",
+	"FunctionOperator",
+	"aslinop",
+	"lanczos",
 	"lanczos_block_op",
+	"rayleigh_ritz",
+	"OrthogonalPolynomialBasis",
+	"quadrature",
+	"lanczos_quadrature",
+	"radau_rule",
+	"lobatto_rule",
+	"fttr",
+	"ortho_poly",
 	"eigh_tridiag",
+	"eigvalsh_tridiag",
+	"tqli",
+	"stacked",
+	"param_callable",
+	"MeanEstimator",
+	"ConfidenceEstimator",
+	"ControlVariableEstimator",
 	"sample_isotropic",
+	"Isotropic",
+	"isotropic",
+	"symmetric",
+	"haar",
 	"dia_from_numpy",
 	"bsr_from_numpy",
+	"csr_from_numpy",
+	"coo_from_numpy",
 	"cov_state_from_numpy",
 ]

@@ -6,16 +6,18 @@ their tensors on the card unless the caller passes ``device="cpu"``::
 
     op = dia_from_numpy(np.asarray(jax_op.bands), jax_op.offsets, jax_op.shape)
     op = bsr_from_numpy(np.asarray(jax_op.blocks), np.asarray(jax_op.indices), np.asarray(jax_op.indptr), jax_op.shape)
+    op = csr_from_numpy(np.asarray(jax_op.data), np.asarray(jax_op.indices), np.asarray(jax_op.indptr), jax_op.shape)
+    op = coo_from_numpy(np.asarray(jax_op.data), np.asarray(jax_op.row), np.asarray(jax_op.col), jax_op.shape)
     st = cov_state_from_numpy(int(s.n), np.asarray(s.mu), np.asarray(s.S), device="cpu")
 """
 
 import numpy as np
 import torch
 
-from .operators.sparse import BSROperator, DIAOperator
+from .operators.sparse import BSROperator, COOOperator, CSROperator, DIAOperator
 from .stats import CovState
 
-__all__ = ["dia_from_numpy", "bsr_from_numpy", "cov_state_from_numpy"]
+__all__ = ["dia_from_numpy", "bsr_from_numpy", "csr_from_numpy", "coo_from_numpy", "cov_state_from_numpy"]
 
 
 def dia_from_numpy(bands, offsets, shape, *, device="cuda", dtype=None) -> DIAOperator:
@@ -26,6 +28,16 @@ def dia_from_numpy(bands, offsets, shape, *, device="cuda", dtype=None) -> DIAOp
 def bsr_from_numpy(blocks, indices, indptr, shape, *, device="cuda", dtype=None) -> BSROperator:
 	"""A :class:`BSROperator` from tiles ``(nnzb, bm, bn)``, block-column ids, block-row pointers and the logical shape."""
 	return BSROperator.from_numpy(blocks, indices, indptr, shape, dtype=dtype, device=device)
+
+
+def csr_from_numpy(data, indices, indptr, shape, *, device="cuda", dtype=None) -> CSROperator:
+	"""A :class:`CSROperator` from values, column indices, row pointers and the shape."""
+	return CSROperator.from_numpy(data, indices, indptr, shape, dtype=dtype, device=device)
+
+
+def coo_from_numpy(data, row, col, shape, *, device="cuda", dtype=None) -> COOOperator:
+	"""A :class:`COOOperator` from values, row and column indices and the shape."""
+	return COOOperator(torch.tensor(np.asarray(data), dtype=dtype, device=device), np.asarray(row), np.asarray(col), shape)
 
 
 def cov_state_from_numpy(n, mu, S, *, device="cuda", dtype=None) -> CovState:

@@ -5,7 +5,9 @@ is a sampling step (round ``it``'s probes from the generator keyed
 ``(seed, it)``) and a core that takes the probe blocks. ``diag`` is a Python
 loop that enqueues one ``(n, batch)`` operator apply per iteration: a count
 criterion decides on the host and never reads the device, any other reads it
-once per iteration.
+once per iteration, as do a ``callback`` and ``record=True``. A stacked
+operator (a ``MatrixFunction`` of a stacked family) gives one diagonal per
+member, ``(nt, n)``, from one sweep per iteration.
 """
 
 import warnings
@@ -14,42 +16,62 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from .estimators import ConvergenceCriterion, EstimatorResult, EstSnapshot, convergence_criterion
+from .estimators import ConvergenceCriterion, EstimatorResult, EstSnapshot, convergence_criterion, criterion_needs_values
 from .linalg import full_f32, tall_qr
 from .random import real_dtype
-from .trace import _base_seed, _rdot, _sketch_op, probe_sampler
+from .operators.base import aslinop, is_valid_operator
+from .trace import _base_seed, _rdot, _sketch_op, probe_sampler, reject_differentiable
 
 __all__ = ["diag", "diagpp", "xdiag", "xdiag_core", "diagpp_core", "run_diag"]
 
 
-def run_diag(op, draw: Callable[[int], torch.Tensor], criterion, maxiter: int = 4096, batch: int = 1, full: bool = False):
+def run_diag(
+	op, draw: Callable[[int], torch.Tensor], criterion, maxiter: int = 4096, batch: int = 1, full: bool = False,
+	callback: Optional[Callable] = None, record: bool = False,
+):
 	"""The ratio-normalised Girard-Hutchinson loop on a probe sampler ``draw(it) → (n, batch)``; see :func:`diag`."""
 	N = op.shape[0]
 	acc = real_dtype(torch.promote_types(op.dtype, torch.float32))
-	zeros = lambda: torch.zeros(N, dtype=acc, device=op.device)  # noqa: E731
-	numer, denom, mu, m2, n = zeros(), zeros(), zeros(), zeros(), 0
-	delta = torch.full((N,), float("inf"), dtype=acc, device=op.device)
+	stack_shape = getattr(op, "stack_shape", None)
+	if stack_shape is None:  # a callable spectral function: its output shape only a call can tell
+		stack_shape = op.matvec(torch.zeros(N, dtype=op.dtype, device=op.device)).shape[:-1]
+	stack_shape = tuple(stack_shape)
+	nout = int(np.prod(stack_shape)) if stack_shape else 1
+	zeros = lambda m: torch.zeros(m, dtype=acc, device=op.device)  # noqa: E731
+	numer, denom, mu, m2, n = zeros(nout * N), zeros(N), zeros(nout * N), zeros(nout * N), 0
+	delta = torch.full((nout * N,), float("inf"), dtype=acc, device=op.device)
+	values = [] if record else None
+	result = EstimatorResult(criterion=criterion)
 
 	def snapshot() -> EstSnapshot:
 		return EstSnapshot(n=n, estimate=mu, delta=delta, var=torch.mean(m2) / max(n - 1, 1))
 
+	def estimate() -> np.ndarray:
+		return mu.cpu().numpy().reshape(stack_shape + (N,))
+
 	while n < maxiter and not criterion.check(snapshot()):
 		V = draw(n)
-		U = op.matvec(V[:, 0])[:, None] if batch == 1 else op.matmat(V)
-		numer = numer + _rdot(V, U, 1).to(acc)
-		denom = denom + _rdot(V, V, 1).to(acc)
-		est = numer / torch.where(denom == 0, 1.0, denom)
+		U = op.matvec(V[:, 0])[..., None] if batch == 1 else op.matmat(V)  # (..., N, batch)
+		numer = numer + _rdot(V, U, -1).to(acc).reshape(-1)
+		denom = denom + _rdot(V, V, -1).to(acc)
+		est = (numer.reshape(nout, N) / torch.where(denom == 0, 1.0, denom)).reshape(-1)
 		new_mu = mu + (est - mu) / (n + 1)
 		m2 = m2 + (est - mu) * (est - new_mu)
 		delta, mu, n = new_mu - mu, new_mu, n + 1
+		if record:
+			values.extend(est.tolist())
+		if callback is not None:
+			result.estimate, result.nit = estimate(), n
+			callback(result)
 	if n >= maxiter and not criterion.check(snapshot()):
 		warnings.warn(f"diag: stopped by maxiter={maxiter} before the convergence criterion was met", stacklevel=3)
-	estimate = mu.cpu().numpy()
+	result.estimate, result.nit = estimate(), n
 	if not full:
-		return estimate
-	result = EstimatorResult(criterion=criterion, estimate=estimate, nit=n)
+		return result.estimate
 	result.info["m2"] = m2
-	return estimate, result
+	if record:
+		result.info["values"] = values
+	return result.estimate, result
 
 
 def diag(
@@ -58,7 +80,10 @@ def diag(
 	converge: Union[str, ConvergenceCriterion] = "tolerance",
 	seed=None,
 	full: bool = False,
+	callback: Optional[Callable] = None,
+	record: bool = False,
 	maxiter: int = 4096,
+	resume=None,
 	batch: int = 1,
 	**kwargs,
 ):
@@ -66,22 +91,31 @@ def diag(
 	(``primate_tpu/diagonal.py:285-500``).
 
 	Accumulates ``Σ v∘(Av) / Σ v∘v`` over ``batch`` probes per iteration and
-	returns the mean of the running ratios, as the JAX package does. ``converge``
-	names a criterion ("tolerance", "count", "confidence") with its keywords, or
-	is one; it and ``maxiter`` count iterations. ``result.info["m2"]`` holds the
-	per-entry Welford sum of squared deviations.
+	returns the mean of the running ratios, as the JAX package does. A stacked
+	operator gives ``(nt, n)``. ``converge`` names a criterion ("tolerance",
+	"count", "confidence") with its keywords, or is one; it and ``maxiter`` count
+	iterations. ``callback(result)`` is called after every iteration with the
+	running estimate; ``record=True`` keeps every iteration's ratio estimate,
+	flattened, in ``result.info["values"]`` (the JAX package's
+	``result.estimator.values``). ``result.info["m2"]`` holds the per-entry
+	Welford sum of squared deviations. ``resume`` is not ported yet.
 	"""
-	for flag in ("differentiable", "record", "callback", "resume"):
-		if kwargs.pop(flag, None):
-			raise NotImplementedError(f"{flag} is not ported yet")
-	op = _sketch_op(A, "diag")
+	reject_differentiable("diag", kwargs)
+	if resume is not None:
+		raise NotImplementedError("diag: resume is not ported yet")
+	is_valid_operator(A)
+	op = A if hasattr(A, "quad") else aslinop(A)
 	criterion = convergence_criterion(converge, **kwargs)
+	if criterion_needs_values(criterion):
+		raise NotImplementedError("Knee-style criteria (recorded-sample based) are not defined for diag's dim-N estimator.")
 	N = op.shape[0]
 	if N == 0:
 		return (np.zeros(0), EstimatorResult()) if full else np.zeros(0)
 	batch = max(1, int(batch))
 	sample = probe_sampler(op, _base_seed(seed), pdf)
-	return run_diag(op, lambda it: sample(it, batch), criterion, maxiter=maxiter, batch=batch, full=full)
+	return run_diag(
+		op, lambda it: sample(it, batch), criterion, maxiter=maxiter, batch=batch, full=full, callback=callback, record=record
+	)
 
 
 @full_f32

@@ -1,10 +1,11 @@
 """Estimator state and stopping rules.
 
-Counterpart of ``primate_tpu/estimators.py:90-311,345-402,490-592,724-``.
-A criterion's ``check(snapshot)`` returns a Python bool. The snapshot's sample
-count is a host integer, so :class:`CountCriterion` decides without reading the
-device; :class:`ConfidenceCriterion` reads the running variance, one device→host
-sync per check. ``OrCriterion`` short-circuits, so a met count skips that read.
+Counterpart of ``primate_tpu/estimators.py``. A criterion's ``check(snapshot)``
+returns a Python bool. The snapshot's sample count is a host integer, so
+:class:`CountCriterion` decides without reading the device;
+:class:`ConfidenceCriterion` reads the running variance, one device→host sync per
+check, and :class:`KneeCriterion` the recorded samples. ``|`` and ``&`` short-circuit,
+so a decided count skips those reads; ``~`` negates.
 """
 
 import inspect
@@ -20,12 +21,18 @@ __all__ = [
 	"EstSnapshot",
 	"ConvergenceCriterion",
 	"OrCriterion",
+	"AndCriterion",
+	"NotCriterion",
 	"CountCriterion",
 	"ConfidenceCriterion",
 	"ToleranceCriterion",
+	"KneeCriterion",
 	"convergence_criterion",
+	"criterion_needs_values",
 	"default_trace_criterion",
 	"MeanEstimator",
+	"ConfidenceEstimator",
+	"ControlVariableEstimator",
 	"EstimatorResult",
 ]
 
@@ -35,21 +42,28 @@ class EstSnapshot(NamedTuple):
 
 	n: samples seen (host int). estimate/delta: ``(dim,)`` tensors. var: ``()``
 	tensor, the mean of the per-output sample variances (None when not tracked).
+	values: ``(n,)`` tensor of the recorded samples (None when not recording).
 	"""
 
 	n: int
 	estimate: torch.Tensor
 	delta: torch.Tensor
 	var: Optional[torch.Tensor] = None
+	values: Optional[torch.Tensor] = None
+
+	@property
+	def n_samples(self) -> int:
+		"""Alias for criteria written against the estimator protocol."""
+		return self.n
 
 
-def snapshot_of(state: CovState, delta: torch.Tensor) -> EstSnapshot:
+def snapshot_of(state: CovState, delta: torch.Tensor, values: Optional[torch.Tensor] = None) -> EstSnapshot:
 	var = torch.mean(torch.diagonal(cov_matrix(state, ddof=1)))
-	return EstSnapshot(n=state.n, estimate=state.mu, delta=delta, var=var)
+	return EstSnapshot(n=state.n, estimate=state.mu, delta=delta, var=var, values=values)
 
 
 class ConvergenceCriterion:
-	"""Composable stopping rule; ``crit(est)`` returns a bool. Compose with ``|``."""
+	"""Composable stopping rule; ``crit(est)`` returns a bool. Compose with ``|``, ``&`` and ``~``."""
 
 	def __init__(self, operation: Optional[Callable] = None):
 		self._operation = operation
@@ -67,6 +81,15 @@ class ConvergenceCriterion:
 
 	def __ror__(self, other):
 		return OrCriterion(other, self)
+
+	def __and__(self, other: "ConvergenceCriterion"):
+		return AndCriterion(self, other)
+
+	def __rand__(self, other):
+		return AndCriterion(other, self)
+
+	def __invert__(self):
+		return NotCriterion(self)
 
 	def message(self, est) -> str:
 		return "Composite convergence criterion"
@@ -89,6 +112,28 @@ class OrCriterion(ConvergenceCriterion):
 
 	def message(self, est) -> str:
 		return f"{_child_message(self.left, est)} | {_child_message(self.right, est)}"
+
+
+class AndCriterion(ConvergenceCriterion):
+	def __init__(self, left, right):
+		self.left, self.right = left, right
+
+	def check(self, snap: EstSnapshot) -> bool:
+		return _child_check(self.left, snap) and _child_check(self.right, snap)
+
+	def message(self, est) -> str:
+		return f"{_child_message(self.left, est)} & {_child_message(self.right, est)}"
+
+
+class NotCriterion(ConvergenceCriterion):
+	def __init__(self, inner):
+		self.inner = inner
+
+	def check(self, snap: EstSnapshot) -> bool:
+		return not _child_check(self.inner, snap)
+
+	def message(self, est) -> str:
+		return f"~({_child_message(self.inner, est)})"
 
 
 class CountCriterion(ConvergenceCriterion):
@@ -162,18 +207,64 @@ class ToleranceCriterion(ConvergenceCriterion):
 		return err < self.atol or err < self.rtol * est
 
 
-CRITERIA = {"count": CountCriterion, "confidence": ConfidenceCriterion, "tolerance": ToleranceCriterion}
+class KneeCriterion(ConvergenceCriterion):
+	"""Kneedle knee detection on the cumulative-mean difference curve of the
+	recorded samples (``primate_tpu/estimators.py:402-453``), in float32 on the
+	host as the JAX package computes it; False without recorded samples or
+	before 3. One device→host read of the samples per check."""
+
+	def __init__(self, S: float = 1.0):
+		self.S = S
+
+	def check(self, snap: EstSnapshot) -> bool:
+		m = int(snap.n)
+		if snap.values is None or m < 3:
+			return False
+		v = torch.as_tensor(snap.values)[:m].detach().cpu().numpy().astype(np.float32)
+		cum_mean = np.cumsum(v, dtype=np.float32) / np.arange(1, m + 1, dtype=np.float32)
+		y = np.cumsum(np.abs(np.diff(cum_mean)), dtype=np.float32)  # (m - 1,)
+		y_min, y_max = y.min(), y.max()
+		y_norm = (y - y_min) / (y_max - y_min if y_max > y_min else np.float32(1.0))
+		mlen = np.float32(max(m - 1, 2))
+		x_norm = np.arange(m - 1, dtype=np.float32) / max(mlen - np.float32(1.0), np.float32(1.0))
+		diff_curve = y_norm - x_norm
+		max_diff = diff_curve[int(np.argmax(diff_curve))]
+		threshold = max_diff - np.float32(self.S) / max(mlen - np.float32(1.0), np.float32(1.0))
+		return bool(max_diff > threshold and diff_curve[m - 2] < threshold)
+
+	def message(self, est) -> str:
+		snap = est if isinstance(est, EstSnapshot) else est.snapshot()
+		return f"Est: {_summary(snap.estimate.cpu())} (#S:{snap.n}, S={float(self.S):3f})"
+
+
+CRITERIA = {"count": CountCriterion, "confidence": ConfidenceCriterion, "tolerance": ToleranceCriterion, "knee": KneeCriterion}
 
 
 def convergence_criterion(criterion: Union[str, ConvergenceCriterion], **kwargs) -> ConvergenceCriterion:
-	"""Resolve a criterion name (with its keyword arguments) or pass a criterion or callable through."""
+	"""Resolve a criterion name (with its keyword arguments) or pass a criterion or callable through.
+
+	A keyword the named criterion does not take raises ``TypeError`` (the JAX
+	package drops it without a word)."""
 	if isinstance(criterion, ConvergenceCriterion) or (callable(criterion) and not isinstance(criterion, str)):
+		if kwargs:
+			raise TypeError(f"criterion keywords {sorted(kwargs)} given with a criterion instance")
 		return criterion
 	if not (isinstance(criterion, str) and criterion.lower() in CRITERIA):
 		raise ValueError(f"Invalid criterion {criterion} (ported: {sorted(CRITERIA)})")
 	crit_cls = CRITERIA[criterion.lower()]
-	accepted = inspect.signature(crit_cls.__init__).parameters
-	return crit_cls(**{k: v for k, v in kwargs.items() if k in accepted})
+	accepted = set(inspect.signature(crit_cls.__init__).parameters) - {"self"}
+	unknown = sorted(set(kwargs) - accepted)
+	if unknown:
+		raise TypeError(f"{crit_cls.__name__} got unexpected keyword arguments {unknown}")
+	return crit_cls(**kwargs)
+
+
+def criterion_needs_values(criterion) -> bool:
+	"""Whether any node of a (composed) criterion reads the recorded samples (a knee criterion)."""
+	if isinstance(criterion, KneeCriterion) or getattr(criterion, "needs_values", False):
+		return True
+	children = [getattr(criterion, a, None) for a in ("left", "right", "inner")]
+	return any(c is not None and criterion_needs_values(c) for c in children)
 
 
 def default_trace_criterion() -> ConvergenceCriterion:
@@ -187,17 +278,22 @@ def _summary(x) -> str:
 
 
 class MeanEstimator:
-	"""Sample-mean estimator over a Welford :class:`~primate_tpu_torch.stats.CovState`."""
+	"""Sample-mean estimator over a Welford :class:`~primate_tpu_torch.stats.CovState`.
 
-	def __init__(self, dim: int = 1, dtype=torch.float64, device="cuda"):
+	``record=True`` keeps every sample in ``values`` (a list of floats, in order),
+	which knee criteria read."""
+
+	def __init__(self, dim: int = 1, dtype=torch.float64, device="cuda", record: bool = False):
 		self.state = make_cov_state(dim, dtype, device)
 		self.delta = torch.full((dim,), float("inf"), dtype=dtype, device=device)
+		self.values: Optional[list] = [] if record else None
 
 	@classmethod
-	def from_state(cls, state: CovState, delta: Optional[torch.Tensor] = None) -> "MeanEstimator":
+	def from_state(cls, state: CovState, delta: Optional[torch.Tensor] = None, values=None) -> "MeanEstimator":
 		obj = cls.__new__(cls)
 		obj.state = state
 		obj.delta = torch.full_like(state.mu, float("inf")) if delta is None else delta
+		obj.values = None if values is None else list(values)
 		return obj
 
 	@property
@@ -233,9 +329,126 @@ class MeanEstimator:
 		old_mu = self.state.mu
 		self.state = cov_update(self.state, x[:, None] if x.ndim == 1 else x)
 		self.delta = self.state.mu - old_mu
+		if self.values is not None:
+			self.values.extend(x.reshape(-1).tolist())
 
 	def snapshot(self) -> EstSnapshot:
-		return snapshot_of(self.state, self.delta)
+		values = torch.tensor(self.values, dtype=self.state.mu.dtype) if self.values else None
+		return snapshot_of(self.state, self.delta, values)
+
+
+class ConfidenceEstimator(MeanEstimator):
+	"""A mean estimator that carries its CLT confidence interval
+	(``primate_tpu/estimators.py:668-720``), on the same Student-t (n < 30) /
+	normal quantile ladder as :class:`ConfidenceCriterion`."""
+
+	def __init__(self, confidence: float = 0.95, dim: int = 1, record: bool = False, dtype=torch.float64, device="cuda"):
+		if not 0 < confidence < 1:
+			raise ValueError("Confidence must be in (0, 1)")
+		super().__init__(dim=dim, dtype=dtype, device=device, record=record)
+		self.confidence = confidence
+		self._z, self._t = clt_quantiles(confidence)
+
+	@property
+	def stderr(self) -> float:
+		"""Standard error of the running mean (the mean per-output variance at dim > 1)."""
+		if self.n_samples < 2:
+			return np.inf
+		var = float(np.mean(np.diagonal(np.atleast_2d(np.asarray(self.converged_variance)))))
+		return float(np.sqrt(max(var, 0.0) / self.n_samples))
+
+	@property
+	def margin_of_error(self) -> float:
+		n = self.n_samples
+		if n < 3:
+			return np.inf
+		score = self._t[min(max(n - 2, 0), 29)] if n < 30 else self._z
+		return float(score * self.stderr)
+
+	@property
+	def interval(self) -> tuple:
+		"""``(lo, hi)`` confidence interval around :attr:`estimate`."""
+		mu, moe = self.estimate, self.margin_of_error
+		if self.dim == 1:
+			return float(mu) - moe, float(mu) + moe
+		return np.asarray(mu) - moe, np.asarray(mu) + moe
+
+	def __repr__(self) -> str:
+		if self.n_samples == 0:
+			return f"ConfidenceEstimator(confidence={self.confidence}, <empty>)"
+		return (
+			f"ConfidenceEstimator({_summary(np.atleast_1d(np.asarray(self.estimate))[:1])} "
+			f"+/- {self.margin_of_error:.4g} @ {self.confidence * 100:.0f}%, #S:{self.n_samples})"
+		)
+
+
+class ControlVariableEstimator(MeanEstimator):
+	"""Mean corrected by control variates of known expectation ``ecv``
+	(``primate_tpu/estimators.py:593-665``): ``mean(x) − α·(mean(cv) − E[cv])``,
+	with α from the running covariance unless given. ``update`` takes rows
+	``[x, cv_1, …]``. Host float64 arithmetic, as in the JAX package."""
+
+	def __init__(self, ecv, alpha=None, record: bool = False):
+		ecv = np.atleast_1d(ecv).ravel().astype(np.float64)
+		if alpha is not None:
+			alpha = np.atleast_1d(alpha).ravel()
+			if len(alpha) != len(ecv):
+				raise ValueError("Coefficients alpha must have same length as the control variables.")
+		super().__init__(dim=1, dtype=torch.float64, device="cpu", record=record)
+		self.ecv, self.alpha = ecv, alpha
+		self._estimate_cor = alpha is None
+		self.cov = make_cov_state(len(ecv) + 1, torch.float64, "cpu")
+		self.delta = np.inf
+
+	@property
+	def n_samples(self) -> int:
+		return self.cov.n
+
+	@property
+	def estimate(self) -> float:
+		if self.cov.n == 0 or self.alpha is None:
+			return np.nan
+		mu = self.cov.mu.numpy()
+		return float(mu[0] - np.dot(np.ravel(self.alpha), mu[1:] - self.ecv))
+
+	def update(self, samples) -> None:
+		samples = np.atleast_1d(np.asarray(samples, dtype=np.float64))
+		samples = samples[None, :] if samples.ndim == 1 else samples
+		old = self.estimate
+		self.cov = cov_update(self.cov, torch.from_numpy(samples))
+		if self._estimate_cor and self.cov.n > 1:
+			C = cov_matrix(self.cov, ddof=1).numpy()
+			if C.shape[0] == 2:
+				self.alpha = np.atleast_1d(C[0, 1] / C[1, 1])
+			else:
+				self.alpha = np.linalg.solve(C[1:, 1:], C[1:, 0])
+		new = self.estimate
+		self.delta = np.inf if (np.isnan(old) or np.isnan(new)) else abs(new - old)
+		if self.values is not None:
+			self.values.extend(samples[:, 0].tolist())
+
+	def snapshot(self) -> EstSnapshot:
+		"""The variance is that of the corrected estimator, ``C00 − C01 C11⁻¹ C10``."""
+		var = None
+		if self.cov.n > 1:
+			C = np.atleast_2d(cov_matrix(self.cov, ddof=1).numpy())
+			if np.all(np.isfinite(C)):
+				c01 = C[0, 1:]
+				try:
+					var = float(C[0, 0] - c01 @ np.linalg.solve(C[1:, 1:], c01))
+				except np.linalg.LinAlgError:
+					var = float(C[0, 0])
+				var = max(var, 0.0)
+			else:
+				var = float(C[0, 0])
+		as_t = lambda x: torch.atleast_1d(torch.as_tensor(x, dtype=torch.float32))  # noqa: E731
+		return EstSnapshot(
+			n=self.cov.n,
+			estimate=as_t(self.estimate),
+			delta=as_t(self.delta),
+			var=None if var is None else torch.tensor(var, dtype=torch.float64),
+			values=torch.tensor(self.values, dtype=torch.float64) if self.values else None,
+		)
 
 
 @dataclass

@@ -1,17 +1,41 @@
-"""Operators on torch tensors: the protocol, DIA and BSR, deflation, and matrix functions."""
+"""Operators on torch tensors: the protocol and its algebra, COO, CSR, DIA and BSR, deflation, and matrix functions."""
 
-from .base import DeflatedOperator, DenseOperator, LinearOperator, aslinop, is_valid_operator, quad_form
-from .sparse import BSROperator, DIAOperator
-from .special_ops import MatrixFunction
+from .base import (
+	AdjointOperator,
+	AffineOperator,
+	ComposedOperator,
+	DeflatedOperator,
+	DenseOperator,
+	FunctionOperator,
+	LinearOperator,
+	ScaledOperator,
+	aslinop,
+	is_linear_op,
+	is_valid_operator,
+	matmat,
+	quad_form,
+)
+from .sparse import BSROperator, COOOperator, CSROperator, DIAOperator
+from .special_ops import MatrixFunction, matrix_function
 
 __all__ = [
 	"LinearOperator",
 	"DenseOperator",
 	"DeflatedOperator",
+	"FunctionOperator",
+	"AffineOperator",
+	"ScaledOperator",
+	"ComposedOperator",
+	"AdjointOperator",
+	"COOOperator",
+	"CSROperator",
 	"BSROperator",
 	"DIAOperator",
 	"MatrixFunction",
+	"matrix_function",
 	"aslinop",
+	"is_linear_op",
 	"is_valid_operator",
+	"matmat",
 	"quad_form",
 ]

@@ -1,9 +1,15 @@
-"""Sparse operators on torch tensors: block-sparse-row (BSR) and banded (DIA).
+"""Sparse operators on torch tensors: COO, CSR, block-sparse-row (BSR) and banded (DIA).
 
-Counterparts of ``BSROperator`` and ``DIAOperator`` in
-``primate_tpu/operators/sparse.py:449-911``. Their applies run the CUDA kernels
-of :mod:`primate_tpu_torch.ops` on the card and the kernels' plain versions on
-the CPU.
+Counterparts of ``COOOperator``, ``CSROperator``, ``BSROperator`` and
+``DIAOperator`` in ``primate_tpu/operators/sparse.py:100-911``. The BSR and DIA
+applies run the CUDA kernels of :mod:`primate_tpu_torch.ops` on the card and the
+kernels' plain versions on the CPU.
+
+CSR and COO: the JAX package applies them by XLA gathers and ``segment_sum``
+over ELL or sliced-ELL planes, with no Pallas kernel. Here the apply is one
+library call, ``torch.sparse_csr_tensor(...) @ V`` (cuSPARSE SpMM on the card,
+PyTorch's own kernel on the CPU), on the structure as scipy stores it; the ELL,
+sliced-ELL and hub-tail planes are TPU layouts with no counterpart.
 
 DIA: row-aligned convention ``bands[d, i] = A[i, i + offsets[d]]``, so
 ``(A x)[i] = Σ_d bands[d, i]·x[i + offsets[d]]``. The TPU's halo-padded carry
@@ -26,7 +32,171 @@ from ..ops.bsr import block_rowids, bsr_spmm
 from ..ops.dia import dia_stencil, dia_stencil_t, lanczos_dia_step, lanczos_dia_sweep_step
 from .base import LinearOperator
 
-__all__ = ["BSROperator", "DIAOperator"]
+__all__ = ["COOOperator", "CSROperator", "BSROperator", "DIAOperator"]
+
+
+def _sparse_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, shape) -> torch.Tensor:
+	"""A torch CSR tensor over the given arrays (no copy), without PyTorch's beta-state notice."""
+	with warnings.catch_warnings():
+		warnings.filterwarnings("ignore", message=".*[Ss]parse.*")
+		return torch.sparse_csr_tensor(indptr, indices, data, size=tuple(shape), check_invariants=False)
+
+
+def _index_dtype(nnz: int, shape) -> torch.dtype:
+	# 32-bit indices where they fit: fewer bytes per nonzero for cuSPARSE to read.
+	return torch.int32 if max(nnz, *shape) < 2**31 - 1 else torch.int64
+
+
+class CSROperator(LinearOperator):
+	"""Compressed-sparse-row operator (``primate_tpu/operators/sparse.py:153-447``).
+
+	``data (nnz,)``, column ``indices`` and row pointers ``indptr`` as scipy keeps
+	them (sorted, no duplicates, after :meth:`from_scipy`). Every apply is one
+	library SpMM on a node-major ``(n, k)`` block. cuSPARSE takes a column-major
+	(probe-major) block as it lies, but on the H100 that ran 14× slower than a
+	copy to node-major and the node-major product (``PERF.md`` section 6), so a
+	probe-major block is copied first, and ``matmat_t`` (the probe-major apply the
+	Lanczos sweep calls) copies its result back to probe-major; each copy is
+	counted in ``ops.LAYOUT_COPIES["csr_spmm"]``.
+	"""
+
+	def __init__(self, data: torch.Tensor, indices, indptr, shape: Tuple[int, int]):
+		self.data = data.contiguous()
+		self.dtype, self.device = self.data.dtype, self.data.device
+		self.shape = tuple(int(s) for s in shape)
+		idx = _index_dtype(self.data.numel(), self.shape)
+		self.indices = torch.as_tensor(indices, device=self.device).to(idx).contiguous()
+		self.indptr = torch.as_tensor(indptr, device=self.device).to(idx).contiguous()
+		if self.indptr.shape[0] != self.shape[0] + 1 or self.indices.shape[0] != self.data.shape[0]:
+			raise ValueError(f"indptr {tuple(self.indptr.shape)} / indices {tuple(self.indices.shape)} do not fit shape {self.shape}")
+		self.csr = _sparse_csr(self.indptr, self.indices, self.data, self.shape)
+		self._rowids = None
+
+	@classmethod
+	def from_numpy(cls, data, indices, indptr, shape, *, dtype=None, device="cuda") -> "CSROperator":
+		"""From numpy ``data``, column ``indices`` and row pointers ``indptr`` (scipy's CSR arrays)."""
+		return cls(torch.tensor(np.asarray(data), dtype=dtype, device=device), np.asarray(indices), np.asarray(indptr), shape)
+
+	@classmethod
+	def from_scipy(cls, A, dtype=None, device="cuda") -> "CSROperator":
+		"""From any scipy sparse matrix: converted to CSR, duplicates summed, columns sorted."""
+		A = A.tocsr(copy=True)
+		A.sum_duplicates()
+		return cls.from_numpy(A.data, A.indices, A.indptr, A.shape, dtype=dtype, device=device)
+
+	@classmethod
+	def from_dense(cls, A, tol: float = 0.0, dtype=None, device="cuda") -> "CSROperator":
+		"""From a dense matrix, keeping the entries with ``|a| > tol``."""
+		import scipy.sparse as sps
+
+		A = np.asarray(A)
+		return cls.from_scipy(sps.csr_matrix(np.where(np.abs(A) > tol, A, 0)), dtype=dtype, device=device)
+
+	@property
+	def nnz(self) -> int:
+		return int(self.data.shape[0])
+
+	@property
+	def rowids(self) -> torch.Tensor:
+		"""The row of every stored entry."""
+		if self._rowids is None:
+			counts = (self.indptr[1:] - self.indptr[:-1]).long()
+			self._rowids = torch.repeat_interleave(torch.arange(self.shape[0], device=self.device), counts)
+		return self._rowids
+
+	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
+		V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
+		if not V.is_contiguous():
+			V = V.contiguous()
+			LAYOUT_COPIES["csr_spmm"] += 1
+		return self.csr @ V
+
+	def matvec(self, v: torch.Tensor) -> torch.Tensor:
+		v = torch.as_tensor(v, dtype=self.dtype, device=self.device)
+		return self.csr @ v if v.ndim == 1 else self._matmat(v)
+
+	def matmat_t(self, Vt: torch.Tensor) -> torch.Tensor:
+		Y = self._matmat(torch.as_tensor(Vt, device=self.device).T)
+		LAYOUT_COPIES["csr_spmm"] += 1
+		return Y.T.contiguous()
+
+	def rmatmat(self, V: torch.Tensor) -> torch.Tensor:
+		"""Adjoint apply ``A† V`` (plain PyTorch: gather by row, ``index_add_`` by column)."""
+		V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
+		single = V.ndim == 1
+		V = V[:, None] if single else V
+		prod = self.data.conj()[:, None] * V[self.rowids]
+		out = torch.zeros((self.shape[1], V.shape[1]), dtype=prod.dtype, device=self.device)
+		out.index_add_(0, self.indices.long(), prod)
+		return out[:, 0] if single else out
+
+	def rmatvec(self, v: torch.Tensor) -> torch.Tensor:
+		return self.rmatmat(v)
+
+	def todense(self) -> torch.Tensor:
+		return self.csr.to_dense()
+
+	def _scipy(self):
+		import scipy.sparse as sps
+
+		return sps.csr_matrix((self.data.cpu().numpy(), self.indices.cpu().numpy(), self.indptr.cpu().numpy()), shape=self.shape)
+
+	def tobsr(self, blocksize: Tuple[int, int] = (8, 128)) -> "BSROperator":
+		"""The same matrix as a :class:`BSROperator` of ``blocksize`` tiles (through scipy)."""
+		return BSROperator.from_scipy(self._scipy(), blocksize=blocksize, dtype=self.dtype, device=self.device)
+
+
+class COOOperator(LinearOperator):
+	"""Coordinate-format operator: ``(data, row, col)`` triplets
+	(``primate_tpu/operators/sparse.py:100-150``). Repeated coordinates add up. The
+	applies run through a CSR tensor built from the triplets once, as :class:`CSROperator`'s do."""
+
+	def __init__(self, data: torch.Tensor, row, col, shape: Tuple[int, int]):
+		self.data = data.contiguous()
+		self.dtype, self.device = self.data.dtype, self.data.device
+		self.shape = tuple(int(s) for s in shape)
+		self.row = torch.as_tensor(row, device=self.device).long()
+		self.col = torch.as_tensor(col, device=self.device).long()
+		coo = torch.sparse_coo_tensor(torch.stack([self.row, self.col]), self.data, self.shape, check_invariants=False).coalesce()
+		r, c = coo.indices()
+		counts = torch.bincount(r, minlength=self.shape[0])
+		indptr = torch.cat([torch.zeros(1, dtype=torch.long, device=self.device), torch.cumsum(counts, 0)])
+		self._csr = CSROperator(coo.values(), c, indptr, self.shape)
+
+	@classmethod
+	def from_scipy(cls, A, dtype=None, device="cuda") -> "COOOperator":
+		A = A.tocoo()
+		return cls(torch.tensor(A.data, dtype=dtype, device=device), A.row, A.col, A.shape)
+
+	@classmethod
+	def from_dense(cls, A, tol: float = 0.0, dtype=None, device="cuda") -> "COOOperator":
+		"""From a dense matrix, keeping the entries with ``|a| > tol``."""
+		A = np.asarray(A)
+		r, c = np.nonzero(np.abs(A) > tol)
+		return cls(torch.tensor(A[r, c], dtype=dtype, device=device), r, c, A.shape)
+
+	@property
+	def nnz(self) -> int:
+		return int(self.data.shape[0])
+
+	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
+		return self._csr._matmat(V)
+
+	def matvec(self, v: torch.Tensor) -> torch.Tensor:
+		return self._csr.matvec(v)
+
+	def matmat_t(self, Vt: torch.Tensor) -> torch.Tensor:
+		return self._csr.matmat_t(Vt)
+
+	def rmatmat(self, V: torch.Tensor) -> torch.Tensor:
+		return self._csr.rmatmat(V)
+
+	def rmatvec(self, v: torch.Tensor) -> torch.Tensor:
+		return self._csr.rmatmat(v)
+
+	def todense(self) -> torch.Tensor:
+		out = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+		return out.index_put_((self.row, self.col), self.data, accumulate=True)
 
 
 class BSROperator(LinearOperator):

@@ -1,10 +1,14 @@
 """Implicit matrix functions ``f(A)`` through Lanczos quadrature.
 
-Counterpart of ``MatrixFunction`` in ``primate_tpu/operators/special_ops.py:28-155,222-284``:
-the constructor, ``stack_shape``, ``_lanczos`` and ``quad`` (Gauss rule). One
-block Lanczos sweep and one batched tridiagonal eigensolve cover all probe
-columns. ``matvec`` (one- and two-pass f(A)v), Gauss-Radau/Lobatto rules and
-Gram operators are not ported yet.
+Counterpart of ``MatrixFunction`` and ``matrix_function`` in
+``primate_tpu/operators/special_ops.py:28-316``. One block Lanczos sweep and one
+batched tridiagonal eigensolve cover all probe columns: ``quad`` estimates
+``xᵀ f(A) x`` by a Gauss (or Gauss-Radau/Lobatto) rule, ``matvec``/``matmat``
+approximate ``f(A) x`` in the Krylov basis, in one pass over a stored basis or
+in two passes that keep only O(n·nv) memory. A stacked family
+(:func:`~primate_tpu_torch.special.stacked`) is evaluated from the same sweep.
+The Gram (Golub-Kahan) branch waits for ``bidiag``; complex (Hermitian)
+operators are not ported yet.
 """
 
 from typing import Callable, Optional, Tuple, Union
@@ -12,27 +16,44 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..linalg import full_f32_matmul
 from ..special import param_callable
-from .base import LinearOperator, aslinop
+from ..tridiag import eigh_tridiag
+from .base import LinearOperator, aslinop, torch_dtype
 
-__all__ = ["MatrixFunction"]
+__all__ = ["MatrixFunction", "matrix_function"]
+
+# The keywords the constructor passes on: the breakdown tolerance and the builtin
+# functions' parameters (``special._cached_builtin``).
+_FUN_KWARGS = ("rtol", "t", "a", "b", "q", "threshold")
+QUAD_RULES = ("gauss", "radau_lo", "radau_hi", "lobatto")
 
 
 class MatrixFunction(LinearOperator):
 	r"""Implicit matrix function ``f(A) = U f(Λ) Uᵀ`` as a linear operator.
 
-	``quad`` estimates ``x ↦ xᵀ f(A) x`` by Gauss quadrature on the Jacobi
-	matrix of a degree-``deg`` Lanczos sweep, for a block of columns at once.
+	``matvec``/``matmat`` approximate ``x ↦ f(A)x`` by a degree-``deg`` Krylov
+	expansion ``‖x‖ · Q · Y · (f(θ) ∘ Y[0,:])ᵀ``; ``quad`` estimates
+	``x ↦ xᵀ f(A) x`` by Gauss quadrature on the Jacobi matrix, for a block of
+	columns at once.
 
 	Parameters:
-		A: tensor / numpy array / LinearOperator to lift.
-		fun: spectral function (builtin name or a callable on tensors).
+		A: tensor / numpy array / scipy matrix / LinearOperator to lift.
+		fun: spectral function (builtin name, callable on tensors, or a stacked family).
 		deg: Krylov expansion degree.
 		orth: re-orthogonalization count (<0 or >deg means full).
 		dtype: computation dtype (defaults to A's dtype).
-		device: where a numpy ``A`` is put, the card unless ``"cpu"`` (a tensor or operator keeps its own).
+		two_pass: f(A)x in two sweeps (O(n·nv) memory) or one (a stored basis);
+			"auto" takes two when ``basis_dtype`` is narrower than ``dtype`` or the
+			basis would pass 1 GiB.
 		reorth_passes: classical Gram-Schmidt passes per re-orthogonalization.
-		kwargs: ``rtol`` (breakdown tolerance) and the builtin function's parameters (e.g. ``t`` for exp).
+		basis_dtype: storage dtype of the basis window (e.g. ``torch.bfloat16``).
+		quad_rule: "gauss", or "radau_lo"/"radau_hi"/"lobatto" with node(s) fixed at
+			the ends of ``interval`` (which must lie outside the spectrum).
+		interval: ``(a, b)`` for the Radau and Lobatto rules.
+		device: where a numpy or scipy ``A`` is put, the card unless ``"cpu"``.
+		kwargs: ``rtol`` (breakdown tolerance) and the builtin function's parameters
+			(``t``, ``a``, ``b``, ``q``, ``threshold``). Any other keyword raises.
 	"""
 
 	def __init__(
@@ -41,28 +62,65 @@ class MatrixFunction(LinearOperator):
 		fun: Union[str, Callable, None] = None,
 		deg: int = 20,
 		orth: int = 3,
-		dtype: Optional[torch.dtype] = None,
+		dtype=None,
+		two_pass: Union[bool, str] = "auto",
 		reorth_passes: int = 2,
+		basis_dtype=None,
+		quad_rule: str = "gauss",
+		interval: Optional[tuple] = None,
 		device="cuda",
 		**kwargs,
 	):
+		unknown = sorted(set(kwargs) - set(_FUN_KWARGS))
+		if unknown:
+			raise TypeError(f"MatrixFunction() got unexpected keyword arguments {unknown}")
 		if deg < 2:
 			raise ValueError("Degree must be >= 2")
+		if quad_rule not in QUAD_RULES:
+			raise ValueError(f"Unknown quad_rule {quad_rule!r}")
+		if quad_rule != "gauss" and interval is None:
+			raise ValueError("radau/lobatto quad rules need interval=(a, b) endpoints outside the spectrum")
+		if not (isinstance(two_pass, bool) or two_pass == "auto"):
+			raise ValueError(f"two_pass must be True, False or 'auto', got {two_pass!r}")
+		dtype = torch_dtype(dtype)
 		self._A = aslinop(A, dtype=dtype, device=device)
 		self.shape = self._A.shape
 		self.dtype = dtype if dtype is not None else self._A.dtype
+		if self.dtype.is_complex:
+			raise NotImplementedError("MatrixFunction of complex (Hermitian) operators is not ported yet")
 		self.device = self._A.device
+		self.fun = param_callable(fun, **kwargs) if (fun is None or isinstance(fun, str)) else fun
 		self._fun_scalar = fun is None or isinstance(fun, str)
-		self.fun = param_callable(fun, **kwargs)
 		self._deg = int(min(deg, self.shape[0]))
 		self._orth = self._deg if (orth < 0 or orth > self._deg) else int(orth)
 		self._rtol = kwargs.get("rtol", 1e-8)
+		self._two_pass = two_pass
 		self._reorth_passes = int(reorth_passes)
+		self._basis_dtype = torch_dtype(basis_dtype)
+		self._quad_rule = quad_rule
+		self._interval = None if interval is None else (float(interval[0]), float(interval[1]))
+
+	@property
+	def fun(self) -> Callable:
+		"""The spectral function; assignable after construction (a name goes through the builtins)."""
+		return self._fun
+
+	@fun.setter
+	def fun(self, value: Union[str, Callable, None]) -> None:
+		self._fun_scalar = value is None or isinstance(value, str)
+		if self._fun_scalar:
+			value = param_callable(value)
+		if not callable(value):
+			raise TypeError("Function must be callable.")
+		self._fun = value
 
 	@property
 	def stack_shape(self) -> Optional[Tuple[int, ...]]:
-		"""Leading (stack) axes of ``quad`` outputs: ``()`` for a builtin, None
-		for a callable, whose output shape only a call can tell."""
+		"""Leading (stack) axes of ``quad`` and ``matvec`` outputs: ``()`` for a builtin,
+		``(nt,)`` for a stacked family, None for a callable, whose output shape only a call can tell."""
+		nout = getattr(self._fun, "nout", None)
+		if nout is not None:
+			return (int(nout),)
 		return () if self._fun_scalar else None
 
 	@property
@@ -73,24 +131,88 @@ class MatrixFunction(LinearOperator):
 	def operator(self) -> LinearOperator:
 		return self._A
 
-	def _lanczos(self, X: torch.Tensor, ncv: int):
+	def _lanczos(self, X: torch.Tensor, ncv: int, return_basis: bool = True, coeffs=None):
 		from ..lanczos import lanczos_block_op
 
 		return lanczos_block_op(
-			self._A, X, deg=self._deg, ncv=ncv, orth=self._orth, rtol=self._rtol, reorth_passes=self._reorth_passes
+			self._A, X, deg=self._deg, ncv=ncv, orth=self._orth, rtol=self._rtol, reorth_passes=self._reorth_passes,
+			return_basis=return_basis, coeffs=coeffs, basis_dtype=self._basis_dtype,
 		)
 
+	def _modified_rule(self, d: torch.Tensor, e: torch.Tensor, beta_end: torch.Tensor):
+		"""The configured Gauss-Radau/Lobatto rule on batched Jacobi ``(d, e)``."""
+		from ..integrate import lobatto_rule, radau_rule
+
+		a, b = self._interval
+		if self._quad_rule == "radau_lo":
+			return radau_rule(d, e, beta_end, a)
+		if self._quad_rule == "radau_hi":
+			return radau_rule(d, e, beta_end, b)
+		return lobatto_rule(d, e, beta_end, a, b)
+
+	def _use_two_pass(self, nv: int) -> bool:
+		if isinstance(self._two_pass, bool):
+			return self._two_pass
+		# auto, rule 1: a narrowed basis window would cap the one-pass matvec at its precision.
+		itemsize = torch.empty(0, dtype=self.dtype).element_size()
+		if self._basis_dtype is not None and torch.empty(0, dtype=self._basis_dtype).element_size() < itemsize:
+			return True
+		# auto, rule 2: trade a second sweep for O(n·nv) memory past a 1 GiB basis.
+		return self._deg * self.shape[0] * nv * itemsize > (1 << 30)
+
+	def _coeffs(self, out) -> torch.Tensor:
+		"""Expansion coefficients of f(T)e₁ in the Lanczos basis → ``(..., b, deg)`` (the
+		leading axes those of a stacked family)."""
+		a = out.alphas.T
+		e = out.betas[: self._deg - 1].T
+		rw, Y = eigh_tridiag(a, e)  # (b, deg), (b, deg, deg)
+		w = self.fun(rw) * Y[:, 0, :]
+		with full_f32_matmul():
+			return torch.einsum("bij,...bj->...bi", Y, w)
+
+	def _matmat(self, X: torch.Tensor) -> torch.Tensor:
+		X = torch.as_tensor(X, dtype=self.dtype, device=self.device)
+		x_norm = torch.linalg.vector_norm(X, dim=0)  # (b,)
+		ncv_short = max(2, min(self._orth, self._deg))
+		if self._use_two_pass(X.shape[1]):
+			# Pass 1: coefficients only; pass 2: the same deterministic recurrence, accumulating y = Σ c_t q_t.
+			c = self._coeffs(self._lanczos(X, ncv=ncv_short, return_basis=False))
+			out = self._lanczos(X, ncv=ncv_short, return_basis=False, coeffs=torch.movedim(c, -1, 0))
+			return (x_norm * out.y).to(self.dtype)  # (..., n, b)
+		out = self._lanczos(X, ncv=self._deg)
+		c = self._coeffs(out)
+		# out.Q is (deg, n, b), slot t holding q_t; the window itself is (deg, b, n).
+		Qw = out.Q.permute(0, 2, 1)
+		y_dtype = torch.promote_types(Qw.dtype, c.dtype)
+		with full_f32_matmul():
+			y = torch.einsum("kbn,...bk->...nb", Qw.to(y_dtype), c.to(y_dtype))
+		return (x_norm * y).to(self.dtype)
+
+	def matvec(self, v: torch.Tensor) -> torch.Tensor:
+		v = torch.as_tensor(v, device=self.device)
+		return self._matmat(v[:, None])[..., 0]  # (n,), or (nt, n) for a stacked family
+
 	def quad(self, x) -> torch.Tensor:
-		"""Batched Lanczos-quadrature estimates of ``diag(xᵀ f(A) x)`` for ``x (n, b)`` → ``(b,)``."""
+		"""Batched Lanczos-quadrature estimates of ``diag(xᵀ f(A) x)`` for ``x (n, b)`` → ``(b,)``,
+		or ``(nt, b)`` for a stacked family (one sweep for the whole family)."""
 		from ..integrate import spectral_quad_form
 
 		X = torch.as_tensor(x, dtype=self.dtype, device=self.device)
 		X = X[:, None] if X.ndim == 1 else X
-		if self.dtype.is_complex:
-			raise NotImplementedError("MatrixFunction.quad of complex (Hermitian) operators is not ported yet")
 		Xa = X.to(torch.promote_types(X.dtype, torch.float32))
 		x_norm_sq = torch.sum(Xa * Xa, dim=0)
 		ncv = int(np.clip(max(self._orth, 2), 2, self._deg))
-		out = self._lanczos(X, ncv=ncv)  # quadrature needs only (α, β)
-		vals = spectral_quad_form(out.alphas.T, out.betas[: self._deg - 1].T, self.fun)
+		out = self._lanczos(X, ncv=ncv, return_basis=False)  # quadrature needs only (α, β)
+		d, e = out.alphas.T, out.betas[: self._deg - 1].T
+		if self._quad_rule != "gauss":
+			nodes, weights = self._modified_rule(d, e, out.betas[self._deg - 1])
+			vals = torch.sum(self.fun(nodes) * weights, dim=-1)
+		else:
+			vals = spectral_quad_form(d, e, self.fun)
 		return (vals * x_norm_sq).to(self.dtype)
+
+
+def matrix_function(A, fun: Union[str, Callable, None] = None, v=None, deg: int = 20, **kwargs):
+	"""The operator ``f(A)``, or ``f(A) v`` when ``v`` is given (``primate_tpu/operators/special_ops.py:310-316``)."""
+	M = MatrixFunction(A, fun=fun, deg=deg, **kwargs)
+	return M if v is None else M @ torch.as_tensor(v, device=M.device)

@@ -7,9 +7,10 @@ __all__ = ["LAUNCHES", "LAYOUT_COPIES", "SCALAR_LAUNCHES", "reset_launches"]
 # Kernel launches per wrapper since the last `reset_launches()`. Each wrapper adds
 # one where it launches its kernel and nowhere else; its plain version counts nothing.
 LAUNCHES = {"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "dia_stencil": 0, "bsr_spmm": 0}
-# Copies an operator made to hand a kernel the layout it reads (a probe-major
-# block made node-major for the BSR kernel), per kernel.
-LAYOUT_COPIES = {"bsr_spmm": 0}
+# Copies an operator made to hand a kernel or library call the layout it reads
+# (a probe-major block made node-major for the BSR kernel), or to hand back the
+# layout its caller reads (the CSR product of a probe-major block), per apply.
+LAYOUT_COPIES = {"bsr_spmm": 0, "csr_spmm": 0}
 # Launches that took a kernel's scalar path: a length or a pointer that does not
 # allow its 16-byte loads and stores (see `vector_ok`).
 SCALAR_LAUNCHES = {"lanczos_dia_step": 0, "lanczos_dia_residual": 0, "dia_stencil": 0, "bsr_spmm": 0}

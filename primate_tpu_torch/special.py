@@ -1,7 +1,8 @@
 """Spectral function gallery: builtin ``f`` for matrix functions ``f(A)``.
 
-Counterpart of ``primate_tpu/special.py:104-128,175-``. Every builtin maps a
-tensor of quadrature nodes to a tensor, on the nodes' device.
+Counterpart of ``primate_tpu/special.py:104-192``. Every builtin maps a
+tensor of quadrature nodes to a tensor, on the nodes' device. A stacked family
+(:func:`stacked`) maps them to a tensor with one more leading axis.
 """
 
 from functools import lru_cache
@@ -11,7 +12,7 @@ from typing import Any, Callable, Union
 import numpy as np
 import torch
 
-__all__ = ["param_callable", "softsign", "smoothstep", "exp", "step", "identity", "BUILTIN_MATRIX_FUNCTIONS"]
+__all__ = ["param_callable", "stacked", "softsign", "smoothstep", "exp", "step", "identity", "BUILTIN_MATRIX_FUNCTIONS"]
 
 BUILTIN_MATRIX_FUNCTIONS = ["identity", "abs", "sqrt", "log", "inv", "exp", "smoothstep", "numrank", "softsign"]
 
@@ -95,6 +96,41 @@ def _cached_builtin(fun: str, kwargs_items: tuple) -> Callable:
 	if fun == "numrank":
 		return step(c=kwargs.pop("threshold", 1e-6), nonnegative=True)
 	raise ValueError(f"Unknown function: {fun}.")
+
+
+@lru_cache(maxsize=256)
+def _cached_stacked(fun: str, param: str, values: tuple, kwargs_items: tuple) -> Callable:
+	fs = [param_callable(fun, **{param: v}, **dict(kwargs_items)) for v in values]
+
+	def _stacked(x):
+		return torch.stack([f(x) for f in fs])
+
+	_stacked.nout = len(fs)
+	return _stacked
+
+
+def stacked(fun: Union[str, Callable], values, param: str = "t", **kwargs) -> Callable:
+	"""A family of spectral functions as one callable (``primate_tpu/special.py:142-172``):
+	``stacked(fun, values)(x)[i] == fun(x, param=values[i])``, with one leading
+	axis of length ``len(values)`` (its ``nout``).
+
+	``MatrixFunction.quad``/``matvec``, :func:`~primate_tpu_torch.hutch` and
+	:func:`~primate_tpu_torch.diag` evaluate the whole family from one Lanczos sweep
+	per probe block. ``fun`` is a builtin name (the value goes in as ``param``) or a
+	callable ``(x, value)``; ``kwargs`` are fixed across the family. Builtin
+	families are memoised on their arguments.
+	"""
+	vals = tuple(float(v) for v in np.atleast_1d(np.asarray(values)).ravel())
+	if isinstance(fun, str):
+		return _cached_stacked(fun, param, vals, tuple(sorted(kwargs.items())))
+	if not callable(fun):
+		raise TypeError("Matrix function must be a string or callable.")
+
+	def _stacked(x):
+		return torch.stack([fun(x, v) for v in vals])
+
+	_stacked.nout = len(vals)
+	return _stacked
 
 
 def param_callable(fun: Union[str, Callable, None], **kwargs) -> Callable:

@@ -6,8 +6,10 @@ enqueues each batch's device work. Batch ``it`` draws its probes from a
 ``torch.Generator`` on the operator's device seeded by ``(seed, it)``, the
 counterpart of ``fold_in(key, it)``, so ``resume`` continues the same stream.
 A count criterion decides on the host sample count and never reads the
-device; adaptive criteria read it once per batch. Not ported yet: a per-batch
-``callback``, recorded samples (knee criteria) and ``differentiable=True``.
+device; adaptive criteria read it once per batch, as do a per-batch
+``callback`` and recorded samples (``record=True``, knee criteria). A stacked
+family of spectral functions gives a Welford state per member, from one sweep
+per batch. Not ported yet: ``differentiable=True``.
 
 The sketch estimators (``hutchpp``, ``xtrace``, ``xnystrace``) split into a
 sampling step, which draws round ``it``'s probes from the generator keyed by
@@ -31,13 +33,13 @@ from .estimators import (
 	MeanEstimator,
 	OrCriterion,
 	convergence_criterion,
+	criterion_needs_values,
 	default_trace_criterion,
-	snapshot_of,
 )
 from .linalg import colwise_dot, full_f32, qr_append, tall_qr, update_trinv_block
 from .operators.base import DeflatedOperator, aslinop, is_valid_operator, quad_form
 from .random import classify_pdf, real_dtype, sample_isotropic
-from .stats import CovState, cov_update, make_cov_state
+from .stats import CovState, make_cov_state
 
 __all__ = ["hutch", "hutchpp", "xtrace", "xnystrace"]
 
@@ -96,6 +98,19 @@ def count_only_target(criterion) -> Optional[int]:
 	return None
 
 
+# Keywords of the JAX ``hutch`` that only its differentiable path reads.
+DIFFERENTIABLE_KWARGS = ("grad_method", "fprime", "solver_rtol", "solver_maxiter")
+
+
+def reject_differentiable(name: str, kwargs: dict) -> None:
+	"""Raise on ``differentiable=True`` and on the keywords only that path reads (not ported yet)."""
+	if kwargs.pop("differentiable", False):
+		raise NotImplementedError(f"{name}: differentiable=True is not ported yet")
+	for key in DIFFERENTIABLE_KWARGS:
+		if key in kwargs:
+			raise NotImplementedError(f"{name}: {key}= belongs to differentiable=True, which is not ported yet")
+
+
 def hutch(
 	A,
 	batch: int = 32,
@@ -103,35 +118,39 @@ def hutch(
 	converge: Union[str, ConvergenceCriterion] = "default",
 	seed=None,
 	full: bool = False,
+	callback: Optional[Callable] = None,
 	maxiter: int = 1024,
 	resume=None,
+	record: bool = False,
 	**kwargs,
 ):
-	r"""Estimate ``tr(A)`` for symmetric ``A`` by the Girard-Hutchinson estimator.
+	r"""Estimate ``tr(A)`` for symmetric ``A`` by the Girard-Hutchinson estimator
+	(``primate_tpu/trace.py:152-360``).
 
 	The mean of isotropic quadratic forms ``vᵀAv``. With a :class:`MatrixFunction`
 	the operator's batched ``quad`` is used, which makes this stochastic Lanczos
-	quadrature for ``tr(f(A))`` (logdet with ``fun="log"``).
+	quadrature for ``tr(f(A))`` (logdet with ``fun="log"``); with a stacked family
+	(:func:`~primate_tpu_torch.special.stacked`) the estimate is one per member
+	``(nt,)``, all from one sweep per batch.
 
 	``batch`` probes per iteration; ``pdf`` a distribution name (rademacher,
 	normal, sphere), a callable ``(generator, shape, dtype)`` or a numpy-style
 	host sampler ``pdf(size=...)``; ``converge`` a criterion name
-	("count"/"confidence", keyword arguments routed to it) or instance (default:
-	200 samples OR 95% CI within ±1.0); ``seed`` an int, a numpy Generator or
-	None; ``full`` also returns an :class:`EstimatorResult`; ``maxiter`` bounds
-	the total batches, resumed ones included. ``resume`` continues a run from
-	its ``full=True`` result (or its estimator), made with the same
-	``A``/``seed``/``batch``/``pdf``: the estimate equals that of one
-	uninterrupted run.
+	("count"/"confidence"/"tolerance"/"knee", its keyword arguments routed to it)
+	or instance (default: 200 samples OR 95% CI within ±1.0); ``seed`` an int, a
+	numpy Generator or None; ``full`` also returns an :class:`EstimatorResult`;
+	``callback(result)`` is called after every batch with the running estimate;
+	``record=True`` (implied by a knee criterion) keeps every sample in
+	``result.estimator.values``; ``maxiter`` bounds the total batches, resumed
+	ones included. ``resume`` continues a run from its ``full=True`` result (or
+	its estimator), made with the same ``A``/``seed``/``batch``/``pdf``: the
+	estimate equals that of one uninterrupted run.
 	"""
 	is_valid_operator(A)
 	op = A if hasattr(A, "quad") else aslinop(A)
-	if kwargs.pop("differentiable", False):
-		raise NotImplementedError("differentiable=True is not ported yet")
+	reject_differentiable("hutch", kwargs)
 	if batch < 1:
 		raise ValueError("Batch size must be positive.")
-	if getattr(op, "stack_shape", ()):
-		raise NotImplementedError("stacked (family-valued) spectral functions are not ported yet")
 	N = op.shape[0]
 	if converge == "default":
 		if kwargs:
@@ -139,40 +158,59 @@ def hutch(
 		criterion = default_trace_criterion()
 	else:
 		criterion = convergence_criterion(converge, **kwargs)
+	# A knee criterion reads the recorded samples; without them it would never fire.
+	record = record or criterion_needs_values(criterion)
 
 	device = op.device
 	acc = real_dtype(torch.promote_types(op.dtype, torch.float32))
 	s_dtype = real_dtype(op.dtype)
 	pdf_kind = classify_pdf(pdf)
 	base = _base_seed(seed)
+	stack_shape = getattr(op, "stack_shape", None)
+	if stack_shape is None:  # a callable spectral function: its output shape only a call can tell
+		stack_shape = quad_form(op, torch.zeros((N, 1), dtype=s_dtype, device=device)).shape[:-1]
+	stack_shape = tuple(stack_shape)
+	dim = int(np.prod(stack_shape)) if stack_shape else 1
+	if dim > 1 and record:
+		raise NotImplementedError("record=True (and knee criteria) require a scalar-valued quad; got a stacked one.")
 
-	state, it = make_cov_state(1, acc, device), 0
+	state, it = make_cov_state(dim, acc, device), 0
 	if resume is not None:
+		if record:
+			raise NotImplementedError("resume does not carry a recorded-samples buffer; run with record=False.")
 		est = resume.estimator if isinstance(resume, EstimatorResult) else resume
 		if not (isinstance(est, MeanEstimator) and isinstance(est.state, CovState)):
 			raise TypeError("resume expects an EstimatorResult or MeanEstimator from hutch(..., full=True)")
 		st = est.state
+		if st.mu.shape[0] != dim:
+			raise ValueError(f"resume state dim {st.mu.shape[0]} != quad dim {dim}")
 		if st.n % batch != 0:
 			raise ValueError(f"resume state has {st.n} samples, not a multiple of batch={batch}")
 		state, it = CovState(st.n, st.mu.to(device, acc), st.S.to(device, acc)), st.n // batch
-	delta = torch.full((1,), float("inf"), dtype=acc, device=device)
+	estimator = MeanEstimator.from_state(state, values=[] if record else None)
+	result = EstimatorResult(estimator=estimator, criterion=criterion)
 
-	while it < maxiter and not criterion.check(snapshot_of(state, delta)):
+	def current_estimate():
+		e = estimator.estimate
+		return e if not stack_shape else np.asarray(e).reshape(stack_shape)
+
+	while it < maxiter and not criterion.check(estimator.snapshot()):
 		if pdf_kind == "size":
 			# Reference hot-loop semantics: the stateful sampler draws on the host.
 			V = torch.as_tensor(np.asarray(pdf(size=(N, batch))), dtype=s_dtype, device=device)
 		else:
 			V = sample_isotropic(batch_generator(base, it, device), (N, batch), pdf=pdf, dtype=s_dtype)
 		s = quad_form(op, V).to(acc)
-		if s.shape != (batch,):
-			raise NotImplementedError(f"hutch takes scalar quadratic forms (batch,); got {tuple(s.shape)}")
-		new = cov_update(state, s[:, None])
-		delta, state = new.mu - state.mu, new
+		if s.shape != stack_shape + (batch,):
+			raise ValueError(f"quad returned shape {tuple(s.shape)}, expected {stack_shape + (batch,)}")
+		estimator.update(s.reshape(dim, batch).T)
 		it += 1
+		if callback is not None:
+			result.estimate, result.nit = current_estimate(), estimator.n_samples
+			callback(result)
 
-	estimator = MeanEstimator.from_state(state, delta=delta)
-	estimate = estimator.estimate
-	capped = it >= maxiter and not criterion.check(snapshot_of(state, delta))
+	estimate = current_estimate()
+	capped = it >= maxiter and not criterion.check(estimator.snapshot())
 	if capped:
 		warnings.warn(
 			f"hutch: stopped by maxiter={maxiter} before the convergence criterion was met; "
@@ -181,13 +219,8 @@ def hutch(
 		)
 	if not full:
 		return estimate
-	result = EstimatorResult(
-		estimator=estimator,
-		criterion=criterion,
-		estimate=estimate,
-		message=criterion.message(estimator) if hasattr(criterion, "message") else "",
-		nit=state.n,
-	)
+	result.estimate, result.nit = estimate, estimator.n_samples
+	result.message = criterion.message(estimator) if hasattr(criterion, "message") else ""
 	if capped:
 		result.info["capped"] = True
 	return estimate, result
@@ -247,8 +280,7 @@ def hutchpp(
 	"""
 	if batch < 1:
 		raise ValueError("Batch size must be positive.")
-	if kwargs.pop("differentiable", False):
-		raise NotImplementedError("differentiable=True is not ported yet")
+	reject_differentiable("hutchpp", kwargs)
 	if mode not in ("reduced", "full"):
 		raise ValueError(f"mode must be 'reduced' or 'full', got {mode!r}")
 	op = _sketch_op(A, "hutchpp")

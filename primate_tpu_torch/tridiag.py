@@ -1,16 +1,24 @@
 """Batched symmetric tridiagonal eigensolves.
 
-Counterpart of ``primate_tpu/tridiag.py:48-75``. The Jacobi matrices of a
-Lanczos sweep are small (deg × deg) and come in batches of nv probes, so each
-is densified and the batch goes to ``torch.linalg.eigh``, as the JAX package
-leaves it to ``jnp.linalg.eigh``.
+Counterpart of ``primate_tpu/tridiag.py:48-239``. The Jacobi matrices of a
+Lanczos sweep are small (deg × deg) and come in batches of nv probes, so the
+default (``method="auto"``/``"eigh"``/``"mrrr"``) densifies each and hands the
+batch to ``torch.linalg.eigh``, as the JAX package leaves it to
+``jnp.linalg.eigh``. ``method="tqli"`` runs the implicit-shift QL solver
+instead: the reference's Pythran ``tqli`` is host code, and so is this one, a
+scalar loop per matrix in float64 whose result goes back to the input's device.
 """
 
-from typing import Tuple
+import math
+import warnings
+from typing import Tuple, Union
 
+import numpy as np
 import torch
 
-__all__ = ["tridiag_matrix", "eigh_tridiag"]
+__all__ = ["tridiag_matrix", "eigh_tridiag", "eigvalsh_tridiag", "tqli"]
+
+_METHODS = ("auto", "eigh", "mrrr", "tqli")
 
 
 def _normalize_offdiag(d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
@@ -28,6 +36,122 @@ def tridiag_matrix(d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 	return torch.diag_embed(d) + torch.diag_embed(e, offset=1) + torch.diag_embed(e, offset=-1)
 
 
-def eigh_tridiag(d: torch.Tensor, e: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _check_method(method: str) -> None:
+	if method not in _METHODS:
+		raise ValueError(f"method must be one of {_METHODS}, got {method!r}")
+
+
+def eigh_tridiag(d: torch.Tensor, e: torch.Tensor, method: str = "auto", maxiter: int = 30) -> Tuple[torch.Tensor, torch.Tensor]:
 	"""Eigenpairs ``(rw (..., deg), Y (..., deg, deg))`` of the tridiagonals ``T(d, e)``, batched."""
+	_check_method(method)
+	if method == "tqli":
+		return tqli(d, e, eigenvectors=True, maxiter=maxiter)
 	return torch.linalg.eigh(tridiag_matrix(d, e))
+
+
+def eigvalsh_tridiag(d: torch.Tensor, e: torch.Tensor, method: str = "auto", maxiter: int = 30) -> torch.Tensor:
+	"""Eigenvalues of the tridiagonals ``T(d, e)``, batched."""
+	_check_method(method)
+	if method == "tqli":
+		return tqli(d, e, eigenvectors=False, maxiter=maxiter)
+	return torch.linalg.eigvalsh(tridiag_matrix(d, e))
+
+
+def _tqli_single(d: list, e: list, want_vecs: bool, maxiter: int):
+	"""Implicit-shift QL with Givens rotations on one tridiagonal, in place on the
+	float lists ``d`` (n) and ``e`` (n, ``e[i]`` couples rows i and i+1, ``e[n-1] = 0``).
+
+	The same sweep, split test and underflow exit as the JAX ``_tqli_single``
+	(``primate_tpu/tridiag.py:84-179``). Returns ``(Z or None, converged)``."""
+	n = len(d)
+	Z = np.eye(n) if want_vecs else None
+
+	def find_split(l: int) -> int:
+		for m in range(l, n - 1):
+			dd = abs(d[m]) + abs(d[m + 1])
+			if abs(e[m]) + dd == dd:
+				return m
+		return n - 1
+
+	for l in range(n - 1):
+		it = 0
+		while it < maxiter and e[l] != 0.0:
+			m = find_split(l)
+			if m == l:
+				break
+			g = (d[l + 1] - d[l]) / (2.0 * e[l])
+			r = math.hypot(g, 1.0)
+			g = d[m] - d[l] + e[l] / (g + (r if g >= 0 else -r))
+			s, c, p, alive = 1.0, 1.0, 0.0, True
+			for i in range(m - 1, l - 1, -1):
+				f, b = s * e[i], c * e[i]
+				r = math.hypot(f, g)
+				underflow = r == 0.0 and i < m - 1
+				e[i + 1] = r
+				safe_r = 1.0 if r == 0.0 else r
+				s_n, c_n = f / safe_r, g / safe_r
+				g_n = d[i + 1] - p
+				r2 = (d[i] - g_n) * s_n + 2.0 * c_n * b
+				p_n = s_n * r2
+				if underflow:
+					# e[i+1] = 0 splits the block, so the next sweep converges.
+					d[i + 1] = d[i + 1] - p
+					alive = False
+					break
+				d[i + 1] = g_n + p_n
+				if Z is not None:
+					col_i, col_i1 = Z[:, i].copy(), Z[:, i + 1].copy()
+					Z[:, i + 1] = s_n * col_i + c_n * col_i1
+					Z[:, i] = c_n * col_i - s_n * col_i1
+				s, c, p, g = s_n, c_n, p_n, c_n * r2 - b
+			if alive:
+				d[l] = d[l] - p
+				e[l] = g
+			e[m] = 0.0
+			it += 1
+	# Converged: every off-diagonal within a few ulps of its rows. (JAX's exact
+	# split test, re-run on the final values, flips on round-off: a later block's
+	# shift moves d[l+1] after e[l] passed it.)
+	eps = np.finfo(np.float64).eps
+	ok = all(abs(e[i]) <= 4 * eps * (abs(d[i]) + abs(d[i + 1])) for i in range(n - 1))
+	return Z, ok
+
+
+def tqli(
+	d: torch.Tensor, e: torch.Tensor, eigenvectors: bool = False, maxiter: int = 30, max_iter=None
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+	"""Tridiagonal QL-implicit eigensolver, batched over leading axes (``primate_tpu/tridiag.py:182-239``).
+
+	Returns the eigenvalues in the order the shifts leave them (unsorted), or
+	``(rw, Z)`` with the eigenvectors as columns, in ``promote_types(d.dtype,
+	float32)`` on ``d``'s device. ``max_iter`` is the reference's name for
+	``maxiter``. Warns when a block is not converged after ``maxiter`` sweeps.
+	"""
+	if max_iter is not None:
+		maxiter = int(max_iter)
+	d, e = torch.as_tensor(d), torch.as_tensor(e)
+	e = _normalize_offdiag(d, e)
+	acc = torch.promote_types(d.dtype, torch.float32)
+	dn = d.detach().to("cpu", torch.float64).numpy().reshape(-1, d.shape[-1])
+	en = e.detach().to("cpu", torch.float64).numpy().reshape(-1, max(d.shape[-1] - 1, 0))
+	n = dn.shape[1]
+	rw = np.empty_like(dn)
+	Zs = np.empty((dn.shape[0], n, n)) if eigenvectors else None
+	converged = True
+	for k in range(dn.shape[0]):
+		dk, ek = dn[k].tolist(), en[k].tolist() + [0.0]
+		Z, ok = _tqli_single(dk, ek, bool(eigenvectors), int(maxiter))
+		rw[k] = dk
+		if eigenvectors:
+			Zs[k] = Z
+		converged &= ok
+	if not converged:
+		warnings.warn(
+			f"tqli: not all off-diagonals became negligible within maxiter={maxiter} "
+			"QL sweeps; returned eigenvalues may be partially converged (raise maxiter).",
+			stacklevel=2,
+		)
+	out = torch.from_numpy(rw.reshape(d.shape)).to(d.device, acc)
+	if not eigenvectors:
+		return out
+	return out, torch.from_numpy(Zs.reshape(d.shape + (n,))).to(d.device, acc)

@@ -3,8 +3,10 @@
     python3 profile_port.py [--out profile_port.json]
 
 Traces with ``torch.profiler`` one call of each after a warm-up: the flagship SLQ
-logdet of ``chip_smoke.py`` at n = 500,000 and 10,000,000, and BASELINE config 3's
-sketch estimators on its 1M-row BSR cell. Prints one JSON line per call: the
+logdet of ``chip_smoke.py`` at n = 500,000 and 10,000,000, BASELINE config 3's
+sketch estimators on its 1M-row BSR cell, and the calls of its phases 9-12: the
+CSR graph logdet (``powerlaw_laplacian(1M)``), the heat-kernel curve, exp(−L)V in
+one and two passes, and the heat-kernel signature on the 1000×1000 mesh. Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
 count); writes them all to ``--out``. Needs a CUDA device; without one it exits
@@ -69,6 +71,26 @@ def main() -> None:
 		"bsr_xtrace": lambda: ptt.xtrace(op, batch=64, converge="count", count=256, seed=7),
 		"bsr_xnystrace": lambda: ptt.xnystrace(op, m=720, seed=7),
 		"bsr_xdiag": lambda: ptt.xdiag(op, m=256, seed=7),
+	}
+	for name, fn in calls.items():
+		row = {"call": name, **trace(torch, fn)}
+		print(json.dumps(row), flush=True)
+		rows.append(row)
+	del op, S
+	from benchmarks.matrices import powerlaw_laplacian
+
+	_, run = cs._csr_slq(torch, ptt, powerlaw_laplacian(n=cs.PL_N, m=4, seed=0), dev, seed=9)
+	mesh = ptt.DIAOperator.from_scipy(cs.mesh_laplacian(cs.MESH_SIDE), dtype=torch.float32, device=dev)
+	fam = ptt.stacked("exp", -cs.TAUS)
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(11)
+	V = torch.randn((mesh.shape[0], 8), generator=gen, device=dev, dtype=torch.float32)
+	calls = {
+		"csr_slq_1m": run,
+		"heat_curve": lambda: ptt.hutch(ptt.MatrixFunction(mesh, fam, deg=20, orth=0), batch=32, converge="count", count=32, seed=10),
+		"fav_one_pass": lambda: ptt.MatrixFunction(mesh, "exp", t=-1.0, deg=20, orth=0).matmat(V),
+		"fav_two_pass": lambda: ptt.MatrixFunction(mesh, "exp", t=-1.0, deg=20, orth=0, two_pass=True).matmat(V),
+		"heat_signature": lambda: ptt.diag(ptt.MatrixFunction(mesh, fam, deg=20, orth=0), batch=64, converge="count", count=8, seed=12),
 	}
 	for name, fn in calls.items():
 		row = {"call": name, **trace(torch, fn)}

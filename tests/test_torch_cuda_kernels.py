@@ -344,3 +344,95 @@ def test_xtrace_stays_exact_with_tf32_switched_on(cuda):
 		torch.backends.cuda.matmul.allow_tf32 = prev
 	assert est == plain
 	assert abs(est - ew.sum()) / ew.sum() <= 1e-4
+
+
+def _mesh(side):
+	T = sps.diags([-np.ones(side - 1), 2.0 * np.ones(side), -np.ones(side - 1)], [-1, 0, 1])
+	eye = sps.identity(side)
+	return (sps.identity(side * side) + sps.kron(T, eye) + sps.kron(eye, T)).tocsr()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_basis_and_coeffs_sweeps_through_the_step_kernels(cuda, dtype):
+	"""orth = 0 sweeps that return their basis or take coeffs (one- and two-pass f(A)V)
+	run both step kernels once per step, and meet the same sweeps with the step's
+	tail in PyTorch."""
+	tol = TOL[dtype][1]
+	A = _mesh(120)
+	op = DIAOperator.from_scipy(A, dtype=dtype, device=cuda)
+	tail = _TailDIA(op.bands, op.offsets, op.shape)
+	g = torch.Generator(device=cuda)
+	g.manual_seed(5)
+	V0 = torch.randn((A.shape[0], 6), generator=g, device=cuda, dtype=dtype)
+	C = torch.randn((12, 3, 6), generator=g, device=cuda, dtype=dtype)
+	outs = []
+	for sweep_op in (op, tail):
+		dia.reset_launches()
+		basis = lanczos_block_op(sweep_op, V0, deg=12, ncv=12, orth=0, return_basis=True)
+		two = lanczos_block_op(sweep_op, V0, deg=12, ncv=2, orth=0, return_basis=False, coeffs=C)
+		outs.append((basis, two, dict(dia.LAUNCHES)))
+	(basis, two, launches), (basis_t, two_t, launches_t) = outs
+	assert launches["lanczos_dia_step"] == launches["lanczos_dia_residual"] == 24
+	assert launches_t["lanczos_dia_residual"] == 0 and launches_t["dia_stencil_t"] == 24
+	torch.testing.assert_close(basis.alphas, basis_t.alphas, rtol=tol, atol=tol)
+	torch.testing.assert_close(basis.Q, basis_t.Q, rtol=tol, atol=tol)
+	torch.testing.assert_close(two.y, two_t.y, rtol=tol, atol=tol)
+	Q = basis.Q.permute(2, 0, 1)  # (nv, deg, n): orthonormal rows per probe
+	eye = torch.eye(12, dtype=dtype, device=cuda).expand(6, 12, 12)
+	torch.testing.assert_close(Q @ Q.transpose(1, 2), eye, rtol=0, atol=100 * tol)
+	for two_pass, per in ((False, 12), (True, 24)):
+		dia.reset_launches()
+		Y = MatrixFunction(op, "exp", t=-1.0, deg=12, orth=0, two_pass=two_pass).matmat(V0)
+		assert dia.LAUNCHES["lanczos_dia_step"] == dia.LAUNCHES["lanczos_dia_residual"] == per
+		Y_t = MatrixFunction(tail, "exp", t=-1.0, deg=12, orth=0, two_pass=two_pass).matmat(V0)
+		torch.testing.assert_close(Y, Y_t, rtol=tol, atol=tol)
+
+
+def test_stacked_quadrature_on_dia_matches_the_pytorch_tail(cuda):
+	"""A stacked heat-kernel family from one sweep through the step kernels, against the
+	same family through the PyTorch tail, float32 at 1e-5."""
+	from primate_tpu_torch import diag, stacked
+
+	A = _mesh(200)
+	op = DIAOperator.from_scipy(A, dtype=torch.float32, device=cuda)
+	tail = _TailDIA(op.bands, op.offsets, op.shape)
+	fam = stacked("exp", -np.geomspace(0.05, 4.0, 8))
+	g = torch.Generator(device=cuda)
+	g.manual_seed(6)
+	X = (torch.randint(0, 2, (32, A.shape[0]), generator=g, device=cuda, dtype=torch.float32) * 2 - 1).T
+	dia.reset_launches()
+	got = MatrixFunction(op, fam, deg=20, orth=0).quad(X)
+	assert got.shape == (8, 32) and dia.LAUNCHES["lanczos_dia_residual"] == 20
+	want = MatrixFunction(tail, fam, deg=20, orth=0).quad(X)
+	torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+	est = hutch(MatrixFunction(op, fam, deg=20, orth=0), batch=16, converge="count", count=32, seed=1)
+	est_t = hutch(MatrixFunction(tail, fam, deg=20, orth=0), batch=16, converge="count", count=32, seed=1)
+	np.testing.assert_allclose(est, est_t, rtol=1e-5)
+	d = diag(MatrixFunction(op, fam, deg=20, orth=0), batch=16, converge="count", count=2, seed=2)
+	d_t = diag(MatrixFunction(tail, fam, deg=20, orth=0), batch=16, converge="count", count=2, seed=2)
+	assert d.shape == (8, A.shape[0])
+	np.testing.assert_allclose(d, d_t, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_csr_applies_on_the_card_match_the_cpu(cuda, dtype):
+	"""CSR matmat, matmat_t, matvec and rmatvec through cuSPARSE against the CPU operator,
+	on a power-law graph with hub rows, float32 and float64."""
+	from benchmarks.matrices import powerlaw_laplacian
+
+	from primate_tpu_torch import CSROperator
+
+	A = powerlaw_laplacian(n=20_000, m=4, seed=1)
+	gpu, cpu = CSROperator.from_scipy(A, dtype=dtype, device=cuda), CSROperator.from_scipy(A, dtype=dtype, device="cpu")
+	tol = SPARSE_TOL[dtype]
+	X = torch.randn((A.shape[0], 64), dtype=dtype)
+	for got, want in (
+		(gpu.matmat(X.to(cuda)), cpu.matmat(X)),
+		(gpu.matmat(X.T.contiguous().to(cuda).T), cpu.matmat(X)),
+		(gpu.matmat_t(X.T.contiguous().to(cuda)), cpu.matmat_t(X.T.contiguous())),
+		(gpu.matvec(X[:, 0].to(cuda)), cpu.matvec(X[:, 0])),
+		(gpu.rmatvec(X[:, 1].to(cuda)), cpu.rmatvec(X[:, 1])),
+	):
+		got = got.cpu()
+		assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+	assert gpu.matmat_t(X.T.contiguous().to(cuda)).is_contiguous()

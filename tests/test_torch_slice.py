@@ -117,9 +117,25 @@ def test_constructors_default_to_the_card():
 	from primate_tpu_torch.operators.base import DenseOperator, aslinop
 	from primate_tpu_torch.stats import make_cov_state
 
+	from primate_tpu_torch import (
+		COOOperator,
+		ConfidenceEstimator,
+		CSROperator,
+		Isotropic,
+		coo_from_numpy,
+		csr_from_numpy,
+		haar,
+		isotropic,
+		lanczos,
+		symmetric,
+	)
+	from primate_tpu_torch.operators.base import AdjointOperator, AffineOperator, ComposedOperator, FunctionOperator, ScaledOperator
+
 	fns = [DIAOperator.from_numpy, DIAOperator.from_scipy, BSROperator.from_numpy, BSROperator.from_scipy,
 		BSROperator.from_dense, dia_from_numpy, bsr_from_numpy, cov_state_from_numpy, MeanEstimator, make_cov_state,
-		DenseOperator, aslinop, MatrixFunction]
+		DenseOperator, aslinop, MatrixFunction, CSROperator.from_numpy, CSROperator.from_scipy, CSROperator.from_dense,
+		COOOperator.from_scipy, COOOperator.from_dense, csr_from_numpy, coo_from_numpy, FunctionOperator, AffineOperator,
+		ScaledOperator, ComposedOperator, AdjointOperator, ConfidenceEstimator, Isotropic, isotropic, symmetric, haar, lanczos]
 	for fn in fns:
 		assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 	# A tensor keeps its own device whatever the default; a numpy array goes where it is told.
@@ -127,6 +143,11 @@ def test_constructors_default_to_the_card():
 	assert aslinop(torch.from_numpy(A)).device.type == "cpu"
 	assert aslinop(A, device="cpu").device.type == "cpu" and DenseOperator(A, device="cpu").device.type == "cpu"
 	assert MatrixFunction(torch.from_numpy(A), "log").device.type == "cpu"
+	# A scipy matrix goes where it is told, as a CSR operator; an operator keeps its device through the algebra.
+	import scipy.sparse as sps
+
+	op = aslinop(sps.identity(3, format="csr"), device="cpu")
+	assert isinstance(op, CSROperator) and op.device.type == "cpu" and (2.0 * op + op).device.type == "cpu"
 
 
 def test_import_leaves_jax_out():
