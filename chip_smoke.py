@@ -15,19 +15,22 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
 4. runs the same at n = 10,000,000 and reports wall time and peak memory;
 5. runs the plain trace ``hutch(DIAOperator(L))`` at n = 500,000: within 5σ of
    tr(L) = 3n, through the stencil kernel;
-6. holds the BSR SpMM and the node-major DIA stencil against their plain
-   versions, float32 and float64, at the cell operators of phases 7 and 8
-   (k = 64 and 240) and at awkward shapes, and times kernel, plain version, bound,
-   library call and (for the DIA stencil) the transpose route through the
-   probe-major kernel; it runs last, on the operators that phases 7 and 8 built;
+6. holds the BSR SpMM and both DIA stencils against their plain versions, float32
+   and float64, at the cell operators of phases 7 and 8 (k = 64 and 240; the
+   probe-major stencil at the 64 × n block of phase 8's ``diag``) and at awkward
+   shapes (for the probe-major stencil: offsets ±10,000, 64, 13 and 1 probes, and
+   a misaligned block that takes its scalar path), and times kernel, plain
+   version, bound, library call and (for the node-major stencil) the transpose
+   route through the probe-major kernel; it runs last, on the operators that
+   phases 7 and 8 built;
 7. runs BASELINE config 3's sketch estimators (``benchmarks/configs.py:73-105``)
    on ``block_random_spd(n=1,048,576)`` as a BSR operator with 8×8 tiles, at
    the scale of the SuiteSparse matrix audikw_1: each trace within 1e-3 of
    tr(S), and the BSR kernel launched once per operator application;
 8. runs Hutch++, XDiag, Diag++ and the Girard-Hutchinson diagonal on the 3-D FEM
    Laplacian ``fem_laplacian_3d(side=100)`` (n = 1,000,000, offsets ±1, ±100,
-   ±10,000) as a DIA operator: trace within 1e-3, diagonals within 0.1 (relative L2);
-   phase 6 also times the probe-major stencil at the shape ``diag`` gives it there;
+   ±10,000) as a DIA operator: trace within 1e-3, diagonals within 0.1 (relative L2),
+   and ``diag`` launching the probe-major stencil once an iteration (256 times);
 9. runs BASELINE config 2 in its CSR form: SLQ logdet (deg 20, orth 5, 64 probes)
    of ``powerlaw_laplacian(n=1,000,000)`` handed in as the scipy matrix itself,
    within ``0 ≤ logdet ≤ Σ log L_ii``, and the same call at n = 8,192 within 5% of
@@ -48,7 +51,9 @@ before the last lists every kernel with its launches on its path, its error
 against its plain version, its time, its plain version's time, its bound
 (``bound_ms``: the larger of its bytes over the HBM rate and its flops over the
 float32 rate) and its library call's time (``library_ms``, null where no single
-call computes it); the last line is ``{"ok": true, "device": {...}}``. Without a
+call computes it); for ``dia_stencil_t`` the same numbers at the FEM ``diag``
+shape follow under ``fem_`` keys, with its launches in that call
+(``fem_launches``); the last line is ``{"ok": true, "device": {...}}``. Without a
 CUDA device it exits non-zero before printing anything.
 """
 
@@ -342,16 +347,18 @@ def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), rep
 	versions at the cell operators and at awkward shapes, float32 and float64;
 	float32 cell shapes timed beside their bound and their library call. Also the
 	probe-major stencil at the shape the FEM cell's ``diag`` gives it (64 × n, 7
-	diagonals), timed the same way; the ``kernels`` line keeps its flagship-shape row."""
+	diagonals), timed the same way, its numbers going to the ``kernels`` line beside
+	the flagship-shape ones under ``fem_`` keys, and at awkward probe-major shapes."""
 	import scipy.sparse as sps
-	from primate_tpu_torch.ops import bsr, dia
+	from primate_tpu_torch.ops import _common, bsr, dia
 
 	gen = torch.Generator(device=dev)
 	gen.manual_seed(1)
 	out = {}
 
-	def run(label, name, kern, plain, dtype, k, timed=None, route=None, library=None, store=True):
-		"""``timed``: (bytes, flops) of the call, for the float32 cell shapes."""
+	def run(label, name, kern, plain, dtype, k, timed=None, route=None, library=None, prefix=""):
+		"""``timed``: (bytes, flops) of the call, for the float32 cell shapes; its numbers at the
+		first cell k go to the kernel's entry of the ``kernels`` line, under keys that start with ``prefix``."""
 		tname = str(dtype).removeprefix("torch.")
 		got, want = kern(), plain()
 		torch.cuda.synchronize()
@@ -367,9 +374,9 @@ def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), rep
 				"library_ms": lib_ms, "library_rel_err_or_error": lib_note})
 			if route is not None:
 				row["transpose_route_ms"] = time_ms(torch, route, reps)
-			if k == cell_ks[0] and store:
-				out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-					"library_ms": lib_ms}
+			if k == cell_ks[0]:
+				out.setdefault(name, {}).update({f"{prefix}{key}": v for key, v in (("max_abs_err", err), ("ms", ms),
+					("plain_ms", plain_ms), ("bound_ms", b_ms), ("bound_by", b_by), ("library_ms", lib_ms))})
 		emit(row)
 		if not rel <= STENCIL_TOL[tname]:
 			raise AssertionError(f"{name} disagrees with its plain version: {row}")
@@ -407,7 +414,7 @@ def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), rep
 				run("fem_cell_probe_major", "dia_stencil_t", lambda: dia.dia_stencil_t(D.bands, D.offsets_t, Xt),
 					lambda: dia.dia_stencil_t_ref(D.bands, offs_host, Xt), dtype, k,
 					timed=((2 * D.shape[0] * k + D.nnz) * item, 2 * D.nnz * k) if f32 else None,
-					library=lambda: (A_csr @ Xt.T).T, store=False)
+					library=lambda: (A_csr @ Xt.T).T, prefix="fem_")
 				del Xt
 		if f32:
 			del B_lib
@@ -435,6 +442,18 @@ def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), rep
 			V = torch.randn((n, k), generator=gen, device=dev, dtype=dtype)
 			run("dia_offsets_pm10000", "dia_stencil", lambda: dia.dia_stencil(bands, offs, V),
 				lambda: dia.dia_stencil_ref(bands, offs.cpu(), V), dtype, k)
+		# The probe-major stencil at the same offsets (k: the probe count nv), and on a block
+		# one element past a 16-byte boundary, which takes its scalar path.
+		for nv in (1, 13, 64):
+			X = torch.randn((nv, n), generator=gen, device=dev, dtype=dtype)
+			run("dia_t_offsets_pm10000", "dia_stencil_t", lambda: dia.dia_stencil_t(bands, offs, X),
+				lambda: dia.dia_stencil_t_ref(bands, offs.cpu(), X), dtype, nv)
+		X = torch.randn(13 * n + 1, generator=gen, device=dev, dtype=dtype)[1:].view(13, n)
+		scalar = _common.SCALAR_LAUNCHES["dia_stencil_t"]
+		run("dia_t_offsets_pm10000_misaligned", "dia_stencil_t", lambda: dia.dia_stencil_t(bands, offs, X),
+			lambda: dia.dia_stencil_t_ref(bands, offs.cpu(), X), dtype, 13)
+		if _common.SCALAR_LAUNCHES["dia_stencil_t"] != scalar + 1:
+			raise AssertionError("dia_stencil_t on a misaligned block did not take its scalar path")
 	return out
 
 
@@ -533,7 +552,10 @@ def dia_sketches(torch, ptt, dev, side: int) -> tuple:
 		launches += counts["dia_stencil"]
 	if launches < 1:
 		raise AssertionError("phase 8 never launched the node-major DIA stencil")
-	return op, launches
+	diag_launches = counts["dia_stencil_t"]  # the last call, diag: one probe-major apply an iteration
+	if diag_launches != 256:
+		raise AssertionError(f"diag launched dia_stencil_t {diag_launches} times, expected 256")
+	return op, launches, diag_launches
 
 
 def mesh_laplacian(side: int):
@@ -737,8 +759,10 @@ def main() -> None:
 	trace = plain_trace(torch, ptt, dia, dev)
 
 	bsr_op, bsr_launches = bsr_sketches(torch, ptt, dev, BSR_CELL)
-	dia_op, dia_launches = dia_sketches(torch, ptt, dev, FEM_SIDE)
-	kernels.update(check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev))
+	dia_op, dia_launches, diag_launches = dia_sketches(torch, ptt, dev, FEM_SIDE)
+	for k, v in check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev).items():
+		kernels.setdefault(k, {}).update(v)
+	kernels["dia_stencil_t"]["fem_launches"] = diag_launches
 	del bsr_op, dia_op
 
 	csr_slq(torch, ptt, dev)

@@ -13,17 +13,19 @@
 // is needed and the offsets may be of any size.
 //
 // Bound: HBM bytes. A stencil of a few diagonals does 2 n_d flops per loaded
-// element, far below the card's ~20 flop/byte balance point. So the design only
-// keeps traffic at one pass: one thread per row r and kProbes probes, consecutive
-// threads on consecutive r (coalesced loads of X[b, r + off]; the shifted
-// neighbour loads of one warp overlap and hit L1), each band value read once per
-// kProbes outputs. The TPU kernel's manual double-buffered DMA has no counterpart:
-// enough resident warps hide the load latency. The node-major kernel reads rows
-// r + off of V, each k elements away, so a diagonal does not share cache lines
-// with its neighbours as in the probe-major layout: it stages a ring of V rows in
-// shared memory (cp.async, 16 bytes along k) and reads the nearby diagonals from
-// there, so each row comes from memory once per block, and loads the far ones
-// directly; see dia_stencil_kernel below and PERF.md for the measurements.
+// element, far below the card's ~20 flop/byte balance point. So the designs aim
+// at one pass over the block and the bands, and no tensor cores (TF32 would
+// break the float32 parity). The probe-major kernel gives a thread a 16-byte
+// vector of rows and all probes: its band values are read once, and the shifted
+// neighbour loads of a warp overlap the lines it and its block have just read, so
+// they come from L1, or from L2 for far offsets; the TPU kernel's double-buffered
+// halo DMA has no counterpart (see below and PERF.md for a shared-memory ring that
+// was tried and measured slower). The node-major kernel reads rows r + off of V,
+// each k elements away, so a diagonal does not share cache lines with its
+// neighbours as in the probe-major layout: it stages a ring of V rows in shared
+// memory (cp.async, 16 bytes along k) and reads the nearby diagonals from there,
+// so each row comes from memory once per block, and loads the far ones directly.
+// See the kernels below and PERF.md for the measurements.
 //
 // The Lanczos step (primate_tpu/lanczos.py:304-316,378-388 with orth = 0)
 //   w = A q - beta q_prev;  alpha = sum w q;  v = w - alpha q;  beta' = |v|;
@@ -61,39 +63,115 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // rows per block
-constexpr int kProbes = 8;     // probes per thread (and per blockIdx.y)
+// ---- The probe-major stencil (dia_stencil_t) ----
+//
+// out[b, r] = sum_d band[d, r] x[b, r + off_d] on a row-major (nv, n) block.
+// Each thread owns VL consecutive rows (one 16-byte vector) and takes them through
+// every probe, so each band value is read from memory once and kept in a register
+// for all nv probes. It issues the loads of kTProbes probes of a diagonal together:
+// one 16-byte load a probe where the offset is a whole number of vectors and the
+// neighbours lie inside [0, n) (0, +-100 and +-10,000 on the FEM cell), element
+// loads otherwise (+-1). A warp's loads and stores cover whole
+// 128-byte lines, and the stores are marked streaming so that they do not push
+// x's rows out of L2. The nearby diagonals find the lines that the warp and its
+// block have just loaded in L1; the far ones (+-10,000) find rows that another
+// resident block reads at about the same probe in L2, since blocks are handed out
+// in row order and each walks the probes in order. Diagonals past kTChunk are taken
+// kTChunk at a time, each further chunk adding its sum to out. PERF.md lists the
+// designs that measured slower (a cp.async ring of staged tiles, more loads in
+// flight, band values in shared memory, prefetches).
+constexpr int kTThreads = 256;
+constexpr int kTBlocks = 2;  // resident blocks an SM it is compiled for: 128 registers a thread
+constexpr int kTProbes = 4;  // probes whose loads a thread issues together
+constexpr int kTChunk = 8;   // diagonals whose band values a thread holds
+static_assert(kTChunk * 4 <= 32, "one bit per (diagonal, row) of a chunk in an unsigned mask");
 
-template <typename T>
-__device__ __forceinline__ void stencil_rows(const T* __restrict__ bands, const int64_t* __restrict__ offsets,
-                                             int n_d, const T* __restrict__ x, int64_t nv, int64_t n, int64_t r,
-                                             int64_t b0, T (&acc)[kProbes]) {
+// Rows r .. r + rows - 1 of kNP probes, from xb and ob at row r of the first probe:
+// ob[k n + e] = (ob[k n + e] if add) + sum_j w[j][e] xb[k n + e + off[j]] over the
+// chunk's nd diagonals. Bit j * VL + e of `in`: row r + e's neighbour on diagonal j
+// lies in [0, n); bit j of `whole`: all of them do and one 16-byte load reads them.
+template <typename T, bool kVec, int kNP>
+__device__ __forceinline__ void stencil_group(const T (&w)[kTChunk][Vec<T>::len], const int64_t (&off)[kTChunk],
+                                              int nd, unsigned in, unsigned whole, const T* __restrict__ xb,
+                                              T* __restrict__ ob, int64_t n, int rows, bool add) {
+    constexpr int VL = Vec<T>::len;
+    using V = typename Vec<T>::type;
+    T acc[kNP][VL];
 #pragma unroll
-    for (int p = 0; p < kProbes; ++p) acc[p] = T(0);
-    for (int d = 0; d < n_d; ++d) {
-        const int64_t c = r + offsets[d];
-        if (c < 0 || c >= n) continue;
-        const T w = bands[d * n + r];
+    for (int k = 0; k < kNP; ++k)
 #pragma unroll
-        for (int p = 0; p < kProbes; ++p) {
-            if (b0 + p < nv) acc[p] += w * x[(b0 + p) * n + c];
+        for (int e = 0; e < VL; ++e) {
+            acc[k][e] = T(0);
+            if (add && e < rows) acc[k][e] = ob[k * n + e];
+        }
+#pragma unroll
+    for (int j = 0; j < kTChunk; ++j) {
+        if (j >= nd) break;
+        const T* src = xb + off[j];
+        T v[kNP][VL];
+        if (kVec && ((whole >> j) & 1u)) {
+#pragma unroll
+            for (int k = 0; k < kNP; ++k) unpack(__ldg(reinterpret_cast<const V*>(src + k * n)), v[k]);
+        } else {
+#pragma unroll
+            for (int k = 0; k < kNP; ++k)
+#pragma unroll
+                for (int e = 0; e < VL; ++e) v[k][e] = (in >> (j * VL + e)) & 1u ? __ldg(src + k * n + e) : T(0);
+        }
+#pragma unroll
+        for (int k = 0; k < kNP; ++k)
+#pragma unroll
+            for (int e = 0; e < VL; ++e) acc[k][e] += w[j][e] * v[k][e];
+    }
+#pragma unroll
+    for (int k = 0; k < kNP; ++k) {
+        if (kVec) {
+            __stcs(reinterpret_cast<V*>(ob + k * n), pack(acc[k]));
+        } else {
+#pragma unroll
+            for (int e = 0; e < VL; ++e) {
+                if (e < rows) __stcs(ob + k * n + e, acc[k][e]);
+            }
         }
     }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) dia_stencil_t_kernel(const T* __restrict__ bands,
-                                                                 const int64_t* __restrict__ offsets, int n_d,
-                                                                 const T* __restrict__ x, T* __restrict__ out,
-                                                                 int64_t nv, int64_t n) {
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-    const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kProbes;
+// kVec: n is a multiple of VL and x, out are 16-byte aligned, so a thread's rows
+// are one aligned vector of every probe, wholly inside [0, n).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kTThreads, kTBlocks) dia_stencil_t_kernel(const T* __restrict__ bands,
+                                                                           const int64_t* __restrict__ offsets,
+                                                                           int n_d, const T* __restrict__ x,
+                                                                           T* __restrict__ out, int64_t nv, int64_t n) {
+    constexpr int VL = Vec<T>::len;
+    const int64_t r = (static_cast<int64_t>(blockIdx.x) * kTThreads + threadIdx.x) * VL;  // this thread's first row
     if (r >= n) return;
-    T acc[kProbes];
-    stencil_rows(bands, offsets, n_d, x, nv, n, r, b0, acc);
+    const int rows = n - r < VL ? static_cast<int>(n - r) : VL;
+    const int chunks = n_d > 0 ? (n_d + kTChunk - 1) / kTChunk : 1;  // no diagonal: one chunk that writes zeros
+    for (int c = 0; c < chunks; ++c) {
+        const int d0 = c * kTChunk, nd = n_d - d0 < kTChunk ? n_d - d0 : kTChunk;
+        T w[kTChunk][VL];
+        int64_t off[kTChunk];
+        unsigned in = 0, whole = 0;
 #pragma unroll
-    for (int p = 0; p < kProbes; ++p) {
-        if (b0 + p < nv) out[(b0 + p) * n + r] = acc[p];
+        for (int j = 0; j < kTChunk; ++j) {
+            off[j] = j < nd ? __ldg(offsets + d0 + j) : 0;
+            unsigned bits = 0;
+#pragma unroll
+            for (int e = 0; e < VL; ++e) {  // the band value, 0 where the row or its neighbour lies outside [0, n)
+                const int64_t rr = r + e;
+                const bool ok = j < nd && e < rows && off[j] >= -rr && off[j] < n - rr;
+                w[j][e] = ok ? __ldg(bands + static_cast<int64_t>(d0 + j) * n + rr) : T(0);
+                bits |= ok ? 1u << e : 0u;
+            }
+            in |= bits << (j * VL);
+            if (kVec && bits == (1u << VL) - 1 && off[j] % VL == 0) whole |= 1u << j;
+            if (bits == 0) off[j] = 0;  // no neighbour in range: nothing is loaded, keep the address in the block
+        }
+        int64_t b = 0;
+        for (; b + kTProbes <= nv; b += kTProbes)
+            stencil_group<T, kVec, kTProbes>(w, off, nd, in, whole, x + b * n + r, out + b * n + r, n, rows, c > 0);
+        for (; b < nv; ++b) stencil_group<T, kVec, 1>(w, off, nd, in, whole, x + b * n + r, out + b * n + r, n, rows, c > 0);
     }
 }
 
@@ -441,21 +519,23 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_b_kernel(const T* _
     if (threadIdx.x == 0) *ticket = 0u;
 }
 
-inline int64_t row_blocks(int64_t n) { return (n + kThreads - 1) / kThreads; }
-
-// gridDim.y holds the probe groups (at most 65535 of them); gridDim.x the row blocks.
-inline bool grid_ok(int64_t nv, int64_t n) {
-    return (nv + kProbes - 1) / kProbes <= 65535 && row_blocks(n) <= 0x7fffffffLL;
+template <typename T, bool kVec>
+cudaError_t launch_stencil_t_as(const T* bands, const int64_t* offsets, int n_d, const T* x, T* out, int64_t nv,
+                                int64_t n, cudaStream_t stream) {
+    constexpr int64_t rows = static_cast<int64_t>(kTThreads) * Vec<T>::len;  // rows per block
+    const int64_t blocks = (n + rows - 1) / rows;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    dia_stencil_t_kernel<T, kVec><<<static_cast<unsigned>(blocks), kTThreads, 0, stream>>>(bands, offsets, n_d, x, out,
+                                                                                         nv, n);
+    return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_stencil(const T* bands, const int64_t* offsets, int n_d, const T* x, T* out, int64_t nv,
-                           int64_t n, cudaStream_t stream) {
+cudaError_t launch_stencil_t(const T* bands, const int64_t* offsets, int n_d, const T* x, T* out, int64_t nv,
+                             int64_t n, int vec, cudaStream_t stream) {
     if (nv == 0 || n == 0) return cudaSuccess;
-    if (!grid_ok(nv, n)) return cudaErrorInvalidConfiguration;
-    const dim3 grid(static_cast<unsigned>(row_blocks(n)), static_cast<unsigned>((nv + kProbes - 1) / kProbes));
-    dia_stencil_t_kernel<T><<<grid, kThreads, 0, stream>>>(bands, offsets, n_d, x, out, nv, n);
-    return cudaGetLastError();
+    return vec ? launch_stencil_t_as<T, true>(bands, offsets, n_d, x, out, nv, n, stream)
+               : launch_stencil_t_as<T, false>(bands, offsets, n_d, x, out, nv, n, stream);
 }
 
 template <typename T, bool kVec>
@@ -552,13 +632,13 @@ int64_t lanczos_step_blocks(int64_t nv, int64_t n, int elem_bytes) {
 const char* primate_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 cudaError_t dia_stencil_t_f32(const float* bands, const int64_t* offsets, int n_d, const float* x, float* out,
-                              int64_t nv, int64_t n, cudaStream_t stream) {
-    return launch_stencil(bands, offsets, n_d, x, out, nv, n, stream);
+                              int64_t nv, int64_t n, int vec, cudaStream_t stream) {
+    return launch_stencil_t(bands, offsets, n_d, x, out, nv, n, vec, stream);
 }
 
 cudaError_t dia_stencil_t_f64(const double* bands, const int64_t* offsets, int n_d, const double* x, double* out,
-                              int64_t nv, int64_t n, cudaStream_t stream) {
-    return launch_stencil(bands, offsets, n_d, x, out, nv, n, stream);
+                              int64_t nv, int64_t n, int vec, cudaStream_t stream) {
+    return launch_stencil_t(bands, offsets, n_d, x, out, nv, n, vec, stream);
 }
 
 cudaError_t dia_stencil_f32(const float* bands, const int64_t* offsets, int n_d, const float* V, float* out,

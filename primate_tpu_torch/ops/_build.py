@@ -92,8 +92,8 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 	p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 	sigs = {
 		"dia_stencil": {
-			# bands, offsets, n_d, x, out, nv, n, stream
-			"dia_stencil_t": [p, p, i32, p, p, i64, i64, p],
+			# bands, offsets, n_d, x, out, nv, n, vec, stream
+			"dia_stencil_t": [p, p, i32, p, p, i64, i64, i32, p],
 			# bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, nv, n, grid_x, vec, stream
 			"lanczos_dia_step": [p, p, i32, p, p, p, p, p, p, p, i64, i64, i64, i32, p],
 			# v_cur, w, state, partial, ticket, beta_out, nv, n, tol, grid_x, vec, stream

@@ -13,7 +13,7 @@ LAUNCHES = {"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0
 LAYOUT_COPIES = {"bsr_spmm": 0, "csr_spmm": 0}
 # Launches that took a kernel's scalar path: a length or a pointer that does not
 # allow its 16-byte loads and stores (see `vector_ok`).
-SCALAR_LAUNCHES = {"lanczos_dia_step": 0, "lanczos_dia_residual": 0, "dia_stencil": 0, "bsr_spmm": 0}
+SCALAR_LAUNCHES = {"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "dia_stencil": 0, "bsr_spmm": 0}
 
 
 def reset_launches() -> None:

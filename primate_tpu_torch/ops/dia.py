@@ -6,7 +6,10 @@ kernels of ``primate_tpu/ops/dia_pallas.py``:
 * :func:`dia_stencil_t` replaces ``dia_matmat_t_pallas`` (``_dia_t_kernel``):
   ``out[b, r] = Σ_d bands[d, r] · X[b, r + off_d]``, probe-major. It is
   ``DIAOperator.matmat_t``, the quadratic forms of a plain DIA operator, and the
-  node-major apply of a block whose transpose is contiguous.
+  node-major apply of a block whose transpose is contiguous. Each thread takes
+  one 16-byte vector of rows through every probe, so the bands are read once;
+  it loads and stores 16-byte vectors where ``n`` and the pointers allow,
+  elements otherwise (counted in ``SCALAR_LAUNCHES``).
 * :func:`dia_stencil` replaces ``dia_matmat_pallas`` (``_dia_kernel``):
   ``out[r, :] = Σ_d bands[d, r] · V[r + off_d, :]``, node-major, the apply of a
   contiguous ``(n, k)`` block (a QR factor, a GEMM product). Its blocks stage a
@@ -185,10 +188,12 @@ def dia_stencil_t(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -
 	lib = load_library()
 	nv, n = x.shape
 	out = torch.empty_like(x)
+	vec = vector_ok(n, x.element_size(), x, out)
 	fn = lib.dia_stencil_t_f32 if x.dtype == torch.float32 else lib.dia_stencil_t_f64
-	err = fn(bands.data_ptr(), offsets.data_ptr(), bands.shape[0], x.data_ptr(), out.data_ptr(), nv, n, stream(x.device))
+	err = fn(bands.data_ptr(), offsets.data_ptr(), bands.shape[0], x.data_ptr(), out.data_ptr(), nv, n, int(vec), stream(x.device))
 	raise_on(lib, err, "dia_stencil_t")
 	LAUNCHES["dia_stencil_t"] += 1
+	SCALAR_LAUNCHES["dia_stencil_t"] += not vec
 	return out
 
 

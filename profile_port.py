@@ -4,7 +4,8 @@
 
 Traces with ``torch.profiler`` one call of each after a warm-up: the flagship SLQ
 logdet of ``chip_smoke.py`` at n = 500,000 and 10,000,000, BASELINE config 3's
-sketch estimators on its 1M-row BSR cell, and the calls of its phases 9-12: the
+sketch estimators on its 1M-row BSR cell, the calls of its phase 8 on the FEM
+DIA cell (Hutch++, XDiag, Diag++, ``diag``), and the calls of its phases 9-12: the
 CSR graph logdet (``powerlaw_laplacian(1M)``), the heat-kernel curve, exp(−L)V in
 one and two passes, and the heat-kernel signature on the 1000×1000 mesh. Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
@@ -77,6 +78,20 @@ def main() -> None:
 		print(json.dumps(row), flush=True)
 		rows.append(row)
 	del op, S
+	from benchmarks.matrices import fem_laplacian_3d
+
+	op = ptt.DIAOperator.from_scipy(fem_laplacian_3d(cs.FEM_SIDE), dtype=torch.float32, device=dev)
+	calls = {  # chip_smoke.py phase 8
+		"fem_hutchpp": lambda: ptt.hutchpp(op, m=240, seed=8),
+		"fem_xdiag": lambda: ptt.xdiag(op, m=256, pdf="rademacher", seed=8),
+		"fem_diagpp": lambda: ptt.diagpp(op, m=240, seed=8),
+		"fem_diag": lambda: ptt.diag(op, batch=64, converge="count", count=256, seed=8),
+	}
+	for name, fn in calls.items():
+		row = {"call": name, **trace(torch, fn)}
+		print(json.dumps(row), flush=True)
+		rows.append(row)
+	del op
 	from benchmarks.matrices import powerlaw_laplacian
 
 	_, run = cs._csr_slq(torch, ptt, powerlaw_laplacian(n=cs.PL_N, m=4, seed=0), dev, seed=9)

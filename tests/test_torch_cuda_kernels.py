@@ -17,7 +17,22 @@ from primate_tpu_torch.ops import _common, bsr, dia
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(64, 20_000, (-1, 0, 1)), (13, 3001, (-200, -7, 0, 7, 200)), (1, 5, (-9, 0, 2))]
+# (nv, n, offsets[, lead]). After the first three, for the probe-major stencil: a probe
+# count past a group of 4, n not a multiple of 4 and then a multiple, with offsets that are
+# (±128) and are not (±129, 10,001) whole 16-byte vectors; n smaller than the offsets, with offsets of
+# n and past it; more diagonals than one chunk of band slots (8); a lone main diagonal;
+# all but the main diagonal at n or past it; and x a contiguous block that starts one
+# element into its buffer (`lead`), which takes the kernel's scalar path.
+SHAPES = [
+	(64, 20_000, (-1, 0, 1)), (13, 3001, (-200, -7, 0, 7, 200)), (1, 5, (-9, 0, 2)),
+	(65, 12_001, (-10_001, -129, -128, -3, 0, 1, 128, 129, 10_001)),
+	(65, 12_000, (-10_001, -129, -128, -3, 0, 1, 128, 129, 10_000)),
+	(7, 100, (-150, -100, -1, 0, 1, 99, 100, 300)),
+	(64, 30_001, tuple(range(-8, 9))),
+	(1, 12_000, (0,)),
+	(64, 9, (-9, 0, 9, 40)),
+	(13, 12_000, (-10_000, -7, 0, 3, 10_000), 1),
+]
 # Stencil: max-abs error over max|out|. α: relative, since the summation orders differ.
 TOL = {torch.float32: (1e-5, 1e-4), torch.float64: (1e-12, 1e-10)}
 
@@ -29,13 +44,13 @@ def cuda():
 	return torch.device("cuda", 0)
 
 
-def _inputs(dev, nv, n, offsets, dtype, seed=0):
+def _inputs(dev, nv, n, offsets, dtype, lead=0, seed=0):
 	g = torch.Generator(device=dev)
 	g.manual_seed(seed)
 	bands = torch.rand((len(offsets), n), generator=g, device=dev, dtype=dtype) + 0.5
 	offs = torch.tensor(offsets, dtype=torch.int64, device=dev)
 	unit = lambda X: X / torch.linalg.vector_norm(X, dim=1, keepdim=True)  # noqa: E731
-	x = torch.randn((nv, n), generator=g, device=dev, dtype=dtype)
+	x = torch.randn(lead + nv * n, generator=g, device=dev, dtype=dtype)[lead:].view(nv, n)
 	q_cur = unit(torch.randn((nv, n), generator=g, device=dev, dtype=dtype))
 	q_prev = unit(torch.randn((nv, n), generator=g, device=dev, dtype=dtype))
 	beta = torch.rand(nv, generator=g, device=dev, dtype=dtype) + 0.5
@@ -46,13 +61,16 @@ def _inputs(dev, nv, n, offsets, dtype, seed=0):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_kernels_match_plain_versions(cuda, shape, dtype):
 	tol_s, tol_a = TOL[dtype]
-	bands, offs, x, q_cur, q_prev, beta = _inputs(cuda, *shape, dtype)
-	before = dict(dia.LAUNCHES)
+	bands, offs, x, q_cur, q_prev, beta = _inputs(cuda, *shape[:3], dtype, *shape[3:])
+	scalar = not _common.vector_ok(x.shape[1], x.element_size(), x)
+	assert x.is_contiguous() and (scalar or len(shape) == 3)  # a block with a lead is misaligned
+	before, scalar_before = dict(dia.LAUNCHES), _common.SCALAR_LAUNCHES["dia_stencil_t"]
 	got, want = dia.dia_stencil_t(bands, offs, x), dia.dia_stencil_t_ref(bands, offs, x)
 	v, alpha = dia.lanczos_dia_step(bands, offs, q_cur, q_prev, beta)
 	v_ref, alpha_ref = dia.lanczos_dia_step_ref(bands, offs, q_cur, q_prev, beta)
 	torch.cuda.synchronize()
 	assert dia.LAUNCHES["dia_stencil_t"] == before["dia_stencil_t"] + 1
+	assert _common.SCALAR_LAUNCHES["dia_stencil_t"] == scalar_before + scalar
 	assert dia.LAUNCHES["lanczos_dia_step"] == before["lanczos_dia_step"] + 1
 	assert float((got - want).abs().max()) <= tol_s * float(want.abs().max())
 	assert float((v - v_ref).abs().max()) <= tol_s * float(v_ref.abs().max())

@@ -53,6 +53,23 @@ def test_stencil_wide_band_matches_jax_xla():
 	np.testing.assert_allclose(got, np.asarray(jop.matmat_t(jnp.asarray(Xt))), rtol=0, atol=1e-10)
 
 
+@pytest.mark.parametrize("nv", [1, 13, 64])
+def test_fem_pattern_probe_major_matches_jax(nv):
+	"""The FEM cell's pattern at side 12 (n = 1,728; offsets ±1, ±12, ±144; float64):
+	``matmat_t`` and the probe-major ``matmat`` against the JAX operator's ``matmat_t``,
+	which takes its XLA stencil here, since ±144 is past the Pallas kernel's ``HALO``."""
+	from benchmarks.matrices import fem_laplacian_3d
+
+	A = fem_laplacian_3d(12).astype(np.float64)
+	jop, op = _pair(A)
+	assert sorted(op.offsets) == [-144, -12, -1, 0, 1, 12, 144] and max(op.offsets) > HALO
+	Xt = np.random.default_rng(nv).normal(size=(nv, A.shape[0]))
+	want = np.asarray(jop.matmat_t(jnp.asarray(Xt)))
+	np.testing.assert_allclose(op.matmat_t(torch.from_numpy(Xt)).numpy(), want, rtol=0, atol=1e-10)
+	np.testing.assert_allclose(op.matmat(torch.from_numpy(Xt).T).T.numpy(), want, rtol=0, atol=1e-10)
+	np.testing.assert_allclose(want, (A @ Xt.T).T, rtol=0, atol=1e-10)
+
+
 @pytest.mark.parametrize("dtype,atol", [(np.float32, 1e-5), (np.float64, 1e-10)])
 def test_node_major_stencil_matches_jax_pallas(dtype, atol):
 	"""dia_stencil vs the node-major Pallas kernel in interpret mode (k a multiple

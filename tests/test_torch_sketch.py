@@ -24,7 +24,7 @@ from primate_tpu.operators.sparse import BSROperator as JaxBSR
 from primate_tpu.operators.sparse import DIAOperator as JaxDIA
 from primate_tpu.random import as_key
 from primate_tpu.random import sample_isotropic as jax_sample
-from benchmarks.matrices import block_random_spd
+from benchmarks.matrices import block_random_spd, fem_laplacian_3d
 
 from primate_tpu_torch import BSROperator, DeflatedOperator, DIAOperator, diag, diagpp, hutch, hutchpp, xdiag, xnystrace, xtrace
 from primate_tpu_torch import linalg
@@ -254,6 +254,25 @@ def test_diag_count_path_matches_jax(kind, batch):
 	assert res.nit == jres.nit == 12
 	_close(got, want)
 	_close(res.info["m2"].numpy(), jres.info["state"]["m2"], rtol=1e-7)
+
+
+def test_diag_on_the_fem_pattern_matches_jax(monkeypatch):
+	"""``diag`` on the FEM cell's pattern at side 12 (n = 1,728; offsets ±1, ±12, ±144;
+	float64), the JAX package's probes handed in probe-major as the port draws them:
+	every batch goes through the probe-major stencil, and the estimate meets JAX ``diag``."""
+	from primate_tpu_torch.operators import sparse
+
+	A = fem_laplacian_3d(12).astype(np.float64)
+	jop, op = JaxDIA.from_scipy(A), DIAOperator.from_scipy(A, device="cpu")
+	n, batch, count = A.shape[0], 16, 8
+	calls = []
+	real = sparse.dia_stencil_t
+	monkeypatch.setattr(sparse, "dia_stencil_t", lambda b, o, x: (calls.append(x.shape), real(b, o, x))[1])
+	stream = _fold_in_stream(SEED, n, "rademacher")
+	got, res = run_diag(op, lambda it: stream(it, batch).T.contiguous().T, CountCriterion(count), batch=batch, full=True)
+	want, jres = pt.diag(jop, converge="count", count=count, seed=SEED, batch=batch, full=True)
+	assert res.nit == jres.nit == count and calls == [(batch, n)] * count
+	_close(got, want)
 
 
 def test_diag_adaptive_path_matches_jax():
