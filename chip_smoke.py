@@ -44,7 +44,27 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    and in two: each within 1e-4 (relative) of the exact ``e^{−1}·vec(E X E)``, and
    the step kernels launched deg and 2·deg times;
 12. estimates the heat-kernel signature ``diag(exp(−τL))`` for the 8 values of τ:
-   relative L2 error below 0.1 for every τ ≤ 1, the step kernels launched.
+   relative L2 error below 0.1 for every τ ≤ 1, the step kernels launched;
+13. computes BASELINE config 5, the GP negative log-likelihood and its gradient, at
+   n = 10,000,000 in float32: ``K(θ) = e^{θ₀}·T + e^{θ₁}·I`` (T the 1-D Dirichlet
+   Laplacian) as a DIA operator whose bands are computed from θ = (0, 0),
+   ``nll = ½(autodiff.logdet(K) + y·solve(K, y) + n log 2π)`` (128 probes in two
+   chunks) and ``nll.backward()``: the logdet, ``yᵀK⁻¹y`` and both gradient components
+   each within 1e-3 of their closed forms through T's DST-I eigenbasis, the step kernels
+   launched in the forward pass and the probe-major stencil (CG, band pullback) in both;
+   then each kernel and kernel Function of the path against its plain version on the
+   run's own operator and blocks (the probe-major stencil at 64 × n and 1 × n, the
+   node-major one at n × 1, both backwards), within the float32 kernel tolerance;
+14. runs batched CG on phase 9's power-law graph with 64 Rademacher right-hand sides,
+   Jacobi- and Nyström-preconditioned (rank 64, seeded): each converges (the recursive
+   residual ``cg(full=True)`` reports, as in JAX, within rtol), and every column's
+   ``‖B − AX‖/‖B‖``, computed apart in float64, is within 2·rtol; how far the reported
+   residual drifts from the true one is printed.
+
+Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
+(``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
+and float64, at phase 6's cell shapes, on non-symmetric bands and on a misaligned block,
+its backward timed beside the plain version's.
 
 Each phase raises on failure. Measured values go out as JSON lines; the line
 before the last lists every kernel with its launches on its path, its error
@@ -53,8 +73,12 @@ against its plain version, its time, its plain version's time, its bound
 float32 rate) and its library call's time (``library_ms``, null where no single
 call computes it); for ``dia_stencil_t`` the same numbers at the FEM ``diag``
 shape follow under ``fem_`` keys, with its launches in that call
-(``fem_launches``); the last line is ``{"ok": true, "device": {...}}``. Without a
-CUDA device it exits non-zero before printing anything.
+(``fem_launches``); the three kernels with a backward carry its error
+(``grad_max_abs_err``, over float32 and float64, relative to the largest entry) and
+times (``backward_ms``, ``backward_plain_ms``), and the three kernels of phase 13 their
+launches in its forward and backward passes (``gp_forward_launches``,
+``gp_backward_launches``); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits non-zero before printing anything.
 """
 
 import json
@@ -99,6 +123,10 @@ TRACE_TOL, DIAG_TOL = 1e-3, 0.1
 # Node-major operator applications per call (the JAX programs' matmat count).
 BSR_APPLIES = {"hutchpp": 3, "xtrace": 8, "xnystrace": 1, "xdiag": 2}
 ALPHA_TOL = {"float32": 1e-4, "float64": 1e-10}  # relative: the summation orders differ
+# Phase 13: BASELINE config 5 (the GP log-likelihood) at 10M rows; phase 14: batched CG.
+GP = dict(deg=20, orth=0, nv=128, chunk=64, seed=13, solver_rtol=1e-5)
+# Relative, each on its own: logdet, yᵀK⁻¹y (no n·log 2π constant) and each θ-gradient component.
+GP_TOL, CG_RTOL, CG_RHS = 1e-3, 1e-5, 64
 
 
 def emit(obj) -> None:
@@ -457,6 +485,90 @@ def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), rep
 	return out
 
 
+def _grad_err(torch, got, want) -> tuple:
+	"""Largest error over the gradients of one call: absolute, and relative to each gradient's largest entry."""
+	errs = [_rel_err(torch, g, w) for g, w in zip(got, want)]
+	return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def check_backward(torch, ptt, bsr_op, dia_op, dev, reps: int = 5) -> dict:
+	"""Phase 6, backward: each kernel Function's input and parameter gradients against
+	``torch.autograd.grad`` through its plain version on the card, float32 and float64, at
+	the cell shapes (FEM probe-major 64 × 1M, FEM node-major 1M × 64, BSR cell at k = 64),
+	on non-symmetric bands (offsets −10,000 … 10,000 at n = 12,000), on a probe block that
+	starts one element into its buffer, and on 8×16 tiles over n = 1001 with an empty block
+	row; float32 cell backwards timed beside the plain version's autograd."""
+	import scipy.sparse as sps
+	from primate_tpu_torch.ops import autograd as kad
+	from primate_tpu_torch.ops import bsr, dia
+
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(6)
+	out = {}
+	for dtype in (torch.float32, torch.float64):
+		tname = str(dtype).removeprefix("torch.")
+		rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=dtype)  # noqa: E731
+		n = dia_op.shape[0]
+		bands = dia_op.bands.to(dtype).requires_grad_(True)
+		offs, offsets = dia_op.offsets_t, dia_op.offsets
+		blocks = bsr_op.blocks.to(dtype).requires_grad_(True)
+		ns, offs_ns = 12_000, (-10_000, -7, 0, 3, 10_000)
+		bands_ns = (torch.rand((len(offs_ns), ns), generator=gen, device=dev, dtype=dtype) + 0.5).requires_grad_(True)
+		offs_ns_t = torch.tensor(offs_ns, dtype=torch.int64, device=dev)
+		lead = torch.randn(13 * ns + 1, generator=gen, device=dev, dtype=dtype)
+		A = sps.random(1001, 1001, density=0.01, random_state=np.random.default_rng(6), format="csr").toarray()
+		A[24:32] = 0.0
+		A = sps.csr_matrix(A)
+		A.resize((1008, 1008))
+		S = A.tobsr(blocksize=(8, 16))
+		blocks_s = torch.tensor(S.data, dtype=dtype, device=dev).requires_grad_(True)
+		ip_s = torch.tensor(S.indptr, dtype=torch.int64, device=dev)
+		ix_s = torch.tensor(S.indices, dtype=torch.int64, device=dev)
+		cases = [  # (label, kernel, Function, plain, inputs, cotangent shape, timed)
+			("fem_probe_major", "dia_stencil_t", lambda b, x: kad.dia_stencil_t_ad(b, x, offs, offsets),
+				lambda b, x: dia.dia_stencil_t_ref(b, offs, x), (bands, rnd(64, n).requires_grad_(True)), (64, n), True),
+			("fem_node_major", "dia_stencil", lambda b, v: kad.dia_stencil_ad(b, v, offs, offsets),
+				lambda b, v: dia.dia_stencil_ref(b, offs, v), (bands, rnd(n, 64).requires_grad_(True)), (n, 64), True),
+			("bsr_cell", "bsr_spmm", lambda b, v: kad.bsr_spmm_ad(b, v, bsr_op.indptr, bsr_op.indices, bsr_op.shape[0]),
+				lambda b, v: bsr.bsr_spmm_ref(b, bsr_op.indptr, bsr_op.indices, v, bsr_op.shape[0]),
+				(blocks, rnd(bsr_op.shape[0], 64).requires_grad_(True)), (bsr_op.shape[0], 64), True),
+			("nonsymmetric_probe_major", "dia_stencil_t", lambda b, x: kad.dia_stencil_t_ad(b, x, offs_ns_t, offs_ns),
+				lambda b, x: dia.dia_stencil_t_ref(b, offs_ns_t, x), (bands_ns, rnd(13, ns).requires_grad_(True)), (13, ns), False),
+			("nonsymmetric_node_major", "dia_stencil", lambda b, v: kad.dia_stencil_ad(b, v, offs_ns_t, offs_ns),
+				lambda b, v: dia.dia_stencil_ref(b, offs_ns_t, v), (bands_ns, rnd(ns, 13).requires_grad_(True)), (ns, 13), False),
+			("misaligned_probe_major", "dia_stencil_t", lambda b, x: kad.dia_stencil_t_ad(b, x, offs_ns_t, offs_ns),
+				lambda b, x: dia.dia_stencil_t_ref(b, offs_ns_t, x), (bands_ns, lead[1:].view(13, ns).requires_grad_(True)), (13, ns), False),
+			("bsr_8x16_n1001", "bsr_spmm", lambda b, v: kad.bsr_spmm_ad(b, v, ip_s, ix_s, 1001),
+				lambda b, v: bsr.bsr_spmm_ref(b, ip_s, ix_s, v, 1001), (blocks_s, rnd(1001, 65).requires_grad_(True)), (1001, 65), False),
+		]
+		for label, name, fn, plain, inputs, g_shape, timed in cases:
+			G = rnd(*g_shape)
+			y = fn(*inputs)
+			if not type(y.grad_fn).__name__.endswith("Backward"):
+				raise AssertionError(f"{name}: the apply did not go through its autograd Function")
+			got = torch.autograd.grad(y, inputs, G, retain_graph=timed)
+			y_ref = plain(*inputs)
+			want = torch.autograd.grad(y_ref, inputs, G, retain_graph=timed)
+			torch.cuda.synchronize()
+			err, rel = _grad_err(torch, got, want)
+			row = {"phase": "backward_check", "kernel": name, "shape": label, "dtype": tname, "grad_max_abs_err": err,
+				"grad_rel_err": rel, "tol": STENCIL_TOL[tname]}
+			del got, want
+			if timed and dtype == torch.float32:
+				ms, plain_ms = _timed_pair(torch, lambda: torch.autograd.grad(y, inputs, G, retain_graph=True),
+					lambda: torch.autograd.grad(y_ref, inputs, G, retain_graph=True), reps)
+				row.update({"backward_ms": ms, "backward_plain_ms": plain_ms})
+				out.setdefault(name, {}).update({"backward_ms": ms, "backward_plain_ms": plain_ms})
+			if timed:
+				entry = out.setdefault(name, {})
+				entry["grad_max_abs_err"] = max(entry.get("grad_max_abs_err", 0.0), err)
+			del y, y_ref
+			emit(row)
+			if not rel <= STENCIL_TOL[tname]:
+				raise AssertionError(f"{name}'s backward disagrees with its plain version's autograd: {row}")
+	return out
+
+
 def _timed_calls(torch, fn, reps: int = 3) -> tuple:
 	"""Median host wall time of ``reps`` synchronised calls after one warm-up call (the counted run)."""
 	from primate_tpu_torch.ops import _common
@@ -734,6 +846,171 @@ def heat_signature(torch, ptt, dev, op) -> dict:
 	return row
 
 
+def _dirichlet_bands(torch, theta, n: int, dev):
+	"""Row-aligned bands of ``e^{θ₀}·tridiag(−1, 2, −1) + e^{θ₁}·I`` (offsets −1, 0, 1), computed from θ."""
+	a, b = torch.exp(theta[0]), torch.exp(theta[1])
+	one = torch.ones(n, dtype=theta.dtype, device=dev)
+	lo, hi = one.clone(), one.clone()
+	lo[0], hi[-1] = 0.0, 0.0  # the unused ends of the off-diagonal bands
+	return torch.stack([-a * lo, (2 * a + b) * one, -a * hi])
+
+
+def _gp_kernel_checks(torch, K0, Zt, Wt, x, y) -> dict:
+	"""Phase 13's kernels and kernel Functions against their plain versions on the run's own
+	operator and blocks, relative to the largest entry: the probe-major stencil on a probe
+	chunk ``Zt (64, n)`` (CG's apply and the pullback's forward) and on the solve's ``x (1, n)``;
+	the node-major stencil on ``x`` as ``(n, 1)`` (the solve's pullback); the band and input
+	gradients of both Functions (adjoint apply and band reduction) against autograd through the
+	plain versions, with the chunk's ``Wt = K⁻¹Z`` and ``y`` as the cotangents."""
+	from primate_tpu_torch.ops import autograd as kad
+	from primate_tpu_torch.ops import dia
+
+	offs, offsets = K0.offsets_t, K0.offsets
+	offs_host = offs.cpu()
+	errs = {}
+	with torch.no_grad():
+		for label, blk in (("dia_stencil_t_64xn", Zt), ("dia_stencil_t_1xn", x[None, :])):
+			errs[label] = _rel_err(torch, K0.matmat_t(blk), dia.dia_stencil_t_ref(K0.bands, offs_host, blk))[1]
+		errs["dia_stencil_nx1"] = _rel_err(torch, K0.matmat(x[:, None]), dia.dia_stencil_ref(K0.bands, offs_host, x[:, None]))[1]
+	b = K0.bands.detach().requires_grad_(True)
+	for label, fn, plain, v, G in (
+		("dia_stencil_t_grad_64xn", kad.dia_stencil_t_ad, dia.dia_stencil_t_ref, Zt, Wt),
+		("dia_stencil_grad_nx1", kad.dia_stencil_ad, dia.dia_stencil_ref, x[:, None], y[:, None]),
+	):
+		v = v.detach().requires_grad_(True)
+		got = torch.autograd.grad(fn(b, v, offs, offsets), (b, v), G)
+		want = torch.autograd.grad(plain(b, offs_host, v), (b, v), G)
+		errs[label] = _grad_err(torch, got, want)[1]
+		del got, want
+	return errs
+
+
+def gp_nll(torch, ptt, dev, n: int = N_LARGE, reps: int = 3) -> dict:
+	"""Phase 13: BASELINE config 5 on one card, the GP negative log-likelihood and its θ
+	gradient at n = 10M, float32: logdet, yᵀK⁻¹y and each gradient component against the
+	closed forms through T's DST-I eigenbasis; the kernels at the shapes of the run against
+	their plain versions."""
+	import scipy.fft
+	from primate_tpu_torch import autodiff
+	from primate_tpu_torch.ops import _common
+	from primate_tpu_torch.ops.autograd import _band_grad
+
+	y64 = np.random.default_rng(13).normal(size=n)
+	y = torch.tensor(y64, dtype=torch.float32, device=dev)
+
+	def run():
+		theta = torch.zeros(2, dtype=torch.float32, device=dev, requires_grad=True)
+		K = ptt.DIAOperator(_dirichlet_bands(torch, theta, n, dev), (-1, 0, 1), (n, n))
+		torch.cuda.synchronize()
+		torch.cuda.reset_peak_memory_stats()
+		_common.reset_launches()
+		t0 = time.perf_counter()
+		ld = autodiff.logdet(K, **GP)
+		quad = y @ ptt.solve(K, y, rtol=GP["solver_rtol"])
+		nll = 0.5 * (ld + quad + n * float(np.log(2 * np.pi)))
+		torch.cuda.synchronize()
+		t_fwd, fwd, peak_fwd = time.perf_counter() - t0, dict(_common.LAUNCHES), torch.cuda.max_memory_allocated()
+		torch.cuda.reset_peak_memory_stats()
+		_common.reset_launches()
+		t0 = time.perf_counter()
+		nll.backward()
+		torch.cuda.synchronize()
+		t_bwd, bwd, peak_bwd = time.perf_counter() - t0, dict(_common.LAUNCHES), torch.cuda.max_memory_allocated()
+		values = (float(nll.detach()), float(ld.detach()), float(quad.detach()))
+		return values, theta.grad.double().cpu().numpy(), t_fwd, t_bwd, fwd, bwd, peak_fwd, peak_bwd, K
+
+	(nll, ld, quad), grad, _, _, fwd, bwd, peak_fwd, peak_bwd, K = run()  # the counted run, also the warm-up
+	walls = [run()[2:4] for _ in range(reps)]
+	lam = 2.0 - 2.0 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1))
+	yh2 = scipy.fft.dst(y.double().cpu().numpy(), type=1, norm="ortho") ** 2
+	den = lam + 1.0  # a λ + b at θ = (0, 0)
+	ld_exact, quad_exact = float(np.sum(np.log(den))), float(np.sum(yh2 / den))
+	exact = 0.5 * (ld_exact + quad_exact + n * np.log(2 * np.pi))
+	exact_grad = np.array([0.5 * (np.sum(lam / den) - np.sum(lam * yh2 / den**2)), 0.5 * (np.sum(1.0 / den) - np.sum(yh2 / den**2))])
+	rel_ld, rel_quad = abs(ld - ld_exact) / abs(ld_exact), abs(quad - quad_exact) / abs(quad_exact)
+	rel, rel_grad = abs(nll - exact) / abs(exact), np.abs(grad - exact_grad) / np.abs(exact_grad)
+	# The same solves once more with full=True, for their iteration counts: the two probe
+	# chunks as the backward pass draws them, and the solve of y. Chunk 0 and its solution
+	# W = K⁻¹Z (the backward's cotangent, up to scale) and the solve's x feed the kernel checks.
+	from primate_tpu_torch.random import sample_isotropic
+	from primate_tpu_torch.trace import _base_seed, batch_generator
+
+	with torch.no_grad():
+		K0 = ptt.DIAOperator(K.bands.detach(), K.offsets, K.shape)
+		its, blocks = [], None
+		for i in range(-(-GP["nv"] // GP["chunk"])):
+			Z = sample_isotropic(batch_generator(_base_seed(GP["seed"]), i, dev), (n, GP["chunk"]), dtype=torch.float32)
+			W, it, _ = ptt.cg(K0, Z, rtol=GP["solver_rtol"], full=True)
+			its.append(it)
+			if blocks is None:
+				blocks = (Z.T.contiguous(), W.T.contiguous())
+			del Z, W
+		x, solve_it, _ = ptt.cg(K0, y, rtol=GP["solver_rtol"], full=True)
+		Zt, Wt = blocks
+		pullback_ms = time_ms(torch, lambda: _band_grad(Wt, Zt, K0.offsets, torch.float32, probe_major=True), 5)
+		stencil_ms = time_ms(torch, lambda: K0.matmat_t(Zt), 5)
+	kernel_errs = _gp_kernel_checks(torch, K0, Zt, Wt, x, y)
+	del blocks, Zt, Wt, x
+	row = {"phase": "gp_nll", "n": n, "dtype": "float32", **GP, "nll": nll, "exact": exact, "rel_err": rel,
+		"logdet": ld, "logdet_exact": ld_exact, "logdet_rel_err": rel_ld,
+		"quad": quad, "quad_exact": quad_exact, "quad_rel_err": rel_quad,
+		"grad": grad.tolist(), "exact_grad": exact_grad.tolist(), "grad_rel_err": rel_grad.tolist(), "tol": GP_TOL,
+		"forward_wall_s_median": statistics.median(w[0] for w in walls), "backward_wall_s_median": statistics.median(w[1] for w in walls),
+		"forward_wall_s": [w[0] for w in walls], "backward_wall_s": [w[1] for w in walls],
+		"cg_iterations_per_chunk": its, "cg_iterations_solve": solve_it,
+		"forward_max_memory_allocated_bytes": peak_fwd, "backward_max_memory_allocated_bytes": peak_bwd,
+		"forward_launches": fwd, "backward_launches": bwd, "band_pullback_ms": pullback_ms, "stencil_t_ms": stencil_ms,
+		"kernel_rel_err": kernel_errs, "kernel_tol": STENCIL_TOL["float32"]}
+	emit(row)
+	if not all(e <= STENCIL_TOL["float32"] for e in kernel_errs.values()):
+		raise AssertionError(f"a kernel of the GP path disagrees with its plain version at the run's shapes: {kernel_errs}")
+	if not (rel_ld < GP_TOL and rel_quad < GP_TOL and rel < GP_TOL and np.all(rel_grad < GP_TOL)):
+		raise AssertionError(f"GP NLL terms or its gradient off the closed forms: {row}")
+	for k in ("lanczos_dia_step", "lanczos_dia_residual", "dia_stencil_t"):
+		if fwd[k] < 1:
+			raise AssertionError(f"the forward pass launched no {k}")
+	if bwd["dia_stencil_t"] < 1:
+		raise AssertionError("the backward pass launched no dia_stencil_t")
+	return row
+
+
+def batched_cg(torch, ptt, dev) -> dict:
+	"""Phase 14: batched CG on phase 9's 1M power-law graph (eigenvalues ≥ 1 by its shift),
+	64 Rademacher right-hand sides, float32, with the Jacobi and the Nyström preconditioner."""
+	from benchmarks.matrices import powerlaw_laplacian
+	from primate_tpu_torch.random import sample_isotropic
+
+	L = powerlaw_laplacian(n=PL_N, m=4, seed=0)
+	op = ptt.CSROperator.from_scipy(L, dtype=torch.float32, device=dev)
+	op64 = ptt.CSROperator.from_scipy(L, dtype=torch.float64, device=dev)
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(14)
+	B = sample_isotropic(gen, (PL_N, CG_RHS), pdf="rademacher", dtype=torch.float32)
+	b_norm = torch.linalg.vector_norm(B.double(), dim=0).cpu().numpy()
+	row = {"phase": "batched_cg", "n": PL_N, "nnz": int(L.nnz), "rhs": CG_RHS, "rtol": CG_RTOL}
+	maxiter = 2000
+	solves = (("jacobi", dict(precond="jacobi")), ("nystrom", dict(precond="nystrom", precond_rank=64, precond_seed=14)))
+	for label, kw in solves:
+		torch.cuda.synchronize()
+		t0 = time.perf_counter()
+		X, it, res = ptt.cg(op, B, rtol=CG_RTOL, maxiter=maxiter, full=True, **kw)
+		torch.cuda.synchronize()
+		wall = time.perf_counter() - t0
+		with torch.no_grad():  # the residual of the returned X, in float64
+			true = torch.linalg.vector_norm(B.double() - op64.matmat(X.double()), dim=0).cpu().numpy()
+		true_rel = true / b_norm
+		row.update({f"{label}_wall_s": wall, f"{label}_iterations": it, f"{label}_reported_rel_residual_max": float(np.max(res / b_norm)),
+			f"{label}_true_rel_residual_max": float(true_rel.max()),
+			# How far CG's recursive residual (what full=True reports, as in JAX) drifts from the true one.
+			f"{label}_reported_vs_true_residual_max": float(np.max(np.abs(res - true) / true))})
+		if not (it < maxiter and np.all(res <= CG_RTOL * b_norm * (1 + 1e-3)) and np.all(true_rel <= 2 * CG_RTOL)):
+			emit(row)
+			raise AssertionError(f"{label} CG did not converge to ‖B − AX‖/‖B‖ ≤ 2·rtol in every column: {row}")
+		del X
+	emit(row)
+	return row
+
+
 def main() -> None:
 	import torch
 
@@ -762,6 +1039,8 @@ def main() -> None:
 	dia_op, dia_launches, diag_launches = dia_sketches(torch, ptt, dev, FEM_SIDE)
 	for k, v in check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev).items():
 		kernels.setdefault(k, {}).update(v)
+	for k, v in check_backward(torch, ptt, bsr_op, dia_op, dev).items():
+		kernels[k].update(v)
 	kernels["dia_stencil_t"]["fem_launches"] = diag_launches
 	del bsr_op, dia_op
 
@@ -769,6 +1048,13 @@ def main() -> None:
 	mesh_op = heat_curve(torch, ptt, dev)
 	fav(torch, ptt, dev, mesh_op)
 	heat_signature(torch, ptt, dev, mesh_op)
+	del mesh_op
+	torch.cuda.empty_cache()
+
+	gp = gp_nll(torch, ptt, dev)
+	for k in ("dia_stencil_t", "lanczos_dia_step", "lanczos_dia_residual"):
+		kernels[k].update({"gp_forward_launches": gp["forward_launches"][k], "gp_backward_launches": gp["backward_launches"][k]})
+	batched_cg(torch, ptt, dev)
 
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],

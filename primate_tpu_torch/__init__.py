@@ -20,6 +20,13 @@ and the sketch trace and diagonal estimators on block-sparse and banded operator
     hutchpp(S, m=240); xtrace(S, batch=64, converge="count", count=256); xnystrace(S, m=720)
     xdiag(S, m=256); diagpp(S, m=240); diag(S, batch=64, converge="count", count=256)
 
+and the Gaussian-process loss with its gradient, through batched CG and the
+differentiable spectral sums (autograd through the CUDA kernels)::
+
+    K = DIAOperator(bands_of(theta), offsets, (n, n))       # bands computed from theta
+    nll = 0.5 * (autodiff.logdet(K, nv=128, chunk=64) + y @ solve(K, y) + n * log(2 pi))
+    nll.backward()                                           # theta.grad
+
 Every constructor and entry point that takes a ``device`` puts its tensors on
 the card (``"cuda"``) unless the caller passes ``device="cpu"``; without a card
 that default raises as torch does. A dense numpy or scipy matrix becomes an
@@ -31,9 +38,30 @@ tensors their plain PyTorch versions run. The CSR apply is cuSPARSE's SpMM
 through ``torch.sparse``. This package imports neither ``jax`` nor ``primate_tpu``.
 """
 
-from .convert import bsr_from_numpy, coo_from_numpy, cov_state_from_numpy, csr_from_numpy, dia_from_numpy
+from . import autodiff
+from .autodiff import spectral_sum
+from .convert import (
+	bsr_from_numpy,
+	coo_from_numpy,
+	cov_state_from_numpy,
+	csr_from_numpy,
+	dia_from_numpy,
+	diag_precond_from_numpy,
+	nystrom_from_numpy,
+)
 from .diagonal import diag, diagpp, xdiag
-from .estimators import ConfidenceEstimator, ControlVariableEstimator, MeanEstimator
+from .estimators import (
+	ConfidenceCriterion,
+	ConfidenceEstimator,
+	ControlVariableEstimator,
+	ConvergenceCriterion,
+	CountCriterion,
+	EstimatorResult,
+	KneeCriterion,
+	MeanEstimator,
+	ToleranceCriterion,
+	convergence_criterion,
+)
 from .fttr import fttr, ortho_poly
 from .integrate import lanczos_quadrature, lobatto_rule, quadrature, radau_rule
 from .lanczos import OrthogonalPolynomialBasis, lanczos, lanczos_block_op, rayleigh_ritz
@@ -46,9 +74,12 @@ from .operators import (
 	FunctionOperator,
 	MatrixFunction,
 	aslinop,
+	is_linear_op,
+	is_valid_operator,
 	matrix_function,
 )
 from .random import Isotropic, haar, isotropic, sample_isotropic, symmetric
+from .solvers import NystromPreconditioner, cg, nystrom_precond, solve
 from .special import param_callable, stacked
 from .trace import hutch, hutchpp, xnystrace, xtrace
 from .tridiag import eigh_tridiag, eigvalsh_tridiag, tqli
@@ -100,4 +131,21 @@ __all__ = [
 	"csr_from_numpy",
 	"coo_from_numpy",
 	"cov_state_from_numpy",
+	"nystrom_from_numpy",
+	"diag_precond_from_numpy",
+	"ConvergenceCriterion",
+	"CountCriterion",
+	"ToleranceCriterion",
+	"ConfidenceCriterion",
+	"KneeCriterion",
+	"EstimatorResult",
+	"convergence_criterion",
+	"is_linear_op",
+	"is_valid_operator",
+	"cg",
+	"solve",
+	"nystrom_precond",
+	"NystromPreconditioner",
+	"spectral_sum",
+	"autodiff",
 ]

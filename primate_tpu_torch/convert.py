@@ -9,15 +9,21 @@ their tensors on the card unless the caller passes ``device="cpu"``::
     op = csr_from_numpy(np.asarray(jax_op.data), np.asarray(jax_op.indices), np.asarray(jax_op.indptr), jax_op.shape)
     op = coo_from_numpy(np.asarray(jax_op.data), np.asarray(jax_op.row), np.asarray(jax_op.col), jax_op.shape)
     st = cov_state_from_numpy(int(s.n), np.asarray(s.mu), np.asarray(s.S), device="cpu")
+    pre = nystrom_from_numpy(np.asarray(jax_pre.U), np.asarray(jax_pre.coef))
+    pre = diag_precond_from_numpy(np.asarray(jax_pre.inv_diag))
 """
 
 import numpy as np
 import torch
 
 from .operators.sparse import BSROperator, COOOperator, CSROperator, DIAOperator
+from .solvers import DiagPreconditioner, NystromPreconditioner
 from .stats import CovState
 
-__all__ = ["dia_from_numpy", "bsr_from_numpy", "csr_from_numpy", "coo_from_numpy", "cov_state_from_numpy"]
+__all__ = [
+	"dia_from_numpy", "bsr_from_numpy", "csr_from_numpy", "coo_from_numpy", "cov_state_from_numpy",
+	"nystrom_from_numpy", "diag_precond_from_numpy",
+]
 
 
 def dia_from_numpy(bands, offsets, shape, *, device="cuda", dtype=None) -> DIAOperator:
@@ -47,3 +53,15 @@ def cov_state_from_numpy(n, mu, S, *, device="cuda", dtype=None) -> CovState:
 		mu=torch.tensor(np.asarray(mu), dtype=dtype, device=device),
 		S=torch.tensor(np.asarray(S), dtype=dtype, device=device),
 	)
+
+
+def nystrom_from_numpy(U, coef, *, device="cuda", dtype=None) -> NystromPreconditioner:
+	"""A :class:`~primate_tpu_torch.solvers.NystromPreconditioner` from a JAX one's ``U (n, s)`` and ``coef (s,)``."""
+	return NystromPreconditioner(
+		U=torch.tensor(np.asarray(U), dtype=dtype, device=device), coef=torch.tensor(np.asarray(coef), dtype=dtype, device=device)
+	)
+
+
+def diag_precond_from_numpy(inv_diag, *, device="cuda", dtype=None) -> DiagPreconditioner:
+	"""A Jacobi :class:`~primate_tpu_torch.solvers.DiagPreconditioner` from a JAX one's ``inv_diag (n,)``."""
+	return DiagPreconditioner(torch.tensor(np.asarray(inv_diag), dtype=dtype, device=device))

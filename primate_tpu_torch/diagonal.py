@@ -20,9 +20,9 @@ from .estimators import ConvergenceCriterion, EstimatorResult, EstSnapshot, conv
 from .linalg import full_f32, tall_qr
 from .random import real_dtype
 from .operators.base import aslinop, is_valid_operator
-from .trace import _base_seed, _rdot, _sketch_op, probe_sampler, reject_differentiable
+from .trace import _base_seed, _rdot, _sketch_op, check_traced_path, count_budget, probe_sampler
 
-__all__ = ["diag", "diagpp", "xdiag", "xdiag_core", "diagpp_core", "run_diag"]
+__all__ = ["diag", "diagpp", "xdiag", "xdiag_core", "diagpp_core", "run_diag", "diag_ratio"]
 
 
 def run_diag(
@@ -74,6 +74,43 @@ def run_diag(
 	return result.estimate, result
 
 
+def diag_ratio(op, draw: Callable[[int], torch.Tensor], iters: int) -> torch.Tensor:
+	"""The plain ratio estimator ``Σ v∘(Av) / Σ v∘v`` over ``iters`` probe blocks
+	``draw(i) → (n, batch)`` (``primate_tpu/diagonal.py:60-122``): ordinary tensor
+	operations on the operator's applies, so autograd reaches the operator's tensors.
+	Returns ``(n,)``, or ``(nt, n)`` for a stacked operator."""
+	N = op.shape[0]
+	acc = torch.promote_types(op.dtype, torch.float32)
+	stack_shape = tuple(getattr(op, "stack_shape", None) or ())
+	nout = int(np.prod(stack_shape)) if stack_shape else 1
+	numer = torch.zeros(nout * N, dtype=acc, device=op.device)
+	denom = torch.zeros(N, dtype=acc, device=op.device)
+	for i in range(iters):
+		V = draw(i)
+		U = op.matmat(V.to(op.dtype))  # (..., N, batch)
+		numer = numer + torch.sum(U.to(acc) * V.to(acc), dim=-1).reshape(numer.shape)
+		denom = denom + torch.sum(V.to(acc) * V.to(acc), dim=-1)
+	est = (numer.reshape(nout, N) / torch.where(denom == 0, 1.0, denom)).reshape(stack_shape + (N,))
+	return est if stack_shape else est.reshape(N)
+
+
+def _diag_differentiable(op, pdf, converge, seed, maxiter: int, batch: int, kwargs) -> torch.Tensor:
+	"""``diag(..., differentiable=True)`` (``primate_tpu/diagonal.py:60-122,331-335``): the
+	plain ratio over ``min(count, maxiter)`` iterations of ``batch`` probes, iteration ``i``
+	drawn as the count path draws it. ``converge="tolerance"`` without keywords, ``diag``'s
+	default, counts as no criterion (a count)."""
+	if op.dtype.is_complex:
+		raise NotImplementedError("differentiable diag is real-symmetric only")
+	if converge == "tolerance" and not kwargs:
+		converge = "count"
+	count = count_budget("diag", converge, kwargs)
+	iters = min(count, int(maxiter))
+	if iters < count:
+		warnings.warn(f"diag: stopped by maxiter={maxiter} before the convergence criterion was met", stacklevel=3)
+	sample = probe_sampler(op, _base_seed(seed), pdf)
+	return diag_ratio(op, lambda i: sample(i, batch), iters)
+
+
 def diag(
 	A,
 	pdf: Union[str, Callable] = "rademacher",
@@ -99,12 +136,22 @@ def diag(
 	flattened, in ``result.info["values"]`` (the JAX package's
 	``result.estimator.values``). ``result.info["m2"]`` holds the per-entry
 	Welford sum of squared deviations. ``resume`` is not ported yet.
+
+	``differentiable=True`` (a count criterion) returns the plain final ratio
+	``Σ v∘(Av) / Σ v∘v`` as a tensor with a gradient to the operator's tensors, not
+	the mean of the running ratios; ``callback``, ``record``, ``resume`` and ``full``
+	are refused there. A ``MatrixFunction`` whose operator needs a gradient raises:
+	reverse mode through the Lanczos recurrence is not ported.
 	"""
-	reject_differentiable("diag", kwargs)
+	differentiable = kwargs.pop("differentiable", False)
+	if differentiable:
+		check_traced_path("diag", callback, resume, record, full, pdf)
 	if resume is not None:
 		raise NotImplementedError("diag: resume is not ported yet")
 	is_valid_operator(A)
 	op = A if hasattr(A, "quad") else aslinop(A)
+	if differentiable:
+		return _diag_differentiable(op, pdf, converge, seed, maxiter, max(1, int(batch)), kwargs)
 	criterion = convergence_criterion(converge, **kwargs)
 	if criterion_needs_values(criterion):
 		raise NotImplementedError("Knee-style criteria (recorded-sample based) are not defined for diag's dim-N estimator.")
@@ -169,11 +216,13 @@ def xdiag_core(op, Nm: torch.Tensor) -> torch.Tensor:
 	return torch.real(d[:, 0])
 
 
-def xdiag(A, m: Optional[int] = None, pdf: str = "sphere", seed=None) -> np.ndarray:
+def xdiag(A, m: Optional[int] = None, pdf: str = "sphere", seed=None, differentiable: bool = False):
 	"""XDiag leave-one-out diagonal estimator (``primate_tpu/diagonal.py:594-616``):
 	``m / 2`` probe columns (``m`` rounded up to even, at most ``2n``), ``m`` operator
-	applications in two blocks."""
+	applications in two blocks. ``differentiable=True`` returns the tensor, whose
+	gradient is the exact derivative of the fixed program."""
 	op = _sketch_op(A, "xdiag")
 	n = op.shape[0]
 	m = 2 * n if m is None else min(int(m) + (int(m) % 2), 2 * n)
-	return xdiag_core(op, probe_sampler(op, _base_seed(seed), pdf)(0, m // 2)).cpu().numpy()
+	d = xdiag_core(op, probe_sampler(op, _base_seed(seed), pdf)(0, m // 2))
+	return d if differentiable else d.cpu().numpy()

@@ -103,6 +103,12 @@ def _lanczos_core(
 ) -> LanczosOutput:
 	nv, n = V0t.shape
 	dtype, device = V0t.dtype, V0t.device
+	if torch.is_grad_enabled() and any(t.requires_grad for t in getattr(op, "float_tensors", tuple)()):
+		# The sweep updates its state in place and its step kernels have no backward.
+		raise NotImplementedError(
+			"reverse mode through the Lanczos recurrence is not ported: differentiate a spectral sum with "
+			"autodiff.spectral_sum (or hutch(..., differentiable=True)), or run the sweep under torch.no_grad()"
+		)
 	acc = torch.promote_types(dtype, torch.float32)  # f32 accumulation for bf16 storage
 	b_dtype = basis_dtype or dtype
 	keep_window = return_basis or orth > 0 or selective

@@ -33,6 +33,7 @@ __all__ = [
 	"ComposedOperator",
 	"AdjointOperator",
 	"aslinop",
+	"float_tensors_of",
 	"is_linear_op",
 	"is_valid_operator",
 	"matmat",
@@ -51,6 +52,19 @@ def torch_dtype(dtype) -> Optional[torch.dtype]:
 	if dt.name == "bfloat16":
 		return torch.bfloat16
 	return torch.from_numpy(np.zeros(0, dtype=dt)).dtype
+
+
+def float_tensors_of(*items) -> tuple:
+	"""The floating-point tensors among ``items`` and, for operators among them, their
+	:meth:`~LinearOperator.float_tensors`, each tensor once."""
+	out, seen = [], set()
+	for item in items:
+		found = item.float_tensors() if isinstance(item, LinearOperator) else (item,)
+		for t in found:
+			if isinstance(t, torch.Tensor) and (t.is_floating_point() or t.is_complex()) and id(t) not in seen:
+				seen.add(id(t))
+				out.append(t)
+	return tuple(out)
 
 
 def _is_scalar(x) -> bool:
@@ -78,6 +92,13 @@ class LinearOperator:
 
 	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
 		raise NotImplementedError
+
+	def float_tensors(self) -> tuple:
+		"""The floating-point tensors the operator's applies read, each once (the port's
+		counterpart of a JAX operator's inexact pytree leaves): the tensors autograd can
+		carry a gradient to, by :mod:`~primate_tpu_torch.autodiff` and the differentiable
+		solve. Integer index tensors are left out; an operator that holds none gives ()."""
+		return ()
 
 	def matmat(self, V: torch.Tensor) -> torch.Tensor:
 		return self._matmat(torch.as_tensor(V, device=self.device))
@@ -192,6 +213,9 @@ class DenseOperator(LinearOperator):
 		self.dtype = self.A.dtype
 		self.device = self.A.device
 
+	def float_tensors(self) -> tuple:
+		return float_tensors_of(self.A)
+
 	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
 		return self.A @ V
 
@@ -239,6 +263,9 @@ class FunctionOperator(LinearOperator):
 		self.captures = tuple(captures)
 		self.device = torch.device(device)
 
+	def float_tensors(self) -> tuple:
+		return float_tensors_of(*self.captures) if self.traceable else ()
+
 	def _call(self, args: tuple, V):
 		if self.batched:
 			return self.fn(*args, V)
@@ -269,6 +296,9 @@ class AffineOperator(LinearOperator):
 	def set_parameter(self, t) -> "AffineOperator":
 		return AffineOperator(self.A, self.B, t)
 
+	def float_tensors(self) -> tuple:
+		return float_tensors_of(self.A, *(() if self.B is None else (self.B,)), self.t)
+
 	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
 		BV = V if self.B is None else self.B.matmat(V)
 		return self.A.matmat(V) + self.t * BV
@@ -286,6 +316,9 @@ class ScaledOperator(LinearOperator):
 		self.A = aslinop(A, device=device)
 		self.t, self.s = t, s
 		self.shape, self.dtype, self.device = self.A.shape, self.A.dtype, self.A.device
+
+	def float_tensors(self) -> tuple:
+		return float_tensors_of(self.A, self.t, self.s)
 
 	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
 		return self.s * (self.A.matmat(V) + self.t * V)
@@ -309,6 +342,9 @@ class ComposedOperator(LinearOperator):
 		self.dtype = torch.promote_types(A.dtype, B.dtype)
 		self.device = A.device
 
+	def float_tensors(self) -> tuple:
+		return float_tensors_of(self.A, self.B)
+
 	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
 		return self.A.matmat(self.B.matmat(V))
 
@@ -331,6 +367,9 @@ class AdjointOperator(LinearOperator):
 		self.transpose = bool(transpose)
 		self.shape = (self.base.shape[1], self.base.shape[0])
 		self.dtype, self.device = self.base.dtype, self.base.device
+
+	def float_tensors(self) -> tuple:
+		return self.base.float_tensors()
 
 	def _conj_wrapped(self) -> bool:
 		return self.transpose and self.dtype.is_complex
@@ -463,6 +502,9 @@ class DeflatedOperator(LinearOperator):
 		self.V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
 		if self.V.ndim != 2 or self.V.shape[0] != self.shape[0]:
 			raise ValueError("V must be (n, k).")
+
+	def float_tensors(self) -> tuple:
+		return float_tensors_of(self.A, self.V)
 
 	def _vh(self, W: torch.Tensor) -> torch.Tensor:
 		return (self.V.mH if self.V.is_complex() else self.V.T) @ W

@@ -28,8 +28,9 @@ import numpy as np
 import torch
 
 from ..ops._common import LAYOUT_COPIES
-from ..ops.bsr import block_rowids, bsr_spmm
-from ..ops.dia import dia_stencil, dia_stencil_t, lanczos_dia_step, lanczos_dia_sweep_step
+from ..ops.autograd import bsr_spmm_ad, csr_spmm_ad, dia_stencil_ad, dia_stencil_t_ad
+from ..ops.bsr import block_rowids
+from ..ops.dia import lanczos_dia_step, lanczos_dia_sweep_step
 from .base import LinearOperator
 
 __all__ = ["COOOperator", "CSROperator", "BSROperator", "DIAOperator"]
@@ -69,8 +70,11 @@ class CSROperator(LinearOperator):
 		self.indptr = torch.as_tensor(indptr, device=self.device).to(idx).contiguous()
 		if self.indptr.shape[0] != self.shape[0] + 1 or self.indices.shape[0] != self.data.shape[0]:
 			raise ValueError(f"indptr {tuple(self.indptr.shape)} / indices {tuple(self.indices.shape)} do not fit shape {self.shape}")
-		self.csr = _sparse_csr(self.indptr, self.indices, self.data, self.shape)
+		# The CSR tensor holds the values without their autograd history: gradients
+		# reach ``data`` through ``ops.autograd``'s Function, never ``torch.sparse``'s own.
+		self.csr = _sparse_csr(self.indptr, self.indices, self.data.detach(), self.shape)
 		self._rowids = None
+		self._csr_t = None
 
 	@classmethod
 	def from_numpy(cls, data, indices, indptr, shape, *, dtype=None, device="cuda") -> "CSROperator":
@@ -104,16 +108,30 @@ class CSROperator(LinearOperator):
 			self._rowids = torch.repeat_interleave(torch.arange(self.shape[0], device=self.device), counts)
 		return self._rowids
 
+	def float_tensors(self) -> tuple:
+		return (self.data,)
+
+	def transpose_csr(self) -> torch.Tensor:
+		"""``Aᵀ`` as a CSR tensor (the input gradient's operand), its structure built once."""
+		if self._csr_t is None:
+			cols = self.indices.long()
+			perm = torch.argsort(cols, stable=True)
+			counts = torch.bincount(cols, minlength=self.shape[1])
+			indptr = torch.cat([torch.zeros(1, dtype=torch.long, device=self.device), torch.cumsum(counts, 0)])
+			self._csr_t = (perm, indptr.to(self.indptr.dtype), self.rowids[perm].to(self.indices.dtype))
+		perm, indptr, indices = self._csr_t
+		return _sparse_csr(indptr, indices, self.data.detach()[perm], (self.shape[1], self.shape[0]))
+
 	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
 		V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
 		if not V.is_contiguous():
 			V = V.contiguous()
 			LAYOUT_COPIES["csr_spmm"] += 1
-		return self.csr @ V
+		return csr_spmm_ad(self.data, V, self)
 
 	def matvec(self, v: torch.Tensor) -> torch.Tensor:
 		v = torch.as_tensor(v, dtype=self.dtype, device=self.device)
-		return self.csr @ v if v.ndim == 1 else self._matmat(v)
+		return self._matmat(v[:, None])[:, 0] if v.ndim == 1 else self._matmat(v)
 
 	def matmat_t(self, Vt: torch.Tensor) -> torch.Tensor:
 		Y = self._matmat(torch.as_tensor(Vt, device=self.device).T)
@@ -157,11 +175,14 @@ class COOOperator(LinearOperator):
 		self.shape = tuple(int(s) for s in shape)
 		self.row = torch.as_tensor(row, device=self.device).long()
 		self.col = torch.as_tensor(col, device=self.device).long()
-		coo = torch.sparse_coo_tensor(torch.stack([self.row, self.col]), self.data, self.shape, check_invariants=False).coalesce()
-		r, c = coo.indices()
+		# Coalesce by a sort of the linear keys and an index_add of the values, an
+		# ordinary differentiable op: gradients reach ``data`` through the CSR values.
+		keys, inverse = torch.unique(self.row * self.shape[1] + self.col, sorted=True, return_inverse=True)
+		values = torch.zeros(keys.shape[0], dtype=self.dtype, device=self.device).index_add(0, inverse, self.data)
+		r, c = keys // self.shape[1], keys % self.shape[1]
 		counts = torch.bincount(r, minlength=self.shape[0])
 		indptr = torch.cat([torch.zeros(1, dtype=torch.long, device=self.device), torch.cumsum(counts, 0)])
-		self._csr = CSROperator(coo.values(), c, indptr, self.shape)
+		self._csr = CSROperator(values, c, indptr, self.shape)
 
 	@classmethod
 	def from_scipy(cls, A, dtype=None, device="cuda") -> "COOOperator":
@@ -178,6 +199,10 @@ class COOOperator(LinearOperator):
 	@property
 	def nnz(self) -> int:
 		return int(self.data.shape[0])
+
+	def float_tensors(self) -> tuple:
+		# The coalesced values, computed from ``data``: autograd carries their gradient on to ``data``.
+		return self._csr.float_tensors()
 
 	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
 		return self._csr._matmat(V)
@@ -281,12 +306,15 @@ class BSROperator(LinearOperator):
 	def nnz(self) -> int:
 		return int(np.prod(self.blocks.shape))
 
+	def float_tensors(self) -> tuple:
+		return (self.blocks,)
+
 	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
 		V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
 		if not V.is_contiguous():
 			V = V.contiguous()
 			LAYOUT_COPIES["bsr_spmm"] += 1
-		return bsr_spmm(self.blocks, self.indptr, self.indices, V, self.shape[0])
+		return bsr_spmm_ad(self.blocks, V, self.indptr, self.indices, self.shape[0])
 
 	def rmatmat(self, V: torch.Tensor) -> torch.Tensor:
 		"""Adjoint block apply ``A† V`` (plain PyTorch: gather, tile product, ``index_add_``)."""
@@ -361,10 +389,13 @@ class DIAOperator(LinearOperator):
 	def nnz(self) -> int:
 		return self.bands.numel()
 
+	def float_tensors(self) -> tuple:
+		return (self.bands,)
+
 	def matmat_t(self, Vt: torch.Tensor) -> torch.Tensor:
 		"""Probe-major stencil ``out[b, i] = Σ_d band_d[i]·Vt[b, i + off_d]`` (kernel A on the card)."""
 		Vt = torch.as_tensor(Vt, dtype=self.dtype, device=self.device).contiguous()
-		return dia_stencil_t(self.bands, self.offsets_t, Vt)
+		return dia_stencil_t_ad(self.bands, Vt, self.offsets_t, self.offsets)
 
 	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
 		"""``A V`` on an ``(n, k)`` block, by its layout in memory, never copying a
@@ -378,8 +409,8 @@ class DIAOperator(LinearOperator):
 		"""
 		V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
 		if V.T.is_contiguous() and not V.is_contiguous():
-			return dia_stencil_t(self.bands, self.offsets_t, V.T).T
-		return dia_stencil(self.bands, self.offsets_t, V.contiguous())
+			return dia_stencil_t_ad(self.bands, V.T, self.offsets_t, self.offsets).T
+		return dia_stencil_ad(self.bands, V.contiguous(), self.offsets_t, self.offsets)
 
 	def matvec(self, v: torch.Tensor) -> torch.Tensor:
 		v = torch.as_tensor(v, device=self.device)

@@ -131,6 +131,9 @@ class MatrixFunction(LinearOperator):
 	def operator(self) -> LinearOperator:
 		return self._A
 
+	def float_tensors(self) -> tuple:
+		return self._A.float_tensors()
+
 	def _lanczos(self, X: torch.Tensor, ncv: int, return_basis: bool = True, coeffs=None):
 		from ..lanczos import lanczos_block_op
 

@@ -9,7 +9,9 @@ A count criterion decides on the host sample count and never reads the
 device; adaptive criteria read it once per batch, as do a per-batch
 ``callback`` and recorded samples (``record=True``, knee criteria). A stacked
 family of spectral functions gives a Welford state per member, from one sweep
-per batch. Not ported yet: ``differentiable=True``.
+per batch. ``differentiable=True`` takes the fixed-budget path of
+:mod:`~primate_tpu_torch.autodiff` (a ``MatrixFunction``) or autograd through the
+operator's applies (a plain operator), and returns a tensor.
 
 The sketch estimators (``hutchpp``, ``xtrace``, ``xnystrace``) split into a
 sampling step, which draws round ``it``'s probes from the generator keyed by
@@ -98,17 +100,53 @@ def count_only_target(criterion) -> Optional[int]:
 	return None
 
 
-# Keywords of the JAX ``hutch`` that only its differentiable path reads.
+# Keywords of the JAX ``hutch`` that only its differentiable path reads; the
+# other paths drop them, as the JAX package does.
 DIFFERENTIABLE_KWARGS = ("grad_method", "fprime", "solver_rtol", "solver_maxiter")
 
 
-def reject_differentiable(name: str, kwargs: dict) -> None:
-	"""Raise on ``differentiable=True`` and on the keywords only that path reads (not ported yet)."""
-	if kwargs.pop("differentiable", False):
-		raise NotImplementedError(f"{name}: differentiable=True is not ported yet")
-	for key in DIFFERENTIABLE_KWARGS:
-		if key in kwargs:
-			raise NotImplementedError(f"{name}: {key}= belongs to differentiable=True, which is not ported yet")
+def check_traced_path(name: str, callback=None, resume=None, record: bool = False, full: bool = False, pdf="rademacher") -> None:
+	"""Refuse what a ``differentiable=True`` path cannot do, where the JAX package asserts."""
+	if callback is not None or resume is not None or record or full:
+		raise ValueError(f"{name}(differentiable=True) returns the estimate only: callback/resume/record/full are unavailable")
+	if classify_pdf(pdf) == "size":
+		raise ValueError(f"{name}(differentiable=True) needs a named pdf (rademacher/normal/sphere) or a (generator, shape, dtype) callable")
+
+
+def count_budget(name: str, converge, kwargs: dict) -> int:
+	"""The probe count of a differentiable path's criterion, which must be a count."""
+	criterion = convergence_criterion("count" if converge in ("default", "count") else converge, **kwargs)
+	if not isinstance(criterion, CountCriterion):
+		raise ValueError(
+			f"{name}(differentiable=True) needs a fixed probe budget: pass converge='count', count=m "
+			"(an adaptive loop is not reverse-differentiable)"
+		)
+	return int(criterion.count)
+
+
+def _hutch_differentiable(op, batch, pdf, converge, seed, maxiter, kwargs) -> torch.Tensor:
+	"""``hutch(..., differentiable=True)`` (``primate_tpu/trace.py:200-239``): a fixed budget of
+	``min(count, maxiter·batch)`` probes in ``batch``-sized chunks, chunk ``i`` from the
+	generator keyed ``(seed, i)`` as the batch loop draws it. A ``MatrixFunction`` goes to
+	:func:`~primate_tpu_torch.autodiff.spectral_sum`; a plain operator gives the mean of
+	its quadratic forms, differentiable through its applies."""
+	grad_opts = {k: kwargs.pop(k) for k in DIFFERENTIABLE_KWARGS if k in kwargs}
+	count = count_budget("hutch", converge, kwargs)
+	nv = min(count, int(maxiter) * int(batch))
+	if nv < count:
+		warnings.warn(f"hutch: stopped by maxiter={maxiter} before the convergence criterion was met", stacklevel=3)
+	from .operators.special_ops import MatrixFunction
+
+	if isinstance(op, MatrixFunction):
+		from .autodiff import spectral_sum
+
+		return spectral_sum(op, nv=nv, pdf=pdf, seed=seed, chunk=int(batch), **grad_opts)
+	base, N = _base_seed(seed), op.shape[0]
+	means = []
+	for i in range(-(-nv // int(batch))):
+		V = sample_isotropic(batch_generator(base, i, op.device), (N, int(batch)), pdf=pdf, dtype=real_dtype(op.dtype))
+		means.append(torch.mean(quad_form(op, V.to(op.dtype)), dim=-1))
+	return torch.mean(torch.stack(means), dim=0)
 
 
 def hutch(
@@ -145,12 +183,24 @@ def hutch(
 	ones included. ``resume`` continues a run from its ``full=True`` result (or
 	its estimator), made with the same ``A``/``seed``/``batch``/``pdf``: the
 	estimate equals that of one uninterrupted run.
+
+	``differentiable=True`` (with a count criterion) returns a 0-d tensor with a
+	gradient to the operator's tensors: for a :class:`MatrixFunction` the estimate
+	of :func:`~primate_tpu_torch.autodiff.spectral_sum` with ``chunk=batch``
+	(``grad_method``, ``fprime``, ``solver_rtol`` and ``solver_maxiter`` go to it),
+	for a plain operator the mean of its quadratic forms; its value is that of the
+	count path on the same seed and batch. ``callback``, ``resume``, ``record`` and
+	``full`` are refused there.
 	"""
 	is_valid_operator(A)
 	op = A if hasattr(A, "quad") else aslinop(A)
-	reject_differentiable("hutch", kwargs)
 	if batch < 1:
 		raise ValueError("Batch size must be positive.")
+	if kwargs.pop("differentiable", False):
+		check_traced_path("hutch", callback, resume, record, full, pdf)
+		return _hutch_differentiable(op, batch, pdf, converge, seed, maxiter, kwargs)
+	for key in DIFFERENTIABLE_KWARGS:
+		kwargs.pop(key, None)
 	N = op.shape[0]
 	if converge == "default":
 		if kwargs:
@@ -280,7 +330,9 @@ def hutchpp(
 	"""
 	if batch < 1:
 		raise ValueError("Batch size must be positive.")
-	reject_differentiable("hutchpp", kwargs)
+	differentiable = kwargs.pop("differentiable", False)
+	if differentiable and (converge is not None or full):
+		raise ValueError("hutchpp(differentiable=True) is the fixed non-adaptive program only: drop converge= and full=")
 	if mode not in ("reduced", "full"):
 		raise ValueError(f"mode must be 'reduced' or 'full', got {mode!r}")
 	op = _sketch_op(A, "hutchpp")
@@ -303,6 +355,8 @@ def hutchpp(
 		result.nit += 2 * nb
 		return result.estimate, result
 	est, rng_ests, defl_ests = hutchpp_core(op, draw(0, nb), draw(1, nb), mode)
+	if differentiable:  # a fixed program: autograd through it is the exact derivative of the estimate
+		return est
 	est = float(est)
 	if not full:
 		return est
@@ -335,10 +389,13 @@ def xnystrace_core(op, Om: torch.Tensor) -> torch.Tensor:
 	return tr_pg + (1.0 - pgp) / p - nu * n
 
 
-def xnystrace(A, m: Optional[int] = None, pdf: Union[str, Callable] = "normal", seed=None, full: bool = False):
+def xnystrace(
+	A, m: Optional[int] = None, pdf: Union[str, Callable] = "normal", seed=None, full: bool = False, differentiable: bool = False
+):
 	"""XNysTrace: leave-one-out Nyström trace estimator for PSD operators
 	(``primate_tpu/trace.py:521-581``). ``m`` (default ``N // 3``, clamped to
-	``[2, N]``) operator applications, one block."""
+	``[2, N]``) operator applications, one block. ``differentiable=True`` returns the
+	mean as a tensor, whose gradient is the exact derivative of the fixed program."""
 	op = _sketch_op(A, "xnystrace")
 	N = op.shape[0]
 	acc = real_dtype(torch.promote_types(op.dtype, torch.float32))
@@ -348,6 +405,10 @@ def xnystrace(A, m: Optional[int] = None, pdf: Union[str, Callable] = "normal", 
 	m_ = (N // 3) if m is None else int(m)
 	m_ = min(max(2, m_), N)
 	t = xnystrace_core(op, probe_sampler(op, _base_seed(seed), pdf)(0, m_))
+	if differentiable:
+		if full:
+			raise ValueError("xnystrace(differentiable=True) returns the estimate only: drop full=")
+		return torch.mean(t)
 	estimator = MeanEstimator(1, acc, op.device)
 	estimator.update(t.to(acc))
 	est = estimator.estimate
@@ -429,20 +490,55 @@ def xtrace(
 	round, with ``delta`` the round-over-round move of the estimate.
 	``result.info["state"]`` holds the grown subspace; ``resume=`` (that dict or
 	the result) continues a run made with the same ``A``/``seed``/``batch``/``pdf``
-	bit-exactly.
+	bit-exactly. ``differentiable=True`` (a count budget, no ``resume``/``full``)
+	returns the mean of the leave-one-out estimates as a tensor.
 	"""
 	if batch < 1:
 		raise ValueError("Batch size must be positive.")
-	for flag in ("differentiable", "record", "callback"):
+	differentiable = kwargs.pop("differentiable", False)
+	for flag in ("record", "callback"):
 		if kwargs.pop(flag, None):
 			raise NotImplementedError(f"{flag} is not ported yet")
 	op = _sketch_op(A, "xtrace")
+	if differentiable:
+		check_traced_path("xtrace", resume=resume, full=full, pdf=pdf)
+		return _xtrace_differentiable(op, batch, pdf, converge, seed, kwargs)
 	criterion = CountCriterion(count=op.shape[0])
 	if converge != "default":
 		criterion = criterion | convergence_criterion(converge, **kwargs)
 	elif kwargs:
 		warnings.warn(f"Ignoring criterion kwargs {sorted(kwargs)} because converge='default'", stacklevel=2)
 	return run_xtrace(op, probe_sampler(op, _base_seed(seed), pdf), batch, pdf == "sphere", criterion, full, resume)
+
+
+def _xtrace_differentiable(op, batch: int, pdf, converge, seed, kwargs) -> torch.Tensor:
+	"""The fixed-schedule chain of ``xtrace(differentiable=True)`` (``primate_tpu/trace.py:750-773``):
+	rounds of ``batch`` probes up to the count (``n`` by default), then the mean of the
+	leave-one-out estimates; autograd through it is the exact derivative of the estimate."""
+	n = op.shape[0]
+	crit = CountCriterion(count=n) if converge == "default" else convergence_criterion(converge, **kwargs)
+	target = count_only_target(crit)
+	if target is None:
+		raise ValueError("xtrace(differentiable=True) needs a fixed probe budget: pass converge='count', count=m")
+	return xtrace_chain(op, probe_sampler(op, _base_seed(seed), pdf), batch, target, pdf == "sphere")
+
+
+def _grow_to(op, draw, batch: int, target: int, state=None, it: int = 0):
+	"""XTrace growth rounds of ``batch`` probes (round ``it``'s from ``draw(it, k)``) until the
+	subspace has ``min(target, n)`` columns: a known schedule, no device read. Returns ``(state, it)``."""
+	n = op.shape[0]
+	while (0 if state is None else state[0].shape[1]) < min(target, n):
+		m_cur = 0 if state is None else state[0].shape[1]
+		state = xtrace_round(op, state, draw(it, min(n - m_cur, batch)))
+		it += 1
+	return state, it
+
+
+def xtrace_chain(op, draw, batch: int, target: int, sphere: bool) -> torch.Tensor:
+	"""The growth rounds up to ``target`` columns and the mean of the leave-one-out
+	estimates, as one differentiable chain."""
+	state, _ = _grow_to(op, draw, batch, target)
+	return torch.mean(xtrace_estimates(*state, sphere))
 
 
 def run_xtrace(op, draw, batch: int, sphere: bool, criterion, full: bool = False, resume=None):
@@ -465,10 +561,7 @@ def run_xtrace(op, draw, batch: int, sphere: bool, criterion, full: bool = False
 	result = EstimatorResult(criterion=criterion)
 	target = count_only_target(criterion)
 	if target is not None:
-		# The schedule is known ahead: run every round without a device read.
-		while m_of(state) < min(target, n):
-			state = xtrace_round(op, state, draw(it0, min(n - m_of(state), batch)))
-			it0 += 1
+		state, it0 = _grow_to(op, draw, batch, target, state, it0)
 	else:
 		prev = None
 		while not criterion(estimator):

@@ -7,7 +7,10 @@ logdet of ``chip_smoke.py`` at n = 500,000 and 10,000,000, BASELINE config 3's
 sketch estimators on its 1M-row BSR cell, the calls of its phase 8 on the FEM
 DIA cell (Hutch++, XDiag, Diag++, ``diag``), and the calls of its phases 9-12: the
 CSR graph logdet (``powerlaw_laplacian(1M)``), the heat-kernel curve, exp(−L)V in
-one and two passes, and the heat-kernel signature on the 1000×1000 mesh. Prints one JSON line per call: the
+one and two passes, and the heat-kernel signature on the 1000×1000 mesh; then its phase 13,
+the GP log-likelihood at n = 10M (the forward pass alone, and forward and backward),
+and its phase 14, Jacobi-preconditioned CG on the power-law graph with 64 right-hand
+sides. Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
 count); writes them all to ``--out``. Needs a CUDA device; without one it exits
@@ -106,6 +109,28 @@ def main() -> None:
 		"fav_one_pass": lambda: ptt.MatrixFunction(mesh, "exp", t=-1.0, deg=20, orth=0).matmat(V),
 		"fav_two_pass": lambda: ptt.MatrixFunction(mesh, "exp", t=-1.0, deg=20, orth=0, two_pass=True).matmat(V),
 		"heat_signature": lambda: ptt.diag(ptt.MatrixFunction(mesh, fam, deg=20, orth=0), batch=64, converge="count", count=8, seed=12),
+	}
+	for name, fn in calls.items():
+		row = {"call": name, **trace(torch, fn)}
+		print(json.dumps(row), flush=True)
+		rows.append(row)
+	del mesh, V, run
+	n = cs.N_LARGE
+	y = torch.randn(n, generator=gen, device=dev, dtype=torch.float32)
+
+	def gp(backward: bool):
+		theta = torch.zeros(2, dtype=torch.float32, device=dev, requires_grad=True)
+		K = ptt.DIAOperator(cs._dirichlet_bands(torch, theta, n, dev), (-1, 0, 1), (n, n))
+		nll = 0.5 * (ptt.autodiff.logdet(K, **cs.GP) + y @ ptt.solve(K, y, rtol=cs.GP["solver_rtol"]))
+		if backward:
+			nll.backward()
+
+	G = ptt.CSROperator.from_scipy(powerlaw_laplacian(n=cs.PL_N, m=4, seed=0), dtype=torch.float32, device=dev)
+	B = ptt.sample_isotropic(gen, (cs.PL_N, cs.CG_RHS), pdf="rademacher", dtype=torch.float32)
+	calls = {
+		"gp_nll_forward": lambda: gp(False),
+		"gp_nll_forward_backward": lambda: gp(True),
+		"cg_jacobi_1m": lambda: ptt.cg(G, B, rtol=cs.CG_RTOL, precond="jacobi"),
 	}
 	for name, fn in calls.items():
 		row = {"call": name, **trace(torch, fn)}

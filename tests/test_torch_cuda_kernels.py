@@ -454,3 +454,64 @@ def test_csr_applies_on_the_card_match_the_cpu(cuda, dtype):
 		got = got.cpu()
 		assert float((got - want).abs().max()) <= tol * float(want.abs().max())
 	assert gpu.matmat_t(X.T.contiguous().to(cuda)).is_contiguous()
+
+
+
+# --- the backward of the kernel Functions (``ops.autograd``) -------------------------------
+
+
+def _bsr_sparse(dev, dtype, n, density, bs=8, seed=0):
+	"""A random sparse matrix (no dense copy) as 8×8 BSR tiles; n need not be a multiple of 8."""
+	S = sps.random(n, n, density=density, random_state=np.random.default_rng(seed), format="csr")
+	S.resize((-(-n // bs) * bs,) * 2)
+	S = S.tobsr(blocksize=(bs, bs))
+	as_dev = lambda x, dt: torch.tensor(x, dtype=dt, device=dev)  # noqa: E731
+	return as_dev(S.data, dtype), as_dev(S.indptr, torch.int64), as_dev(S.indices, torch.int64)
+
+
+def _functions(dev, dtype, n_dia, n_bsr, k, offsets, density=0.02, seed=0):
+	"""Each Function beside its plain version on the same inputs: (name, Function, plain, inputs, cotangent)."""
+	from primate_tpu_torch.ops import autograd as kad
+
+	g = torch.Generator(device=dev)
+	g.manual_seed(seed)
+	rnd = lambda *shape: torch.randn(shape, generator=g, device=dev, dtype=dtype)  # noqa: E731
+	offs = torch.tensor(offsets, dtype=torch.int64, device=dev)
+	bands = rnd(len(offsets), n_dia).requires_grad_(True)  # not symmetric: the adjoint bands differ from the bands
+	x, V = rnd(k, n_dia).requires_grad_(True), rnd(n_dia, k).requires_grad_(True)
+	blocks, indptr, indices = _bsr_sparse(dev, dtype, n_bsr, density, seed=seed)
+	blocks.requires_grad_(True)
+	Vb = rnd(n_bsr, k).requires_grad_(True)
+	return [
+		("dia_stencil_t", lambda b, v: kad.dia_stencil_t_ad(b, v, offs, offsets), lambda b, v: dia.dia_stencil_t_ref(b, offs, v), (bands, x), rnd(k, n_dia)),
+		("dia_stencil", lambda b, v: kad.dia_stencil_ad(b, v, offs, offsets), lambda b, v: dia.dia_stencil_ref(b, offs, v), (bands, V), rnd(n_dia, k)),
+		("bsr_spmm", lambda b, v: kad.bsr_spmm_ad(b, v, indptr, indices, n_bsr), lambda b, v: bsr.bsr_spmm_ref(b, indptr, indices, v, n_bsr),
+			(blocks, Vb), rnd(n_bsr, k)),
+	]
+
+
+def test_kernel_functions_pass_gradcheck(cuda):
+	"""float64 at small shapes: each Function's backward (kernels on the adjoint structure,
+	PyTorch parameter reductions) against finite differences."""
+	for name, fn, _, inputs, _ in _functions(cuda, torch.float64, 61, 45, 3, (-9, -1, 0, 2, 30), density=0.05):
+		before = dia.LAUNCHES[name]
+		assert torch.autograd.gradcheck(fn, inputs, eps=1e-6, atol=1e-8, rtol=1e-6), name
+		assert dia.LAUNCHES[name] > before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_backward_matches_autograd_of_the_plain_versions(cuda, dtype):
+	"""The FEM cell's DIA pattern at n = 1M (7 diagonals to ±10,000, 64 probes) and 8×8 BSR
+	tiles on n = 200,003 (a ragged last block): input and parameter gradients within 1e-5
+	(float32) or 1e-12 (float64) of the largest entry of the plain version's autograd; each
+	backward launches its kernel once, for the adjoint apply."""
+	cases = _functions(cuda, dtype, 1_000_000, 200_003, 64, (-10_000, -100, -1, 0, 1, 100, 10_000), density=1e-4)
+	for name, fn, plain, inputs, G in cases:
+		out = fn(*inputs)
+		assert type(out.grad_fn).__name__.endswith("Backward")
+		before = dia.LAUNCHES[name]
+		got = torch.autograd.grad(out, inputs, G)
+		assert dia.LAUNCHES[name] == before + 1
+		want = torch.autograd.grad(plain(*inputs), inputs, G)
+		for gv, wv in zip(got, want):
+			_close_rel(gv, wv, dtype)

@@ -99,13 +99,13 @@ def test_matmat_picks_the_kernel_by_layout(monkeypatch):
 	node-major one the node-major stencil; neither is copied."""
 	op = DIAOperator.from_scipy(_banded(50, [-3, 0, 2], seed=24), device="cpu")
 	seen = []
-	for name in ("dia_stencil", "dia_stencil_t"):
+	for name in ("dia_stencil_ad", "dia_stencil_t_ad"):  # the differentiable wrappers of the two kernels
 		real = getattr(sparse, name)
-		monkeypatch.setattr(sparse, name, lambda b, o, x, _n=name, _f=real: (seen.append((_n, x.is_contiguous())), _f(b, o, x))[1])
+		monkeypatch.setattr(sparse, name, lambda b, x, o, oh, _n=name, _f=real: (seen.append((_n, x.is_contiguous())), _f(b, x, o, oh))[1])
 	Vt = torch.from_numpy(np.random.default_rng(25).normal(size=(4, 50)))
 	probe_major, node_major = Vt.T, Vt.T.contiguous()
 	np.testing.assert_array_equal(op.matmat(probe_major).numpy(), op.matmat(node_major).numpy())
-	assert seen == [("dia_stencil_t", True), ("dia_stencil", True)]
+	assert seen == [("dia_stencil_t_ad", True), ("dia_stencil_ad", True)]
 
 
 @pytest.mark.parametrize("dtype,atol", [(np.float32, 1e-4), (np.float64, 1e-10)])

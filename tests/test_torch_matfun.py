@@ -395,13 +395,36 @@ def test_radau_request_is_not_the_gauss_rule_and_callbacks_run():
 	assert len(calls) == 3
 
 
-NOT_PORTED = [
+PORTED_NOW = [
 	("hutch", dict(differentiable=True)),
 	("hutch", dict(grad_method="adjoint")),
 	("hutch", dict(fprime=np.cos)),
 	("hutch", dict(solver_rtol=1e-6)),
 	("hutch", dict(solver_maxiter=10)),
 	("diag", dict(differentiable=True)),
+]
+
+
+@pytest.mark.parametrize("entry,kwargs", PORTED_NOW, ids=[f"{e}-{next(iter(k))}" for e, k in PORTED_NOW])
+def test_gradient_keywords_behave_as_in_jax(entry, kwargs):
+	"""The keywords of the differentiable paths, once refused, now behave as in the JAX
+	package on the same call: each runs there (the gradient keywords are dropped
+	without ``differentiable=True``) and runs here, with a finite result of the shape
+	JAX's has. The values are held to JAX's on injected probes in ``test_torch_autodiff.py``."""
+	A = _spd(20, seed=27)[0]
+	call = {
+		"hutch": lambda f, M: f(M, converge="count", count=4, seed=1, **kwargs),
+		"diag": lambda f, M: f(M, converge="count", count=2, seed=1, **kwargs),
+	}[entry]
+	want = call(getattr(pt, entry), A)
+	got = call({"hutch": hutch, "diag": diag}[entry], torch.from_numpy(A))
+	assert np.shape(np.asarray(got)) == np.shape(np.asarray(want))
+	assert bool(np.all(np.isfinite(np.asarray(got.detach() if isinstance(got, torch.Tensor) else got))))
+	if kwargs.get("differentiable"):
+		assert isinstance(got, torch.Tensor)
+
+
+NOT_PORTED = [
 	("diag", dict(resume={})),
 	("lanczos_block_op", dict(phys=True)),
 	("lanczos_block_op", dict(phys=False)),

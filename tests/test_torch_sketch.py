@@ -260,14 +260,14 @@ def test_diag_on_the_fem_pattern_matches_jax(monkeypatch):
 	"""``diag`` on the FEM cell's pattern at side 12 (n = 1,728; offsets ±1, ±12, ±144;
 	float64), the JAX package's probes handed in probe-major as the port draws them:
 	every batch goes through the probe-major stencil, and the estimate meets JAX ``diag``."""
-	from primate_tpu_torch.operators import sparse
+	from primate_tpu_torch.ops import autograd  # the operator applies reach the kernel wrappers through it
 
 	A = fem_laplacian_3d(12).astype(np.float64)
 	jop, op = JaxDIA.from_scipy(A), DIAOperator.from_scipy(A, device="cpu")
 	n, batch, count = A.shape[0], 16, 8
 	calls = []
-	real = sparse.dia_stencil_t
-	monkeypatch.setattr(sparse, "dia_stencil_t", lambda b, o, x: (calls.append(x.shape), real(b, o, x))[1])
+	real = autograd.dia_stencil_t
+	monkeypatch.setattr(autograd, "dia_stencil_t", lambda b, o, x: (calls.append(x.shape), real(b, o, x))[1])
 	stream = _fold_in_stream(SEED, n, "rademacher")
 	got, res = run_diag(op, lambda it: stream(it, batch).T.contiguous().T, CountCriterion(count), batch=batch, full=True)
 	want, jres = pt.diag(jop, converge="count", count=count, seed=SEED, batch=batch, full=True)

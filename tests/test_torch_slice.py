@@ -126,7 +126,12 @@ def test_constructors_default_to_the_card():
 		csr_from_numpy,
 		haar,
 		isotropic,
+		cg,
+		diag_precond_from_numpy,
 		lanczos,
+		nystrom_from_numpy,
+		nystrom_precond,
+		spectral_sum,
 		symmetric,
 	)
 	from primate_tpu_torch.operators.base import AdjointOperator, AffineOperator, ComposedOperator, FunctionOperator, ScaledOperator
@@ -135,7 +140,8 @@ def test_constructors_default_to_the_card():
 		BSROperator.from_dense, dia_from_numpy, bsr_from_numpy, cov_state_from_numpy, MeanEstimator, make_cov_state,
 		DenseOperator, aslinop, MatrixFunction, CSROperator.from_numpy, CSROperator.from_scipy, CSROperator.from_dense,
 		COOOperator.from_scipy, COOOperator.from_dense, csr_from_numpy, coo_from_numpy, FunctionOperator, AffineOperator,
-		ScaledOperator, ComposedOperator, AdjointOperator, ConfidenceEstimator, Isotropic, isotropic, symmetric, haar, lanczos]
+		ScaledOperator, ComposedOperator, AdjointOperator, ConfidenceEstimator, Isotropic, isotropic, symmetric, haar, lanczos,
+		cg, nystrom_precond, spectral_sum, nystrom_from_numpy, diag_precond_from_numpy]
 	for fn in fns:
 		assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 	# A tensor keeps its own device whatever the default; a numpy array goes where it is told.
@@ -151,7 +157,8 @@ def test_constructors_default_to_the_card():
 
 
 def test_import_leaves_jax_out():
-	code = "import sys, primate_tpu_torch, primate_tpu_torch.ops.dia, primate_tpu_torch.ops.bsr, primate_tpu_torch.ops._build; " \
+	code = "import sys, primate_tpu_torch, primate_tpu_torch.ops.dia, primate_tpu_torch.ops.bsr, primate_tpu_torch.ops._build, " \
+		"primate_tpu_torch.ops.autograd, primate_tpu_torch.solvers, primate_tpu_torch.autodiff; " \
 		"bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'primate_tpu')]; print(bad); assert not bad"
 	r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
 	assert r.returncode == 0, r.stdout + r.stderr
