@@ -59,7 +59,18 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    Jacobi- and Nyström-preconditioned (rank 64, seeded): each converges (the recursive
    residual ``cg(full=True)`` reports, as in JAX, within rtol), and every column's
    ``‖B − AX‖/‖B‖``, computed apart in float64, is within 2·rtol; how far the reported
-   residual drifts from the true one is printed.
+   residual drifts from the true one is printed;
+15. runs ``examples/tight_binding.py`` on the Hofstadter model at 2000 × 2048 = 4,096,000
+   sites (flux 1/5, periodic) as a complex64 DIA operator of 8 diagonals: the complex
+   stencils against their plain versions, complex64 and complex128, at the cell's shapes
+   and at awkward ones, timed beside bound, plain version and complex cuSPARSE; then, each
+   counted and timed, ``kpm_trace`` of x² and x⁴ against the closed forms 4n and
+   (28 + 8 cos 2πα)·n (10 σ of its own probes), the KPM density (mass 1, second moment 4),
+   Lanczos against Chebyshev quadrature probe for probe (1e-4), the β sweep of
+   ``tr e^{−βH}`` (48 probe-major stencils a batch, no step kernel; within 2% of the KPM
+   density's), ``diag`` of H² (mean 4 within 1e-3, L2 error within 10% of its closed form),
+   the LDOS window, the SLQ density, Hutch++ of H·H (within 1e-2 of 4n; two node-major
+   stencils for the QR block) and the same Chebyshev quadrature through complex CSR (1e-5).
 
 Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
 (``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
@@ -77,7 +88,9 @@ shape follow under ``fem_`` keys, with its launches in that call
 (``grad_max_abs_err``, over float32 and float64, relative to the largest entry) and
 times (``backward_ms``, ``backward_plain_ms``), and the three kernels of phase 13 their
 launches in its forward and backward passes (``gp_forward_launches``,
-``gp_backward_launches``); the last line is ``{"ok": true, "device": {...}}``.
+``gp_backward_launches``), and the two stencils their complex64 numbers at phase 15's cell
+shapes under ``c64_`` keys, with ``c64_launches`` the complex launches of its calls 2-8;
+the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing anything.
 """
 
@@ -127,6 +140,11 @@ ALPHA_TOL = {"float32": 1e-4, "float64": 1e-10}  # relative: the summation order
 GP = dict(deg=20, orth=0, nv=128, chunk=64, seed=13, solver_rtol=1e-5)
 # Relative, each on its own: logdet, yᵀK⁻¹y (no n·log 2π constant) and each θ-gradient component.
 GP_TOL, CG_RTOL, CG_RHS = 1e-3, 1e-5, 64
+# Phase 15: the Hofstadter model of examples/tight_binding.py at 4,096,000 sites, complex64 (nx a
+# multiple of 5, so the Landau gauge of flux 1/5 closes across the periodic x seam).
+TB = dict(nx=2000, ny=2048, alpha=0.2)
+TB_NV, TB_BETAS = 16, (0.25, 0.5, 1.0, 2.0)
+CPLX_TOL = {"complex64": 1e-6, "complex128": 1e-14}  # max-abs error over max|out|
 
 
 def emit(obj) -> None:
@@ -140,6 +158,21 @@ def build_laplacian(n: int):
 	main = 3.0 * np.ones(n, np.float32)
 	off = -1.0 * np.ones(n - 1, np.float32)
 	return sps.diags([off, main, off], [-1, 0, 1]).tocsr().astype(np.float32)
+
+
+def hofstadter_csr(nx: int, ny: int, alpha: float):
+	"""The periodic square-lattice Hofstadter Hamiltonian of ``examples/tight_binding.py``
+	(``hofstadter_hamiltonian``), vectorised: site ``i = x·ny + y``; x-hops −1, y-hops
+	``H[i, j] = −e^{2πiαx}`` and its conjugate; scipy CSR, complex128."""
+	import scipy.sparse as sps
+
+	n = nx * ny
+	x, y = np.repeat(np.arange(nx), ny), np.tile(np.arange(ny), nx)
+	i, jx, jy = x * ny + y, (x + 1) % nx * ny + y, x * ny + (y + 1) % ny
+	t = -np.exp(2j * np.pi * alpha * x)
+	rows, cols = np.concatenate([i, jx, i, jy]), np.concatenate([jx, i, jy, i])
+	vals = np.concatenate([-np.ones(2 * n), t, np.conj(t)])
+	return sps.csr_matrix((vals, (rows, cols)), shape=(n, n), dtype=np.complex128)
 
 
 def exact_logdet(n: int) -> float:
@@ -1011,6 +1044,246 @@ def batched_cg(torch, ptt, dev) -> dict:
 	return row
 
 
+def _integral(y, t) -> float:
+	"""Trapezoid rule of ``y`` over the grid ``t``."""
+	y, t = np.asarray(y, np.float64), np.asarray(t, np.float64)
+	return float(np.sum((y[1:] + y[:-1]) * np.diff(t)) / 2.0)
+
+
+def check_complex_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
+	"""Phase 15, call 1: the complex stencils against their plain versions on the card, complex64
+	and complex128, on the Hamiltonian's own bands at the cell's shapes (the 16 × n probe-major
+	block of the KPM and Lanczos sweeps, an n × 64 node-major block) and at awkward shapes (1, 7,
+	13 and 65 probes, n odd, offsets at and past n, a block one element into its buffer); the
+	complex64 cell shapes timed beside their bound, their plain version and the complex cuSPARSE
+	product. Each launch that must take the complex64 scalar path is counted in ``SCALAR_LAUNCHES``."""
+	from primate_tpu_torch.ops import _common
+
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(150)
+	n, n_d = op.shape[0], len(op.offsets)
+	offs, offs_host = op.offsets_t, op.offsets_t.cpu()
+	out = {}
+
+	def crandn(shape, dtype):
+		return torch.view_as_complex(torch.randn(tuple(shape) + (2,), generator=gen, device=dev, dtype=dtype.to_real()))
+
+	def check(label, name, kern, plain, dtype, scalar: bool, timed=None, library=None):
+		tname = str(dtype).removeprefix("torch.")
+		before = _common.SCALAR_LAUNCHES[name]
+		got, want = kern(), plain()
+		torch.cuda.synchronize()
+		took_scalar = _common.SCALAR_LAUNCHES[name] - before
+		err, rel = _rel_err(torch, got, want)
+		del got
+		row = {"phase": "tight_binding_kernel_check", "kernel": name, "shape": label, "dtype": tname, "max_abs_err": err,
+			"rel_err": rel, "tol": CPLX_TOL[tname], "scalar_launches": took_scalar}
+		if timed is not None:
+			bytes_, flops = timed
+			ms, plain_ms = _timed_pair(torch, kern, plain, reps)
+			b_ms, b_by = bound(bytes_, flops)
+			lib_ms, lib_note = library_ms(torch, library, want, reps)
+			row.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "GBps": bytes_ / ms / 1e6,
+				"library_ms": lib_ms, "library_rel_err_or_error": lib_note})
+			out[name] = {"c64_max_abs_err": err, "c64_ms": ms, "c64_plain_ms": plain_ms, "c64_bound_ms": b_ms,
+				"c64_bound_by": b_by, "c64_library_ms": lib_ms}
+		emit(row)
+		if not rel <= CPLX_TOL[tname]:
+			raise AssertionError(f"complex {name} disagrees with its plain version: {row}")
+		if took_scalar != int(scalar):
+			raise AssertionError(f"complex {name} took its scalar path {took_scalar} times, expected {int(scalar)}: {row}")
+
+	for dtype in (torch.complex64, torch.complex128):
+		c64 = dtype == torch.complex64
+		item = 8 if c64 else 16
+		bands = op.bands.to(dtype)
+		A_csr = csr_of_dia(torch, bands, op.offsets, n) if c64 else None
+		# A complex multiply-add is 8 real operations; complex64 runs them in float32.
+		X = crandn((TB_NV, n), dtype)
+		check("cell_probe_major", "dia_stencil_t", lambda: dia.dia_stencil_t(bands, offs, X),
+			lambda: dia.dia_stencil_t_ref(bands, offs_host, X), dtype, False,
+			timed=((2 * TB_NV * n + n_d * n) * item, 8 * n_d * TB_NV * n) if c64 else None,
+			library=lambda: (A_csr @ X.T).T)
+		del X
+		V = crandn((n, 64), dtype)
+		check("cell_node_major", "dia_stencil", lambda: dia.dia_stencil(bands, offs, V),
+			lambda: dia.dia_stencil_ref(bands, offs_host, V), dtype, False,
+			timed=((2 * 64 * n + n_d * n) * item, 8 * n_d * 64 * n) if c64 else None, library=lambda: A_csr @ V)
+		del V, A_csr, bands
+		# (probes, n, offsets, lead): a 16-byte vector holds 2 complex64 and 1 complex128, so
+		# complex64 takes the scalar path where a row length is odd or the block starts one
+		# element into its buffer, and complex128 never does.
+		for nv, m, offsets, lead in ((1, 12_001, (-10_001, -1, 0, 1, 10_001), 0), (7, 3001, (-200, -7, 0, 7, 200), 0),
+				(65, 5000, (-5000, -4999, -1, 0, 1, 4999, 5000, 6000), 0), (13, 12_000, (-10_000, -7, 0, 3, 10_000), 1)):
+			b = crandn((len(offsets), m), dtype)
+			o = torch.tensor(offsets, dtype=torch.int64, device=dev)
+			x = crandn((lead + nv * m,), dtype)[lead:].view(nv, m)
+			v = crandn((lead + m * nv,), dtype)[lead:].view(m, nv)
+			label = f"nv{nv}_n{m}" + ("_misaligned" if lead else "")
+			check(label, "dia_stencil_t", lambda: dia.dia_stencil_t(b, o, x), lambda: dia.dia_stencil_t_ref(b, o.cpu(), x), dtype,
+				c64 and (m % 2 == 1 or lead == 1))
+			check(label, "dia_stencil", lambda: dia.dia_stencil(b, o, v), lambda: dia.dia_stencil_ref(b, o.cpu(), v), dtype,
+				c64 and (nv % 2 == 1 or lead == 1))
+	return out
+
+
+def _tb_calls(torch, ptt, dev, op, H) -> dict:
+	"""Phase 15, calls 2-8, on the Hamiltonian as a complex64 DIA operator (and as complex CSR for call 8).
+	Each call is counted (every launch count set to 0 just before it, read just after) and then timed."""
+	from primate_tpu_torch import kpm
+
+	n, alpha = op.shape[0], TB["alpha"]
+	rows = {}
+
+	def run(name, fn, **fields):
+		value, counts, copies, times, peak = _timed_calls(torch, fn)
+		rows[name] = {"phase": "tight_binding", "call": name, "n": n, "wall_s_median": statistics.median(times),
+			"wall_s": times, "max_memory_allocated_bytes": peak, "launches": counts, "layout_copies": copies, **fields}
+		return value, counts
+
+	def done(name, ok: bool, **fields):
+		rows[name].update(fields)
+		emit(rows[name])
+		if not ok:
+			raise AssertionError(f"tight-binding call {name} is off: {rows[name]}")
+
+	def launched(name, counts, want: dict):
+		for k, v in want.items():
+			if counts[k] != v:
+				raise AssertionError(f"{name}: {k} launched {counts[k]} times, expected {v}: {counts}")
+
+	lo, hi = ptt.operators.gershgorin_interval(op)
+	if not (abs(lo + 4.0) <= 1e-5 and abs(hi - 4.0) <= 1e-5):
+		raise AssertionError(f"Gershgorin interval of the Hofstadter model is [{lo}, {hi}], expected [-4, 4]")
+	no_steps = {"lanczos_dia_step": 0, "lanczos_dia_residual": 0}
+
+	# 2. tr H² = 4n and tr H⁴ = (28 + 8 cos 2πα)·n, by KPM with 8 moments on phase probes; the
+	# limit is 10 standard deviations of the same probes' per-probe samples (ChebyshevFunction.quad).
+	funs = [lambda x: x**2, lambda x: x**4]
+	exact = np.array([4.0, 28.0 + 8.0 * np.cos(2.0 * np.pi * alpha)]) * n
+	est, counts = run("kpm_trace", lambda: ptt.kpm_trace(op, funs, m=8, nv=TB_NV, damping="none", interval="gershgorin",
+		pdf="phase", seed=152), m=8, nv=TB_NV)
+	with torch.no_grad():
+		per = ptt.ChebyshevFunction(op, funs, deg=8, damping="none", interval="gershgorin").quad(
+			kpm._probes(op, TB_NV, "phase", 152)).double().cpu().numpy()
+	sigma = per.std(axis=1, ddof=1) / np.sqrt(TB_NV)
+	launched("kpm_trace", counts, {"dia_stencil_t": 7, **no_steps})
+	done("kpm_trace", bool(np.all(np.abs(est - exact) <= 10.0 * sigma)), estimates=np.asarray(est).tolist(),
+		exact=exact.tolist(), rel_err=(np.abs(est - exact) / exact).tolist(), sigma=sigma.tolist(),
+		per_probe_mean_minus_estimate=(per.mean(axis=1) - est).tolist())
+
+	# 3. The KPM density of states: mass 1, second moment tr H²/n = 4; its gaps counted as the example does.
+	(ts, phi), counts = run("kpm_density", lambda: ptt.kpm_density(op, grid=512, m=512, nv=TB_NV, pdf="phase",
+		interval="gershgorin", seed=153), grid=512, m=512, nv=TB_NV)
+	mass, second = _integral(phi, ts), _integral(ts**2 * phi, ts)
+	gaps = int(np.sum(np.diff((phi < 0.2 * phi.max()).astype(int)) == 1))
+	launched("kpm_density", counts, {"dia_stencil_t": 511, **no_steps})
+	done("kpm_density", abs(mass - 1.0) <= 1e-2 and abs(second - 4.0) <= 0.08, mass=mass, second_moment=second,
+		gap_entries=gaps)
+
+	# 4. Lanczos against Chebyshev on one 16-probe phase block, probe for probe; then the β sweep.
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(154)
+	V = ptt.sample_isotropic(gen, (n, TB_NV), pdf="phase", dtype=torch.complex64)
+	M = ptt.MatrixFunction(op, "exp", t=-1.0, deg=40, orth=0)
+	C = ptt.ChebyshevFunction(op, "exp", t=-1.0, deg=64, damping="none", interval="gershgorin")
+	q_l, counts_l = run("lanczos_quad", lambda: M.quad(V), deg=40)
+	q_c, counts_c = run("chebyshev_quad", lambda: C.quad(V), deg=64)
+	launched("lanczos_quad", counts_l, {"dia_stencil_t": 40, **no_steps})
+	launched("chebyshev_quad", counts_c, {"dia_stencil_t": 63, **no_steps})
+	q_l, q_c = q_l.double().cpu().numpy(), q_c.double().cpu().numpy()
+	rel = float(np.max(np.abs(q_l - q_c) / np.abs(q_c)))
+	done("lanczos_quad", True)
+	done("chebyshev_quad", rel <= 1e-4, per_probe_rel_diff_max=rel, limit=1e-4)
+	betas = np.array(TB_BETAS)
+	sweep = ptt.MatrixFunction(op, ptt.stacked("exp", -betas), deg=48, orth=0)
+	Z, counts = run("beta_sweep", lambda: ptt.hutch(sweep, pdf="phase", batch=16, converge="count", count=64, seed=155),
+		betas=betas.tolist(), deg=48, batch=16, count=64)
+	launched("beta_sweep", counts, {"dia_stencil_t": 48 * 4, **no_steps})
+	# The same traces from call 3's density: n ∫ e^{−βt} φ(t) dt.
+	Z_dos = np.array([n * _integral(np.exp(-b * ts) * phi, ts) for b in betas])
+	z_rel = np.abs(np.asarray(Z) - Z_dos) / Z_dos
+	done("beta_sweep", bool(np.all(z_rel <= 0.02)), estimates=np.asarray(Z).tolist(), from_kpm_density=Z_dos.tolist(),
+		rel_diff=z_rel.tolist())
+
+	# 5. diag(H²) = 4 at every site, by phase probes through a degree-3 Chebyshev expansion. One
+	# sample of site i errs by Re Σ_{j≠i} (H²)_ij conj(v_i) v_j, of variance Σ_{j≠i}|(H²)_ij|²/2 =
+	# (4 + 4|1 + e^{2πiα}|²)/2. `count` counts iterations of `batch` probes, and diag returns the
+	# mean of its K = count running ratios, which weighs iteration s by w_s = (1/K) Σ_{k≥s} 1/k: the
+	# variance at a site is that of one sample times Σ_s w_s² / batch, and the relative L2 error is
+	# its root over 4.
+	iters, batch = 64, 16
+	W2 = ptt.ChebyshevFunction(op, lambda x: x**2, deg=3, damping="none", interval="gershgorin")
+	d, counts = run("diag_h2", lambda: ptt.diag(W2, pdf="phase", batch=batch, converge="count", count=iters, seed=156),
+		batch=batch, count=iters)
+	d = np.asarray(d, np.float64)
+	off_sq = 4.0 + 4.0 * (2.0 + 2.0 * np.cos(2.0 * np.pi * alpha))
+	w = np.cumsum((1.0 / np.arange(1, iters + 1))[::-1])[::-1] / iters
+	spread = float(np.sqrt(off_sq / 2.0 * np.sum(w**2) / batch) / 4.0)
+	rel_l2 = float(np.sqrt(np.mean((d - 4.0) ** 2)) / 4.0)
+	launched("diag_h2", counts, {"dia_stencil_t": 2 * iters, **no_steps})
+	done("diag_h2", abs(float(d.mean()) - 4.0) <= 1e-3 and abs(rel_l2 - spread) <= 0.1 * spread and d.shape == (n,),
+		mean=float(d.mean()), rel_l2_err=rel_l2, expected_rel_l2_err=spread, sum_offdiag_sq_per_site=off_sq)
+	# The example's LDOS: a Gaussian window at E = 0 (σ = 0.1, degree 256, Rayleigh-Ritz interval),
+	# 4 iterations of 16 phase probes (the example: 192 of one). Its mean is the window's trace per
+	# site, set beside the same window integrated against call 3's density.
+	sig = 0.1
+	window = ptt.ChebyshevFunction(op, lambda x: torch.exp(-(x**2) / (2 * sig**2)) / (sig * np.sqrt(2 * np.pi)), deg=256, seed=157)
+	ldos, counts = run("ldos", lambda: ptt.diag(window, pdf="phase", batch=batch, converge="count", count=4, seed=3),
+		deg=256, batch=batch, count=4, interval=list(window.interval))
+	ldos = np.asarray(ldos, np.float64)
+	ref = _integral(np.exp(-(ts**2) / (2 * sig**2)) / (sig * np.sqrt(2 * np.pi)) * phi, ts)
+	launched("ldos", counts, {"dia_stencil_t": 255 * 4, **no_steps})
+	done("ldos", bool(np.all(np.isfinite(ldos))) and ldos.shape == (n,) and abs(float(ldos.mean()) - ref) <= 0.2 * ref,
+		mean=float(ldos.mean()), from_kpm_density=ref, std_over_mean=float(ldos.std() / ldos.mean()))
+
+	# 6. The SLQ density on the complex sweep: mass 1, second moment 4 (plus the broadening's σ²).
+	(ts6, phi6), counts = run("spectral_density", lambda: ptt.spectral_density(op, deg=64, nv=TB_NV, seed=158), deg=64, nv=TB_NV)
+	mass6, second6 = _integral(phi6, ts6), _integral(ts6**2 * phi6, ts6)
+	launched("spectral_density", counts, {"dia_stencil_t": 64, **no_steps})
+	done("spectral_density", abs(mass6 - 1.0) <= 1e-2 and abs(second6 - 4.0) <= 0.08, mass=mass6, second_moment=second6)
+
+	# 7. Hutch++ on H·H: tr H² = 4n. The sketch's QR block is node-major, so each apply of the
+	# composed operator to it is two complex dia_stencil launches; the probe blocks take dia_stencil_t.
+	tr, counts = run("hutchpp_h2", lambda: ptt.hutchpp(op @ op, m=64, seed=159), m=64)
+	launched("hutchpp_h2", counts, {"dia_stencil": 2, "dia_stencil_t": 4, **no_steps})
+	done("hutchpp_h2", abs(tr - 4.0 * n) / (4.0 * n) <= 1e-2, estimate=tr, exact=4.0 * n, rel_err=abs(tr - 4.0 * n) / (4.0 * n))
+
+	# 8. The same H as complex CSR (cuSPARSE) against the DIA operator, on call 4's block.
+	op_csr = ptt.aslinop(H, dtype=torch.complex64, device=dev)
+	C_csr = ptt.ChebyshevFunction(op_csr, "exp", t=-1.0, deg=64, damping="none", interval="gershgorin")
+	q_csr, counts = run("csr_chebyshev_quad", lambda: C_csr.quad(V), deg=64)
+	rel8 = float(np.max(np.abs(q_csr.double().cpu().numpy() - q_c) / np.abs(q_c)))
+	if counts["dia_stencil_t"] != 0 or rows["csr_chebyshev_quad"]["layout_copies"]["csr_spmm"] != 2 * 63:
+		raise AssertionError(f"the CSR quad did not take cuSPARSE once an apply: {rows['csr_chebyshev_quad']}")
+	done("csr_chebyshev_quad", rel8 <= 1e-5, per_probe_rel_diff_to_dia_max=rel8, limit=1e-5)
+	return rows
+
+
+def tight_binding(torch, ptt, dia, dev) -> dict:
+	"""Phase 15: the Hofstadter model of ``examples/tight_binding.py`` at 4,096,000 sites as a
+	complex64 DIA operator: the complex stencils held to their plain versions (call 1), then the
+	example's calls through the port (calls 2-8, ``_tb_calls``)."""
+	t0 = time.perf_counter()
+	H = hofstadter_csr(**TB)
+	t_gen = time.perf_counter() - t0
+	t0 = time.perf_counter()
+	op = ptt.DIAOperator.from_scipy(H, dtype=torch.complex64, device=dev)
+	torch.cuda.synchronize()
+	t_dia = time.perf_counter() - t0
+	n, ny = op.shape[0], TB["ny"]
+	want = sorted(s * o for s in (1, -1) for o in (1, ny - 1, ny, (TB["nx"] - 1) * ny))
+	emit({"phase": "tight_binding_build", "n": n, **TB, "nnz": int(H.nnz), "offsets": list(op.offsets),
+		"band_bytes": op.bands.numel() * op.bands.element_size(), "generate_s": t_gen, "from_scipy_s": t_dia})
+	if sorted(op.offsets) != want:
+		raise AssertionError(f"Hofstadter offsets {op.offsets}, expected {want}")
+	kernels = check_complex_kernels(torch, dia, op, dev)
+	calls = _tb_calls(torch, ptt, dev, op, H)
+	for k in ("dia_stencil_t", "dia_stencil"):  # the complex launches of calls 2-8, each counted from 0
+		kernels[k]["c64_launches"] = sum(r["launches"][k] for r in calls.values())
+	return kernels
+
+
 def main() -> None:
 	import torch
 
@@ -1055,6 +1328,9 @@ def main() -> None:
 	for k in ("dia_stencil_t", "lanczos_dia_step", "lanczos_dia_residual"):
 		kernels[k].update({"gp_forward_launches": gp["forward_launches"][k], "gp_backward_launches": gp["backward_launches"][k]})
 	batched_cg(torch, ptt, dev)
+	torch.cuda.empty_cache()
+	for k, v in tight_binding(torch, ptt, dia, dev).items():
+		kernels[k].update(v)
 
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],

@@ -20,6 +20,14 @@ and the sketch trace and diagonal estimators on block-sparse and banded operator
     hutchpp(S, m=240); xtrace(S, batch=64, converge="count", count=256); xnystrace(S, m=720)
     xdiag(S, m=256); diagpp(S, m=240); diag(S, batch=64, converge="count", count=256)
 
+Hermitian (complex) operators, unit-phase probes, the kernel polynomial method
+and spectral densities, as on a tight-binding Hamiltonian with Peierls phases::
+
+    H = DIAOperator.from_scipy(H_scipy, dtype=torch.complex64)
+    kpm_density(H, grid=512, m=512, nv=16, pdf="phase", interval="gershgorin")
+    diag(ChebyshevFunction(H, window, deg=256), pdf="phase", batch=16, converge="count", count=64)
+    spectral_density(H, deg=64, nv=16)
+
 and the Gaussian-process loss with its gradient, through batched CG and the
 differentiable spectral sums (autograd through the CUDA kernels)::
 
@@ -32,13 +40,13 @@ the card (``"cuda"``) unless the caller passes ``device="cpu"``; without a card
 that default raises as torch does. A dense numpy or scipy matrix becomes an
 operator on the card too (``MatrixFunction(A, device="cpu")`` or a CPU tensor
 keeps it on the CPU), and the estimators follow their operator's device.
-On the card the DIA stencils, the Lanczos step and the BSR SpMM run
-hand-written CUDA kernels (``csrc/``, built with nvcc at first use); on CPU
+On the card the DIA stencils (real and complex), the Lanczos step and the BSR
+SpMM run hand-written CUDA kernels (``csrc/``, built with nvcc at first use); on CPU
 tensors their plain PyTorch versions run. The CSR apply is cuSPARSE's SpMM
 through ``torch.sparse``. This package imports neither ``jax`` nor ``primate_tpu``.
 """
 
-from . import autodiff
+from . import autodiff, kpm
 from .autodiff import spectral_sum
 from .convert import (
 	bsr_from_numpy,
@@ -49,6 +57,7 @@ from .convert import (
 	diag_precond_from_numpy,
 	nystrom_from_numpy,
 )
+from .density import cumulative_spectral_density, spectral_density, spectral_quantile
 from .diagonal import diag, diagpp, xdiag
 from .estimators import (
 	ConfidenceCriterion,
@@ -64,6 +73,7 @@ from .estimators import (
 )
 from .fttr import fttr, ortho_poly
 from .integrate import lanczos_quadrature, lobatto_rule, quadrature, radau_rule
+from .kpm import ChebyshevFunction, kpm_density, kpm_trace, suggest_chebyshev_degree
 from .lanczos import OrthogonalPolynomialBasis, lanczos, lanczos_block_op, rayleigh_ritz
 from .operators import (
 	BSROperator,
@@ -78,7 +88,7 @@ from .operators import (
 	is_valid_operator,
 	matrix_function,
 )
-from .random import Isotropic, haar, isotropic, sample_isotropic, symmetric
+from .random import Isotropic, haar, hermitian, isotropic, sample_isotropic, symmetric
 from .solvers import NystromPreconditioner, cg, nystrom_precond, solve
 from .special import param_callable, stacked
 from .trace import hutch, hutchpp, xnystrace, xtrace
@@ -126,6 +136,14 @@ __all__ = [
 	"isotropic",
 	"symmetric",
 	"haar",
+	"hermitian",
+	"ChebyshevFunction",
+	"kpm_trace",
+	"kpm_density",
+	"suggest_chebyshev_degree",
+	"spectral_density",
+	"cumulative_spectral_density",
+	"spectral_quantile",
 	"dia_from_numpy",
 	"bsr_from_numpy",
 	"csr_from_numpy",
@@ -148,4 +166,5 @@ __all__ = [
 	"NystromPreconditioner",
 	"spectral_sum",
 	"autodiff",
+	"kpm",
 ]

@@ -1,4 +1,5 @@
-// DIA stencil kernels for Hopper (sm_90a), float32 and float64.
+// DIA stencil kernels for Hopper (sm_90a), float32 and float64; the two stencils
+// also complex64 and complex128 (Hermitian operators).
 //
 // Replaces the Pallas TPU kernels of primate_tpu/ops/dia_pallas.py:
 //   dia_stencil_t        <- dia_matmat_t_pallas (_dia_t_kernel): out = A X, probe-major
@@ -26,6 +27,15 @@
 // memory (cp.async, 16 bytes along k) and reads the nearby diagonals from there,
 // so each row comes from memory once per block, and loads the far ones directly.
 // See the kernels below and PERF.md for the measurements.
+//
+// Complex: the JAX package sends complex DIA applies to XLA's stencil
+// (primate_tpu/operators/sparse.py:816-827), since its Pallas kernels take no
+// complex. Here the two stencils are instantiated for a complex element type
+// (common.cuh's Cplx, accumulating in its own precision as JAX's
+// promote_types(complex64, float32) does): a 16-byte vector holds 2 complex64 or
+// 1 complex128, so a thread moves the same bytes and holds the same registers as
+// in float32 / float64, and the kernels stay bound by HBM bytes (a complex
+// multiply-add is 8 flops on 8 or 16 loaded bytes).
 //
 // The Lanczos step (primate_tpu/lanczos.py:304-316,378-388 with orth = 0)
 //   w = A q - beta q_prev;  alpha = sum w q;  v = w - alpha q;  beta' = |v|;
@@ -116,7 +126,7 @@ __device__ __forceinline__ void stencil_group(const T (&w)[kTChunk][Vec<T>::len]
 #pragma unroll
             for (int k = 0; k < kNP; ++k)
 #pragma unroll
-                for (int e = 0; e < VL; ++e) v[k][e] = (in >> (j * VL + e)) & 1u ? __ldg(src + k * n + e) : T(0);
+                for (int e = 0; e < VL; ++e) v[k][e] = (in >> (j * VL + e)) & 1u ? ldg(src + k * n + e) : T(0);
         }
 #pragma unroll
         for (int k = 0; k < kNP; ++k)
@@ -130,7 +140,7 @@ __device__ __forceinline__ void stencil_group(const T (&w)[kTChunk][Vec<T>::len]
         } else {
 #pragma unroll
             for (int e = 0; e < VL; ++e) {
-                if (e < rows) __stcs(ob + k * n + e, acc[k][e]);
+                if (e < rows) stcs(ob + k * n + e, acc[k][e]);
             }
         }
     }
@@ -161,7 +171,7 @@ __global__ void __launch_bounds__(kTThreads, kTBlocks) dia_stencil_t_kernel(cons
             for (int e = 0; e < VL; ++e) {  // the band value, 0 where the row or its neighbour lies outside [0, n)
                 const int64_t rr = r + e;
                 const bool ok = j < nd && e < rows && off[j] >= -rr && off[j] < n - rr;
-                w[j][e] = ok ? __ldg(bands + static_cast<int64_t>(d0 + j) * n + rr) : T(0);
+                w[j][e] = ok ? ldg(bands + static_cast<int64_t>(d0 + j) * n + rr) : T(0);
                 bits |= ok ? 1u << e : 0u;
             }
             in |= bits << (j * VL);
@@ -256,14 +266,14 @@ __global__ void __launch_bounds__(kNmThreads) dia_stencil_kernel(const T* __rest
                         if (d0 + j >= n_d) continue;
                         const int64_t off = __ldg(offsets + d0 + j), rr = r + off;
                         if (rr < 0 || rr >= n) continue;
-                        w[j] = __ldg(bands + (d0 + j) * n + r);
+                        w[j] = ldg(bands + (d0 + j) * n + r);
                         if (off >= -H && off <= H) {
                             unpack(*reinterpret_cast<const typename Vec<T>::type*>(ring + (rr & (kRing - 1)) * KC + lane * VL), x[j]);
                         } else if (kVec) {
                             if (c < k) unpack(__ldg(reinterpret_cast<const typename Vec<T>::type*>(V + rr * k + c)), x[j]);
                         } else {
 #pragma unroll
-                            for (int e = 0; e < VL; ++e) x[j][e] = c + e < k ? __ldg(V + rr * k + c + e) : T(0);
+                            for (int e = 0; e < VL; ++e) x[j][e] = c + e < k ? ldg(V + rr * k + c + e) : T(0);
                         }
                     }
 #pragma unroll
@@ -639,6 +649,32 @@ cudaError_t dia_stencil_t_f32(const float* bands, const int64_t* offsets, int n_
 cudaError_t dia_stencil_t_f64(const double* bands, const int64_t* offsets, int n_d, const double* x, double* out,
                               int64_t nv, int64_t n, int vec, cudaStream_t stream) {
     return launch_stencil_t(bands, offsets, n_d, x, out, nv, n, vec, stream);
+}
+
+// Complex instantiations of the two stencils (complex64 / complex128 as torch
+// lays them out), for Hermitian operators; the step kernels stay real.
+cudaError_t dia_stencil_t_c64(const void* bands, const int64_t* offsets, int n_d, const void* x, void* out, int64_t nv,
+                              int64_t n, int vec, cudaStream_t stream) {
+    return launch_stencil_t(static_cast<const c64*>(bands), offsets, n_d, static_cast<const c64*>(x),
+                            static_cast<c64*>(out), nv, n, vec, stream);
+}
+
+cudaError_t dia_stencil_t_c128(const void* bands, const int64_t* offsets, int n_d, const void* x, void* out, int64_t nv,
+                               int64_t n, int vec, cudaStream_t stream) {
+    return launch_stencil_t(static_cast<const c128*>(bands), offsets, n_d, static_cast<const c128*>(x),
+                            static_cast<c128*>(out), nv, n, vec, stream);
+}
+
+cudaError_t dia_stencil_c64(const void* bands, const int64_t* offsets, int n_d, const void* V, void* out, int64_t n,
+                            int64_t k, int vec, cudaStream_t stream) {
+    return launch_stencil_nm(static_cast<const c64*>(bands), offsets, n_d, static_cast<const c64*>(V),
+                             static_cast<c64*>(out), n, k, vec, stream);
+}
+
+cudaError_t dia_stencil_c128(const void* bands, const int64_t* offsets, int n_d, const void* V, void* out, int64_t n,
+                             int64_t k, int vec, cudaStream_t stream) {
+    return launch_stencil_nm(static_cast<const c128*>(bands), offsets, n_d, static_cast<const c128*>(V),
+                             static_cast<c128*>(out), n, k, vec, stream);
 }
 
 cudaError_t dia_stencil_f32(const float* bands, const int64_t* offsets, int n_d, const float* V, float* out,

@@ -1,6 +1,9 @@
 """Stochastic diagonal estimators: Girard-Hutchinson ``diag``, Diag++ and XDiag.
 
-Counterpart of ``primate_tpu/diagonal.py``. As in :mod:`.trace`, each estimator
+Counterpart of ``primate_tpu/diagonal.py``. A Hermitian (complex) operator's
+diagonal is real: the ratio is ``Re(conj(v)∘Av) / |v|²`` on real probes or
+``pdf="phase"`` ones (``primate_tpu/diagonal.py:221-265,444-465``), and the
+sketches conjugate their bras. As in :mod:`.trace`, each estimator
 is a sampling step (round ``it``'s probes from the generator keyed
 ``(seed, it)``) and a core that takes the probe blocks. ``diag`` is a Python
 loop that enqueues one ``(n, batch)`` operator apply per iteration: a count
@@ -20,7 +23,7 @@ from .estimators import ConvergenceCriterion, EstimatorResult, EstSnapshot, conv
 from .linalg import full_f32, tall_qr
 from .random import real_dtype
 from .operators.base import aslinop, is_valid_operator
-from .trace import _base_seed, _rdot, _sketch_op, check_traced_path, count_budget, probe_sampler
+from .trace import _base_seed, _rdot, _sketch_op, check_traced_path, count_budget, probe_sampler, refuse_complex_grad
 
 __all__ = ["diag", "diagpp", "xdiag", "xdiag_core", "diagpp_core", "run_diag", "diag_ratio"]
 
@@ -99,8 +102,7 @@ def _diag_differentiable(op, pdf, converge, seed, maxiter: int, batch: int, kwar
 	plain ratio over ``min(count, maxiter)`` iterations of ``batch`` probes, iteration ``i``
 	drawn as the count path draws it. ``converge="tolerance"`` without keywords, ``diag``'s
 	default, counts as no criterion (a count)."""
-	if op.dtype.is_complex:
-		raise NotImplementedError("differentiable diag is real-symmetric only")
+	refuse_complex_grad("diag", op)
 	if converge == "tolerance" and not kwargs:
 		converge = "count"
 	count = count_budget("diag", converge, kwargs)
@@ -222,6 +224,8 @@ def xdiag(A, m: Optional[int] = None, pdf: str = "sphere", seed=None, differenti
 	applications in two blocks. ``differentiable=True`` returns the tensor, whose
 	gradient is the exact derivative of the fixed program."""
 	op = _sketch_op(A, "xdiag")
+	if differentiable:
+		refuse_complex_grad("xdiag", op)
 	n = op.shape[0]
 	m = 2 * n if m is None else min(int(m) + (int(m) % 2), 2 * n)
 	d = xdiag_core(op, probe_sampler(op, _base_seed(seed), pdf)(0, m // 2))

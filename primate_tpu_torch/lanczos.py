@@ -17,7 +17,11 @@ PyTorch ops. With ``orth>0``, ``selective=True`` or a bfloat16 block (whose
 and ``q_next``) stays in PyTorch. Selective re-orthogonalisation reads one flag
 from the device per step, where the JAX package branches by ``lax.cond``.
 
-Complex (Hermitian) operators are not ported yet.
+Complex (Hermitian) operators (``primate_tpu/lanczos.py:223-227,298-316``): every
+inner product conjugates its bra, α and β (the Jacobi matrix, the quadrature and
+the sweep's state) are real, and the CGS window projects with ``conj(Q)``. On a
+DIA operator each step is the complex ``dia_stencil_t`` kernel and PyTorch: the
+step kernels are real only.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -25,7 +29,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .ops.dia import DIV_CUR, DONE, lanczos_state
+from .ops.dia import DIV_CUR, DONE, lanczos_state, row_sq_norm
+from .random import real_dtype
 from .tridiag import eigh_tridiag, eigvalsh_tridiag
 
 __all__ = ["LanczosOutput", "lanczos_block_op", "lanczos", "rayleigh_ritz", "OrthogonalPolynomialBasis"]
@@ -88,8 +93,6 @@ def lanczos_block_op(
 
 	if phys is not None:
 		raise NotImplementedError("phys= selects the TPU's halo-padded carry, which is not ported (the step kernels replace it)")
-	if V0.dtype.is_complex:
-		raise NotImplementedError("complex (Hermitian) Lanczos is not ported yet")
 	deg, orth, ncv = _validate_params(V0.shape[0], deg, orth, ncv)
 	return _lanczos_core(
 		op, V0.T.contiguous(), deg=deg, ncv=ncv, orth=orth, rtol=rtol, reorth_passes=reorth_passes,
@@ -110,21 +113,23 @@ def _lanczos_core(
 			"autodiff.spectral_sum (or hutch(..., differentiable=True)), or run the sweep under torch.no_grad()"
 		)
 	acc = torch.promote_types(dtype, torch.float32)  # f32 accumulation for bf16 storage
+	r_acc = real_dtype(acc)  # α, β and the sweep's state: real for Hermitian operators too
 	b_dtype = basis_dtype or dtype
 	keep_window = return_basis or orth > 0 or selective
 
-	norm0 = torch.sqrt(torch.sum(V0t.to(acc) ** 2, dim=1))
+	norm0 = torch.sqrt(row_sq_norm(V0t.to(acc)))
 	q0 = (V0t / torch.where(norm0 > 0, norm0, 1)[:, None].to(dtype)).to(dtype)
 	residual_tol = float(np.sqrt(n) * rtol)
-	alphas = torch.empty((deg, nv), dtype=acc, device=device)
-	betas = torch.empty((deg, nv), dtype=acc, device=device)
+	alphas = torch.empty((deg, nv), dtype=r_acc, device=device)
+	betas = torch.empty((deg, nv), dtype=r_acc, device=device)
 	Q_win = None
 	if keep_window:
 		Q_win = torch.zeros((ncv, nv, n), dtype=b_dtype, device=device)
 		Q_win[0] = q0
 	y = None
 	if coeffs is not None:
-		coeffs = torch.as_tensor(coeffs, device=device).to(acc)
+		coeffs = torch.as_tensor(coeffs, device=device)
+		coeffs = coeffs.to(acc if coeffs.is_complex() else r_acc)  # real coefficients stay real
 		y = torch.zeros(coeffs.shape[1:] + (n,), dtype=acc, device=device)  # (..., nv, n)
 
 	def output(reorth_steps=None) -> LanczosOutput:
@@ -147,7 +152,7 @@ def _lanczos_core(
 			Q_win[slot] = torch.where(advance[:, None], q_next.to(b_dtype), Q_win[slot])
 
 	if orth == 0 and not selective and dtype == acc:
-		state = lanczos_state(nv, acc, device)
+		state = lanczos_state(nv, r_acc, device)
 		v_prev, v_cur = torch.zeros((nv, n), dtype=acc, device=device), q0
 		for j in range(deg):
 			if y is not None:
@@ -166,23 +171,24 @@ def _lanczos_core(
 		# Broadcast products and sums over n, not matmuls: no contraction of
 		# this sweep goes through torch.matmul, so TF32 never comes into it. A
 		# later change that puts a matmul here must pin float32 precision.
+		Q_bra = Q_win.conj() if Q_win.is_complex() else Q_win
 		for _ in range(max(1, reorth_passes)):
-			proj = torch.sum(Q_win * v[None, :, :], dim=2) * valid[:, None]
+			proj = torch.sum(Q_bra * v[None, :, :], dim=2) * valid[:, None]
 			v = v - torch.sum(Q_win * proj[:, :, None].to(acc), dim=0)
 		return v
 
 	if selective:
-		eps = torch.finfo(acc).eps
+		eps = torch.finfo(r_acc).eps
 		eps_noise, sel_tol = eps * float(np.sqrt(n)), float(np.sqrt(eps))
-		om_pp = torch.zeros((nv, ncv), dtype=acc, device=device)
-		om_p = torch.zeros((nv, ncv), dtype=acc, device=device)
+		om_pp = torch.zeros((nv, ncv), dtype=r_acc, device=device)
+		om_p = torch.zeros((nv, ncv), dtype=r_acc, device=device)
 		om_p[:, 0] = 1.0
-		a_win = torch.zeros((nv, ncv), dtype=acc, device=device)
-		b_win = torch.zeros((nv, ncv), dtype=acc, device=device)
+		a_win = torch.zeros((nv, ncv), dtype=r_acc, device=device)
+		b_win = torch.zeros((nv, ncv), dtype=r_acc, device=device)
 		force, triggers = False, []
 
 	q_prev, q_cur = torch.zeros((nv, n), dtype=dtype, device=device), q0
-	beta_j = torch.zeros(nv, dtype=acc, device=device)
+	beta_j = torch.zeros(nv, dtype=r_acc, device=device)
 	done = torch.zeros(nv, dtype=torch.bool, device=device)
 	for j in range(deg):
 		if y is not None:
@@ -193,7 +199,7 @@ def _lanczos_core(
 			# Simon's ω-recurrence (``primate_tpu/lanczos.py:318-362``): ω[t] estimates
 			# ⟨q_{j+1}, q_t⟩ per window slot in O(ncv·nv); a breach of √eps cleans this
 			# vector and the next against every written slot.
-			beta_est = torch.sqrt(torch.sum(v * v, dim=1))
+			beta_est = torch.sqrt(row_sq_norm(v))
 			slot_j = j % ncv
 			a_win[:, slot_j] = alpha_j
 			b_win[:, slot_j] = beta_j
@@ -208,19 +214,19 @@ def _lanczos_core(
 			om_next = torch.where(tracked[None, :], om_next, 0.0)
 			om_next[:, slot_j] = eps_noise
 			om_next[:, (j + 1) % ncv] = 1.0
-			live = torch.abs(om_next) * (~done)[:, None].to(acc)
-			breach = bool(torch.any(live * tracked[None, :].to(acc) > sel_tol))  # one device read a step
+			live = torch.abs(om_next) * (~done)[:, None].to(r_acc)
+			breach = bool(torch.any(live * tracked[None, :].to(r_acc) > sel_tol))  # one device read a step
 			trigger = breach or force
 			if trigger:
-				v = _cgs_window(v, (((j - slot_ids) % ncv) <= j).to(acc))
+				v = _cgs_window(v, (((j - slot_ids) % ncv) <= j).to(r_acc))
 				om_next = torch.where(tracked[None, :], torch.sign(om_next) * eps_noise, om_next)
 				om_p = torch.where((slot_ids != slot_j)[None, :], torch.sign(om_p) * eps_noise, om_p)
 			om_pp, om_p, force = om_p, om_next, breach
 			triggers.append(trigger)
 		elif orth > 0:
 			age = (j - slot_ids) % ncv
-			v = _cgs_window(v, ((age < orth) & (age <= j)).to(acc))
-		beta_next = torch.sqrt(torch.sum(v * v, dim=1))
+			v = _cgs_window(v, ((age < orth) & (age <= j)).to(r_acc))
+		beta_next = torch.sqrt(row_sq_norm(v))
 		newly_done = beta_next < residual_tol
 		alphas[j] = torch.where(done, 0.0, alpha_j)
 		betas[j] = torch.where(done, 0.0, beta_next)

@@ -1,4 +1,5 @@
-"""Operators on torch tensors: the protocol and its algebra, COO, CSR, DIA and BSR, deflation, and matrix functions."""
+"""Operators on torch tensors: the protocol and its algebra, COO, CSR, DIA and BSR, deflation,
+matrix functions and the Gershgorin enclosure."""
 
 from .base import (
 	AdjointOperator,
@@ -15,6 +16,7 @@ from .base import (
 	matmat,
 	quad_form,
 )
+from .prepare import gershgorin_interval
 from .sparse import BSROperator, COOOperator, CSROperator, DIAOperator
 from .special_ops import MatrixFunction, matrix_function
 
@@ -38,4 +40,5 @@ __all__ = [
 	"is_valid_operator",
 	"matmat",
 	"quad_form",
+	"gershgorin_interval",
 ]

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..linalg import full_f32_matmul
-from ..ops.dia import lanczos_sweep_step_ref
+from ..ops.dia import lanczos_sweep_step_ref, row_dot
 
 __all__ = [
 	"LinearOperator",
@@ -115,11 +115,11 @@ class LinearOperator:
 		self, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor
 	) -> Tuple[torch.Tensor, torch.Tensor]:
 		"""One three-term recurrence step on probe-major ``(nv, n)`` blocks:
-		``v = A·q_cur − β[:, None]·q_prev`` and ``α = Σ_r v·q_cur`` per probe,
-		both in ``promote_types(dtype, float32)`` (``primate_tpu/lanczos.py:309-315``)."""
+		``v = A·q_cur − β[:, None]·q_prev`` in ``promote_types(dtype, float32)`` and
+		``α = Re Σ_r conj(q_cur)·v`` per probe, real (``primate_tpu/lanczos.py:309-315``)."""
 		acc = torch.promote_types(q_cur.dtype, torch.float32)
-		v = self.matmat_t(q_cur).to(acc) - beta[:, None].to(acc) * q_prev.to(acc)
-		return v, torch.sum(v * q_cur.to(acc), dim=1)
+		v = self.matmat_t(q_cur).to(acc) - beta[:, None] * q_prev.to(acc)
+		return v, row_dot(q_cur.to(acc), v)
 
 	def lanczos_sweep_step(
 		self, v_cur: torch.Tensor, v_prev: torch.Tensor, state, alpha_out: torch.Tensor, beta_out: torch.Tensor,

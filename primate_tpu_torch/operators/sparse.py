@@ -442,9 +442,16 @@ class DIAOperator(LinearOperator):
 	def lanczos_step(
 		self, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor
 	) -> Tuple[torch.Tensor, torch.Tensor]:
-		"""Step ``v = A·q_cur − β·q_prev``, ``α = Σ v·q_cur`` (pass A of the step kernels on the card)."""
+		"""Step ``v = A·q_cur − β·q_prev``, ``α = Σ v·q_cur`` (pass A of the step kernels on the card).
+		A complex (Hermitian) operator takes the base class's step: the complex stencil
+		``dia_stencil_t`` (counted in ``LAUNCHES``) and PyTorch; the step kernels are real only."""
+		if self.dtype.is_complex:
+			return super().lanczos_step(q_cur, q_prev, beta)
 		return lanczos_dia_step(self.bands, self.offsets_t, q_cur, q_prev, beta)
 
 	def lanczos_sweep_step(self, v_cur, v_prev, state, alpha_out, beta_out, residual_tol: float) -> torch.Tensor:
-		"""The whole step without re-orthogonalisation (both step kernels on the card)."""
+		"""The whole step without re-orthogonalisation (both step kernels on the card); a
+		complex operator takes the base class's step, through the complex ``dia_stencil_t``."""
+		if self.dtype.is_complex:
+			return super().lanczos_sweep_step(v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
 		return lanczos_dia_sweep_step(self.bands, self.offsets_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol)

@@ -7,8 +7,10 @@ batched tridiagonal eigensolve cover all probe columns: ``quad`` estimates
 approximate ``f(A) x`` in the Krylov basis, in one pass over a stored basis or
 in two passes that keep only O(n·nv) memory. A stacked family
 (:func:`~primate_tpu_torch.special.stacked`) is evaluated from the same sweep.
-The Gram (Golub-Kahan) branch waits for ``bidiag``; complex (Hermitian)
-operators are not ported yet.
+The Gram (Golub-Kahan) branch waits for ``bidiag``. Complex (Hermitian)
+operators run the same sweep with conjugated inner products: the expansion
+coefficients are real, ``f(A)x`` is complex and ``quad`` returns real quadratic
+forms (``primate_tpu/operators/special_ops.py:212,235-240``).
 """
 
 from typing import Callable, Optional, Tuple, Union
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ..linalg import full_f32_matmul
+from ..ops.dia import row_sq_norm
 from ..special import param_callable
 from ..tridiag import eigh_tridiag
 from .base import LinearOperator, aslinop, torch_dtype
@@ -86,8 +89,6 @@ class MatrixFunction(LinearOperator):
 		self._A = aslinop(A, dtype=dtype, device=device)
 		self.shape = self._A.shape
 		self.dtype = dtype if dtype is not None else self._A.dtype
-		if self.dtype.is_complex:
-			raise NotImplementedError("MatrixFunction of complex (Hermitian) operators is not ported yet")
 		self.device = self._A.device
 		self.fun = param_callable(fun, **kwargs) if (fun is None or isinstance(fun, str)) else fun
 		self._fun_scalar = fun is None or isinstance(fun, str)
@@ -197,13 +198,14 @@ class MatrixFunction(LinearOperator):
 
 	def quad(self, x) -> torch.Tensor:
 		"""Batched Lanczos-quadrature estimates of ``diag(xᵀ f(A) x)`` for ``x (n, b)`` → ``(b,)``,
-		or ``(nt, b)`` for a stacked family (one sweep for the whole family)."""
+		or ``(nt, b)`` for a stacked family (one sweep for the whole family). For a Hermitian
+		operator ``x†f(A)x``, real, in the real dtype."""
 		from ..integrate import spectral_quad_form
+		from ..random import real_dtype
 
 		X = torch.as_tensor(x, dtype=self.dtype, device=self.device)
 		X = X[:, None] if X.ndim == 1 else X
-		Xa = X.to(torch.promote_types(X.dtype, torch.float32))
-		x_norm_sq = torch.sum(Xa * Xa, dim=0)
+		x_norm_sq = row_sq_norm(X.to(torch.promote_types(X.dtype, torch.float32)).T)
 		ncv = int(np.clip(max(self._orth, 2), 2, self._deg))
 		out = self._lanczos(X, ncv=ncv, return_basis=False)  # quadrature needs only (α, β)
 		d, e = out.alphas.T, out.betas[: self._deg - 1].T
@@ -212,7 +214,7 @@ class MatrixFunction(LinearOperator):
 			vals = torch.sum(self.fun(nodes) * weights, dim=-1)
 		else:
 			vals = spectral_quad_form(d, e, self.fun)
-		return (vals * x_norm_sq).to(self.dtype)
+		return (vals * x_norm_sq).to(real_dtype(self.dtype))
 
 
 def matrix_function(A, fun: Union[str, Callable, None] = None, v=None, deg: int = 20, **kwargs):

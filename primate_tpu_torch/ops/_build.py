@@ -105,7 +105,9 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 		"bsr_spmm": {"bsr_spmm": [p, p, p, p, p, i64, i32, i32, i64, i64, i64, i32, p]},
 	}[stem]
 	for name, args in sigs.items():
-		for dt in ("f32", "f64"):
+		# The two DIA stencils also have complex64 / complex128 entry points.
+		complex_too = name in ("dia_stencil_t", "dia_stencil")
+		for dt in ("f32", "f64", "c64", "c128") if complex_too else ("f32", "f64"):
 			fn = getattr(lib, f"{name}_{dt}")
 			fn.argtypes = args
 			fn.restype = i32

@@ -27,15 +27,16 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 	return torch.promote_types(dtype, torch.float32)
 
 
-def check_cuda(name: str, dtype: torch.dtype, device: torch.device, int_keys=(), **tensors) -> None:
+def check_cuda(name: str, dtype: torch.dtype, device: torch.device, int_keys=(), complex_ok: bool = False, **tensors) -> None:
 	"""Raise on anything the kernels do not take: float32/float64 contiguous
-	tensors on one CUDA device, and int64 index tensors (``int_keys``)."""
+	tensors (also complex64/complex128 where ``complex_ok``: the two DIA stencils)
+	on one CUDA device, and int64 index tensors (``int_keys``)."""
 	if device.type != "cuda":
 		raise ValueError(f"{name}: tensors must lie on the CPU (plain version) or on a CUDA device; got {device}")
-	if dtype.is_complex:
-		raise NotImplementedError(f"{name}: complex operators have no CUDA kernel yet")
-	if dtype not in (torch.float32, torch.float64):
-		raise TypeError(f"{name}: the CUDA kernel takes float32 or float64, got {dtype}")
+	if dtype.is_complex and not complex_ok:
+		raise NotImplementedError(f"{name}: complex operators have no CUDA kernel of this kind (ROADMAP B.7)")
+	if dtype not in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+		raise TypeError(f"{name}: the CUDA kernel takes float32 or float64{' (or complex)' if complex_ok else ''}, got {dtype}")
 	for key, t in tensors.items():
 		want = torch.int64 if key in int_keys else dtype
 		if t.device != device:

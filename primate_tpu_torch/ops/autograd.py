@@ -21,6 +21,8 @@ devices and versions: ``grad_data[j] = Σ_b G[row_j, b]·V[col_j, b]`` and the i
 gradient through the transposed matrix, built once per operator.
 
 The parameter reductions are chunked so their temporaries stay bounded at any n.
+Complex (Hermitian) operators run the forward; their backward raises, as JAX's
+spectral-sum gradients are real-symmetric only (``primate_tpu/autodiff.py:63-64``).
 """
 
 import torch
@@ -48,6 +50,14 @@ def dia_adjoint(bands: torch.Tensor, offsets: tuple):
 		else:
 			adj[d, : n + off] = bands[d, -off:]
 	return adj, tuple(-o for o in offsets)
+
+
+def _real_only(name: str, t: torch.Tensor) -> None:
+	if t.is_complex():
+		raise NotImplementedError(
+			f"the backward of {name} is real only: differentiate a Hermitian operator through its real "
+			"embedding [[Re, -Im], [Im, Re]]"
+		)
 
 
 def _band_grad(G: torch.Tensor, X: torch.Tensor, offsets: tuple, dtype: torch.dtype, probe_major: bool) -> torch.Tensor:
@@ -83,6 +93,7 @@ class _DIAStencil(torch.autograd.Function):
 	@staticmethod
 	def backward(ctx, G):
 		bands, x, offsets_t = ctx.saved_tensors
+		_real_only("the DIA stencil", bands)
 		G = G.contiguous()
 		grad_bands = grad_x = None
 		if ctx.needs_input_grad[1]:
@@ -134,6 +145,7 @@ class _BSRSpMM(torch.autograd.Function):
 	@staticmethod
 	def backward(ctx, G):
 		blocks, V, indptr, indices = ctx.saved_tensors
+		_real_only("bsr_spmm", blocks)
 		nnzb, bm, bn = blocks.shape
 		n_brow, (m, k) = indptr.shape[0] - 1, V.shape
 		G = G.contiguous()
@@ -179,6 +191,7 @@ class _CSRSpMM(torch.autograd.Function):
 	@staticmethod
 	def backward(ctx, G):
 		data, V = ctx.saved_tensors
+		_real_only("the CSR apply", data)
 		op = ctx.op
 		G = G.contiguous()
 		grad_data = grad_V = None

@@ -54,6 +54,8 @@ __all__ = [
 	"lanczos_dia_step",
 	"lanczos_dia_step_ref",
 	"LanczosState",
+	"row_dot",
+	"row_sq_norm",
 	"lanczos_state",
 	"lanczos_dia_sweep_step",
 	"lanczos_sweep_step_ref",
@@ -86,6 +88,17 @@ def dia_stencil_t_ref(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tenso
 		if lo < hi:
 			out[:, lo:hi] += bands[d, lo:hi].to(acc) * x[:, lo + off : hi + off].to(acc)
 	return out.to(x.dtype)
+
+
+def row_dot(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+	"""``Re Σ_r conj(X[b, r])·Y[b, r]`` per row (``Σ X·Y`` for real blocks): the real inner
+	products of a Hermitian Lanczos step (``primate_tpu/lanczos.py:312-315``)."""
+	return torch.real(torch.sum(X.conj() * Y, dim=1)) if X.is_complex() else torch.sum(Y * X, dim=1)
+
+
+def row_sq_norm(X: torch.Tensor) -> torch.Tensor:
+	"""``Σ_r |X[b, r]|²`` per row, real."""
+	return torch.sum(torch.view_as_real(X).square(), dim=(1, 2)) if X.is_complex() else torch.sum(X * X, dim=1)
 
 
 def lanczos_dia_step_ref(
@@ -127,12 +140,13 @@ def lanczos_sweep_pass_a_ref(
 	apply_t, v_cur: torch.Tensor, v_prev: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor
 ) -> torch.Tensor:
 	"""Plain version of pass A: with ``q = v_cur / div_cur`` and ``q_prev = v_prev / div_prev``,
-	returns ``w = A q − β q_prev``; writes ``α = Σ w q`` to ``state.scal[ALPHA]`` and to
-	``alpha_out`` (zero where a probe is done)."""
+	returns ``w = A q − β q_prev``; writes ``α = Re Σ conj(q)·w`` (``Σ w q`` for real blocks) to
+	``state.scal[ALPHA]`` and to ``alpha_out`` (zero where a probe is done). The state is real
+	for complex (Hermitian) blocks too."""
 	s = state.scal
 	q = v_cur / s[DIV_CUR, :, None]
-	w = apply_t(q).to(s.dtype) - s[BETA, :, None] * (v_prev / s[DIV_PREV, :, None])
-	alpha = torch.sum(w * q, dim=1)
+	w = apply_t(q).to(v_cur.dtype) - s[BETA, :, None] * (v_prev / s[DIV_PREV, :, None])
+	alpha = row_dot(q, w)
 	alpha_out.copy_(torch.where(s[DONE] != 0, 0.0, alpha))
 	s[ALPHA] = alpha
 	return w
@@ -141,12 +155,12 @@ def lanczos_sweep_pass_a_ref(
 def lanczos_sweep_pass_b_ref(
 	v_cur: torch.Tensor, w: torch.Tensor, state: LanczosState, beta_out: torch.Tensor, residual_tol: float
 ) -> torch.Tensor:
-	"""Plain version of pass B: ``v = w − α q`` in place of ``w``, ``β' = ‖v‖``; writes
+	"""Plain version of pass B: ``v = w − α q`` in place of ``w``, ``β' = ‖v‖`` (``√Σ|v|²``); writes
 	``beta_out`` (zero where a probe was done) and advances ``state``: ``div_prev = div_cur``,
 	``div_cur = β'`` if ``β' > residual_tol`` else ``inf``, ``β = β'``, ``done |= β' < residual_tol``."""
 	s = state.scal
 	v = w.sub_(s[ALPHA, :, None] * (v_cur / s[DIV_CUR, :, None]))
-	beta = torch.sqrt(torch.sum(v * v, dim=1))
+	beta = torch.sqrt(row_sq_norm(v))
 	done = s[DONE] != 0
 	beta_out.copy_(torch.where(done, 0.0, beta))
 	s[DIV_PREV] = s[DIV_CUR]
@@ -167,6 +181,10 @@ def lanczos_sweep_step_ref(
 	return lanczos_sweep_pass_b_ref(v_cur, w, state, beta_out, residual_tol)
 
 
+# The C entry point of each dtype the stencils take.
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64", torch.complex128: "c128"}
+
+
 def _check_shapes(name: str, bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -> None:
 	if x.ndim != 2 or bands.ndim != 2 or offsets.ndim != 1:
 		raise ValueError(f"{name}: expected x (nv, n), bands (n_d, n), offsets (n_d,)")
@@ -182,14 +200,14 @@ def dia_stencil_t(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -
 	_check_shapes("dia_stencil_t", bands, offsets, x)
 	if x.device.type == "cpu":
 		return dia_stencil_t_ref(bands, offsets, x)
-	check_cuda("dia_stencil_t", x.dtype, x.device, ("offsets",), bands=bands, offsets=offsets, x=x)
+	check_cuda("dia_stencil_t", x.dtype, x.device, ("offsets",), complex_ok=True, bands=bands, offsets=offsets, x=x)
 	from ._build import load_library
 
 	lib = load_library()
 	nv, n = x.shape
 	out = torch.empty_like(x)
 	vec = vector_ok(n, x.element_size(), x, out)
-	fn = lib.dia_stencil_t_f32 if x.dtype == torch.float32 else lib.dia_stencil_t_f64
+	fn = getattr(lib, f"dia_stencil_t_{_SUFFIX[x.dtype]}")
 	err = fn(bands.data_ptr(), offsets.data_ptr(), bands.shape[0], x.data_ptr(), out.data_ptr(), nv, n, int(vec), stream(x.device))
 	raise_on(lib, err, "dia_stencil_t")
 	LAUNCHES["dia_stencil_t"] += 1
@@ -298,14 +316,14 @@ def dia_stencil(bands: torch.Tensor, offsets: torch.Tensor, V: torch.Tensor) -> 
 		raise ValueError(f"dia_stencil: bands {tuple(bands.shape)} do not match offsets {tuple(offsets.shape)} and n={V.shape[0]}")
 	if V.device.type == "cpu":
 		return dia_stencil_ref(bands, offsets, V)
-	check_cuda("dia_stencil", V.dtype, V.device, ("offsets",), bands=bands, offsets=offsets, V=V)
+	check_cuda("dia_stencil", V.dtype, V.device, ("offsets",), complex_ok=True, bands=bands, offsets=offsets, V=V)
 	from ._build import load_library
 
 	lib = load_library()
 	n, k = V.shape
 	out = torch.empty_like(V)
 	vec = vector_ok(k, V.element_size(), V, out)
-	fn = lib.dia_stencil_f32 if V.dtype == torch.float32 else lib.dia_stencil_f64
+	fn = getattr(lib, f"dia_stencil_{_SUFFIX[V.dtype]}")
 	err = fn(bands.data_ptr(), offsets.data_ptr(), bands.shape[0], V.data_ptr(), out.data_ptr(), n, k, int(vec), stream(V.device))
 	raise_on(lib, err, "dia_stencil")
 	LAUNCHES["dia_stencil"] += 1

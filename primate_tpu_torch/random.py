@@ -9,6 +9,10 @@ test matrices :func:`symmetric` and :func:`haar` with a prescribed spectrum.
 Probe blocks are ``(n, nv)`` with the probes as columns, as in the JAX package,
 but they are drawn probe-major: the returned tensor is the transpose of a
 contiguous ``(nv, n)`` block, which the Lanczos sweep then carries without a copy.
+
+Hermitian (complex) operators take real probes unless ``pdf="phase"``: uniform
+unit phases ``e^{iθ}``, the complex Rademacher analog, complex dtypes only
+(``primate_tpu/random.py:150-156``). :func:`hermitian` is the complex test matrix.
 """
 
 import inspect
@@ -20,7 +24,7 @@ import torch
 
 from .linalg import full_f32_matmul
 
-__all__ = ["real_dtype", "classify_pdf", "sample_isotropic", "Isotropic", "isotropic", "symmetric", "haar"]
+__all__ = ["real_dtype", "classify_pdf", "sample_isotropic", "Isotropic", "isotropic", "symmetric", "haar", "hermitian"]
 
 _ISO_DISTRIBUTIONS = {
 	"rademacher": "rademacher",
@@ -28,12 +32,20 @@ _ISO_DISTRIBUTIONS = {
 	"sphere": "sphere",
 	"signs": "rademacher",
 	"gaussian": "normal",
+	"phase": "phase",  # complex unit phases e^{iθ}: Hermitian operators only
 }
 
 
 def real_dtype(dtype: torch.dtype) -> torch.dtype:
-	"""Real counterpart of a floating dtype (``complex64 → float32`` etc.)."""
+	"""Real counterpart of a floating dtype (``complex64 → float32`` etc.): the dtype of
+	the probes and of the estimator state of a Hermitian operator (``primate_tpu/random.py:37-45``)."""
 	return dtype.to_real() if dtype.is_complex else dtype
+
+
+def probe_dtype(dtype: torch.dtype, pdf) -> torch.dtype:
+	"""The dtype probes of an operator of ``dtype`` are drawn in: complex for ``pdf="phase"``,
+	else real (unbiased for Hermitian operators: ``E[vvᵀ] = I`` and ``v†Av`` is real)."""
+	return dtype if isinstance(pdf, str) and pdf == "phase" else real_dtype(dtype)
 
 
 def classify_pdf(pdf) -> str:
@@ -65,8 +77,8 @@ def sample_isotropic(
 	Parameters:
 		generator: the source of randomness; its device is the probes' device.
 		shape: ``(n, nv)``; an int ``n`` is promoted to ``(n, 1)``.
-		pdf: one of "rademacher"/"signs", "normal"/"gaussian", "sphere", or a
-			callable ``(generator, shape, dtype) -> tensor``.
+		pdf: one of "rademacher"/"signs", "normal"/"gaussian", "sphere", "phase"
+			(complex dtypes only), or a callable ``(generator, shape, dtype) -> tensor``.
 		dtype: element type (defaults to torch's default float dtype).
 
 	Returns:
@@ -86,9 +98,16 @@ def sample_isotropic(
 		raise ValueError(f"probe blocks are (n, nv); got shape {shape}")
 	n, nv = shape
 	device = generator.device
-	if pdf == "rademacher":
-		W = torch.randint(0, 2, (nv, n), generator=generator, device=device, dtype=dtype).mul_(2).sub_(1)
-		return W.T
+	if pdf == "phase":
+		# Uniform unit phases: E[v v†] = I and every |v_i| = 1, so the Girard
+		# variance sees Σ_{i≠j}|A_ij|² (primate_tpu/random.py:150-157).
+		if not dtype.is_complex:
+			raise ValueError("pdf='phase' needs a complex dtype (Hermitian operators).")
+		theta = torch.rand((nv, n), generator=generator, device=device, dtype=real_dtype(dtype)).mul_(2.0 * math.pi)
+		return torch.polar(torch.ones_like(theta), theta).T
+	if pdf == "rademacher":  # real signs, also in a complex dtype, as jax.random.rademacher draws them
+		W = torch.randint(0, 2, (nv, n), generator=generator, device=device, dtype=real_dtype(dtype)).mul_(2).sub_(1)
+		return W.to(dtype).T
 	W = torch.randn((nv, n), generator=generator, device=device, dtype=dtype)
 	if pdf == "sphere":
 		# Uniform on the sphere of radius sqrt(n); rows of W are the vectors.
@@ -203,3 +222,22 @@ def haar(n: int, ew=None, seed=None, dtype=None, device="cuda") -> torch.Tensor:
 	ev[: ew.shape[0]] = ew
 	with full_f32_matmul():
 		return (U * ev[None, :]) @ U.T
+
+
+def hermitian(n: int, pd: bool = False, ew=None, seed=None, dtype=None, device="cuda") -> torch.Tensor:
+	"""Random complex Hermitian ``n × n`` matrix with real eigenvalues ``ew``
+	(``primate_tpu/random.py:288-314``): ``Q diag(ew) Q†`` with ``Q`` the QR factor of a
+	complex Gaussian matrix, then ``(A + A†)/2``. Without ``ew`` the eigenvalues are
+	uniform in [0, 1] (``pd=True``) or [-1, 1]. ``dtype`` defaults to the complex
+	counterpart of torch's default float dtype."""
+	if dtype is None:
+		dtype = torch.complex128 if torch.get_default_dtype() == torch.float64 else torch.complex64
+	r_dtype = real_dtype(dtype)
+	g = _generator(seed, 0, device)
+	M = torch.complex(torch.randn((n, n), generator=g, device=g.device, dtype=r_dtype),
+		torch.randn((n, n), generator=g, device=g.device, dtype=r_dtype))
+	Q, _ = torch.linalg.qr(M)
+	ew = _spectrum(_generator(seed, 1, device), n, ew, 0.0 if pd else -1.0, r_dtype)
+	with full_f32_matmul():
+		A = (Q * ew[None, :].to(dtype)) @ Q.mH
+	return (A + A.mH) / 2

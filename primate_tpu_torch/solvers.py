@@ -16,7 +16,8 @@ its backward is another solve with the same operator, and the operator's
 tensors (:meth:`~primate_tpu_torch.operators.base.LinearOperator.float_tensors`)
 are pulled back through ``matmat(X)``. Preconditioners are solve machinery, built
 from detached tensors and never differentiated. Complex (Hermitian) operators
-are not ported yet.
+solve with conjugated inner products (real α, β and stop state) and are not
+differentiated, as in the JAX package (``primate_tpu/solvers.py:145-148,243-258``).
 """
 
 import warnings
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from .linalg import full_f32, tall_qr
+from .ops.dia import row_dot
 from .operators.base import aslinop
 from .random import real_dtype, sample_isotropic
 
@@ -61,20 +63,27 @@ class NystromPreconditioner:
 
 	@full_f32
 	def apply_t(self, Rt: torch.Tensor) -> torch.Tensor:  # probe-major (k, n)
-		C = Rt @ self.U  # (k, s)
+		# Row-major P⁻¹: (UU†r)ᵀ = rᵀ·conj(U)·Uᵀ (conj is a no-op for real U).
+		C = Rt @ self.U.conj()  # (k, s)
 		return Rt + (C * self.coef[None, :]) @ self.U.T
 
 
 def nystrom_precond(A, rank: int = 64, mu: float = 0.0, seed=None, device="cuda") -> NystromPreconditioner:
 	"""Build a rank-``rank`` :class:`NystromPreconditioner` for SPD ``A`` (+μI)
 	(``primate_tpu/solvers.py:76-120``). The Gaussian test block Ω is drawn from the
-	generator keyed ``(seed, 0)`` on the operator's device; a numpy ``A`` goes to ``device``."""
+	generator keyed ``(seed, 0)`` on the operator's device: real for a real operator; for
+	a complex one a complex Gaussian, real and imaginary parts each of variance ½, as the
+	JAX package's randomized eigensolvers sketch (``primate_tpu/eigen.py:611-619``). A
+	numpy ``A`` goes to ``device``."""
 	from .trace import _base_seed, batch_generator
 
 	op = aslinop(A, device=device)
 	n = op.shape[0]
 	s = int(max(1, min(rank, n)))
-	Om = sample_isotropic(batch_generator(_base_seed(seed), 0, op.device), (n, s), pdf="normal", dtype=real_dtype(op.dtype))
+	g = batch_generator(_base_seed(seed), 0, op.device)
+	Om = sample_isotropic(g, (n, s), pdf="normal", dtype=real_dtype(op.dtype))
+	if op.dtype.is_complex:
+		Om = torch.complex(Om, sample_isotropic(g, (n, s), pdf="normal", dtype=real_dtype(op.dtype))) * float(np.sqrt(0.5))
 	return nystrom_core(op, Om, mu)
 
 
@@ -83,25 +92,25 @@ def nystrom_precond(A, rank: int = 64, mu: float = 0.0, seed=None, device="cuda"
 def nystrom_core(op, Om: torch.Tensor, mu: float = 0.0) -> NystromPreconditioner:
 	"""The preconditioner from a given Gaussian test block ``Om (n, s)``: a QR of Ω, one
 	operator apply, a Cholesky, an ``s×s`` triangular inverse and ``eigh`` of the ``s×s``
-	Gram matrix. A failed Cholesky (a rank-collapsed sketch) gives ``P = I``."""
-	if op.dtype.is_complex:
-		raise NotImplementedError("the Nyström preconditioner of complex (Hermitian) operators is not ported yet")
+	Gram matrix. A failed Cholesky (a rank-collapsed sketch) gives ``P = I``. Hermitian
+	operators conjugate every bra (``primate_tpu/solvers.py:90-98``)."""
 	n, s = Om.shape
 	acc = _acc(op.dtype)
+	h = lambda X: X.mH if X.is_complex() else X.T  # noqa: E731
 	Om, _ = tall_qr(Om.to(acc))
 	Y = op.matmat(Om.to(op.dtype)).to(acc)
-	finfo = torch.finfo(acc)
+	finfo = torch.finfo(real_dtype(acc))
 	nu = finfo.eps * torch.linalg.vector_norm(Y) / float(np.sqrt(n))
 	Y = Y + nu * Om
-	L, info = torch.linalg.cholesky_ex(0.5 * ((Om.T @ Y) + (Y.T @ Om)))  # ½(ΩᵀY + YᵀΩ)
+	L, info = torch.linalg.cholesky_ex(0.5 * ((h(Om) @ Y) + (h(Y) @ Om)))  # ½(Ω†Y + Y†Ω)
 	L = torch.where(info == 0, L, torch.nan)  # a failed factor is NaN, as JAX's Cholesky returns
 	# A small (s×s) triangular inverse and a GEMM instead of a solve with an (s, n) right-hand side.
 	L_inv = torch.linalg.solve_triangular(L, torch.eye(s, dtype=acc, device=L.device), upper=False)
-	B = Y @ L_inv.T  # (n, s) = Y L⁻ᵀ
+	B = Y @ h(L_inv)  # (n, s) = Y L⁻ᴴ
 	# Left singular vectors by eigh of the small Gram matrix instead of an (n×s) SVD. A
 	# non-finite Gram matrix (the failed factor) goes to eigh as the identity, which
 	# LAPACK takes, and its preconditioner is zeroed below.
-	G = B.T @ B
+	G = h(B) @ B
 	ok = torch.isfinite(G).all()
 	d, W = torch.linalg.eigh(torch.where(ok, G, torch.eye(s, dtype=acc, device=G.device)))
 	d, W = torch.flip(d, (0,)), torch.flip(W, (1,))  # descending
@@ -142,7 +151,8 @@ def _cg_loop(
 	dtype = Bt.dtype
 	acc = _acc(dtype)
 	Bt = Bt.contiguous()
-	inner = lambda X, Y: torch.sum(X * Y, dim=1)  # noqa: E731
+	# Hermitian operators: ⟨x, y⟩ = Re Σ conj(x)·y, so α, β and the stop state are real.
+	inner = row_dot
 	B_acc = Bt.to(acc)
 	if X0t is None:
 		X = torch.zeros_like(B_acc)
@@ -211,6 +221,12 @@ class _Solve(torch.autograd.Function):
 
 
 def _differentiable_solve(op, B, pre, rtol, maxiter):
+	if op.dtype.is_complex:
+		# As in the JAX package, a Hermitian solve is not differentiated (its
+		# custom_linear_solve(symmetric=True) would transpose with conj(A)).
+		if torch.is_grad_enabled() and any(t.requires_grad for t in (B, *op.float_tensors())):
+			raise NotImplementedError("cg of a complex (Hermitian) operator is not differentiable")
+		return _cg_loop(op.matmat_t, B.T, None, pre, rtol, maxiter).X.T.to(B.dtype)
 	return _Solve.apply(op, pre, maxiter, rtol, B, *op.float_tensors())
 
 
@@ -244,8 +260,6 @@ def cg(
 	(in float32 they drift from ``‖B − A X‖`` by rounding).
 	"""
 	op = aslinop(A, device=device)
-	if op.dtype.is_complex:
-		raise NotImplementedError("cg of complex (Hermitian) operators is not ported yet")
 	n = op.shape[0]
 	B = torch.as_tensor(B, device=op.device).to(op.dtype)
 	single = B.ndim == 1

@@ -40,7 +40,7 @@ from .estimators import (
 )
 from .linalg import colwise_dot, full_f32, qr_append, tall_qr, update_trinv_block
 from .operators.base import DeflatedOperator, aslinop, is_valid_operator, quad_form
-from .random import classify_pdf, real_dtype, sample_isotropic
+from .random import classify_pdf, probe_dtype, real_dtype, sample_isotropic
 from .stats import CovState, make_cov_state
 
 __all__ = ["hutch", "hutchpp", "xtrace", "xnystrace"]
@@ -68,13 +68,13 @@ def batch_generator(seed: int, it: int, device) -> torch.Generator:
 
 def probe_sampler(op, base: int, pdf) -> Callable[[int, int], torch.Tensor]:
 	"""``draw(it, k)``: round ``it``'s ``(n, k)`` probe block from the generator keyed
-	``(base, it)``, real, in the operator's dtype and on its device."""
+	``(base, it)``, drawn real (complex for ``pdf="phase"``), in the operator's dtype and on its device."""
 	if classify_pdf(pdf) == "size":
 		raise NotImplementedError("the sketch estimators draw probes on the device; pass a pdf name or a (generator, shape, dtype) callable")
 	n, device = op.shape[0], op.device
 
 	def draw(it: int, k: int) -> torch.Tensor:
-		V = sample_isotropic(batch_generator(base, it, device), (n, k), pdf=pdf, dtype=real_dtype(op.dtype))
+		V = sample_isotropic(batch_generator(base, it, device), (n, k), pdf=pdf, dtype=probe_dtype(op.dtype, pdf))
 		return V.to(op.dtype)
 
 	return draw
@@ -105,6 +105,15 @@ def count_only_target(criterion) -> Optional[int]:
 DIFFERENTIABLE_KWARGS = ("grad_method", "fprime", "solver_rtol", "solver_maxiter")
 
 
+def refuse_complex_grad(name: str, op) -> None:
+	"""``differentiable=True`` is real-symmetric only (``primate_tpu/autodiff.py:63-64``)."""
+	if op.dtype.is_complex:
+		raise NotImplementedError(
+			f"{name}(differentiable=True) is real-symmetric only; differentiate a Hermitian operator "
+			"through its real embedding [[Re, -Im], [Im, Re]]"
+		)
+
+
 def check_traced_path(name: str, callback=None, resume=None, record: bool = False, full: bool = False, pdf="rademacher") -> None:
 	"""Refuse what a ``differentiable=True`` path cannot do, where the JAX package asserts."""
 	if callback is not None or resume is not None or record or full:
@@ -130,6 +139,7 @@ def _hutch_differentiable(op, batch, pdf, converge, seed, maxiter, kwargs) -> to
 	generator keyed ``(seed, i)`` as the batch loop draws it. A ``MatrixFunction`` goes to
 	:func:`~primate_tpu_torch.autodiff.spectral_sum`; a plain operator gives the mean of
 	its quadratic forms, differentiable through its applies."""
+	refuse_complex_grad("hutch", op)
 	grad_opts = {k: kwargs.pop(k) for k in DIFFERENTIABLE_KWARGS if k in kwargs}
 	count = count_budget("hutch", converge, kwargs)
 	nv = min(count, int(maxiter) * int(batch))
@@ -144,7 +154,7 @@ def _hutch_differentiable(op, batch, pdf, converge, seed, maxiter, kwargs) -> to
 	base, N = _base_seed(seed), op.shape[0]
 	means = []
 	for i in range(-(-nv // int(batch))):
-		V = sample_isotropic(batch_generator(base, i, op.device), (N, int(batch)), pdf=pdf, dtype=real_dtype(op.dtype))
+		V = sample_isotropic(batch_generator(base, i, op.device), (N, int(batch)), pdf=pdf, dtype=probe_dtype(op.dtype, pdf))
 		means.append(torch.mean(quad_form(op, V.to(op.dtype)), dim=-1))
 	return torch.mean(torch.stack(means), dim=0)
 
@@ -212,8 +222,10 @@ def hutch(
 	record = record or criterion_needs_values(criterion)
 
 	device = op.device
+	# Hermitian operators: the estimator state is real (v†Av is), and so are the
+	# probes unless pdf="phase" (primate_tpu/trace.py:103-111).
 	acc = real_dtype(torch.promote_types(op.dtype, torch.float32))
-	s_dtype = real_dtype(op.dtype)
+	s_dtype = probe_dtype(op.dtype, pdf)
 	pdf_kind = classify_pdf(pdf)
 	base = _base_seed(seed)
 	stack_shape = getattr(op, "stack_shape", None)
@@ -336,6 +348,8 @@ def hutchpp(
 	if mode not in ("reduced", "full"):
 		raise ValueError(f"mode must be 'reduced' or 'full', got {mode!r}")
 	op = _sketch_op(A, "hutchpp")
+	if differentiable:
+		refuse_complex_grad("hutchpp", op)
 	N = op.shape[0]
 	if N == 0:
 		return (0.0, EstimatorResult()) if full else 0.0
@@ -397,6 +411,8 @@ def xnystrace(
 	``[2, N]``) operator applications, one block. ``differentiable=True`` returns the
 	mean as a tensor, whose gradient is the exact derivative of the fixed program."""
 	op = _sketch_op(A, "xnystrace")
+	if differentiable:
+		refuse_complex_grad("xnystrace", op)
 	N = op.shape[0]
 	acc = real_dtype(torch.promote_types(op.dtype, torch.float32))
 	if N < 3:
@@ -501,6 +517,7 @@ def xtrace(
 			raise NotImplementedError(f"{flag} is not ported yet")
 	op = _sketch_op(A, "xtrace")
 	if differentiable:
+		refuse_complex_grad("xtrace", op)
 		check_traced_path("xtrace", resume=resume, full=full, pdf=pdf)
 		return _xtrace_differentiable(op, batch, pdf, converge, seed, kwargs)
 	criterion = CountCriterion(count=op.shape[0])

@@ -8,9 +8,11 @@ sketch estimators on its 1M-row BSR cell, the calls of its phase 8 on the FEM
 DIA cell (Hutch++, XDiag, Diag++, ``diag``), and the calls of its phases 9-12: the
 CSR graph logdet (``powerlaw_laplacian(1M)``), the heat-kernel curve, exp(−L)V in
 one and two passes, and the heat-kernel signature on the 1000×1000 mesh; then its phase 13,
-the GP log-likelihood at n = 10M (the forward pass alone, and forward and backward),
-and its phase 14, Jacobi-preconditioned CG on the power-law graph with 64 right-hand
-sides. Prints one JSON line per call: the
+the GP log-likelihood at n = 10M (the forward pass alone, and forward and backward);
+its phase 14, Jacobi-preconditioned CG on the power-law graph with 64 right-hand
+sides; and its phase 15 on the 4M-site Hofstadter model (complex64 DIA): the KPM
+density of states, the β sweep of ``tr e^{−βH}`` and the local density of states.
+Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
 count); writes them all to ``--out``. Needs a CUDA device; without one it exits
@@ -22,6 +24,8 @@ import json
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 
 def _device_ms(evt) -> float:
@@ -131,6 +135,19 @@ def main() -> None:
 		"gp_nll_forward": lambda: gp(False),
 		"gp_nll_forward_backward": lambda: gp(True),
 		"cg_jacobi_1m": lambda: ptt.cg(G, B, rtol=cs.CG_RTOL, precond="jacobi"),
+	}
+	for name, fn in calls.items():
+		row = {"call": name, **trace(torch, fn)}
+		print(json.dumps(row), flush=True)
+		rows.append(row)
+	del G, B
+	H = ptt.DIAOperator.from_scipy(cs.hofstadter_csr(**cs.TB), dtype=torch.complex64, device=dev)
+	sweep = ptt.MatrixFunction(H, ptt.stacked("exp", -np.array(cs.TB_BETAS)), deg=48, orth=0)
+	window = ptt.ChebyshevFunction(H, lambda x: torch.exp(-(x**2) / 0.02) / (0.1 * np.sqrt(2 * np.pi)), deg=256, seed=157)
+	calls = {  # chip_smoke.py phase 15
+		"tb_kpm_density": lambda: ptt.kpm_density(H, grid=512, m=512, nv=cs.TB_NV, pdf="phase", interval="gershgorin", seed=153),
+		"tb_beta_sweep": lambda: ptt.hutch(sweep, pdf="phase", batch=16, converge="count", count=64, seed=155),
+		"tb_ldos": lambda: ptt.diag(window, pdf="phase", batch=16, converge="count", count=4, seed=3),
 	}
 	for name, fn in calls.items():
 		row = {"call": name, **trace(torch, fn)}

@@ -13,6 +13,7 @@ import torch
 from primate_tpu_torch import BSROperator, DIAOperator, MatrixFunction, hutch, lanczos_block_op, xtrace
 from primate_tpu_torch.operators.base import LinearOperator
 from primate_tpu_torch.ops import _common, bsr, dia
+from primate_tpu_torch.ops import autograd as ptt_autograd
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -182,8 +183,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 		dia.dia_stencil_t(bands, offs, x.double())
 	with pytest.raises(TypeError):
 		dia.dia_stencil_t(bands.bfloat16(), offs, x.bfloat16())
-	with pytest.raises(NotImplementedError):
-		dia.dia_stencil_t(bands.to(torch.complex64), offs, x.to(torch.complex64))
+	c64 = torch.complex64
+	with pytest.raises(NotImplementedError):  # the step kernels are real only (the stencils take complex)
+		dia.lanczos_dia_step(bands.to(c64), offs, q_cur.to(c64), q_prev.to(c64), beta)
+	with pytest.raises(TypeError):
+		dia.dia_stencil_t(bands.to(c64), offs, x)
 	with pytest.raises(ValueError, match="contiguous"):
 		dia.dia_stencil_t(bands, offs, torch.randn((100, 4), device=cuda).T)
 	with pytest.raises(ValueError):
@@ -336,9 +340,8 @@ def test_sparse_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 		op.matmat(V.to(torch.complex64))
 	bands = torch.ones((3, 100), device=cuda)
 	offs = torch.tensor([-1, 0, 1], device=cuda)
-	for bad in (torch.complex64, torch.bfloat16):
-		with pytest.raises((TypeError, NotImplementedError)):
-			dia.dia_stencil(bands.to(bad), offs, torch.ones((100, 3), device=cuda, dtype=bad))
+	with pytest.raises(TypeError):
+		dia.dia_stencil(bands.bfloat16(), offs, torch.ones((100, 3), device=cuda, dtype=torch.bfloat16))
 
 
 def test_xtrace_stays_exact_with_tf32_switched_on(cuda):
@@ -515,3 +518,107 @@ def test_kernel_backward_matches_autograd_of_the_plain_versions(cuda, dtype):
 		want = torch.autograd.grad(plain(*inputs), inputs, G)
 		for gv, wv in zip(got, want):
 			_close_rel(gv, wv, dtype)
+
+
+# --- complex (Hermitian) stencils ----------------------------------------------------
+#
+# (nv, n, offsets[, lead]): the tight-binding cell's probe block and offsets at a cut n
+# (the full 4,096,000 sites run in chip_smoke.py phase 15), probe counts 1, 7 and 65, n
+# odd, offsets at and past n, and a block one element past a 16-byte boundary, which
+# takes the complex64 scalar path. Tolerance: max-abs error over max|out|.
+CPLX_SHAPES = [
+	(16, 409_600, (-409_600 + 2048, -2048, -2047, -1, 1, 2047, 2048, 409_600 - 2048)),
+	(1, 12_001, (-10_001, -1, 0, 1, 10_001)), (7, 3001, (-200, -7, 0, 7, 200)),
+	(65, 5000, (-5000, -4999, -1, 0, 1, 4999, 5000, 6000)),
+	(13, 12_000, (-10_000, -7, 0, 3, 10_000), 1),
+]
+CPLX_TOL = {torch.complex64: 1e-6, torch.complex128: 1e-14}
+
+
+def _cplx(dev, shape, dtype, seed=0):
+	g = torch.Generator(device=dev)
+	g.manual_seed(seed)
+	r = dtype.to_real()
+	return torch.complex(torch.randn(shape, generator=g, device=dev, dtype=r), torch.randn(shape, generator=g, device=dev, dtype=r))
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("shape", CPLX_SHAPES)
+def test_complex_stencils_match_plain_versions(cuda, shape, dtype):
+	nv, n, offsets = shape[:3]
+	lead = shape[3] if len(shape) > 3 else 0
+	bands = _cplx(cuda, (len(offsets), n), dtype, seed=1)
+	offs = torch.tensor(offsets, dtype=torch.int64, device=cuda)
+	x = _cplx(cuda, (lead + nv * n,), dtype, seed=2)[lead:].view(nv, n)
+	scalar = not _common.vector_ok(n, x.element_size(), x)
+	assert scalar == (dtype == torch.complex64 and (n % 2 == 1 or lead == 1))  # complex128: always 16-byte vectors
+	before, scalar_before = dict(dia.LAUNCHES), dict(_common.SCALAR_LAUNCHES)
+	got, want = dia.dia_stencil_t(bands, offs, x), dia.dia_stencil_t_ref(bands, offs, x)
+	V = x.T.contiguous()  # node-major (n, nv)
+	got_nm, want_nm = dia.dia_stencil(bands, offs, V), dia.dia_stencil_ref(bands, offs, V)
+	torch.cuda.synchronize()
+	assert dia.LAUNCHES["dia_stencil_t"] == before["dia_stencil_t"] + 1 and dia.LAUNCHES["dia_stencil"] == before["dia_stencil"] + 1
+	assert _common.SCALAR_LAUNCHES["dia_stencil_t"] == scalar_before["dia_stencil_t"] + scalar
+	assert got.dtype == dtype and got_nm.dtype == dtype
+	assert float((got - want).abs().max()) <= CPLX_TOL[dtype] * float(want.abs().max())
+	assert float((got_nm - want_nm).abs().max()) <= CPLX_TOL[dtype] * float(want_nm.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_node_major_stencil_at_the_cell_width(cuda, dtype):
+	"""``dia_stencil`` on an (n, 64) block (the node-major QR blocks of the sketches) and on a
+	misaligned one, which takes the complex64 scalar path."""
+	n, offsets = 200_000, (-200_000 + 2048, -2048, -2047, -1, 1, 2047, 2048, 200_000 - 2048)
+	bands = _cplx(cuda, (len(offsets), n), dtype, seed=3)
+	offs = torch.tensor(offsets, dtype=torch.int64, device=cuda)
+	for lead in (0, 1):
+		V = _cplx(cuda, (lead + n * 64,), dtype, seed=4)[lead:].view(n, 64)
+		before = _common.SCALAR_LAUNCHES["dia_stencil"]
+		got, want = dia.dia_stencil(bands, offs, V), dia.dia_stencil_ref(bands, offs, V)
+		torch.cuda.synchronize()
+		assert _common.SCALAR_LAUNCHES["dia_stencil"] == before + (lead == 1 and dtype == torch.complex64)
+		assert float((got - want).abs().max()) <= CPLX_TOL[dtype] * float(want.abs().max())
+
+
+def test_complex_operators_on_the_card(cuda):
+	"""A Hermitian DIA operator's Lanczos sweep takes the complex stencil and no step kernel and
+	matches the CPU port; a complex BSR apply and a complex kernel backward raise."""
+	nx = ny = 40
+	rng = np.random.default_rng(0)
+	x, y = np.repeat(np.arange(nx), ny), np.tile(np.arange(ny), nx)
+	i, jx, jy = x * ny + y, (x + 1) % nx * ny + y, x * ny + (y + 1) % ny
+	t = -np.exp(2j * np.pi * 0.2 * x)
+	H = sps.csr_matrix((np.r_[-np.ones(2 * i.size), t, t.conj()], (np.r_[i, jx, i, jy], np.r_[jx, i, jy, i])), shape=(nx * ny,) * 2)
+	op, op_cpu = DIAOperator.from_scipy(H, device=cuda), DIAOperator.from_scipy(H, device="cpu")
+	V0 = rng.normal(size=(nx * ny, 8)) + 1j * rng.normal(size=(nx * ny, 8))
+	dia.reset_launches()
+	out = lanczos_block_op(op, torch.tensor(V0, device=cuda), deg=20, ncv=2, orth=0, return_basis=False)
+	assert dia.LAUNCHES["dia_stencil_t"] == 20 and dia.LAUNCHES["lanczos_dia_step"] == dia.LAUNCHES["lanczos_dia_residual"] == 0
+	want = lanczos_block_op(op_cpu, torch.tensor(V0), deg=20, ncv=2, orth=0, return_basis=False)
+	np.testing.assert_allclose(out.alphas.cpu().numpy(), want.alphas.numpy(), rtol=0, atol=1e-12)
+	np.testing.assert_allclose(out.betas.cpu().numpy(), want.betas.numpy(), rtol=0, atol=1e-12)
+	blocks, indptr, indices, n = _bsr_arrays(cuda, torch.float64, 8, 8)
+	with pytest.raises(NotImplementedError):
+		BSROperator(blocks.to(torch.complex128), indices, indptr, (n, n)).matmat(torch.ones((n, 2), device=cuda, dtype=torch.complex128))
+	bands = op.bands.clone().requires_grad_(True)
+	y = ptt_autograd.dia_stencil_t_ad(bands, torch.tensor(V0.T.copy(), device=cuda), op.offsets_t, op.offsets)
+	with pytest.raises(NotImplementedError):
+		torch.autograd.grad(y, bands, torch.ones_like(y))
+
+
+def test_complex64_sketch_stays_exact_with_tf32_switched_on(cuda):
+	"""Hutch++ at m = n on a complex64 Hermitian operator with TF32 turned on by the caller:
+	cuBLAS complex64 GEMMs obey the same switch, and the full-float32 guard keeps the sketch exact."""
+	from primate_tpu_torch import hermitian, hutchpp
+
+	n = 60
+	ew = np.random.default_rng(1).uniform(0.2, 2.0, n)
+	A = hermitian(n, ew=ew, seed=2, dtype=torch.complex64, device=cuda)
+	prev = torch.backends.cuda.matmul.allow_tf32
+	try:
+		torch.backends.cuda.matmul.allow_tf32 = True
+		est = hutchpp(A, m=n, seed=3)
+		assert torch.backends.cuda.matmul.allow_tf32
+	finally:
+		torch.backends.cuda.matmul.allow_tf32 = prev
+	assert abs(est - ew.sum()) / ew.sum() <= 1e-4

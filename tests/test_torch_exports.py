@@ -9,9 +9,8 @@ import primate_tpu_torch as ptt
 
 # Each queue-A slice of the port takes its names off this list.
 NOT_YET_PORTED = {
-	"ChebyshevFunction", "Toeplitz", "auto_operator", "block_lanczos", "block_quadrature", "block_slq_trace",
-	"eigsh", "filtered_eigsh", "hermitian", "kpm_density", "kpm_trace", "lanczos_bidiag", "lanczos_block",
-	"normalize_unit", "rand_nystrom", "rsvd", "suggest_chebyshev_degree", "svds",
+	"Toeplitz", "auto_operator", "block_lanczos", "block_quadrature", "block_slq_trace", "eigsh", "filtered_eigsh",
+	"lanczos_bidiag", "lanczos_block", "normalize_unit", "rand_nystrom", "rsvd", "svds",
 }
 
 
@@ -26,3 +25,48 @@ def test_each_reference_name_is_ported_or_listed(name):
 def test_the_checklist_names_only_reference_names():
 	assert NOT_YET_PORTED <= set(pt.__all__)
 	from primate_tpu_torch import CountCriterion, EstimatorResult, cg, solve, spectral_sum  # noqa: F401
+
+
+def test_the_density_names_are_exported():
+	for name in ("spectral_density", "cumulative_spectral_density", "spectral_quantile", "kpm"):
+		assert hasattr(ptt, name), name
+
+
+def _hermitian_op():
+	import numpy as np
+	import torch
+
+	return torch.from_numpy(np.array(pt.hermitian(8, ew=np.linspace(0.5, 1.5, 8), seed=1)))
+
+
+@pytest.mark.parametrize("branch", ["gram_density", "complex_hutch", "complex_sketch", "complex_diag", "complex_kpm_trace",
+	"complex_bsr_on_the_card", "complex_step_kernels_on_the_card"])
+def test_each_unported_branch_raises(branch):
+	"""Name by name, a branch of the JAX package that the port has not taken raises
+	``NotImplementedError``: the Gram densities (ROADMAP A.6), ``differentiable=True`` on a
+	Hermitian operator, and the complex BSR and Lanczos-step kernels (ROADMAP B.7; the
+	dtype rule the wrappers apply to a CUDA tensor, checked here without a card)."""
+	import torch
+
+	from primate_tpu_torch.ops._common import check_cuda
+
+	calls = {
+		"gram_density": lambda: ptt.spectral_density(_gram()),
+		"complex_hutch": lambda: ptt.hutch(_hermitian_op(), converge="count", count=4, differentiable=True),
+		"complex_sketch": lambda: ptt.hutchpp(_hermitian_op(), m=3, differentiable=True),
+		"complex_diag": lambda: ptt.diag(_hermitian_op(), converge="count", count=2, differentiable=True),
+		"complex_kpm_trace": lambda: ptt.kpm_trace(_hermitian_op(), m=4, interval=(0.0, 2.0), differentiable=True),
+		"complex_bsr_on_the_card": lambda: check_cuda("bsr_spmm", torch.complex64, torch.device("cuda", 0)),
+		"complex_step_kernels_on_the_card": lambda: check_cuda("lanczos_dia_step", torch.complex128, torch.device("cuda", 0)),
+	}
+	with pytest.raises(NotImplementedError):
+		calls[branch]()
+	# The two DIA stencils take complex tensors on the card.
+	check_cuda("dia_stencil_t", torch.complex64, torch.device("cuda", 0), complex_ok=True)
+
+
+def _gram():
+	import jax.numpy as jnp
+	from primate_tpu.operators.sparse import GramOperator
+
+	return GramOperator(jnp.ones((6, 4)))

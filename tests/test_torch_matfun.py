@@ -424,29 +424,37 @@ def test_gradient_keywords_behave_as_in_jax(entry, kwargs):
 		assert isinstance(got, torch.Tensor)
 
 
-NOT_PORTED = [
-	("diag", dict(resume={})),
-	("lanczos_block_op", dict(phys=True)),
-	("lanczos_block_op", dict(phys=False)),
-	("MatrixFunction", dict(dtype=torch.complex128)),
-	("lanczos", dict(dtype=torch.complex128)),
+# (entry, keywords, ported): an unported keyword raises NotImplementedError. A complex
+# dtype raised until Hermitian operators were ported; it now runs, and on a real matrix
+# lifted to complex128 gives the float64 call's result (the probes are drawn real).
+KEYWORD_CASES = [
+	("diag", dict(resume={}), False),
+	("lanczos_block_op", dict(phys=True), False),
+	("lanczos_block_op", dict(phys=False), False),
+	("MatrixFunction", dict(dtype=torch.complex128), True),
+	("lanczos", dict(dtype=torch.complex128), True),
 ]
 
 
-@pytest.mark.parametrize("entry,kwargs", NOT_PORTED, ids=[f"{e}-{next(iter(k))}" for e, k in NOT_PORTED])
-def test_unported_keywords_raise(entry, kwargs):
+@pytest.mark.parametrize("entry,kwargs,ported", KEYWORD_CASES, ids=[f"{e}-{next(iter(k))}" for e, k, _ in KEYWORD_CASES])
+def test_unported_keywords_raise(entry, kwargs, ported):
 	A = torch.from_numpy(_spd(20, seed=27)[0])
 	V0 = torch.ones((20, 2), dtype=torch.float64)
+	X = torch.from_numpy(np.random.default_rng(27).choice([-1.0, 1.0], size=(20, 3)))
 	call = {
-		"hutch": lambda: hutch(A, converge="count", count=4, **kwargs),
-		"diag": lambda: diag(A, converge="count", count=2, **kwargs),
-		"lanczos_block_op": lambda: lanczos_block_op(DenseOperator(A), V0, deg=4, ncv=2, **kwargs),
-		"MatrixFunction": lambda: MatrixFunction(A, "log", **kwargs),
-		"lanczos": lambda: lanczos(A, deg=4, **kwargs),
+		"hutch": lambda kw: hutch(A, converge="count", count=4, **kw),
+		"diag": lambda kw: diag(A, converge="count", count=2, **kw),
+		"lanczos_block_op": lambda kw: lanczos_block_op(DenseOperator(A), V0, deg=4, ncv=2, **kw),
+		"MatrixFunction": lambda kw: MatrixFunction(A, "log", **kw).quad(X),
+		"lanczos": lambda kw: torch.cat(lanczos(A, deg=4, seed=1, **kw)),
 	}[entry]
-	name = next(iter(kwargs))
-	with pytest.raises(NotImplementedError, match=name if name not in ("dtype",) else "complex"):
-		call()
+	if ported:
+		got, want = call(kwargs), call({})
+		assert got.dtype == torch.float64  # α, β and quadratic forms of a Hermitian operator are real
+		_close(got, want, 1e-12)
+		return
+	with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
+		call(kwargs)
 
 
 @pytest.mark.parametrize("entry", ["MatrixFunction", "hutch", "diag", "lanczos", "lanczos_block_op", "criterion"])

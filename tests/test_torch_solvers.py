@@ -216,6 +216,14 @@ def test_differentiable_solve_matches_jax_grad(warm):
 
 
 def test_complex_operators_raise():
-	A = torch.eye(4, dtype=torch.complex128)
+	"""A Hermitian (complex) solve runs, as in the JAX package (held to it in
+	``test_torch_complex.py``), and, as there, is not differentiated: asking for its
+	gradient raises."""
+	rng = np.random.default_rng(14)
+	A = np.array(pt.hermitian(6, ew=np.linspace(1.0, 2.0, 6), seed=2))
+	b = rng.normal(size=6) + 1j * rng.normal(size=6)
+	x = cg(torch.from_numpy(A), torch.from_numpy(b), rtol=1e-12)
+	assert x.dtype == torch.complex128
+	assert np.linalg.norm(A @ x.numpy() - b) <= 1e-10 * np.linalg.norm(b)
 	with pytest.raises(NotImplementedError):
-		cg(A, torch.ones(4, dtype=torch.complex128))
+		solve(torch.from_numpy(A), torch.from_numpy(b).requires_grad_(True))
