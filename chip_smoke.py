@@ -70,7 +70,23 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    ``tr e^{−βH}`` (48 probe-major stencils a batch, no step kernel; within 2% of the KPM
    density's), ``diag`` of H² (mean 4 within 1e-3, L2 error within 10% of its closed form),
    the LDOS window, the SLQ density, Hutch++ of H·H (within 1e-2 of 4n; two node-major
-   stencils for the QR block) and the same Chebyshev quadrature through complex CSR (1e-5).
+   stencils for the QR block) and the same Chebyshev quadrature through complex CSR (1e-5);
+16. builds the native loader (g++) and holds its DIA build of the 10M tridiagonal and its BSR
+   build of phase 7's matrix to scipy's, bit for bit, each timed; runs ``auto_operator`` on a 1M
+   path Laplacian in a seeded random order (DIA after RCM, bandwidth 1, then the flagship logdet
+   on it within 5%, the step kernels launched deg times), on phase 9's graph (CSR) and on phase
+   7's matrix (BSR), RCM tried and rejected on the last two;
+17. runs ``eigsh`` on phase 10's mesh (LOBPCG LA and SA, thick-restart LA, k = 8), each pair
+   within its float64 residual of the closed-form spectrum (Bauer-Fike); ``block_slq_trace`` of
+   ``exp(−τL)`` at two τ within 2% (through the node-major stencil); ``normalize_unit`` mapping the
+   mesh's extremes into [−1, 1]; ``filtered_eigsh`` on the 400 × 250 grid Laplacian of
+   ``examples/spectrum_slicing.py`` (its lowest 48 pairs, each within 1e-4·max|λ|); ``Toeplitz``
+   at 1M against the DIA path Laplacian (1e-4);
+18. runs ``examples/rectangular_spectra.py`` at m = 1,048,576, n = 131,072 (X = L Rᵀ + σG, G a
+   seeded BSR noise operator of about 42M nonzeros): the top 6 singular values by ``svds``,
+   ``rsvd`` and ``lanczos_bidiag`` within 1e-4 of each other (svds's residuals ≤ 1e-3), ‖X‖²_F by
+   Gram quadrature within 10σ of its exact value, the nuclear norm from both Gram sides within
+   4σ of each other, the Gram density's mass within 1e-2, and ``bsr_spmm`` in both directions.
 
 Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
 (``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
@@ -90,10 +106,12 @@ times (``backward_ms``, ``backward_plain_ms``), and the three kernels of phase 1
 launches in its forward and backward passes (``gp_forward_launches``,
 ``gp_backward_launches``), and the two stencils their complex64 numbers at phase 15's cell
 shapes under ``c64_`` keys, with ``c64_launches`` the complex launches of its calls 2-8;
-the last line is ``{"ok": true, "device": {...}}``.
+every kernel also carries its launches in phases 16, 17 and 18 (``prep_launches``,
+``eig_launches``, ``gram_launches``); the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing anything.
 """
 
+import functools
 import json
 import statistics
 import subprocess
@@ -145,6 +163,23 @@ GP_TOL, CG_RTOL, CG_RHS = 1e-3, 1e-5, 64
 TB = dict(nx=2000, ny=2048, alpha=0.2)
 TB_NV, TB_BETAS = 16, (0.25, 0.5, 1.0, 2.0)
 CPLX_TOL = {"complex64": 1e-6, "complex128": 1e-14}  # max-abs error over max|out|
+# Phase 16: a 1M path Laplacian in a seeded random order through auto_operator (also phase 17's
+# Toeplitz size). Phase 17: eigsh on the mesh (LOBPCG's own stop rule, 10·n·eps·(‖Av‖ + θ), passes
+# at its first iteration at n = 1M in float32, so the LOBPCG calls pass tol and cap maxiter);
+# filtered_eigsh on the example's grid at 100× its size; block SLQ at two of phase 10's τ.
+PREP_PATH_N = 1_000_000
+EIG_K, EIG_MAXITER, EIG_TOL = 8, 100, 1e-12
+# separated_spectrum: its ends converge within EIG_SEP_MAXITER LOBPCG iterations; eigenvalues within
+# EIG_END_TOL·‖A‖ of the closed-form ends, residuals below EIG_RES_TOL·‖A‖.
+EIG_SEP_MAXITER, EIG_END_TOL, EIG_RES_TOL = 40, 1e-4, 1e-3
+FE_GRID, FE_COUNT = (400, 250), 48
+BK_TAUS, BK = (float(TAUS[3]), float(TAUS[6])), dict(b=8, deg=20, nblocks=4)
+TOEPLITZ_PROBES = 16
+# Phase 18: examples/rectangular_spectra.py's X = L Rᵀ + σ G at m = 2^20, n = 2^17, G a BSR operator
+# of 8×8 tiles, about 40M nonzeros. The nuclear norms of the two Gram sides agree within
+# NUC_SIGMAS standard deviations of their difference.
+RECT = dict(m=1_048_576, n=131_072, bs=8, tiles_per_block_row=5, r=12, sigma=0.05, seed=18)
+SVD_K, BIDIAG_DEG, NUC_SIGMAS = 6, 64, 4.0
 
 
 def emit(obj) -> None:
@@ -621,12 +656,27 @@ def _timed_calls(torch, fn, reps: int = 3) -> tuple:
 	return first, launches, copies, times, torch.cuda.max_memory_allocated()
 
 
-def bsr_sketches(torch, ptt, dev, cell: dict) -> tuple:
-	"""Phase 7: BASELINE config 3's calls on the BSR cell, float32."""
+@functools.lru_cache(maxsize=None)
+def _bsr_cell(**cell):
+	"""Phase 7's matrix (``block_random_spd``), generated once a run: phase 16 loads it again."""
 	from benchmarks.matrices import block_random_spd
 
+	return block_random_spd(**cell)
+
+
+@functools.lru_cache(maxsize=None)
+def _powerlaw(n: int):
+	"""Phase 9's graph (``powerlaw_laplacian``), generated once a run: phases 14 and 16 load it again."""
+	from benchmarks.matrices import powerlaw_laplacian
+
+	return powerlaw_laplacian(n=n, m=4, seed=0)
+
+
+def bsr_sketches(torch, ptt, dev, cell: dict) -> tuple:
+	"""Phase 7: BASELINE config 3's calls on the BSR cell, float32."""
+
 	t0 = time.perf_counter()
-	S = block_random_spd(**cell)
+	S = _bsr_cell(**cell)
 	t_gen = time.perf_counter() - t0
 	t0 = time.perf_counter()
 	op = ptt.BSROperator.from_scipy(S, blocksize=(cell["bs"], cell["bs"]), dtype=torch.float32, device=dev)
@@ -730,7 +780,7 @@ def csr_slq(torch, ptt, dev) -> dict:
 	from primate_tpu_torch.ops import _common
 
 	t0 = time.perf_counter()
-	L = powerlaw_laplacian(n=PL_N, m=4, seed=0)
+	L = _powerlaw(PL_N)
 	t_gen = time.perf_counter() - t0
 	t0 = time.perf_counter()
 	M, run = _csr_slq(torch, ptt, L, dev, seed=9)
@@ -1010,10 +1060,9 @@ def gp_nll(torch, ptt, dev, n: int = N_LARGE, reps: int = 3) -> dict:
 def batched_cg(torch, ptt, dev) -> dict:
 	"""Phase 14: batched CG on phase 9's 1M power-law graph (eigenvalues ≥ 1 by its shift),
 	64 Rademacher right-hand sides, float32, with the Jacobi and the Nyström preconditioner."""
-	from benchmarks.matrices import powerlaw_laplacian
 	from primate_tpu_torch.random import sample_isotropic
 
-	L = powerlaw_laplacian(n=PL_N, m=4, seed=0)
+	L = _powerlaw(PL_N)
 	op = ptt.CSROperator.from_scipy(L, dtype=torch.float32, device=dev)
 	op64 = ptt.CSROperator.from_scipy(L, dtype=torch.float64, device=dev)
 	gen = torch.Generator(device=dev)
@@ -1284,6 +1333,474 @@ def tight_binding(torch, ptt, dia, dev) -> dict:
 	return kernels
 
 
+# --- Phases 16-18: the host loader and auto_operator, the eigensolvers, rectangular spectra ---
+
+
+def _walls(torch, fn, long_s: float = 5.0) -> tuple:
+	"""The counted call (launch and copy counts from 0) and its walls: the median of 3 synced
+	calls after it as the warm-up, or the one run where it took over ``long_s`` seconds."""
+	from primate_tpu_torch.ops import _common
+
+	torch.cuda.synchronize()
+	_common.reset_launches()
+	t0 = time.perf_counter()
+	out = fn()
+	torch.cuda.synchronize()
+	first = time.perf_counter() - t0
+	launches, copies = dict(_common.LAUNCHES), dict(_common.LAYOUT_COPIES)
+	if first > long_s:
+		return out, launches, copies, [first]
+	times = []
+	for _ in range(3):
+		t0 = time.perf_counter()
+		fn()
+		torch.cuda.synchronize()
+		times.append(time.perf_counter() - t0)
+	return out, launches, copies, times
+
+
+def _wall_keys(times) -> dict:
+	return {"wall_s_median": statistics.median(times), "wall_s": times}
+
+
+def _add(total: dict, counts: dict) -> None:
+	for k, v in counts.items():
+		total[k] = total.get(k, 0) + v
+
+
+def _prep_row(info, times, counts) -> dict:
+	return {"format": info.format, "perm": info.perm is not None, "bandwidth": info.bandwidth, "fill": info.fill,
+		**_wall_keys(times), "launches": counts}
+
+
+def host_prep(torch, ptt, dev) -> dict:
+	"""Phase 16: the native loader (build, both ``from_scipy`` engines on the 10M tridiagonal and
+	on the BSR cell, bit for bit) and ``auto_operator`` on a permuted 1M path Laplacian (then the
+	flagship call on it), phase 9's power-law graph and the BSR cell. Returns the launches of
+	the flagship call on the reordered operator."""
+	from primate_tpu_torch import native
+
+	t0 = time.perf_counter()
+	native.require()  # builds the library (g++) and raises the compiler's error if it cannot
+	emit({"phase": "native_build", "seconds": time.perf_counter() - t0, "library": native.library_path().name})
+
+	def engines(name, build, same, n):
+		out, secs = {}, {}
+		for engine in ("native", "scipy"):
+			torch.cuda.synchronize()
+			t0 = time.perf_counter()
+			out[engine] = build(engine)
+			torch.cuda.synchronize()
+			secs[engine] = time.perf_counter() - t0
+		ok = same(out["native"], out["scipy"])
+		emit({"phase": "prep_engines", "operator": name, "n": n, "native_s": secs["native"], "scipy_s": secs["scipy"], "identical": ok})
+		if not ok:
+			raise AssertionError(f"the native and scipy engines disagree on the {name} operator")
+
+	L = build_laplacian(N_LARGE)
+	engines("dia_tridiagonal", lambda e: ptt.DIAOperator.from_scipy(L, dtype=torch.float32, device=dev, engine=e),
+		lambda a, b: a.offsets == b.offsets and bool(torch.equal(a.bands, b.bands)), N_LARGE)
+	del L
+	S = _bsr_cell(**BSR_CELL)
+	bs = (BSR_CELL["bs"], BSR_CELL["bs"])
+	engines("bsr_cell", lambda e: ptt.BSROperator.from_scipy(S, blocksize=bs, dtype=torch.float32, device=dev, engine=e),
+		lambda a, b: all(bool(torch.equal(getattr(a, k), getattr(b, k))) for k in ("blocks", "indices", "indptr")), S.shape[0])
+	torch.cuda.empty_cache()
+
+	# auto_operator: a path Laplacian in a seeded random order comes back banded (RCM, DIA).
+	n = PREP_PATH_N
+	p = np.random.default_rng(16).permutation(n)
+	P = build_laplacian(n)[p][:, p].tocsr()
+	(op, info), counts, _, times = _walls(torch, lambda: ptt.auto_operator(P, dtype=torch.float32, device=dev))
+	row = {"phase": "auto_operator", "matrix": "permuted_path", "n": n, "nnz": int(P.nnz), **_prep_row(info, times, counts)}
+	M = ptt.MatrixFunction(op, "log", deg=DEG, orth=ORTH)
+	est, flag_counts, _, flag_times = _walls(torch, lambda: ptt.hutch(M, batch=PROBES, converge="count", count=PROBES, seed=16))
+	exact = exact_logdet(n)
+	row.update({"logdet": est, "exact": exact, "rel_err": abs(est - exact) / abs(exact),
+		"logdet_wall_s_median": statistics.median(flag_times), "logdet_wall_s": flag_times, "logdet_launches": flag_counts})
+	emit(row)
+	# Fill 1.0 up to the two missing corner entries: 3 bands of n over 3n − 2 nonzeros.
+	if not (info.format == "dia" and info.perm is not None and info.bandwidth == 1 and abs(info.fill - 3.0 * n / P.nnz) < 1e-12):
+		raise AssertionError(f"auto_operator on the permuted path chose {info}")
+	if not row["rel_err"] < 0.05:
+		raise AssertionError(f"logdet of the reordered path off by {row['rel_err']}")
+	for k in ("lanczos_dia_step", "lanczos_dia_residual"):
+		if flag_counts[k] != DEG:  # one batch of PROBES, as in phase 3
+			raise AssertionError(f"{k} launched {flag_counts[k]} times on the reordered path, expected {DEG}")
+	del op, M, P
+
+	# The power-law graph and the BSR cell: reorder="auto" tries RCM and keeps the natural order.
+	for name, A, want in (("powerlaw_graph", _powerlaw(PL_N), "csr"), ("bsr_cell", S, "bsr")):
+		(op, info), counts, _, times = _walls(torch, lambda: ptt.auto_operator(A, dtype=torch.float32, device=dev))
+		emit({"phase": "auto_operator", "matrix": name, "n": A.shape[0], "nnz": int(A.nnz), **_prep_row(info, times, counts)})
+		if info.format != want or info.perm is not None:
+			raise AssertionError(f"auto_operator on the {name} chose {info}, expected {want} in the natural order")
+		del op
+		torch.cuda.empty_cache()
+	return flag_counts
+
+
+def grid_laplacian(nx: int, ny: int):
+	"""The Dirichlet 5-point Laplacian of ``examples/spectrum_slicing.py`` (rebuilt here: that example
+	imports jax), and its eigenvalues ``4 sin²(jπ/2(nx+1)) + 4 sin²(kπ/2(ny+1))``, sorted."""
+	import scipy.sparse as sps
+
+	ex, ey = np.ones(nx), np.ones(ny)
+	Tx = sps.diags([-ex[:-1], 2 * ex, -ex[:-1]], [-1, 0, 1])
+	Ty = sps.diags([-ey[:-1], 2 * ey, -ey[:-1]], [-1, 0, 1])
+	A = (sps.kron(sps.identity(ny), Tx) + sps.kron(Ty, sps.identity(nx))).tocsr().astype(np.float32)
+	jx, jy = np.arange(1, nx + 1), np.arange(1, ny + 1)
+	lam = (4 * np.sin(jx * np.pi / (2 * (nx + 1))) ** 2)[:, None] + (4 * np.sin(jy * np.pi / (2 * (ny + 1))) ** 2)[None, :]
+	return A, np.sort(lam.ravel())
+
+
+def _residuals(torch, op64, w, V):
+	"""``‖Av − λv‖`` per pair in float64 on the card, each ``v`` normalised first."""
+	V64 = V.double()
+	V64 = V64 / torch.linalg.vector_norm(V64, dim=0, keepdim=True)
+	return torch.linalg.vector_norm(op64.matmat(V64.contiguous()) - V64 * w.double()[None, :], dim=0).cpu().numpy()
+
+
+def _check_plain(torch, label: str, got, want, dtype: str = "float32") -> float:
+	"""A kernel route's result against its plain version on the same card tensors: the max-abs
+	error over max|want|, which must be within ``STENCIL_TOL``."""
+	err = _rel_err(torch, got, want)[1]
+	if not err <= STENCIL_TOL[dtype]:
+		raise AssertionError(f"{label}: the kernel route is {err} off its plain version (limit {STENCIL_TOL[dtype]})")
+	return err
+
+
+def separated_spectrum(n: int, k: int, seed: int):
+	"""A banded ``Q D Qᵀ`` whose spectrum is known and whose ends are separated: ``D`` holds the
+	top ``k`` eigenvalues ``10 − j/4``, the bottom ``k`` ``(j + 1)/10`` and the rest uniform in
+	[1.5, 7.5], in a seeded order; ``Q`` is two layers of seeded 2×2 rotations, on the pairs
+	(2i, 2i + 1) and then (2i + 1, 2i + 2), so ``Q D Qᵀ`` has 7 diagonals. A solver that misses
+	the top or bottom ``k`` is at least 0.1 off; the mesh's top 8 lie within 1.1e-4 of each other.
+	Returns the float32 CSR matrix and the eigenvalues, ascending."""
+	import scipy.sparse as sps
+
+	rng = np.random.default_rng(seed)
+	ew = np.concatenate([10.0 - 0.25 * np.arange(k), 0.1 * np.arange(1, k + 1), rng.uniform(1.5, 7.5, n - 2 * k)])
+	d = rng.permutation(ew)
+
+	def rotations(first: int):
+		i = np.arange(first, n - 1, 2)
+		c, s = np.cos(th := rng.uniform(0.0, 2.0 * np.pi, i.size)), np.sin(th)
+		rest = np.setdiff1d(np.arange(n), np.concatenate([i, i + 1]))
+		rows = np.concatenate([i, i, i + 1, i + 1, rest])
+		cols = np.concatenate([i, i + 1, i, i + 1, rest])
+		return sps.csr_matrix((np.concatenate([c, -s, s, c, np.ones(rest.size)]), (rows, cols)), shape=(n, n))
+
+	Q = rotations(1) @ rotations(0)
+	return (Q @ sps.diags(d) @ Q.T).tocsr().astype(np.float32), np.sort(ew)
+
+
+def _eigsh_calls(torch, ptt, label: str, op, exact, kw: dict, hold_ends: bool, total: dict) -> None:
+	"""``eigsh`` LA and SA by LOBPCG and LA by thick restart on ``op`` (float32; ``exact`` its
+	eigenvalues, ascending). Each pair lies within its float64 residual of the spectrum
+	(Bauer-Fike); with ``hold_ends``, the eigenvalues also match the closed-form top or bottom
+	``EIG_K`` within ``EIG_END_TOL``·‖A‖ and every residual is below ``EIG_RES_TOL``·‖A‖."""
+	from primate_tpu_torch import eigen
+
+	op64 = ptt.DIAOperator(op.bands.double(), op.offsets, op.shape)
+	a_norm = float(np.max(np.abs(exact)))
+	for name, which, method in (("lobpcg_la", "LA", "lobpcg"), ("lobpcg_sa", "SA", "lobpcg"), ("trlan_la", "LA", "trlan")):
+		kw_m = kw if method == "lobpcg" else {}
+		(w, V), counts, _, times = _walls(torch, lambda: ptt.eigsh(op, k=EIG_K, which=which, method=method, seed=17, **kw_m))
+		iters = eigen.ITERATIONS[method]
+		r = _residuals(torch, op64, w, V)
+		w_np = np.sort(w.double().cpu().numpy())
+		pos = np.clip(np.searchsorted(exact, w_np), 1, exact.size - 1)
+		dist = np.minimum(np.abs(exact[pos] - w_np), np.abs(exact[pos - 1] - w_np))
+		ends = exact[-EIG_K:] if which == "LA" else exact[:EIG_K]
+		end_err = float(np.max(np.abs(w_np - ends)))
+		row = {"phase": "eigsh", "operator": label, "call": name, "n": op.shape[0], "k": EIG_K, **kw_m, "iterations": iters,
+			"eigenvalues": w_np.tolist(), "residuals": r.tolist(), "bauer_fike_dist": dist.tolist(),
+			"max_err_vs_closed_form_ends": end_err, "ends_held": hold_ends, **_wall_keys(times), "launches": counts}
+		emit(row)
+		if not np.all(dist <= r + 8 * np.finfo(np.float32).eps * a_norm):
+			raise AssertionError(f"eigsh {label} {name}: an eigenvalue lies farther from the spectrum than its residual: {row}")
+		if hold_ends and not (end_err <= EIG_END_TOL * a_norm and np.all(r <= EIG_RES_TOL * a_norm)):
+			raise AssertionError(f"eigsh {label} {name} missed the closed-form {which} end: {row}")
+		if method == "lobpcg" and counts["dia_stencil"] < 1:
+			raise AssertionError(f"eigsh {label} {name} did not launch the node-major stencil: {counts}")
+		if method == "trlan" and counts["dia_stencil_t"] < 1:
+			raise AssertionError(f"eigsh {label} {name} did not launch the probe-major stencil: {counts}")
+		_add(total, counts)
+		del w, V
+
+
+def eigensolvers(torch, ptt, dev) -> dict:
+	"""Phase 17: ``eigsh`` (LOBPCG LA and SA, thick-restart LA) on phase 10's mesh, each pair held by
+	Bauer-Fike to the closed-form spectrum, and on :func:`separated_spectrum`, held to its closed-form
+	ends; the node-major stencil at LOBPCG's block widths against its plain version;
+	``filtered_eigsh`` on the example's grid Laplacian; ``block_slq_trace`` of the heat kernel;
+	``Toeplitz`` against the DIA path Laplacian; ``normalize_unit``."""
+	from primate_tpu_torch import eigen
+	from primate_tpu_torch.ops import dia
+
+	A = mesh_laplacian(MESH_SIDE)
+	mu = mesh_modes(MESH_SIDE)
+	exact = np.sort((1.0 + mu[:, None] + mu[None, :]).ravel())
+	op = ptt.DIAOperator.from_scipy(A, dtype=torch.float32, device=dev)
+	total = {}
+	# LOBPCG applies the operator to (n, k + 2) and (n, 3(k + 2)) blocks.
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(17)
+	errs = {}
+	for k in (EIG_K + 2, 3 * (EIG_K + 2)):
+		V = torch.randn((op.shape[0], k), generator=gen, device=dev)
+		errs[f"dia_stencil_{op.shape[0]}x{k}"] = _check_plain(torch, f"dia_stencil at ({op.shape[0]}, {k})",
+			dia.dia_stencil(op.bands, op.offsets_t, V), dia.dia_stencil_ref(op.bands, op.offsets_t.cpu(), V))
+	emit({"phase": "eig_kernel_checks", "max_rel_err": errs})
+	del V
+	# The mesh's ends are clustered (its top 8 lie within 1.1e-4): the pairs are held by Bauer-Fike
+	# only, and their distance from the closed-form ends is reported.
+	_eigsh_calls(torch, ptt, "mesh", op, exact, dict(maxiter=EIG_MAXITER, tol=EIG_TOL), False, total)
+	S, sep_exact = separated_spectrum(op.shape[0], EIG_K, seed=17)
+	sop = ptt.DIAOperator.from_scipy(S, dtype=torch.float32, device=dev)
+	_eigsh_calls(torch, ptt, "separated", sop, sep_exact, dict(maxiter=EIG_SEP_MAXITER, tol=EIG_TOL), True, total)
+	del S, sop
+
+	# block SLQ: tr exp(−τL) on (n, b) blocks through the node-major stencil.
+	for tau in BK_TAUS:
+		est, counts, _, times = _walls(torch, lambda: ptt.block_slq_trace(op, "exp", seed=17, t=-tau, **BK))
+		want = float(np.exp(-tau) * np.sum(np.exp(-tau * mu)) ** 2)
+		row = {"phase": "block_slq_trace", "tau": tau, **BK, "estimate": est, "exact": want, "rel_err": abs(est - want) / want,
+			**_wall_keys(times), "launches": counts}
+		emit(row)
+		if not row["rel_err"] < 0.02 or counts["dia_stencil"] < 1:
+			raise AssertionError(f"block_slq_trace off or not through dia_stencil: {row}")
+		_add(total, counts)
+
+	# normalize_unit: the closed-form extremes of the mesh, mapped, lie in [−1, 1].
+	S = ptt.normalize_unit(op, seed=17)
+	mapped = S.s * (np.array([exact[0], exact[-1]]) + S.t)
+	emit({"phase": "normalize_unit", "s": S.s, "t": S.t, "mapped_extremes": mapped.tolist()})
+	if not (-1.0 <= mapped.min() and mapped.max() <= 1.0):
+		raise AssertionError(f"normalize_unit maps the mesh's spectrum to {mapped}")
+	del op, S
+	torch.cuda.empty_cache()
+
+	# filtered_eigsh: the lowest FE_COUNT eigenpairs of the grid Laplacian, the window's top edge in a gap.
+	G, lam = grid_laplacian(*FE_GRID)
+	gop = ptt.DIAOperator.from_scipy(G, dtype=torch.float32, device=dev)
+	lo, hi = ptt.operators.gershgorin_interval(gop)
+	a, b = 0.0, float(0.5 * (lam[FE_COUNT - 1] + lam[FE_COUNT]))
+	deg = int(np.ceil(2.0 * (hi - lo) / (b - a)))  # the window twice the filter's resolution (hi − lo)/deg
+	(w, V), counts, _, times = _walls(torch, lambda: ptt.filtered_eigsh(gop, (a, b), k=FE_COUNT, deg=deg, spectral_interval=(lo, hi), seed=17))
+	g64 = ptt.DIAOperator(gop.bands.double(), gop.offsets, gop.shape)
+	r = _residuals(torch, g64, w, V) if w.numel() else np.zeros(0)
+	w_np = w.double().cpu().numpy()
+	err = float(np.max(np.abs(w_np - lam[:FE_COUNT]))) if w_np.size == FE_COUNT else float("inf")
+	row = {"phase": "filtered_eigsh", "grid": list(FE_GRID), "n": gop.shape[0], "window": [a, b], "deg": deg,
+		"spectral_interval": [lo, hi], "found": int(w_np.size), "expected": FE_COUNT, "iterations": eigen.ITERATIONS["filtered_eigsh"],
+		"max_err": err, "max_residual": float(r.max()) if r.size else None, **_wall_keys(times), "launches": counts}
+	emit(row)
+	if not (w_np.size == FE_COUNT and err <= 1e-4 * float(lam[-1])):
+		raise AssertionError(f"filtered_eigsh missed the slice: {row}")
+	_add(total, counts)
+	del gop, g64, w, V
+
+	# Toeplitz(c = [3, −1, 0, …]) is the path Laplacian: its product against the DIA operator's.
+	n = PREP_PATH_N
+	c = torch.zeros(n, dtype=torch.float32, device=dev)
+	c[0], c[1] = 3.0, -1.0
+	T = ptt.Toeplitz(c)
+	D = ptt.DIAOperator.from_scipy(build_laplacian(n), dtype=torch.float32, device=dev)
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(17)
+	V = torch.randn((TOEPLITZ_PROBES, n), generator=gen, device=dev, dtype=torch.float32).T  # a probe-major block
+	YT, _, _, t_times = _walls(torch, lambda: T.matmat(V))
+	YD, counts, _, d_times = _walls(torch, lambda: D.matmat(V))
+	err = float((YT - YD).abs().max()) / float(YD.abs().max())
+	row = {"phase": "toeplitz", "n": n, "probes": TOEPLITZ_PROBES, "rel_err": err, "toeplitz_wall_s_median": statistics.median(t_times),
+		"toeplitz_wall_s": t_times, "dia_wall_s_median": statistics.median(d_times), "dia_wall_s": d_times, "dia_launches": counts}
+	emit(row)
+	if not err <= 1e-4:
+		raise AssertionError(f"Toeplitz and the DIA path Laplacian disagree: {row}")
+	_add(total, counts)
+	return total
+
+
+def rect_noise(torch, ptt, dev, m: int, n: int, bs: int, tiles_per_block_row: int, seed: int):
+	"""A rectangular BSR noise operator (the seeded generator beside ``block_random_spd``):
+	``tiles_per_block_row`` random block columns in each of the ``m/bs`` block rows (a repeat
+	kept once), N(0, 1) entries scaled so that every column has unit expected norm."""
+	rng = np.random.default_rng(seed)
+	nbr, nbc = -(-m // bs), -(-n // bs)
+	cols = rng.integers(0, nbc, size=(nbr, tiles_per_block_row))
+	key = np.unique(np.arange(nbr)[:, None] * nbc + cols)  # sorted: block rows, then block columns
+	rows, cols = key // nbc, key % nbc
+	nnz = key.size * bs * bs
+	blocks = rng.standard_normal((key.size, bs, bs), dtype=np.float32) * np.float32(1.0 / np.sqrt(nnz / n))
+	indptr = np.zeros(nbr + 1, np.int64)
+	np.cumsum(np.bincount(rows, minlength=nbr), out=indptr[1:])
+	return ptt.BSROperator.from_numpy(blocks, cols, indptr, (m, n), dtype=torch.float32, device=dev)
+
+
+def random_dia(torch, ptt, dev, n: int, offsets, seed: int):
+	"""A float32 DIA operator with N(0, 1) bands (not symmetric), each band zero where its column
+	falls outside [0, n)."""
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(seed)
+	bands = torch.randn((len(offsets), n), generator=gen, device=dev)
+	rows = torch.arange(n, device=dev)
+	for d, off in enumerate(offsets):
+		bands[d, (rows + off < 0) | (rows + off >= n)] = 0.0
+	return ptt.DIAOperator(bands, offsets, (n, n))
+
+
+def dia_scipy(op):
+	"""A DIA operator's matrix as scipy CSR, float64."""
+	import scipy.sparse as sps
+
+	n = op.shape[0]
+	bands = op.bands.double().cpu().numpy()
+	rows, cols, vals = [], [], []
+	for d, off in enumerate(op.offsets):
+		i = np.arange(max(0, -off), min(n, n - off))
+		rows.append(i)
+		cols.append(i + off)
+		vals.append(bands[d, i])
+	return sps.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))), shape=(n, n))
+
+
+def rectangular(torch, ptt, dev) -> dict:
+	"""Phase 18: ``examples/rectangular_spectra.py`` at scale: X = L Rᵀ + σ G (G the BSR noise
+	operator), its top singular values by ``svds``, ``rsvd`` and ``lanczos_bidiag``, ‖X‖²_F and the
+	nuclear norm by Gram quadrature, and the Gram density; the adjoint applies (G's and a DIA
+	operator's) against their plain versions, and the Gram path over that DIA operator. Returns
+	the path's launches."""
+	from primate_tpu_torch.ops import _common
+
+	m, n, r, sigma = RECT["m"], RECT["n"], RECT["r"], RECT["sigma"]
+	t0 = time.perf_counter()
+	G = rect_noise(torch, ptt, dev, m, n, RECT["bs"], RECT["tiles_per_block_row"], RECT["seed"])
+	rng = np.random.default_rng(RECT["seed"] + 1)
+	L = torch.tensor(rng.standard_normal((m, r)) / np.sqrt(m), dtype=torch.float32, device=dev)
+	R = torch.tensor(rng.standard_normal((n, r)) * np.geomspace(20.0, 2.0, r), dtype=torch.float32, device=dev)
+	X = ptt.ComposedOperator(L, R.T.contiguous()) + sigma * G
+	torch.cuda.synchronize()
+	t_build = time.perf_counter() - t0
+	# ‖X‖²_F = tr(LᵀL·RᵀR) + 2σ·tr(Lᵀ G R) + σ²‖G‖²_F, each term in float64 from the factors and the tiles.
+	L64, R64 = L.double(), R.double()
+	G64 = ptt.BSROperator(G.blocks.double(), G.indices, G.indptr, G.shape)
+	fro2 = float(torch.trace((L64.T @ L64) @ (R64.T @ R64)) + 2 * sigma * torch.sum(L64 * G64.matmat(R64))
+		+ sigma**2 * torch.sum(G64.blocks**2))
+	del G64, L64, R64
+	emit({"phase": "rect_build", "m": m, "n": n, "tiles": int(G.blocks.shape[0]), "nnz": int(G.nnz), "r": r, "sigma": sigma,
+		"seconds": t_build, "fro2_exact": fro2})
+	total = {}
+	# The adjoint applies at this path's shapes against their plain versions: bsr_spmm on G's
+	# transposed tiles (the Gram and svds blocks), the stencils on a DIA operator's adjoint bands.
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(18)
+	errs = {}
+	for k in (8, 16):
+		U = torch.randn((m, k), generator=gen, device=dev)
+		errs[f"bsr_adjoint_{m}x{k}"] = _check_plain(torch, f"G.rmatmat at ({m}, {k})", G.rmatmat(U), G.rmatmat_plain(U))
+	del U
+	D = random_dia(torch, ptt, dev, MESH_SIDE**2, (-MESH_SIDE, -1, 0, 1, MESH_SIDE), seed=18)
+	for k in (8, 16):
+		W = torch.randn((k, D.shape[0]), generator=gen, device=dev)
+		want = D.rmatmat_plain(W.T)
+		errs[f"dia_adjoint_node_major_{D.shape[0]}x{k}"] = _check_plain(torch, f"D.rmatmat node-major ({k})",
+			D.rmatmat(W.T.contiguous()), want)
+		errs[f"dia_adjoint_probe_major_{k}x{D.shape[0]}"] = _check_plain(torch, f"D.rmatmat_t probe-major ({k})",
+			D.rmatmat_t(W), want.T)
+	del W, want
+	emit({"phase": "adjoint_checks", "max_rel_err": errs})
+
+	# The Gram path over the DIA operator (GKL through D's stencils and its adjoint's):
+	# tr((DᵀD)²) = ‖DᵀD‖²_F, exact in Gauss quadrature, against scipy's product.
+	Ds = dia_scipy(D)
+	gram2 = float(np.sum((Ds.T @ Ds).data ** 2))
+	del Ds
+
+	def dia_gram():
+		M = ptt.MatrixFunction(ptt.GramOperator(D), lambda x: x * x)
+		est, res = ptt.hutch(M, batch=16, converge="count", count=16, seed=18, full=True)
+		return est, float(np.sqrt(res.estimator.converged_variance / res.nit))
+
+	(est, sd), counts, _, times = _walls(torch, dia_gram)
+	_add(total, counts)
+	row = {"phase": "rect", "call": "dia_gram_square", "n": D.shape[0], "estimate": est, "exact": gram2, "sigma": sd,
+		"z": (est - gram2) / sd, **_wall_keys(times), "launches": counts}
+	emit(row)
+	if not (abs(est - gram2) <= 10 * sd and counts["dia_stencil_t"] >= 1):
+		raise AssertionError(f"tr((DᵀD)²) by Gram quadrature over DIA more than 10σ off or not through dia_stencil_t: {row}")
+	del D
+
+	(U, s, Vh), counts, copies, times = _walls(torch, lambda: ptt.svds(X, k=SVD_K, maxiter=EIG_MAXITER, tol=EIG_TOL, seed=18))
+	_add(total, counts)
+	row = {"phase": "rect", "call": "svds", "k": SVD_K, "tol": EIG_TOL, "singular_values": s.tolist(), **_wall_keys(times),
+		"launches": counts, "layout_copies": copies}
+	Vc = Vh.T.contiguous()
+	res_v = (torch.linalg.vector_norm(X.matmat(Vc) - U * s[None, :], dim=0) / s).cpu().numpy()
+	res_u = (torch.linalg.vector_norm(X.rmatmat(U.contiguous()) - Vc * s[None, :], dim=0) / s).cpu().numpy()
+	row.update({"residual_xv": res_v.tolist(), "residual_xtu": res_u.tolist()})
+	emit(row)
+	(_, s_r, _), counts, copies, times = _walls(torch, lambda: ptt.rsvd(X, k=SVD_K, n_iter=2, seed=18))
+	_add(total, counts)
+	emit({"phase": "rect", "call": "rsvd", "k": SVD_K, "n_iter": 2, "singular_values": s_r.tolist(), **_wall_keys(times),
+		"launches": counts, "layout_copies": copies})
+	out, counts, copies, times = _walls(torch, lambda: ptt.lanczos_bidiag(X, deg=BIDIAG_DEG, orth=-1, seed=18))
+	_add(total, counts)
+	a, b = out.alphas[:, 0].double().cpu().numpy(), out.betas[:, 0].double().cpu().numpy()
+	ritz = np.linalg.svd(np.diag(a) + np.diag(b, 1), compute_uv=False)[:SVD_K]
+	emit({"phase": "rect", "call": "lanczos_bidiag", "deg": BIDIAG_DEG, "ritz_values": ritz.tolist(), **_wall_keys(times),
+		"launches": counts, "layout_copies": copies})
+	s_s = np.sort(s.double().cpu().numpy())[::-1]
+	s_r = s_r.double().cpu().numpy()
+	agree = float(max(np.max(np.abs(s_s - s_r) / s_s), np.max(np.abs(s_s - ritz) / s_s)))
+	emit({"phase": "rect", "call": "top_singular_values", "max_rel_disagreement": agree})
+	if not (agree <= 1e-4 and np.all(res_v <= 1e-3) and np.all(res_u <= 1e-3)):
+		raise AssertionError(f"svds, rsvd and lanczos_bidiag disagree ({agree}) or svds's residuals are high ({res_v}, {res_u})")
+
+	def gram_hutch(fun, transpose_first):
+		M = ptt.MatrixFunction(ptt.GramOperator(X, transpose_first=transpose_first), fun)
+		est, res = ptt.hutch(M, batch=16, converge="count", count=16, seed=18, full=True)
+		return est, float(np.sqrt(res.estimator.converged_variance / res.nit))
+
+	(est, sd), counts, copies, times = _walls(torch, lambda: gram_hutch("identity", True))
+	_add(total, counts)
+	row = {"phase": "rect", "call": "frobenius", "estimate": est, "exact": fro2, "sigma": sd, "z": (est - fro2) / sd,
+		**_wall_keys(times), "launches": counts, "layout_copies": copies}
+	emit(row)
+	if not abs(est - fro2) <= 10 * sd:
+		raise AssertionError(f"‖X‖²_F by Gram quadrature more than 10σ off: {row}")
+	nuc = {}
+	for tf in (True, False):
+		nuc[tf], counts, copies, times = _walls(torch, lambda: gram_hutch("sqrt", tf))
+		_add(total, counts)
+		emit({"phase": "rect", "call": "nuclear_norm", "transpose_first": tf, "estimate": nuc[tf][0], "sigma": nuc[tf][1],
+			**_wall_keys(times), "launches": counts, "layout_copies": copies})
+	spread = float(np.hypot(nuc[True][1], nuc[False][1]))
+	if not abs(nuc[True][0] - nuc[False][0]) <= NUC_SIGMAS * spread:
+		raise AssertionError(f"the two Gram sides' nuclear norms differ by more than {NUC_SIGMAS}σ: {nuc}")
+	(ts, phi), counts, copies, times = _walls(torch, lambda: ptt.spectral_density(ptt.GramOperator(X), seed=18))
+	_add(total, counts)
+	mass = _integral(phi, ts)
+	emit({"phase": "rect", "call": "gram_density", "mass": mass, **_wall_keys(times), "launches": counts, "layout_copies": copies})
+	if not abs(mass - 1.0) <= 1e-2:
+		raise AssertionError(f"the Gram density's mass is {mass}")
+
+	# Both directions through the BSR kernel: X V on the tiles, Xᵀ U on the transposed tiles.
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(18)
+	for label, fn in (("X_V", lambda: X.matmat(torch.randn((n, 8), generator=gen, device=dev))),
+		("Xt_U", lambda: X.rmatmat(torch.randn((m, 8), generator=gen, device=dev)))):
+		torch.cuda.synchronize()
+		_common.reset_launches()
+		fn()
+		torch.cuda.synchronize()
+		if _common.LAUNCHES["bsr_spmm"] != 1:
+			raise AssertionError(f"{label} launched bsr_spmm {_common.LAUNCHES['bsr_spmm']} times, expected 1")
+	emit({"phase": "rect", "call": "launches", "launches": total, "bsr_both_directions": True})
+	return total
+
+
 def main() -> None:
 	import torch
 
@@ -1331,6 +1848,17 @@ def main() -> None:
 	torch.cuda.empty_cache()
 	for k, v in tight_binding(torch, ptt, dia, dev).items():
 		kernels[k].update(v)
+	torch.cuda.empty_cache()
+
+	prep = host_prep(torch, ptt, dev)
+	torch.cuda.empty_cache()
+	eig = eigensolvers(torch, ptt, dev)
+	torch.cuda.empty_cache()
+	gram = rectangular(torch, ptt, dev)
+	for k in KERNELS:
+		kernels[k].update({"prep_launches": prep.get(k, 0), "eig_launches": eig.get(k, 0), "gram_launches": gram.get(k, 0)})
+		if kernels[k]["prep_launches"] + kernels[k]["eig_launches"] + kernels[k]["gram_launches"] < 1:
+			raise AssertionError(f"{k} launched no time in phases 16-18")
 
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],

@@ -28,6 +28,16 @@ and spectral densities, as on a tight-binding Hamiltonian with Peierls phases::
     diag(ChebyshevFunction(H, window, deg=256), pdf="phase", batch=16, converge="count", count=64)
     spectral_density(H, deg=64, nv=16)
 
+spectra of rectangular data through its Gram operator (Golub-Kahan quadrature), its
+singular triplets and low-rank factors, and eigenpairs at the ends of a spectrum or in
+a slice of it::
+
+    X = ComposedOperator(L, Rt) + sigma * BSROperator.from_scipy(G, blocksize=(8, 8))
+    hutch(MatrixFunction(GramOperator(X), "sqrt"), batch=16, converge="count", count=16)
+    svds(X, k=6); rsvd(X, k=6, n_iter=2); lanczos_bidiag(X, deg=64)
+    eigsh(L, k=8, which="SA"); filtered_eigsh(L, (a, b), k=count)
+    op, info = auto_operator(A_scipy)                        # DIA after RCM, BSR or CSR
+
 and the Gaussian-process loss with its gradient, through batched CG and the
 differentiable spectral sums (autograd through the CUDA kernels)::
 
@@ -46,8 +56,10 @@ tensors their plain PyTorch versions run. The CSR apply is cuSPARSE's SpMM
 through ``torch.sparse``. This package imports neither ``jax`` nor ``primate_tpu``.
 """
 
-from . import autodiff, kpm
+from . import autodiff, block_krylov, eigen, kpm, native
 from .autodiff import spectral_sum
+from .bidiag import lanczos_bidiag
+from .block_krylov import block_lanczos, block_quadrature, block_slq_trace
 from .convert import (
 	bsr_from_numpy,
 	coo_from_numpy,
@@ -59,6 +71,7 @@ from .convert import (
 )
 from .density import cumulative_spectral_density, spectral_density, spectral_quantile
 from .diagonal import diag, diagpp, xdiag
+from .eigen import eigsh, filtered_eigsh, rand_nystrom, rsvd, svds
 from .estimators import (
 	ConfidenceCriterion,
 	ConfidenceEstimator,
@@ -74,19 +87,26 @@ from .estimators import (
 from .fttr import fttr, ortho_poly
 from .integrate import lanczos_quadrature, lobatto_rule, quadrature, radau_rule
 from .kpm import ChebyshevFunction, kpm_density, kpm_trace, suggest_chebyshev_degree
-from .lanczos import OrthogonalPolynomialBasis, lanczos, lanczos_block_op, rayleigh_ritz
+from .lanczos import OrthogonalPolynomialBasis, lanczos, lanczos_block, lanczos_block_op, rayleigh_ritz
 from .operators import (
 	BSROperator,
 	COOOperator,
+	ComposedOperator,
 	CSROperator,
 	DeflatedOperator,
+	DenseOperator,
 	DIAOperator,
 	FunctionOperator,
+	GramOperator,
 	MatrixFunction,
+	PrepInfo,
+	Toeplitz,
 	aslinop,
+	auto_operator,
 	is_linear_op,
 	is_valid_operator,
 	matrix_function,
+	normalize_unit,
 )
 from .random import Isotropic, haar, hermitian, isotropic, sample_isotropic, symmetric
 from .solvers import NystromPreconditioner, cg, nystrom_precond, solve
@@ -107,6 +127,13 @@ __all__ = [
 	"MatrixFunction",
 	"matrix_function",
 	"DIAOperator",
+	"GramOperator",
+	"DenseOperator",
+	"ComposedOperator",
+	"Toeplitz",
+	"normalize_unit",
+	"auto_operator",
+	"PrepInfo",
 	"BSROperator",
 	"CSROperator",
 	"COOOperator",
@@ -114,7 +141,17 @@ __all__ = [
 	"FunctionOperator",
 	"aslinop",
 	"lanczos",
+	"lanczos_block",
 	"lanczos_block_op",
+	"lanczos_bidiag",
+	"block_lanczos",
+	"block_quadrature",
+	"block_slq_trace",
+	"eigsh",
+	"filtered_eigsh",
+	"svds",
+	"rsvd",
+	"rand_nystrom",
 	"rayleigh_ritz",
 	"OrthogonalPolynomialBasis",
 	"quadrature",
@@ -167,4 +204,7 @@ __all__ = [
 	"spectral_sum",
 	"autodiff",
 	"kpm",
+	"block_krylov",
+	"eigen",
+	"native",
 ]

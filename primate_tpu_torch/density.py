@@ -8,8 +8,9 @@ smoothed density of states
 	φ_σ(t) = (1/nv) Σ_v Σ_i τ_i^(v) · N(t; θ_i^(v), σ²),
 
 evaluated on a grid as one product of the (nv·deg) weights with the broadened
-nodes. Hermitian (complex) operators run the complex sweep. The singular-value
-densities of a ``GramOperator`` (Golub-Kahan) are not ported yet (ROADMAP A.6).
+nodes. Hermitian (complex) operators run the complex sweep. A ``GramOperator``'s
+density (of the squared singular values) comes from Golub-Kahan bidiagonalisation
+of its data operator (``primate_tpu/density.py:69-85``), as ``MatrixFunction.quad``'s does.
 """
 
 from typing import Optional, Tuple, Union
@@ -51,8 +52,7 @@ def spectral_density(
 	``bounds``: by default the extreme Ritz values widened by 5%; ``pdf``, ``orth``:
 	as in ``hutch`` and ``lanczos``.
 	"""
-	if type(A).__name__ == "GramOperator":
-		raise NotImplementedError("spectral_density of a GramOperator (singular values by Golub-Kahan) is not ported yet: ROADMAP A.6")
+	from .operators.sparse import GramOperator
 	from .trace import _base_seed, batch_generator
 
 	op = aslinop(A)
@@ -61,8 +61,17 @@ def spectral_density(
 	orth = deg if (orth < 0 or orth > deg) else int(orth)
 	g = batch_generator(_base_seed(seed), 0, op.device)
 	V = sample_isotropic(g, (n, int(nv)), pdf=pdf, dtype=probe_dtype(op.dtype, pdf)).to(op.dtype)
-	out = lanczos_block_op(op, V, deg=deg, ncv=max(2, min(max(orth, 2), deg)), orth=orth, return_basis=False)
-	nodes, weights = quadrature(out.alphas.T, out.betas[: deg - 1].T, deg=deg, quad="gw")  # (nv, deg) each
+	if isinstance(op, GramOperator):
+		from .bidiag import bidiag_jacobi, lanczos_bidiag_op
+
+		bdeg = int(min(deg, min(op.A.shape)))
+		bout = lanczos_bidiag_op(op.A, V, deg=bdeg, orth=min(orth, bdeg), adjoint=not op.transpose_first)
+		d, e = bidiag_jacobi(bout.alphas, bout.betas)
+		nodes, weights = quadrature(d.T, e.T, deg=bdeg, quad="gw")  # (nv, bdeg) each
+		nodes = torch.clamp(nodes, min=0.0)  # BᵀB is PSD; eigh may give −ε
+	else:
+		out = lanczos_block_op(op, V, deg=deg, ncv=max(2, min(max(orth, 2), deg)), orth=orth, return_basis=False)
+		nodes, weights = quadrature(out.alphas.T, out.betas[: deg - 1].T, deg=deg, quad="gw")  # (nv, deg) each
 	if bounds is None:
 		lo, hi = float(torch.min(nodes)), float(torch.max(nodes))
 		pad = 0.05 * max(hi - lo, 1e-12)

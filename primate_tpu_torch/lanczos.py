@@ -24,7 +24,7 @@ DIA operator each step is the complex ``dia_stencil_t`` kernel and PyTorch: the
 step kernels are real only.
 """
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +33,7 @@ from .ops.dia import DIV_CUR, DONE, lanczos_state, row_sq_norm
 from .random import real_dtype
 from .tridiag import eigh_tridiag, eigvalsh_tridiag
 
-__all__ = ["LanczosOutput", "lanczos_block_op", "lanczos", "rayleigh_ritz", "OrthogonalPolynomialBasis"]
+__all__ = ["LanczosOutput", "lanczos_block", "lanczos_block_op", "lanczos", "rayleigh_ritz", "OrthogonalPolynomialBasis"]
 
 
 class LanczosOutput(NamedTuple):
@@ -97,6 +97,36 @@ def lanczos_block_op(
 	return _lanczos_core(
 		op, V0.T.contiguous(), deg=deg, ncv=ncv, orth=orth, rtol=rtol, reorth_passes=reorth_passes,
 		return_basis=return_basis, coeffs=coeffs, basis_dtype=torch_dtype(basis_dtype), selective=selective,
+	)
+
+
+def lanczos_block(
+	matmat: Callable[[torch.Tensor], torch.Tensor],
+	V0: torch.Tensor,
+	deg: int,
+	ncv: int,
+	orth: int = 0,
+	rtol: float = 1e-8,
+	reorth_passes: int = 2,
+	return_basis: bool = True,
+	coeffs: Optional[torch.Tensor] = None,
+	basis_dtype=None,
+	matmat_t: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+	selective: bool = False,
+) -> LanczosOutput:
+	"""``deg`` Lanczos steps of the symmetric operator that ``matmat`` applies to ``(n, k)``
+	blocks, on the probe block ``V0 (n, nv)`` (``primate_tpu/lanczos.py:146-201``): the pure
+	function behind :func:`lanczos_block_op`, with the same keywords. ``matmat_t``, the
+	probe-major apply ``(k, n) → (k, n)``, is used where given (the sweep carries its
+	blocks probe-major); else each step transposes around ``matmat``."""
+	from .operators.base import FunctionOperator
+
+	op = FunctionOperator(matmat, (V0.shape[0], V0.shape[0]), dtype=V0.dtype, device=V0.device)
+	if matmat_t is not None:
+		op.matmat_t = matmat_t
+	return lanczos_block_op(
+		op, V0, deg=deg, ncv=ncv, orth=orth, rtol=rtol, reorth_passes=reorth_passes,
+		return_basis=return_basis, coeffs=coeffs, basis_dtype=basis_dtype, selective=selective,
 	)
 
 

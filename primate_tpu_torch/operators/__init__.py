@@ -1,5 +1,6 @@
-"""Operators on torch tensors: the protocol and its algebra, COO, CSR, DIA and BSR, deflation,
-matrix functions and the Gershgorin enclosure."""
+"""Operators on torch tensors: the protocol and its algebra, COO, CSR, DIA and BSR, the Gram
+operator, deflation, matrix functions, Toeplitz, the format choice (``auto_operator``) and
+the Gershgorin enclosure."""
 
 from .base import (
 	AdjointOperator,
@@ -16,9 +17,9 @@ from .base import (
 	matmat,
 	quad_form,
 )
-from .prepare import gershgorin_interval
-from .sparse import BSROperator, COOOperator, CSROperator, DIAOperator
-from .special_ops import MatrixFunction, matrix_function
+from .prepare import PrepInfo, auto_operator, bandwidth, gershgorin_interval, reorder_rcm
+from .sparse import BSROperator, COOOperator, CSROperator, DIAOperator, GramOperator
+from .special_ops import MatrixFunction, Toeplitz, matrix_function, normalize_unit
 
 __all__ = [
 	"LinearOperator",
@@ -33,7 +34,14 @@ __all__ = [
 	"CSROperator",
 	"BSROperator",
 	"DIAOperator",
+	"GramOperator",
 	"MatrixFunction",
+	"Toeplitz",
+	"normalize_unit",
+	"PrepInfo",
+	"auto_operator",
+	"bandwidth",
+	"reorder_rcm",
 	"matrix_function",
 	"aslinop",
 	"is_linear_op",

@@ -67,6 +67,13 @@ def float_tensors_of(*items) -> tuple:
 	return tuple(out)
 
 
+def _conj(x):
+	"""The complex conjugate of a scalar coefficient (a number or a 0-d tensor)."""
+	if isinstance(x, torch.Tensor):
+		return x.conj()
+	return x.conjugate() if isinstance(x, complex) else x
+
+
 def _is_scalar(x) -> bool:
 	return isinstance(x, (int, float, complex, np.number)) or (
 		isinstance(x, (np.ndarray, torch.Tensor)) and getattr(x, "ndim", None) == 0
@@ -307,6 +314,19 @@ class AffineOperator(LinearOperator):
 		BV = Vt if self.B is None else self.B.matmat_t(Vt)
 		return self.A.matmat_t(Vt) + self.t * BV
 
+	def rmatmat(self, V: torch.Tensor) -> torch.Tensor:
+		"""``A† V + conj(t)·B† V``: the adjoint of a sum of rectangular operators."""
+		V = torch.as_tensor(V, device=self.device)
+		BV = V if self.B is None else self.B.rmatmat(V)
+		return self.A.rmatmat(V) + _conj(self.t) * BV
+
+	def rmatvec(self, v: torch.Tensor) -> torch.Tensor:
+		return self.rmatmat(torch.as_tensor(v, device=self.device)[:, None])[:, 0]
+
+	def rmatmat_t(self, Ut: torch.Tensor) -> torch.Tensor:
+		BU = Ut if self.B is None else self.B.rmatmat_t(Ut)
+		return self.A.rmatmat_t(Ut) + _conj(self.t) * BU
+
 
 class ScaledOperator(LinearOperator):
 	"""``s · (A + t·I)``, the node of ``c * A``, ``A / c``, ``-A`` and ``c - A``
@@ -320,11 +340,30 @@ class ScaledOperator(LinearOperator):
 	def float_tensors(self) -> tuple:
 		return float_tensors_of(self.A, self.t, self.s)
 
+	def _shifted(self) -> bool:
+		"""Whether ``t`` is not the number 0 (a rectangular ``A`` takes no shift)."""
+		return not (isinstance(self.t, (int, float)) and self.t == 0)
+
 	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
-		return self.s * (self.A.matmat(V) + self.t * V)
+		AV = self.A.matmat(V)
+		return self.s * (AV + self.t * V if self._shifted() else AV)
 
 	def matmat_t(self, Vt: torch.Tensor) -> torch.Tensor:
-		return self.s * (self.A.matmat_t(Vt) + self.t * Vt)
+		AV = self.A.matmat_t(Vt)
+		return self.s * (AV + self.t * Vt if self._shifted() else AV)
+
+	def rmatmat(self, V: torch.Tensor) -> torch.Tensor:
+		"""``conj(s)·(A† V + conj(t)·V)``."""
+		V = torch.as_tensor(V, device=self.device)
+		AV = self.A.rmatmat(V)
+		return _conj(self.s) * (AV + _conj(self.t) * V if self._shifted() else AV)
+
+	def rmatvec(self, v: torch.Tensor) -> torch.Tensor:
+		return self.rmatmat(torch.as_tensor(v, device=self.device)[:, None])[:, 0]
+
+	def rmatmat_t(self, Ut: torch.Tensor) -> torch.Tensor:
+		AU = self.A.rmatmat_t(Ut)
+		return _conj(self.s) * (AU + _conj(self.t) * Ut if self._shifted() else AU)
 
 
 class ComposedOperator(LinearOperator):
@@ -356,6 +395,9 @@ class ComposedOperator(LinearOperator):
 
 	def rmatmat(self, V: torch.Tensor) -> torch.Tensor:
 		return self.B.rmatmat(self.A.rmatmat(V))
+
+	def rmatmat_t(self, Ut: torch.Tensor) -> torch.Tensor:
+		return self.B.rmatmat_t(self.A.rmatmat_t(Ut))
 
 
 class AdjointOperator(LinearOperator):

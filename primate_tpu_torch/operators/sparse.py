@@ -1,9 +1,13 @@
-"""Sparse operators on torch tensors: COO, CSR, block-sparse-row (BSR) and banded (DIA).
+"""Sparse operators on torch tensors: COO, CSR, block-sparse-row (BSR) and banded (DIA),
+and the Gram operator of a rectangular one.
 
-Counterparts of ``COOOperator``, ``CSROperator``, ``BSROperator`` and
-``DIAOperator`` in ``primate_tpu/operators/sparse.py:100-911``. The BSR and DIA
-applies run the CUDA kernels of :mod:`primate_tpu_torch.ops` on the card and the
-kernels' plain versions on the CPU.
+Counterparts of ``COOOperator``, ``CSROperator``, ``BSROperator``, ``DIAOperator``
+and ``GramOperator`` in ``primate_tpu/operators/sparse.py:100-951``. The BSR and DIA
+applies, their adjoints too, run the CUDA kernels of :mod:`primate_tpu_torch.ops` on
+the card (the adjoint on the transposed tiles or the adjoint bands, built once per
+operator) and plain PyTorch on the CPU. ``from_scipy`` of BSR and DIA takes
+``engine="auto"|"native"|"scipy"``: the native route is the C++ loader of
+:mod:`primate_tpu_torch.native`.
 
 CSR and COO: the JAX package applies them by XLA gathers and ``segment_sum``
 over ELL or sliced-ELL planes, with no Pallas kernel. Here the apply is one
@@ -28,12 +32,34 @@ import numpy as np
 import torch
 
 from ..ops._common import LAYOUT_COPIES
-from ..ops.autograd import bsr_spmm_ad, csr_spmm_ad, dia_stencil_ad, dia_stencil_t_ad
+from ..ops.autograd import bsr_spmm_ad, bsr_transpose, csr_spmm_ad, dia_adjoint, dia_stencil_ad, dia_stencil_t_ad
 from ..ops.bsr import block_rowids
 from ..ops.dia import lanczos_dia_step, lanczos_dia_sweep_step
-from .base import LinearOperator
+from .base import LinearOperator, aslinop
 
-__all__ = ["COOOperator", "CSROperator", "BSROperator", "DIAOperator"]
+__all__ = ["COOOperator", "CSROperator", "BSROperator", "DIAOperator", "GramOperator"]
+
+ENGINES = ("auto", "native", "scipy")
+
+
+def _native_parts(engine: str, A, convert):
+	"""``convert(native)`` on the native route: ``engine="native"``, or ``"auto"`` when the C++
+	loader builds; None for scipy's route. ``"native"`` raises the loader's build error, and
+	raises on complex values, which the loader does not take."""
+	if engine not in ENGINES:
+		raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+	if engine == "scipy":
+		return None
+	from .. import native
+
+	if engine == "native":
+		native.require()
+	elif not native.available():
+		return None
+	parts = convert(native)
+	if parts is None and engine == "native":
+		raise TypeError(f"the native sparse-prep engine takes real values; got {A.dtype} (use engine='scipy')")
+	return parts
 
 
 def _sparse_csr(indptr: torch.Tensor, indices: torch.Tensor, data: torch.Tensor, shape) -> torch.Tensor:
@@ -247,6 +273,7 @@ class BSROperator(LinearOperator):
 		if (self.indptr.shape[0] - 1) * self.blocks.shape[1] < self.shape[0]:
 			raise ValueError(f"{self.indptr.shape[0] - 1} block rows of {self.blocks.shape[1]} do not cover {self.shape[0]} rows")
 		self.rowids = block_rowids(self.indptr)
+		self._adj = None
 
 	@classmethod
 	def from_numpy(cls, blocks, indices, indptr, shape, *, dtype=None, device="cuda") -> "BSROperator":
@@ -254,25 +281,43 @@ class BSROperator(LinearOperator):
 		return cls(torch.tensor(np.asarray(blocks), dtype=dtype, device=device), np.asarray(indices), np.asarray(indptr), shape)
 
 	@classmethod
-	def from_scipy(cls, A, blocksize: Optional[Tuple[int, int]] = None, dtype=None, device="cuda") -> "BSROperator":
-		"""From a scipy sparse (or dense) matrix through scipy's ``tobsr``
-		(``primate_tpu/operators/sparse.py:528-556``, its scipy path): the matrix is
-		zero-padded to whole tiles. An empty block row stores no tile: the kernel
-		writes its zeros (the JAX package pads it with a zero tile for its Pallas kernel)."""
+	def from_scipy(
+		cls, A, blocksize: Optional[Tuple[int, int]] = None, dtype=None, device="cuda", engine: str = "auto"
+	) -> "BSROperator":
+		"""From a scipy sparse (or dense) matrix (``primate_tpu/operators/sparse.py:528-556``),
+		zero-padded to whole tiles, duplicates summed, each block row's tiles sorted by
+		block column. An empty block row stores no tile: the kernel writes its zeros.
+
+		``engine``: ``"native"`` converts in one pass with the C++ loader
+		(:mod:`~primate_tpu_torch.native`, and raises when it cannot be built),
+		``"scipy"`` through ``tobsr``. ``"auto"`` takes scipy's route (the JAX package takes
+		the loader's): ``tobsr`` is one C++ pass, and it beat the loader on a 1M-row BSR
+		matrix (``chip_smoke.py`` phase 16). Both store the same tiles bit for bit (the
+		native loader's zero tiles for empty block rows are dropped). Complex values take scipy's route (``"native"`` raises),
+		and so does a call without ``blocksize``, where scipy picks the tiles."""
 		import scipy.sparse as sps
 
 		if not sps.issparse(A):
 			A = sps.csr_matrix(np.asarray(A))
 		shape = A.shape
 		nnz_logical = int(A.nnz)  # before tobsr: a BSR matrix's nnz counts stored tile entries
+		parts = None
 		if blocksize is not None:
-			bm, bn = blocksize
-			padded = (-(-shape[0] // bm) * bm, -(-shape[1] // bn) * bn)
-			if padded != shape:
-				A = sps.csr_matrix(A)
-				A.resize(padded)
-		A = A.tobsr(blocksize=blocksize) if blocksize is not None else A.tobsr()
-		op = cls.from_numpy(A.data, A.indices, A.indptr, shape, dtype=dtype, device=device)
+			parts = _native_parts("scipy" if engine == "auto" else engine, A, lambda nat: nat.csr_to_bsr_arrays(A, *blocksize))
+		if parts is not None:
+			blocks, indices, indptr = _drop_coverage_tiles(A, blocksize[0], *parts)
+		else:
+			A = sps.csr_matrix(A)
+			A.sum_duplicates()
+			if blocksize is not None:
+				bm, bn = blocksize
+				padded = (-(-shape[0] // bm) * bm, -(-shape[1] // bn) * bn)
+				if padded != shape:
+					A.resize(padded)
+			A = A.tobsr(blocksize=blocksize) if blocksize is not None else A.tobsr()
+			A.sort_indices()
+			blocks, indices, indptr = A.data, A.indices, A.indptr
+		op = cls.from_numpy(blocks, indices, indptr, shape, dtype=dtype, device=device)
 		op._warn_fill_in(nnz_logical)
 		return op
 
@@ -316,16 +361,51 @@ class BSROperator(LinearOperator):
 			LAYOUT_COPIES["bsr_spmm"] += 1
 		return bsr_spmm_ad(self.blocks, V, self.indptr, self.indices, self.shape[0])
 
+	def _transpose(self):
+		"""Tiles, block-row pointers and block-column ids of ``A†`` (each tile conjugate-transposed,
+		sorted by block column), built once per operator, or per call while the tiles carry a gradient."""
+		track = self.blocks.requires_grad and torch.is_grad_enabled()
+		if self._adj is None or track:
+			with torch.set_grad_enabled(track):
+				blocks_t, indptr_t, indices_t = bsr_transpose(self.blocks, self.indptr, self.indices, self.shape[1])
+				if blocks_t.is_complex():
+					blocks_t = torch.conj_physical(blocks_t)
+			if track:
+				return blocks_t, indptr_t, indices_t
+			self._adj = (blocks_t, indptr_t, indices_t)
+		return self._adj
+
 	def rmatmat(self, V: torch.Tensor) -> torch.Tensor:
-		"""Adjoint block apply ``A† V`` (plain PyTorch: gather, tile product, ``index_add_``)."""
+		"""Adjoint block apply ``A† V``: the BSR kernel on the transposed tiles (:meth:`_transpose`,
+		node-major; a block that is not contiguous is copied once, counted in
+		``LAYOUT_COPIES["bsr_spmm"]``), its plain version on a CPU tensor."""
+		V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
+		single = V.ndim == 1
+		V = V[:, None] if single else V
+		if not V.is_contiguous():
+			V = V.contiguous()
+			LAYOUT_COPIES["bsr_spmm"] += 1
+		blocks_t, indptr_t, indices_t = self._transpose()
+		bm = self.blocksize[0]
+		n_brow = self.indptr.shape[0] - 1
+		if n_brow * bm > -(-V.shape[0] // bm) * bm:  # block rows past the logical rows: zero rows of V
+			Vp = torch.zeros((n_brow * bm, V.shape[1]), dtype=V.dtype, device=V.device)
+			Vp[: V.shape[0]] = V
+			V = Vp
+		out = bsr_spmm_ad(blocks_t, V, indptr_t, indices_t, self.shape[1])
+		return out[:, 0] if single else out
+
+	def rmatmat_plain(self, V: torch.Tensor) -> torch.Tensor:
+		"""Plain PyTorch ``A† V`` (the reference the tests hold :meth:`rmatmat` to): gather by block row, tile product, ``index_add_`` by block column."""
 		bm, bn = self.blocksize
 		V = torch.as_tensor(V, device=self.device)
 		single = V.ndim == 1
 		V = V[:, None] if single else V
 		k = V.shape[1]
-		np_r, np_c = self.pshape
+		n_brow = self.indptr.shape[0] - 1
+		np_c = self.pshape[1]
 		acc = torch.promote_types(self.dtype, torch.float32)
-		Vp = torch.zeros((np_r, k), dtype=acc, device=self.device)
+		Vp = torch.zeros((n_brow * bm, k), dtype=acc, device=self.device)
 		Vp[: V.shape[0]] = V
 		prod = torch.bmm(self.blocks.conj().transpose(1, 2).to(acc), Vp.reshape(-1, bm, k)[self.rowids])
 		out = torch.zeros((np_c // bn, bn, k), dtype=acc, device=self.device).index_add_(0, self.indices, prod)
@@ -357,6 +437,7 @@ class DIAOperator(LinearOperator):
 		self.device = self.bands.device
 		# The kernels read the offsets from device memory; upload them once.
 		self.offsets_t = torch.tensor(self.offsets, dtype=torch.int64, device=self.device)
+		self._adj = None
 
 	@classmethod
 	def from_numpy(cls, bands, offsets, shape, *, dtype=None, device="cuda") -> "DIAOperator":
@@ -364,8 +445,16 @@ class DIAOperator(LinearOperator):
 		return cls(torch.tensor(np.asarray(bands), dtype=dtype, device=device), offsets, shape)
 
 	@classmethod
-	def from_scipy(cls, A, dtype=None, device="cuda") -> "DIAOperator":
-		"""From a scipy sparse matrix, through ``A.todia()`` (``primate_tpu/operators/sparse.py:731-745``)."""
+	def from_scipy(cls, A, dtype=None, device="cuda", engine: str = "auto") -> "DIAOperator":
+		"""From a scipy sparse matrix (``primate_tpu/operators/sparse.py:721-745``): ``engine``
+		``"native"`` through the C++ loader (:mod:`~primate_tpu_torch.native`; raises when it
+		cannot be built), ``"scipy"`` through ``A.todia()``, ``"auto"`` natively when the loader
+		builds. Both give the same offsets (ascending) and bands bit for bit; complex values
+		take scipy's route (``"native"`` raises)."""
+		parts = _native_parts(engine, A, lambda nat: nat.csr_to_dia_arrays(A))
+		if parts is not None:
+			offsets, bands = parts
+			return cls.from_numpy(bands, offsets, A.shape, dtype=dtype, device=device)
 		A = A.todia()
 		n = A.shape[0]
 		offsets = tuple(int(o) for o in A.offsets)
@@ -418,17 +507,58 @@ class DIAOperator(LinearOperator):
 			return self._matmat(v)
 		return self.matmat_t(v[None, :])[0]
 
+	def _adjoint(self):
+		"""Bands, device offsets and host offsets of ``A†`` (``band'_{−d}[i] = conj(band_d[i − d])``),
+		built once per operator, or per call while the bands carry a gradient."""
+		track = self.bands.requires_grad and torch.is_grad_enabled()
+		if self._adj is None or track:
+			with torch.set_grad_enabled(track):
+				adj, offsets = dia_adjoint(self.bands, self.offsets)
+				if adj.is_complex():
+					adj = torch.conj_physical(adj)
+			entry = (adj, -self.offsets_t, offsets)
+			if track:
+				return entry
+			self._adj = entry
+		return self._adj
+
+	def rmatmat(self, V: torch.Tensor) -> torch.Tensor:
+		"""Adjoint apply ``A† V`` of an ``(n, k)`` block (or a vector): the stencils on the adjoint
+		bands (:meth:`_adjoint`), picked by the block's layout as :meth:`_matmat` picks them
+		(their plain versions on a CPU tensor)."""
+		V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
+		if V.ndim == 1:
+			return self.rmatmat_t(V[None, :])[0]
+		if V.T.is_contiguous() and not V.is_contiguous():
+			return self.rmatmat_t(V.T).T
+		adj, offsets_t, offsets = self._adjoint()
+		return dia_stencil_ad(adj, V.contiguous(), offsets_t, offsets)
+
+	def rmatmat_t(self, Ut: torch.Tensor) -> torch.Tensor:
+		"""Probe-major adjoint apply ``(A† Utᵀ)ᵀ`` on a ``(k, n)`` block."""
+		Ut = torch.as_tensor(Ut, dtype=self.dtype, device=self.device)
+		adj, offsets_t, offsets = self._adjoint()
+		return dia_stencil_t_ad(adj, Ut.contiguous(), offsets_t, offsets)
+
 	def rmatvec(self, v: torch.Tensor) -> torch.Tensor:
-		# Adjoint A†: band'_{-d}[i] = conj(band_d[i - d]).
+		return self.rmatmat(v)
+
+	def rmatmat_plain(self, V: torch.Tensor) -> torch.Tensor:
+		"""Plain PyTorch ``A† V`` (``(n,)`` or ``(n, k)``; the reference the tests hold :meth:`rmatmat`
+		to): one slice product per band,
+		accumulated in ``promote_types(dtype, float32)``."""
 		n = self.shape[0]
-		v = torch.as_tensor(v, device=self.device)
+		V = torch.as_tensor(V, device=self.device)
+		single = V.ndim == 1
+		V = V[:, None] if single else V
 		acc = torch.promote_types(self.dtype, torch.float32)
-		out = torch.zeros(n, dtype=acc, device=self.device)
+		out = torch.zeros((n, V.shape[1]), dtype=acc, device=self.device)
 		for k, off in enumerate(self.offsets):
 			lo, hi = max(0, -off), min(n, n - off)
 			if lo < hi:
-				out[lo + off : hi + off] += self.bands[k, lo:hi].conj().to(acc) * v[lo:hi].to(acc)
-		return out.to(self.dtype)
+				out[lo + off : hi + off] += self.bands[k, lo:hi, None].conj().to(acc) * V[lo:hi].to(acc)
+		out = out.to(self.dtype)
+		return out[:, 0] if single else out
 
 	def todense(self) -> torch.Tensor:
 		n = self.shape[0]
@@ -455,3 +585,50 @@ class DIAOperator(LinearOperator):
 		if self.dtype.is_complex:
 			return super().lanczos_sweep_step(v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
 		return lanczos_dia_sweep_step(self.bands, self.offsets_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
+
+
+def _drop_coverage_tiles(A, bm: int, blocks: np.ndarray, indices: np.ndarray, indptr: np.ndarray):
+	"""The native loader's tiles without its zero coverage tile in each block row that holds
+	no stored entry (one tile each there): scipy's layout, which the kernel reads."""
+	import scipy.sparse as sps
+
+	rp = sps.csr_matrix(A).indptr
+	n_brow = indptr.shape[0] - 1
+	edges = np.minimum(np.arange(n_brow + 1, dtype=np.int64) * bm, A.shape[0])
+	empty = rp[edges[1:]] == rp[edges[:-1]]
+	if not empty.any():
+		return blocks, indices, indptr
+	counts = np.diff(indptr)
+	keep = np.repeat(~empty, counts)
+	new_counts = np.where(empty, 0, counts)
+	new_indptr = np.zeros_like(indptr)
+	np.cumsum(new_counts, out=new_indptr[1:])
+	return blocks[keep], indices[keep], new_indptr
+
+
+class GramOperator(LinearOperator):
+	"""Gram operator ``A†A`` (``transpose_first=True``) or ``AA†`` of a rectangular ``A``,
+	never formed (``primate_tpu/operators/sparse.py:913-951``): two applies of ``A`` per
+	product, the probe-major ``matmat_t`` through the data operator's own ``matmat_t`` and
+	``rmatmat_t``. ``MatrixFunction.quad`` and ``spectral_density`` of a Gram operator
+	go through Golub-Kahan bidiagonalisation of ``A`` instead (:mod:`~primate_tpu_torch.bidiag`)."""
+
+	def __init__(self, A, transpose_first: bool = True, device="cuda"):
+		self.A = aslinop(A, device=device)
+		self.transpose_first = bool(transpose_first)
+		n = self.A.shape[1] if self.transpose_first else self.A.shape[0]
+		self.shape = (n, n)
+		self.dtype, self.device = self.A.dtype, self.A.device
+
+	def float_tensors(self) -> tuple:
+		return self.A.float_tensors()
+
+	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
+		if self.transpose_first:
+			return self.A.rmatmat(self.A.matmat(V))
+		return self.A.matmat(self.A.rmatmat(V))
+
+	def matmat_t(self, Vt: torch.Tensor) -> torch.Tensor:
+		if self.transpose_first:
+			return self.A.rmatmat_t(self.A.matmat_t(Vt))
+		return self.A.matmat_t(self.A.rmatmat_t(Vt))

@@ -7,10 +7,15 @@ batched tridiagonal eigensolve cover all probe columns: ``quad`` estimates
 approximate ``f(A) x`` in the Krylov basis, in one pass over a stored basis or
 in two passes that keep only O(n·nv) memory. A stacked family
 (:func:`~primate_tpu_torch.special.stacked`) is evaluated from the same sweep.
-The Gram (Golub-Kahan) branch waits for ``bidiag``. Complex (Hermitian)
+``quad`` of a :class:`~primate_tpu_torch.operators.sparse.GramOperator` goes through
+Golub-Kahan bidiagonalisation of the data operator (``primate_tpu/operators/special_ops.py:230-262``):
+one ``A`` and one ``A†`` apply a step, at ``κ(A)``, not ``κ(A)²``. Complex (Hermitian)
 operators run the same sweep with conjugated inner products: the expansion
 coefficients are real, ``f(A)x`` is complex and ``quad`` returns real quadratic
 forms (``primate_tpu/operators/special_ops.py:212,235-240``).
+
+Also the FFT :class:`Toeplitz` operator and :func:`normalize_unit`, the shift and scale
+of a spectrum into an interval (``primate_tpu/operators/special_ops.py:320-427``).
 """
 
 from typing import Callable, Optional, Tuple, Union
@@ -22,9 +27,9 @@ from ..linalg import full_f32_matmul
 from ..ops.dia import row_sq_norm
 from ..special import param_callable
 from ..tridiag import eigh_tridiag
-from .base import LinearOperator, aslinop, torch_dtype
+from .base import LinearOperator, ScaledOperator, aslinop, torch_dtype
 
-__all__ = ["MatrixFunction", "matrix_function"]
+__all__ = ["MatrixFunction", "matrix_function", "Toeplitz", "normalize_unit"]
 
 # The keywords the constructor passes on: the breakdown tolerance and the builtin
 # functions' parameters (``special._cached_builtin``).
@@ -203,9 +208,13 @@ class MatrixFunction(LinearOperator):
 		from ..integrate import spectral_quad_form
 		from ..random import real_dtype
 
+		from .sparse import GramOperator
+
 		X = torch.as_tensor(x, dtype=self.dtype, device=self.device)
 		X = X[:, None] if X.ndim == 1 else X
 		x_norm_sq = row_sq_norm(X.to(torch.promote_types(X.dtype, torch.float32)).T)
+		if isinstance(self._A, GramOperator):
+			return (self._gram_quad(X) * x_norm_sq).to(real_dtype(self.dtype))
 		ncv = int(np.clip(max(self._orth, 2), 2, self._deg))
 		out = self._lanczos(X, ncv=ncv, return_basis=False)  # quadrature needs only (α, β)
 		d, e = out.alphas.T, out.betas[: self._deg - 1].T
@@ -217,7 +226,103 @@ class MatrixFunction(LinearOperator):
 		return (vals * x_norm_sq).to(real_dtype(self.dtype))
 
 
+	def _gram_quad(self, X: torch.Tensor) -> torch.Tensor:
+		"""The unit-probe quadrature of a Gram operator's ``f`` through Golub-Kahan: the rule of
+		the Jacobi matrix ``BᵀB``, its nodes clamped at 0 (``BᵀB`` is PSD; ``eigh`` may give −ε).
+		The steps are capped at ``min(m, n)``, where GKL is exhausted."""
+		from ..bidiag import bidiag_jacobi, lanczos_bidiag_op
+		from ..integrate import spectral_quad_form
+
+		gram = self._A
+		deg = int(min(self._deg, min(gram.A.shape)))
+		out = lanczos_bidiag_op(
+			gram.A, X, deg=deg, orth=min(self._orth, deg), rtol=self._rtol, reorth_passes=self._reorth_passes,
+			adjoint=not gram.transpose_first, return_residual=self._quad_rule != "gauss",
+		)
+		d, e = bidiag_jacobi(out.alphas, out.betas)
+		fun = self.fun
+		if self._quad_rule != "gauss":
+			# Radau/Lobatto on BᵀB: its next coupling is α_deg·β_deg; the interval is in σ² units.
+			nodes, weights = self._modified_rule(d.T, e.T, out.alphas[deg - 1] * out.residual)
+			return torch.sum(fun(torch.clamp(nodes, min=0.0)) * weights, dim=-1)
+		return spectral_quad_form(d.T, e.T, lambda t: fun(torch.clamp(t, min=0.0)))
+
+
 def matrix_function(A, fun: Union[str, Callable, None] = None, v=None, deg: int = 20, **kwargs):
 	"""The operator ``f(A)``, or ``f(A) v`` when ``v`` is given (``primate_tpu/operators/special_ops.py:310-316``)."""
 	M = MatrixFunction(A, fun=fun, deg=deg, **kwargs)
 	return M if v is None else M @ torch.as_tensor(v, device=M.device)
+
+
+class Toeplitz(LinearOperator):
+	"""Matrix-free Toeplitz operator by FFT of its circulant embedding
+	(``primate_tpu/operators/special_ops.py:320-368``): O(n log n) a product, O(n) storage.
+
+	``c`` is the first column, ``r`` the first row (default ``c``: symmetric). The
+	spectrum of the ``2n`` circulant is computed once. Real data takes real FFTs and
+	gives a real product; complex data keeps its complex spectrum. A numpy ``c`` goes to
+	``device``; a tensor keeps its own.
+	"""
+
+	def __init__(self, c, r=None, dtype=None, device="cuda"):
+		dtype = torch_dtype(dtype)
+
+		def tensor(x):
+			x = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x), device=device)
+			return x.to(dtype) if dtype is not None else x
+
+		self.c = tensor(c)
+		self.r = tensor(c if r is None else r).to(self.c.device)
+		if self.r.shape != self.c.shape or self.c.ndim != 1:
+			raise ValueError("First row and first column must be vectors of the same length.")
+		n = self.c.shape[0]
+		self.shape = (n, n)
+		self.dtype = torch.promote_types(self.c.dtype, self.r.dtype) if dtype is None else dtype
+		self.device = self.c.device
+		d = torch.cat([self.c, torch.zeros(1, dtype=self.c.dtype, device=self.device), torch.flip(self.r[1:], [0])])
+		d = d.to(self.dtype)
+		self._real = not self.dtype.is_complex
+		self._dfft = torch.fft.rfft(d) if self._real else torch.fft.fft(d)
+
+	def float_tensors(self) -> tuple:
+		return (self.c, self.r)
+
+	def _apply(self, X: torch.Tensor, dim: int) -> torch.Tensor:
+		"""The product along axis ``dim`` of ``X`` (0: node-major, 1: probe-major)."""
+		n = self.shape[0]
+		X = torch.as_tensor(X, device=self.device).to(self.dtype)
+		spec = self._dfft[:, None] if dim == 0 else self._dfft[None, :]
+		if self._real:
+			Y = torch.fft.irfft(spec * torch.fft.rfft(X, n=2 * n, dim=dim), n=2 * n, dim=dim)
+		else:
+			Y = torch.fft.ifft(spec * torch.fft.fft(X, n=2 * n, dim=dim), dim=dim)
+		return Y.narrow(dim, 0, n).to(self.dtype)
+
+	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
+		return self._apply(V, 0)
+
+	def matmat_t(self, Vt: torch.Tensor) -> torch.Tensor:
+		return self._apply(Vt, 1)
+
+
+def normalize_unit(A, interval: tuple = (-1, 1), deg: int = 64, seed=None) -> ScaledOperator:
+	"""``s·(A + t·I)`` with the spectrum of ``A`` mapped into ``interval``
+	(``primate_tpu/operators/special_ops.py:407-427``).
+
+	α, the largest eigenvalue magnitude, comes from a fully re-orthogonalised Lanczos
+	sweep of ``min(deg, n)`` steps (:func:`~primate_tpu_torch.lanczos.rayleigh_ritz`,
+	inflated by 1% against the Ritz underestimate); ``[−α, α]`` goes onto ``[a, b]`` by
+	``s = (b − a)/(2α)``, ``t = α(b + a)/(b − a)``. One read of α from the device.
+	"""
+	from ..lanczos import rayleigh_ritz
+
+	a_lo, b_hi = interval
+	if not b_hi > a_lo:
+		raise ValueError("interval must be increasing")
+	op = aslinop(A)
+	k = int(min(deg, op.shape[0]))
+	rw = rayleigh_ritz(op, deg=k, orth=-1, seed=seed)
+	alpha = 1.01 * float(torch.max(torch.abs(rw)))
+	s = (b_hi - a_lo) / (2.0 * alpha)
+	t = alpha * (b_hi + a_lo) / (b_hi - a_lo)
+	return ScaledOperator(op, t=t, s=s)

@@ -11,7 +11,10 @@ one and two passes, and the heat-kernel signature on the 1000×1000 mesh; then i
 the GP log-likelihood at n = 10M (the forward pass alone, and forward and backward);
 its phase 14, Jacobi-preconditioned CG on the power-law graph with 64 right-hand
 sides; and its phase 15 on the 4M-site Hofstadter model (complex64 DIA): the KPM
-density of states, the β sweep of ``tr e^{−βH}`` and the local density of states.
+density of states, the β sweep of ``tr e^{−βH}`` and the local density of states; and the
+calls of its phases 17 and 18: LOBPCG and thick-restart ``eigsh`` and ``block_slq_trace`` on
+the mesh, ``filtered_eigsh`` on the grid Laplacian, ``svds`` and the nuclear norm (the
+``AAᵀ`` Gram side) of the rectangular data operator.
 Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
@@ -148,6 +151,32 @@ def main() -> None:
 		"tb_kpm_density": lambda: ptt.kpm_density(H, grid=512, m=512, nv=cs.TB_NV, pdf="phase", interval="gershgorin", seed=153),
 		"tb_beta_sweep": lambda: ptt.hutch(sweep, pdf="phase", batch=16, converge="count", count=64, seed=155),
 		"tb_ldos": lambda: ptt.diag(window, pdf="phase", batch=16, converge="count", count=4, seed=3),
+	}
+	for name, fn in calls.items():
+		row = {"call": name, **trace(torch, fn)}
+		print(json.dumps(row), flush=True)
+		rows.append(row)
+	del H, sweep, window
+	mesh = ptt.DIAOperator.from_scipy(cs.mesh_laplacian(cs.MESH_SIDE), dtype=torch.float32, device=dev)
+	grid, lam = cs.grid_laplacian(*cs.FE_GRID)
+	gop = ptt.DIAOperator.from_scipy(grid, dtype=torch.float32, device=dev)
+	lo, hi = ptt.operators.gershgorin_interval(gop)
+	b = float(0.5 * (lam[cs.FE_COUNT - 1] + lam[cs.FE_COUNT]))
+	deg = int(np.ceil(2.0 * (hi - lo) / b))
+	R = cs.RECT
+	G = cs.rect_noise(torch, ptt, dev, R["m"], R["n"], R["bs"], R["tiles_per_block_row"], R["seed"])
+	rng = np.random.default_rng(R["seed"] + 1)
+	L = torch.tensor(rng.standard_normal((R["m"], R["r"])) / np.sqrt(R["m"]), dtype=torch.float32, device=dev)
+	Rt = torch.tensor((rng.standard_normal((R["n"], R["r"])) * np.geomspace(20.0, 2.0, R["r"])).T.copy(), dtype=torch.float32, device=dev)
+	X = ptt.ComposedOperator(L, Rt) + R["sigma"] * G
+	nuc = ptt.MatrixFunction(ptt.GramOperator(X, transpose_first=False), "sqrt")
+	calls = {  # chip_smoke.py phases 17 and 18
+		"eigsh_lobpcg_la": lambda: ptt.eigsh(mesh, k=cs.EIG_K, which="LA", maxiter=cs.EIG_MAXITER, tol=cs.EIG_TOL, seed=17),
+		"eigsh_trlan_la": lambda: ptt.eigsh(mesh, k=cs.EIG_K, which="LA", method="trlan", seed=17),
+		"block_slq_trace": lambda: ptt.block_slq_trace(mesh, "exp", seed=17, t=-cs.BK_TAUS[0], **cs.BK),
+		"filtered_eigsh": lambda: ptt.filtered_eigsh(gop, (0.0, b), k=cs.FE_COUNT, deg=deg, spectral_interval=(lo, hi), seed=17),
+		"svds": lambda: ptt.svds(X, k=cs.SVD_K, maxiter=cs.EIG_MAXITER, tol=cs.EIG_TOL, seed=18),
+		"gram_nuclear_xxt": lambda: ptt.hutch(nuc, batch=16, converge="count", count=16, seed=18),
 	}
 	for name, fn in calls.items():
 		row = {"call": name, **trace(torch, fn)}

@@ -622,3 +622,84 @@ def test_complex64_sketch_stays_exact_with_tf32_switched_on(cuda):
 	finally:
 		torch.backends.cuda.matmul.allow_tf32 = prev
 	assert abs(est - ew.sum()) / ew.sum() <= 1e-4
+
+
+# The adjoint applies: offsets inside, at and past n; rectangular tiles with empty block rows.
+ADJ_OFFSETS = [(-1, 0, 1), (-200, -7, 0, 7, 200), (-3001, -5, 0, 3000, 4000)]
+
+
+def _tol(dtype):
+	return {torch.float32: 1e-5, torch.float64: 1e-12, torch.complex64: 1e-6, torch.complex128: 1e-14}[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64])
+@pytest.mark.parametrize("layout", ["node_major", "probe_major", "vector"])
+@pytest.mark.parametrize("offsets", ADJ_OFFSETS)
+def test_dia_adjoint_applies_match_plain_versions(cuda, offsets, layout, dtype):
+	n, k = 3001, 13
+	g = torch.Generator(device=cuda)
+	g.manual_seed(3)
+	bands = torch.randn((len(offsets), n), generator=g, device=cuda, dtype=dtype)
+	op = DIAOperator(bands, offsets, (n, n))
+	V = torch.randn((n, k), generator=g, device=cuda, dtype=dtype)
+	V = {"node_major": V, "probe_major": V.T.contiguous().T, "vector": V[:, 0]}[layout]
+	kernel = "dia_stencil" if layout == "node_major" else "dia_stencil_t"
+	before = dict(dia.LAUNCHES)
+	got = op.rmatmat(V)
+	torch.cuda.synchronize()
+	assert dia.LAUNCHES[kernel] == before[kernel] + 1
+	want = op.rmatmat_plain(V)
+	assert float((got - want).abs().max()) <= _tol(dtype) * float(want.abs().max())
+	if layout == "probe_major":
+		Ut = V.T.contiguous()
+		got_t = op.rmatmat_t(Ut)
+		assert float((got_t - want.T).abs().max()) <= _tol(dtype) * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tile", [(8, 8), (8, 16), (4, 4)])
+@pytest.mark.parametrize("k", [1, 16, 65])
+def test_bsr_adjoint_on_transposed_tiles_matches_plain_version(cuda, tile, k, dtype):
+	m, n = 1003, 517
+	A = sps.random(m, n, density=0.01, random_state=np.random.default_rng(4), format="lil")
+	A[200:400] = 0  # empty block rows
+	A = A.tocsr()
+	A.eliminate_zeros()
+	op = BSROperator.from_scipy(A, blocksize=tile, dtype=dtype, device=cuda)
+	g = torch.Generator(device=cuda)
+	g.manual_seed(5)
+	U = torch.randn((m, k), generator=g, device=cuda, dtype=dtype)
+	before = bsr.LAUNCHES["bsr_spmm"]
+	got = op.rmatmat(U)
+	torch.cuda.synchronize()
+	assert bsr.LAUNCHES["bsr_spmm"] == before + 1
+	want = op.rmatmat_plain(U)
+	assert got.shape == (n, k)
+	assert float((got - want).abs().max()) <= _tol(dtype) * float(want.abs().max())
+	dense = torch.tensor(A.toarray(), dtype=torch.float64, device=cuda)
+	assert float((got.double() - dense.T @ U.double()).abs().max()) <= 10 * _tol(dtype) * float(want.abs().max())
+
+
+def test_eigensolvers_and_bidiag_launch_the_kernels(cuda):
+	from primate_tpu_torch import GramOperator, eigsh, lanczos_bidiag, svds
+
+	n = 4000
+	L = sps.diags([-np.ones(n - 1), 3.0 * np.ones(n), -np.ones(n - 1)], [-1, 0, 1]).tocsr()
+	op = DIAOperator.from_scipy(L, dtype=torch.float64, device=cuda)
+	ew = np.sort(3.0 - 2.0 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1)))
+	_common.reset_launches()
+	w = eigsh(op, k=3, which="LA", seed=0, maxiter=500, return_eigenvectors=False)
+	assert dia.LAUNCHES["dia_stencil"] > 0
+	np.testing.assert_allclose(w.cpu().numpy(), ew[-3:], atol=1e-4)  # the top eigenvalues are 1e-6 apart
+	_common.reset_launches()
+	eigsh(op, k=3, which="LA", seed=0, method="trlan", return_eigenvectors=False)
+	assert dia.LAUNCHES["dia_stencil_t"] > 0
+	A = sps.random(3000, 700, density=0.01, random_state=np.random.default_rng(6), format="csr")
+	X = BSROperator.from_scipy(A, blocksize=(8, 8), dtype=torch.float64, device=cuda)
+	_common.reset_launches()
+	s = svds(X, k=3, seed=0, return_vectors=False)
+	assert bsr.LAUNCHES["bsr_spmm"] > 0
+	np.testing.assert_allclose(np.sort(s.cpu().numpy()), np.sort(np.linalg.svd(A.toarray(), compute_uv=False))[-3:], rtol=1e-6)
+	out = lanczos_bidiag(X, deg=20, seed=1)
+	assert torch.all(torch.isfinite(out.alphas))
+	assert GramOperator(X).matmat_t(torch.ones((2, 700), dtype=torch.float64, device=cuda)).shape == (2, 700)

@@ -7,11 +7,8 @@ import pytest
 import primate_tpu as pt
 import primate_tpu_torch as ptt
 
-# Each queue-A slice of the port takes its names off this list.
-NOT_YET_PORTED = {
-	"Toeplitz", "auto_operator", "block_lanczos", "block_quadrature", "block_slq_trace", "eigsh", "filtered_eigsh",
-	"lanczos_bidiag", "lanczos_block", "normalize_unit", "rand_nystrom", "rsvd", "svds",
-}
+# Each queue-A slice of the port takes its names off this list; every name is ported now.
+NOT_YET_PORTED = set()
 
 
 @pytest.mark.parametrize("name", sorted(pt.__all__))
@@ -39,11 +36,12 @@ def _hermitian_op():
 	return torch.from_numpy(np.array(pt.hermitian(8, ew=np.linspace(0.5, 1.5, 8), seed=1)))
 
 
-@pytest.mark.parametrize("branch", ["gram_density", "complex_hutch", "complex_sketch", "complex_diag", "complex_kpm_trace",
+@pytest.mark.parametrize("branch", ["filtered_eigsh_k_none", "complex_hutch", "complex_sketch", "complex_diag", "complex_kpm_trace",
 	"complex_bsr_on_the_card", "complex_step_kernels_on_the_card"])
 def test_each_unported_branch_raises(branch):
 	"""Name by name, a branch of the JAX package that the port has not taken raises
-	``NotImplementedError``: the Gram densities (ROADMAP A.6), ``differentiable=True`` on a
+	``NotImplementedError``: ``filtered_eigsh`` without ``k``, which counts the slice with
+	``recipes.eigencount`` (ROADMAP A.10), ``differentiable=True`` on a
 	Hermitian operator, and the complex BSR and Lanczos-step kernels (ROADMAP B.7; the
 	dtype rule the wrappers apply to a CUDA tensor, checked here without a card)."""
 	import torch
@@ -51,7 +49,7 @@ def test_each_unported_branch_raises(branch):
 	from primate_tpu_torch.ops._common import check_cuda
 
 	calls = {
-		"gram_density": lambda: ptt.spectral_density(_gram()),
+		"filtered_eigsh_k_none": lambda: ptt.filtered_eigsh(_hermitian_op(), (0.8, 1.2), spectral_interval=(0.0, 2.0)),
 		"complex_hutch": lambda: ptt.hutch(_hermitian_op(), converge="count", count=4, differentiable=True),
 		"complex_sketch": lambda: ptt.hutchpp(_hermitian_op(), m=3, differentiable=True),
 		"complex_diag": lambda: ptt.diag(_hermitian_op(), converge="count", count=2, differentiable=True),
@@ -64,9 +62,3 @@ def test_each_unported_branch_raises(branch):
 	# The two DIA stencils take complex tensors on the card.
 	check_cuda("dia_stencil_t", torch.complex64, torch.device("cuda", 0), complex_ok=True)
 
-
-def _gram():
-	import jax.numpy as jnp
-	from primate_tpu.operators.sparse import GramOperator
-
-	return GramOperator(jnp.ones((6, 4)))

@@ -159,7 +159,8 @@ def test_constructors_default_to_the_card():
 def test_import_leaves_jax_out():
 	code = "import sys, primate_tpu_torch, primate_tpu_torch.ops.dia, primate_tpu_torch.ops.bsr, primate_tpu_torch.ops._build, " \
 		"primate_tpu_torch.ops.autograd, primate_tpu_torch.solvers, primate_tpu_torch.autodiff, primate_tpu_torch.kpm, " \
-		"primate_tpu_torch.density, primate_tpu_torch.operators.prepare; " \
+		"primate_tpu_torch.density, primate_tpu_torch.operators.prepare, primate_tpu_torch.native, " \
+		"primate_tpu_torch.bidiag, primate_tpu_torch.block_krylov, primate_tpu_torch.eigen; " \
 		"bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'primate_tpu')]; print(bad); assert not bad"
 	r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
 	assert r.returncode == 0, r.stdout + r.stderr
