@@ -86,7 +86,22 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    seeded BSR noise operator of about 42M nonzeros): the top 6 singular values by ``svds``,
    ``rsvd`` and ``lanczos_bidiag`` within 1e-4 of each other (svds's residuals ≤ 1e-3), ‖X‖²_F by
    Gram quadrature within 10σ of its exact value, the nuclear norm from both Gram sides within
-   4σ of each other, the Gram density's mass within 1e-2, and ``bsr_spmm`` in both directions.
+   4σ of each other, the Gram density's mass within 1e-2, and ``bsr_spmm`` in both directions;
+19. runs the recipes (``primate_tpu_torch.recipes``), each call timed and its launches counted,
+   against closed forms: ``logdet`` on the 10M tridiagonal equal bit for bit to the flagship
+   composition, and ``shifted_trace`` (the GP noise sweep at 8 shifts) within 5%, both 20 + 20
+   step launches; on phase 10's mesh at their defaults (``orth=5``: pass A, no pass B) ``logdet``
+   (1%), ``trace_bounds`` (the exact value within the bracket ± 4 standard errors),
+   ``suggest_degree`` (gaps that do not grow), ``heat_kernel_trace`` (2%), ``effective_dim`` and
+   ``schatten`` (1%), ``eigencount`` (5% of the closed-form smoothstep window), ``bilinear_form``
+   at 8 node pairs (1e-5 of e^{−1/2}·E⊗E), ``weighted_trace`` (5σ) and ``suggest_probes``; on
+   ``separated_spectrum`` ``slogdet`` of a shifted copy (sign −1, 3 negatives, 1%),
+   ``condition_number`` (1e-4), ``deflated_trace`` (0.5%), ``topk`` (1e-4), ``trace_inv`` by SLQ
+   and by Jacobi CG (1%) and ``tikhonov`` on 64 right-hand sides (float64 residuals ≤ 2·rtol,
+   ``dia_stencil_t`` once an iteration); ``pagerank`` on phase 9's graph (float64 residuals);
+   ``schatten(X, 2, gram=True)`` on phase 18's X (10σ); ``filtered_eigsh`` with no ``k`` on
+   phase 17's grid (every pair of the window within 1e-4·max|λ|, its ``eigencount`` printed).
+   First pass A and the stencils are held to their plain versions at this phase's shapes.
 
 Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
 (``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
@@ -106,8 +121,8 @@ times (``backward_ms``, ``backward_plain_ms``), and the three kernels of phase 1
 launches in its forward and backward passes (``gp_forward_launches``,
 ``gp_backward_launches``), and the two stencils their complex64 numbers at phase 15's cell
 shapes under ``c64_`` keys, with ``c64_launches`` the complex launches of its calls 2-8;
-every kernel also carries its launches in phases 16, 17 and 18 (``prep_launches``,
-``eig_launches``, ``gram_launches``); the last line is ``{"ok": true, "device": {...}}``.
+every kernel also carries its launches in phases 16, 17, 18 and 19 (``prep_launches``,
+``eig_launches``, ``gram_launches``, ``recipe_launches``); the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing anything.
 """
 
@@ -180,6 +195,13 @@ TOEPLITZ_PROBES = 16
 # NUC_SIGMAS standard deviations of their difference.
 RECT = dict(m=1_048_576, n=131_072, bs=8, tiles_per_block_row=5, r=12, sigma=0.05, seed=18)
 SVD_K, BIDIAG_DEG, NUC_SIGMAS = 6, 64, 4.0
+# Phase 19: the recipes on the operators of phases 4, 9, 10, 17 and 18. REC_N is the flagship size,
+# REC_SHIFTS the GP noise sweep, REC_PAIRS the node pairs of the bilinear forms, REC_RHS the
+# right-hand sides of tikhonov, REC_BLOCK the personalisations of pagerank, REC_SHIFT the shift
+# that leaves 3 eigenvalues of separated_spectrum negative.
+REC_N, REC_SEED = N_LARGE, 19
+REC_SHIFTS, REC_LAMS, REC_PS = np.geomspace(1e-3, 1.0, 8), (0.1, 1.0, 10.0), (0.5, 1.0, 2.0)
+REC_PAIRS, REC_RHS, REC_BLOCK, REC_SHIFT, REC_RTOL = 8, 64, 8, -0.35, 1e-5
 
 
 def emit(obj) -> None:
@@ -1336,8 +1358,8 @@ def tight_binding(torch, ptt, dia, dev) -> dict:
 # --- Phases 16-18: the host loader and auto_operator, the eigensolvers, rectangular spectra ---
 
 
-def _walls(torch, fn, long_s: float = 5.0) -> tuple:
-	"""The counted call (launch and copy counts from 0) and its walls: the median of 3 synced
+def _walls(torch, fn, long_s: float = 5.0, reps: int = 3) -> tuple:
+	"""The counted call (launch and copy counts from 0) and its walls: the median of ``reps`` synced
 	calls after it as the warm-up, or the one run where it took over ``long_s`` seconds."""
 	from primate_tpu_torch.ops import _common
 
@@ -1351,7 +1373,7 @@ def _walls(torch, fn, long_s: float = 5.0) -> tuple:
 	if first > long_s:
 		return out, launches, copies, [first]
 	times = []
-	for _ in range(3):
+	for _ in range(reps):
 		t0 = time.perf_counter()
 		fn()
 		torch.cuda.synchronize()
@@ -1666,12 +1688,12 @@ def dia_scipy(op):
 	return sps.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))), shape=(n, n))
 
 
-def rectangular(torch, ptt, dev) -> dict:
+def rectangular(torch, ptt, dev) -> tuple:
 	"""Phase 18: ``examples/rectangular_spectra.py`` at scale: X = L Rᵀ + σ G (G the BSR noise
 	operator), its top singular values by ``svds``, ``rsvd`` and ``lanczos_bidiag``, ‖X‖²_F and the
 	nuclear norm by Gram quadrature, and the Gram density; the adjoint applies (G's and a DIA
 	operator's) against their plain versions, and the Gram path over that DIA operator. Returns
-	the path's launches."""
+	the path's launches, X and ‖X‖²_F (phase 19 takes its Schatten norm)."""
 	from primate_tpu_torch.ops import _common
 
 	m, n, r, sigma = RECT["m"], RECT["n"], RECT["r"], RECT["sigma"]
@@ -1798,6 +1820,292 @@ def rectangular(torch, ptt, dev) -> dict:
 		if _common.LAUNCHES["bsr_spmm"] != 1:
 			raise AssertionError(f"{label} launched bsr_spmm {_common.LAUNCHES['bsr_spmm']} times, expected 1")
 	emit({"phase": "rect", "call": "launches", "launches": total, "bsr_both_directions": True})
+	return total, X, fro2
+
+
+# --- Phase 19: the recipes ---
+
+
+def _rec_call(torch, total: dict, label: str, fn, **row):
+	"""One recipe call through :func:`_walls` (the counted call and one timed repeat, or the one run
+	over 5 s); its launches are added to ``total``. Returns ``(out, counts, row)``."""
+	out, counts, copies, times = _walls(torch, fn, reps=1)
+	_add(total, counts)
+	return out, counts, {"phase": "recipes", "call": label, **row, **_wall_keys(times), "launches": counts}
+
+
+def _rec_check(ok: bool, row: dict) -> None:
+	emit(row)
+	if not ok:
+		raise AssertionError(f"recipes: {row['call']} failed its check: {row}")
+
+
+def _rec_flagship(torch, ptt, dev, total: dict) -> None:
+	"""``logdet`` against the flagship composition (bit for bit) and the GP noise sweep by
+	``shifted_trace``, on the 10M tridiagonal at ``orth=0``: both step kernels, 20 + 20."""
+	rec = ptt.recipes
+	op = ptt.DIAOperator.from_scipy(build_laplacian(REC_N), dtype=torch.float32, device=dev)
+	kw = dict(deg=DEG, orth=ORTH, batch=PROBES, converge="count", count=PROBES, seed=REC_SEED)
+	est, counts, row = _rec_call(torch, total, "logdet_flagship", lambda: rec.logdet(op, **kw), n=REC_N)
+	same = ptt.hutch(ptt.MatrixFunction(op, "log", deg=DEG, orth=ORTH), batch=PROBES, converge="count", count=PROBES,
+		seed=REC_SEED)
+	exact = exact_logdet(REC_N)
+	row.update({"estimate": est, "composition": same, "exact": exact, "rel_err": abs(est - exact) / abs(exact)})
+	steps = (counts["lanczos_dia_step"], counts["lanczos_dia_residual"])
+	_rec_check(est == same and row["rel_err"] < 0.05 and steps == (DEG, DEG), row)
+
+	curve, counts, row = _rec_call(torch, total, "shifted_trace_flagship", lambda: rec.shifted_trace(
+		op, "log", shifts=REC_SHIFTS, **kw), n=REC_N, shifts=REC_SHIFTS.tolist())
+	lam = 3.0 - 2.0 * np.cos(np.pi * np.arange(1, REC_N + 1) / (REC_N + 1))
+	exact = np.array([np.sum(np.log(lam + t)) for t in REC_SHIFTS])
+	rel = np.abs(np.asarray(curve) - exact) / np.abs(exact)
+	row.update({"estimates": np.asarray(curve).tolist(), "exact": exact.tolist(), "rel_err": rel.tolist()})
+	steps = (counts["lanczos_dia_step"], counts["lanczos_dia_residual"])
+	_rec_check(bool(np.all(rel < 0.05)) and steps == (DEG, DEG), row)
+
+
+def _rec_mesh(torch, ptt, dev, total: dict) -> None:
+	"""The SLQ recipes at their defaults (``orth=5``: pass A and the PyTorch window, no pass B),
+	the brackets, the bilinear forms and a weighted trace on phase 10's mesh, against closed forms."""
+	from primate_tpu_torch.ops import dia
+
+	rec = ptt.recipes
+	side = MESH_SIDE
+	mu = mesh_modes(side)
+	lam = (1.0 + mu[:, None] + mu[None, :]).ravel()
+	n = lam.size
+	op = ptt.DIAOperator.from_scipy(mesh_laplacian(side), dtype=torch.float32, device=dev)
+	# Pass A at this path's shape (32 probes), against its plain version.
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(REC_SEED)
+	q_cur, q_prev = (torch.randn((32, n), generator=gen, device=dev) / np.sqrt(n) for _ in range(2))
+	beta = torch.rand(32, generator=gen, device=dev) + 0.5
+	v, alpha = dia.lanczos_dia_step(op.bands, op.offsets_t, q_cur, q_prev, beta)
+	v_ref, alpha_ref = dia.lanczos_dia_step_ref(op.bands, op.offsets_t.cpu(), q_cur, q_prev, beta)
+	errs = {"lanczos_dia_step_v": _check_plain(torch, "pass A at (32, 1M)", v, v_ref),
+		"lanczos_dia_step_alpha": _rel_err(torch, alpha, alpha_ref)[1]}
+	if not errs["lanczos_dia_step_alpha"] <= ALPHA_TOL["float32"]:
+		raise AssertionError(f"pass A's alpha at (32, 1M) is off its plain version: {errs}")
+	emit({"phase": "recipes_kernel_checks", "operator": "mesh", "max_rel_err": errs})
+	del q_cur, q_prev, v, v_ref
+
+	(est, res), counts, row = _rec_call(torch, total, "logdet_defaults", lambda: rec.logdet(op, seed=REC_SEED, full=True), n=n)
+	exact = float(np.sum(np.log(lam)))
+	row.update({"estimate": est, "exact": exact, "rel_err": abs(est - exact) / exact, "probes": res.nit})
+	batches = res.nit // 32
+	_rec_check(row["rel_err"] < 0.01 and counts["lanczos_dia_step"] == 20 * batches and counts["lanczos_dia_residual"] == 0, row)
+
+	res, counts, row = _rec_call(torch, total, "trace_bounds", lambda: rec.trace_bounds(op, "log", nv=32, seed=REC_SEED, full=True))
+	lo, hi, sd = res["lower"], res["upper"], res["mc_stderr"]
+	row.update({"lower": lo, "upper": hi, "mc_stderr": sd, "rules": res["rules"], "interval": list(res["interval"]), "exact": exact})
+	_rec_check(lo <= hi and lo - 4 * sd <= exact <= hi + 4 * sd, row)
+
+	(deg, hist), counts, row = _rec_call(torch, total, "suggest_degree", lambda: rec.suggest_degree(
+		op, "log", rtol=1e-3, seed=REC_SEED, full=True))
+	gaps = [h["gap"] for h in hist]
+	row.update({"degree": deg, "history": hist})
+	last = hist[-1]
+	stopped = last["gap"] <= 1e-3 * abs(0.5 * (last["lower"] + last["upper"])) or deg == 256
+	_rec_check(all(g2 <= g1 for g1, g2 in zip(gaps, gaps[1:])) and stopped, row)
+
+	heat, counts, row = _rec_call(torch, total, "heat_kernel_trace", lambda: rec.heat_kernel_trace(op, t=TAUS, seed=REC_SEED),
+		taus=TAUS.tolist())
+	exact_h = np.array([np.exp(-t) * np.sum(np.exp(-t * mu)) ** 2 for t in TAUS])
+	rel = np.abs(np.asarray(heat) - exact_h) / exact_h
+	row.update({"estimates": np.asarray(heat).tolist(), "exact": exact_h.tolist(), "rel_err": rel.tolist()})
+	_rec_check(bool(np.all(rel < 0.02)), row)
+
+	eff, counts, row = _rec_call(torch, total, "effective_dim", lambda: rec.effective_dim(op, lam=list(REC_LAMS), seed=REC_SEED),
+		lams=list(REC_LAMS))
+	exact_e = np.array([np.sum(lam / (lam + x)) for x in REC_LAMS])
+	rel = np.abs(np.asarray(eff) - exact_e) / exact_e
+	row.update({"estimates": np.asarray(eff).tolist(), "exact": exact_e.tolist(), "rel_err": rel.tolist()})
+	_rec_check(bool(np.all(rel < 0.01)), row)
+
+	norms, counts, row = _rec_call(torch, total, "schatten", lambda: rec.schatten(op, p=list(REC_PS), seed=REC_SEED), ps=list(REC_PS))
+	exact_s = np.array([np.sum(lam**p) ** (1.0 / p) for p in REC_PS])
+	rel = np.abs(np.asarray(norms) - exact_s) / exact_s
+	row.update({"estimates": np.asarray(norms).tolist(), "exact": exact_s.tolist(), "rel_err": rel.tolist()})
+	_rec_check(bool(np.all(rel < 0.01)), row)
+
+	count, counts, row = _rec_call(torch, total, "eigencount", lambda: rec.eigencount(op, (2.0, 3.0), seed=REC_SEED))
+	window = float(rec._memo_fun("window", 2.0, 3.0, 0.02)(torch.from_numpy(lam)).sum())
+	row.update({"count": count, "window_exact": window, "hard_count": int(np.sum((lam > 2.0) & (lam <= 3.0))),
+		"rel_err": abs(count - window) / window})
+	_rec_check(row["rel_err"] < 0.05, row)
+
+	# Entries of exp(−A/2) = e^{−1/2}·E⊗E, E = exp(−T/2) by a dense eigh of T, at seeded node pairs.
+	rng = np.random.default_rng(REC_SEED)
+	i = rng.integers(side + 2, n - side - 2, REC_PAIRS)
+	j = i + rng.choice([1, 2, side - 1, side, side + 1], REC_PAIRS)
+	lam_t, Q = np.linalg.eigh(np.diag(2.0 * np.ones(side)) - np.diag(np.ones(side - 1), 1) - np.diag(np.ones(side - 1), -1))
+	E = (Q * np.exp(-0.5 * lam_t)) @ Q.T
+	want = np.exp(-0.5) * E[i // side, j // side] * E[i % side, j % side]
+	U = torch.zeros((n, REC_PAIRS), device=dev)
+	V = torch.zeros((n, REC_PAIRS), device=dev)
+	U[torch.as_tensor(i, device=dev), torch.arange(REC_PAIRS, device=dev)] = 1.0
+	V[torch.as_tensor(j, device=dev), torch.arange(REC_PAIRS, device=dev)] = 1.0
+	got, counts, row = _rec_call(torch, total, "bilinear_form", lambda: rec.bilinear_form(op, U, V, fun="exp", fun_kwargs={"t": -0.5}))
+	err = float(np.max(np.abs(got - want)))
+	row.update({"pairs": [[int(a), int(b)] for a, b in zip(i, j)], "entries": got.tolist(), "exact": want.tolist(), "max_abs_err": err})
+	_rec_check(err <= 1e-5, row)
+	del U, V
+
+	w = torch.as_tensor(rng.uniform(0.0, 2.0, n), dtype=torch.float32, device=dev)
+	(est, res), counts, row = _rec_call(torch, total, "weighted_trace", lambda: rec.weighted_trace(op, w, seed=REC_SEED, full=True))
+	exact_w = 5.0 * float(torch.sum(w.double()))
+	sd = float(np.sqrt(res.estimator.converged_variance / res.nit))
+	row.update({"estimate": est, "exact": exact_w, "sigma": sd, "z": (est - exact_w) / sd})
+	_rec_check(abs(est - exact_w) <= 5 * sd, row)
+
+	(nv, info), counts, row = _rec_call(torch, total, "suggest_probes", lambda: rec.suggest_probes(op, "log", eps=1e-3, seed=REC_SEED,
+		full=True))
+	row.update({"nv": nv, "pilot": info["pilot"], "estimate": info["estimate"], "variance": info["variance"]})
+	_rec_check(nv >= info["pilot"], row)
+
+
+def _rec_separated(torch, ptt, dev, total: dict) -> None:
+	"""The eigenspace and solve recipes on :func:`separated_spectrum` (phase 17's; 1M rows, 7
+	diagonals): ``slogdet`` of a shifted copy with 3 negative eigenvalues, ``condition_number``,
+	``deflated_trace``, ``topk``, ``trace_inv`` by SLQ and by Jacobi-preconditioned CG, and
+	``tikhonov`` on 64 right-hand sides, against the closed-form spectrum."""
+	from primate_tpu_torch.ops import dia
+
+	rec = ptt.recipes
+	S, ew = separated_spectrum(MESH_SIDE**2, EIG_K, seed=17)
+	op = ptt.DIAOperator.from_scipy(S, dtype=torch.float32, device=dev)
+	op64 = ptt.DIAOperator(op.bands.double(), op.offsets, op.shape)
+	n = op.shape[0]
+	eig_kw = dict(tol=EIG_TOL, maxiter=EIG_SEP_MAXITER)
+	# The stencils at this path's shapes (CG's 64 and 32 probe blocks, LOBPCG's k + 2 columns).
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(REC_SEED)
+	offs = op.offsets_t.cpu()
+	errs = {}
+	for k in (REC_RHS, 32):
+		x = torch.randn((k, n), generator=gen, device=dev)
+		errs[f"dia_stencil_t_{k}x{n}"] = _check_plain(torch, f"dia_stencil_t at ({k}, {n})", dia.dia_stencil_t(op.bands, op.offsets_t, x),
+			dia.dia_stencil_t_ref(op.bands, offs, x))
+	x = torch.randn((n, EIG_K + 2), generator=gen, device=dev)
+	errs[f"dia_stencil_{n}x{EIG_K + 2}"] = _check_plain(torch, f"dia_stencil at ({n}, {EIG_K + 2})", dia.dia_stencil(op.bands, op.offsets_t, x),
+		dia.dia_stencil_ref(op.bands, offs, x))
+	emit({"phase": "recipes_kernel_checks", "operator": "separated", "max_rel_err": errs})
+	del x
+
+	shifted = op + REC_SHIFT
+	((sign, logabs), res), counts, row = _rec_call(torch, total, "slogdet", lambda: rec.slogdet(
+		shifted, batch=64, converge="count", count=512, seed=REC_SEED, full=True), shift=REC_SHIFT)
+	exact = float(np.sum(np.log(np.abs(ew + REC_SHIFT))))
+	row.update({"sign": sign, "n_negative": res.info["n_negative"], "logabsdet": logabs, "exact": exact,
+		"rel_err": abs(logabs - exact) / abs(exact)})
+	_rec_check(sign == -1.0 and res.info["n_negative"] == 3 and row["rel_err"] < 0.01, row)
+
+	kappa, counts, row = _rec_call(torch, total, "condition_number", lambda: rec.condition_number(op, seed=REC_SEED, **eig_kw))
+	row.update({"kappa": kappa, "exact": ew[-1] / ew[0], "rel_err": abs(kappa - ew[-1] / ew[0]) / (ew[-1] / ew[0])})
+	_rec_check(row["rel_err"] <= 1e-4 and counts["dia_stencil"] >= 1, row)
+
+	est, counts, row = _rec_call(torch, total, "deflated_trace", lambda: rec.deflated_trace(op, "log", k=EIG_K, which="LA",
+		seed=REC_SEED, eigsh_kwargs=eig_kw))
+	exact = float(np.sum(np.log(ew)))
+	row.update({"estimate": est, "exact": exact, "rel_err": abs(est - exact) / abs(exact)})
+	_rec_check(row["rel_err"] < 0.005 and counts["dia_stencil"] >= 1, row)
+
+	(P, w, Vk), counts, row = _rec_call(torch, total, "topk", lambda: rec.topk(op, k=EIG_K, which="LA", return_eigenvectors=True,
+		seed=REC_SEED, **eig_kw))
+	top = np.sort(10.0 - 0.25 * np.arange(EIG_K))
+	w_err = float(np.max(np.abs(np.sort(w.double().cpu().numpy()) - top)))
+	proj_err = float(torch.linalg.matrix_norm(P.matmat(Vk) - Vk))
+	row.update({"eigenvalues": np.sort(w.double().cpu().numpy()).tolist(), "max_err": w_err, "projector_err": proj_err})
+	_rec_check(w_err <= 1e-4 and proj_err <= 1e-4, row)
+	del P, Vk
+
+	exact = float(np.sum(1.0 / ew))
+	for label, kw in (("trace_inv_slq", {}), ("trace_inv_cg_jacobi", dict(method="cg", precond="jacobi", rtol=REC_RTOL))):
+		est, counts, row = _rec_call(torch, total, label, lambda: rec.trace_inv(op, seed=REC_SEED, **kw))
+		row.update({"estimate": est, "exact": exact, "rel_err": abs(est - exact) / exact})
+		need = "dia_stencil_t" if kw else "lanczos_dia_step"
+		_rec_check(row["rel_err"] < 0.01 and counts[need] >= 1, row)
+
+	B = torch.randn((REC_RHS, n), generator=gen, device=dev).T  # probe-major right-hand sides
+	(X, it, _), counts, row = _rec_call(torch, total, "tikhonov", lambda: rec.tikhonov(op, B, lam=0.5, rtol=REC_RTOL, full=True),
+		rhs=REC_RHS, rtol=REC_RTOL)
+	X64, B64 = X.double(), B.double()
+	rel = (torch.linalg.vector_norm(B64 - op64.matmat(X64.contiguous()) - 0.5 * X64, dim=0)
+		/ torch.linalg.vector_norm(B64, dim=0)).cpu().numpy()
+	row.update({"iterations": int(it), "max_rel_residual": float(rel.max())})
+	_rec_check(bool(np.all(rel <= 2 * REC_RTOL)) and counts["dia_stencil_t"] == int(it), row)
+
+
+def _rec_graph(torch, ptt, dev, total: dict) -> None:
+	"""``pagerank`` on phase 9's graph: its symmetric normalised adjacency as CSR (cuSPARSE), the
+	uniform personalisation and a seeded block of 8, each residual checked in float64."""
+	import scipy.sparse as sps
+
+	L = _powerlaw(PL_N)
+	W = (sps.diags(L.diagonal()) - L).tocsr()
+	W.eliminate_zeros()
+	d = np.asarray(W.sum(axis=1)).ravel()
+	dinv = sps.diags(1.0 / np.sqrt(np.where(d > 0, d, 1.0)))
+	A64 = (dinv @ W @ dinv).tocsr()
+	op = ptt.CSROperator.from_scipy(A64, dtype=torch.float32, device=dev)
+	alpha = 0.85
+	rng = np.random.default_rng(REC_SEED)
+	for label, v in (("pagerank_uniform", None), ("pagerank_block", rng.uniform(0.0, 1.0, (PL_N, REC_BLOCK)))):
+		vt = None if v is None else torch.as_tensor(v, dtype=torch.float32, device=dev)
+		x, counts, row = _rec_call(torch, total, label, lambda: ptt.recipes.pagerank(op, alpha=alpha, v=vt, rtol=REC_RTOL),
+			n=PL_N, nnz=int(A64.nnz))
+		x64 = x.double().cpu().numpy()
+		v64 = np.full(PL_N, 1.0 / PL_N) if v is None else np.asarray(vt.double().cpu())
+		r = (x64 - alpha * (A64 @ x64)) / (1.0 - alpha) - v64
+		rel = np.linalg.norm(r, axis=0) / np.linalg.norm(v64, axis=0)
+		row.update({"max_rel_residual": float(np.max(rel))})
+		_rec_check(bool(np.all(rel <= 2 * REC_RTOL)), row)
+
+
+def recipes_phase(torch, ptt, dev, X, fro2: float) -> dict:
+	"""Phase 19: the recipes at full width, each call timed and its launches counted, against closed
+	forms: on the 10M tridiagonal, phase 10's mesh, ``separated_spectrum``, phase 9's graph, phase
+	18's X (its Schatten-2 norm through the Gram operator) and phase 17's grid (``filtered_eigsh``
+	with no ``k``). Returns the launches of the whole phase."""
+	from primate_tpu_torch import eigen
+
+	total = {}
+	_rec_flagship(torch, ptt, dev, total)
+	torch.cuda.empty_cache()
+	_rec_mesh(torch, ptt, dev, total)
+	torch.cuda.empty_cache()
+	_rec_separated(torch, ptt, dev, total)
+	torch.cuda.empty_cache()
+	_rec_graph(torch, ptt, dev, total)
+	torch.cuda.empty_cache()
+
+	(s2, res), counts, row = _rec_call(torch, total, "schatten_gram", lambda: ptt.recipes.schatten(
+		X, p=2, gram=True, batch=16, converge="count", count=16, seed=REC_SEED, full=True))
+	sd = float(np.sqrt(res.estimator.converged_variance / res.nit))
+	row.update({"norm": s2, "norm_squared": s2**2, "exact": fro2, "sigma": sd, "z": (s2**2 - fro2) / sd})
+	_rec_check(abs(s2**2 - fro2) <= 10 * sd and counts["bsr_spmm"] >= 2 * 20, row)
+
+	# filtered_eigsh with no k: the slice counted by recipes.eigencount at its defaults.
+	G, lam = grid_laplacian(*FE_GRID)
+	gop = ptt.DIAOperator.from_scipy(G, dtype=torch.float32, device=dev)
+	lo, hi = ptt.operators.gershgorin_interval(gop)
+	a, b = 0.0, float(0.5 * (lam[FE_COUNT - 1] + lam[FE_COUNT]))
+	deg = int(np.ceil(2.0 * (hi - lo) / (b - a)))
+	count = ptt.recipes.eigencount(gop, (max(a, lo), b), seed=REC_SEED)
+	window = float(ptt.recipes._memo_fun("window", max(a, lo), b, 0.02 * (b - max(a, lo)))(torch.from_numpy(lam)).sum())
+	(w, V), counts, row = _rec_call(torch, total, "filtered_eigsh_uncounted", lambda: ptt.filtered_eigsh(
+		gop, (a, b), deg=deg, spectral_interval=(lo, hi), seed=REC_SEED), grid=list(FE_GRID), window=[a, b], deg=deg)
+	w_np = np.sort(w.double().cpu().numpy())
+	inside = lam[(lam > a) & (lam <= b)]
+	err = float(np.max(np.abs(w_np - inside))) if w_np.size == inside.size else float("inf")
+	row.update({"eigencount": count, "window_exact": window, "closed_form_count": int(inside.size), "found": int(w_np.size),
+		"max_err": err, "iterations": eigen.ITERATIONS["filtered_eigsh"]})
+	_rec_check(w_np.size == inside.size and err <= 1e-4 * float(lam[-1]) and counts["dia_stencil_t"] >= 1, row)
+
+	emit({"phase": "recipes", "call": "launches", "launches": total})
+	for k in KERNELS:
+		if total.get(k, 0) < 1:
+			raise AssertionError(f"{k} launched no time in phase 19: {total}")
 	return total
 
 
@@ -1854,11 +2162,16 @@ def main() -> None:
 	torch.cuda.empty_cache()
 	eig = eigensolvers(torch, ptt, dev)
 	torch.cuda.empty_cache()
-	gram = rectangular(torch, ptt, dev)
+	gram, X, fro2 = rectangular(torch, ptt, dev)
 	for k in KERNELS:
 		kernels[k].update({"prep_launches": prep.get(k, 0), "eig_launches": eig.get(k, 0), "gram_launches": gram.get(k, 0)})
 		if kernels[k]["prep_launches"] + kernels[k]["eig_launches"] + kernels[k]["gram_launches"] < 1:
 			raise AssertionError(f"{k} launched no time in phases 16-18")
+	torch.cuda.empty_cache()
+	rec = recipes_phase(torch, ptt, dev, X, fro2)
+	del X
+	for k in KERNELS:
+		kernels[k]["recipe_launches"] = rec[k]
 
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],

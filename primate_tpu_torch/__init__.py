@@ -45,6 +45,12 @@ differentiable spectral sums (autograd through the CUDA kernels)::
     nll = 0.5 * (autodiff.logdet(K, nv=128, chunk=64) + y @ solve(K, y) + n * log(2 pi))
     nll.backward()                                           # theta.grad
 
+and the recipes the reference documents as compositions (``recipes``)::
+
+    recipes.logdet(L); recipes.trace_inv(L, method="cg", precond="jacobi")
+    recipes.trace_bounds(L, "log"); recipes.suggest_degree(L, "log", rtol=1e-3)
+    recipes.shifted_trace(K, "log", shifts=sigmas**2); filtered_eigsh(L, (a, b))
+
 Every constructor and entry point that takes a ``device`` puts its tensors on
 the card (``"cuda"``) unless the caller passes ``device="cpu"``; without a card
 that default raises as torch does. A dense numpy or scipy matrix becomes an
@@ -56,7 +62,7 @@ tensors their plain PyTorch versions run. The CSR apply is cuSPARSE's SpMM
 through ``torch.sparse``. This package imports neither ``jax`` nor ``primate_tpu``.
 """
 
-from . import autodiff, block_krylov, eigen, kpm, native
+from . import autodiff, block_krylov, eigen, kpm, native, recipes, utils
 from .autodiff import spectral_sum
 from .bidiag import lanczos_bidiag
 from .block_krylov import block_lanczos, block_quadrature, block_slq_trace
@@ -67,6 +73,7 @@ from .convert import (
 	csr_from_numpy,
 	dia_from_numpy,
 	diag_precond_from_numpy,
+	mean_state_from_numpy,
 	nystrom_from_numpy,
 )
 from .density import cumulative_spectral_density, spectral_density, spectral_quantile
@@ -186,6 +193,7 @@ __all__ = [
 	"csr_from_numpy",
 	"coo_from_numpy",
 	"cov_state_from_numpy",
+	"mean_state_from_numpy",
 	"nystrom_from_numpy",
 	"diag_precond_from_numpy",
 	"ConvergenceCriterion",
@@ -207,4 +215,6 @@ __all__ = [
 	"block_krylov",
 	"eigen",
 	"native",
+	"recipes",
+	"utils",
 ]

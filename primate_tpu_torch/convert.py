@@ -9,6 +9,8 @@ their tensors on the card unless the caller passes ``device="cpu"``::
     op = csr_from_numpy(np.asarray(jax_op.data), np.asarray(jax_op.indices), np.asarray(jax_op.indptr), jax_op.shape)
     op = coo_from_numpy(np.asarray(jax_op.data), np.asarray(jax_op.row), np.asarray(jax_op.col), jax_op.shape)
     st = cov_state_from_numpy(int(s.n), np.asarray(s.mu), np.asarray(s.S), device="cpu")
+    ms = mean_state_from_numpy(int(m.n), np.asarray(m.mu), device="cpu")
+    ms = mean_state_from_numpy(ckpt["state"]["n"], ckpt["state"]["mean"])   # a JAX EstimatorCheckpoint's payload
     pre = nystrom_from_numpy(np.asarray(jax_pre.U), np.asarray(jax_pre.coef))
     pre = diag_precond_from_numpy(np.asarray(jax_pre.inv_diag))
 """
@@ -18,10 +20,10 @@ import torch
 
 from .operators.sparse import BSROperator, COOOperator, CSROperator, DIAOperator
 from .solvers import DiagPreconditioner, NystromPreconditioner
-from .stats import CovState
+from .stats import CovState, MeanState
 
 __all__ = [
-	"dia_from_numpy", "bsr_from_numpy", "csr_from_numpy", "coo_from_numpy", "cov_state_from_numpy",
+	"dia_from_numpy", "bsr_from_numpy", "csr_from_numpy", "coo_from_numpy", "cov_state_from_numpy", "mean_state_from_numpy",
 	"nystrom_from_numpy", "diag_precond_from_numpy",
 ]
 
@@ -53,6 +55,11 @@ def cov_state_from_numpy(n, mu, S, *, device="cuda", dtype=None) -> CovState:
 		mu=torch.tensor(np.asarray(mu), dtype=dtype, device=device),
 		S=torch.tensor(np.asarray(S), dtype=dtype, device=device),
 	)
+
+
+def mean_state_from_numpy(n, mu, *, device="cuda", dtype=None) -> MeanState:
+	"""A Welford :class:`MeanState` from a JAX ``MeanState``'s ``n`` and ``mu (dim,)``."""
+	return MeanState(n=int(np.asarray(n)), mu=torch.tensor(np.atleast_1d(np.asarray(mu)), dtype=dtype, device=device))
 
 
 def nystrom_from_numpy(U, coef, *, device="cuda", dtype=None) -> NystromPreconditioner:

@@ -470,8 +470,8 @@ def filtered_eigsh(
 	``max(1e-6, √eps)``), on a stall (four iterations with no new converged pair and no 10%
 	gain), or when the slice fills the subspace (then it grows by fresh directions). Pairs
 	inside with residuals above ``10·tol`` are dropped with a warning. ``k``, the expected
-	count, must be given: its default, ``recipes.eigencount``, is not ported.
-	``spectral_interval`` defaults to a Rayleigh-Ritz bracket.
+	count, defaults to :func:`~primate_tpu_torch.recipes.eigencount` of the slice (seeded by
+	``seed``, at its defaults), at least 1. ``spectral_interval`` defaults to a Rayleigh-Ritz bracket.
 	"""
 	from .kpm import ChebyshevFunction, _spectral_interval
 	from .special import smoothstep
@@ -482,8 +482,6 @@ def filtered_eigsh(
 	a, b = float(interval[0]), float(interval[1])
 	if not a < b:
 		raise ValueError(f"interval must satisfy a < b; got {interval}")
-	if k is None:
-		raise NotImplementedError("filtered_eigsh(k=None) counts the slice with recipes.eigencount, which is not ported yet (ROADMAP A.10): pass k")
 	lmin, lmax = spectral_interval if spectral_interval is not None else _spectral_interval(op, seed)
 	a, b = max(a, lmin), min(b, lmax)
 	if a >= b:
@@ -496,6 +494,10 @@ def filtered_eigsh(
 	f_dtype = torch.promote_types(op.dtype, torch.float32)
 	r_dtype = real_dtype(f_dtype)
 	tol = max(1e-6, float(np.sqrt(torch.finfo(r_dtype).eps))) if tol is None else float(tol)
+	if k is None:
+		from .recipes import eigencount
+
+		k = max(int(eigencount(op, (a, b), seed=seed)), 1)
 	k = int(min(k, n))
 	if k <= 0:
 		raise ValueError(f"k must be positive; got k={k}")

@@ -529,21 +529,25 @@ def quad_form(A: Any, V: torch.Tensor) -> torch.Tensor:
 
 
 class DeflatedOperator(LinearOperator):
-	"""Projected operator ``P A P`` with ``P = I − VVᵀ``
-	(``primate_tpu/operators/base.py:431-484`` with its default ``fill=0``).
+	"""Projected operator ``P A P + fill·VVᴴ`` with ``P = I − VVᴴ``
+	(``primate_tpu/operators/base.py:431-484``).
 
-	``V (n, k)`` has orthonormal columns. ``tr(A) = tr(VᵀAV) + tr(P A P)`` for any
-	such ``V``, which is how adaptive Hutch++ spends its residual probes. The
-	projections are skinny GEMMs in full float32 (TF32 off): a truncated
-	projection leaks the deflated directions back.
+	``V (n, k)`` has orthonormal columns, typically extremal eigenvectors. ``tr(A) =
+	tr(VᴴAV) + tr(P A P)`` for any such ``V``, which is how adaptive Hutch++ spends its
+	residual probes; ``fill`` re-fills the deflated directions with a benign eigenvalue
+	(1 for log and inv, 0 for the trace), so that ``spec = {fill}×k ∪ (spec(A) ∖ deflated)``
+	when ``V`` is ``A``-invariant (:func:`~primate_tpu_torch.recipes.deflated_trace`). The
+	projections and the fill term are skinny GEMMs in full float32 (TF32 off): a truncated
+	projection leaks the deflated directions back. ``fill=0`` applies no fill term.
 	"""
 
-	def __init__(self, A, V: torch.Tensor):
+	def __init__(self, A, V: torch.Tensor, fill: float = 0.0):
 		self.A = aslinop(A)
 		self.shape, self.dtype, self.device = self.A.shape, self.A.dtype, self.A.device
 		self.V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
 		if self.V.ndim != 2 or self.V.shape[0] != self.shape[0]:
 			raise ValueError("V must be (n, k).")
+		self.fill = fill
 
 	def float_tensors(self) -> tuple:
 		return float_tensors_of(self.A, self.V)
@@ -554,5 +558,7 @@ class DeflatedOperator(LinearOperator):
 	def _matmat(self, W: torch.Tensor) -> torch.Tensor:
 		W = torch.as_tensor(W, dtype=self.dtype, device=self.device)
 		with full_f32_matmul():
-			AP = self.A.matmat(W - self.V @ self._vh(W))
-			return AP - self.V @ self._vh(AP)
+			C = self._vh(W)
+			AP = self.A.matmat(W - self.V @ C)
+			out = AP - self.V @ self._vh(AP)
+			return out + self.fill * (self.V @ C) if self.fill != 0 else out

@@ -14,8 +14,11 @@ sides; and its phase 15 on the 4M-site Hofstadter model (complex64 DIA): the KPM
 density of states, the β sweep of ``tr e^{−βH}`` and the local density of states; and the
 calls of its phases 17 and 18: LOBPCG and thick-restart ``eigsh`` and ``block_slq_trace`` on
 the mesh, ``filtered_eigsh`` on the grid Laplacian, ``svds`` and the nuclear norm (the
-``AAᵀ`` Gram side) of the rectangular data operator.
-Prints one JSON line per call: the
+``AAᵀ`` Gram side) of the rectangular data operator; and three recipes of its phase 19 at their
+defaults: ``recipes.logdet`` (``orth=5``: pass A and the PyTorch re-orthogonalisation window) and
+``recipes.trace_bounds`` (full re-orthogonalisation) on the mesh, and
+``recipes.trace_inv(method="cg", precond="jacobi")`` on ``separated_spectrum``
+(``--recipes`` traces these three alone). Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
 count); writes them all to ``--out``. Needs a CUDA device; without one it exits
@@ -57,6 +60,7 @@ def trace(torch, fn, top: int = 8) -> dict:
 def main() -> None:
 	ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 	ap.add_argument("--out", default="profile_port.json")
+	ap.add_argument("--recipes", action="store_true", help="trace the phase-19 recipes only")
 	args = ap.parse_args()
 	import torch
 
@@ -64,9 +68,33 @@ def main() -> None:
 		sys.exit("profile_port: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
 	import chip_smoke as cs
 	import primate_tpu_torch as ptt
-	from benchmarks.matrices import block_random_spd
 
 	dev = torch.device("cuda", 0)
+	rows = [] if args.recipes else other_calls(torch, ptt, cs, dev)
+	mesh = ptt.DIAOperator.from_scipy(cs.mesh_laplacian(cs.MESH_SIDE), dtype=torch.float32, device=dev)
+	sep, _ = cs.separated_spectrum(cs.MESH_SIDE**2, cs.EIG_K, seed=17)
+	sop = ptt.DIAOperator.from_scipy(sep, dtype=torch.float32, device=dev)
+	rec = ptt.recipes
+	calls = {  # chip_smoke.py phase 19
+		"recipe_logdet_mesh": lambda: rec.logdet(mesh, seed=cs.REC_SEED),
+		"recipe_trace_bounds_mesh": lambda: rec.trace_bounds(mesh, "log", nv=32, seed=cs.REC_SEED),
+		"recipe_trace_inv_cg_jacobi": lambda: rec.trace_inv(sop, method="cg", precond="jacobi", rtol=cs.REC_RTOL, seed=cs.REC_SEED),
+	}
+	for name, fn in calls.items():
+		row = {"call": name, **trace(torch, fn)}
+		print(json.dumps(row), flush=True)
+		rows.append(row)
+	smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+		capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+	with open(args.out, "w") as f:
+		json.dump({"device": smi, "torch": torch.__version__, "calls": rows}, f, indent=1)
+	print(smi, flush=True)
+
+
+def other_calls(torch, ptt, cs, dev) -> list:
+	"""The traces of phases 3-18's calls, printed as they are taken; returns their rows."""
+	from benchmarks.matrices import block_random_spd
+
 	rows = []
 	for n in (cs.N_FLAGSHIP, cs.N_LARGE):
 		op = ptt.DIAOperator.from_scipy(cs.build_laplacian(n), dtype=torch.float32, device=dev)
@@ -182,11 +210,7 @@ def main() -> None:
 		row = {"call": name, **trace(torch, fn)}
 		print(json.dumps(row), flush=True)
 		rows.append(row)
-	smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-		capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-	with open(args.out, "w") as f:
-		json.dump({"device": smi, "torch": torch.__version__, "calls": rows}, f, indent=1)
-	print(smi, flush=True)
+	return rows
 
 
 if __name__ == "__main__":

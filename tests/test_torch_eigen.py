@@ -329,9 +329,31 @@ def test_filtered_eigsh_empty_unresolvable_and_uncounted():
 	with pytest.warns(UserWarning, match="resolution"):
 		w, _ = ptt.filtered_eigsh(op, (3.0, 3.001), k=1, deg=40, spectral_interval=(0.0, 8.0))
 	assert tuple(w.shape) == (0,)
-	with pytest.raises(NotImplementedError, match="A.10"):
-		ptt.filtered_eigsh(op, window)
+	# Uncounted: k from recipes.eigencount of the slice.
+	w, V = ptt.filtered_eigsh(op, window, spectral_interval=(0.0, 8.0), seed=3)
+	np.testing.assert_allclose(_np(w), inside, atol=1e-6)
 	with warnings.catch_warnings():
 		warnings.simplefilter("error")
 		w, _ = ptt.filtered_eigsh(op, (2.0, 2.2), k=len(lam[(lam >= 2.0) & (lam <= 2.2)]), spectral_interval=(0.0, 8.0), seed=0)
 	np.testing.assert_allclose(_np(w), lam[(lam >= 2.0) & (lam <= 2.2)], atol=1e-6)
+
+
+def test_filtered_eigsh_counts_the_slice_when_k_is_none():
+	"""``k=None``: the count comes from ``recipes.eigencount`` (seeded by ``seed``); every pair
+	of the window against dense ``eigh``, on a 20 × 16 grid."""
+	from primate_tpu_torch import recipes
+
+	L, lam = _grid(20, 16)
+	op = ptt.DIAOperator.from_scipy(L, dtype=torch.float64, device="cpu")
+	window = (0.5, 1.5)
+	inside = lam[(lam > window[0]) & (lam <= window[1])]
+	count = recipes.eigencount(op, window, seed=5)
+	assert abs(count - inside.size) <= 0.25 * inside.size
+	w, V = ptt.filtered_eigsh(op, window, spectral_interval=(0.0, 8.0), seed=5)
+	np.testing.assert_allclose(_np(w), inside, atol=1e-6)
+	dense = np.linalg.eigh(L.toarray())
+	sel = (dense[0] > window[0]) & (dense[0] <= window[1])
+	np.testing.assert_allclose(_np(w), dense[0][sel], atol=1e-6)
+	U, Vn = dense[1][:, sel], _np(V) / np.linalg.norm(_np(V), axis=0)
+	# The same invariant subspace, to the default residual tolerance (1e-6 relative) over the gaps.
+	assert np.linalg.norm(Vn @ Vn.T - U @ U.T) < 1e-4

@@ -36,20 +36,17 @@ def _hermitian_op():
 	return torch.from_numpy(np.array(pt.hermitian(8, ew=np.linspace(0.5, 1.5, 8), seed=1)))
 
 
-@pytest.mark.parametrize("branch", ["filtered_eigsh_k_none", "complex_hutch", "complex_sketch", "complex_diag", "complex_kpm_trace",
+@pytest.mark.parametrize("branch", ["complex_hutch", "complex_sketch", "complex_diag", "complex_kpm_trace",
 	"complex_bsr_on_the_card", "complex_step_kernels_on_the_card"])
 def test_each_unported_branch_raises(branch):
 	"""Name by name, a branch of the JAX package that the port has not taken raises
-	``NotImplementedError``: ``filtered_eigsh`` without ``k``, which counts the slice with
-	``recipes.eigencount`` (ROADMAP A.10), ``differentiable=True`` on a
-	Hermitian operator, and the complex BSR and Lanczos-step kernels (ROADMAP B.7; the
+	``NotImplementedError``: ``differentiable=True`` on a Hermitian operator, and the complex BSR and Lanczos-step kernels (ROADMAP B.7; the
 	dtype rule the wrappers apply to a CUDA tensor, checked here without a card)."""
 	import torch
 
 	from primate_tpu_torch.ops._common import check_cuda
 
 	calls = {
-		"filtered_eigsh_k_none": lambda: ptt.filtered_eigsh(_hermitian_op(), (0.8, 1.2), spectral_interval=(0.0, 2.0)),
 		"complex_hutch": lambda: ptt.hutch(_hermitian_op(), converge="count", count=4, differentiable=True),
 		"complex_sketch": lambda: ptt.hutchpp(_hermitian_op(), m=3, differentiable=True),
 		"complex_diag": lambda: ptt.diag(_hermitian_op(), converge="count", count=2, differentiable=True),
@@ -62,3 +59,20 @@ def test_each_unported_branch_raises(branch):
 	# The two DIA stencils take complex tensors on the card.
 	check_cuda("dia_stencil_t", torch.complex64, torch.device("cuda", 0), complex_ok=True)
 
+
+
+def _public_functions(module) -> set:
+	return {n for n, v in vars(module).items() if not n.startswith("_") and callable(v) and getattr(v, "__module__", None) == module.__name__}
+
+
+@pytest.mark.parametrize("module", ["recipes", "stats", "utils.checkpoint", "utils.profiling", "utils.kwargs"])
+def test_module_names_match_jax(module):
+	"""``recipes`` and ``stats`` by ``__all__``, the three ``utils`` modules by their public functions and classes."""
+	import importlib
+
+	jmod = importlib.import_module(f"primate_tpu.{module}")
+	tmod = importlib.import_module(f"primate_tpu_torch.{module}")
+	if hasattr(jmod, "__all__"):
+		assert set(tmod.__all__) == set(jmod.__all__)
+	assert _public_functions(tmod) == _public_functions(jmod)
+	assert set(ptt.recipes.__all__) <= set(dir(ptt.recipes)) and ptt.utils.checkpoint is importlib.import_module("primate_tpu_torch.utils.checkpoint")
