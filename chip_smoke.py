@@ -101,7 +101,22 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    ``dia_stencil_t`` once an iteration); ``pagerank`` on phase 9's graph (float64 residuals);
    ``schatten(X, 2, gram=True)`` on phase 18's X (10σ); ``filtered_eigsh`` with no ``k`` on
    phase 17's grid (every pair of the window within 1e-4·max|λ|, its ``eigencount`` printed).
-   First pass A and the stencils are held to their plain versions at this phase's shapes.
+   First pass A and the stencils are held to their plain versions at this phase's shapes;
+20. differentiates through the Lanczos recurrence on phase 10's mesh (n = 1,000,000, 5 diagonals,
+   float32): ``F = Σ W∘MatrixFunction(L, exp(−x), deg=20, orth=0).matmat(V)`` for V, W of 64 probes
+   (two sweeps), F at ``orth=5`` on 16 probes and ``Σ diag(MatrixFunction(L, "log"),
+   differentiable=True)`` (4 × 16 probes), each with respect to the bands: its directional
+   derivative along a seeded direction within 1e-4 of a float64 central difference, F's float32
+   gradient within 1e-3 of its float64 one, ``dia_stencil_t`` once a step forward and once a step
+   but the first backward, no step kernel; walls and peak memory. Then F through a BSR operator
+   (``bsr_spmm`` forward and on the transposed tiles backward), held the same way;
+21. runs Hutchinson (phase probes, within 5σ of tr H) and phase 7's sketches (within 1e-3) on
+   H = A + i·s(B − Bᵀ), phase 7's cell A with a seeded real block operator B on its pattern, as a
+   complex64 BSR operator (tr H = tr A), through the complex ``bsr_spmm``; its adjoint against the
+   conjugate transpose; the complex64 kernel against its plain version at k = 64 and 240, timed
+   beside its bound, plain version and library call, and complex128 at a small shape;
+22. runs the five port examples (``primate_tpu_torch.examples``) at their own sizes, each with its
+   checks against closed forms or a dense reference.
 
 Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
 (``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
@@ -121,8 +136,11 @@ times (``backward_ms``, ``backward_plain_ms``), and the three kernels of phase 1
 launches in its forward and backward passes (``gp_forward_launches``,
 ``gp_backward_launches``), and the two stencils their complex64 numbers at phase 15's cell
 shapes under ``c64_`` keys, with ``c64_launches`` the complex launches of its calls 2-8;
-every kernel also carries its launches in phases 16, 17, 18 and 19 (``prep_launches``,
-``eig_launches``, ``gram_launches``, ``recipe_launches``); the last line is ``{"ok": true, "device": {...}}``.
+every kernel also carries its launches in phases 16, 17, 18, 19 and 22 (``prep_launches``,
+``eig_launches``, ``gram_launches``, ``recipe_launches``, ``example_launches``); ``dia_stencil_t``
+and ``bsr_spmm`` their forward and backward launches in phase 20 (``grad_launches``), and
+``bsr_spmm`` its complex64 numbers at phase 21's cell under ``c64_`` keys, with ``c64_launches`` its
+launches in phase 21's estimator calls; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing anything.
 """
 
@@ -202,10 +220,32 @@ SVD_K, BIDIAG_DEG, NUC_SIGMAS = 6, 64, 4.0
 REC_N, REC_SEED = N_LARGE, 19
 REC_SHIFTS, REC_LAMS, REC_PS = np.geomspace(1e-3, 1.0, 8), (0.1, 1.0, 10.0), (0.5, 1.0, 2.0)
 REC_PAIRS, REC_RHS, REC_BLOCK, REC_SHIFT, REC_RTOL = 8, 64, 8, -0.35, 1e-5
+# Phase 20: reverse mode through the Lanczos recurrence on phase 10's mesh (float32, 64 probes, deg 20;
+# the orth=5 call on 16 probes); the directional derivative against a float64 central difference of
+# step GRAD_H along a unit-max direction, within GRAD_DD_TOL (relative), and the float32 gradient
+# against the float64 one (computed in two chunks of 32 probes) within GRAD_F64_TOL of its largest
+# entry. Then a BSR operator of GRAD_BSR's size (block_random_spd with about 10 tiles a block row, as
+# the cell has), 16 probes, deg 12.
+GRAD = dict(deg=20, probes=64, orth5_probes=16, seed=20, diag_count=4, diag_batch=16)
+GRAD_H, GRAD_DD_TOL, GRAD_F64_TOL = 1e-3, 1e-4, 1e-3
+GRAD_BSR = dict(n=131_072, bs=8, density=2.8e-4, seed=20)
+# Phase 21: H = A + i·s·(B − Bᵀ) on phase 7's cell (B a seeded real block operator on A's pattern;
+# s‖B − Bᵀ‖ stays below A's diagonal dominance, so H is Hermitian positive definite, tr H = tr A).
+CBSR_S, CBSR_SEED, CBSR_C128_N = 0.01, 21, 8192
+# The complex64 kernel against its plain version at the cell: the real float32 kernel's tolerance
+# (max-abs error over max|out|), as each output sums the same 80-odd tile products in another order.
+CBSR_TOL = STENCIL_TOL["float32"]
+
+
+def _json_default(o):
+	"""numpy scalars and arrays in a result (an example's numbers) as Python numbers and lists."""
+	if isinstance(o, (np.generic, np.ndarray)):
+		return o.tolist()
+	raise TypeError(f"{type(o).__name__} is not JSON serializable")
 
 
 def emit(obj) -> None:
-	print(json.dumps(obj), flush=True)
+	print(json.dumps(obj, default=_json_default), flush=True)
 
 
 def build_laplacian(n: int):
@@ -218,18 +258,12 @@ def build_laplacian(n: int):
 
 
 def hofstadter_csr(nx: int, ny: int, alpha: float):
-	"""The periodic square-lattice Hofstadter Hamiltonian of ``examples/tight_binding.py``
-	(``hofstadter_hamiltonian``), vectorised: site ``i = x·ny + y``; x-hops −1, y-hops
-	``H[i, j] = −e^{2πiαx}`` and its conjugate; scipy CSR, complex128."""
-	import scipy.sparse as sps
+	"""The periodic square-lattice Hofstadter Hamiltonian of the tight-binding example: site
+	``i = x·ny + y``, x-hops −1, y-hops ``−e^{2πiαx}`` and its conjugate; scipy CSR, complex128
+	(``primate_tpu_torch.examples.tight_binding.hofstadter_hamiltonian``)."""
+	from primate_tpu_torch.examples.tight_binding import hofstadter_hamiltonian
 
-	n = nx * ny
-	x, y = np.repeat(np.arange(nx), ny), np.tile(np.arange(ny), nx)
-	i, jx, jy = x * ny + y, (x + 1) % nx * ny + y, x * ny + (y + 1) % ny
-	t = -np.exp(2j * np.pi * alpha * x)
-	rows, cols = np.concatenate([i, jx, i, jy]), np.concatenate([jx, i, jy, i])
-	vals = np.concatenate([-np.ones(2 * n), t, np.conj(t)])
-	return sps.csr_matrix((vals, (rows, cols)), shape=(n, n), dtype=np.complex128)
+	return hofstadter_hamiltonian(nx, ny, alpha)
 
 
 def exact_logdet(n: int) -> float:
@@ -1463,17 +1497,11 @@ def host_prep(torch, ptt, dev) -> dict:
 
 
 def grid_laplacian(nx: int, ny: int):
-	"""The Dirichlet 5-point Laplacian of ``examples/spectrum_slicing.py`` (rebuilt here: that example
-	imports jax), and its eigenvalues ``4 sin²(jπ/2(nx+1)) + 4 sin²(kπ/2(ny+1))``, sorted."""
-	import scipy.sparse as sps
+	"""The Dirichlet 5-point Laplacian of the spectrum-slicing example (float32) and its eigenvalues
+	``4 sin²(jπ/2(nx+1)) + 4 sin²(kπ/2(ny+1))``, sorted (``primate_tpu_torch.examples.spectrum_slicing``)."""
+	from primate_tpu_torch.examples import spectrum_slicing as ex
 
-	ex, ey = np.ones(nx), np.ones(ny)
-	Tx = sps.diags([-ex[:-1], 2 * ex, -ex[:-1]], [-1, 0, 1])
-	Ty = sps.diags([-ey[:-1], 2 * ey, -ey[:-1]], [-1, 0, 1])
-	A = (sps.kron(sps.identity(ny), Tx) + sps.kron(Ty, sps.identity(nx))).tocsr().astype(np.float32)
-	jx, jy = np.arange(1, nx + 1), np.arange(1, ny + 1)
-	lam = (4 * np.sin(jx * np.pi / (2 * (nx + 1))) ** 2)[:, None] + (4 * np.sin(jy * np.pi / (2 * (ny + 1))) ** 2)[None, :]
-	return A, np.sort(lam.ravel())
+	return ex.grid_laplacian(nx, ny).astype(np.float32), ex.grid_eigenvalues(nx, ny)
 
 
 def _residuals(torch, op64, w, V):
@@ -2109,6 +2137,326 @@ def recipes_phase(torch, ptt, dev, X, fro2: float) -> dict:
 	return total
 
 
+def _grad_call(torch, fn) -> tuple:
+	"""``fn()`` (a scalar) and its backward, each synced and timed, with the kernel launches of each
+	and the peak memory of the pair. Returns ``(value, forward launches, backward launches, row)``."""
+	from primate_tpu_torch.ops import _common
+
+	torch.cuda.synchronize()
+	torch.cuda.empty_cache()
+	torch.cuda.reset_peak_memory_stats()
+	_common.reset_launches()
+	t0 = time.perf_counter()
+	val = fn()
+	torch.cuda.synchronize()
+	t_fwd = time.perf_counter() - t0
+	fwd = dict(_common.LAUNCHES)
+	_common.reset_launches()
+	t0 = time.perf_counter()
+	val.backward()
+	torch.cuda.synchronize()
+	t_bwd = time.perf_counter() - t0
+	bwd = dict(_common.LAUNCHES)
+	row = {"forward_s": t_fwd, "backward_s": t_bwd, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+		"forward_launches": fwd, "backward_launches": bwd}
+	return float(val.detach()), fwd, bwd, row
+
+
+def _fd64(torch, f, x64, D64) -> float:
+	"""Central difference ``(f(x + hD) − f(x − hD)) / 2h`` in float64, no gradient."""
+	with torch.no_grad():
+		return (float(f(x64 + GRAD_H * D64)) - float(f(x64 - GRAD_H * D64))) / (2 * GRAD_H)
+
+
+def lanczos_grad(torch, ptt, dev) -> dict:
+	"""Phase 20: reverse mode through the Lanczos recurrence at full width, on phase 10's mesh
+	(n = 1,000,000, 5 diagonals, float32): the gradient with respect to the bands of
+	``F = Σ W∘MatrixFunction(L, exp(−x), deg=20, orth=0).matmat(V)`` (64 probes; two-pass by the
+	1 GiB rule) and of ``Σ diag(MatrixFunction(L, "log"), differentiable=True)`` (4 × 16 probes); F
+	again at ``orth=5`` on 16 probes; each directional derivative along a seeded direction against a
+	float64 central difference, and F's float32 gradient against its float64 one. The sweeps run
+	``dia_stencil_t`` forward and on the adjoint bands backward, never a step kernel. Then the same on
+	a BSR operator (``bsr_spmm`` on the tiles forward, on the transposed tiles backward). Returns the
+	kernels' ``grad_launches``."""
+	from primate_tpu_torch.diagonal import diag_ratio
+	from primate_tpu_torch.trace import probe_sampler
+
+	A = mesh_laplacian(MESH_SIDE)
+	base = ptt.DIAOperator.from_scipy(A, dtype=torch.float32, device=dev)
+	offsets, n = base.offsets, A.shape[0]
+	bands32 = base.bands
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(GRAD["seed"])
+	V = torch.randn((n, GRAD["probes"]), generator=gen, device=dev, dtype=torch.float32)
+	W = torch.randn((n, GRAD["probes"]), generator=gen, device=dev, dtype=torch.float32)
+	D = torch.randn(bands32.shape, generator=gen, device=dev, dtype=torch.float64)
+	D = D / D.abs().max()
+	deg = GRAD["deg"]
+
+	def F(bands, orth=0, k=GRAD["probes"]):
+		op = ptt.DIAOperator(bands, offsets, (n, n))
+		dt = bands.dtype
+		Y = ptt.MatrixFunction(op, "exp", t=-1.0, deg=deg, orth=orth).matmat(V[:, :k].to(dt))
+		return torch.sum(W[:, :k].to(dt) * Y)
+
+	total = {"forward": {}, "backward": {}}
+	out = {}
+	rows = {}
+	for label, k, orth in (("matmat_orth0", GRAD["probes"], 0), ("matmat_orth5", GRAD["orth5_probes"], 5)):
+		b = bands32.clone().requires_grad_(True)
+		val, fwd, bwd, row = _grad_call(torch, lambda: F(b, orth, k))
+		g32 = b.grad.double()
+		dd32 = float(torch.sum(g32 * D))
+		fd = _fd64(torch, lambda x: F(x, orth, k), bands32.double(), D)
+		row.update({"phase": "lanczos_grad", "call": label, "n": n, "probes": k, "deg": deg, "orth": orth, "value": val,
+			"directional_derivative": dd32, "central_difference_f64": fd, "h": GRAD_H, "dd_rel_err": abs(dd32 - fd) / abs(fd),
+			"tol": GRAD_DD_TOL, "two_pass": ptt.MatrixFunction(base, "exp", deg=deg)._use_two_pass(k)})
+		if orth == 0:
+			# The float64 gradient of the same F, in two chunks of 32 probes (F is a sum over probes).
+			g64 = torch.zeros_like(g32)
+			for c0 in range(0, k, k // 2):
+				b64 = bands32.double().requires_grad_(True)
+				op64 = ptt.DIAOperator(b64, offsets, (n, n))
+				Y = ptt.MatrixFunction(op64, "exp", t=-1.0, deg=deg, orth=0).matmat(V[:, c0 : c0 + k // 2].double())
+				torch.sum(W[:, c0 : c0 + k // 2].double() * Y).backward()
+				g64 += b64.grad
+				del b64, op64, Y
+				torch.cuda.empty_cache()
+			err = float((g32 - g64).abs().max() / g64.abs().max())
+			dd64 = float(torch.sum(g64 * D))
+			row.update({"grad_f32_vs_f64_rel_err": err, "f64_tol": GRAD_F64_TOL, "directional_derivative_f64": dd64,
+				"dd64_rel_err": abs(dd64 - fd) / abs(fd)})
+			if not err <= GRAD_F64_TOL:
+				raise AssertionError(f"float32 and float64 gradients of F disagree: {row}")
+			del g64
+		emit(row)
+		rows[label] = row
+		if not (np.isfinite(dd32) and row["dd_rel_err"] <= GRAD_DD_TOL):
+			raise AssertionError(f"{label}: directional derivative off the central difference: {row}")
+		if fwd["lanczos_dia_step"] + fwd["lanczos_dia_residual"] + bwd["lanczos_dia_step"] + bwd["lanczos_dia_residual"]:
+			raise AssertionError(f"{label}: a differentiated sweep launched a step kernel: {fwd} {bwd}")
+		# Each sweep applies dia_stencil_t deg times forward; backward, every apply but the start
+		# block's (which needs no gradient), and in the second of two passes not the last either
+		# (its α and β are not used: the second pass only accumulates Σ c_t q_t).
+		sweeps = 2 if row["two_pass"] else 1
+		want = (sweeps * deg, deg - 1 + (deg - 2 if row["two_pass"] else 0))
+		if (fwd["dia_stencil_t"], bwd["dia_stencil_t"]) != want:
+			raise AssertionError(f"{label}: dia_stencil_t {fwd['dia_stencil_t']} / {bwd['dia_stencil_t']}, expected {want}")
+		_add(total["forward"], fwd)
+		_add(total["backward"], bwd)
+		del b, g32
+		torch.cuda.empty_cache()
+
+	# diag(MatrixFunction, differentiable=True): the public call, then the same probes through
+	# diag_ratio for the float64 central difference.
+	count, batch = GRAD["diag_count"], GRAD["diag_batch"]
+	b = bands32.clone().requires_grad_(True)
+	seed = GRAD["seed"] + 1
+	w = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+
+	def G_public():
+		M = ptt.MatrixFunction(ptt.DIAOperator(b, offsets, (n, n)), "log", deg=deg, orth=0)
+		d = ptt.diag(M, differentiable=True, converge="count", count=count, batch=batch, seed=seed)
+		return torch.sum(d.double() * w)
+
+	val, fwd, bwd, row = _grad_call(torch, G_public)
+	M32 = ptt.MatrixFunction(base, "log", deg=deg, orth=0)
+	draw = probe_sampler(M32, seed, "rademacher")
+
+	def G(x):
+		M = ptt.MatrixFunction(ptt.DIAOperator(x, offsets, (n, n)), "log", deg=deg, orth=0)
+		return torch.sum(diag_ratio(M, lambda i: draw(i, batch).to(x.dtype), count).double() * w)
+
+	with torch.no_grad():
+		same = float(G(bands32))
+	dd32 = float(torch.sum(b.grad.double() * D))
+	fd = _fd64(torch, G, bands32.double(), D)
+	row.update({"phase": "lanczos_grad", "call": "diag_differentiable", "n": n, "probes": count * batch, "deg": deg, "value": val,
+		"value_no_grad_sweep": same, "directional_derivative": dd32, "central_difference_f64": fd, "h": GRAD_H,
+		"dd_rel_err": abs(dd32 - fd) / abs(fd), "tol": GRAD_DD_TOL})
+	emit(row)
+	rows["diag"] = row
+	if not (abs(same - val) <= 1e-5 * abs(val) and row["dd_rel_err"] <= GRAD_DD_TOL):
+		raise AssertionError(f"diag(differentiable=True): {row}")
+	_add(total["forward"], fwd)
+	_add(total["backward"], bwd)
+	del b, w
+	torch.cuda.empty_cache()
+
+	# A BSR operator: the tiles' gradient through bsr_spmm's Function, forward and adjoint.
+	S = _bsr_cell(**GRAD_BSR)
+	bop = ptt.BSROperator.from_scipy(S, blocksize=(GRAD_BSR["bs"], GRAD_BSR["bs"]), dtype=torch.float32, device=dev)
+	nb = S.shape[0]
+	Vb = torch.randn((nb, 16), generator=gen, device=dev, dtype=torch.float32)
+	Wb = torch.randn((nb, 16), generator=gen, device=dev, dtype=torch.float32)
+	Db = torch.randn(bop.blocks.shape, generator=gen, device=dev, dtype=torch.float64)
+	Db = Db / Db.abs().max()
+
+	def Fb(blocks, deg_b=12):
+		op = ptt.BSROperator(blocks, bop.indices, bop.indptr, bop.shape)
+		Y = ptt.MatrixFunction(op, "log", deg=deg_b, orth=0).matmat(Vb.to(blocks.dtype))
+		return torch.sum(Wb.to(blocks.dtype) * Y)
+
+	t = bop.blocks.clone().requires_grad_(True)
+	val, fwd, bwd, row = _grad_call(torch, lambda: Fb(t))
+	dd32 = float(torch.sum(t.grad.double() * Db))
+	fd = _fd64(torch, Fb, bop.blocks.double(), Db)
+	row.update({"phase": "lanczos_grad", "call": "bsr_matmat", "n": nb, "tiles": int(bop.blocks.shape[0]), "probes": 16, "deg": 12,
+		"value": val, "directional_derivative": dd32, "central_difference_f64": fd, "h": GRAD_H, "dd_rel_err": abs(dd32 - fd) / abs(fd),
+		"tol": GRAD_DD_TOL})
+	emit(row)
+	rows["bsr"] = row
+	if not row["dd_rel_err"] <= GRAD_DD_TOL:
+		raise AssertionError(f"BSR sweep: directional derivative off the central difference: {row}")
+	if fwd["bsr_spmm"] != 12 or bwd["bsr_spmm"] != 11:
+		raise AssertionError(f"BSR sweep: bsr_spmm {fwd['bsr_spmm']} forward, {bwd['bsr_spmm']} backward, expected 12 and 11")
+	_add(total["forward"], fwd)
+	_add(total["backward"], bwd)
+	del t, bop, Vb, Wb, Db
+	torch.cuda.empty_cache()
+	emit({"phase": "lanczos_grad", "call": "launches", **total})
+	return {k: {"grad_launches": {"forward": total["forward"].get(k, 0), "backward": total["backward"].get(k, 0)}}
+		for k in ("dia_stencil_t", "bsr_spmm")}
+
+
+def complex_bsr(torch, ptt, dev, reps: int = 10) -> dict:
+	"""Phase 21: the complex ``bsr_spmm`` at the BSR cell's scale. ``H = A + i·s(B − Bᵀ)`` on phase
+	7's matrix A (``block_random_spd``, 1,333,628 8×8 tiles) with B a seeded real block operator on
+	A's pattern, complex64: Hutchinson (phase probes) within 5σ of tr H = tr A, and phase 7's calls
+	(Hutch++, XTrace, XNysTrace within 1e-3, XDiag finite) through the complex kernel; the adjoint
+	against the conjugate transpose; the kernel against its plain version at k = 64 and 240, timed
+	beside its bound, its plain version and the library call, and complex128 at a small shape."""
+	from primate_tpu_torch.ops import bsr
+	from primate_tpu_torch.ops.autograd import bsr_transpose
+
+	S = _bsr_cell(**BSR_CELL)
+	A = ptt.BSROperator.from_scipy(S, blocksize=(BSR_CELL["bs"], BSR_CELL["bs"]), dtype=torch.float32, device=dev)
+	n = A.shape[0]
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(CBSR_SEED)
+	B = torch.randn(A.blocks.shape, generator=gen, device=dev, dtype=torch.float32)
+	Bt, indptr_t, indices_t = bsr_transpose(B, A.indptr, A.indices, n)
+	if not (torch.equal(indptr_t, A.indptr) and torch.equal(indices_t, A.indices)):
+		raise AssertionError("the cell's block pattern is not symmetric")
+	op = ptt.BSROperator(torch.complex(A.blocks, CBSR_S * (B - Bt)), A.indices, A.indptr, A.shape)
+	del B, Bt
+	tr = float(S.diagonal().astype(np.float64).sum())
+	diag_s = S.diagonal().astype(np.float64)
+	emit({"phase": "complex_bsr_build", "n": n, "tiles": int(op.blocks.shape[0]), "nnz": op.nnz, "s": CBSR_S,
+		"tile_bytes": op.blocks.numel() * op.blocks.element_size(), "trace": tr})
+
+	# The adjoint: rmatmat against matmat (H is Hermitian) and ⟨U, H V⟩ = ⟨Hᴴ U, V⟩.
+	U = torch.randn((n, 8), generator=gen, device=dev, dtype=torch.complex64)
+	X = torch.randn((n, 8), generator=gen, device=dev, dtype=torch.complex64)
+	HX, HhU = op.matmat(X), op.rmatmat(U)
+	lhs, rhs = torch.sum(U.conj() * HX).to(torch.complex128), torch.sum(HhU.conj() * X).to(torch.complex128)
+	herm = float((op.rmatmat(X) - HX).abs().max() / HX.abs().max())
+	plain = float((HhU - op.rmatmat_plain(U)).abs().max() / HhU.abs().max())
+	adj = {"phase": "complex_bsr_adjoint", "inner_product_rel_err": float(abs(lhs - rhs) / abs(lhs)),
+		"hermitian_rel_err": herm, "rmatmat_vs_plain_rel_err": plain, "tol": CPLX_TOL["complex64"] * 10}
+	emit(adj)
+	if not (adj["inner_product_rel_err"] <= 1e-5 and herm <= 1e-5 and plain <= adj["tol"]):
+		raise AssertionError(f"complex BSR adjoint: {adj}")
+	del U, X, HX, HhU
+
+	calls = {
+		"hutch": lambda: ptt.hutch(op, batch=64, pdf="phase", converge="count", count=256, seed=CBSR_SEED, full=True),
+		"hutchpp": lambda: ptt.hutchpp(op, m=240, seed=CBSR_SEED),
+		"xtrace": lambda: ptt.xtrace(op, batch=64, converge="count", count=256, seed=CBSR_SEED),
+		"xnystrace": lambda: ptt.xnystrace(op, m=720, seed=CBSR_SEED),
+		"xdiag": lambda: ptt.xdiag(op, m=256, seed=CBSR_SEED),
+	}
+	launches = 0
+	for name, fn in calls.items():
+		est, counts, copies, times, peak = _timed_calls(torch, fn)
+		row = {"phase": "complex_bsr", "call": name, "wall_s_median": statistics.median(times), "wall_s": times,
+			"max_memory_allocated_bytes": peak, "launches": counts, "layout_copies": copies}
+		if name == "xdiag":
+			row["diag_rel_l2_err"] = float(np.linalg.norm(est - diag_s) / np.linalg.norm(diag_s))
+			ok = bool(np.all(np.isfinite(est))) and est.shape == diag_s.shape
+		elif name == "hutch":
+			est, res = est
+			sd = float(np.sqrt(res.estimator.converged_variance / res.nit))
+			row.update({"estimate": est, "exact": tr, "sigma": sd, "z": (est - tr) / sd, "rel_err": abs(est - tr) / tr})
+			ok = abs(est - tr) <= 5 * sd
+		else:
+			row.update({"estimate": est, "exact": tr, "rel_err": abs(est - tr) / tr})
+			ok = row["rel_err"] < TRACE_TOL
+		emit(row)
+		if not ok:
+			raise AssertionError(f"{name} on the complex BSR cell is off: {row}")
+		if counts["bsr_spmm"] < 1:
+			raise AssertionError(f"{name} launched no bsr_spmm on the complex cell: {counts}")
+		launches += counts["bsr_spmm"]
+
+	out = {"c64_launches": launches}
+	B_lib = torch.sparse_bsr_tensor(op.indptr, op.indices, op.blocks, size=op.pshape)
+	for k in (64, 240):
+		V = torch.randn((n, k), generator=gen, device=dev, dtype=torch.complex64)
+		args = (op.blocks, op.indptr, op.indices, V, n)
+		got, want = bsr.bsr_spmm(*args), bsr.bsr_spmm_ref(*args)
+		torch.cuda.synchronize()
+		err, rel = _rel_err(torch, got, want)
+		ms, plain_ms = _timed_pair(torch, lambda: bsr.bsr_spmm(*args), lambda: bsr.bsr_spmm_ref(*args), reps)
+		b_ms, b_by = bound((op.blocks.numel() + 2 * n * k) * 8, 8 * op.nnz * k)
+		lib_ms, lib_note = library_ms(torch, lambda: B_lib @ V, want, reps)  # complex cuSPARSE BSR
+		row = {"phase": "complex_bsr_kernel_check", "kernel": "bsr_spmm", "shape": "cell", "k": k, "dtype": "complex64",
+			"max_abs_err": err, "rel_err": rel, "tol": CBSR_TOL, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+			"bound_by": b_by, "library_ms": lib_ms, "library_rel_err_or_error": lib_note}
+		emit(row)
+		if not rel <= CBSR_TOL:
+			raise AssertionError(f"complex64 bsr_spmm disagrees with its plain version: {row}")
+		if k == 64:
+			out.update({f"c64_{key}": row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+		else:
+			out.update({f"c64_k240_{key}": row[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")})
+		del V, got, want
+	del B_lib
+	# complex128 at a small shape: block_random_spd(8192) with seeded imaginary tiles.
+	Ss = _bsr_cell(n=CBSR_C128_N, bs=8, density=0.01, seed=CBSR_SEED)
+	As = ptt.BSROperator.from_scipy(Ss, blocksize=(8, 8), dtype=torch.float64, device=dev)
+	blocks = torch.complex(As.blocks, torch.randn(As.blocks.shape, generator=gen, device=dev, dtype=torch.float64))
+	V = torch.randn((CBSR_C128_N, 64), generator=gen, device=dev, dtype=torch.complex128)
+	args = (blocks, As.indptr, As.indices, V, CBSR_C128_N)
+	got, want = bsr.bsr_spmm(*args), bsr.bsr_spmm_ref(*args)
+	torch.cuda.synchronize()
+	err, rel = _rel_err(torch, got, want)
+	ms, plain_ms = _timed_pair(torch, lambda: bsr.bsr_spmm(*args), lambda: bsr.bsr_spmm_ref(*args), reps)
+	row = {"phase": "complex_bsr_kernel_check", "kernel": "bsr_spmm", "shape": f"block_random_spd({CBSR_C128_N})", "k": 64,
+		"dtype": "complex128", "tiles": int(blocks.shape[0]), "max_abs_err": err, "rel_err": rel, "tol": CPLX_TOL["complex128"],
+		"ms": ms, "plain_ms": plain_ms}
+	emit(row)
+	if not rel <= CPLX_TOL["complex128"]:
+		raise AssertionError(f"complex128 bsr_spmm disagrees with its plain version: {row}")
+	return {"bsr_spmm": out}
+
+
+def port_examples(torch, ptt, dev) -> dict:
+	"""Phase 22: the five port examples (``primate_tpu_torch.examples``) at their own sizes, each
+	``main`` making its checks; their numbers, walls and launches. Returns the phase's launches."""
+	import importlib
+
+	from primate_tpu_torch.ops import _common
+
+	total = {}
+	for name in ("gp_log_likelihood", "graph_analysis", "rectangular_spectra", "spectrum_slicing", "tight_binding"):
+		mod = importlib.import_module(f"primate_tpu_torch.examples.{name}")
+		torch.cuda.synchronize()
+		_common.reset_launches()
+		t0 = time.perf_counter()
+		res = mod.main(dev)
+		torch.cuda.synchronize()
+		wall = time.perf_counter() - t0
+		counts = dict(_common.LAUNCHES)
+		_add(total, counts)
+		res.pop("history", None)
+		emit({"phase": "port_example", "example": name, "wall_s": wall, "launches": counts, "result": res})
+	emit({"phase": "port_example", "example": "launches", "launches": total})
+	if total.get("dia_stencil", 0) < 1 or total.get("dia_stencil_t", 0) < 1:
+		raise AssertionError(f"the examples launched no DIA stencil: {total}")
+	return total
+
+
 def main() -> None:
 	import torch
 
@@ -2172,6 +2520,16 @@ def main() -> None:
 	del X
 	for k in KERNELS:
 		kernels[k]["recipe_launches"] = rec[k]
+	torch.cuda.empty_cache()
+	for k, v in lanczos_grad(torch, ptt, dev).items():
+		kernels[k].update(v)
+	torch.cuda.empty_cache()
+	for k, v in complex_bsr(torch, ptt, dev).items():
+		kernels[k].update(v)
+	torch.cuda.empty_cache()
+	ex = port_examples(torch, ptt, dev)
+	for k in KERNELS:
+		kernels[k]["example_launches"] = ex.get(k, 0)
 
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],

@@ -61,14 +61,27 @@ def _guard(x: torch.Tensor, tol) -> torch.Tensor:
 	return torch.where(x > tol, x, torch.inf)
 
 
-def _masked_cgs(x: torch.Tensor, W: torch.Tensor, valid: torch.Tensor, passes: int) -> torch.Tensor:
+def _masked_cgs(x: torch.Tensor, W, valid: torch.Tensor, passes: int) -> torch.Tensor:
 	"""``x (nv, k)`` with the masked window ``W (ncv, nv, k)`` projected out, ``passes`` CGS passes;
-	the bra is conjugated. Broadcast products and sums, no matmul: TF32 never enters."""
+	the bra is conjugated. Broadcast products and sums, no matmul: TF32 never enters. A window
+	kept as a list of blocks (a sweep that autograd reaches through) is projected slot by slot,
+	over the valid slots only, out of place."""
+	if isinstance(W, list):
+		slots = [s for s in range(len(W)) if bool(valid[s])]
+		for _ in range(max(1, passes)):
+			proj = [torch.sum((W[s].conj() if W[s].is_complex() else W[s]) * x, dim=1) for s in slots]
+			for s, c in zip(slots, proj):
+				x = x - W[s] * c[:, None].to(x.dtype)
+		return x
 	W_bra = W.conj() if W.is_complex() else W
 	for _ in range(max(1, passes)):
 		proj = torch.sum(W_bra * x[None, :, :], dim=2) * valid[:, None]  # (ncv, nv)
 		x = x - torch.sum(W * proj[:, :, None].to(x.dtype), dim=0)
 	return x
+
+
+def _stacked(W) -> torch.Tensor:
+	return torch.stack(W) if isinstance(W, list) else W
 
 
 def _bidiag_core(
@@ -94,7 +107,12 @@ def _bidiag_core(
 	keep_window = return_basis or orth > 0
 	ncv = deg if return_basis else int(np.clip(orth, 1, deg))
 	U_win = V_win = None
-	if keep_window:
+	if keep_window and p.requires_grad:
+		# Autograd reaches through the sweep (``jax.grad`` through the JAX scan): the windows are
+		# lists of blocks, each slot replaced, never written in place.
+		U_win = [u1] + [torch.zeros((nv, m), dtype=acc, device=device)] * (ncv - 1)
+		V_win = [v1] + [torch.zeros((nv, n), dtype=acc, device=device)] * (ncv - 1)
+	elif keep_window:
 		U_win = torch.zeros((ncv, nv, m), dtype=acc, device=device)
 		V_win = torch.zeros((ncv, nv, n), dtype=acc, device=device)
 		U_win[0], V_win[0] = u1, v1
@@ -149,8 +167,8 @@ def _bidiag_core(
 	return BidiagOutput(
 		alphas=alphas,
 		betas=betas,
-		U=U_win.permute(0, 2, 1) if return_basis else None,  # (deg, m, nv)
-		V=V_win.permute(0, 2, 1) if return_basis else None,  # (deg, n, nv)
+		U=_stacked(U_win).permute(0, 2, 1) if return_basis else None,  # (deg, m, nv)
+		V=_stacked(V_win).permute(0, 2, 1) if return_basis else None,  # (deg, n, nv)
 		residual=residual,
 	)
 

@@ -1,4 +1,5 @@
-// Block-sparse-row (BSR) SpMM for Hopper (sm_90a), float32 and float64.
+// Block-sparse-row (BSR) SpMM for Hopper (sm_90a), float32 and float64, and complex64 and
+// complex128 (Hermitian operators).
 //
 // Replaces the Pallas TPU kernel of primate_tpu/ops/spmm_pallas.py:
 //   bsr_spmm  <- bsr_matmat_pallas (_bsr_kernel): out[r*bm:(r+1)*bm, :] = sum over the
@@ -34,6 +35,15 @@
 // aligned, the same kernel copies and stores element by element (kVec = false).
 // FP32/FP64 FMAs on the CUDA cores: a TF32 tensor-core product would lose the
 // float32 accuracy the JAX package pins with Precision.HIGHEST.
+//
+// Complex: the JAX package applies complex BSR through its jnp segment-sum path
+// (primate_tpu/operators/sparse.py:658-672), never the Pallas kernel. Here the same
+// kernel is instantiated for common.cuh's Cplx element type. A 16-byte vector holds
+// 2 complex64 or 1 complex128, so a lane moves the same bytes and holds the same
+// registers as in float32 / float64; each tile entry costs 4 real FMAs a probe where
+// a real one costs 1, so the kernel does 4x the arithmetic on 2x the bytes and stays
+// bound by the gathered V traffic. The adjoint (A^H V) is this kernel on the tiles
+// conjugated and transposed (BSROperator._transpose); the kernel never conjugates.
 //
 // Plain C interface: every entry point returns the cudaError_t of its launch
 // (cudaGetLastError()), and the caller raises on anything but cudaSuccess. The
@@ -260,6 +270,21 @@ cudaError_t bsr_spmm_f64(const double* blocks, const int64_t* indptr, const int6
                          double* out, int64_t n_brow, int bm, int bn, int64_t m, int64_t k, int64_t n_out, int vec,
                          cudaStream_t stream) {
     return launch_bsr(blocks, indptr, indices, V, out, n_brow, bm, bn, m, k, n_out, vec, stream);
+}
+
+// Complex instantiations (complex64 / complex128 as torch lays them out).
+cudaError_t bsr_spmm_c64(const void* blocks, const int64_t* indptr, const int64_t* indices, const void* V, void* out,
+                         int64_t n_brow, int bm, int bn, int64_t m, int64_t k, int64_t n_out, int vec,
+                         cudaStream_t stream) {
+    return launch_bsr(static_cast<const c64*>(blocks), indptr, indices, static_cast<const c64*>(V),
+                      static_cast<c64*>(out), n_brow, bm, bn, m, k, n_out, vec, stream);
+}
+
+cudaError_t bsr_spmm_c128(const void* blocks, const int64_t* indptr, const int64_t* indices, const void* V, void* out,
+                          int64_t n_brow, int bm, int bn, int64_t m, int64_t k, int64_t n_out, int vec,
+                          cudaStream_t stream) {
+    return launch_bsr(static_cast<const c128*>(blocks), indptr, indices, static_cast<const c128*>(V),
+                      static_cast<c128*>(out), n_brow, bm, bn, m, k, n_out, vec, stream);
 }
 
 }  // extern "C"

@@ -21,7 +21,8 @@ import torch
 
 from .estimators import ConvergenceCriterion, EstimatorResult, EstSnapshot, convergence_criterion, criterion_needs_values
 from .linalg import full_f32, tall_qr
-from .random import real_dtype
+from .random import classify_pdf, real_dtype
+from .stats import MeanState
 from .operators.base import aslinop, is_valid_operator
 from .trace import _base_seed, _rdot, _sketch_op, check_traced_path, count_budget, probe_sampler, refuse_complex_grad
 
@@ -30,7 +31,7 @@ __all__ = ["diag", "diagpp", "xdiag", "xdiag_core", "diagpp_core", "run_diag", "
 
 def run_diag(
 	op, draw: Callable[[int], torch.Tensor], criterion, maxiter: int = 4096, batch: int = 1, full: bool = False,
-	callback: Optional[Callable] = None, record: bool = False,
+	callback: Optional[Callable] = None, record: bool = False, resume=None,
 ):
 	"""The ratio-normalised Girard-Hutchinson loop on a probe sampler ``draw(it) → (n, batch)``; see :func:`diag`."""
 	N = op.shape[0]
@@ -42,6 +43,18 @@ def run_diag(
 	nout = int(np.prod(stack_shape)) if stack_shape else 1
 	zeros = lambda m: torch.zeros(m, dtype=acc, device=op.device)  # noqa: E731
 	numer, denom, mu, m2, n = zeros(nout * N), zeros(N), zeros(nout * N), zeros(nout * N), 0
+	if resume is not None:
+		st = resume.info["state"] if isinstance(resume, EstimatorResult) else resume
+		if "batch" in st and int(st["batch"]) != batch:
+			raise ValueError(
+				f"resume state was built with batch={st['batch']} but this call uses batch={batch}; "
+				"probes are keyed by iteration index, so resuming the same run needs the same batch"
+			)
+		mean = st["mean"]
+		if mean.mu.shape[0] != nout * N:
+			raise ValueError(f"resume state dim {mean.mu.shape[0]} != {nout * N}")
+		state = lambda x: torch.as_tensor(x, device=op.device).to(acc).clone()  # noqa: E731
+		numer, denom, mu, m2, n = state(st["numer"]), state(st["denom"]), state(mean.mu), state(st["m2"]), int(mean.n)
 	delta = torch.full((nout * N,), float("inf"), dtype=acc, device=op.device)
 	values = [] if record else None
 	result = EstimatorResult(criterion=criterion)
@@ -72,6 +85,7 @@ def run_diag(
 	if not full:
 		return result.estimate
 	result.info["m2"] = m2
+	result.info["state"] = {"batch": batch, "numer": numer, "denom": denom, "mean": MeanState(n=n, mu=mu), "m2": m2}
 	if record:
 		result.info["values"] = values
 	return result.estimate, result
@@ -137,19 +151,24 @@ def diag(
 	running estimate; ``record=True`` keeps every iteration's ratio estimate,
 	flattened, in ``result.info["values"]`` (the JAX package's
 	``result.estimator.values``). ``result.info["m2"]`` holds the per-entry
-	Welford sum of squared deviations. ``resume`` is not ported yet.
+	Welford sum of squared deviations. ``pdf`` may also be a numpy-style host sampler
+	``pdf(size=...)``, drawn on the host each iteration as the reference does.
+
+	``resume`` continues a run from its ``full=True`` result or its ``result.info["state"]``
+	(``batch``, ``numer``, ``denom``, ``mean`` and ``m2``; :func:`~primate_tpu_torch.utils.checkpoint.save_pytree`
+	round-trips it), made with the same ``A``/``seed``/``pdf``/``batch``: iteration ``it`` draws
+	its probes from the generator keyed ``(seed, it)``, so the resumed estimate equals that of
+	one uninterrupted run bit for bit on one device.
 
 	``differentiable=True`` (a count criterion) returns the plain final ratio
 	``Σ v∘(Av) / Σ v∘v`` as a tensor with a gradient to the operator's tensors, not
 	the mean of the running ratios; ``callback``, ``record``, ``resume`` and ``full``
-	are refused there. A ``MatrixFunction`` whose operator needs a gradient raises:
-	reverse mode through the Lanczos recurrence is not ported.
+	are refused there. A ``MatrixFunction`` differentiates through its Lanczos sweeps
+	(real operators only, as in JAX).
 	"""
 	differentiable = kwargs.pop("differentiable", False)
 	if differentiable:
 		check_traced_path("diag", callback, resume, record, full, pdf)
-	if resume is not None:
-		raise NotImplementedError("diag: resume is not ported yet")
 	is_valid_operator(A)
 	op = A if hasattr(A, "quad") else aslinop(A)
 	if differentiable:
@@ -161,9 +180,17 @@ def diag(
 	if N == 0:
 		return (np.zeros(0), EstimatorResult()) if full else np.zeros(0)
 	batch = max(1, int(batch))
-	sample = probe_sampler(op, _base_seed(seed), pdf)
+	if classify_pdf(pdf) == "size":
+		# Reference semantics (``primate_tpu/diagonal.py:449-453``): the stateful closure draws on
+		# the host, one probe (``size=(N,)``) or a block of ``batch`` each iteration.
+		def draw(it: int) -> torch.Tensor:
+			V = np.asarray(pdf(size=(N, batch) if batch > 1 else (N,))).reshape(N, batch)
+			return torch.as_tensor(V, dtype=real_dtype(op.dtype), device=op.device).to(op.dtype)
+	else:
+		sample = probe_sampler(op, _base_seed(seed), pdf)
+		draw = lambda it: sample(it, batch)  # noqa: E731
 	return run_diag(
-		op, lambda it: sample(it, batch), criterion, maxiter=maxiter, batch=batch, full=full, callback=callback, record=record
+		op, draw, criterion, maxiter=maxiter, batch=batch, full=full, callback=callback, record=record, resume=resume
 	)
 
 

@@ -17,6 +17,13 @@ PyTorch ops. With ``orth>0``, ``selective=True`` or a bfloat16 block (whose
 and ``q_next``) stays in PyTorch. Selective re-orthogonalisation reads one flag
 from the device per step, where the JAX package branches by ``lax.cond``.
 
+Reverse mode (``jax.grad`` through the JAX package's ``lax.scan``): while grad mode is on and
+the start block, the coefficients or a tensor of the operator requires a gradient, the sweep runs
+out of place (:func:`_lanczos_core_ad`): each step's apply through ``op.matmat_t`` (the kernels'
+autograd Functions), α, β, the guarded divisors and the CGS window as PyTorch ops that write
+nothing in place, the window a list of blocks. No step kernel runs there; every other sweep is
+the in-place one above, unchanged.
+
 Complex (Hermitian) operators (``primate_tpu/lanczos.py:223-227,298-316``): every
 inner product conjugates its bra, α and β (the Jacobi matrix, the quadrature and
 the sweep's state) are real, and the CGS window projects with ``conj(Q)``. On a
@@ -136,11 +143,10 @@ def _lanczos_core(
 ) -> LanczosOutput:
 	nv, n = V0t.shape
 	dtype, device = V0t.dtype, V0t.device
-	if torch.is_grad_enabled() and any(t.requires_grad for t in getattr(op, "float_tensors", tuple)()):
-		# The sweep updates its state in place and its step kernels have no backward.
-		raise NotImplementedError(
-			"reverse mode through the Lanczos recurrence is not ported: differentiate a spectral sum with "
-			"autodiff.spectral_sum (or hutch(..., differentiable=True)), or run the sweep under torch.no_grad()"
+	if _needs_grad(op, V0t, coeffs):
+		return _lanczos_core_ad(
+			op, V0t, deg=deg, ncv=ncv, orth=orth, rtol=rtol, reorth_passes=reorth_passes, return_basis=return_basis,
+			coeffs=coeffs, basis_dtype=basis_dtype, selective=selective,
 		)
 	acc = torch.promote_types(dtype, torch.float32)  # f32 accumulation for bf16 storage
 	r_acc = real_dtype(acc)  # α, β and the sweep's state: real for Hermitian operators too
@@ -208,14 +214,7 @@ def _lanczos_core(
 		return v
 
 	if selective:
-		eps = torch.finfo(r_acc).eps
-		eps_noise, sel_tol = eps * float(np.sqrt(n)), float(np.sqrt(eps))
-		om_pp = torch.zeros((nv, ncv), dtype=r_acc, device=device)
-		om_p = torch.zeros((nv, ncv), dtype=r_acc, device=device)
-		om_p[:, 0] = 1.0
-		a_win = torch.zeros((nv, ncv), dtype=r_acc, device=device)
-		b_win = torch.zeros((nv, ncv), dtype=r_acc, device=device)
-		force, triggers = False, []
+		omega = _Omega(nv, ncv, n, r_acc, device)
 
 	q_prev, q_cur = torch.zeros((nv, n), dtype=dtype, device=device), q0
 	beta_j = torch.zeros(nv, dtype=r_acc, device=device)
@@ -226,33 +225,10 @@ def _lanczos_core(
 		v, alpha_j = op.lanczos_step(q_cur, q_prev, beta_j)
 		v.addcmul_(alpha_j[:, None], q_cur.to(acc), value=-1)  # in place: v is a fresh tensor
 		if selective:
-			# Simon's ω-recurrence (``primate_tpu/lanczos.py:318-362``): ω[t] estimates
-			# ⟨q_{j+1}, q_t⟩ per window slot in O(ncv·nv); a breach of √eps cleans this
-			# vector and the next against every written slot.
-			beta_est = torch.sqrt(row_sq_norm(v))
-			slot_j = j % ncv
-			a_win[:, slot_j] = alpha_j
-			b_win[:, slot_j] = beta_j
-			num = (
-				torch.roll(b_win, -1, 1) * torch.roll(om_p, -1, 1) + (a_win - alpha_j[:, None]) * om_p
-				+ b_win * torch.roll(om_p, 1, 1) - beta_j[:, None] * om_pp
-			)
-			om_next = num / torch.where(beta_est > 0, beta_est, torch.inf)[:, None]
-			om_next = torch.where(om_next >= 0, om_next + eps_noise, om_next - eps_noise)
-			age_next = (j + 1 - slot_ids) % ncv
-			tracked = (age_next <= j + 1) & (age_next >= 2)
-			om_next = torch.where(tracked[None, :], om_next, 0.0)
-			om_next[:, slot_j] = eps_noise
-			om_next[:, (j + 1) % ncv] = 1.0
-			live = torch.abs(om_next) * (~done)[:, None].to(r_acc)
-			breach = bool(torch.any(live * tracked[None, :].to(r_acc) > sel_tol))  # one device read a step
-			trigger = breach or force
+			trigger = omega.breach(j, alpha_j, beta_j, v, done)  # one device read a step
 			if trigger:
 				v = _cgs_window(v, (((j - slot_ids) % ncv) <= j).to(r_acc))
-				om_next = torch.where(tracked[None, :], torch.sign(om_next) * eps_noise, om_next)
-				om_p = torch.where((slot_ids != slot_j)[None, :], torch.sign(om_p) * eps_noise, om_p)
-			om_pp, om_p, force = om_p, om_next, breach
-			triggers.append(trigger)
+			omega.advance(j, trigger)
 		elif orth > 0:
 			age = (j - slot_ids) % ncv
 			v = _cgs_window(v, ((age < orth) & (age <= j)).to(r_acc))
@@ -266,7 +242,155 @@ def _lanczos_core(
 		if keep_window:
 			write_slot(j, q_next.to(b_dtype), ~(done | newly_done))
 		q_prev, q_cur, beta_j, done = q_cur, q_next, beta_next, done | newly_done
-	return output(torch.tensor(triggers, dtype=torch.bool) if selective else None)
+	return output(torch.tensor(omega.triggers, dtype=torch.bool) if selective else None)
+
+
+class _Omega:
+	"""Simon's ω-recurrence of selective re-orthogonalisation (``primate_tpu/lanczos.py:318-362``):
+	ω[t] estimates ⟨q_{j+1}, q_t⟩ per window slot in O(ncv·nv); a breach of √eps cleans this
+	vector and the next against every written slot. It decides only when to clean, so the
+	out-of-place sweep feeds it detached values."""
+
+	def __init__(self, nv: int, ncv: int, n: int, r_acc: torch.dtype, device):
+		eps = torch.finfo(r_acc).eps
+		self.ncv, self.r_acc = ncv, r_acc
+		self.eps_noise, self.sel_tol = eps * float(np.sqrt(n)), float(np.sqrt(eps))
+		self.slot_ids = torch.arange(ncv, device=device)
+		self.om_pp = torch.zeros((nv, ncv), dtype=r_acc, device=device)
+		self.om_p = torch.zeros((nv, ncv), dtype=r_acc, device=device)
+		self.om_p[:, 0] = 1.0
+		self.a_win = torch.zeros((nv, ncv), dtype=r_acc, device=device)
+		self.b_win = torch.zeros((nv, ncv), dtype=r_acc, device=device)
+		self.force, self.triggers = False, []
+
+	def breach(self, j: int, alpha_j, beta_j, v, done) -> bool:
+		"""Advance ω to level j + 1 from step j's α, β and residual ``v``; whether to clean ``v``."""
+		ncv, r_acc, eps_noise = self.ncv, self.r_acc, self.eps_noise
+		om_p, om_pp, a_win, b_win = self.om_p, self.om_pp, self.a_win, self.b_win
+		beta_est = torch.sqrt(row_sq_norm(v))
+		slot_j = j % ncv
+		a_win[:, slot_j] = alpha_j
+		b_win[:, slot_j] = beta_j
+		num = (
+			torch.roll(b_win, -1, 1) * torch.roll(om_p, -1, 1) + (a_win - alpha_j[:, None]) * om_p
+			+ b_win * torch.roll(om_p, 1, 1) - beta_j[:, None] * om_pp
+		)
+		om_next = num / torch.where(beta_est > 0, beta_est, torch.inf)[:, None]
+		om_next = torch.where(om_next >= 0, om_next + eps_noise, om_next - eps_noise)
+		age_next = (j + 1 - self.slot_ids) % ncv
+		self.tracked = (age_next <= j + 1) & (age_next >= 2)
+		om_next = torch.where(self.tracked[None, :], om_next, 0.0)
+		om_next[:, slot_j] = eps_noise
+		om_next[:, (j + 1) % ncv] = 1.0
+		self.om_next = om_next
+		live = torch.abs(om_next) * (~done)[:, None].to(r_acc)
+		self.breached = bool(torch.any(live * self.tracked[None, :].to(r_acc) > self.sel_tol))
+		return self.breached or self.force
+
+	def advance(self, j: int, cleaned: bool) -> None:
+		"""Floor both carried levels after a cleaning pass, and shift them."""
+		om_next, om_p = self.om_next, self.om_p
+		if cleaned:
+			om_next = torch.where(self.tracked[None, :], torch.sign(om_next) * self.eps_noise, om_next)
+			om_p = torch.where((self.slot_ids != j % self.ncv)[None, :], torch.sign(om_p) * self.eps_noise, om_p)
+		self.om_pp, self.om_p, self.force = om_p, om_next, self.breached
+		self.triggers.append(cleaned)
+
+
+def _needs_grad(op, V0t: torch.Tensor, coeffs) -> bool:
+	"""Whether autograd must reach through the sweep: grad mode is on and the start block, the
+	coefficients or a tensor the operator's applies read requires a gradient."""
+	if not torch.is_grad_enabled():
+		return False
+	found = [V0t, *getattr(op, "float_tensors", tuple)()]
+	if isinstance(coeffs, torch.Tensor):
+		found.append(coeffs)
+	return any(t.requires_grad for t in found)
+
+
+def _lanczos_core_ad(
+	op, V0t: torch.Tensor, *, deg: int, ncv: int, orth: int, rtol: float, reorth_passes: int, return_basis: bool,
+	coeffs, basis_dtype, selective: bool,
+) -> LanczosOutput:
+	"""The sweep of :func:`_lanczos_core` out of place, for reverse mode (``jax.grad`` through the
+	JAX package's ``lax.scan``, ``primate_tpu/lanczos.py:296-408``): each step applies
+	``op.matmat_t`` (the kernels' autograd Functions on DIA, BSR and CSR operators), never a step
+	kernel, and writes nothing in place; the basis window is a list of blocks. The divisor of a
+	broken-down probe is guarded before the division, and ``β = ‖v‖`` has a zero gradient at
+	``v = 0``, so no NaN comes back through an untaken branch. The CGS window is broadcast products
+	and sums over valid slots only, no matmul. Real operators only, as in JAX."""
+	nv, n = V0t.shape
+	dtype, device = V0t.dtype, V0t.device
+	if dtype.is_complex:
+		raise NotImplementedError(
+			"reverse mode through the Lanczos recurrence is real only, as JAX's gradients are: differentiate a "
+			"Hermitian operator through its real embedding [[Re, -Im], [Im, Re]]"
+		)
+	acc = torch.promote_types(dtype, torch.float32)
+	b_dtype = basis_dtype or dtype
+	keep_window = return_basis or orth > 0 or selective
+	residual_tol = float(np.sqrt(n) * rtol)
+
+	def norm(x: torch.Tensor) -> torch.Tensor:
+		sq = torch.sum(x * x, dim=1)
+		pos = sq > 0
+		return torch.where(pos, torch.sqrt(torch.where(pos, sq, 1.0)), 0.0)
+
+	norm0 = norm(V0t.to(acc))
+	q0 = (V0t / torch.where(norm0 > 0, norm0, 1)[:, None].to(dtype)).to(dtype)
+	window = [q0.to(b_dtype)] + [torch.zeros((nv, n), dtype=b_dtype, device=device)] * (ncv - 1) if keep_window else None
+	y = None
+	if coeffs is not None:
+		coeffs = torch.as_tensor(coeffs, device=device)
+		coeffs = coeffs.to(acc)
+		y = torch.zeros(coeffs.shape[1:] + (n,), dtype=acc, device=device)
+
+	def cgs(v: torch.Tensor, slots: list) -> torch.Tensor:
+		for _ in range(max(1, reorth_passes)):
+			proj = [torch.sum(window[s] * v, dim=1) for s in slots]
+			for s, p in zip(slots, proj):
+				v = v - window[s] * p[:, None].to(acc)
+		return v
+
+	omega = _Omega(nv, ncv, n, acc, device) if selective else None
+	alphas, betas = [], []
+	q_prev, q_cur = torch.zeros((nv, n), dtype=dtype, device=device), q0
+	beta_j = torch.zeros(nv, dtype=acc, device=device)
+	done = torch.zeros(nv, dtype=torch.bool, device=device)
+	for j in range(deg):
+		qc = q_cur.to(acc)
+		if y is not None:
+			y = y + coeffs[j][..., None] * qc
+		v = op.matmat_t(q_cur).to(acc) - beta_j[:, None] * q_prev.to(acc)
+		alpha_j = torch.sum(v * qc, dim=1)
+		v = v - alpha_j[:, None] * qc
+		if selective:
+			trigger = omega.breach(j, alpha_j.detach(), beta_j.detach(), v.detach(), done)
+			if trigger:
+				v = cgs(v, [s for s in range(ncv) if (j - s) % ncv <= j])
+			omega.advance(j, trigger)
+		elif orth > 0:
+			v = cgs(v, [s for s in range(ncv) if (j - s) % ncv < orth and (j - s) % ncv <= j])
+		beta_next = norm(v)
+		newly_done = beta_next.detach() < residual_tol
+		alphas.append(torch.where(done, 0.0, alpha_j))
+		betas.append(torch.where(done, 0.0, beta_next))
+		live = beta_next.detach() > residual_tol
+		q_next = torch.where(live[:, None], v / torch.where(live, beta_next, 1.0)[:, None], 0.0).to(dtype)
+		if keep_window:
+			slot = (j + 1) % ncv
+			if not return_basis:
+				window[slot] = q_next.to(b_dtype)
+			elif j + 1 < deg:
+				window[slot] = torch.where((~(done | newly_done))[:, None], q_next.to(b_dtype), window[slot])
+		q_prev, q_cur, beta_j, done = q_cur, q_next, beta_next, done | newly_done
+	return LanczosOutput(
+		alphas=torch.stack(alphas),
+		betas=torch.stack(betas),
+		Q=torch.stack(window).permute(0, 2, 1) if keep_window else None,
+		y=y.transpose(-1, -2) if y is not None else None,
+		reorth_steps=torch.tensor(omega.triggers, dtype=torch.bool) if selective else None,
+	)
 
 
 def lanczos(

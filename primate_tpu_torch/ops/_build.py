@@ -105,8 +105,8 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 		"bsr_spmm": {"bsr_spmm": [p, p, p, p, p, i64, i32, i32, i64, i64, i64, i32, p]},
 	}[stem]
 	for name, args in sigs.items():
-		# The two DIA stencils also have complex64 / complex128 entry points.
-		complex_too = name in ("dia_stencil_t", "dia_stencil")
+		# The two DIA stencils and the BSR SpMM also have complex64 / complex128 entry points.
+		complex_too = name in ("dia_stencil_t", "dia_stencil", "bsr_spmm")
 		for dt in ("f32", "f64", "c64", "c128") if complex_too else ("f32", "f64"):
 			fn = getattr(lib, f"{name}_{dt}")
 			fn.argtypes = args

@@ -14,6 +14,8 @@ LAYOUT_COPIES = {"bsr_spmm": 0, "csr_spmm": 0}
 # Launches that took a kernel's scalar path: a length or a pointer that does not
 # allow its 16-byte loads and stores (see `vector_ok`).
 SCALAR_LAUNCHES = {"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "dia_stencil": 0, "bsr_spmm": 0}
+# The C entry point's suffix of each dtype a kernel takes.
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64", torch.complex128: "c128"}
 
 
 def reset_launches() -> None:
@@ -29,7 +31,7 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def check_cuda(name: str, dtype: torch.dtype, device: torch.device, int_keys=(), complex_ok: bool = False, **tensors) -> None:
 	"""Raise on anything the kernels do not take: float32/float64 contiguous
-	tensors (also complex64/complex128 where ``complex_ok``: the two DIA stencils)
+	tensors (also complex64/complex128 where ``complex_ok``: the two DIA stencils and the BSR SpMM)
 	on one CUDA device, and int64 index tensors (``int_keys``)."""
 	if device.type != "cuda":
 		raise ValueError(f"{name}: tensors must lie on the CPU (plain version) or on a CUDA device; got {device}")

@@ -22,7 +22,7 @@ CUDA tensor it launches the kernel or raises, and counts each launch in
 
 import torch
 
-from ._common import LAUNCHES, LAYOUT_COPIES, SCALAR_LAUNCHES, acc_dtype, check_cuda, raise_on, reset_launches, stream, vector_ok
+from ._common import LAUNCHES, LAYOUT_COPIES, SCALAR_LAUNCHES, SUFFIX, acc_dtype, check_cuda, raise_on, reset_launches, stream, vector_ok
 
 __all__ = ["LAUNCHES", "LAYOUT_COPIES", "reset_launches", "bsr_spmm", "bsr_spmm_ref", "block_rowids"]
 
@@ -69,7 +69,8 @@ def bsr_spmm(blocks: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor, 
 	``indices (nnzb,)`` int64 block-row pointers and block-column ids, ``V (m, k)``
 	contiguous, whose rows past ``m`` in the last block column count as zero
 	(every block-column id is below ``ceil(m / bn)``), and ``n_out ≤ n_brow·bm``.
-	Any ``bm``, ``bn`` and ``k``.
+	Any ``bm``, ``bn`` and ``k``; float32, float64, complex64 or complex128 (tiles and
+	``V`` of one dtype).
 	"""
 	if blocks.ndim != 3 or indptr.ndim != 1 or indices.ndim != 1 or V.ndim != 2:
 		raise ValueError("bsr_spmm: expected blocks (nnzb, bm, bn), indptr (n_brow + 1,), indices (nnzb,), V (m, k)")
@@ -79,13 +80,15 @@ def bsr_spmm(blocks: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor, 
 		raise ValueError(f"bsr_spmm: {indices.shape[0]} indices for {nnzb} tiles, n_out={n_out} for {n_brow} block rows of {bm}")
 	if V.device.type == "cpu":
 		return bsr_spmm_ref(blocks, indptr, indices, V, n_out)
-	check_cuda("bsr_spmm", V.dtype, V.device, ("indptr", "indices"), blocks=blocks, indptr=indptr, indices=indices, V=V)
+	check_cuda(
+		"bsr_spmm", V.dtype, V.device, ("indptr", "indices"), complex_ok=True, blocks=blocks, indptr=indptr, indices=indices, V=V
+	)
 	from ._build import load_library
 
 	lib = load_library("bsr_spmm")
 	m, k = V.shape
 	out = torch.empty((n_out, k), dtype=V.dtype, device=V.device)
-	fn = lib.bsr_spmm_f32 if V.dtype == torch.float32 else lib.bsr_spmm_f64
+	fn = getattr(lib, f"bsr_spmm_{SUFFIX[V.dtype]}")
 	vec = vector_ok(k, V.element_size(), blocks, V, out)
 	err = fn(
 		blocks.data_ptr(), indptr.data_ptr(), indices.data_ptr(), V.data_ptr(), out.data_ptr(),

@@ -42,7 +42,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ._common import LAUNCHES, SCALAR_LAUNCHES, acc_dtype, check_cuda, raise_on, reset_launches, stream, vector_ok
+from ._common import LAUNCHES, SCALAR_LAUNCHES, SUFFIX, acc_dtype, check_cuda, raise_on, reset_launches, stream, vector_ok
 
 __all__ = [
 	"LAUNCHES",
@@ -181,8 +181,6 @@ def lanczos_sweep_step_ref(
 	return lanczos_sweep_pass_b_ref(v_cur, w, state, beta_out, residual_tol)
 
 
-# The C entry point of each dtype the stencils take.
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64", torch.complex128: "c128"}
 
 
 def _check_shapes(name: str, bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -> None:
@@ -207,7 +205,7 @@ def dia_stencil_t(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -
 	nv, n = x.shape
 	out = torch.empty_like(x)
 	vec = vector_ok(n, x.element_size(), x, out)
-	fn = getattr(lib, f"dia_stencil_t_{_SUFFIX[x.dtype]}")
+	fn = getattr(lib, f"dia_stencil_t_{SUFFIX[x.dtype]}")
 	err = fn(bands.data_ptr(), offsets.data_ptr(), bands.shape[0], x.data_ptr(), out.data_ptr(), nv, n, int(vec), stream(x.device))
 	raise_on(lib, err, "dia_stencil_t")
 	LAUNCHES["dia_stencil_t"] += 1
@@ -323,7 +321,7 @@ def dia_stencil(bands: torch.Tensor, offsets: torch.Tensor, V: torch.Tensor) -> 
 	n, k = V.shape
 	out = torch.empty_like(V)
 	vec = vector_ok(k, V.element_size(), V, out)
-	fn = getattr(lib, f"dia_stencil_{_SUFFIX[V.dtype]}")
+	fn = getattr(lib, f"dia_stencil_{SUFFIX[V.dtype]}")
 	err = fn(bands.data_ptr(), offsets.data_ptr(), bands.shape[0], V.data_ptr(), out.data_ptr(), n, k, int(vec), stream(V.device))
 	raise_on(lib, err, "dia_stencil")
 	LAUNCHES["dia_stencil"] += 1

@@ -492,6 +492,7 @@ def xtrace(
 	converge: Union[str, ConvergenceCriterion] = "default",
 	seed=None,
 	full: bool = False,
+	callback: Optional[Callable] = None,
 	resume=None,
 	**kwargs,
 ):
@@ -506,26 +507,31 @@ def xtrace(
 	round, with ``delta`` the round-over-round move of the estimate.
 	``result.info["state"]`` holds the grown subspace; ``resume=`` (that dict or
 	the result) continues a run made with the same ``A``/``seed``/``batch``/``pdf``
-	bit-exactly. ``differentiable=True`` (a count budget, no ``resume``/``full``)
-	returns the mean of the leave-one-out estimates as a tensor.
+	bit-exactly. ``callback(result)`` is called after every round with the running
+	estimate (the rounds then each read the device); ``record=True`` (implied by a knee
+	criterion) keeps the last round's leave-one-out estimates in ``result.estimator.values``,
+	which the knee criteria read. ``differentiable=True`` (a count budget, no
+	``callback``/``record``/``resume``/``full``) returns the mean of the leave-one-out
+	estimates as a tensor.
 	"""
 	if batch < 1:
 		raise ValueError("Batch size must be positive.")
 	differentiable = kwargs.pop("differentiable", False)
-	for flag in ("record", "callback"):
-		if kwargs.pop(flag, None):
-			raise NotImplementedError(f"{flag} is not ported yet")
+	record = kwargs.pop("record", False)
 	op = _sketch_op(A, "xtrace")
 	if differentiable:
 		refuse_complex_grad("xtrace", op)
-		check_traced_path("xtrace", resume=resume, full=full, pdf=pdf)
+		check_traced_path("xtrace", callback=callback, resume=resume, record=record, full=full, pdf=pdf)
 		return _xtrace_differentiable(op, batch, pdf, converge, seed, kwargs)
 	criterion = CountCriterion(count=op.shape[0])
 	if converge != "default":
 		criterion = criterion | convergence_criterion(converge, **kwargs)
 	elif kwargs:
 		warnings.warn(f"Ignoring criterion kwargs {sorted(kwargs)} because converge='default'", stacklevel=2)
-	return run_xtrace(op, probe_sampler(op, _base_seed(seed), pdf), batch, pdf == "sphere", criterion, full, resume)
+	return run_xtrace(
+		op, probe_sampler(op, _base_seed(seed), pdf), batch, pdf == "sphere", criterion, full, resume,
+		callback=callback if callable(callback) else None, record=record or criterion_needs_values(criterion),
+	)
 
 
 def _xtrace_differentiable(op, batch: int, pdf, converge, seed, kwargs) -> torch.Tensor:
@@ -558,8 +564,14 @@ def xtrace_chain(op, draw, batch: int, target: int, sphere: bool) -> torch.Tenso
 	return torch.mean(xtrace_estimates(*state, sphere))
 
 
-def run_xtrace(op, draw, batch: int, sphere: bool, criterion, full: bool = False, resume=None):
-	"""The XTrace loop on a probe sampler ``draw(it, k)``; see :func:`xtrace`."""
+def run_xtrace(
+	op, draw, batch: int, sphere: bool, criterion, full: bool = False, resume=None, callback: Optional[Callable] = None,
+	record: bool = False,
+):
+	"""The XTrace loop on a probe sampler ``draw(it, k)``; see :func:`xtrace`. A criterion that
+	depends only on the sample count and no ``callback`` grow the subspace without reading the
+	device; otherwise each round rebuilds the estimator from all ``m`` leave-one-out estimates
+	(``record``: kept as its values) and calls ``callback``."""
 	n = op.shape[0]
 	acc = real_dtype(torch.promote_types(op.dtype, torch.float32))
 	state, it0 = None, 0
@@ -574,10 +586,10 @@ def run_xtrace(op, draw, batch: int, sphere: bool, criterion, full: bool = False
 	def m_of(state) -> int:
 		return 0 if state is None else state[0].shape[1]
 
-	estimator = MeanEstimator(1, acc, op.device)
+	estimator = MeanEstimator(1, acc, op.device, record=record)
 	result = EstimatorResult(criterion=criterion)
 	target = count_only_target(criterion)
-	if target is not None:
+	if target is not None and callback is None:
 		state, it0 = _grow_to(op, draw, batch, target, state, it0)
 	else:
 		prev = None
@@ -587,11 +599,16 @@ def run_xtrace(op, draw, batch: int, sphere: bool, criterion, full: bool = False
 				break
 			state = xtrace_round(op, state, draw(it0, ns))
 			it0 += 1
-			estimator = MeanEstimator(1, acc, op.device)
+			# The leave-one-out estimates are recomputed wholesale each round, so the estimator is
+			# rebuilt; delta is the round-over-round move of the estimate.
+			estimator = MeanEstimator(1, acc, op.device, record=record)
 			estimator.update(xtrace_estimates(*state, sphere).to(acc))
 			cur = estimator.state.mu
 			estimator.delta = torch.full_like(cur, float("inf")) if prev is None else cur - prev
 			prev = cur
+			if callback is not None:
+				result.estimator, result.estimate, result.nit = estimator, estimator.estimate, estimator.n_samples
+				callback(result)
 	if estimator.n_samples == 0 and m_of(state) > 0:
 		estimator.update(xtrace_estimates(*state, sphere).to(acc))
 	result.estimator, result.estimate, result.nit = estimator, estimator.estimate, estimator.n_samples

@@ -118,7 +118,7 @@ def _tqli_single(d: list, e: list, want_vecs: bool, maxiter: int):
 
 
 def tqli(
-	d: torch.Tensor, e: torch.Tensor, eigenvectors: bool = False, maxiter: int = 30, max_iter=None
+	d: torch.Tensor, e: torch.Tensor, eigenvectors=False, maxiter: int = 30, max_iter=None, Z=None
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
 	"""Tridiagonal QL-implicit eigensolver, batched over leading axes (``primate_tpu/tridiag.py:182-239``).
 
@@ -126,9 +126,34 @@ def tqli(
 	``(rw, Z)`` with the eigenvectors as columns, in ``promote_types(d.dtype,
 	float32)`` on ``d``'s device. ``max_iter`` is the reference's name for
 	``maxiter``. Warns when a block is not converged after ``maxiter`` sweeps.
+
+	The reference's signature ``tqli(d, e, Z, max_iter)`` passes an output array as the
+	third argument (or as ``Z``): an array there selects that convention. Eigenvectors are
+	computed when it is not empty; the eigenvalues are written back into a numpy ``d`` and
+	the eigenvectors (from the identity) into a numpy ``Z`` of the right shape, and the
+	result is returned as well.
 	"""
 	if max_iter is not None:
 		maxiter = int(max_iter)
+	if Z is not None:  # keyword form of the reference's output-array argument
+		eigenvectors = Z
+	out_arrays = not (isinstance(eigenvectors, (bool, np.bool_)) or eigenvectors is None)
+	d_in, Z_out = d, None
+	if out_arrays:
+		want_vecs = int(np.prod(np.shape(eigenvectors))) > 0
+		Z_out = eigenvectors if (want_vecs and isinstance(eigenvectors, np.ndarray)) else None
+		eigenvectors = want_vecs
+	result = _tqli(d, e, bool(eigenvectors), maxiter)
+	if out_arrays:
+		rw = result[0] if eigenvectors else result
+		if isinstance(d_in, np.ndarray) and d_in.shape == tuple(rw.shape):
+			d_in[...] = rw.cpu().numpy()
+		if Z_out is not None and Z_out.shape == tuple(result[1].shape):
+			Z_out[...] = result[1].cpu().numpy()
+	return result
+
+
+def _tqli(d, e, eigenvectors: bool, maxiter: int):
 	d, e = torch.as_tensor(d), torch.as_tensor(e)
 	e = _normalize_offdiag(d, e)
 	acc = torch.promote_types(d.dtype, torch.float32)
@@ -149,7 +174,7 @@ def tqli(
 		warnings.warn(
 			f"tqli: not all off-diagonals became negligible within maxiter={maxiter} "
 			"QL sweeps; returned eigenvalues may be partially converged (raise maxiter).",
-			stacklevel=2,
+			stacklevel=3,
 		)
 	out = torch.from_numpy(rw.reshape(d.shape)).to(d.device, acc)
 	if not eigenvectors:

@@ -18,7 +18,9 @@ the mesh, ``filtered_eigsh`` on the grid Laplacian, ``svds`` and the nuclear nor
 defaults: ``recipes.logdet`` (``orth=5``: pass A and the PyTorch re-orthogonalisation window) and
 ``recipes.trace_bounds`` (full re-orthogonalisation) on the mesh, and
 ``recipes.trace_inv(method="cg", precond="jacobi")`` on ``separated_spectrum``
-(``--recipes`` traces these three alone). Prints one JSON line per call: the
+(``--recipes`` traces these three alone). ``--grad`` traces phase 20's first call alone: the
+gradient of ``Σ W∘MatrixFunction(L, exp(−x), deg=20, orth=0).matmat(V)`` with respect to the
+mesh's bands, forward and backward, 64 probes. Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
 count); writes them all to ``--out``. Needs a CUDA device; without one it exits
@@ -61,6 +63,7 @@ def main() -> None:
 	ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 	ap.add_argument("--out", default="profile_port.json")
 	ap.add_argument("--recipes", action="store_true", help="trace the phase-19 recipes only")
+	ap.add_argument("--grad", action="store_true", help="trace phase 20's differentiated f(A)V only")
 	args = ap.parse_args()
 	import torch
 
@@ -70,18 +73,21 @@ def main() -> None:
 	import primate_tpu_torch as ptt
 
 	dev = torch.device("cuda", 0)
-	rows = [] if args.recipes else other_calls(torch, ptt, cs, dev)
+	rows = [] if (args.recipes or args.grad) else other_calls(torch, ptt, cs, dev)
 	mesh = ptt.DIAOperator.from_scipy(cs.mesh_laplacian(cs.MESH_SIDE), dtype=torch.float32, device=dev)
-	sep, _ = cs.separated_spectrum(cs.MESH_SIDE**2, cs.EIG_K, seed=17)
-	sop = ptt.DIAOperator.from_scipy(sep, dtype=torch.float32, device=dev)
-	rec = ptt.recipes
-	calls = {  # chip_smoke.py phase 19
-		"recipe_logdet_mesh": lambda: rec.logdet(mesh, seed=cs.REC_SEED),
-		"recipe_trace_bounds_mesh": lambda: rec.trace_bounds(mesh, "log", nv=32, seed=cs.REC_SEED),
-		"recipe_trace_inv_cg_jacobi": lambda: rec.trace_inv(sop, method="cg", precond="jacobi", rtol=cs.REC_RTOL, seed=cs.REC_SEED),
-	}
+	if args.grad:
+		calls = {"grad_fav_mesh": grad_call(torch, ptt, cs, dev, mesh)}
+	else:
+		sep, _ = cs.separated_spectrum(cs.MESH_SIDE**2, cs.EIG_K, seed=17)
+		sop = ptt.DIAOperator.from_scipy(sep, dtype=torch.float32, device=dev)
+		rec = ptt.recipes
+		calls = {  # chip_smoke.py phase 19
+			"recipe_logdet_mesh": lambda: rec.logdet(mesh, seed=cs.REC_SEED),
+			"recipe_trace_bounds_mesh": lambda: rec.trace_bounds(mesh, "log", nv=32, seed=cs.REC_SEED),
+			"recipe_trace_inv_cg_jacobi": lambda: rec.trace_inv(sop, method="cg", precond="jacobi", rtol=cs.REC_RTOL, seed=cs.REC_SEED),
+		}
 	for name, fn in calls.items():
-		row = {"call": name, **trace(torch, fn)}
+		row = {"call": name, **trace(torch, fn, top=16 if args.grad else 8)}
 		print(json.dumps(row), flush=True)
 		rows.append(row)
 	smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -89,6 +95,25 @@ def main() -> None:
 	with open(args.out, "w") as f:
 		json.dump({"device": smi, "torch": torch.__version__, "calls": rows}, f, indent=1)
 	print(smi, flush=True)
+
+
+def grad_call(torch, ptt, cs, dev, mesh):
+	"""``chip_smoke.py`` phase 20's first call: F's value and its gradient with respect to the
+	mesh's bands (64 probes, deg 20, orth 0, two-pass), as one function for ``trace``."""
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(cs.GRAD["seed"])
+	n, k = mesh.shape[0], cs.GRAD["probes"]
+	V = torch.randn((n, k), generator=gen, device=dev, dtype=torch.float32)
+	W = torch.randn((n, k), generator=gen, device=dev, dtype=torch.float32)
+
+	def fn():
+		b = mesh.bands.clone().requires_grad_(True)
+		op = ptt.DIAOperator(b, mesh.offsets, mesh.shape)
+		F = torch.sum(W * ptt.MatrixFunction(op, "exp", t=-1.0, deg=cs.GRAD["deg"], orth=0).matmat(V))
+		F.backward()
+		return b.grad
+
+	return fn
 
 
 def other_calls(torch, ptt, cs, dev) -> list:

@@ -167,13 +167,19 @@ def test_sparse_value_gradients_match_dense_autograd(kind):
 
 
 def test_the_lanczos_recurrence_refuses_reverse_mode():
+	"""Reverse mode through the Lanczos recurrence refuses a complex (Hermitian) operator, as JAX's
+	gradients are real-symmetric only; a real operator's sweep differentiates (held to ``jax.grad``
+	in ``test_torch_lanczos_grad.py``), and under ``torch.no_grad()`` takes the in-place sweep."""
 	bands, offsets = _rows_bands(_banded(30))
 	op = DIAOperator(torch.tensor(bands, requires_grad=True), offsets, (30, 30))
 	X = torch.ones((30, 2), dtype=torch.float64)
-	with pytest.raises(NotImplementedError, match="Lanczos recurrence"):
-		MatrixFunction(op, "log", deg=5, orth=0).quad(X)
+	cop = DIAOperator(torch.tensor(bands, dtype=torch.complex128, requires_grad=True), offsets, (30, 30))
+	with pytest.raises(NotImplementedError, match="Lanczos recurrence is real only"):
+		MatrixFunction(cop, "log", deg=5, orth=0).quad(X.to(torch.complex128))
+	q = MatrixFunction(op, "log", deg=5, orth=0).quad(X)
+	assert q.requires_grad and bool(torch.all(torch.isfinite(torch.autograd.grad(q.sum(), op.bands)[0])))
 	with torch.no_grad():
-		MatrixFunction(op, "log", deg=5, orth=0).quad(X)
+		torch.testing.assert_close(MatrixFunction(op, "log", deg=5, orth=0).quad(X), q.detach(), rtol=1e-12, atol=0)
 
 
 # --- spectral sums on injected probes ----------------------------------------------------

@@ -469,3 +469,50 @@ def test_hofstadter_matrix_matches_the_example(shape):
 	got, want = hofstadter_csr(*shape, 0.2), hofstadter_hamiltonian(*shape, 0.2)
 	assert got.dtype == want.dtype == np.complex128
 	assert abs(got - want).max() == 0.0
+
+
+def _complex_sparse(n, seed, hermitian=True):
+	"""A sparse complex matrix with a few bands and scattered entries (Hermitian by default)."""
+	rng = np.random.default_rng(seed)
+	A = sps.random(n, n, density=0.08, random_state=rng, format="coo")
+	A = sps.coo_matrix((A.data + 1j * rng.normal(size=A.nnz), (A.row, A.col)), shape=(n, n))
+	B = (A + sps.diags(rng.normal(size=n - 2) + 1j * rng.normal(size=n - 2), 2, shape=(n, n))).tocsr()
+	return (B + B.getH() + sps.diags(np.full(n, 4.0))).tocsr() if hermitian else B
+
+
+@pytest.mark.parametrize("tile", [(2, 2), (4, 4), (8, 8), (4, 8)])
+@pytest.mark.parametrize("hermitian", [True, False])
+def test_complex_bsr_applies_and_adjoints_match_jax(tile, hermitian):
+	"""A complex BSR operator whose tile grid overhangs n: ``matmat``/``matvec`` and the adjoint
+	``rmatmat``/``rmatvec`` (``bsr_spmm``'s plain version on the conjugated transposed tiles)
+	against the JAX package's jnp path and the dense conjugate transpose, 1e-12."""
+	from primate_tpu.operators.sparse import BSROperator as JaxBSR
+
+	n = 37
+	H = _complex_sparse(n, 7 + tile[0], hermitian)
+	jop, op = JaxBSR.from_scipy(H, blocksize=tile), BSROperator.from_scipy(H, blocksize=tile, device="cpu")
+	assert op.dtype == torch.complex128
+	rng = np.random.default_rng(8)
+	V = rng.normal(size=(n, 5)) + 1j * rng.normal(size=(n, 5))
+	D = H.toarray()
+	_close(op.matmat(_t(V)), np.asarray(jop.matmat(jnp.asarray(V))), rtol=0, atol=1e-12)
+	_close(op.matmat(_t(V)), D @ V, rtol=0, atol=1e-12)
+	_close(op.rmatmat(_t(V)), np.asarray(jop.rmatmat(jnp.asarray(V))), rtol=0, atol=1e-12)
+	_close(op.rmatmat(_t(V)), D.conj().T @ V, rtol=0, atol=1e-12)
+	_close(op.rmatmat_plain(_t(V)), D.conj().T @ V, rtol=0, atol=1e-12)
+	_close(op.matvec(_t(V[:, 0])), np.asarray(jop.matvec(jnp.asarray(V[:, 0]))), rtol=0, atol=1e-12)
+	_close(op.rmatvec(_t(V[:, 1])), np.asarray(jop.rmatvec(jnp.asarray(V[:, 1]))), rtol=0, atol=1e-12)
+	_close(op.H.matmat(_t(V)), D.conj().T @ V, rtol=0, atol=1e-12)
+
+
+def test_complex_bsr_quadrature_matches_jax():
+	"""SLQ through a Hermitian BSR operator on JAX's phase probes: the same quadratic forms."""
+	from primate_tpu.operators.sparse import BSROperator as JaxBSR
+
+	n = 64
+	H = _complex_sparse(n, 9)
+	jop, op = JaxBSR.from_scipy(H, blocksize=(8, 8)), BSROperator.from_scipy(H, blocksize=(8, 8), device="cpu")
+	Z = _jax_probes(as_key(SEED), (n, 6), "phase")
+	got = MatrixFunction(op, "log", deg=12, orth=3).quad(Z)
+	want = pt.MatrixFunction(jop, "log", deg=12, orth=3).quad(jnp.asarray(Z.numpy()))
+	_close(got, np.asarray(want), rtol=1e-10)

@@ -14,6 +14,7 @@ from primate_tpu_torch import BSROperator, DIAOperator, MatrixFunction, hutch, l
 from primate_tpu_torch.operators.base import LinearOperator
 from primate_tpu_torch.ops import _common, bsr, dia
 from primate_tpu_torch.ops import autograd as ptt_autograd
+from primate_tpu_torch.random import real_dtype
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -326,18 +327,16 @@ def test_dia_stencil_matches_plain_version(cuda, offsets, k, dtype):
 def test_sparse_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 	blocks, indptr, indices, n = _bsr_arrays(cuda, torch.float32, 8, 8)
 	V = torch.randn((n, 4), device=cuda)
-	for bad in (torch.complex64, torch.bfloat16):
-		with pytest.raises((TypeError, NotImplementedError)):
-			bsr.bsr_spmm(blocks.to(bad), indptr, indices, V.to(bad), n)
+	with pytest.raises(TypeError):
+		bsr.bsr_spmm(blocks.bfloat16(), indptr, indices, V.bfloat16(), n)
 	with pytest.raises(TypeError):
 		bsr.bsr_spmm(blocks, indptr, indices, V.double(), n)
+	with pytest.raises(TypeError):  # complex tiles with a real block: the kernel takes one dtype
+		bsr.bsr_spmm(blocks.to(torch.complex64), indptr, indices, V, n)
 	with pytest.raises(ValueError, match="contiguous"):
 		bsr.bsr_spmm(blocks, indptr, indices, torch.randn((4, n), device=cuda).T, n)
 	with pytest.raises(ValueError):
 		bsr.bsr_spmm(blocks, indptr.cpu(), indices, V, n)
-	op = BSROperator(blocks.to(torch.complex64), indices, indptr, (n, n))
-	with pytest.raises(NotImplementedError):
-		op.matmat(V.to(torch.complex64))
 	bands = torch.ones((3, 100), device=cuda)
 	offs = torch.tensor([-1, 0, 1], device=cuda)
 	with pytest.raises(TypeError):
@@ -582,7 +581,8 @@ def test_complex_node_major_stencil_at_the_cell_width(cuda, dtype):
 
 def test_complex_operators_on_the_card(cuda):
 	"""A Hermitian DIA operator's Lanczos sweep takes the complex stencil and no step kernel and
-	matches the CPU port; a complex BSR apply and a complex kernel backward raise."""
+	matches the CPU port; a complex BSR apply takes the complex ``bsr_spmm``, and a complex kernel
+	backward raises."""
 	nx = ny = 40
 	rng = np.random.default_rng(0)
 	x, y = np.repeat(np.arange(nx), ny), np.tile(np.arange(ny), nx)
@@ -598,8 +598,13 @@ def test_complex_operators_on_the_card(cuda):
 	np.testing.assert_allclose(out.alphas.cpu().numpy(), want.alphas.numpy(), rtol=0, atol=1e-12)
 	np.testing.assert_allclose(out.betas.cpu().numpy(), want.betas.numpy(), rtol=0, atol=1e-12)
 	blocks, indptr, indices, n = _bsr_arrays(cuda, torch.float64, 8, 8)
-	with pytest.raises(NotImplementedError):
-		BSROperator(blocks.to(torch.complex128), indices, indptr, (n, n)).matmat(torch.ones((n, 2), device=cuda, dtype=torch.complex128))
+	C = BSROperator((blocks * (1 + 0.5j)).to(torch.complex128), indices, indptr, (n, n))
+	X = torch.ones((n, 2), device=cuda, dtype=torch.complex128)
+	before = bsr.LAUNCHES["bsr_spmm"]
+	got = C.matmat(X)
+	assert bsr.LAUNCHES["bsr_spmm"] == before + 1
+	want = bsr.bsr_spmm_ref(C.blocks, indptr, indices, X, n)
+	assert float((got - want).abs().max()) <= _tol(torch.complex128) * float(want.abs().max())
 	bands = op.bands.clone().requires_grad_(True)
 	y = ptt_autograd.dia_stencil_t_ad(bands, torch.tensor(V0.T.copy(), device=cuda), op.offsets_t, op.offsets)
 	with pytest.raises(NotImplementedError):
@@ -678,6 +683,56 @@ def test_bsr_adjoint_on_transposed_tiles_matches_plain_version(cuda, tile, k, dt
 	assert float((got - want).abs().max()) <= _tol(dtype) * float(want.abs().max())
 	dense = torch.tensor(A.toarray(), dtype=torch.float64, device=cuda)
 	assert float((got.double() - dense.T @ U.double()).abs().max()) <= 10 * _tol(dtype) * float(want.abs().max())
+
+
+def _cplx_bsr(dev, dtype, bm, bn, n=1001, seed=0):
+	"""``_bsr_arrays``' pattern with complex tiles: real parts as there, seeded imaginary parts."""
+	blocks, indptr, indices, n = _bsr_arrays(dev, real_dtype(dtype), bm, bn, n=n, seed=seed)
+	g = torch.Generator(device=dev)
+	g.manual_seed(seed + 1)
+	imag = torch.randn(blocks.shape, generator=g, device=dev, dtype=blocks.dtype) * (blocks != 0)
+	return torch.complex(blocks, imag).contiguous(), indptr, indices, n
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("k", [1, 3, 64, 65, 240])
+@pytest.mark.parametrize("tile", [(8, 16), (4, 4), (8, 8)])
+def test_complex_bsr_spmm_matches_plain_version(cuda, tile, k, dtype):
+	"""The complex instantiations of ``bsr_spmm``, with an empty block row, against ``bsr_spmm_ref``."""
+	blocks, indptr, indices, n = _cplx_bsr(cuda, dtype, *tile)
+	V = _cplx(cuda, (n, k), dtype, seed=k)
+	before = bsr.LAUNCHES["bsr_spmm"]
+	got = bsr.bsr_spmm(blocks, indptr, indices, V, n)
+	assert bsr.LAUNCHES["bsr_spmm"] == before + 1
+	want = bsr.bsr_spmm_ref(blocks, indptr, indices, V, n)
+	torch.cuda.synchronize()
+	assert got.dtype == dtype and float((got - want).abs().max()) <= _tol(dtype) * float(want.abs().max())
+	assert float(got[3 * tile[0] : 4 * tile[0]].abs().max()) == 0.0  # the empty block row
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_bsr_spmm_scalar_path_and_adjoint(cuda, dtype):
+	"""A misaligned complex block takes the scalar path (complex64: a 16-byte vector holds two);
+	a complex BSR operator's adjoint is ``bsr_spmm`` on the conjugated transposed tiles, held to
+	``rmatmat_plain`` and to the dense conjugate transpose."""
+	blocks, indptr, indices, n = _cplx_bsr(cuda, dtype, 8, 8)
+	flat = _cplx(cuda, (n * 64 + 1,), dtype, seed=2)
+	V = flat[1:].view(n, 64)
+	before = _common.SCALAR_LAUNCHES["bsr_spmm"]
+	got = bsr.bsr_spmm(blocks, indptr, indices, V, n)
+	assert _common.SCALAR_LAUNCHES["bsr_spmm"] == before + (dtype == torch.complex64)  # one complex128 is 16 bytes
+	want = bsr.bsr_spmm_ref(blocks, indptr, indices, V, n)
+	torch.cuda.synchronize()
+	assert float((got - want).abs().max()) <= _tol(dtype) * float(want.abs().max())
+	op = BSROperator(blocks, indices, indptr, (n, n))
+	U = _cplx(cuda, (n, 13), dtype, seed=3)
+	before = bsr.LAUNCHES["bsr_spmm"]
+	got = op.rmatmat(U)
+	assert bsr.LAUNCHES["bsr_spmm"] == before + 1
+	want = op.rmatmat_plain(U)
+	assert float((got - want).abs().max()) <= _tol(dtype) * float(want.abs().max())
+	dense = op.todense().to(torch.complex128)
+	assert float((got.to(torch.complex128) - dense.mH @ U.to(torch.complex128)).abs().max()) <= 10 * _tol(dtype) * float(want.abs().max())
 
 
 def test_eigensolvers_and_bidiag_launch_the_kernels(cuda):

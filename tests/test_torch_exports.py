@@ -37,10 +37,10 @@ def _hermitian_op():
 
 
 @pytest.mark.parametrize("branch", ["complex_hutch", "complex_sketch", "complex_diag", "complex_kpm_trace",
-	"complex_bsr_on_the_card", "complex_step_kernels_on_the_card"])
+	"complex_step_kernels_on_the_card"])
 def test_each_unported_branch_raises(branch):
 	"""Name by name, a branch of the JAX package that the port has not taken raises
-	``NotImplementedError``: ``differentiable=True`` on a Hermitian operator, and the complex BSR and Lanczos-step kernels (ROADMAP B.7; the
+	``NotImplementedError``: ``differentiable=True`` on a Hermitian operator, and the complex Lanczos-step kernels (ROADMAP B.7; the
 	dtype rule the wrappers apply to a CUDA tensor, checked here without a card)."""
 	import torch
 
@@ -51,7 +51,6 @@ def test_each_unported_branch_raises(branch):
 		"complex_sketch": lambda: ptt.hutchpp(_hermitian_op(), m=3, differentiable=True),
 		"complex_diag": lambda: ptt.diag(_hermitian_op(), converge="count", count=2, differentiable=True),
 		"complex_kpm_trace": lambda: ptt.kpm_trace(_hermitian_op(), m=4, interval=(0.0, 2.0), differentiable=True),
-		"complex_bsr_on_the_card": lambda: check_cuda("bsr_spmm", torch.complex64, torch.device("cuda", 0)),
 		"complex_step_kernels_on_the_card": lambda: check_cuda("lanczos_dia_step", torch.complex128, torch.device("cuda", 0)),
 	}
 	with pytest.raises(NotImplementedError):
@@ -60,14 +59,28 @@ def test_each_unported_branch_raises(branch):
 	check_cuda("dia_stencil_t", torch.complex64, torch.device("cuda", 0), complex_ok=True)
 
 
+@pytest.mark.parametrize("kernel,dtype", [("bsr_spmm", "complex64"), ("bsr_spmm", "complex128"), ("dia_stencil", "complex64")])
+def test_complex_kernels_take_complex_tensors_on_the_card(kernel, dtype):
+	"""The dtype rule of the wrappers that have complex instantiations (the two DIA stencils, and
+	``bsr_spmm`` since its complex64/complex128 entry points): ``check_cuda(..., complex_ok=True)``
+	accepts a complex tensor on a CUDA device, checked without a card."""
+	import torch
+
+	from primate_tpu_torch.ops._common import check_cuda
+
+	check_cuda(kernel, getattr(torch, dtype), torch.device("cuda", 0), complex_ok=True)
+	with pytest.raises(NotImplementedError):
+		check_cuda(kernel, getattr(torch, dtype), torch.device("cuda", 0))
+
+
 
 def _public_functions(module) -> set:
 	return {n for n, v in vars(module).items() if not n.startswith("_") and callable(v) and getattr(v, "__module__", None) == module.__name__}
 
 
-@pytest.mark.parametrize("module", ["recipes", "stats", "utils.checkpoint", "utils.profiling", "utils.kwargs"])
+@pytest.mark.parametrize("module", ["recipes", "stats", "utils.checkpoint", "utils.profiling", "utils.kwargs", "plotting"])
 def test_module_names_match_jax(module):
-	"""``recipes`` and ``stats`` by ``__all__``, the three ``utils`` modules by their public functions and classes."""
+	"""``recipes``, ``stats`` and ``plotting`` by ``__all__``, the three ``utils`` modules by their public functions and classes."""
 	import importlib
 
 	jmod = importlib.import_module(f"primate_tpu.{module}")

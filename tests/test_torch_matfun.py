@@ -427,8 +427,10 @@ def test_gradient_keywords_behave_as_in_jax(entry, kwargs):
 # (entry, keywords, ported): an unported keyword raises NotImplementedError. A complex
 # dtype raised until Hermitian operators were ported; it now runs, and on a real matrix
 # lifted to complex128 gives the float64 call's result (the probes are drawn real).
+# diag's resume raised until it was ported: a run of one iteration resumed to two gives the
+# uninterrupted run's estimate.
 KEYWORD_CASES = [
-	("diag", dict(resume={}), False),
+	("diag", dict(resume="half"), True),
 	("lanczos_block_op", dict(phys=True), False),
 	("lanczos_block_op", dict(phys=False), False),
 	("MatrixFunction", dict(dtype=torch.complex128), True),
@@ -441,9 +443,11 @@ def test_unported_keywords_raise(entry, kwargs, ported):
 	A = torch.from_numpy(_spd(20, seed=27)[0])
 	V0 = torch.ones((20, 2), dtype=torch.float64)
 	X = torch.from_numpy(np.random.default_rng(27).choice([-1.0, 1.0], size=(20, 3)))
+	if kwargs.get("resume") == "half":  # a run of 1 iteration, resumed to 2
+		kwargs = dict(resume=diag(A, converge="count", count=1, seed=3, full=True)[1])
 	call = {
 		"hutch": lambda kw: hutch(A, converge="count", count=4, **kw),
-		"diag": lambda kw: diag(A, converge="count", count=2, **kw),
+		"diag": lambda kw: torch.from_numpy(diag(A, converge="count", count=2, seed=3, **kw)),
 		"lanczos_block_op": lambda kw: lanczos_block_op(DenseOperator(A), V0, deg=4, ncv=2, **kw),
 		"MatrixFunction": lambda kw: MatrixFunction(A, "log", **kw).quad(X),
 		"lanczos": lambda kw: torch.cat(lanczos(A, deg=4, seed=1, **kw)),

@@ -161,7 +161,10 @@ def test_import_leaves_jax_out():
 		"primate_tpu_torch.ops.autograd, primate_tpu_torch.solvers, primate_tpu_torch.autodiff, primate_tpu_torch.kpm, " \
 		"primate_tpu_torch.density, primate_tpu_torch.operators.prepare, primate_tpu_torch.native, " \
 		"primate_tpu_torch.bidiag, primate_tpu_torch.block_krylov, primate_tpu_torch.eigen, primate_tpu_torch.recipes, " \
-		"primate_tpu_torch.utils, primate_tpu_torch.utils.checkpoint, primate_tpu_torch.utils.profiling, primate_tpu_torch.utils.kwargs; " \
+		"primate_tpu_torch.utils, primate_tpu_torch.utils.checkpoint, primate_tpu_torch.utils.profiling, primate_tpu_torch.utils.kwargs, " \
+		"primate_tpu_torch.plotting, primate_tpu_torch.examples.gp_log_likelihood, primate_tpu_torch.examples.graph_analysis, " \
+		"primate_tpu_torch.examples.rectangular_spectra, primate_tpu_torch.examples.spectrum_slicing, " \
+		"primate_tpu_torch.examples.tight_binding; " \
 		"bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'primate_tpu')]; print(bad); assert not bad"
 	r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
 	assert r.returncode == 0, r.stdout + r.stderr
