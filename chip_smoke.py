@@ -116,7 +116,20 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    conjugate transpose; the complex64 kernel against its plain version at k = 64 and 240, timed
    beside its bound, plain version and library call, and complex128 at a small shape;
 22. runs the five port examples (``primate_tpu_torch.examples``) at their own sizes, each with its
-   checks against closed forms or a dense reference.
+   checks against closed forms or a dense reference;
+23. runs the sharded path (``primate_tpu_torch.parallel``). (a) One rank over NCCL, in this process:
+   the 10M flagship through ``shard_operator(DIAOperator(L))`` at ``orth`` 0 and 5 against the
+   unsharded operator on the same probes (α, β and the estimate within float32's 1e-4, the estimate
+   within 5% of the exact logdet, ``dia_stencil_t`` launched deg times: the sharded sweep's step is
+   the halo exchange, the stencil on the rank's rows and the plain step's arithmetic), walls and
+   peak memory of both; the sharded operator's global face in both layouts at the flagship shape
+   (``dia_stencil_t`` and ``dia_stencil`` once each, equal to the unsharded applies); phase 7's
+   sketches through ``ShardedBSROperator`` (within phase 7's limits, ``bsr_spmm`` once an apply) and
+   phase 9's logdet through ``ShardedCSROperator`` (within its bounds). (b) Two ranks over gloo, both
+   on cuda:0, as subprocesses of this script (``--sharded-rank``; the collectives staged through host
+   memory): the flagship at n = 500,000 through the halo DIA operator and an allgather BSR one, each
+   on (op, probe) meshes (2, 1) and (1, 2): both ranks' estimates equal bit for bit and within 5%,
+   each rank's kernel launched.
 
 Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
 (``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
@@ -140,7 +153,9 @@ every kernel also carries its launches in phases 16, 17, 18, 19 and 22 (``prep_l
 ``eig_launches``, ``gram_launches``, ``recipe_launches``, ``example_launches``); ``dia_stencil_t``
 and ``bsr_spmm`` their forward and backward launches in phase 20 (``grad_launches``), and
 ``bsr_spmm`` its complex64 numbers at phase 21's cell under ``c64_`` keys, with ``c64_launches`` its
-launches in phase 21's estimator calls; the last line is ``{"ok": true, "device": {...}}``.
+launches in phase 21's estimator calls; every kernel its launches through the sharded operators in
+phase 23 (a) (``sharded_launches``) and on both ranks of (b) (``sharded_two_rank_launches``); the
+last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing anything.
 """
 
@@ -2457,6 +2472,203 @@ def port_examples(torch, ptt, dev) -> dict:
 	return total
 
 
+# Phase 23: the sharded path. (a) one rank over NCCL on the card: the 10M flagship (orth 0 and 5) and
+# both layouts of the global face through ShardedDIAOperator against the unsharded operator on the
+# same blocks, phase 7's
+# sketches through ShardedBSROperator and phase 9's logdet through ShardedCSROperator (both
+# comm="allgather": at one rank a halo would be the whole block). (b) two ranks over gloo, both on
+# cuda:0, as subprocesses: the flagship at SHARD_N through the halo DIA operator and through an
+# allgather BSR one, each on an (op, probe) mesh of (2, 1) and (1, 2).
+SHARD_N, SHARD_NM_K, SHARD_TIMEOUT_S = 500_000, 8, 300
+
+
+def _free_port() -> int:
+	import socket
+
+	with socket.socket() as s:
+		s.bind(("localhost", 0))
+		return s.getsockname()[1]
+
+
+def _sharded_flagship(torch, ptt, op, orth: int) -> tuple:
+	"""The flagship call on ``op`` (unsharded or sharded), its launches, wall and peak memory."""
+	M = ptt.MatrixFunction(op, fun="log", deg=DEG, orth=orth, reorth_passes=1, dtype=torch.float32)
+	return _timed_calls(torch, lambda: ptt.hutch(M, batch=PROBES, converge="count", count=PROBES, seed=42), reps=1)
+
+
+def sharded_one_rank(torch, ptt, dev) -> dict:
+	"""Phase 23 (a): world size 1 over NCCL, in this process. Returns the launches of the sharded calls."""
+	from primate_tpu_torch.lanczos import lanczos_block_op
+	from primate_tpu_torch.ops import dia
+	from primate_tpu_torch.parallel import ShardedBSROperator, ShardedCSROperator, initialize_distributed, make_mesh, shard_operator
+	from primate_tpu_torch.random import sample_isotropic
+	from primate_tpu_torch.trace import _base_seed, batch_generator
+
+	total = {}
+	torch.cuda.set_device(dev)
+	initialize_distributed("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+	mesh = make_mesh((1, 1), ("op", "probe"))
+	L = build_laplacian(N_LARGE)
+	op = ptt.DIAOperator.from_scipy(L, dtype=torch.float32, device=dev)
+	sop = shard_operator(op, mesh)
+	exact = exact_logdet(N_LARGE)
+	# The same probes through both: α and β of the first batch's sweep.
+	V = sample_isotropic(batch_generator(_base_seed(42), 0, dev), (N_LARGE, PROBES), pdf="rademacher", dtype=torch.float32)
+	for orth in (0, 5):
+		ab = [lanczos_block_op(o, V, deg=DEG, ncv=max(2, orth), orth=orth, reorth_passes=1, return_basis=False) for o in (op, sop)]
+		ab_err = max(float((s - u).abs().max() / u.abs().max()) for s, u in ((ab[1].alphas, ab[0].alphas), (ab[1].betas, ab[0].betas)))
+		del ab
+		rows = {}
+		for name, o in (("unsharded", op), ("sharded", sop)):
+			est, counts, _, times, peak = _sharded_flagship(torch, ptt, o, orth)
+			rows[name] = {"estimate": est, "rel_err": abs(est - exact) / abs(exact), "wall_s": times[0],
+				"max_memory_allocated_bytes": peak, "launches": counts}
+		torch.cuda.empty_cache()
+		row = {"phase": "sharded_flagship", "world": 1, "backend": "nccl", "n": N_LARGE, "deg": DEG, "orth": orth, "probes": PROBES,
+			"exact": exact, "alpha_beta_rel_err": ab_err, "estimate_rel_diff": abs(rows["sharded"]["estimate"] - rows["unsharded"]["estimate"])
+			/ abs(rows["unsharded"]["estimate"]), "overhead": rows["sharded"]["wall_s"] / rows["unsharded"]["wall_s"], **rows}
+		emit(row)
+		if not (ab_err < ALPHA_TOL["float32"] and row["estimate_rel_diff"] < ALPHA_TOL["float32"] and rows["sharded"]["rel_err"] < 0.05):
+			raise AssertionError(f"the sharded flagship (orth={orth}) disagrees: {row}")
+		if rows["sharded"]["launches"]["dia_stencil_t"] != DEG:  # one batch of PROBES
+			raise AssertionError(f"sharded sweep launched dia_stencil_t {rows['sharded']['launches']['dia_stencil_t']} times, expected {DEG}")
+		_add(total, rows["sharded"]["launches"])
+	# The global face at the flagship shape: a replicated block in, the whole product out, through
+	# the probe-major and the node-major stencil, against the unsharded operator on the same block.
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(23)
+	blocks = {"probe_major": (torch.randn((PROBES, N_LARGE), generator=gen, device=dev), "matmat_t", "dia_stencil_t"),
+		"node_major": (torch.randn((N_LARGE, SHARD_NM_K), generator=gen, device=dev), "matmat", "dia_stencil")}
+	for label, (X, method, kernel) in blocks.items():
+		dia.reset_launches()
+		got = getattr(sop, method)(X)
+		torch.cuda.synchronize()
+		counts = dict(dia.LAUNCHES)
+		want = getattr(op, method)(X)
+		err = float((got - want).abs().max() / want.abs().max())
+		row = {"phase": "sharded_apply", "layout": label, "shape": list(X.shape), "max_abs_err": err, "launches": counts,
+			"sharded_ms": time_ms(torch, lambda: getattr(sop, method)(X), 5), "unsharded_ms": time_ms(torch, lambda: getattr(op, method)(X), 5)}
+		emit(row)
+		if not err < STENCIL_TOL["float32"] or counts[kernel] != 1:
+			raise AssertionError(f"the sharded {label} apply is off, or {kernel} did not launch once: {row}")
+		_add(total, counts)
+		del got, want
+	del blocks, X
+	del op, sop, V
+	torch.cuda.empty_cache()
+
+	S = _bsr_cell(**BSR_CELL)
+	tr = float(S.diagonal().astype(np.float64).sum())
+	diag_s = S.diagonal().astype(np.float64)
+	bop = ShardedBSROperator.from_bsr(S, mesh, comm="allgather", blocksize=(BSR_CELL["bs"],) * 2, dtype=torch.float32, device=dev)
+	calls = {
+		"hutchpp": lambda: ptt.hutchpp(bop, m=240, seed=7),
+		"xtrace": lambda: ptt.xtrace(bop, batch=64, converge="count", count=256, seed=7),
+		"xdiag": lambda: ptt.xdiag(bop, m=256, seed=7),
+	}
+	for name, fn in calls.items():
+		est, counts, copies, times, peak = _timed_calls(torch, fn, reps=1)
+		row = {"phase": "sharded_bsr_sketch", "call": name, "comm": bop.comm, "wall_s": times[0], "max_memory_allocated_bytes": peak,
+			"launches": counts, "layout_copies": copies}
+		if name == "xdiag":
+			row["diag_rel_l2_err"] = float(np.linalg.norm(est - diag_s) / np.linalg.norm(diag_s))
+			ok = bool(np.all(np.isfinite(est))) and est.shape == diag_s.shape
+		else:
+			row.update({"estimate": est, "exact": tr, "rel_err": abs(est - tr) / tr})
+			ok = row["rel_err"] < TRACE_TOL
+		emit(row)
+		if not ok or counts["bsr_spmm"] != BSR_APPLIES[name]:
+			raise AssertionError(f"sharded {name} on the BSR cell is off, or bsr_spmm did not launch once an apply: {row}")
+		_add(total, counts)
+	del bop
+	torch.cuda.empty_cache()
+
+	G = _powerlaw(PL_N)
+	cop = ShardedCSROperator.from_csr(G, mesh, comm="allgather", dtype=torch.float32, device=dev)
+	M = ptt.MatrixFunction(cop, "log", deg=SLQ_CSR["deg"], orth=SLQ_CSR["orth"], dtype=torch.float32)
+	est, counts, copies, times, peak = _timed_calls(
+		torch, lambda: ptt.hutch(M, batch=SLQ_CSR["batch"], converge="count", count=SLQ_CSR["count"], seed=9), reps=1
+	)
+	upper = float(np.sum(np.log(G.diagonal().astype(np.float64))))
+	row = {"phase": "sharded_csr_slq", "n": PL_N, "comm": cop.comm, "estimate": est, "lower": 0.0, "upper": upper,
+		"wall_s": times[0], "max_memory_allocated_bytes": peak, "launches": counts, "layout_copies": copies}
+	emit(row)
+	if not 0.0 <= est <= upper:
+		raise AssertionError(f"sharded CSR logdet {est} outside [0, {upper}]")
+	del cop, M
+	torch.distributed.destroy_process_group()
+	torch.cuda.empty_cache()
+	return total
+
+
+def sharded_rank(rank: int, world: int, port: int, device: str = "cuda") -> None:
+	"""Phase 23 (b), one rank: over gloo, on cuda:0 (the collectives staged through host memory)."""
+	import torch
+
+	import primate_tpu_torch as ptt
+	from primate_tpu_torch.ops import _common
+	from primate_tpu_torch.parallel import initialize_distributed, make_mesh, shard_operator
+
+	dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+	if dev.type == "cuda":
+		torch.cuda.set_device(dev)
+	initialize_distributed("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+	L = build_laplacian(SHARD_N)
+	for shape in ((world, 1), (1, world)):
+		mesh = make_mesh(shape, ("op", "probe"), device_type=dev.type)
+		for comm, make in (
+			("halo", lambda: shard_operator(ptt.DIAOperator.from_scipy(L, dtype=torch.float32, device="cpu"), mesh, probe_axis="probe", device=dev)),
+			("allgather", lambda: shard_operator(L, mesh, probe_axis="probe", comm="allgather", blocksize=(8, 8), dtype=torch.float32, device=dev)),
+		):
+			op = make()
+			M = ptt.MatrixFunction(op, fun="log", deg=DEG, orth=ORTH, reorth_passes=1, dtype=torch.float32)
+			torch.cuda.synchronize()
+			_common.reset_launches()
+			t0 = time.perf_counter()
+			est = ptt.hutch(M, batch=PROBES, converge="count", count=PROBES, seed=42)
+			torch.cuda.synchronize()
+			emit({"phase": "sharded_rank", "rank": rank, "world": world, "mesh": list(shape), "comm": comm, "kind": type(op).__name__,
+				"estimate": est, "estimate_hex": float(est).hex(), "wall_s": time.perf_counter() - t0, "launches": dict(_common.LAUNCHES)})
+	torch.distributed.destroy_process_group()
+
+
+def sharded_two_ranks(torch) -> dict:
+	"""Phase 23 (b): two gloo ranks on the one card, as subprocesses of this script. Both must print the
+	same estimate bit for bit, within 5% of the exact logdet, and each its kernels' launches."""
+	port = _free_port()
+	procs = [
+		subprocess.Popen([sys.executable, __file__, "--sharded-rank", str(r), "2", str(port)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+		for r in range(2)
+	]
+	outs = []
+	try:
+		for p in procs:
+			out, err = p.communicate(timeout=SHARD_TIMEOUT_S)
+			if p.returncode != 0:
+				raise AssertionError(f"a sharded rank failed ({p.returncode}):\n{out[-2000:]}\n{err[-4000:]}")
+			outs.append([json.loads(line) for line in out.splitlines() if line.startswith("{")])
+	finally:
+		for p in procs:
+			if p.poll() is None:
+				p.kill()
+				p.wait()
+	exact = exact_logdet(SHARD_N)
+	total = {}
+	for r0, r1 in zip(*outs):
+		row = {"phase": "sharded_two_ranks", "world": 2, "backend": "gloo", "n": SHARD_N, "mesh": r0["mesh"], "comm": r0["comm"],
+			"kind": r0["kind"], "estimates": [r0["estimate"], r1["estimate"]], "exact": exact, "rel_err": abs(r0["estimate"] - exact) / abs(exact),
+			"wall_s": [r0["wall_s"], r1["wall_s"]], "launches": [r0["launches"], r1["launches"]]}
+		emit(row)
+		kernel = "dia_stencil_t" if r0["comm"] == "halo" else "bsr_spmm"
+		if r0["estimate_hex"] != r1["estimate_hex"] or not row["rel_err"] < 0.05:
+			raise AssertionError(f"the two ranks disagree or miss the logdet: {row}")
+		if min(r0["launches"][kernel], r1["launches"][kernel]) < 1:
+			raise AssertionError(f"{kernel} did not launch on every rank: {row}")
+		for r in (r0, r1):
+			_add(total, r["launches"])
+	return total
+
+
 def main() -> None:
 	import torch
 
@@ -2530,6 +2742,14 @@ def main() -> None:
 	ex = port_examples(torch, ptt, dev)
 	for k in KERNELS:
 		kernels[k]["example_launches"] = ex.get(k, 0)
+	torch.cuda.empty_cache()
+	one = sharded_one_rank(torch, ptt, dev)
+	two = sharded_two_ranks(torch)
+	for k in KERNELS:
+		kernels[k].update({"sharded_launches": one.get(k, 0), "sharded_two_rank_launches": two.get(k, 0)})
+	for k in ("dia_stencil_t", "dia_stencil", "bsr_spmm"):
+		if kernels[k]["sharded_launches"] < 1:
+			raise AssertionError(f"{k} launched no time through the sharded operators")
 
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],
@@ -2546,4 +2766,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-	main()
+	if sys.argv[1:2] == ["--sharded-rank"]:
+		sharded_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]))
+	else:
+		main()

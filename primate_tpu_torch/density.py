@@ -23,6 +23,7 @@ from .lanczos import lanczos_block_op
 from .linalg import full_f32_matmul
 from .operators.base import aslinop
 from .random import probe_dtype, sample_isotropic
+from .trace import estimate_only
 
 __all__ = ["spectral_density", "cumulative_spectral_density", "spectral_quantile"]
 
@@ -32,6 +33,7 @@ def _gauss(t: torch.Tensor, mu: torch.Tensor, sigma: float) -> torch.Tensor:
 	return torch.exp(-0.5 * z * z) / (sigma * float(np.sqrt(2.0 * np.pi)))
 
 
+@estimate_only
 def spectral_density(
 	A,
 	grid: Union[int, np.ndarray] = 256,

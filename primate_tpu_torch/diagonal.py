@@ -24,7 +24,7 @@ from .linalg import full_f32, tall_qr
 from .random import classify_pdf, real_dtype
 from .stats import MeanState
 from .operators.base import aslinop, is_valid_operator
-from .trace import _base_seed, _rdot, _sketch_op, check_traced_path, count_budget, probe_sampler, refuse_complex_grad
+from .trace import _base_seed, _rdot, _sketch_op, check_traced_path, count_budget, estimate_only, probe_sampler, refuse_complex_grad
 
 __all__ = ["diag", "diagpp", "xdiag", "xdiag_core", "diagpp_core", "run_diag", "diag_ratio"]
 
@@ -127,6 +127,7 @@ def _diag_differentiable(op, pdf, converge, seed, maxiter: int, batch: int, kwar
 	return diag_ratio(op, lambda i: sample(i, batch), iters)
 
 
+@estimate_only
 def diag(
 	A,
 	pdf: Union[str, Callable] = "rademacher",
@@ -210,6 +211,7 @@ def diagpp_core(op, S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
 	return torch.real(d1 + numer / torch.where(denom == 0, 1.0, denom))
 
 
+@estimate_only
 def diagpp(A, m: Optional[int] = None, pdf: str = "rademacher", seed=None) -> np.ndarray:
 	"""Diag++: low-rank deflation + residual Hutchinson (``primate_tpu/diagonal.py:534-557``).
 	``nb = m`` (or ``N // 3``) sketch columns and as many residual probes, ``3·nb`` applies."""
@@ -245,6 +247,7 @@ def xdiag_core(op, Nm: torch.Tensor) -> torch.Tensor:
 	return torch.real(d[:, 0])
 
 
+@estimate_only
 def xdiag(A, m: Optional[int] = None, pdf: str = "sphere", seed=None, differentiable: bool = False):
 	"""XDiag leave-one-out diagonal estimator (``primate_tpu/diagonal.py:594-616``):
 	``m / 2`` probe columns (``m`` rounded up to even, at most ``2n``), ``m`` operator

@@ -24,6 +24,15 @@ autograd Functions), α, β, the guarded divisors and the CGS window as PyTorch 
 nothing in place, the window a list of blocks. No step kernel runs there; every other sweep is
 the in-place one above, unchanged.
 
+Row-sharded operators (:mod:`~primate_tpu_torch.parallel`): ``op.sweep_rows(nv)`` gives what the
+sweep carries and how it finishes a sum over n. For an unsharded operator that is the whole block
+and local sums (:class:`~primate_tpu_torch.operators.base.WholeRows`); a sharded operator carries its
+rank's rows (and probe slice) in a buffer with halo columns, and the sums (‖v₀‖, α and β of each
+step, ‖v‖, the CGS window's projections and selective re-orthogonalisation's β estimate) are finished
+by an all-reduce over its op group; the outputs (α, β, the basis, ``y``) are gathered at the end, and
+the breakdown tolerance and ω's noise floor use the global n. The out-of-place sweep uses the
+operator's replicated ``matmat_t`` instead.
+
 Complex (Hermitian) operators (``primate_tpu/lanczos.py:223-227,298-316``): every
 inner product conjugates its bra, α and β (the Jacobi matrix, the quadrature and
 the sweep's state) are real, and the CGS window projects with ``conj(Q)``. On a
@@ -36,6 +45,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .operators.base import WholeRows
 from .ops.dia import DIV_CUR, DONE, lanczos_state, row_sq_norm
 from .random import real_dtype
 from .tridiag import eigh_tridiag, eigvalsh_tridiag
@@ -152,28 +162,34 @@ def _lanczos_core(
 	r_acc = real_dtype(acc)  # α, β and the sweep's state: real for Hermitian operators too
 	b_dtype = basis_dtype or dtype
 	keep_window = return_basis or orth > 0 or selective
+	# The rows the sweep carries and how it finishes a sum over n: the whole block and local sums,
+	# or a row-sharded operator's rank's rows (and probe slice), each sum over its op group.
+	layout = op.sweep_rows(nv, split_probes=not selective)
+	rows, reduce = layout.rows, layout.reduce_rows
 
-	norm0 = torch.sqrt(row_sq_norm(V0t.to(acc)))
-	q0 = (V0t / torch.where(norm0 > 0, norm0, 1)[:, None].to(dtype)).to(dtype)
+	X0 = layout.carry(V0t)
+	nv_l, n_l = rows(X0).shape
+	norm0 = torch.sqrt(reduce(row_sq_norm(rows(X0).to(acc))))
+	q0 = (X0 / torch.where(norm0 > 0, norm0, 1)[:, None].to(dtype)).to(dtype)
 	residual_tol = float(np.sqrt(n) * rtol)
-	alphas = torch.empty((deg, nv), dtype=r_acc, device=device)
-	betas = torch.empty((deg, nv), dtype=r_acc, device=device)
+	alphas = torch.empty((deg, nv_l), dtype=r_acc, device=device)
+	betas = torch.empty((deg, nv_l), dtype=r_acc, device=device)
 	Q_win = None
 	if keep_window:
-		Q_win = torch.zeros((ncv, nv, n), dtype=b_dtype, device=device)
-		Q_win[0] = q0
+		Q_win = torch.zeros((ncv, nv_l, n_l), dtype=b_dtype, device=device)
+		Q_win[0] = rows(q0)
 	y = None
 	if coeffs is not None:
-		coeffs = torch.as_tensor(coeffs, device=device)
+		coeffs = layout.probes(torch.as_tensor(coeffs, device=device))
 		coeffs = coeffs.to(acc if coeffs.is_complex() else r_acc)  # real coefficients stay real
-		y = torch.zeros(coeffs.shape[1:] + (n,), dtype=acc, device=device)  # (..., nv, n)
+		y = torch.zeros(coeffs.shape[1:] + (n_l,), dtype=acc, device=device)  # (..., nv, n)
 
 	def output(reorth_steps=None) -> LanczosOutput:
 		return LanczosOutput(
-			alphas=alphas,
-			betas=betas,
-			Q=Q_win.permute(0, 2, 1) if keep_window else None,
-			y=y.transpose(-1, -2) if y is not None else None,
+			alphas=layout.gather_probes(alphas),
+			betas=layout.gather_probes(betas),
+			Q=layout.gather_rows(Q_win).permute(0, 2, 1) if keep_window else None,
+			y=layout.gather_rows(y).transpose(-1, -2) if y is not None else None,
 			reorth_steps=reorth_steps,
 		)
 
@@ -188,14 +204,14 @@ def _lanczos_core(
 			Q_win[slot] = torch.where(advance[:, None], q_next.to(b_dtype), Q_win[slot])
 
 	if orth == 0 and not selective and dtype == acc:
-		state = lanczos_state(nv, r_acc, device)
-		v_prev, v_cur = torch.zeros((nv, n), dtype=acc, device=device), q0
+		state = lanczos_state(nv_l, r_acc, device)
+		v_prev, v_cur = torch.zeros_like(q0), q0
 		for j in range(deg):
 			if y is not None:
-				y.addcmul_(coeffs[j][..., None], v_cur / state.scal[DIV_CUR][:, None])
+				y.addcmul_(coeffs[j][..., None], rows(v_cur) / state.scal[DIV_CUR][:, None])
 			v_prev, v_cur = v_cur, op.lanczos_sweep_step(v_cur, v_prev, state, alphas[j], betas[j], residual_tol)
 			if return_basis:
-				write_slot(j, v_cur / state.scal[DIV_CUR][:, None], state.scal[DONE] == 0)
+				write_slot(j, rows(v_cur) / state.scal[DIV_CUR][:, None], state.scal[DONE] == 0)
 		return output()
 
 	# Re-orthogonalisation, or a storage dtype narrower than the accumulation
@@ -203,36 +219,37 @@ def _lanczos_core(
 	# (``primate_tpu/lanczos.py:388``), which the unnormalised carry above cannot do.
 	slot_ids = torch.arange(ncv, device=device)
 
-	def _cgs_window(v, valid):
-		# Broadcast products and sums over n, not matmuls: no contraction of
-		# this sweep goes through torch.matmul, so TF32 never comes into it. A
-		# later change that puts a matmul here must pin float32 precision.
+	def _cgs_window(v, valid) -> None:
+		# In place on v (the rank's rows of a fresh block). Broadcast products and sums
+		# over n, not matmuls: no contraction of this sweep goes through torch.matmul, so
+		# TF32 never comes into it. A later change that puts a matmul here must pin
+		# float32 precision.
 		Q_bra = Q_win.conj() if Q_win.is_complex() else Q_win
 		for _ in range(max(1, reorth_passes)):
-			proj = torch.sum(Q_bra * v[None, :, :], dim=2) * valid[:, None]
-			v = v - torch.sum(Q_win * proj[:, :, None].to(acc), dim=0)
-		return v
+			proj = reduce(torch.sum(Q_bra * v[None, :, :], dim=2)) * valid[:, None]
+			v.sub_(torch.sum(Q_win * proj[:, :, None].to(acc), dim=0))
 
 	if selective:
-		omega = _Omega(nv, ncv, n, r_acc, device)
+		omega = _Omega(nv_l, ncv, n, r_acc, device, reduce)
 
-	q_prev, q_cur = torch.zeros((nv, n), dtype=dtype, device=device), q0
-	beta_j = torch.zeros(nv, dtype=r_acc, device=device)
-	done = torch.zeros(nv, dtype=torch.bool, device=device)
+	q_prev, q_cur = torch.zeros_like(q0), q0
+	beta_j = torch.zeros(nv_l, dtype=r_acc, device=device)
+	done = torch.zeros(nv_l, dtype=torch.bool, device=device)
 	for j in range(deg):
 		if y is not None:
-			y.addcmul_(coeffs[j][..., None], q_cur.to(acc))
+			y.addcmul_(coeffs[j][..., None], rows(q_cur).to(acc))
 		v, alpha_j = op.lanczos_step(q_cur, q_prev, beta_j)
 		v.addcmul_(alpha_j[:, None], q_cur.to(acc), value=-1)  # in place: v is a fresh tensor
+		v_rows = rows(v)
 		if selective:
-			trigger = omega.breach(j, alpha_j, beta_j, v, done)  # one device read a step
+			trigger = omega.breach(j, alpha_j, beta_j, v_rows, done)  # one device read a step
 			if trigger:
-				v = _cgs_window(v, (((j - slot_ids) % ncv) <= j).to(r_acc))
+				_cgs_window(v_rows, (((j - slot_ids) % ncv) <= j).to(r_acc))
 			omega.advance(j, trigger)
 		elif orth > 0:
 			age = (j - slot_ids) % ncv
-			v = _cgs_window(v, ((age < orth) & (age <= j)).to(r_acc))
-		beta_next = torch.sqrt(row_sq_norm(v))
+			_cgs_window(v_rows, ((age < orth) & (age <= j)).to(r_acc))
+		beta_next = torch.sqrt(reduce(row_sq_norm(v_rows)))
 		newly_done = beta_next < residual_tol
 		alphas[j] = torch.where(done, 0.0, alpha_j)
 		betas[j] = torch.where(done, 0.0, beta_next)
@@ -240,7 +257,7 @@ def _lanczos_core(
 		# self-extinguishes, so α/β emit zeros after breakdown as in JAX.
 		q_next = v.div_(torch.where(beta_next > residual_tol, beta_next, torch.inf)[:, None]).to(dtype)
 		if keep_window:
-			write_slot(j, q_next.to(b_dtype), ~(done | newly_done))
+			write_slot(j, rows(q_next).to(b_dtype), ~(done | newly_done))
 		q_prev, q_cur, beta_j, done = q_cur, q_next, beta_next, done | newly_done
 	return output(torch.tensor(omega.triggers, dtype=torch.bool) if selective else None)
 
@@ -251,9 +268,9 @@ class _Omega:
 	vector and the next against every written slot. It decides only when to clean, so the
 	out-of-place sweep feeds it detached values."""
 
-	def __init__(self, nv: int, ncv: int, n: int, r_acc: torch.dtype, device):
+	def __init__(self, nv: int, ncv: int, n: int, r_acc: torch.dtype, device, reduce=WholeRows.reduce_rows):
 		eps = torch.finfo(r_acc).eps
-		self.ncv, self.r_acc = ncv, r_acc
+		self.ncv, self.r_acc, self.reduce = ncv, r_acc, reduce
 		self.eps_noise, self.sel_tol = eps * float(np.sqrt(n)), float(np.sqrt(eps))
 		self.slot_ids = torch.arange(ncv, device=device)
 		self.om_pp = torch.zeros((nv, ncv), dtype=r_acc, device=device)
@@ -267,7 +284,7 @@ class _Omega:
 		"""Advance ω to level j + 1 from step j's α, β and residual ``v``; whether to clean ``v``."""
 		ncv, r_acc, eps_noise = self.ncv, self.r_acc, self.eps_noise
 		om_p, om_pp, a_win, b_win = self.om_p, self.om_pp, self.a_win, self.b_win
-		beta_est = torch.sqrt(row_sq_norm(v))
+		beta_est = torch.sqrt(self.reduce(row_sq_norm(v)))
 		slot_j = j % ncv
 		a_win[:, slot_j] = alpha_j
 		b_win[:, slot_j] = beta_j

@@ -4,7 +4,8 @@ Counterpart of ``primate_tpu/operators/base.py``. Operators apply to node-major
 ``(n, k)`` blocks (``matmat``) and to probe-major ``(k, n)`` blocks
 (``matmat_t``, the layout the Lanczos sweep carries). ``lanczos_step`` and
 ``lanczos_sweep_step`` are the sweep's per-step hooks: operators with step kernels
-(``DIAOperator``) override them.
+(``DIAOperator``) override them, and ``sweep_rows`` says what the sweep carries (the whole
+block, or a row-sharded operator's rank's rows; :mod:`~primate_tpu_torch.parallel`).
 
 The algebra (``A + B``, ``A - c``, ``c * A``, ``A / c``, ``-A``, ``A @ B``,
 ``A.H``, ``A.T``) builds :class:`AffineOperator`, :class:`ScaledOperator`,
@@ -65,6 +66,19 @@ def float_tensors_of(*items) -> tuple:
 				seen.add(id(t))
 				out.append(t)
 	return tuple(out)
+
+
+class WholeRows:
+	"""The Lanczos sweep's view of an operator that is not row-sharded: every carried block is whole
+	and every sum over n is local. A row-sharded operator's :meth:`~LinearOperator.sweep_rows` gives
+	the same six methods over its rank's rows (:mod:`~primate_tpu_torch.parallel.sharded`)."""
+
+	@staticmethod
+	def carry(X: torch.Tensor) -> torch.Tensor:
+		"""The block the sweep carries for a replicated probe-major block ``(nv, n)``."""
+		return X
+
+	rows = reduce_rows = probes = gather_probes = gather_rows = carry
 
 
 def _conj(x):
@@ -136,6 +150,11 @@ class LinearOperator:
 		carried unnormalised with their divisors in ``state``
 		(:func:`~primate_tpu_torch.ops.dia.lanczos_sweep_step_ref`; default: that plain version)."""
 		return lanczos_sweep_step_ref(self.matmat_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
+
+	def sweep_rows(self, nv: int, split_probes: bool = True):
+		"""What the Lanczos sweep carries of an ``nv``-probe block and how it finishes its sums over n
+		(:class:`WholeRows`: the whole block, local sums; a row-sharded operator its rank's rows)."""
+		return WholeRows
 
 	def rmatvec(self, v: torch.Tensor) -> torch.Tensor:
 		# Estimation targets are symmetric; subclasses override when not.

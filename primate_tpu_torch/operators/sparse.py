@@ -428,11 +428,16 @@ class DIAOperator(LinearOperator):
 	"""Diagonal/banded operator: one length-n band per nonzero diagonal."""
 
 	def __init__(self, bands: torch.Tensor, offsets: Tuple[int, ...], shape: Tuple[int, int]):
-		self.bands = bands.contiguous()  # (n_diags, n)
 		self.offsets = tuple(int(o) for o in offsets)
 		self.shape = tuple(int(s) for s in shape)
-		if self.bands.shape != (len(self.offsets), self.shape[0]):
-			raise ValueError(f"bands {tuple(self.bands.shape)} do not match {len(self.offsets)} offsets and n={self.shape[0]}")
+		width = max(self.shape)
+		if bands.shape == (len(self.offsets), self.shape[0]) and width != self.shape[0]:
+			bands = torch.nn.functional.pad(bands, (0, width - self.shape[0]))
+		if bands.shape != (len(self.offsets), width):
+			raise ValueError(f"bands {tuple(bands.shape)} do not match {len(self.offsets)} offsets and n={self.shape[0]}")
+		# (n_diags, max(m, n)): a rectangular operator's bands are stored on the square that holds
+		# it, zero past its rows, and its applies pad the block to that square and slice the result.
+		self.bands = bands.contiguous()
 		self.dtype = self.bands.dtype
 		self.device = self.bands.device
 		# The kernels read the offsets from device memory; upload them once.
@@ -456,22 +461,19 @@ class DIAOperator(LinearOperator):
 			offsets, bands = parts
 			return cls.from_numpy(bands, offsets, A.shape, dtype=dtype, device=device)
 		A = A.todia()
-		n = A.shape[0]
+		rows, cols = A.shape
+		n = max(rows, cols)
 		offsets = tuple(int(o) for o in A.offsets)
 		# scipy stores column-aligned (data[k][j] = A[j-off, j]), and may cut the
-		# columns past the last stored entry; pad to n, then shift to row-aligned
-		# and zero the out-of-range tail of each band.
+		# columns past the last stored entry; pad to the square that holds A, shift
+		# to row-aligned, and zero what lies outside A (a row past m, a column past n).
 		data = np.zeros((len(offsets), n), A.data.dtype)
 		data[:, : min(n, A.data.shape[1])] = A.data[:, :n]
 		bands = np.zeros((len(offsets), n), A.data.dtype)
+		r = np.arange(n)
 		for k, off in enumerate(offsets):
-			src = data[k]
-			if off >= 0:
-				m = n - off
-				bands[k, :m] = src[off : off + m]
-			else:
-				m = n + off
-				bands[k, -off : -off + m] = src[:m]
+			inside = (r < rows) & (r + off >= 0) & (r + off < cols)
+			bands[k, inside] = data[k, r[inside] + off]
 		return cls.from_numpy(bands, offsets, A.shape, dtype=dtype, device=device)
 
 	@property
@@ -481,10 +483,18 @@ class DIAOperator(LinearOperator):
 	def float_tensors(self) -> tuple:
 		return (self.bands,)
 
+	def _square(self, X: torch.Tensor, n_in: int, dim: int) -> torch.Tensor:
+		"""``X`` padded with zeros along ``dim`` from ``n_in`` to the bands' width (a no-op when square)."""
+		pad = self.bands.shape[1] - n_in
+		if pad == 0:
+			return X
+		return torch.nn.functional.pad(X, (0, pad) if dim == 1 else (0, 0, 0, pad))
+
 	def matmat_t(self, Vt: torch.Tensor) -> torch.Tensor:
 		"""Probe-major stencil ``out[b, i] = Σ_d band_d[i]·Vt[b, i + off_d]`` (kernel A on the card)."""
-		Vt = torch.as_tensor(Vt, dtype=self.dtype, device=self.device).contiguous()
-		return dia_stencil_t_ad(self.bands, Vt, self.offsets_t, self.offsets)
+		Vt = torch.as_tensor(Vt, dtype=self.dtype, device=self.device)
+		out = dia_stencil_t_ad(self.bands, self._square(Vt, self.shape[1], 1).contiguous(), self.offsets_t, self.offsets)
+		return out if out.shape[1] == self.shape[0] else out[:, : self.shape[0]]
 
 	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
 		"""``A V`` on an ``(n, k)`` block, by its layout in memory, never copying a
@@ -498,8 +508,9 @@ class DIAOperator(LinearOperator):
 		"""
 		V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
 		if V.T.is_contiguous() and not V.is_contiguous():
-			return dia_stencil_t_ad(self.bands, V.T, self.offsets_t, self.offsets).T
-		return dia_stencil_ad(self.bands, V.contiguous(), self.offsets_t, self.offsets)
+			return self.matmat_t(V.T).T
+		out = dia_stencil_ad(self.bands, self._square(V, self.shape[1], 0).contiguous(), self.offsets_t, self.offsets)
+		return out if out.shape[0] == self.shape[0] else out[: self.shape[0]]
 
 	def matvec(self, v: torch.Tensor) -> torch.Tensor:
 		v = torch.as_tensor(v, device=self.device)
@@ -532,13 +543,15 @@ class DIAOperator(LinearOperator):
 		if V.T.is_contiguous() and not V.is_contiguous():
 			return self.rmatmat_t(V.T).T
 		adj, offsets_t, offsets = self._adjoint()
-		return dia_stencil_ad(adj, V.contiguous(), offsets_t, offsets)
+		out = dia_stencil_ad(adj, self._square(V, self.shape[0], 0).contiguous(), offsets_t, offsets)
+		return out if out.shape[0] == self.shape[1] else out[: self.shape[1]]
 
 	def rmatmat_t(self, Ut: torch.Tensor) -> torch.Tensor:
-		"""Probe-major adjoint apply ``(A† Utᵀ)ᵀ`` on a ``(k, n)`` block."""
+		"""Probe-major adjoint apply ``(A† Utᵀ)ᵀ`` on a ``(k, m)`` block → ``(k, n)``."""
 		Ut = torch.as_tensor(Ut, dtype=self.dtype, device=self.device)
 		adj, offsets_t, offsets = self._adjoint()
-		return dia_stencil_t_ad(adj, Ut.contiguous(), offsets_t, offsets)
+		out = dia_stencil_t_ad(adj, self._square(Ut, self.shape[0], 1).contiguous(), offsets_t, offsets)
+		return out if out.shape[1] == self.shape[1] else out[:, : self.shape[1]]
 
 	def rmatvec(self, v: torch.Tensor) -> torch.Tensor:
 		return self.rmatmat(v)
@@ -547,26 +560,26 @@ class DIAOperator(LinearOperator):
 		"""Plain PyTorch ``A† V`` (``(n,)`` or ``(n, k)``; the reference the tests hold :meth:`rmatmat`
 		to): one slice product per band,
 		accumulated in ``promote_types(dtype, float32)``."""
-		n = self.shape[0]
+		n = self.bands.shape[1]
 		V = torch.as_tensor(V, device=self.device)
 		single = V.ndim == 1
-		V = V[:, None] if single else V
+		V = self._square(V[:, None] if single else V, self.shape[0], 0)
 		acc = torch.promote_types(self.dtype, torch.float32)
 		out = torch.zeros((n, V.shape[1]), dtype=acc, device=self.device)
 		for k, off in enumerate(self.offsets):
 			lo, hi = max(0, -off), min(n, n - off)
 			if lo < hi:
 				out[lo + off : hi + off] += self.bands[k, lo:hi, None].conj().to(acc) * V[lo:hi].to(acc)
-		out = out.to(self.dtype)
+		out = out[: self.shape[1]].to(self.dtype)
 		return out[:, 0] if single else out
 
 	def todense(self) -> torch.Tensor:
-		n = self.shape[0]
+		m, n = self.shape
 		out = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
-		idx = torch.arange(n, device=self.device)
+		idx = torch.arange(m, device=self.device)
 		for k, off in enumerate(self.offsets):
 			valid = (idx + off >= 0) & (idx + off < n)
-			out[idx[valid], idx[valid] + off] += self.bands[k][valid]
+			out[idx[valid], idx[valid] + off] += self.bands[k, :m][valid]
 		return out
 
 	def lanczos_step(

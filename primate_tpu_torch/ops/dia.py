@@ -136,31 +136,39 @@ def lanczos_state(nv: int, dtype: torch.dtype, device) -> LanczosState:
 	return LanczosState(scal, torch.zeros(1, dtype=torch.int32, device=device))
 
 
+def _same(x):
+	return x
+
+
 def lanczos_sweep_pass_a_ref(
-	apply_t, v_cur: torch.Tensor, v_prev: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor
+	apply_t, v_cur: torch.Tensor, v_prev: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor,
+	reduce=_same, rows=_same,
 ) -> torch.Tensor:
 	"""Plain version of pass A: with ``q = v_cur / div_cur`` and ``q_prev = v_prev / div_prev``,
 	returns ``w = A q − β q_prev``; writes ``α = Re Σ conj(q)·w`` (``Σ w q`` for real blocks) to
 	``state.scal[ALPHA]`` and to ``alpha_out`` (zero where a probe is done). The state is real
-	for complex (Hermitian) blocks too."""
+	for complex (Hermitian) blocks too. On a row-sharded carry ``rows`` picks the rank's rows and
+	``reduce`` finishes the sum over the other ranks' (identities otherwise)."""
 	s = state.scal
 	q = v_cur / s[DIV_CUR, :, None]
 	w = apply_t(q).to(v_cur.dtype) - s[BETA, :, None] * (v_prev / s[DIV_PREV, :, None])
-	alpha = row_dot(q, w)
+	alpha = reduce(row_dot(rows(q), rows(w)))
 	alpha_out.copy_(torch.where(s[DONE] != 0, 0.0, alpha))
 	s[ALPHA] = alpha
 	return w
 
 
 def lanczos_sweep_pass_b_ref(
-	v_cur: torch.Tensor, w: torch.Tensor, state: LanczosState, beta_out: torch.Tensor, residual_tol: float
+	v_cur: torch.Tensor, w: torch.Tensor, state: LanczosState, beta_out: torch.Tensor, residual_tol: float,
+	reduce=_same, rows=_same,
 ) -> torch.Tensor:
 	"""Plain version of pass B: ``v = w − α q`` in place of ``w``, ``β' = ‖v‖`` (``√Σ|v|²``); writes
 	``beta_out`` (zero where a probe was done) and advances ``state``: ``div_prev = div_cur``,
-	``div_cur = β'`` if ``β' > residual_tol`` else ``inf``, ``β = β'``, ``done |= β' < residual_tol``."""
+	``div_cur = β'`` if ``β' > residual_tol`` else ``inf``, ``β = β'``, ``done |= β' < residual_tol``.
+	``reduce`` and ``rows`` as in pass A."""
 	s = state.scal
 	v = w.sub_(s[ALPHA, :, None] * (v_cur / s[DIV_CUR, :, None]))
-	beta = torch.sqrt(row_sq_norm(v))
+	beta = torch.sqrt(reduce(row_sq_norm(rows(v))))
 	done = s[DONE] != 0
 	beta_out.copy_(torch.where(done, 0.0, beta))
 	s[DIV_PREV] = s[DIV_CUR]
@@ -172,13 +180,14 @@ def lanczos_sweep_pass_b_ref(
 
 def lanczos_sweep_step_ref(
 	apply_t, v_cur: torch.Tensor, v_prev: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor,
-	beta_out: torch.Tensor, residual_tol: float,
+	beta_out: torch.Tensor, residual_tol: float, reduce=_same, rows=_same,
 ) -> torch.Tensor:
 	"""Plain version of :func:`lanczos_dia_sweep_step`, for any probe-major apply
 	``apply_t`` (``primate_tpu/lanczos.py:304-316,378-388`` with ``orth = 0``): pass A
-	then pass B. The next step's ``q = v / div_cur`` is the reference's guarded ``v / β'``."""
-	w = lanczos_sweep_pass_a_ref(apply_t, v_cur, v_prev, state, alpha_out)
-	return lanczos_sweep_pass_b_ref(v_cur, w, state, beta_out, residual_tol)
+	then pass B. The next step's ``q = v / div_cur`` is the reference's guarded ``v / β'``.
+	``reduce`` and ``rows`` route the two sums of a row-sharded carry (see pass A)."""
+	w = lanczos_sweep_pass_a_ref(apply_t, v_cur, v_prev, state, alpha_out, reduce, rows)
+	return lanczos_sweep_pass_b_ref(v_cur, w, state, beta_out, residual_tol, reduce, rows)
 
 
 

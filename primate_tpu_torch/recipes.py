@@ -34,7 +34,7 @@ from .linalg import full_f32_matmul
 from .operators import MatrixFunction, aslinop
 from .operators.base import LinearOperator
 from .special import stacked
-from .trace import hutch
+from .trace import estimate_only, hutch
 
 __all__ = [
 	"bilinear_form",
@@ -106,11 +106,13 @@ def _memo_fun(kind: str, *params: float):
 	raise KeyError(kind)
 
 
+@estimate_only
 def _slq(A, fun, deg: int, orth: int, fun_kwargs: Optional[dict] = None, **est_kwargs):
 	M = MatrixFunction(A, fun=fun, deg=deg, orth=orth, **(fun_kwargs or {}))
 	return hutch(M, **est_kwargs)
 
 
+@estimate_only
 def deflated_trace(
 	A,
 	fun: Union[str, callable, None] = None,

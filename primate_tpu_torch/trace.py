@@ -22,6 +22,8 @@ QR, Cholesky, triangular solves) runs in full float32 on the card
 sparse kernels.
 """
 
+import functools
+import inspect
 import warnings
 from typing import Callable, Optional, Tuple, Union
 
@@ -44,6 +46,29 @@ from .random import classify_pdf, probe_dtype, real_dtype, sample_isotropic
 from .stats import CovState, make_cov_state
 
 __all__ = ["hutch", "hutchpp", "xtrace", "xnystrace"]
+
+
+def estimate_only(fn: Callable) -> Callable:
+	"""Run ``fn`` under ``torch.no_grad()`` unless it is called with ``differentiable=True``.
+
+	An estimator without ``differentiable=True`` returns host floats or arrays, as the JAX
+	package's do from concrete arrays; without this, an operator whose tensors require a
+	gradient would make every sweep out of place, keep every batch's graph, and fail at the
+	first copy to the host. Gradients stay where they are asked for."""
+	sig = inspect.signature(fn)
+	has_flag = "differentiable" in sig.parameters
+
+	@functools.wraps(fn)
+	def wrapper(*args, **kwargs):
+		flag = kwargs.get("differentiable", False)
+		if has_flag and not flag:
+			flag = sig.bind_partial(*args, **kwargs).arguments.get("differentiable", False)
+		if flag:
+			return fn(*args, **kwargs)
+		with torch.no_grad():
+			return fn(*args, **kwargs)
+
+	return wrapper
 
 
 def _base_seed(seed) -> int:
@@ -159,6 +184,7 @@ def _hutch_differentiable(op, batch, pdf, converge, seed, maxiter, kwargs) -> to
 	return torch.mean(torch.stack(means), dim=0)
 
 
+@estimate_only
 def hutch(
 	A,
 	batch: int = 32,
@@ -317,6 +343,7 @@ def hutchpp_sketch(op, W: torch.Tensor) -> Tuple[torch.Tensor, float]:
 	return Q, float(torch.sum(_rdot(op.matmat(Q).to(acc), Q.to(acc), 0)))
 
 
+@estimate_only
 def hutchpp(
 	A,
 	m: Optional[int] = None,
@@ -403,6 +430,7 @@ def xnystrace_core(op, Om: torch.Tensor) -> torch.Tensor:
 	return tr_pg + (1.0 - pgp) / p - nu * n
 
 
+@estimate_only
 def xnystrace(
 	A, m: Optional[int] = None, pdf: Union[str, Callable] = "normal", seed=None, full: bool = False, differentiable: bool = False
 ):
@@ -485,6 +513,7 @@ def xtrace_round(op, state, Nnew: torch.Tensor):
 _STATE_KEYS = ("W", "Z", "Q", "R", "R_inv")
 
 
+@estimate_only
 def xtrace(
 	A,
 	batch: int = 32,

@@ -20,7 +20,10 @@ defaults: ``recipes.logdet`` (``orth=5``: pass A and the PyTorch re-orthogonalis
 ``recipes.trace_inv(method="cg", precond="jacobi")`` on ``separated_spectrum``
 (``--recipes`` traces these three alone). ``--grad`` traces phase 20's first call alone: the
 gradient of ``Σ W∘MatrixFunction(L, exp(−x), deg=20, orth=0).matmat(V)`` with respect to the
-mesh's bands, forward and backward, 64 probes. Prints one JSON line per call: the
+mesh's bands, forward and backward, 64 probes. ``--sharded`` traces phase 23's 10M flagship alone,
+on one NCCL rank through ``shard_operator(DIAOperator(L))`` (the sweep on the rank's rows), then
+times by the host clock (synced, no trace) ``linalg.tall_qr`` of Hutch++'s (10M, 30) sketch block
+and its parts (the Gram product, the Cholesky, the triangular solve). Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
 count); writes them all to ``--out``. Needs a CUDA device; without one it exits
@@ -64,6 +67,7 @@ def main() -> None:
 	ap.add_argument("--out", default="profile_port.json")
 	ap.add_argument("--recipes", action="store_true", help="trace the phase-19 recipes only")
 	ap.add_argument("--grad", action="store_true", help="trace phase 20's differentiated f(A)V only")
+	ap.add_argument("--sharded", action="store_true", help="trace phase 23's sharded flagship only; time tall_qr at 10M")
 	args = ap.parse_args()
 	import torch
 
@@ -73,11 +77,14 @@ def main() -> None:
 	import primate_tpu_torch as ptt
 
 	dev = torch.device("cuda", 0)
-	rows = [] if (args.recipes or args.grad) else other_calls(torch, ptt, cs, dev)
-	mesh = ptt.DIAOperator.from_scipy(cs.mesh_laplacian(cs.MESH_SIDE), dtype=torch.float32, device=dev)
-	if args.grad:
+	rows = [] if (args.recipes or args.grad or args.sharded) else other_calls(torch, ptt, cs, dev)
+	if args.sharded:
+		calls = sharded_calls(torch, ptt, cs, dev)
+	elif args.grad:
+		mesh = ptt.DIAOperator.from_scipy(cs.mesh_laplacian(cs.MESH_SIDE), dtype=torch.float32, device=dev)
 		calls = {"grad_fav_mesh": grad_call(torch, ptt, cs, dev, mesh)}
 	else:
+		mesh = ptt.DIAOperator.from_scipy(cs.mesh_laplacian(cs.MESH_SIDE), dtype=torch.float32, device=dev)
 		sep, _ = cs.separated_spectrum(cs.MESH_SIDE**2, cs.EIG_K, seed=17)
 		sop = ptt.DIAOperator.from_scipy(sep, dtype=torch.float32, device=dev)
 		rec = ptt.recipes
@@ -90,11 +97,57 @@ def main() -> None:
 		row = {"call": name, **trace(torch, fn, top=16 if args.grad else 8)}
 		print(json.dumps(row), flush=True)
 		rows.append(row)
+	if args.sharded:
+		rows += tall_qr_walls(torch, cs, dev)
 	smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
 		capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 	with open(args.out, "w") as f:
 		json.dump({"device": smi, "torch": torch.__version__, "calls": rows}, f, indent=1)
 	print(smi, flush=True)
+
+
+def sharded_calls(torch, ptt, cs, dev) -> dict:
+	"""``chip_smoke.py`` phase 23's calls on one NCCL rank: the 10M flagship through the sharded DIA
+	operator, and Hutch++ through it."""
+	from primate_tpu_torch.parallel import initialize_distributed, make_mesh, shard_operator
+
+	torch.cuda.set_device(dev)
+	initialize_distributed("nccl", init_method=f"tcp://localhost:{cs._free_port()}", world_size=1, rank=0)
+	sop = shard_operator(ptt.DIAOperator.from_scipy(cs.build_laplacian(cs.N_LARGE), dtype=torch.float32, device=dev), make_mesh((1, 1)))
+	M = ptt.MatrixFunction(sop, fun="log", deg=cs.DEG, orth=cs.ORTH, reorth_passes=1, dtype=torch.float32)
+	return {f"sharded_flagship_{cs.N_LARGE}": lambda: ptt.hutch(M, batch=cs.PROBES, converge="count", count=cs.PROBES, seed=42)}
+
+
+def tall_qr_walls(torch, cs, dev, m: int = 30) -> list:
+	"""Host walls (synced, one call each after a warm-up) of ``linalg.tall_qr`` on an (N_LARGE, m)
+	float32 block, the path Laplacian applied to Rademacher probes (Hutch++'s sketch), and of its
+	parts: ``Yᵀ Y``, the Cholesky of the shifted Gram matrix, the triangular solve."""
+	from primate_tpu_torch.linalg import tall_qr
+
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(23)
+	W = torch.randint(0, 2, (cs.N_LARGE, m), generator=gen, device=dev).float() * 2 - 1
+	Y = 3 * W - torch.roll(W, 1, 0) - torch.roll(W, -1, 0)
+	del W
+	G = Y.T @ Y
+	L = torch.linalg.cholesky(G + 1e-3 * torch.linalg.matrix_norm(G) * torch.eye(m, device=dev))
+	parts = {
+		"tall_qr": lambda: tall_qr(Y),
+		"gram_YtY": lambda: Y.T @ Y,
+		"cholesky_ex": lambda: torch.linalg.cholesky_ex(G),
+		"solve_triangular": lambda: torch.linalg.solve_triangular(L, Y.T, upper=False),
+	}
+	rows = []
+	for name, fn in parts.items():
+		fn()
+		torch.cuda.synchronize()
+		t0 = time.perf_counter()
+		fn()
+		torch.cuda.synchronize()
+		row = {"call": f"{name}_{cs.N_LARGE}x{m}", "wall_ms": (time.perf_counter() - t0) * 1e3}
+		print(json.dumps(row), flush=True)
+		rows.append(row)
+	return rows
 
 
 def grad_call(torch, ptt, cs, dev, mesh):

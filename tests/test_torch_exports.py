@@ -78,9 +78,9 @@ def _public_functions(module) -> set:
 	return {n for n, v in vars(module).items() if not n.startswith("_") and callable(v) and getattr(v, "__module__", None) == module.__name__}
 
 
-@pytest.mark.parametrize("module", ["recipes", "stats", "utils.checkpoint", "utils.profiling", "utils.kwargs", "plotting"])
+@pytest.mark.parametrize("module", ["recipes", "stats", "utils.checkpoint", "utils.profiling", "utils.kwargs", "plotting", "parallel"])
 def test_module_names_match_jax(module):
-	"""``recipes``, ``stats`` and ``plotting`` by ``__all__``, the three ``utils`` modules by their public functions and classes."""
+	"""``recipes``, ``stats``, ``plotting`` and ``parallel`` by ``__all__``, the three ``utils`` modules by their public functions and classes."""
 	import importlib
 
 	jmod = importlib.import_module(f"primate_tpu.{module}")

@@ -164,7 +164,8 @@ def test_import_leaves_jax_out():
 		"primate_tpu_torch.utils, primate_tpu_torch.utils.checkpoint, primate_tpu_torch.utils.profiling, primate_tpu_torch.utils.kwargs, " \
 		"primate_tpu_torch.plotting, primate_tpu_torch.examples.gp_log_likelihood, primate_tpu_torch.examples.graph_analysis, " \
 		"primate_tpu_torch.examples.rectangular_spectra, primate_tpu_torch.examples.spectrum_slicing, " \
-		"primate_tpu_torch.examples.tight_binding; " \
+		"primate_tpu_torch.examples.tight_binding, primate_tpu_torch.parallel, primate_tpu_torch.parallel.mesh, " \
+		"primate_tpu_torch.parallel.sharded, primate_tpu_torch.parallel._comm, primate_tpu_torch.examples.distributed_gp; " \
 		"bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'primate_tpu')]; print(bad); assert not bad"
 	r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
 	assert r.returncode == 0, r.stdout + r.stderr
