@@ -5,13 +5,19 @@
 //   dia_stencil_t        <- dia_matmat_t_pallas (_dia_t_kernel): out = A X, probe-major
 //   dia_stencil          <- dia_matmat_pallas (_dia_kernel): out = A V, node-major
 //   lanczos_dia_step     <- dia_matmat_t_phys (_dia_t_phys_kernel), the Lanczos sweep's
-//   lanczos_dia_residual    stencil; here the whole three-term step in two passes
+//   lanczos_dia_residual    stencil on its halo-padded carry; here the whole three-term
+//   lanczos_dia_advance     step in two passes, and the finish of a row-sharded step
 //
 // Layout: row-aligned bands (n_d, n) with band[d][r] = A[r, r + offsets[d]];
-// probe-major blocks (nv, n) for dia_stencil_t and the Lanczos step, node-major
-// blocks (n, k) for dia_stencil. Out-of-range neighbours (r + off outside
-// [0, n)) are skipped by a bounds check, so no zero-padded halo copy of the block
-// is needed and the offsets may be of any size.
+// probe-major blocks (nv, n) for dia_stencil_t, node-major blocks (n, k) for
+// dia_stencil. Out-of-range neighbours (r + off outside [0, n)) are skipped by a
+// bounds check, so the offsets may be of any size. The Lanczos step takes the
+// carry of JAX's phys_spec in the port's own form: (nv, ld) with the own rows at
+// columns [lo, lo + n) and the bands (n_d, ld) in the same columns, ld and lo whole
+// 16-byte vectors (the flat carry is ld = n, lo = 0). The columns outside the own
+// rows are zero, or hold the neighbour ranks' rows after a halo exchange; the step
+// reads them as data and writes zeros there. The TPU's 128-lane HALO, its
+// LANE_TILE rounding and the nv % 8 rule have no counterpart.
 //
 // Bound: HBM bytes. A stencil of a few diagonals does 2 n_d flops per loaded
 // element, far below the card's ~20 flop/byte balance point. So the designs aim
@@ -55,10 +61,14 @@
 // with a ticket: the last block to finish sums the partials of each probe in a
 // fixed order (no floating-point atomics, so the result is deterministic) and
 // writes alpha, or beta', the done flags and the next divisors, and alphas[j] /
-// betas[j] zeroed where a probe was done. Loads and
+// betas[j] zeroed where a probe was done. On a row-sharded carry each rank holds
+// part of every sum, so in the finishing mode the last block writes only the
+// rank's sum of each probe; the caller all-reduces it between the passes, and
+// lanczos_dia_advance (one thread a probe) writes from the reduced sums what the
+// last blocks write above, so every rank's state advances alike. Loads and
 // stores are 16 bytes along r; a tile of q with kHalo rows on each side is staged
 // in shared memory, so neighbours at offsets up to kHalo come from there, larger
-// offsets from direct (L1/L2) loads. When n is not a multiple of the vector
+// offsets from direct (L1/L2) loads. When ld or lo is not a multiple of the vector
 // length, or a pointer is not 16-byte aligned, the same kernels take scalar loads.
 //
 // Plain C interface: every entry point returns the cudaError_t of its launch
@@ -312,14 +322,14 @@ constexpr int kStepWarps = kStepThreads / 32;
 constexpr int kStepProbes = 8;  // probes per block (blockIdx.y)
 constexpr int kHalo = 16;       // rows staged on each side of a tile; a multiple of both vector lengths
 
-// Elements r .. r + len - 1 of a row of length n; those outside [0, n) read as 0.
-// kVec: one 16-byte load (n is a multiple of len and r of len, so a vector lies
-// wholly inside or wholly outside the row).
+// Elements r .. r + len - 1 of a carry row; those outside [lo_b, hi_b) read as 0.
+// kVec: one 16-byte load (the bounds and r are multiples of len, so a vector lies
+// wholly inside or wholly outside them).
 template <typename T, bool kVec>
-__device__ __forceinline__ void load_seg(const T* row, int64_t r, int64_t n, T (&o)[Vec<T>::len]) {
+__device__ __forceinline__ void load_seg(const T* row, int64_t r, int64_t lo_b, int64_t hi_b, T (&o)[Vec<T>::len]) {
     constexpr int VL = Vec<T>::len;
     if (kVec) {
-        if (r >= 0 && r < n) {
+        if (r >= lo_b && r < hi_b) {
             unpack(*reinterpret_cast<const typename Vec<T>::type*>(row + r), o);
         } else {
 #pragma unroll
@@ -327,10 +337,12 @@ __device__ __forceinline__ void load_seg(const T* row, int64_t r, int64_t n, T (
         }
     } else {
 #pragma unroll
-        for (int i = 0; i < VL; ++i) o[i] = (r + i >= 0 && r + i < n) ? row[r + i] : T(0);
+        for (int i = 0; i < VL; ++i) o[i] = (r + i >= lo_b && r + i < hi_b) ? row[r + i] : T(0);
     }
 }
 
+// kVec: the whole vector (the carry's columns past the own rows are inside the row's
+// ld and take the zeros the caller computed); else the elements before n.
 template <typename T, bool kVec>
 __device__ __forceinline__ void store_seg(T* row, int64_t r, int64_t n, const T (&o)[Vec<T>::len]) {
     constexpr int VL = Vec<T>::len;
@@ -381,15 +393,23 @@ __device__ __forceinline__ T probe_total(const T* partial, int64_t b) {
     return warp_sum(s);
 }
 
+// The carry layout of both passes: probe b's row starts at b * ld, its own rows are
+// columns [lo, lo + n), and the bands are (n_d, ld) in the same columns. The columns
+// outside the own rows are the zero margins of a padded carry, or, on a row-sharded
+// carry, the neighbour ranks' rows after a halo exchange: pass A reads them as data
+// and both passes write zeros there. The flat carry is ld = n, lo = 0.
+//
 // Pass A: w[b, r] = sum_d band[d, r] q[b, r + off_d] - beta[b] q_prev[b, r] with
 // q = v_cur / div_cur, q_prev = v_prev / div_prev, and the partials of
-// alpha[b] = sum_r w q. With a ticket, the last block writes state[kAlpha] and
-// alpha_out (zero where state[kDone]).
+// alpha[b] = sum_r w q over the own rows. With a ticket, the last block writes
+// state[kAlpha] and alpha_out (zero where state[kDone]); in the finishing mode
+// (sums given) it writes only the rank's local sums[b] and leaves the state alone.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
     const T* __restrict__ bands, const int64_t* __restrict__ offsets, int n_d, const T* __restrict__ v_cur,
     const T* __restrict__ v_prev, T* __restrict__ state, T* __restrict__ w, T* __restrict__ partial,
-    unsigned* __restrict__ ticket, T* __restrict__ alpha_out, int64_t nv, int64_t n) {
+    unsigned* __restrict__ ticket, T* __restrict__ alpha_out, T* __restrict__ sums, int64_t nv, int64_t ld,
+    int64_t lo, int64_t n) {
     constexpr int VL = Vec<T>::len;
     constexpr int kTile = kStepThreads * VL;
     constexpr int kSpan = kTile + 2 * kHalo;
@@ -397,10 +417,18 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
     __shared__ T div_s[kStepProbes], divp_s[kStepProbes], beta_s[kStepProbes];
     const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
     const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
+    const int64_t lo_b = -lo, hi_b = ld - lo;  // the carry's columns, counted from the first own row
     if (threadIdx.x < np) {
         div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
         divp_s[threadIdx.x] = state[kDivPrev * nv + b0 + threadIdx.x];
         beta_s[threadIdx.x] = state[kBeta * nv + b0 + threadIdx.x];
+    }
+    if (blockIdx.x == 0 && ld > n) {  // the margins of w: zero
+        for (int p = 0; p < np; ++p) {
+            T* row = w + (b0 + p) * ld;
+            for (int64_t c = threadIdx.x; c < lo; c += kStepThreads) row[c] = T(0);
+            for (int64_t c = lo + n + threadIdx.x; c < ld; c += kStepThreads) row[c] = T(0);
+        }
     }
     T dot[kStepProbes];
 #pragma unroll
@@ -412,11 +440,11 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
 #pragma unroll
         for (int p = 0; p < kStepProbes; ++p) {
             if (p >= np) break;
-            const T* row = v_cur + (b0 + p) * n;
+            const T* row = v_cur + (b0 + p) * ld + lo;
             const T div = div_s[p];
             for (int e = threadIdx.x; e < kSpan / VL; e += kStepThreads) {
                 T o[VL];
-                load_seg<T, kVec>(row, r0 - kHalo + e * VL, n, o);
+                load_seg<T, kVec>(row, r0 - kHalo + e * VL, lo_b, hi_b, o);
 #pragma unroll
                 for (int i = 0; i < VL; ++i) q_s[p][e * VL + i] = o[i] / div;
             }
@@ -429,58 +457,63 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
         for (int p = 0; p < kStepProbes; ++p) {
             if (p >= np) break;
             const int64_t b = b0 + p;
+            const T* row = v_cur + b * ld + lo;
             T acc[VL];
 #pragma unroll
             for (int i = 0; i < VL; ++i) acc[i] = T(0);
             for (int d = 0; d < n_d; ++d) {
                 const int64_t off = offsets[d];
                 T band[VL];
-                load_seg<T, kVec>(bands + d * n, r, n, band);
-                if (off >= -kHalo && off <= kHalo) {
+                load_seg<T, kVec>(bands + d * ld + lo, r, lo_b, n, band);
+                if (off >= -kHalo && off <= kHalo) {  // staged: q_s is 0 outside the carry
 #pragma unroll
-                    for (int i = 0; i < VL; ++i) {
-                        const int64_t c = r + i + off;
-                        if (c >= 0 && c < n) acc[i] += band[i] * q_s[p][loc + i + off];
-                    }
+                    for (int i = 0; i < VL; ++i) acc[i] += band[i] * q_s[p][loc + i + off];
                 } else {
                     const T div = div_s[p];
 #pragma unroll
                     for (int i = 0; i < VL; ++i) {
                         const int64_t c = r + i + off;
-                        if (c >= 0 && c < n) acc[i] += band[i] * (v_cur[b * n + c] / div);
+                        if (c >= lo_b && c < hi_b) acc[i] += band[i] * (row[c] / div);
                     }
                 }
             }
             T vp[VL], out[VL];
-            load_seg<T, kVec>(v_prev + b * n, r, n, vp);
+            load_seg<T, kVec>(v_prev + b * ld + lo, r, lo_b, hi_b, vp);
             const T beta = beta_s[p], divp = divp_s[p];
 #pragma unroll
             for (int i = 0; i < VL; ++i) {
-                out[i] = acc[i] - beta * (vp[i] / divp);
-                dot[p] += out[i] * q_s[p][loc + i];  // rows past n: q_s and out are 0
+                out[i] = r + i < n ? acc[i] - beta * (vp[i] / divp) : T(0);  // a margin column: 0
+                dot[p] += out[i] * q_s[p][loc + i];
             }
-            store_seg<T, kVec>(w + b * n, r, n, out);
+            store_seg<T, kVec>(w + b * ld + lo, r, n, out);
         }
     }
     if (!reduce_and_take_ticket(dot, np, b0, partial, ticket)) return;
     for (int64_t b = threadIdx.x / 32; b < nv; b += kStepWarps) {
         const T s = probe_total(partial, b);
         if (threadIdx.x % 32 == 0) {
-            state[kAlpha * nv + b] = s;
-            alpha_out[b] = state[kDone * nv + b] != T(0) ? T(0) : s;
+            if (sums != nullptr) {
+                sums[b] = s;
+            } else {
+                state[kAlpha * nv + b] = s;
+                alpha_out[b] = state[kDone * nv + b] != T(0) ? T(0) : s;
+            }
         }
     }
     if (threadIdx.x == 0) *ticket = 0u;
 }
 
-// Pass B: v = w - alpha q in place of w, with q = v_cur / div_cur, and the
-// partials of |v|^2. The last block writes beta_out (zero where done), then
-// advances the state: div_prev = div_cur, div_cur = beta' > tol ? beta' : inf,
-// beta = beta', done |= beta' < tol.
+// Pass B: v = w - alpha q in place of w over the own rows (zero in the margins), with
+// q = v_cur / div_cur and alpha from alpha_src (state[kAlpha], or the reduced sums of
+// pass A), and the partials of |v|^2. The last block either writes beta_out (zero
+// where done) and advances the state: div_prev = div_cur, div_cur = beta' > tol ?
+// beta' : inf, beta = beta', done |= beta' < tol; or, in the finishing mode, writes
+// only the rank's local sums[b].
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kStepThreads) lanczos_pass_b_kernel(const T* __restrict__ v_cur, T* w, T* state,
-                                                                      T* partial, unsigned* ticket, T* beta_out,
-                                                                      int64_t nv, int64_t n, T tol) {
+                                                                      const T* alpha_src, T* partial, unsigned* ticket,
+                                                                      T* beta_out, T* sums, int64_t nv, int64_t ld,
+                                                                      int64_t lo, int64_t n, T tol) {
     constexpr int VL = Vec<T>::len;
     constexpr int kTile = kStepThreads * VL;
     __shared__ T div_s[kStepProbes], alpha_s[kStepProbes];
@@ -488,7 +521,7 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_b_kernel(const T* _
     const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
     if (threadIdx.x < np) {
         div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
-        alpha_s[threadIdx.x] = state[kAlpha * nv + b0 + threadIdx.x];
+        alpha_s[threadIdx.x] = alpha_src[b0 + threadIdx.x];
     }
     __syncthreads();
     T ss[kStepProbes];
@@ -503,30 +536,54 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_b_kernel(const T* _
             if (p >= np) break;
             const int64_t b = b0 + p;
             T wv[VL], vc[VL];
-            load_seg<T, kVec>(w + b * n, r, n, wv);
-            load_seg<T, kVec>(v_cur + b * n, r, n, vc);
+            load_seg<T, kVec>(w + b * ld + lo, r, -lo, ld - lo, wv);
+            load_seg<T, kVec>(v_cur + b * ld + lo, r, -lo, ld - lo, vc);
             const T div = div_s[p], alpha = alpha_s[p];
 #pragma unroll
             for (int i = 0; i < VL; ++i) {
-                wv[i] = wv[i] - alpha * (vc[i] / div);
+                wv[i] = r + i < n ? wv[i] - alpha * (vc[i] / div) : T(0);
                 ss[p] += wv[i] * wv[i];
             }
-            store_seg<T, kVec>(w + b * n, r, n, wv);
+            store_seg<T, kVec>(w + b * ld + lo, r, n, wv);
         }
     }
     if (!reduce_and_take_ticket(ss, np, b0, partial, ticket)) return;
     for (int64_t b = threadIdx.x / 32; b < nv; b += kStepWarps) {
-        const T beta = sqrt(probe_total(partial, b));
+        const T s = probe_total(partial, b);
         if (threadIdx.x % 32 == 0) {
-            const bool done = state[kDone * nv + b] != T(0);
-            beta_out[b] = done ? T(0) : beta;
-            state[kDivPrev * nv + b] = state[kDivCur * nv + b];
-            state[kDivCur * nv + b] = beta > tol ? beta : T(INFINITY);
-            state[kBeta * nv + b] = beta;
-            state[kDone * nv + b] = (done || beta < tol) ? T(1) : T(0);
+            if (sums != nullptr) {
+                sums[b] = s;
+            } else {
+                const T beta = sqrt(s);
+                const bool done = state[kDone * nv + b] != T(0);
+                beta_out[b] = done ? T(0) : beta;
+                state[kDivPrev * nv + b] = state[kDivCur * nv + b];
+                state[kDivCur * nv + b] = beta > tol ? beta : T(INFINITY);
+                state[kBeta * nv + b] = beta;
+                state[kDone * nv + b] = (done || beta < tol) ? T(1) : T(0);
+            }
         }
     }
     if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// The step's finish on a row-sharded carry, one thread a probe, from the sums of
+// passes A and B after their all-reduce (sums[0, b] = alpha, sums[1, b] = |v|^2):
+// what the two passes' last blocks write in the unsharded step.
+template <typename T>
+__global__ void lanczos_advance_kernel(const T* __restrict__ sums, T* __restrict__ state, T* __restrict__ alpha_out,
+                                       T* __restrict__ beta_out, int64_t nv, T tol) {
+    const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (b >= nv) return;
+    const T alpha = sums[b], beta = sqrt(sums[nv + b]);
+    const bool done = state[kDone * nv + b] != T(0);
+    state[kAlpha * nv + b] = alpha;
+    alpha_out[b] = done ? T(0) : alpha;
+    beta_out[b] = done ? T(0) : beta;
+    state[kDivPrev * nv + b] = state[kDivCur * nv + b];
+    state[kDivCur * nv + b] = beta > tol ? beta : T(INFINITY);
+    state[kBeta * nv + b] = beta;
+    state[kDone * nv + b] = (done || beta < tol) ? T(1) : T(0);
 }
 
 template <typename T, bool kVec>
@@ -594,38 +651,52 @@ int64_t step_blocks(int64_t nv, int64_t n) {
     return gx > 0 ? gx : 1;
 }
 
-inline bool step_grid_ok(int64_t nv, int64_t n, int64_t gx) {
-    return nv > 0 && n > 0 && gx > 0 && gx <= 0x7fffffffLL && (nv + kStepProbes - 1) / kStepProbes <= 65535;
+inline bool step_grid_ok(int64_t nv, int64_t ld, int64_t lo, int64_t n, int64_t gx) {
+    return nv > 0 && n > 0 && lo >= 0 && ld >= lo + n && gx > 0 && gx <= 0x7fffffffLL &&
+           (nv + kStepProbes - 1) / kStepProbes <= 65535;
 }
 
 template <typename T>
 cudaError_t launch_pass_a(const T* bands, const int64_t* offsets, int n_d, const T* v_cur, const T* v_prev, T* state,
-                          T* w, T* partial, unsigned* ticket, T* alpha_out, int64_t nv, int64_t n, int64_t gx,
-                          int vec, cudaStream_t stream) {
-    if (!step_grid_ok(nv, n, gx)) return cudaErrorInvalidConfiguration;
+                          T* w, T* partial, unsigned* ticket, T* alpha_out, T* sums, int64_t nv, int64_t ld, int64_t lo,
+                          int64_t n, int64_t gx, int vec, cudaStream_t stream) {
+    if (!step_grid_ok(nv, ld, lo, n, gx)) return cudaErrorInvalidConfiguration;
     const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>((nv + kStepProbes - 1) / kStepProbes));
     if (vec) {
         lanczos_pass_a_kernel<T, true><<<grid, kStepThreads, 0, stream>>>(bands, offsets, n_d, v_cur, v_prev, state, w,
-                                                                          partial, ticket, alpha_out, nv, n);
+                                                                          partial, ticket, alpha_out, sums, nv, ld, lo, n);
     } else {
         lanczos_pass_a_kernel<T, false><<<grid, kStepThreads, 0, stream>>>(bands, offsets, n_d, v_cur, v_prev, state, w,
-                                                                           partial, ticket, alpha_out, nv, n);
+                                                                           partial, ticket, alpha_out, sums, nv, ld, lo, n);
     }
     return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_pass_b(const T* v_cur, T* w, T* state, T* partial, unsigned* ticket, T* beta_out, int64_t nv,
-                          int64_t n, double tol, int64_t gx, int vec, cudaStream_t stream) {
-    if (!step_grid_ok(nv, n, gx)) return cudaErrorInvalidConfiguration;
+cudaError_t launch_pass_b(const T* v_cur, T* w, T* state, const T* alpha_src, T* partial, unsigned* ticket, T* beta_out,
+                          T* sums, int64_t nv, int64_t ld, int64_t lo, int64_t n, double tol, int64_t gx, int vec,
+                          cudaStream_t stream) {
+    if (!step_grid_ok(nv, ld, lo, n, gx)) return cudaErrorInvalidConfiguration;
     const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>((nv + kStepProbes - 1) / kStepProbes));
     if (vec) {
-        lanczos_pass_b_kernel<T, true><<<grid, kStepThreads, 0, stream>>>(v_cur, w, state, partial, ticket, beta_out,
-                                                                          nv, n, static_cast<T>(tol));
+        lanczos_pass_b_kernel<T, true><<<grid, kStepThreads, 0, stream>>>(v_cur, w, state, alpha_src, partial, ticket,
+                                                                          beta_out, sums, nv, ld, lo, n, static_cast<T>(tol));
     } else {
-        lanczos_pass_b_kernel<T, false><<<grid, kStepThreads, 0, stream>>>(v_cur, w, state, partial, ticket, beta_out,
-                                                                           nv, n, static_cast<T>(tol));
+        lanczos_pass_b_kernel<T, false><<<grid, kStepThreads, 0, stream>>>(v_cur, w, state, alpha_src, partial, ticket,
+                                                                           beta_out, sums, nv, ld, lo, n, static_cast<T>(tol));
     }
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_advance(const T* sums, T* state, T* alpha_out, T* beta_out, int64_t nv, double tol,
+                           cudaStream_t stream) {
+    if (nv <= 0) return cudaErrorInvalidConfiguration;
+    constexpr int kThreads = 128;
+    const int64_t blocks = (nv + kThreads - 1) / kThreads;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    lanczos_advance_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(sums, state, alpha_out, beta_out,
+                                                                                     nv, static_cast<T>(tol));
     return cudaGetLastError();
 }
 
@@ -687,30 +758,49 @@ cudaError_t dia_stencil_f64(const double* bands, const int64_t* offsets, int n_d
     return launch_stencil_nm(bands, offsets, n_d, V, out, n, k, vec, stream);
 }
 
+// The step passes on a carry of row stride ld with its own rows at [lo, lo + n) (the flat
+// carry: ld = n, lo = 0); sums (nv,) non-null selects the finishing mode (the rank's local
+// sum of each probe, for an all-reduce and lanczos_dia_advance).
 cudaError_t lanczos_dia_step_f32(const float* bands, const int64_t* offsets, int n_d, const float* v_cur,
                                  const float* v_prev, float* state, float* w, float* partial, unsigned* ticket,
-                                 float* alpha_out, int64_t nv, int64_t n, int64_t gx, int vec, cudaStream_t stream) {
-    return launch_pass_a(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, nv, n, gx, vec,
-                         stream);
+                                 float* alpha_out, float* sums, int64_t nv, int64_t ld, int64_t lo, int64_t n,
+                                 int64_t gx, int vec, cudaStream_t stream) {
+    return launch_pass_a(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, sums, nv, ld, lo, n,
+                         gx, vec, stream);
 }
 
 cudaError_t lanczos_dia_step_f64(const double* bands, const int64_t* offsets, int n_d, const double* v_cur,
                                  const double* v_prev, double* state, double* w, double* partial, unsigned* ticket,
-                                 double* alpha_out, int64_t nv, int64_t n, int64_t gx, int vec, cudaStream_t stream) {
-    return launch_pass_a(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, nv, n, gx, vec,
+                                 double* alpha_out, double* sums, int64_t nv, int64_t ld, int64_t lo, int64_t n,
+                                 int64_t gx, int vec, cudaStream_t stream) {
+    return launch_pass_a(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, sums, nv, ld, lo, n,
+                         gx, vec, stream);
+}
+
+cudaError_t lanczos_dia_residual_f32(const float* v_cur, float* w, float* state, const float* alpha_src,
+                                     float* partial, unsigned* ticket, float* beta_out, float* sums, int64_t nv,
+                                     int64_t ld, int64_t lo, int64_t n, double tol, int64_t gx, int vec,
+                                     cudaStream_t stream) {
+    return launch_pass_b(v_cur, w, state, alpha_src, partial, ticket, beta_out, sums, nv, ld, lo, n, tol, gx, vec,
                          stream);
 }
 
-cudaError_t lanczos_dia_residual_f32(const float* v_cur, float* w, float* state, float* partial, unsigned* ticket,
-                                     float* beta_out, int64_t nv, int64_t n, double tol, int64_t gx, int vec,
+cudaError_t lanczos_dia_residual_f64(const double* v_cur, double* w, double* state, const double* alpha_src,
+                                     double* partial, unsigned* ticket, double* beta_out, double* sums, int64_t nv,
+                                     int64_t ld, int64_t lo, int64_t n, double tol, int64_t gx, int vec,
                                      cudaStream_t stream) {
-    return launch_pass_b(v_cur, w, state, partial, ticket, beta_out, nv, n, tol, gx, vec, stream);
+    return launch_pass_b(v_cur, w, state, alpha_src, partial, ticket, beta_out, sums, nv, ld, lo, n, tol, gx, vec,
+                         stream);
 }
 
-cudaError_t lanczos_dia_residual_f64(const double* v_cur, double* w, double* state, double* partial,
-                                     unsigned* ticket, double* beta_out, int64_t nv, int64_t n, double tol,
-                                     int64_t gx, int vec, cudaStream_t stream) {
-    return launch_pass_b(v_cur, w, state, partial, ticket, beta_out, nv, n, tol, gx, vec, stream);
+cudaError_t lanczos_dia_advance_f32(const float* sums, float* state, float* alpha_out, float* beta_out, int64_t nv,
+                                    double tol, cudaStream_t stream) {
+    return launch_advance(sums, state, alpha_out, beta_out, nv, tol, stream);
+}
+
+cudaError_t lanczos_dia_advance_f64(const double* sums, double* state, double* alpha_out, double* beta_out, int64_t nv,
+                                    double tol, cudaStream_t stream) {
+    return launch_advance(sums, state, alpha_out, beta_out, nv, tol, stream);
 }
 
 }  // extern "C"

@@ -26,8 +26,10 @@ the in-place one above, unchanged.
 
 Row-sharded operators (:mod:`~primate_tpu_torch.parallel`): ``op.sweep_rows(nv)`` gives what the
 sweep carries and how it finishes a sum over n. For an unsharded operator that is the whole block
-and local sums (:class:`~primate_tpu_torch.operators.base.WholeRows`); a sharded operator carries its
-rank's rows (and probe slice) in a buffer with halo columns, and the sums (‖v₀‖, α and β of each
+and local sums (:class:`~primate_tpu_torch.operators.base.WholeRows`), or with ``phys=True`` the
+block in a DIA operator's padded carry (:class:`~primate_tpu_torch.operators.base.PaddedRows`); a
+sharded operator carries its rank's rows (and probe slice) in a buffer with halo columns (a sharded DIA
+operator: the padded carry, on which its steps run the step kernels), and the sums (‖v₀‖, α and β of each
 step, ‖v‖, the CGS window's projections and selective re-orthogonalisation's β estimate) are finished
 by an all-reduce over its op group; the outputs (α, β, the basis, ``y``) are gathered at the end, and
 the breakdown tolerance and ω's noise floor use the global n. The out-of-place sweep uses the
@@ -103,17 +105,23 @@ def lanczos_block_op(
 	accumulates ``y = Σ_t coeffs[t]·q_t`` in O(n·nv) memory: the second pass of
 	two-pass f(A)v. ``selective=True`` replaces the fixed window by ω-monitored
 	partial re-orthogonalisation (Simon 1984) against every written slot; use
-	``ncv = deg``. ``phys`` chose the JAX package's halo-padded TPU carry, which
-	has no counterpart here.
+	``ncv = deg``. ``phys=True`` carries the sweep in the operator's halo-padded layout
+	(``DIAOperator.carry_spec``, the counterpart of JAX's ``phys_spec``): ``(nv, ld)``
+	blocks with the rows at ``[lo, lo + n)`` and zero margins, on which the step kernels
+	run as on the flat carry; α, β, the basis and ``y`` match the flat sweep to round-off.
+	It raises ``ValueError`` on an operator without that layout (not DIA, complex, or
+	rectangular), where JAX warns and runs flat. ``False`` and ``None`` carry the flat
+	``(nv, n)`` blocks (JAX's ``None`` engages the padded carry only on a ``use_pallas``
+	operator, a TPU switch the port has no counterpart of). A sweep that differentiates
+	(:func:`_lanczos_core_ad`) carries flat blocks either way.
 	"""
 	from .operators.base import torch_dtype
 
-	if phys is not None:
-		raise NotImplementedError("phys= selects the TPU's halo-padded carry, which is not ported (the step kernels replace it)")
 	deg, orth, ncv = _validate_params(V0.shape[0], deg, orth, ncv)
 	return _lanczos_core(
 		op, V0.T.contiguous(), deg=deg, ncv=ncv, orth=orth, rtol=rtol, reorth_passes=reorth_passes,
 		return_basis=return_basis, coeffs=coeffs, basis_dtype=torch_dtype(basis_dtype), selective=selective,
+		phys=phys is True,
 	)
 
 
@@ -149,10 +157,14 @@ def lanczos_block(
 
 def _lanczos_core(
 	op, V0t: torch.Tensor, *, deg: int, ncv: int, orth: int, rtol: float, reorth_passes: int, return_basis: bool = False,
-	coeffs: Optional[torch.Tensor] = None, basis_dtype=None, selective: bool = False,
+	coeffs: Optional[torch.Tensor] = None, basis_dtype=None, selective: bool = False, phys: bool = False,
 ) -> LanczosOutput:
 	nv, n = V0t.shape
 	dtype, device = V0t.dtype, V0t.device
+	# The rows the sweep carries and how it finishes a sum over n: the whole block and local sums,
+	# the block in a padded carry (phys), or a row-sharded operator's rank's rows (and probe slice),
+	# each sum over its op group.
+	layout = op.sweep_rows(nv, split_probes=not selective, phys=phys)
 	if _needs_grad(op, V0t, coeffs):
 		return _lanczos_core_ad(
 			op, V0t, deg=deg, ncv=ncv, orth=orth, rtol=rtol, reorth_passes=reorth_passes, return_basis=return_basis,
@@ -162,9 +174,6 @@ def _lanczos_core(
 	r_acc = real_dtype(acc)  # α, β and the sweep's state: real for Hermitian operators too
 	b_dtype = basis_dtype or dtype
 	keep_window = return_basis or orth > 0 or selective
-	# The rows the sweep carries and how it finishes a sum over n: the whole block and local sums,
-	# or a row-sharded operator's rank's rows (and probe slice), each sum over its op group.
-	layout = op.sweep_rows(nv, split_probes=not selective)
 	rows, reduce = layout.rows, layout.reduce_rows
 
 	X0 = layout.carry(V0t)
@@ -209,7 +218,7 @@ def _lanczos_core(
 		for j in range(deg):
 			if y is not None:
 				y.addcmul_(coeffs[j][..., None], rows(v_cur) / state.scal[DIV_CUR][:, None])
-			v_prev, v_cur = v_cur, op.lanczos_sweep_step(v_cur, v_prev, state, alphas[j], betas[j], residual_tol)
+			v_prev, v_cur = v_cur, op.lanczos_sweep_step(v_cur, v_prev, state, alphas[j], betas[j], residual_tol, layout=layout)
 			if return_basis:
 				write_slot(j, rows(v_cur) / state.scal[DIV_CUR][:, None], state.scal[DONE] == 0)
 		return output()
@@ -238,7 +247,7 @@ def _lanczos_core(
 	for j in range(deg):
 		if y is not None:
 			y.addcmul_(coeffs[j][..., None], rows(q_cur).to(acc))
-		v, alpha_j = op.lanczos_step(q_cur, q_prev, beta_j)
+		v, alpha_j = op.lanczos_step(q_cur, q_prev, beta_j, layout=layout)
 		v.addcmul_(alpha_j[:, None], q_cur.to(acc), value=-1)  # in place: v is a fresh tensor
 		v_rows = rows(v)
 		if selective:

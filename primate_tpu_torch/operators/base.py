@@ -5,7 +5,8 @@ Counterpart of ``primate_tpu/operators/base.py``. Operators apply to node-major
 (``matmat_t``, the layout the Lanczos sweep carries). ``lanczos_step`` and
 ``lanczos_sweep_step`` are the sweep's per-step hooks: operators with step kernels
 (``DIAOperator``) override them, and ``sweep_rows`` says what the sweep carries (the whole
-block, or a row-sharded operator's rank's rows; :mod:`~primate_tpu_torch.parallel`).
+block, a padded block for ``phys=True``, or a row-sharded operator's rank's rows;
+:mod:`~primate_tpu_torch.parallel`).
 
 The algebra (``A + B``, ``A - c``, ``c * A``, ``A / c``, ``-A``, ``A @ B``,
 ``A.H``, ``A.T``) builds :class:`AffineOperator`, :class:`ScaledOperator`,
@@ -70,8 +71,11 @@ def float_tensors_of(*items) -> tuple:
 
 class WholeRows:
 	"""The Lanczos sweep's view of an operator that is not row-sharded: every carried block is whole
-	and every sum over n is local. A row-sharded operator's :meth:`~LinearOperator.sweep_rows` gives
-	the same six methods over its rank's rows (:mod:`~primate_tpu_torch.parallel.sharded`)."""
+	and every sum over n is local. :class:`PaddedRows` carries the same rows in a padded block, and a
+	row-sharded operator's :meth:`~LinearOperator.sweep_rows` gives the same methods over its rank's
+	rows (:mod:`~primate_tpu_torch.parallel.sharded`)."""
+
+	spec = None  # the carry's layout for the step kernels: the flat (nv, n)
 
 	@staticmethod
 	def carry(X: torch.Tensor) -> torch.Tensor:
@@ -79,6 +83,23 @@ class WholeRows:
 		return X
 
 	rows = reduce_rows = probes = gather_probes = gather_rows = carry
+
+
+class PaddedRows(WholeRows):
+	"""The sweep's view on a padded carry (``lanczos_block_op(phys=True)``): each carried block is
+	``(nv, ld)`` with the rows at ``[lo, lo + n)`` and zeros elsewhere
+	(:class:`~primate_tpu_torch.ops.dia.CarrySpec`, the counterpart of JAX's ``phys_spec``); the
+	sums over n are local, over the rows."""
+
+	def __init__(self, spec):
+		self.spec = spec
+
+	def carry(self, X: torch.Tensor) -> torch.Tensor:
+		"""A new ``(nv, ld)`` carry of zeros with the block copied into its rows."""
+		return self.spec.pad(X)
+
+	def rows(self, X: torch.Tensor) -> torch.Tensor:
+		return self.spec.rows(X)
 
 
 def _conj(x):
@@ -133,27 +154,33 @@ class LinearOperator:
 		return self._matmat(Vt.T).T
 
 	def lanczos_step(
-		self, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor
+		self, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor, layout=WholeRows
 	) -> Tuple[torch.Tensor, torch.Tensor]:
 		"""One three-term recurrence step on probe-major ``(nv, n)`` blocks:
 		``v = A·q_cur − β[:, None]·q_prev`` in ``promote_types(dtype, float32)`` and
-		``α = Re Σ_r conj(q_cur)·v`` per probe, real (``primate_tpu/lanczos.py:309-315``)."""
+		``α = Re Σ_r conj(q_cur)·v`` per probe, real (``primate_tpu/lanczos.py:309-315``).
+		``layout`` is the sweep's :meth:`sweep_rows` (the flat carry here)."""
 		acc = torch.promote_types(q_cur.dtype, torch.float32)
 		v = self.matmat_t(q_cur).to(acc) - beta[:, None] * q_prev.to(acc)
 		return v, row_dot(q_cur.to(acc), v)
 
 	def lanczos_sweep_step(
 		self, v_cur: torch.Tensor, v_prev: torch.Tensor, state, alpha_out: torch.Tensor, beta_out: torch.Tensor,
-		residual_tol: float,
+		residual_tol: float, layout=WholeRows,
 	) -> torch.Tensor:
 		"""One whole step of a sweep without re-orthogonalisation, on residual blocks
 		carried unnormalised with their divisors in ``state``
-		(:func:`~primate_tpu_torch.ops.dia.lanczos_sweep_step_ref`; default: that plain version)."""
+		(:func:`~primate_tpu_torch.ops.dia.lanczos_sweep_step_ref`; default: that plain version).
+		``layout`` is the sweep's :meth:`sweep_rows` (the flat carry here)."""
 		return lanczos_sweep_step_ref(self.matmat_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
 
-	def sweep_rows(self, nv: int, split_probes: bool = True):
+	def sweep_rows(self, nv: int, split_probes: bool = True, phys: bool = False):
 		"""What the Lanczos sweep carries of an ``nv``-probe block and how it finishes its sums over n
-		(:class:`WholeRows`: the whole block, local sums; a row-sharded operator its rank's rows)."""
+		(:class:`WholeRows`: the whole block, local sums; a row-sharded operator its rank's rows).
+		``phys=True`` asks for the padded carry (:class:`PaddedRows`), which only a real DIA
+		operator has: raises ``ValueError`` here."""
+		if phys:
+			raise ValueError(f"phys=True needs an operator with a padded carry (a real DIAOperator); got {type(self).__name__}")
 		return WholeRows
 
 	def rmatvec(self, v: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,12 @@ PyTorch's own kernel on the CPU), on the structure as scipy stores it; the ELL,
 sliced-ELL and hub-tail planes are TPU layouts with no counterpart.
 
 DIA: row-aligned convention ``bands[d, i] = A[i, i + offsets[d]]``, so
-``(A x)[i] = Σ_d bands[d, i]·x[i + offsets[d]]``. The TPU's halo-padded carry
-(``phys_spec``/``matmat_t_phys``) has no counterpart: the kernels bounds-check
-the edges instead.
+``(A x)[i] = Σ_d bands[d, i]·x[i + offsets[d]]``. The applies bounds-check the
+edges. The Lanczos sweep's halo-padded carry (JAX's ``phys_spec``/``matmat_t_phys``)
+is :meth:`DIAOperator.carry_spec`: ``(nv, ld)`` with the rows at ``[lo, lo + n)``,
+128-byte aligned, which the step kernels take (``lanczos_block_op(phys=True)``, and the
+row-sharded sweep of :mod:`~primate_tpu_torch.parallel`); the TPU's 128-lane halo,
+``LANE_TILE`` rounding and ``nv % 8`` rule are not ported.
 
 BSR: scipy's layout, tiles ``(nnzb, bm, bn)`` with ``indptr``/``indices`` over
 block rows. The JAX package's block-ELL planes (``bell_blocks``) are an XLA
@@ -34,8 +37,8 @@ import torch
 from ..ops._common import LAYOUT_COPIES
 from ..ops.autograd import bsr_spmm_ad, bsr_transpose, csr_spmm_ad, dia_adjoint, dia_stencil_ad, dia_stencil_t_ad
 from ..ops.bsr import block_rowids
-from ..ops.dia import lanczos_dia_step, lanczos_dia_sweep_step
-from .base import LinearOperator, aslinop
+from ..ops.dia import CarrySpec, carry_spec, lanczos_dia_step, lanczos_dia_sweep_step
+from .base import LinearOperator, PaddedRows, WholeRows, aslinop
 
 __all__ = ["COOOperator", "CSROperator", "BSROperator", "DIAOperator", "GramOperator"]
 
@@ -442,7 +445,7 @@ class DIAOperator(LinearOperator):
 		self.device = self.bands.device
 		# The kernels read the offsets from device memory; upload them once.
 		self.offsets_t = torch.tensor(self.offsets, dtype=torch.int64, device=self.device)
-		self._adj = None
+		self._adj = self._padded = None
 
 	@classmethod
 	def from_numpy(cls, bands, offsets, shape, *, dtype=None, device="cuda") -> "DIAOperator":
@@ -582,22 +585,61 @@ class DIAOperator(LinearOperator):
 			out[idx[valid], idx[valid] + off] += self.bands[k, :m][valid]
 		return out
 
+	def carry_spec(self, nv: Optional[int] = None) -> Optional[CarrySpec]:
+		"""The padded Lanczos carry (the counterpart of JAX's ``phys_spec``): ``(ld, lo, n)`` with
+		``lo`` the largest offset rounded up to a whole 128-byte line and ``ld`` a whole number of
+		them (:func:`~primate_tpu_torch.ops.dia.carry_spec`), for a real square operator; None for a
+		complex or rectangular one. Any ``nv``: the TPU's ``nv % 8`` and 128-lane rules do not apply."""
+		if self.dtype.is_complex or self.shape[0] != self.shape[1]:
+			return None
+		moff = max((abs(o) for o in self.offsets), default=0)
+		return carry_spec(self.shape[0], moff, self.bands.element_size())
+
+	def sweep_rows(self, nv: int, split_probes: bool = True, phys: bool = False):
+		"""The flat carry, or with ``phys=True`` the padded one (:class:`PaddedRows` of
+		:meth:`carry_spec`; ``ValueError`` for a complex or rectangular operator)."""
+		if not phys:
+			return WholeRows
+		spec = self.carry_spec(nv)
+		if spec is None:
+			raise ValueError(f"phys=True needs a real square DIAOperator; this one is {self.dtype}, {self.shape}")
+		return PaddedRows(spec)
+
+	def _carry_bands(self, spec: Optional[CarrySpec]) -> torch.Tensor:
+		"""The bands in a carry's columns ``(n_d, ld)``, zero outside the rows (the bands themselves
+		for the flat carry), built once per layout, or per call while the bands carry a gradient."""
+		if spec is None:
+			return self.bands
+		track = self.bands.requires_grad and torch.is_grad_enabled()
+		if track or self._padded is None or self._padded[0] != spec:
+			with torch.set_grad_enabled(track):
+				padded = spec.pad(self.bands)
+			if track:
+				return padded
+			self._padded = (spec, padded)
+		return self._padded[1]
+
 	def lanczos_step(
-		self, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor
+		self, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor, layout=WholeRows
 	) -> Tuple[torch.Tensor, torch.Tensor]:
-		"""Step ``v = A·q_cur − β·q_prev``, ``α = Σ v·q_cur`` (pass A of the step kernels on the card).
+		"""Step ``v = A·q_cur − β·q_prev``, ``α = Σ v·q_cur`` (pass A of the step kernels on the card)
+		on the carry of ``layout`` (flat, or padded for ``phys=True``).
 		A complex (Hermitian) operator takes the base class's step: the complex stencil
 		``dia_stencil_t`` (counted in ``LAUNCHES``) and PyTorch; the step kernels are real only."""
 		if self.dtype.is_complex:
 			return super().lanczos_step(q_cur, q_prev, beta)
-		return lanczos_dia_step(self.bands, self.offsets_t, q_cur, q_prev, beta)
+		return lanczos_dia_step(self._carry_bands(layout.spec), self.offsets_t, q_cur, q_prev, beta, layout.spec)
 
-	def lanczos_sweep_step(self, v_cur, v_prev, state, alpha_out, beta_out, residual_tol: float) -> torch.Tensor:
-		"""The whole step without re-orthogonalisation (both step kernels on the card); a
-		complex operator takes the base class's step, through the complex ``dia_stencil_t``."""
+	def lanczos_sweep_step(
+		self, v_cur, v_prev, state, alpha_out, beta_out, residual_tol: float, layout=WholeRows
+	) -> torch.Tensor:
+		"""The whole step without re-orthogonalisation (both step kernels on the card) on the carry of
+		``layout``; a complex operator takes the base class's step, through the complex ``dia_stencil_t``."""
 		if self.dtype.is_complex:
 			return super().lanczos_sweep_step(v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
-		return lanczos_dia_sweep_step(self.bands, self.offsets_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
+		return lanczos_dia_sweep_step(
+			self._carry_bands(layout.spec), self.offsets_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol, layout.spec
+		)
 
 
 def _drop_coverage_tiles(A, bm: int, blocks: np.ndarray, indices: np.ndarray, indptr: np.ndarray):

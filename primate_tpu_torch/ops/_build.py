@@ -94,10 +94,13 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 		"dia_stencil": {
 			# bands, offsets, n_d, x, out, nv, n, vec, stream
 			"dia_stencil_t": [p, p, i32, p, p, i64, i64, i32, p],
-			# bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, nv, n, grid_x, vec, stream
-			"lanczos_dia_step": [p, p, i32, p, p, p, p, p, p, p, i64, i64, i64, i32, p],
-			# v_cur, w, state, partial, ticket, beta_out, nv, n, tol, grid_x, vec, stream
-			"lanczos_dia_residual": [p, p, p, p, p, p, i64, i64, ctypes.c_double, i64, i32, p],
+			# bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, sums, nv, ld, lo, n, grid_x, vec,
+			# stream
+			"lanczos_dia_step": [p, p, i32, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i32, p],
+			# v_cur, w, state, alpha_src, partial, ticket, beta_out, sums, nv, ld, lo, n, tol, grid_x, vec, stream
+			"lanczos_dia_residual": [p, p, p, p, p, p, p, p, i64, i64, i64, i64, ctypes.c_double, i64, i32, p],
+			# sums, state, alpha_out, beta_out, nv, tol, stream
+			"lanczos_dia_advance": [p, p, p, p, i64, ctypes.c_double, p],
 			# bands, offsets, n_d, V, out, n, k, vec, stream
 			"dia_stencil": [p, p, i32, p, p, i64, i64, i32, p],
 		},

@@ -6,14 +6,20 @@ __all__ = ["LAUNCHES", "LAYOUT_COPIES", "SCALAR_LAUNCHES", "reset_launches"]
 
 # Kernel launches per wrapper since the last `reset_launches()`. Each wrapper adds
 # one where it launches its kernel and nowhere else; its plain version counts nothing.
-LAUNCHES = {"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "dia_stencil": 0, "bsr_spmm": 0}
+LAUNCHES = {
+	"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "lanczos_dia_advance": 0, "dia_stencil": 0,
+	"bsr_spmm": 0,
+}
 # Copies an operator made to hand a kernel or library call the layout it reads
 # (a probe-major block made node-major for the BSR kernel), or to hand back the
 # layout its caller reads (the CSR product of a probe-major block), per apply.
 LAYOUT_COPIES = {"bsr_spmm": 0, "csr_spmm": 0}
 # Launches that took a kernel's scalar path: a length or a pointer that does not
 # allow its 16-byte loads and stores (see `vector_ok`).
-SCALAR_LAUNCHES = {"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "dia_stencil": 0, "bsr_spmm": 0}
+SCALAR_LAUNCHES = {
+	"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "lanczos_dia_advance": 0, "dia_stencil": 0,
+	"bsr_spmm": 0,
+}
 # The C entry point's suffix of each dtype a kernel takes.
 SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64", torch.complex128: "c128"}
 
@@ -58,7 +64,9 @@ def stream(device: torch.device) -> int:
 	return torch.cuda.current_stream(device).cuda_stream
 
 
-def vector_ok(length: int, elem_size: int, *tensors) -> bool:
-	"""Whether a kernel may move rows of ``length`` elements in 16-byte vectors:
-	the length is a whole number of vectors and every tensor starts 16-byte aligned."""
-	return length % (16 // elem_size) == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+def vector_ok(length: int, elem_size: int, *tensors, lead: int = 0) -> bool:
+	"""Whether a kernel may move rows of ``length`` elements in 16-byte vectors: the length
+	(a carry's row stride ``ld``) and the columns before its own rows (``lead``, a carry's ``lo``)
+	are whole numbers of vectors and every tensor starts 16-byte aligned."""
+	vl = 16 // elem_size
+	return length % vl == 0 and lead % vl == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)

@@ -28,17 +28,26 @@ kernels of ``primate_tpu/ops/dia_pallas.py``:
   pass normalises. :func:`lanczos_dia_step` alone is pass A for a sweep that
   re-orthogonalises, its α partials summed by ``torch.sum``.
 
+  Both passes take the sweep's carry in its layout (:class:`CarrySpec`, the port's
+  ``phys_spec``): the flat ``(nv, n)`` block, or the halo-padded ``(nv, ld)`` one with the rows
+  at ``[lo, lo + n)`` that ``lanczos_block_op(phys=True)`` and the row-sharded sweep carry
+  (``lo`` and ``ld`` whole 128-byte lines, so both passes take their vector paths on aligned lines). They read
+  the columns outside the rows as data (zeros, or a neighbour rank's rows after a halo exchange)
+  and write zeros there. On a row-sharded carry (``reduce`` given) each pass writes only the
+  rank's sums, the caller all-reduces them between the passes, and ``lanczos_dia_advance`` (one
+  thread a probe) finishes the step from the reduced sums, so every rank advances alike.
+
 All are bound by HBM bytes (a few flops per loaded element); the kernels make
 one pass over the probe block and bounds-check the ragged edges, so neither the
-TPU's zero-padded halo copy nor its 128-lane offset limit and ``k % 128`` rule
-carries over.
+TPU's 128-lane halo and ``LANE_TILE`` rounding nor its ``nv % 8`` and ``k % 128``
+rules carry over.
 
 Each wrapper runs its plain version (``*_ref``) only for tensors on the CPU. For
 a CUDA tensor it launches the kernel or raises; it counts each launch in
 :data:`LAUNCHES`.
 """
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,6 +70,9 @@ __all__ = [
 	"lanczos_sweep_step_ref",
 	"lanczos_sweep_pass_a_ref",
 	"lanczos_sweep_pass_b_ref",
+	"lanczos_dia_advance_ref",
+	"CarrySpec",
+	"carry_spec",
 ]
 
 
@@ -101,14 +113,68 @@ def row_sq_norm(X: torch.Tensor) -> torch.Tensor:
 	return torch.sum(torch.view_as_real(X).square(), dim=(1, 2)) if X.is_complex() else torch.sum(X * X, dim=1)
 
 
+class CarrySpec(NamedTuple):
+	"""The layout of a Lanczos carry, the port's form of JAX's ``phys_spec``: a probe-major block
+	``(nv, ld)`` whose own rows are the columns ``[lo, lo + n)``; the bands that the step kernels
+	read on it are ``(n_d, ld)`` in the same columns, zero outside the own rows. The columns outside
+	the own rows are zero, or hold a neighbour rank's rows after a halo exchange. The flat carry
+	``(nv, n)`` is ``CarrySpec(n, 0, n)``."""
+
+	ld: int
+	lo: int
+	n: int
+
+	def rows(self, X: torch.Tensor) -> torch.Tensor:
+		"""The own rows of a carry (a view)."""
+		return X if self.ld == self.n else X.narrow(-1, self.lo, self.n)
+
+	def pad(self, X: torch.Tensor) -> torch.Tensor:
+		"""A ``(..., n)`` block in a new carry ``(..., ld)``, zero outside the own rows."""
+		if self.ld == self.n:
+			return X
+		out = X.new_zeros(X.shape[:-1] + (self.ld,))
+		self.rows(out).copy_(X)
+		return out
+
+	def zero_margins(self, X: torch.Tensor) -> torch.Tensor:
+		"""Zero ``X``'s columns outside the own rows, in place; returns ``X``."""
+		if self.ld != self.n:
+			X[..., : self.lo] = 0
+			X[..., self.lo + self.n :] = 0
+		return X
+
+
+def carry_spec(n: int, max_offset: int, elem_size: int) -> CarrySpec:
+	"""The padded carry of ``n`` rows for offsets up to ``max_offset``: ``lo`` the largest offset
+	rounded up to a whole 128-byte line, ``ld`` room for ``max_offset`` columns past the rows,
+	rounded up the same way. Whole 16-byte vectors put the step kernels and ``dia_stencil_t`` on
+	their vector paths; whole lines keep each warp's 512-byte accesses on four lines, not five (with
+	``lo`` one vector, pass B took 3.01 ms at 64 × 10M float32 against 2.76 ms line-aligned and 2.64
+	ms on the flat carry; H100 80GB HBM3, 700 W)."""
+	line = max(1, 128 // elem_size)
+	lo = -(-max_offset // line) * line
+	return CarrySpec(-(-(lo + n + max_offset) // line) * line, lo, n)
+
+
+def _flat(X: torch.Tensor) -> CarrySpec:
+	return CarrySpec(X.shape[-1], 0, X.shape[-1])
+
+
+def _same(x):
+	return x
+
+
 def lanczos_dia_step_ref(
-	bands: torch.Tensor, offsets: torch.Tensor, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor
+	bands: torch.Tensor, offsets: torch.Tensor, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor,
+	spec: Optional[CarrySpec] = None, reduce=_same,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-	"""Plain version of :func:`lanczos_dia_step`: ``v = A·q_cur − β·q_prev`` and
-	``α = Σ_r v·q_cur``, both in the accumulation dtype (``primate_tpu/lanczos.py:309-315``)."""
+	"""Plain version of :func:`lanczos_dia_step`: ``v = A·q_cur − β·q_prev`` (zero outside the
+	own rows of ``spec``'s carry) and ``α = Σ_r v·q_cur`` over the own rows, finished by
+	``reduce``; both in the accumulation dtype (``primate_tpu/lanczos.py:309-315``)."""
+	spec = spec or _flat(q_cur)
 	acc = acc_dtype(q_cur.dtype)
-	v = dia_stencil_t_ref(bands, offsets, q_cur).to(acc) - beta[:, None].to(acc) * q_prev.to(acc)
-	alpha = torch.sum(v * q_cur.to(acc), dim=1)
+	v = spec.zero_margins(dia_stencil_t_ref(bands, offsets, q_cur).to(acc) - beta[:, None].to(acc) * q_prev.to(acc))
+	alpha = reduce(torch.sum(spec.rows(v) * spec.rows(q_cur).to(acc), dim=1))
 	return v, alpha
 
 
@@ -136,60 +202,77 @@ def lanczos_state(nv: int, dtype: torch.dtype, device) -> LanczosState:
 	return LanczosState(scal, torch.zeros(1, dtype=torch.int32, device=device))
 
 
-def _same(x):
-	return x
-
-
-def lanczos_sweep_pass_a_ref(
-	apply_t, v_cur: torch.Tensor, v_prev: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor,
-	reduce=_same, rows=_same,
-) -> torch.Tensor:
-	"""Plain version of pass A: with ``q = v_cur / div_cur`` and ``q_prev = v_prev / div_prev``,
-	returns ``w = A q − β q_prev``; writes ``α = Re Σ conj(q)·w`` (``Σ w q`` for real blocks) to
-	``state.scal[ALPHA]`` and to ``alpha_out`` (zero where a probe is done). The state is real
-	for complex (Hermitian) blocks too. On a row-sharded carry ``rows`` picks the rank's rows and
-	``reduce`` finishes the sum over the other ranks' (identities otherwise)."""
-	s = state.scal
-	q = v_cur / s[DIV_CUR, :, None]
-	w = apply_t(q).to(v_cur.dtype) - s[BETA, :, None] * (v_prev / s[DIV_PREV, :, None])
-	alpha = reduce(row_dot(rows(q), rows(w)))
+def _finish_alpha(s: torch.Tensor, alpha: torch.Tensor, alpha_out: torch.Tensor) -> None:
+	"""What the end of pass A writes: ``s[ALPHA]`` and ``alpha_out`` (zero where a probe is done)."""
 	alpha_out.copy_(torch.where(s[DONE] != 0, 0.0, alpha))
 	s[ALPHA] = alpha
-	return w
 
 
-def lanczos_sweep_pass_b_ref(
-	v_cur: torch.Tensor, w: torch.Tensor, state: LanczosState, beta_out: torch.Tensor, residual_tol: float,
-	reduce=_same, rows=_same,
-) -> torch.Tensor:
-	"""Plain version of pass B: ``v = w − α q`` in place of ``w``, ``β' = ‖v‖`` (``√Σ|v|²``); writes
-	``beta_out`` (zero where a probe was done) and advances ``state``: ``div_prev = div_cur``,
-	``div_cur = β'`` if ``β' > residual_tol`` else ``inf``, ``β = β'``, ``done |= β' < residual_tol``.
-	``reduce`` and ``rows`` as in pass A."""
-	s = state.scal
-	v = w.sub_(s[ALPHA, :, None] * (v_cur / s[DIV_CUR, :, None]))
-	beta = torch.sqrt(reduce(row_sq_norm(rows(v))))
+def _finish_beta(s: torch.Tensor, beta: torch.Tensor, beta_out: torch.Tensor, residual_tol: float) -> None:
+	"""What the end of pass B writes: ``beta_out`` (zero where a probe was done) and the advanced state."""
 	done = s[DONE] != 0
 	beta_out.copy_(torch.where(done, 0.0, beta))
 	s[DIV_PREV] = s[DIV_CUR]
 	s[DIV_CUR] = torch.where(beta > residual_tol, beta, torch.inf)
 	s[BETA] = beta
 	s[DONE] = (done | (beta < residual_tol)).to(s.dtype)
+
+
+def lanczos_sweep_pass_a_ref(
+	apply_t, v_cur: torch.Tensor, v_prev: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor,
+	reduce=_same, spec: Optional[CarrySpec] = None,
+) -> torch.Tensor:
+	"""Plain version of pass A: with ``q = v_cur / div_cur`` and ``q_prev = v_prev / div_prev``,
+	returns ``w = A q − β q_prev``, zero outside the own rows of ``spec``'s carry (the flat carry
+	when None); writes ``α = Re Σ conj(q)·w`` over the own rows (``Σ w q`` for real blocks) to
+	``state.scal[ALPHA]`` and to ``alpha_out`` (zero where a probe is done). The state is real for
+	complex (Hermitian) blocks too. On a row-sharded carry ``reduce`` finishes the sum over the
+	other ranks' rows (the identity otherwise)."""
+	spec = spec or _flat(v_cur)
+	s = state.scal
+	q = v_cur / s[DIV_CUR, :, None]
+	w = spec.zero_margins(apply_t(q).to(v_cur.dtype) - s[BETA, :, None] * (v_prev / s[DIV_PREV, :, None]))
+	_finish_alpha(s, reduce(row_dot(spec.rows(q), spec.rows(w))), alpha_out)
+	return w
+
+
+def lanczos_sweep_pass_b_ref(
+	v_cur: torch.Tensor, w: torch.Tensor, state: LanczosState, beta_out: torch.Tensor, residual_tol: float,
+	reduce=_same, spec: Optional[CarrySpec] = None,
+) -> torch.Tensor:
+	"""Plain version of pass B: ``v = w − α q`` in place of ``w`` (zero outside the own rows),
+	``β' = ‖v‖`` (``√Σ|v|²`` over the own rows); writes ``beta_out`` (zero where a probe was done)
+	and advances ``state``: ``div_prev = div_cur``, ``div_cur = β'`` if ``β' > residual_tol`` else
+	``inf``, ``β = β'``, ``done |= β' < residual_tol``. ``reduce`` and ``spec`` as in pass A."""
+	spec = spec or _flat(v_cur)
+	s = state.scal
+	v = spec.zero_margins(w.sub_(s[ALPHA, :, None] * (v_cur / s[DIV_CUR, :, None])))
+	_finish_beta(s, torch.sqrt(reduce(row_sq_norm(spec.rows(v)))), beta_out, residual_tol)
 	return v
+
+
+def lanczos_dia_advance_ref(
+	sums: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor, beta_out: torch.Tensor, residual_tol: float
+) -> None:
+	"""Plain version of ``lanczos_dia_advance``, the finish of a row-sharded step: from the reduced
+	sums ``(2, nv)`` (α, and Σ|v|² over every rank's rows) it writes what passes A and B write at the
+	end of an unsharded step: ``state[ALPHA] = α``, ``alpha_out``/``beta_out`` (zero where a probe was
+	done), ``div_prev = div_cur``, ``div_cur = β'`` if ``β' > residual_tol`` else ``inf``, ``β = β'``,
+	``done |= β' < residual_tol`` with ``β' = √Σ|v|²``."""
+	_finish_alpha(state.scal, sums[0], alpha_out)
+	_finish_beta(state.scal, torch.sqrt(sums[1]), beta_out, residual_tol)
 
 
 def lanczos_sweep_step_ref(
 	apply_t, v_cur: torch.Tensor, v_prev: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor,
-	beta_out: torch.Tensor, residual_tol: float, reduce=_same, rows=_same,
+	beta_out: torch.Tensor, residual_tol: float, reduce=_same, spec: Optional[CarrySpec] = None,
 ) -> torch.Tensor:
 	"""Plain version of :func:`lanczos_dia_sweep_step`, for any probe-major apply
 	``apply_t`` (``primate_tpu/lanczos.py:304-316,378-388`` with ``orth = 0``): pass A
 	then pass B. The next step's ``q = v / div_cur`` is the reference's guarded ``v / β'``.
-	``reduce`` and ``rows`` route the two sums of a row-sharded carry (see pass A)."""
-	w = lanczos_sweep_pass_a_ref(apply_t, v_cur, v_prev, state, alpha_out, reduce, rows)
-	return lanczos_sweep_pass_b_ref(v_cur, w, state, beta_out, residual_tol, reduce, rows)
-
-
+	``reduce`` and ``spec`` route the two sums of a row-sharded or padded carry (see pass A)."""
+	w = lanczos_sweep_pass_a_ref(apply_t, v_cur, v_prev, state, alpha_out, reduce, spec)
+	return lanczos_sweep_pass_b_ref(v_cur, w, state, beta_out, residual_tol, reduce, spec)
 
 
 def _check_shapes(name: str, bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -> None:
@@ -197,6 +280,13 @@ def _check_shapes(name: str, bands: torch.Tensor, offsets: torch.Tensor, x: torc
 		raise ValueError(f"{name}: expected x (nv, n), bands (n_d, n), offsets (n_d,)")
 	if bands.shape != (offsets.shape[0], x.shape[1]):
 		raise ValueError(f"{name}: bands {tuple(bands.shape)} do not match offsets {tuple(offsets.shape)} and n={x.shape[1]}")
+
+
+def _check_spec(name: str, spec: CarrySpec, x: torch.Tensor) -> CarrySpec:
+	spec = CarrySpec(*(int(v) for v in spec)) if spec is not None else _flat(x)
+	if spec.ld != x.shape[1] or spec.lo < 0 or spec.n < 1 or spec.lo + spec.n > spec.ld:
+		raise ValueError(f"{name}: carry layout {tuple(spec)} does not fit a carry of width {x.shape[1]}")
+	return spec
 
 
 def dia_stencil_t(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -222,20 +312,23 @@ def dia_stencil_t(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -
 	return out
 
 
-def _launch_pass_a(lib, bands, offsets, v_cur, v_prev, scal, ticket, alpha_out):
-	"""Pass A on the card: returns w and the (nv, grid) α partials."""
-	nv, n = v_cur.shape
-	gx = lib.lanczos_step_blocks(nv, n, v_cur.element_size())
+def _launch_pass_a(lib, bands, offsets, v_cur, v_prev, scal, ticket, alpha_out, spec=None, sums=None):
+	"""Pass A on the card: returns w, the (nv, grid) α partials, the grid and the vector flag.
+	With ``sums`` (nv,) the last block writes the rank's α sums there and leaves the state alone."""
+	spec = spec or _flat(v_cur)
+	nv = v_cur.shape[0]
+	gx = lib.lanczos_step_blocks(nv, spec.n, v_cur.element_size())
 	if gx < 1:
 		raise RuntimeError("lanczos_dia_step: could not query the CUDA device for the grid size")
 	w = torch.empty_like(v_cur)
 	partial = torch.empty((nv, gx), dtype=v_cur.dtype, device=v_cur.device)
-	vec = vector_ok(n, v_cur.element_size(), bands, v_cur, v_prev, w)
+	vec = vector_ok(spec.ld, v_cur.element_size(), bands, v_cur, v_prev, w, lead=spec.lo)
 	fn = lib.lanczos_dia_step_f32 if v_cur.dtype == torch.float32 else lib.lanczos_dia_step_f64
+	ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
 	err = fn(
 		bands.data_ptr(), offsets.data_ptr(), bands.shape[0], v_cur.data_ptr(), v_prev.data_ptr(), scal.data_ptr(),
-		w.data_ptr(), partial.data_ptr(), ticket.data_ptr() if ticket is not None else None,
-		alpha_out.data_ptr() if alpha_out is not None else None, nv, n, gx, int(vec), stream(v_cur.device),
+		w.data_ptr(), partial.data_ptr(), ptr(ticket), ptr(alpha_out), ptr(sums), nv, spec.ld, spec.lo, spec.n, gx,
+		int(vec), stream(v_cur.device),
 	)
 	raise_on(lib, err, "lanczos_dia_step")
 	LAUNCHES["lanczos_dia_step"] += 1
@@ -243,31 +336,52 @@ def _launch_pass_a(lib, bands, offsets, v_cur, v_prev, scal, ticket, alpha_out):
 	return w, partial, gx, vec
 
 
-def _launch_pass_b(lib, v_cur, w, state, partial, beta_out, residual_tol, gx, vec) -> None:
-	"""Pass B on the card, on pass A's w (in place) and partials buffer."""
-	nv, n = v_cur.shape
+def _launch_pass_b(lib, v_cur, w, state, partial, beta_out, residual_tol, gx, vec, spec=None, sums=None) -> None:
+	"""Pass B on the card, on pass A's w (in place) and partials buffer. With ``sums`` (2, nv) it
+	reads α from ``sums[0]`` (reduced) and writes the rank's ``|v|²`` sums to ``sums[1]``."""
+	spec = spec or _flat(v_cur)
+	nv = v_cur.shape[0]
 	fn = lib.lanczos_dia_residual_f32 if v_cur.dtype == torch.float32 else lib.lanczos_dia_residual_f64
+	scal = state.scal
+	alpha_src = sums[0] if sums is not None else scal[ALPHA]
 	err = fn(
-		v_cur.data_ptr(), w.data_ptr(), state.scal.data_ptr(), partial.data_ptr(), state.ticket.data_ptr(),
-		beta_out.data_ptr(), nv, n, float(residual_tol), gx, int(vec), stream(v_cur.device),
+		v_cur.data_ptr(), w.data_ptr(), scal.data_ptr(), alpha_src.data_ptr(), partial.data_ptr(), state.ticket.data_ptr(),
+		beta_out.data_ptr(), sums[1].data_ptr() if sums is not None else None, nv, spec.ld, spec.lo, spec.n,
+		float(residual_tol), gx, int(vec), stream(v_cur.device),
 	)
 	raise_on(lib, err, "lanczos_dia_residual")
 	LAUNCHES["lanczos_dia_residual"] += 1
 	SCALAR_LAUNCHES["lanczos_dia_residual"] += not vec
 
 
+def _launch_advance(lib, sums, state, alpha_out, beta_out, residual_tol) -> None:
+	"""The step's finish from the reduced sums (2, nv): α, β, the divisors and the done flags."""
+	fn = lib.lanczos_dia_advance_f32 if sums.dtype == torch.float32 else lib.lanczos_dia_advance_f64
+	err = fn(
+		sums.data_ptr(), state.scal.data_ptr(), alpha_out.data_ptr(), beta_out.data_ptr(), sums.shape[1],
+		float(residual_tol), stream(sums.device),
+	)
+	raise_on(lib, err, "lanczos_dia_advance")
+	LAUNCHES["lanczos_dia_advance"] += 1
+
+
 def lanczos_dia_step(
-	bands: torch.Tensor, offsets: torch.Tensor, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor
+	bands: torch.Tensor, offsets: torch.Tensor, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor,
+	spec: Optional[CarrySpec] = None, reduce=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
 	"""Pass A of the Lanczos step alone, for a sweep that re-orthogonalises
-	(``orth > 0``): ``v = A·q_cur − β[:, None]·q_prev`` and ``α = Σ_r v·q_cur`` per
-	probe (the kernel's partials summed by ``torch.sum``). ``q_cur``/``q_prev``
-	``(nv, n)``, ``β (nv,)``."""
+	(``orth > 0``): ``v = A·q_cur − β[:, None]·q_prev`` (zero outside the own rows) and
+	``α = Σ_r v·q_cur`` over the own rows per probe (the kernel's partials summed by
+	``torch.sum``, then by ``reduce`` over a row-sharded carry's ranks). ``q_cur``/``q_prev``
+	``(nv, ld)`` carries of layout ``spec`` (default flat ``(nv, n)``), ``bands (n_d, ld)`` in
+	the carry's columns, ``β (nv,)``."""
 	_check_shapes("lanczos_dia_step", bands, offsets, q_cur)
 	if q_prev.shape != q_cur.shape or beta.shape != (q_cur.shape[0],):
 		raise ValueError("lanczos_dia_step: q_prev must match q_cur (nv, n) and beta be (nv,)")
+	spec = _check_spec("lanczos_dia_step", spec, q_cur)
+	reduce = reduce or _same
 	if q_cur.device.type == "cpu":
-		return lanczos_dia_step_ref(bands, offsets, q_cur, q_prev, beta)
+		return lanczos_dia_step_ref(bands, offsets, q_cur, q_prev, beta, spec, reduce)
 	check_cuda(
 		"lanczos_dia_step", q_cur.dtype, q_cur.device, ("offsets",), bands=bands, offsets=offsets, q_cur=q_cur, q_prev=q_prev, beta=beta
 	)
@@ -275,27 +389,34 @@ def lanczos_dia_step(
 
 	ones, zeros = torch.ones_like(beta), torch.zeros_like(beta)
 	scal = torch.stack([ones, ones, beta, zeros, zeros])  # rows DIV_CUR … ALPHA: q given normalised
-	v, partial, _, _ = _launch_pass_a(load_library(), bands, offsets, q_cur, q_prev, scal, None, None)
-	return v, torch.sum(partial, dim=1)
+	v, partial, _, _ = _launch_pass_a(load_library(), bands, offsets, q_cur, q_prev, scal, None, None, spec)
+	return v, reduce(torch.sum(partial, dim=1))
 
 
 def lanczos_dia_sweep_step(
 	bands: torch.Tensor, offsets: torch.Tensor, v_cur: torch.Tensor, v_prev: torch.Tensor, state: LanczosState,
-	alpha_out: torch.Tensor, beta_out: torch.Tensor, residual_tol: float,
+	alpha_out: torch.Tensor, beta_out: torch.Tensor, residual_tol: float, spec: Optional[CarrySpec] = None,
+	reduce=None,
 ) -> torch.Tensor:
 	"""One whole Lanczos step of a sweep without re-orthogonalisation on a DIA
 	operator (see :func:`lanczos_sweep_step_ref` for what it computes): on the card
 	two kernels, pass A (``lanczos_dia_step``) and pass B (``lanczos_dia_residual``),
-	with no host sync. ``v_cur``/``v_prev`` ``(nv, n)``, ``state`` from
-	:func:`lanczos_state`, ``alpha_out``/``beta_out`` ``(nv,)`` (rows of the sweep's
-	``(deg, nv)`` outputs). Returns the new residual block v."""
+	with no host sync. ``v_cur``/``v_prev`` ``(nv, ld)`` carries of layout ``spec`` (default
+	the flat ``(nv, n)``), ``bands (n_d, ld)`` in the carry's columns, ``state`` from
+	:func:`lanczos_state`, ``alpha_out``/``beta_out`` ``(nv,)`` (rows of the sweep's ``(deg, nv)``
+	outputs). With ``reduce`` (a row-sharded carry: an in-place all-reduce of an ``(nv,)`` tensor
+	over the ranks), the passes write only the rank's sums, ``reduce`` finishes each between the
+	passes, and ``lanczos_dia_advance`` advances the state from the reduced sums: three launches,
+	two all-reduces of nv numbers. Returns the new residual block v."""
 	_check_shapes("lanczos_dia_sweep_step", bands, offsets, v_cur)
 	nv = v_cur.shape[0]
 	if v_prev.shape != v_cur.shape or state.scal.shape != (5, nv) or alpha_out.shape != (nv,) or beta_out.shape != (nv,):
 		raise ValueError("lanczos_dia_sweep_step: v_prev must match v_cur (nv, n), the state be (5, nv) and the outputs (nv,)")
+	spec = _check_spec("lanczos_dia_sweep_step", spec, v_cur)
 	if v_cur.device.type == "cpu":
 		return lanczos_sweep_step_ref(
-			lambda q: dia_stencil_t_ref(bands, offsets, q), v_cur, v_prev, state, alpha_out, beta_out, residual_tol
+			lambda q: dia_stencil_t_ref(bands, offsets, q), v_cur, v_prev, state, alpha_out, beta_out, residual_tol,
+			reduce or _same, spec,
 		)
 	check_cuda(
 		"lanczos_dia_sweep_step", v_cur.dtype, v_cur.device, ("offsets",), bands=bands, offsets=offsets, v_cur=v_cur,
@@ -306,8 +427,16 @@ def lanczos_dia_sweep_step(
 	from ._build import load_library
 
 	lib = load_library()
-	w, partial, gx, vec = _launch_pass_a(lib, bands, offsets, v_cur, v_prev, state.scal, state.ticket, alpha_out)
-	_launch_pass_b(lib, v_cur, w, state, partial, beta_out, residual_tol, gx, vec)
+	if reduce is None:
+		w, partial, gx, vec = _launch_pass_a(lib, bands, offsets, v_cur, v_prev, state.scal, state.ticket, alpha_out, spec)
+		_launch_pass_b(lib, v_cur, w, state, partial, beta_out, residual_tol, gx, vec, spec)
+		return w
+	sums = torch.empty((2, nv), dtype=v_cur.dtype, device=v_cur.device)
+	w, partial, gx, vec = _launch_pass_a(lib, bands, offsets, v_cur, v_prev, state.scal, state.ticket, None, spec, sums[0])
+	reduce(sums[0])
+	_launch_pass_b(lib, v_cur, w, state, partial, beta_out, residual_tol, gx, vec, spec, sums)
+	reduce(sums[1])
+	_launch_advance(lib, sums, state, alpha_out, beta_out, residual_tol)
 	return w
 
 

@@ -19,6 +19,8 @@ card, where NCCL refuses the second rank); the kernels still run on the card. An
 combination raises.
 """
 
+from typing import Optional
+
 import torch
 import torch.distributed as dist
 
@@ -51,19 +53,24 @@ def all_reduce_rows(t: torch.Tensor, group) -> torch.Tensor:
 	return t
 
 
-def halo_exchange(X: torch.Tensor, h: int, group, dim: int = 1) -> None:
+def halo_exchange(X: torch.Tensor, h: int, group, dim: int = 1, lo: Optional[int] = None, n_rows: Optional[int] = None) -> None:
 	"""Fill the halo of a row-sharded block in place from the ring neighbours.
 
-	``X`` holds ``h`` halo rows, the rank's rows, then ``h`` halo rows along ``dim`` (1 for a
-	probe-major ``(k, h + n_loc + h)`` block, 0 for a node-major one). The rank sends its first
-	``h`` rows to the rank before it and its last ``h`` to the rank after it, and receives theirs
-	into its halo; the ends of the ring exchange nothing."""
+	``X`` holds the rank's ``n_rows`` rows at ``[lo, lo + n_rows)`` along ``dim`` (1 for a
+	probe-major carry, 0 for a node-major block) with at least ``h`` rows on each side (default:
+	exactly ``h``, ``lo = h``). The rank sends its first ``h`` rows to the rank before it and its last
+	``h`` to the rank after it, and receives theirs into ``[lo − h, lo)`` and
+	``[lo + n_rows, lo + n_rows + h)``; the ends of the ring exchange nothing, and the rows outside
+	those two ranges are left as they are."""
 	size, rank = dist.get_world_size(group), dist.get_rank(group)
 	if h == 0 or size == 1:
 		return
-	n_loc = X.shape[dim] - 2 * h
+	lo = h if lo is None else int(lo)
+	n_loc = X.shape[dim] - 2 * h if n_rows is None else int(n_rows)
 	if n_loc < h:
 		raise ValueError(f"halo width {h} exceeds the {n_loc} rows a rank holds")
+	if lo < h or lo + n_loc + h > X.shape[dim]:
+		raise ValueError(f"rows [{lo}, {lo + n_loc}) leave no room for a halo of {h} in {X.shape[dim]}")
 	staged = _staged(X, group)
 
 	def wire(t: torch.Tensor) -> torch.Tensor:
@@ -72,7 +79,7 @@ def halo_exchange(X: torch.Tensor, h: int, group, dim: int = 1) -> None:
 	shape = list(X.shape)
 	shape[dim] = h
 	ops, recv = [], []
-	for peer, send_at, recv_at in ((rank - 1, h, 0), (rank + 1, n_loc, n_loc + h)):
+	for peer, send_at, recv_at in ((rank - 1, lo, lo - h), (rank + 1, lo + n_loc - h, lo + n_loc)):
 		if not 0 <= peer < size:
 			continue
 		g = dist.get_global_rank(group, peer)
@@ -87,14 +94,17 @@ def halo_exchange(X: torch.Tensor, h: int, group, dim: int = 1) -> None:
 
 
 def _gather(X: torch.Tensor, group, dim: int) -> torch.Tensor:
-	"""The blocks of every rank of ``group``, equal in shape, concatenated along ``dim``."""
+	"""The blocks of every rank of ``group``, equal in shape, concatenated along ``dim``: one
+	all-gather of the blocks as they lie (``(size, *X.shape)``), then one copy that interleaves them
+	along ``dim`` (none for ``dim = 0``), so a probe-major block is never transposed."""
 	size = dist.get_world_size(group)
-	src = X.movedim(dim, 0).contiguous()
+	src = X.contiguous()
 	staged = _staged(src, group)
 	wire = src.cpu() if staged else src
 	out = torch.empty((size * wire.shape[0],) + tuple(wire.shape[1:]), dtype=wire.dtype, device=wire.device)
 	_all_gather_single(out, wire, group=group)
-	return out.to(X.device).movedim(0, dim)
+	shape = X.shape[:dim] + (size * X.shape[dim],) + X.shape[dim + 1 :]
+	return out.to(X.device).view((size,) + tuple(wire.shape)).movedim(0, dim).reshape(shape)
 
 
 class _GatherRows(torch.autograd.Function):

@@ -23,7 +23,10 @@ a ``psum`` (``primate_tpu/parallel/sharded.py:24-28``). Here a sharded operator 
   only the rank's rows (and its probe slice), in a buffer with ``h`` halo columns each side that
   :func:`~primate_tpu_torch.parallel._comm.halo_exchange` fills in place, so the stencil reads it
   without a concatenate. Every sum over n in the sweep is finished by an all-reduce over the op
-  group; α, β and the Gauss rules are then identical on every rank.
+  group; α, β and the Gauss rules are then identical on every rank. The DIA operator's carry is the
+  padded one of the step kernels (``lo`` and ``ld`` whole 128-byte lines), and its steps run them:
+  passes A and B with their sums all-reduced between them, then ``lanczos_dia_advance``; the BSR,
+  CSR and dense operators run the plain step's PyTorch arithmetic around their applies.
 
 Not ported (TPU only): ``_local_bsr_mm``'s 128-lane probe padding and the GSPMD row padding of the
 dense operator to a device multiple; the stacked per-device arrays, their padding to a common
@@ -39,7 +42,7 @@ import torch.nn.functional as F
 
 from ..operators.base import DenseOperator, LinearOperator, torch_dtype
 from ..operators.sparse import BSROperator, CSROperator, DIAOperator
-from ..ops.dia import lanczos_sweep_step_ref, row_dot
+from ..ops.dia import CarrySpec, carry_spec, lanczos_dia_step, lanczos_dia_sweep_step, lanczos_sweep_step_ref, row_dot
 from ._comm import all_gather_rows, all_reduce_rows, halo_exchange
 
 __all__ = ["ShardedCSROperator", "ShardedDenseOperator", "ShardedBSROperator", "ShardedDIAOperator", "shard_operator"]
@@ -99,7 +102,12 @@ class _Sharded(LinearOperator):
 	local face (see the module docstring). ``local`` maps the rank's input window to its output
 	rows; ``_h`` is the halo width in rows (0 for ``comm="allgather"``)."""
 
-	def _setup(self, local: LinearOperator, shape, mesh, op_axis: str, probe_axis: Optional[str], comm: str, rows: int, h: int):
+	def _setup(
+		self, local: LinearOperator, shape, mesh, op_axis: str, probe_axis: Optional[str], comm: str, rows: int, h: int,
+		spec: Optional[CarrySpec] = None,
+	):
+		"""``spec``: the rank's carry and window, ``(width, lead, rows)`` (default ``h`` columns on each
+		side of the rows, ``(rows + 2h, h, rows)``)."""
 		self.local = local
 		self.shape = tuple(int(s) for s in shape)
 		self.dtype, self.device = local.dtype, local.device
@@ -107,6 +115,7 @@ class _Sharded(LinearOperator):
 		self.op_group = mesh.get_group(op_axis)
 		self.probe_group = mesh.get_group(probe_axis) if _axis_size(mesh, probe_axis) > 1 else None
 		self._rpr, self._h = int(rows), int(h)
+		self._spec = spec or CarrySpec(self._rpr + 2 * self._h, self._h, self._rpr)
 		self._lo = _local_rank(mesh, op_axis) * self._rpr
 
 	def float_tensors(self) -> tuple:
@@ -115,13 +124,15 @@ class _Sharded(LinearOperator):
 	# -- the global face -------------------------------------------------------
 	def _window(self, X: torch.Tensor, dim: int) -> torch.Tensor:
 		"""The rows of a replicated block ``X`` (along ``dim``) that the rank's apply reads: the whole
-		block (allgather), or its rows and ``h`` on each side, zero past the ends (halo)."""
+		block (allgather), or the rank's carry window (halo: see :meth:`_own_rows`)."""
 		return X if self.comm != "halo" else self._own_rows(X, dim)
 
 	def _own_rows(self, X: torch.Tensor, dim: int) -> torch.Tensor:
-		"""The rank's rows of a replicated block and ``h`` on each side, zero past the ends."""
+		"""The rank's window of a replicated block, ``spec.ld`` rows with its own at ``spec.lo``
+		(at least ``h`` on each side), zero past the ends."""
 		n = X.shape[dim]
-		a, b = self._lo - self._h, self._lo + self._rpr + self._h
+		a = self._lo - self._spec.lo
+		b = a + self._spec.ld
 		if a == 0 and b == n:
 			return X
 		lo, hi = min(max(a, 0), n), max(min(b, n), 0)
@@ -134,7 +145,7 @@ class _Sharded(LinearOperator):
 
 	def _rows(self, X: torch.Tensor) -> torch.Tensor:
 		"""The rank's own rows of a probe-major carry."""
-		return X.narrow(1, self._h, self._rpr) if self._h else X
+		return self._spec.rows(X)
 
 	def _probe_cols(self, k: int) -> Optional[slice]:
 		"""The rank's columns of a ``k``-column block, or None where there is no probe axis or ``k``
@@ -171,33 +182,43 @@ class _Sharded(LinearOperator):
 		return Y if cols is None else all_gather_rows(Y, k, self.probe_group, 0)
 
 	# -- the local face ---------------------------------------------------------
-	def sweep_rows(self, nv: int, split_probes: bool = True) -> _SweepRows:
+	def sweep_rows(self, nv: int, split_probes: bool = True, phys: bool = False) -> _SweepRows:
+		"""The rank's rows (and probe slice) of every carried block. ``phys=True`` asks for the padded
+		carry, which only a real :class:`ShardedDIAOperator` carries: ``ValueError`` here."""
+		if phys:
+			raise ValueError(f"phys=True needs an operator with a padded carry (a real DIA operator); got {type(self).__name__}")
 		return _SweepRows(self, self._probe_cols(nv) if split_probes else None)
+
+	def _exchange(self, q: torch.Tensor) -> None:
+		"""Fill the halo columns of a sweep carry from the ring neighbours, in place."""
+		halo_exchange(q, self._h, self.op_group, 1, lo=self._spec.lo, n_rows=self._rpr)
 
 	def _apply_carry(self, q: torch.Tensor) -> torch.Tensor:
 		"""``A q`` on a sweep carry, carry-shaped (zero halo columns)."""
 		if self.comm == "halo":
-			halo_exchange(q, self._h, self.op_group, 1)
+			self._exchange(q)
 			w = self._local_t(q)
 		else:
 			w = self._local_t(all_gather_rows(q, self.shape[1], self.op_group, 1))
-		return F.pad(w, (self._h, self._h)) if self._h else w
+		spec = self._spec
+		return F.pad(w, (spec.lo, spec.ld - spec.lo - spec.n)) if spec.ld != spec.n else w
 
 	def _reduce(self, t: torch.Tensor) -> torch.Tensor:
 		return all_reduce_rows(t, self.op_group)
 
-	def lanczos_step(self, q_cur, q_prev, beta):
-		"""The step on sweep carries: ``v = A·q_cur − β·q_prev`` and ``α`` summed over the op group."""
+	def lanczos_step(self, q_cur, q_prev, beta, layout=None):
+		"""The step on sweep carries: ``v = A·q_cur − β·q_prev`` and ``α`` summed over the op group
+		(``layout``, the sweep's :meth:`sweep_rows`, is the operator's own)."""
 		acc = torch.promote_types(q_cur.dtype, torch.float32)
 		v = self._apply_carry(q_cur).to(acc) - beta[:, None] * q_prev.to(acc)
 		return v, self._reduce(row_dot(self._rows(q_cur.to(acc)), self._rows(v)))
 
-	def lanczos_sweep_step(self, v_cur, v_prev, state, alpha_out, beta_out, residual_tol: float):
+	def lanczos_sweep_step(self, v_cur, v_prev, state, alpha_out, beta_out, residual_tol: float, layout=None):
 		"""The whole step on sweep carries: the halo exchange and the rank's apply, then
 		:func:`~primate_tpu_torch.ops.dia.lanczos_sweep_step_ref`'s arithmetic with its two sums
 		(α and β) finished over the op group."""
 		return lanczos_sweep_step_ref(
-			self._apply_carry, v_cur, v_prev, state, alpha_out, beta_out, residual_tol, reduce=self._reduce, rows=self._rows
+			self._apply_carry, v_cur, v_prev, state, alpha_out, beta_out, residual_tol, reduce=self._reduce, spec=self._spec
 		)
 
 
@@ -333,10 +354,13 @@ class ShardedBSROperator(_Sharded):
 class ShardedDIAOperator(_Sharded):
 	"""Banded (DIA) operator row-partitioned with a minimal halo (``primate_tpu/parallel/sharded.py:473-609``).
 
-	Each rank holds ``n_loc = ceil(n / n_op)`` rows of every band inside a square of side
-	``n_loc + 2·moff`` (``moff = max|offset|``), zero in the ``moff`` halo rows on each side, as a
-	:class:`~primate_tpu_torch.operators.sparse.DIAOperator`: the stencil kernels on the rank's window
-	give its rows at ``[moff, moff + n_loc)``. Requires ``moff ≤ n_loc`` (±1-neighbour halo)."""
+	Each rank holds ``n_loc = ceil(n / n_op)`` rows of every band in the columns of its padded carry
+	(:func:`~primate_tpu_torch.ops.dia.carry_spec` of ``n_loc`` rows and ``moff = max|offset|``: ``ld``
+	columns, the rows at ``[lo, lo + n_loc)``, ``lo ≥ moff`` and ``ld`` whole 128-byte lines), zero
+	elsewhere, as a square :class:`~primate_tpu_torch.operators.sparse.DIAOperator` of side ``ld``:
+	the global face's stencils run on the rank's ``ld``-row window and keep its rows, and the sweep's
+	steps run the step kernels on the carry after a halo exchange of ``moff`` columns, α and β
+	all-reduced between the passes. Requires ``moff ≤ n_loc`` (±1-neighbour halo)."""
 
 	@classmethod
 	def from_dia(cls, A, mesh, op_axis: str = "op", probe_axis: Optional[str] = None, dtype=None, device=None) -> "ShardedDIAOperator":
@@ -355,24 +379,52 @@ class ShardedDIAOperator(_Sharded):
 			)
 		lo = _local_rank(mesh, op_axis) * n_loc
 		bands = A.bands.detach().to(device=device, dtype=torch_dtype(dtype) or A.dtype)
-		ext = torch.zeros((len(A.offsets), n_loc + 2 * moff), dtype=bands.dtype, device=device)
+		spec = carry_spec(n_loc, moff, bands.element_size())
+		ext = torch.zeros((len(A.offsets), spec.ld), dtype=bands.dtype, device=device)
 		width = max(0, min(n, lo + n_loc) - lo)
-		ext[:, moff : moff + width] = bands[:, lo : lo + width]
+		ext[:, spec.lo : spec.lo + width] = bands[:, lo : lo + width]
 		op = cls.__new__(cls)
 		op.offsets = A.offsets
-		op._setup(DIAOperator(ext, A.offsets, (ext.shape[1], ext.shape[1])), A.shape, mesh, op_axis, probe_axis, "halo", n_loc, moff)
+		op._setup(DIAOperator(ext, A.offsets, (spec.ld, spec.ld)), A.shape, mesh, op_axis, probe_axis, "halo", n_loc, moff, spec)
 		return op
 
+	def sweep_rows(self, nv: int, split_probes: bool = True, phys: bool = False) -> _SweepRows:
+		"""The rank's rows of every carried block, in its padded carry (``phys=True`` changes nothing;
+		``ValueError`` for a complex operator, whose steps do not take that carry's kernels)."""
+		if phys and self.dtype.is_complex:
+			raise ValueError(f"phys=True needs a real DIA operator; this one is {self.dtype}")
+		return super().sweep_rows(nv, split_probes)
+
 	def _local_nm(self, W: torch.Tensor) -> torch.Tensor:
-		return self.local.matmat(W).narrow(0, self._h, self._rpr)
+		return self.local.matmat(W).narrow(0, self._spec.lo, self._rpr)
 
 	def _local_t(self, Wt: torch.Tensor) -> torch.Tensor:
-		return self.local.matmat_t(Wt).narrow(1, self._h, self._rpr)
+		return self.local.matmat_t(Wt).narrow(1, self._spec.lo, self._rpr)
 
 	def _apply_carry(self, q: torch.Tensor) -> torch.Tensor:
-		# The stencil on the whole carry: its halo rows have zero bands, so no pad or slice.
-		halo_exchange(q, self._h, self.op_group, 1)
+		# The stencil on the whole carry: its columns outside the rows have zero bands, so no pad or slice.
+		self._exchange(q)
 		return self.local.matmat_t(q)
+
+	def lanczos_step(self, q_cur, q_prev, beta, layout=None):
+		"""Pass A on the carry after the halo exchange (``lanczos_dia_step``), α summed over the op
+		group; a complex operator takes the plain step through the complex ``dia_stencil_t``."""
+		if self.dtype.is_complex:
+			return super().lanczos_step(q_cur, q_prev, beta)
+		self._exchange(q_cur)
+		return lanczos_dia_step(self.local.bands, self.local.offsets_t, q_cur, q_prev, beta, self._spec, self._reduce)
+
+	def lanczos_sweep_step(self, v_cur, v_prev, state, alpha_out, beta_out, residual_tol: float, layout=None):
+		"""The whole step on the carry after the halo exchange: ``lanczos_dia_sweep_step`` with its two
+		sums all-reduced over the op group between the passes, and the state advanced from them; a
+		complex operator takes the plain step through the complex ``dia_stencil_t``."""
+		if self.dtype.is_complex:
+			return super().lanczos_sweep_step(v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
+		self._exchange(v_cur)
+		return lanczos_dia_sweep_step(
+			self.local.bands, self.local.offsets_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol, self._spec,
+			self._reduce,
+		)
 
 
 def _partition_csr_host(data: np.ndarray, indices: np.ndarray, indptr: np.ndarray, n_cols: int, ndev: int, halo_col: bool):

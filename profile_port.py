@@ -21,7 +21,9 @@ defaults: ``recipes.logdet`` (``orth=5``: pass A and the PyTorch re-orthogonalis
 (``--recipes`` traces these three alone). ``--grad`` traces phase 20's first call alone: the
 gradient of ``Σ W∘MatrixFunction(L, exp(−x), deg=20, orth=0).matmat(V)`` with respect to the
 mesh's bands, forward and backward, 64 probes. ``--sharded`` traces phase 23's 10M flagship alone,
-on one NCCL rank through ``shard_operator(DIAOperator(L))`` (the sweep on the rank's rows), then
+on one NCCL rank through ``shard_operator(DIAOperator(L))`` (the sweep on the rank's rows: the step
+kernels on the padded carry) and on the unsharded operator, and the global face's probe-major apply
+of each, then
 times by the host clock (synced, no trace) ``linalg.tall_qr`` of Hutch++'s (10M, 30) sketch block
 and its parts (the Gram product, the Cholesky, the triangular solve). Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
@@ -31,6 +33,7 @@ non-zero.
 """
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -107,15 +110,24 @@ def main() -> None:
 
 
 def sharded_calls(torch, ptt, cs, dev) -> dict:
-	"""``chip_smoke.py`` phase 23's calls on one NCCL rank: the 10M flagship through the sharded DIA
-	operator, and Hutch++ through it."""
+	"""``chip_smoke.py`` phase 23's flagship on one NCCL rank: the 10M flagship through the sharded DIA
+	operator (the step kernels on its padded carry, α and β all-reduced between the passes), and the
+	same call on the unsharded operator, traced in the same process; and the probe-major global face
+	(``matmat_t`` of a replicated 64 × 10M block) of each."""
 	from primate_tpu_torch.parallel import initialize_distributed, make_mesh, shard_operator
 
 	torch.cuda.set_device(dev)
 	initialize_distributed("nccl", init_method=f"tcp://localhost:{cs._free_port()}", world_size=1, rank=0)
-	sop = shard_operator(ptt.DIAOperator.from_scipy(cs.build_laplacian(cs.N_LARGE), dtype=torch.float32, device=dev), make_mesh((1, 1)))
-	M = ptt.MatrixFunction(sop, fun="log", deg=cs.DEG, orth=cs.ORTH, reorth_passes=1, dtype=torch.float32)
-	return {f"sharded_flagship_{cs.N_LARGE}": lambda: ptt.hutch(M, batch=cs.PROBES, converge="count", count=cs.PROBES, seed=42)}
+	op = ptt.DIAOperator.from_scipy(cs.build_laplacian(cs.N_LARGE), dtype=torch.float32, device=dev)
+	calls = {}
+	X = torch.randn((cs.PROBES, cs.N_LARGE), device=dev)
+	for name, o in (("sharded", shard_operator(op, make_mesh((1, 1)))), ("unsharded", op)):
+		M = ptt.MatrixFunction(o, fun="log", deg=cs.DEG, orth=cs.ORTH, reorth_passes=1, dtype=torch.float32)
+		calls[f"{name}_flagship_{cs.N_LARGE}"] = functools.partial(
+			ptt.hutch, M, batch=cs.PROBES, converge="count", count=cs.PROBES, seed=42
+		)
+		calls[f"{name}_matmat_t_{cs.PROBES}x{cs.N_LARGE}"] = functools.partial(o.matmat_t, X)  # phase 23's global face
+	return calls
 
 
 def tall_qr_walls(torch, cs, dev, m: int = 30) -> list:

@@ -178,6 +178,91 @@ def test_flagship_fused_step_matches_the_pytorch_tail(cuda):
 	torch.testing.assert_close(got.betas, want.betas, rtol=1e-5, atol=0)
 
 
+# (nv, n, offsets) on the padded carry: n not a multiple of 4 (a last own vector that runs into the
+# margin), offsets inside and past the passes' 16-row staging up to ±128, nv past a probe group.
+PADDED_SHAPES = [(64, 20_001, (-1, 0, 1)), (13, 3001, (-128, -17, -16, -3, 0, 16, 17, 128)), (5, 1001, (-40, -7, 0, 7, 40))]
+
+
+@pytest.mark.parametrize("halo", [False, True], ids=["zero_margins", "halo_margins"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", PADDED_SHAPES)
+def test_step_kernels_on_a_padded_carry(cuda, shape, dtype, halo):
+	"""The step kernels on the padded carry (``CarrySpec``), three whole steps from a mid-sweep state
+	against the plain step on the same carry: fused (two launches) and in the finishing mode with an
+	identity ``reduce`` (pass A, pass B, ``lanczos_dia_advance``), on their vector paths. With
+	``halo_margins`` the margins of the first carries hold data, as after a halo exchange: the kernels
+	read it as the neighbours' rows. The new carries' margins are exactly zero; pass A alone too."""
+	tol_v, tol_a = TOL[dtype]
+	nv, n, offsets = shape
+	g = torch.Generator(device=cuda)
+	g.manual_seed(12)
+	spec = dia.carry_spec(n, max(abs(o) for o in offsets), torch.empty((), dtype=dtype).element_size())
+	bands = spec.pad(torch.rand((len(offsets), n), generator=g, device=cuda, dtype=dtype) + 0.5)
+	offs = torch.tensor(offsets, dtype=torch.int64, device=cuda)
+
+	def carry():  # unit rows, as a sweep's Lanczos vectors; halo data on their scale
+		X = torch.randn((nv, n), generator=g, device=cuda, dtype=dtype)
+		X = spec.pad(X / torch.linalg.vector_norm(X, dim=1, keepdim=True))
+		if halo:
+			X[:, : spec.lo] = torch.randn((nv, spec.lo), generator=g, device=cuda, dtype=dtype) / n**0.5
+			X[:, spec.lo + n :] = torch.randn((nv, spec.ld - spec.lo - n), generator=g, device=cuda, dtype=dtype) / n**0.5
+		return X
+
+	v0, vp0 = carry(), carry()
+	apply_ref = lambda q: dia.dia_stencil_t_ref(bands, offs, q)  # noqa: E731
+	margins = lambda X: torch.cat([X[:, : spec.lo], X[:, spec.lo + n :]], dim=1)  # noqa: E731
+	for reduce in (None, lambda t: t):
+		state = _step_state(cuda, nv, dtype, g)
+		states = [state, dia.LanczosState(state.scal.clone(), torch.zeros(1, dtype=torch.int32, device=cuda))]
+		blocks = [(v0, vp0), (v0.clone(), vp0.clone())]
+		for _ in range(3):
+			outs = []
+			for i in range(2):
+				a, b = torch.empty(nv, dtype=dtype, device=cuda), torch.empty(nv, dtype=dtype, device=cuda)
+				vc, vp = blocks[i]
+				if i == 1:
+					v = dia.lanczos_sweep_step_ref(apply_ref, vc, vp, states[1], a, b, 1e-8, spec=spec)
+				else:
+					before, scalar = dict(dia.LAUNCHES), dict(_common.SCALAR_LAUNCHES)
+					v = dia.lanczos_dia_sweep_step(bands, offs, vc, vp, states[0], a, b, 1e-8, spec, reduce)
+					steps = {k: dia.LAUNCHES[k] - before[k] for k in ("lanczos_dia_step", "lanczos_dia_residual", "lanczos_dia_advance")}
+					assert steps == {"lanczos_dia_step": 1, "lanczos_dia_residual": 1, "lanczos_dia_advance": int(reduce is not None)}
+					assert _common.SCALAR_LAUNCHES == scalar  # ld and lo are whole vectors
+				blocks[i] = (v, vc)
+				outs.append((v, a, b))
+			torch.cuda.synchronize()
+			(v, a, b), (v_ref, a_ref, b_ref) = outs
+			assert not margins(v).any()
+			assert float((v - v_ref).abs().max()) <= tol_v * float(v_ref.abs().max())
+			assert a[0] == 0 and b[0] == 0  # probe 0 was done before the first step
+			assert float(((a - a_ref).abs() / a_ref.abs().clamp_min(1e-30))[1:].max()) <= tol_a
+			assert float(((b - b_ref).abs() / b_ref.abs().clamp_min(1e-30))[1:].max()) <= tol_a
+			rows = [dia.DIV_CUR, dia.DIV_PREV, dia.BETA, dia.ALPHA]
+			rel = (states[0].scal[rows] - states[1].scal[rows]).abs() / states[1].scal[rows].abs()
+			assert float(rel[:, 1:].max()) <= tol_a
+			assert torch.equal(states[0].scal[dia.DONE], states[1].scal[dia.DONE])
+	beta = torch.rand(nv, generator=g, device=cuda, dtype=dtype) + 0.5
+	v, alpha = dia.lanczos_dia_step(bands, offs, v0, vp0, beta, spec)
+	v_ref, alpha_ref = dia.lanczos_dia_step_ref(bands, offs, v0, vp0, beta, spec)
+	torch.cuda.synchronize()
+	assert not margins(v).any()
+	assert float((v - v_ref).abs().max()) <= tol_v * float(v_ref.abs().max())
+	assert float(((alpha - alpha_ref).abs() / alpha_ref.abs()).max()) <= tol_a
+
+
+def test_padded_phys_sweep_on_the_card_matches_the_flat_one(cuda):
+	"""``lanczos_block_op(phys=True)`` on the card (the step kernels on the padded carry) against
+	the flat sweep, float64, orth 0 and 5, with the basis."""
+	n, nv = 20_001, 8
+	L = sps.diags([-np.ones(n - 1), 3.0 * np.ones(n), -np.ones(n - 1)], [-1, 0, 1]).tocsr()
+	op = DIAOperator.from_scipy(L, dtype=torch.float64, device=cuda)
+	V0 = torch.from_numpy(np.random.default_rng(5).normal(size=(n, nv))).to(cuda)
+	for orth in (0, 5):
+		got, want = (lanczos_block_op(op, V0, deg=20, ncv=20, orth=orth, phys=p) for p in (True, False))
+		for g, w in ((got.alphas, want.alphas), (got.betas, want.betas), (got.Q, want.Q)):
+			assert float((g - w).abs().max()) <= 1e-10
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 	bands, offs, x, q_cur, q_prev, beta = _inputs(cuda, 4, 100, (-1, 0, 1), torch.float32)
 	with pytest.raises(TypeError):

@@ -424,15 +424,17 @@ def test_gradient_keywords_behave_as_in_jax(entry, kwargs):
 		assert isinstance(got, torch.Tensor)
 
 
-# (entry, keywords, ported): an unported keyword raises NotImplementedError. A complex
-# dtype raised until Hermitian operators were ported; it now runs, and on a real matrix
-# lifted to complex128 gives the float64 call's result (the probes are drawn real).
-# diag's resume raised until it was ported: a run of one iteration resumed to two gives the
-# uninterrupted run's estimate.
+# (entry, keywords, ported): True, or the error the call raises (an unported keyword raises
+# NotImplementedError). A complex dtype raised until Hermitian operators were ported; it now
+# runs, and on a real matrix lifted to complex128 gives the float64 call's result (the probes
+# are drawn real). diag's resume raised until it was ported: a run of one iteration resumed to
+# two gives the uninterrupted run's estimate. lanczos_block_op's phys raised until the padded
+# carry was ported: phys=False is the flat sweep, and phys=True on a dense operator, which has
+# no padded carry, raises ValueError (JAX warns and runs the flat sweep).
 KEYWORD_CASES = [
 	("diag", dict(resume="half"), True),
-	("lanczos_block_op", dict(phys=True), False),
-	("lanczos_block_op", dict(phys=False), False),
+	("lanczos_block_op", dict(phys=True), ValueError),
+	("lanczos_block_op", dict(phys=False), True),
 	("MatrixFunction", dict(dtype=torch.complex128), True),
 	("lanczos", dict(dtype=torch.complex128), True),
 ]
@@ -448,16 +450,16 @@ def test_unported_keywords_raise(entry, kwargs, ported):
 	call = {
 		"hutch": lambda kw: hutch(A, converge="count", count=4, **kw),
 		"diag": lambda kw: torch.from_numpy(diag(A, converge="count", count=2, seed=3, **kw)),
-		"lanczos_block_op": lambda kw: lanczos_block_op(DenseOperator(A), V0, deg=4, ncv=2, **kw),
+		"lanczos_block_op": lambda kw: torch.cat(lanczos_block_op(DenseOperator(A), V0, deg=4, ncv=2, **kw)[:2]),
 		"MatrixFunction": lambda kw: MatrixFunction(A, "log", **kw).quad(X),
 		"lanczos": lambda kw: torch.cat(lanczos(A, deg=4, seed=1, **kw)),
 	}[entry]
-	if ported:
+	if ported is True:
 		got, want = call(kwargs), call({})
 		assert got.dtype == torch.float64  # α, β and quadratic forms of a Hermitian operator are real
 		_close(got, want, 1e-12)
 		return
-	with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
+	with pytest.raises(ported, match=next(iter(kwargs))):
 		call(kwargs)
 
 

@@ -445,6 +445,57 @@ def sweep(kind, n, deg, orth, nv, shape, ranks=None, probe=None, selective=False
 	return out
 
 
+def band(n, seed=12):
+	"""A symmetric positive definite band of ±1, ±7 and ±40 (diagonally dominant)."""
+	rng = np.random.default_rng(seed)
+	offs = (1, 7, 40)
+	A = sps.diags([rng.uniform(-0.3, 0.3, size=n - o) for o in offs], offs)
+	return (A + A.T + 3.0 * sps.eye(n)).tocsr()
+
+
+from primate_tpu_torch.operators import sparse as _sparse
+from primate_tpu_torch.parallel import sharded as _sharded
+
+STEP_CALLS = {}
+
+
+def _count(mod, name):
+	"""Count the calls of the step wrapper ``name`` that ``mod``'s operators make."""
+	real = getattr(mod, name)
+
+	def counted(*args, **kwargs):
+		STEP_CALLS[name] = STEP_CALLS.get(name, 0) + 1
+		return real(*args, **kwargs)
+
+	setattr(mod, name, counted)
+
+
+for _mod in (_sparse, _sharded):
+	for _name in ("lanczos_dia_sweep_step", "lanczos_dia_step"):
+		_count(_mod, _name)
+
+
+@case
+def band_sweep(n, deg, orth, nv, shape, ranks=None, probe=None):
+	"""The sweep of a wide-band sharded DIA operator against the unsharded port on the same block:
+	α, β and the basis of one ``lanczos`` call (with the step functions it went through), f(A)V and quad."""
+	m = mesh(shape, ranks)
+	if m is None:
+		return None
+	A = band(n)
+	V = np.random.default_rng(0).normal(size=(n, nv))
+	out = {}
+	for name, o in (("s", shard_operator(dia(A), m, probe_axis=probe)), ("u", dia(A))):
+		STEP_CALLS.clear()
+		(al, be), Q = ptt.lanczos(o, v0=t(V), deg=deg, orth=orth, return_basis=True, **CPU)
+		out[name + "calls"] = np.array([STEP_CALLS.get("lanczos_dia_sweep_step", 0), STEP_CALLS.get("lanczos_dia_step", 0)])
+		out[name + "a"], out[name + "b"], out[name + "Q"] = a(al), a(be), a(Q)
+		M = ptt.MatrixFunction(o, "log", deg=deg, orth=orth)
+		out[name + "f"] = a(M.matmat(t(V)))
+		out[name + "q"] = a(M.quad(t(V)))
+	return out
+
+
 @case
 def comm_primitives(ws=4):
 	"""halo_exchange fills the inner halos from the ring neighbours and leaves the ends zero;
@@ -1026,6 +1077,46 @@ def test_sweep_quad_matches_jax_sharded(pool, tmp_path):
 	jop = jax_shard(JaxDIA.from_scipy(_laplacian(n)), jax_mesh((8, 1), ("op", "probe")))
 	M = pt.MatrixFunction(jop, fun="log", deg=deg, orth=0)
 	_close(r["sq"], np.asarray(M.quad(jnp.asarray(V))))
+
+
+def _band(n: int, seed: int = 12) -> sps.csr_matrix:
+	"""The workers' ``band``: ±1, ±7, ±40 off the diagonal, diagonally dominant."""
+	rng = np.random.default_rng(seed)
+	offs = (1, 7, 40)
+	A = sps.diags([rng.uniform(-0.3, 0.3, size=n - o) for o in offs], offs)
+	return (A + A.T + 3.0 * sps.eye(n)).tocsr()
+
+
+# (n, orth, shape, ranks, probe): 1, 2 and 4 ranks, with and without a probe axis; n = 998 leaves
+# the last of 4 ranks 248 rows and 2 zero ones.
+_BAND_SWEEPS = [
+	(1000, 0, [1, 1], [0], None),
+	(998, 5, [1, 1], [0], None),
+	(998, 0, [2, 1], [0, 1], None),
+	(1000, 5, [2, 1], [0, 1], None),
+	(998, 0, [4, 1], None, None),
+	(1000, 5, [4, 1], None, None),
+	(1000, 0, [2, 2], None, "probe"),
+	(998, 5, [2, 2], None, "probe"),
+]
+
+
+@pytest.mark.parametrize("n,orth,shape,ranks,probe", _BAND_SWEEPS)
+def test_sharded_dia_sweep_runs_the_step_kernels(pool, mesh8, n, orth, shape, ranks, probe):
+	"""The sharded DIA sweep of a ±40 band on the padded carry goes through the step kernels'
+	wrappers (``lanczos_dia_sweep_step`` at ``orth = 0``, ``lanczos_dia_step`` at 5, deg times, as the
+	unsharded operator does), and its α, β, basis, f(A)V and quad match the unsharded port at 1e-10
+	(float64); on the full mesh its quad also matches the JAX package's sharded operator."""
+	deg, nv = 14, 4
+	r = _one(pool.run("band_sweep", n=n, deg=deg, orth=orth, nv=nv, shape=shape, ranks=ranks, probe=probe))
+	want_calls = [deg, 0] if orth == 0 else [0, deg]
+	assert r["scalls"].tolist() == want_calls and r["ucalls"].tolist() == want_calls
+	for key in ("a", "b", "Q", "f", "q"):
+		_close(r["s" + key], r["u" + key], tol=1e-10)
+	if shape == [4, 1]:
+		V = np.random.default_rng(0).normal(size=(n, nv))
+		jop = jax_shard(JaxDIA.from_scipy(_band(n)), mesh8)
+		_close(r["sq"], np.asarray(pt.MatrixFunction(jop, fun="log", deg=deg, orth=orth).quad(jnp.asarray(V))), tol=1e-10)
 
 
 @pytest.mark.parametrize("ws", [2, 4])
