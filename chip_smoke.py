@@ -136,6 +136,18 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    memory): the flagship at n = 500,000 through the halo DIA operator and an allgather BSR one, each
    on (op, probe) meshes (2, 1) and (1, 2): both ranks' estimates equal bit for bit and within 5%,
    each rank's kernels launched (the DIA sweep: the step kernels, no ``dia_stencil_t``).
+24. runs bfloat16, JAX's third operator dtype: each of the four kernels' bf16 instantiations
+   (``dia_stencil_t``, pass A, ``dia_stencil``, ``bsr_spmm``) against its bf16 plain version at the
+   path's shapes (bf16 outputs within one bf16 ulp of their largest entry, pass A's float32 w and α
+   within 1e-5; rounded, w may differ by one bf16 ulp of a stencil sum on at most 1e-4 of its entries
+   and lies nearer the rounded plain version than the unrounded one), timed beside its bound at 2-byte
+   elements and the card's bf16 rate and beside its library call where torch
+   takes bf16 (a refusal is printed); JAX's full-bf16 SLQ (a bf16 ``DIAOperator`` and
+   ``MatrixFunction(..., dtype=bfloat16)``) at 500k and 10M beside the float32 flagship, each within 5%
+   of the exact logdet, walls and peaks (the 10M bf16 peak below the float32 one); the plain trace on
+   the bf16 DIA operator; a node-major apply of the bf16 FEM operator; the bf16 BSR trace on phase 7's
+   cell within 1e-2 of the float32 one on the same probes; the sharded bf16 flagship on one NCCL rank at
+   10M (within 1e-3 of the unsharded bf16 one) and on two gloo ranks at 500k (equal bit for bit).
 
 Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
 (``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
@@ -146,7 +158,7 @@ Each phase raises on failure. Measured values go out as JSON lines; the line
 before the last lists every kernel with its launches on its path, its error
 against its plain version, its time, its plain version's time, its bound
 (``bound_ms``: the larger of its bytes over the HBM rate and its flops over the
-float32 rate) and its library call's time (``library_ms``, null where no single
+float32 rate, the bf16 rate for bf16 operands) and its library call's time (``library_ms``, null where no single
 call computes it); for ``dia_stencil_t`` the same numbers at the FEM ``diag``
 shape follow under ``fem_`` keys, with its launches in that call
 (``fem_launches``); the three kernels with a backward carry its error
@@ -163,7 +175,10 @@ launches in phase 21's estimator calls; every kernel its launches through the sh
 phase 23 (a) (``sharded_launches``) and on both ranks of (b) (``sharded_two_rank_launches``); the
 two passes and ``lanczos_dia_advance`` their padded-carry numbers under ``padded_500k_``/``padded_10M_``
 keys (the advance kernel's own numbers are its 500k ones, and its launches those of phase 23 (a)'s
-sharded flagship, the one path that runs it); the last line is ``{"ok": true, "device": {...}}``.
+sharded flagship, the one path that runs it); the four kernels of phase 24 their bf16 numbers under
+``bf16_`` keys (pass A's 64 × 10M ones under ``bf16_10M_``), and every kernel its bf16 launches on
+phase 24's calls (``bf16_launches``; 0 for pass B and the advance, which have no bf16 instantiation);
+the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing anything.
 """
 
@@ -201,8 +216,9 @@ REPLACES = {
 	"dia_stencil": "primate_tpu/ops/dia_pallas.py:93",  # dia_matmat_pallas's pallas_call
 }
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside the
-# tensor cores (the kernels run FP32 FMAs on the CUDA cores).
-HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
+# tensor cores (the kernels run FP32 FMAs on the CUDA cores), 989 TFLOP/s dense
+# bfloat16 (the card's peak for bf16 operands, on the tensor cores).
+HBM_BYTES_PER_S, FP32_FLOP_PER_S, BF16_FLOP_PER_S = 3.35e12, 67e12, 989e12
 STENCIL_TOL = {"float32": 1e-5, "float64": 1e-12}  # max-abs error over max|out|
 # Phase 7: BASELINE config 3 at audikw_1's scale (943,695 rows, 77.7M nonzeros).
 BSR_CELL = dict(n=1_048_576, bs=8, density=3.5e-5, seed=7)
@@ -312,9 +328,10 @@ def time_ms(torch, fn, reps: int = 20) -> float:
 	return start.elapsed_time(end) / reps
 
 
-def bound(bytes_: float, flops: float) -> tuple:
-	"""The least time the card could take (ms) and what sets it."""
-	t_bytes, t_flops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+def bound(bytes_: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S) -> tuple:
+	"""The least time the card could take (ms) and what sets it: ``flops`` at the card's peak rate
+	for the operands' type (float32 unless given)."""
+	t_bytes, t_flops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / flop_per_s * 1e3
 	return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops, "operations")
 
 
@@ -2740,8 +2757,10 @@ def sharded_one_rank(torch, ptt, dev) -> dict:
 	return total
 
 
-def sharded_rank(rank: int, world: int, port: int, device: str = "cuda") -> None:
-	"""Phase 23 (b), one rank: over gloo, on cuda:0 (the collectives staged through host memory)."""
+def sharded_rank(rank: int, world: int, port: int, device: str = "cuda", dtype: str = "float32") -> None:
+	"""Phase 23 (b), one rank: over gloo, on cuda:0 (the collectives staged through host memory). With
+	``dtype="bfloat16"``, phase 24 (e): the full-bf16 flagship through the halo DIA operator on the
+	(world, 1) mesh alone."""
 	import torch
 
 	import primate_tpu_torch as ptt
@@ -2751,23 +2770,26 @@ def sharded_rank(rank: int, world: int, port: int, device: str = "cuda") -> None
 	dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
 	if dev.type == "cuda":
 		torch.cuda.set_device(dev)
+	dt = getattr(torch, dtype)
 	initialize_distributed("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
 	L = build_laplacian(SHARD_N)
-	for shape in ((world, 1), (1, world)):
+	for shape in ((world, 1), (1, world)) if dt == torch.float32 else ((world, 1),):
 		mesh = make_mesh(shape, ("op", "probe"), device_type=dev.type)
-		for comm, make in (
-			("halo", lambda: shard_operator(ptt.DIAOperator.from_scipy(L, dtype=torch.float32, device="cpu"), mesh, probe_axis="probe", device=dev)),
-			("allgather", lambda: shard_operator(L, mesh, probe_axis="probe", comm="allgather", blocksize=(8, 8), dtype=torch.float32, device=dev)),
-		):
+		makers = (
+			("halo", lambda: shard_operator(ptt.DIAOperator.from_scipy(L, dtype=dt, device="cpu"), mesh, probe_axis="probe", device=dev)),
+			("allgather", lambda: shard_operator(L, mesh, probe_axis="probe", comm="allgather", blocksize=(8, 8), dtype=dt, device=dev)),
+		)
+		for comm, make in makers if dt == torch.float32 else makers[:1]:
 			op = make()
-			M = ptt.MatrixFunction(op, fun="log", deg=DEG, orth=ORTH, reorth_passes=1, dtype=torch.float32)
+			M = ptt.MatrixFunction(op, fun="log", deg=DEG, orth=ORTH, reorth_passes=1, dtype=dt)
 			torch.cuda.synchronize()
 			_common.reset_launches()
 			t0 = time.perf_counter()
 			est = ptt.hutch(M, batch=PROBES, converge="count", count=PROBES, seed=42)
 			torch.cuda.synchronize()
 			emit({"phase": "sharded_rank", "rank": rank, "world": world, "mesh": list(shape), "comm": comm, "kind": type(op).__name__,
-				"estimate": est, "estimate_hex": float(est).hex(), "wall_s": time.perf_counter() - t0, "launches": dict(_common.LAUNCHES)})
+				"dtype": dtype, "estimate": est, "estimate_hex": float(est).hex(), "wall_s": time.perf_counter() - t0,
+				"launches": dict(_common.LAUNCHES), "bf16_launches": dict(_common.BF16_LAUNCHES)})
 	torch.distributed.destroy_process_group()
 
 
@@ -2809,6 +2831,380 @@ def sharded_two_ranks(torch) -> dict:
 			raise AssertionError(f"{kernels} did not launch on every rank (or the plain step ran): {row}")
 		for r in (r0, r1):
 			_add(total, r["launches"])
+	return total
+
+
+# Phase 24: bfloat16 operators (JAX's third operator dtype): the four kernels' bf16 instantiations
+# against their plain versions at the path's shapes, timed beside their bounds at 2-byte elements;
+# JAX's full-bf16 SLQ (benchmarks/RESULTS.md:294-305: a bf16 DIAOperator and
+# MatrixFunction(..., dtype=bfloat16)) at 500k and 10M beside the float32 flagship in this process;
+# the plain trace on the bf16 DIA operator; a node-major apply of the bf16 FEM operator; the bf16 BSR
+# trace on phase 7's cell against the float32 one on the same probes; the sharded bf16 flagship on one
+# NCCL rank at 10M and on two gloo ranks at SHARD_N.
+BF16_KERNELS = ("dia_stencil_t", "lanczos_dia_step", "dia_stencil", "bsr_spmm")
+BF16_W_RTOL = 1e-5  # pass A's float32 w (unrounded) and α, relative to their largest entry
+BF16_SHARD_TOL = 1e-3  # the sharded bf16 estimate against the unsharded one on the same probes
+BF16_BSR_TOL = 1e-2  # the bf16 BSR trace against the float32 one on the same probes
+BF16_FLIP_SHARE = 1e-4  # rounded pass A: the most entries whose stencil sum rounds to the other bf16 neighbour
+
+
+def _rademacher_f32(g, shape, dtype):
+	"""The same Rademacher probes for every dtype: drawn in float32, cast to the operator's dtype."""
+	import torch
+	from primate_tpu_torch.random import sample_isotropic
+
+	return sample_isotropic(g, shape, pdf="rademacher", dtype=torch.float32).to(dtype)
+
+
+def _ulp_of_max(want) -> float:
+	"""One bfloat16 ulp of a tensor's largest entry, 2^(⌊log2 max⌋ − 7): the tolerance of a bf16 output
+	against its plain version, which sums the same float32 products in another order (a sum within a
+	float32 ulp of a rounding boundary may round to the neighbouring bf16 value)."""
+	return 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+
+
+def _csr_or_refusal(torch, bands, offsets, n: int):
+	"""The bf16 DIA operator as a CUDA CSR tensor for the library yardstick, or the reason torch refuses it."""
+	try:
+		return csr_of_dia(torch, bands, offsets, n), None
+	except (RuntimeError, NotImplementedError, TypeError) as e:
+		return None, f"{type(e).__name__}: {e}"[:300]
+
+
+def rounded_pass_a_check(torch, dia, w, alpha, bands, offsets, q, qp, beta) -> dict:
+	"""Pass A rounded (the flat and sharded bf16 step) against its plain version on the same inputs. Every
+	entry of ``w`` lies within BF16_W_RTOL of max|w| of the rounded plain ``w``, except flips: a stencil sum
+	within a float32 ulp of a bf16 rounding boundary, summed in another order, rounds to the other
+	neighbour, one bf16 ulp of that sum away; at most BF16_FLIP_SHARE of the entries flip. ``w`` lies
+	nearer the rounded plain version than the unrounded one (a kernel that ignores the switch lies
+	within half a bf16 ulp of both). α within BF16_W_RTOL relative."""
+	w_r, alpha_r = dia.lanczos_dia_step_ref(bands, offsets, q, qp, beta)
+	d = (w - w_r).abs()
+	tol = BF16_W_RTOL * float(w_r.abs().max())
+	unflipped = d <= tol
+	del w_r
+	s = dia._stencil_t_acc(bands, offsets, q)
+	ulp = torch.exp2(torch.floor(torch.log2(s.abs())) - 7)  # one bf16 ulp of each stencil sum (0 where it is 0)
+	flip = ~unflipped & (d <= ulp + tol)
+	flips, stray = int(flip.sum()), int((~unflipped & ~flip).sum())
+	err_rounded = float(d.double().mean())
+	del s, ulp, flip
+	err_unflipped = float(torch.where(unflipped, d, 0).max())
+	del d, unflipped
+	w_u, _ = dia.lanczos_dia_step_ref(bands, offsets, q, qp, beta, rounded=False)
+	err_unrounded = float((w - w_u).abs().double().mean())
+	del w_u
+	err_a = float(((alpha - alpha_r).abs() / alpha_r.abs()).max())
+	ok = stray == 0 and flips <= BF16_FLIP_SHARE * w.numel() and err_rounded < err_unrounded and err_a <= BF16_W_RTOL
+	return {"ok": ok, "tol": tol, "max_abs_err_unflipped": err_unflipped, "rounding_flips": flips, "stray_entries": stray,
+		"mean_abs_err_vs_rounded": err_rounded, "mean_abs_err_vs_unrounded": err_unrounded, "alpha_rel_err": err_a}
+
+
+def bf16_kernels(torch, ptt, dev, reps: int = 10) -> dict:
+	"""Phase 24 (a): each bf16 kernel against its bf16 plain version on the same inputs at the path's
+	shapes, timed (plain, kernel, kernel, plain) beside its bound (2-byte elements; pass A writes float32)
+	and its library call where torch has one in bf16. Returns ``{kernel: {"bf16_ms", ...}}``."""
+	from benchmarks.matrices import fem_laplacian_3d
+	from primate_tpu_torch.ops import _common, bsr, dia
+	from primate_tpu_torch.ops._build import load_library
+
+	lib = load_library()
+	bf = torch.bfloat16
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(24)
+	out = {}
+
+	def record(name, label, err, tol, kern, plain, bytes_, flops, library=None, want=None, note=None, prefix="bf16_", **extra):
+		ms, plain_ms = _timed_pair(torch, kern, plain, reps)
+		b_ms, b_by = bound(bytes_, flops, BF16_FLOP_PER_S)
+		lib_ms = None
+		if library is not None:
+			lib_ms, note = library_ms(torch, library, want, reps)
+		row = {"phase": "bf16_kernel_check", "kernel": name, "shape": label, "max_abs_err": err, "tol": tol, "ms": ms,
+			"plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "GBps": bytes_ / ms / 1e6, "library_ms": lib_ms,
+			"library_rel_err_or_error": note, **extra}
+		emit(row)
+		if not err <= tol:
+			raise AssertionError(f"the bf16 {name} disagrees with its plain version: {row}")
+		out.setdefault(name, {}).update({f"{prefix}{k}": v for k, v in (("max_abs_err", err), ("ms", ms), ("plain_ms", plain_ms),
+			("bound_ms", b_ms), ("bound_by", b_by), ("library_ms", lib_ms))})
+
+	# The flagship's operator and probe block: tridiag(-1, 3, -1) in bf16 (exact), unit rows.
+	for n in (N_FLAGSHIP, N_LARGE):
+		op = ptt.DIAOperator.from_scipy(build_laplacian(n), dtype=bf, device=dev)
+		bands, offs, offs_host, nv, n_d = op.bands, op.offsets_t, op.offsets_t.cpu(), PROBES, len(op.offsets)
+		unit = lambda X: (X / torch.linalg.vector_norm(X, dim=1, keepdim=True)).to(bf)  # noqa: E731
+		q, qp = unit(torch.randn((nv, n), generator=gen, device=dev)), unit(torch.randn((nv, n), generator=gen, device=dev))
+		beta = torch.rand(nv, generator=gen, device=dev) + 0.5
+		scal = torch.stack([torch.ones_like(beta), torch.ones_like(beta), beta, torch.zeros_like(beta), torch.zeros_like(beta)])
+		tag = "500k" if n == N_FLAGSHIP else "10M"
+		if n == N_FLAGSHIP:
+			got, want = dia.dia_stencil_t(bands, offs, q), dia.dia_stencil_t_ref(bands, offs_host, q)
+			torch.cuda.synchronize()
+			A_csr, refusal = _csr_or_refusal(torch, bands, op.offsets, n)
+			record("dia_stencil_t", f"flagship_{nv}x{n}", float((got.float() - want.float()).abs().max()), _ulp_of_max(want),
+				lambda: dia.dia_stencil_t(bands, offs, q), lambda: dia.dia_stencil_t_ref(bands, offs_host, q),
+				(2 * nv * n + n_d * n) * 2, 2 * n_d * nv * n, library=(lambda: A_csr @ q.T) if A_csr is not None else None,
+				want=want.T, note=refusal)
+			del A_csr, got, want
+			# Pass A unrounded on the padded carry (phys=True's step) against its plain version.
+			spec = op.carry_spec(nv)
+			cb, qs, qps = op._carry_bands(spec), spec.pad(q), spec.pad(qp)
+			w, alpha = dia.lanczos_dia_step(cb, offs, qs, qps, beta, spec, rounded=False)
+			w_ref, alpha_ref = dia.lanczos_dia_step_ref(cb, offs_host, qs, qps, beta, spec, rounded=False)
+			torch.cuda.synchronize()
+			err_w = float((w - w_ref).abs().max()) / float(w_ref.abs().max())
+			err_a = float(((alpha - alpha_ref).abs() / alpha_ref.abs()).max())
+			row = {"phase": "bf16_kernel_check", "kernel": "lanczos_dia_step", "shape": f"padded_{nv}x{n}", "rounded": False,
+				"spec": list(spec), "w_rel_err": err_w, "alpha_rel_err": err_a, "tol": BF16_W_RTOL,
+				"margins_zero": not (w[:, : spec.lo].any() or w[:, spec.lo + n :].any())}
+			emit(row)
+			if not (err_w <= BF16_W_RTOL and err_a <= BF16_W_RTOL and row["margins_zero"]):
+				raise AssertionError(f"the bf16 pass A on the padded carry disagrees with its plain version: {row}")
+			del cb, qs, qps, w, w_ref
+		# Pass A rounded on the flat carry (the full-bf16 flagship's step) through its wrapper, then timed
+		# as phase 2 times the float32 pass A.
+		scalar = dict(_common.SCALAR_LAUNCHES)
+		w, alpha = dia.lanczos_dia_step(bands, offs, q, qp, beta)
+		torch.cuda.synchronize()
+		vec = _common.SCALAR_LAUNCHES == scalar
+		chk = rounded_pass_a_check(torch, dia, w, alpha, bands, offs_host, q, qp, beta)
+		if not (chk["ok"] and vec):
+			raise AssertionError(f"the rounded bf16 pass A disagrees with its plain version or left its vector path ({vec}) at {nv} x {n}: {chk}")
+		record("lanczos_dia_step", f"flat_{nv}x{n}", chk["max_abs_err_unflipped"], chk["tol"],
+			lambda: dia._launch_pass_a(lib, bands, offs, q, qp, scal, None, None),
+			lambda: dia.lanczos_dia_step_ref(bands, offs_host, q, qp, beta), (2 * nv * n + n_d * n) * 2 + nv * n * 4,
+			(2 * n_d + 4) * nv * n, note="no single PyTorch call computes a Lanczos step", prefix="bf16_" if n == N_FLAGSHIP else "bf16_10M_",
+			**{k: v for k, v in chk.items() if k not in ("ok", "tol")})
+		del op, bands, q, qp, w, alpha
+		torch.cuda.empty_cache()
+
+	# The node-major stencil at the FEM cell (1M × 64, 7 diagonals).
+	D = ptt.DIAOperator.from_scipy(fem_laplacian_3d(FEM_SIDE), dtype=bf, device=dev)
+	k, n = 64, D.shape[0]
+	V = torch.randn((n, k), generator=gen, device=dev).to(bf)
+	offs_host = D.offsets_t.cpu()
+	got, want = dia.dia_stencil(D.bands, D.offsets_t, V), dia.dia_stencil_ref(D.bands, offs_host, V)
+	torch.cuda.synchronize()
+	A_csr, refusal = _csr_or_refusal(torch, D.bands, D.offsets, n)
+	record("dia_stencil", f"fem_{n}x{k}", float((got.float() - want.float()).abs().max()), _ulp_of_max(want),
+		lambda: dia.dia_stencil(D.bands, D.offsets_t, V), lambda: dia.dia_stencil_ref(D.bands, offs_host, V),
+		(2 * n * k + D.nnz) * 2, 2 * D.nnz * k, library=(lambda: A_csr @ V) if A_csr is not None else None, want=want, note=refusal)
+	del D, V, got, want, A_csr
+
+	# The BSR SpMM at phase 7's cell, k = 64.
+	S = _bsr_cell(**BSR_CELL)
+	B = ptt.BSROperator.from_scipy(S, blocksize=(BSR_CELL["bs"],) * 2, dtype=bf, device=dev)
+	V = torch.randn((B.shape[0], k), generator=gen, device=dev).to(bf)
+	args = (B.blocks, B.indptr, B.indices, V, B.shape[0])
+	got, want = bsr.bsr_spmm(*args), bsr.bsr_spmm_ref(*args)
+	torch.cuda.synchronize()
+	nnzb, bm, bn = B.blocks.shape
+	try:
+		B_lib, refusal = torch.sparse_bsr_tensor(B.indptr, B.indices, B.blocks, size=B.pshape), None
+	except (RuntimeError, NotImplementedError, TypeError) as e:
+		B_lib, refusal = None, f"{type(e).__name__}: {e}"[:300]
+	record("bsr_spmm", f"bsr_cell_k{k}", float((got.float() - want.float()).abs().max()), _ulp_of_max(want),
+		lambda: bsr.bsr_spmm(*args), lambda: bsr.bsr_spmm_ref(*args), _bytes_bsr(B, k, 2), 2 * nnzb * bm * bn * k,
+		library=(lambda: B_lib @ V) if B_lib is not None else None, want=want, note=refusal)
+	del B, V, got, want, B_lib
+	torch.cuda.empty_cache()
+	return out
+
+
+def _flagship_run(torch, ptt, dev, n: int, dtype, reps: int) -> dict:
+	"""The flagship logdet at ``n`` with the operator and the sweep in ``dtype``: :func:`_counted_calls`'
+	numbers beside the exact logdet and the error."""
+	op = ptt.DIAOperator.from_scipy(build_laplacian(n), dtype=dtype, device=dev)
+	M = ptt.MatrixFunction(op, fun="log", deg=DEG, orth=ORTH, reorth_passes=1, dtype=dtype)
+	run = _counted_calls(torch, lambda: ptt.hutch(M, batch=PROBES, converge="count", count=PROBES, seed=42), reps)
+	est, exact = run.pop("result"), exact_logdet(n)
+	return {"dtype": str(dtype).removeprefix("torch."), "estimate": est, "exact": exact, "rel_err": abs(est - exact) / abs(exact),
+		"wall_s_median": statistics.median(run["wall_s"]), **run}
+
+
+def bf16_flagships(torch, ptt, dev) -> dict:
+	"""Phase 24 (b): JAX's full-bf16 SLQ at 500k and 10M beside the float32 flagship, each within 5% of the
+	exact logdet; the bf16 sweep runs pass A's bf16 kernel once a step (pass B and the advance are
+	float32 only) and no stencil; at 10M its peak memory is below the float32 flagship's. Returns the
+	bf16 launches of both calls."""
+	total = {}
+	for n, reps in ((N_FLAGSHIP, 5), (N_LARGE, 2)):
+		f32 = _flagship_run(torch, ptt, dev, n, torch.float32, reps)
+		torch.cuda.empty_cache()
+		b16 = _flagship_run(torch, ptt, dev, n, torch.bfloat16, reps)
+		torch.cuda.empty_cache()
+		row = {"phase": "bf16_flagship", "n": n, "deg": DEG, "probes": PROBES, "bf16": b16, "float32": f32,
+			"wall_ratio": b16["wall_s_median"] / f32["wall_s_median"],
+			"peak_ratio": b16["max_memory_allocated_bytes"] / f32["max_memory_allocated_bytes"]}
+		emit(row)
+		want = {"lanczos_dia_step": DEG, "lanczos_dia_residual": 0, "dia_stencil_t": 0}
+		got = {k: b16["launches"][k] for k in want}
+		if not (b16["rel_err"] < 0.05 and f32["rel_err"] < 0.05) or got != want or b16["bf16_launches"]["lanczos_dia_step"] != DEG:
+			raise AssertionError(f"the full-bf16 flagship at n={n} misses the logdet or its launches: {row}")
+		if n == N_LARGE and not row["peak_ratio"] < 1:
+			raise AssertionError(f"the 10M full-bf16 flagship's peak memory is not below the float32 one's: {row}")
+		_add(total, b16["bf16_launches"])
+	return total
+
+
+def bf16_applies(torch, ptt, dev) -> dict:
+	"""Phase 24 (c): the plain trace ``hutch(DIAOperator(L, bf16))`` at 500k through the bf16 probe-major
+	stencil, against the float32 trace on the same probes (within 5σ of 3n): each bf16 quadratic form is
+	rounded to bf16, as in the JAX package, so the two agree within one bf16 ulp of 3n; the bf16 FEM
+	operator's node-major apply ``op.matmat(V)`` of a 1M × 64 block (the bf16 node-major stencil, against
+	the float32 operator's apply); and the bf16 BSR trace on phase 7's cell against the float32 one on the
+	same probes (within 1e-2). Returns the bf16 launches of these calls."""
+	from benchmarks.matrices import fem_laplacian_3d
+	from primate_tpu_torch.ops import _common
+
+	bf, total = torch.bfloat16, {}
+	n = N_FLAGSHIP
+	L = build_laplacian(n)
+	rows = {}
+	for dt in (torch.float32, bf):
+		op = ptt.DIAOperator.from_scipy(L, dtype=dt, device=dev)
+		_common.reset_launches()
+		est, res = ptt.hutch(op, batch=PROBES, pdf=_rademacher_f32, converge="count", count=PROBES, seed=7, full=True)
+		rows[str(dt).removeprefix("torch.")] = {"estimate": est, "sigma": float(np.sqrt(res.estimator.converged_variance / res.nit)),
+			"launches": dict(_common.LAUNCHES), "bf16_launches": dict(_common.BF16_LAUNCHES)}
+		del op
+	b16, f32 = rows["bfloat16"], rows["float32"]
+	ulp = 2.0 ** (np.floor(np.log2(3.0 * n)) - 7)
+	row = {"phase": "bf16_plain_trace", "n": n, "exact": 3.0 * n, "bf16_ulp_of_exact": ulp, "diff_vs_float32": abs(b16["estimate"] - f32["estimate"]),
+		**rows}
+	emit(row)
+	if not (abs(f32["estimate"] - 3.0 * n) <= 5 * f32["sigma"] and row["diff_vs_float32"] <= ulp) or b16["bf16_launches"]["dia_stencil_t"] < 1:
+		raise AssertionError(f"the bf16 plain trace is off or did not launch the bf16 stencil: {row}")
+	_add(total, b16["bf16_launches"])
+
+	A = fem_laplacian_3d(FEM_SIDE)
+	D16, D32 = (ptt.DIAOperator.from_scipy(A, dtype=dt, device=dev) for dt in (bf, torch.float32))
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(241)
+	V = torch.randn((A.shape[0], PROBES), generator=gen, device=dev).to(bf)
+	_common.reset_launches()
+	got = D16.matmat(V)
+	torch.cuda.synchronize()
+	counts, bcounts = dict(_common.LAUNCHES), dict(_common.BF16_LAUNCHES)
+	want = D32.matmat(V.float())
+	err = float((got.float() - want).abs().max()) / float(want.abs().max())
+	row = {"phase": "bf16_fem_apply", "n": A.shape[0], "k": PROBES, "rel_err_vs_float32": err, "launches": counts, "bf16_launches": bcounts}
+	emit(row)
+	# The bf16 bands of the FEM stencil (6 and -1) are exact and the output is rounded once: half a bf16
+	# ulp of each entry, within 2^-8 of the largest.
+	if not (err <= 2.0**-8 and bcounts["dia_stencil"] == 1 and got.dtype == bf):
+		raise AssertionError(f"the bf16 FEM apply is off or did not launch the bf16 node-major stencil once: {row}")
+	_add(total, bcounts)
+	del D16, D32, V, got, want
+
+	S = _bsr_cell(**BSR_CELL)
+	rows = {}
+	for dt in (torch.float32, bf):
+		B = ptt.BSROperator.from_scipy(S, blocksize=(BSR_CELL["bs"],) * 2, dtype=dt, device=dev)
+		rows[str(dt).removeprefix("torch.")] = _counted_calls(
+			torch, lambda: ptt.hutch(B, batch=PROBES, pdf=_rademacher_f32, converge="count", count=4 * PROBES, seed=7), reps=2
+		)
+		del B
+		torch.cuda.empty_cache()
+	tr = float(S.diagonal().astype(np.float64).sum())
+	b16, f32 = rows["bfloat16"], rows["float32"]
+	rel = abs(b16["result"] - f32["result"]) / abs(f32["result"])
+	row = {"phase": "bf16_bsr_trace", "n": S.shape[0], "trace": tr, "rel_diff_vs_float32": rel, "rel_err_vs_trace": abs(b16["result"] - tr) / tr, **rows}
+	emit(row)
+	if not rel <= BF16_BSR_TOL or b16["bf16_launches"]["bsr_spmm"] != 4:
+		raise AssertionError(f"the bf16 BSR trace is off or did not launch the bf16 bsr_spmm once a batch: {row}")
+	_add(total, b16["bf16_launches"])
+	return total
+
+
+def _counted_calls(torch, fn, reps: int) -> dict:
+	"""The counted first call of ``fn`` (its result, launches and bf16 launches), then ``reps`` synced walls, and the peak memory."""
+	from primate_tpu_torch.ops import _common
+
+	torch.cuda.synchronize()
+	torch.cuda.reset_peak_memory_stats()
+	_common.reset_launches()
+	result = fn()
+	torch.cuda.synchronize()
+	launches, bf16 = dict(_common.LAUNCHES), dict(_common.BF16_LAUNCHES)
+	times = []
+	for _ in range(reps):
+		t0 = time.perf_counter()
+		fn()
+		torch.cuda.synchronize()
+		times.append(time.perf_counter() - t0)
+	return {"result": result, "wall_s": times, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+		"bf16_launches": bf16}
+
+
+def bf16_sharded_one_rank(torch, ptt, dev) -> dict:
+	"""Phase 24 (d): the full-bf16 flagship at 10M through ``shard_operator(DIAOperator(L, bf16))`` on one NCCL
+	rank (pass A's bf16 kernel on the padded carry after the halo exchange, the stencil rounded as JAX's
+	sharded apply rounds it, α all-reduced) against the unsharded bf16 operator on the same probes: the
+	estimates within 1e-3, the sharded one within 5% of the exact logdet. Returns its bf16 launches."""
+	from primate_tpu_torch.parallel import initialize_distributed, make_mesh, shard_operator
+
+	bf = torch.bfloat16
+	torch.cuda.set_device(dev)
+	initialize_distributed("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0)
+	op = ptt.DIAOperator.from_scipy(build_laplacian(N_LARGE), dtype=bf, device=dev)
+	sop = shard_operator(op, make_mesh((1, 1), ("op", "probe")))
+	rows = {}
+	for name, o in (("unsharded", op), ("sharded", sop)):
+		M = ptt.MatrixFunction(o, fun="log", deg=DEG, orth=ORTH, reorth_passes=1, dtype=bf)
+		rows[name] = _counted_calls(torch, lambda: ptt.hutch(M, batch=PROBES, converge="count", count=PROBES, seed=42), reps=1)
+		del M
+		torch.cuda.empty_cache()
+	exact = exact_logdet(N_LARGE)
+	diff = abs(rows["sharded"]["result"] - rows["unsharded"]["result"]) / abs(rows["unsharded"]["result"])
+	row = {"phase": "bf16_sharded_flagship", "world": 1, "backend": "nccl", "n": N_LARGE, "deg": DEG, "probes": PROBES, "exact": exact,
+		"estimate_rel_diff": diff, "rel_err": abs(rows["sharded"]["result"] - exact) / abs(exact), **rows}
+	emit(row)
+	got = {k: rows["sharded"]["bf16_launches"][k] for k in ("lanczos_dia_step", "dia_stencil_t")}
+	if not (diff < BF16_SHARD_TOL and row["rel_err"] < 0.05) or got != {"lanczos_dia_step": DEG, "dia_stencil_t": 0}:
+		raise AssertionError(f"the sharded bf16 flagship disagrees with the unsharded one, or its launches {got} are off: {row}")
+	del op, sop
+	torch.distributed.destroy_process_group()
+	torch.cuda.empty_cache()
+	return rows["sharded"]["bf16_launches"]
+
+
+def bf16_sharded_two_ranks(torch) -> dict:
+	"""Phase 24 (e): the full-bf16 flagship at SHARD_N through the halo DIA operator on two gloo ranks,
+	both on cuda:0 (subprocesses, ``--sharded-rank ... bfloat16``): both ranks' estimates equal bit for
+	bit and within 5% of the exact logdet, each rank's bf16 pass A launched. Returns their bf16 launches."""
+	port = _free_port()
+	procs = [
+		subprocess.Popen([sys.executable, __file__, "--sharded-rank", str(r), "2", str(port), "bfloat16"], stdout=subprocess.PIPE,
+			stderr=subprocess.PIPE, text=True)
+		for r in range(2)
+	]
+	outs = []
+	try:
+		for p in procs:
+			out, err = p.communicate(timeout=SHARD_TIMEOUT_S)
+			if p.returncode != 0:
+				raise AssertionError(f"a bf16 sharded rank failed ({p.returncode}):\n{out[-2000:]}\n{err[-4000:]}")
+			outs.append([json.loads(line) for line in out.splitlines() if line.startswith("{")])
+	finally:
+		for p in procs:
+			if p.poll() is None:
+				p.kill()
+				p.wait()
+	(r0,), (r1,) = outs
+	exact = exact_logdet(SHARD_N)
+	row = {"phase": "bf16_sharded_two_ranks", "world": 2, "backend": "gloo", "n": SHARD_N, "mesh": r0["mesh"], "comm": r0["comm"],
+		"estimates": [r0["estimate"], r1["estimate"]], "exact": exact, "rel_err": abs(r0["estimate"] - exact) / abs(exact),
+		"wall_s": [r0["wall_s"], r1["wall_s"]], "launches": [r0["launches"], r1["launches"]], "bf16_launches": [r0["bf16_launches"], r1["bf16_launches"]]}
+	emit(row)
+	if r0["estimate_hex"] != r1["estimate_hex"] or not row["rel_err"] < 0.05:
+		raise AssertionError(f"the two bf16 ranks disagree or miss the logdet: {row}")
+	if min(r["bf16_launches"]["lanczos_dia_step"] for r in (r0, r1)) < 1 or max(r["launches"]["dia_stencil_t"] for r in (r0, r1)) > 0:
+		raise AssertionError(f"the bf16 pass A did not launch on every rank (or the plain step ran): {row}")
+	total = {}
+	for r in (r0, r1):
+		_add(total, r["bf16_launches"])
 	return total
 
 
@@ -2895,6 +3291,21 @@ def main() -> None:
 	for k in KERNELS:
 		if kernels[k]["sharded_launches"] < 1:
 			raise AssertionError(f"{k} launched no time through the sharded operators")
+	torch.cuda.empty_cache()
+
+	# Phase 24: bfloat16. The four kernels' bf16 instantiations, then the bf16 path's calls, each
+	# counted from zero; bf16_launches sums the bf16 launches of those calls.
+	for k, v in bf16_kernels(torch, ptt, dev).items():
+		kernels[k].update(v)
+	bf16 = {}
+	for part in (bf16_flagships, bf16_applies, bf16_sharded_one_rank):
+		_add(bf16, part(torch, ptt, dev))
+	_add(bf16, bf16_sharded_two_ranks(torch))
+	for k in KERNELS:
+		kernels[k]["bf16_launches"] = bf16.get(k, 0)
+	for k in BF16_KERNELS:
+		if kernels[k]["bf16_launches"] < 1:
+			raise AssertionError(f"the bf16 {k} launched no time on the bf16 path")
 
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],
@@ -2913,6 +3324,6 @@ def main() -> None:
 
 if __name__ == "__main__":
 	if sys.argv[1:2] == ["--sharded-rank"]:
-		sharded_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]))
+		sharded_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), dtype=(sys.argv[5:6] or ["float32"])[0])
 	else:
 		main()

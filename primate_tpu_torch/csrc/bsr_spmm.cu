@@ -1,5 +1,5 @@
-// Block-sparse-row (BSR) SpMM for Hopper (sm_90a), float32 and float64, and complex64 and
-// complex128 (Hermitian operators).
+// Block-sparse-row (BSR) SpMM for Hopper (sm_90a), float32, float64 and bfloat16, and
+// complex64 and complex128 (Hermitian operators).
 //
 // Replaces the Pallas TPU kernel of primate_tpu/ops/spmm_pallas.py:
 //   bsr_spmm  <- bsr_matmat_pallas (_bsr_kernel): out[r*bm:(r+1)*bm, :] = sum over the
@@ -45,6 +45,13 @@
 // bound by the gathered V traffic. The adjoint (A^H V) is this kernel on the tiles
 // conjugated and transposed (BSROperator._transpose); the kernel never conjugates.
 //
+// bfloat16: the Pallas kernel takes bf16 tiles and V and accumulates in
+// promote_types(blocks, V, float32). Here the ring holds the bf16 tiles and V rows as
+// stored (8 values a 16-byte copy, so a lane covers 8 columns and the teams are half as
+// wide as in float32 for the same k), each value is converted once to float32 where
+// it is multiplied, the output rows sum in float32 registers and round once to bf16
+// (__float2bfloat16_rn) where they are written. The same gather on half the bytes.
+//
 // Plain C interface: every entry point returns the cudaError_t of its launch
 // (cudaGetLastError()), and the caller raises on anything but cudaSuccess. The
 // kernels launch on the caller's stream, allocate nothing and do not synchronise.
@@ -82,6 +89,7 @@ __global__ void __launch_bounds__(kBlockThreads) bsr_spmm_kernel(
     const T* __restrict__ V, T* __restrict__ out, int64_t n_brow, int bm_rt, int bn_rt, int64_t m, int64_t k,
     int64_t n_out, int lanes, int n_chunks, int64_t parts) {
     constexpr int VL = Vec<T>::len;
+    using A = acc_t<T>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int bm = BM ? BM : bm_rt;
     const int bn = BN ? BN : bn_rt;
@@ -122,8 +130,7 @@ __global__ void __launch_bounds__(kBlockThreads) bsr_spmm_kernel(
             for (int e = tl; e < kRB * kJB; e += lanes) {
                 const int i = e / kJB, j = e % kJB;
                 const bool ok = i < rb && j < jb;
-                const T* src = ok ? blocks + (t * bm + i0 + i) * bn + j0 + j : blocks;
-                cp_async<sizeof(T)>(tile_s + e, src, ok ? static_cast<int>(sizeof(T)) : 0);
+                copy_elem(tile_s + e, ok ? blocks + (t * bm + i0 + i) * bn + j0 + j : blocks, ok);
             }
         }
         const int64_t row0 = __ldg(indices + t) * bn + j0;  // first V row of this unit
@@ -138,18 +145,18 @@ __global__ void __launch_bounds__(kBlockThreads) bsr_spmm_kernel(
 #pragma unroll
                 for (int e = 0; e < VL; ++e) {
                     const bool ok = row_ok && c + e < k;
-                    cp_async<sizeof(T)>(v_s + j * lanes * VL + e, ok ? src + e : V, ok ? static_cast<int>(sizeof(T)) : 0);
+                    copy_elem(v_s + j * lanes * VL + e, ok ? src + e : V, ok);
                 }
             }
         }
     };
 
-    T acc[kRB][VL];
+    A acc[kRB][VL];
     auto zero = [&]() {
 #pragma unroll
         for (int i = 0; i < kRB; ++i)
 #pragma unroll
-            for (int e = 0; e < VL; ++e) acc[i][e] = T(0);
+            for (int e = 0; e < VL; ++e) acc[i][e] = A(0);
     };
     auto write_row = [&](int64_t r) {
 #pragma unroll
@@ -161,7 +168,7 @@ __global__ void __launch_bounds__(kBlockThreads) bsr_spmm_kernel(
             } else {
 #pragma unroll
                 for (int e = 0; e < VL; ++e) {
-                    if (c + e < k) out[row * k + c + e] = acc[i][e];
+                    if (c + e < k) out[row * k + c + e] = from_acc<T>(acc[i][e]);
                 }
             }
         }
@@ -191,11 +198,11 @@ __global__ void __launch_bounds__(kBlockThreads) bsr_spmm_kernel(
         const T* v_s = tile_s + kRB * kJB + tl * VL;
 #pragma unroll
         for (int j = 0; j < kJB; ++j) {
-            T v[VL];
+            A v[VL];
             unpack(*reinterpret_cast<const typename Vec<T>::type*>(v_s + j * lanes * VL), v);
 #pragma unroll
             for (int i = 0; i < kRB; ++i) {
-                const T a = tile_s[i * kJB + j];
+                const A a = to_acc(tile_s[i * kJB + j]);
 #pragma unroll
                 for (int e = 0; e < VL; ++e) acc[i][e] += a * v[e];
             }
@@ -270,6 +277,13 @@ cudaError_t bsr_spmm_f64(const double* blocks, const int64_t* indptr, const int6
                          double* out, int64_t n_brow, int bm, int bn, int64_t m, int64_t k, int64_t n_out, int vec,
                          cudaStream_t stream) {
     return launch_bsr(blocks, indptr, indices, V, out, n_brow, bm, bn, m, k, n_out, vec, stream);
+}
+
+cudaError_t bsr_spmm_bf16(const void* blocks, const int64_t* indptr, const int64_t* indices, const void* V, void* out,
+                          int64_t n_brow, int bm, int bn, int64_t m, int64_t k, int64_t n_out, int vec,
+                          cudaStream_t stream) {
+    return launch_bsr(static_cast<const bf16*>(blocks), indptr, indices, static_cast<const bf16*>(V),
+                      static_cast<bf16*>(out), n_brow, bm, bn, m, k, n_out, vec, stream);
 }
 
 // Complex instantiations (complex64 / complex128 as torch lays them out).

@@ -1,5 +1,5 @@
-// DIA stencil kernels for Hopper (sm_90a), float32 and float64; the two stencils
-// also complex64 and complex128 (Hermitian operators).
+// DIA stencil kernels for Hopper (sm_90a), float32, float64 and bfloat16 (pass A of
+// the step too); the two stencils also complex64 and complex128 (Hermitian operators).
 //
 // Replaces the Pallas TPU kernels of primate_tpu/ops/dia_pallas.py:
 //   dia_stencil_t        <- dia_matmat_t_pallas (_dia_t_kernel): out = A X, probe-major
@@ -71,6 +71,24 @@
 // offsets from direct (L1/L2) loads. When ld or lo is not a multiple of the vector
 // length, or a pointer is not 16-byte aligned, the same kernels take scalar loads.
 //
+// bfloat16 (JAX's third operator dtype; its Pallas kernels take bf16 and accumulate
+// in promote_types(dtype, float32)): the two stencils and pass A read bf16 bands and
+// blocks, convert each element once to float32, sum in float32 registers, and the
+// stencils round once to bf16 where they write (common.cuh's Acc, to_acc, from_acc).
+// A 16-byte vector holds 8 bf16, so a thread owns 8 rows (the probe-major stencil, pass
+// A) or 8 columns (the node-major one) and issues the same 16-byte loads as in float32
+// on half the bytes of a row; the kernels stay bound by HBM bytes. (A node-major lane of
+// 8-byte vectors, 4 columns as in float32, measured slower at the FEM cell, with 8 lanes
+// a row and with 16: PERF.md.) Pass A writes w and the
+// alpha partials in float32, as dia_matmat_t_phys writes its f32 output for a bf16
+// carry, and takes a switch (round): round the stencil sum to bf16 before the
+// beta-axpy, as JAX's flat and sharded applies do (matmat_t returns the operator's
+// dtype), or not, as dia_matmat_t_phys does. The bf16 sweep rounds and normalises q
+// every step (JAX's lanczos.py:388), so its pass A reads q as stored and takes no
+// divisors, and the bf16 sweep has no pass B (its tail is PyTorch: ROADMAP B.16).
+// With more diagonals than one chunk of band slots, the probe-major stencil keeps the
+// float32 partial sums of the chunks in a float32 scratch block (mid) and rounds once.
+//
 // Plain C interface: every entry point returns the cudaError_t of its launch
 // (cudaGetLastError()), and the caller raises on anything but cudaSuccess. The
 // kernels launch on the caller's stream, allocate nothing and do not synchronise.
@@ -104,31 +122,44 @@ constexpr int kTThreads = 256;
 constexpr int kTBlocks = 2;  // resident blocks an SM it is compiled for: 128 registers a thread
 constexpr int kTProbes = 4;  // probes whose loads a thread issues together
 constexpr int kTChunk = 8;   // diagonals whose band values a thread holds
-static_assert(kTChunk * 4 <= 32, "one bit per (diagonal, row) of a chunk in an unsigned mask");
+// Probes whose loads a thread issues together: fewer for bfloat16, whose thread holds
+// 8 rows of float32 band values, sums and loads where a float32 thread holds 4.
+template <typename T> constexpr int kTProbesOf = Vec<T>::len > 4 ? 2 : kTProbes;
+// One bit per (diagonal, row) of a chunk: 32 in float32, 64 in bfloat16.
+template <typename T>
+using TBits = std::conditional_t<(kTChunk * Vec<T>::len > 32), unsigned long long, unsigned>;
 
 // Rows r .. r + rows - 1 of kNP probes, from xb and ob at row r of the first probe:
 // ob[k n + e] = (ob[k n + e] if add) + sum_j w[j][e] xb[k n + e + off[j]] over the
 // chunk's nd diagonals. Bit j * VL + e of `in`: row r + e's neighbour on diagonal j
 // lies in [0, n); bit j of `whole`: all of them do and one 16-byte load reads them.
+// A narrow type (bfloat16) sums in float32: the chunks before the last keep their
+// sums in mb (float32, the same layout as ob) and the last one rounds once into ob.
 template <typename T, bool kVec, int kNP>
-__device__ __forceinline__ void stencil_group(const T (&w)[kTChunk][Vec<T>::len], const int64_t (&off)[kTChunk],
-                                              int nd, unsigned in, unsigned whole, const T* __restrict__ xb,
-                                              T* __restrict__ ob, int64_t n, int rows, bool add) {
+__device__ __forceinline__ void stencil_group(const acc_t<T> (&w)[kTChunk][Vec<T>::len], const int64_t (&off)[kTChunk],
+                                              int nd, TBits<T> in, unsigned whole, const T* __restrict__ xb,
+                                              T* __restrict__ ob, acc_t<T>* __restrict__ mb, int64_t n, int rows,
+                                              bool add, bool last) {
     constexpr int VL = Vec<T>::len;
     using V = typename Vec<T>::type;
-    T acc[kNP][VL];
+    using A = acc_t<T>;
+    A acc[kNP][VL];
 #pragma unroll
     for (int k = 0; k < kNP; ++k)
 #pragma unroll
         for (int e = 0; e < VL; ++e) {
-            acc[k][e] = T(0);
-            if (add && e < rows) acc[k][e] = ob[k * n + e];
+            acc[k][e] = A(0);
+            if constexpr (kNarrow<T>) {
+                if (add && e < rows) acc[k][e] = mb[k * n + e];
+            } else {
+                if (add && e < rows) acc[k][e] = ob[k * n + e];
+            }
         }
 #pragma unroll
     for (int j = 0; j < kTChunk; ++j) {
         if (j >= nd) break;
         const T* src = xb + off[j];
-        T v[kNP][VL];
+        A v[kNP][VL];
         if (kVec && ((whole >> j) & 1u)) {
 #pragma unroll
             for (int k = 0; k < kNP; ++k) unpack(__ldg(reinterpret_cast<const V*>(src + k * n)), v[k]);
@@ -136,7 +167,7 @@ __device__ __forceinline__ void stencil_group(const T (&w)[kTChunk][Vec<T>::len]
 #pragma unroll
             for (int k = 0; k < kNP; ++k)
 #pragma unroll
-                for (int e = 0; e < VL; ++e) v[k][e] = (in >> (j * VL + e)) & 1u ? ldg(src + k * n + e) : T(0);
+                for (int e = 0; e < VL; ++e) v[k][e] = (in >> (j * VL + e)) & 1u ? to_acc(ldg(src + k * n + e)) : A(0);
         }
 #pragma unroll
         for (int k = 0; k < kNP; ++k)
@@ -145,12 +176,17 @@ __device__ __forceinline__ void stencil_group(const T (&w)[kTChunk][Vec<T>::len]
     }
 #pragma unroll
     for (int k = 0; k < kNP; ++k) {
-        if (kVec) {
+        if (kNarrow<T> && !last) {
+#pragma unroll
+            for (int e = 0; e < VL; ++e) {
+                if (e < rows) mb[k * n + e] = acc[k][e];
+            }
+        } else if (kVec) {
             __stcs(reinterpret_cast<V*>(ob + k * n), pack(acc[k]));
         } else {
 #pragma unroll
             for (int e = 0; e < VL; ++e) {
-                if (e < rows) stcs(ob + k * n + e, acc[k][e]);
+                if (e < rows) stcs(ob + k * n + e, from_acc<T>(acc[k][e]));
             }
         }
     }
@@ -162,17 +198,23 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(kTThreads, kTBlocks) dia_stencil_t_kernel(const T* __restrict__ bands,
                                                                            const int64_t* __restrict__ offsets,
                                                                            int n_d, const T* __restrict__ x,
-                                                                           T* __restrict__ out, int64_t nv, int64_t n) {
+                                                                           T* __restrict__ out,
+                                                                           acc_t<T>* __restrict__ mid, int64_t nv,
+                                                                           int64_t n) {
     constexpr int VL = Vec<T>::len;
+    constexpr int kNP = kTProbesOf<T>;
+    using A = acc_t<T>;
+    using Bits = TBits<T>;
     const int64_t r = (static_cast<int64_t>(blockIdx.x) * kTThreads + threadIdx.x) * VL;  // this thread's first row
     if (r >= n) return;
     const int rows = n - r < VL ? static_cast<int>(n - r) : VL;
     const int chunks = n_d > 0 ? (n_d + kTChunk - 1) / kTChunk : 1;  // no diagonal: one chunk that writes zeros
     for (int c = 0; c < chunks; ++c) {
         const int d0 = c * kTChunk, nd = n_d - d0 < kTChunk ? n_d - d0 : kTChunk;
-        T w[kTChunk][VL];
+        A w[kTChunk][VL];
         int64_t off[kTChunk];
-        unsigned in = 0, whole = 0;
+        Bits in = 0;
+        unsigned whole = 0;
 #pragma unroll
         for (int j = 0; j < kTChunk; ++j) {
             off[j] = j < nd ? __ldg(offsets + d0 + j) : 0;
@@ -181,17 +223,21 @@ __global__ void __launch_bounds__(kTThreads, kTBlocks) dia_stencil_t_kernel(cons
             for (int e = 0; e < VL; ++e) {  // the band value, 0 where the row or its neighbour lies outside [0, n)
                 const int64_t rr = r + e;
                 const bool ok = j < nd && e < rows && off[j] >= -rr && off[j] < n - rr;
-                w[j][e] = ok ? ldg(bands + static_cast<int64_t>(d0 + j) * n + rr) : T(0);
+                w[j][e] = ok ? to_acc(ldg(bands + static_cast<int64_t>(d0 + j) * n + rr)) : A(0);
                 bits |= ok ? 1u << e : 0u;
             }
-            in |= bits << (j * VL);
+            in |= static_cast<Bits>(bits) << (j * VL);
             if (kVec && bits == (1u << VL) - 1 && off[j] % VL == 0) whole |= 1u << j;
             if (bits == 0) off[j] = 0;  // no neighbour in range: nothing is loaded, keep the address in the block
         }
+        const bool add = c > 0, last = c == chunks - 1;
         int64_t b = 0;
-        for (; b + kTProbes <= nv; b += kTProbes)
-            stencil_group<T, kVec, kTProbes>(w, off, nd, in, whole, x + b * n + r, out + b * n + r, n, rows, c > 0);
-        for (; b < nv; ++b) stencil_group<T, kVec, 1>(w, off, nd, in, whole, x + b * n + r, out + b * n + r, n, rows, c > 0);
+        for (; b + kNP <= nv; b += kNP)
+            stencil_group<T, kVec, kNP>(w, off, nd, in, whole, x + b * n + r, out + b * n + r, mid + b * n + r, n, rows,
+                                        add, last);
+        for (; b < nv; ++b)
+            stencil_group<T, kVec, 1>(w, off, nd, in, whole, x + b * n + r, out + b * n + r, mid + b * n + r, n, rows, add,
+                                      last);
     }
 }
 
@@ -224,6 +270,7 @@ __global__ void __launch_bounds__(kNmThreads) dia_stencil_kernel(const T* __rest
                                                                  int64_t n, int64_t k, int64_t chunks) {
     constexpr int VL = Vec<T>::len;
     constexpr int KC = kNmLanes * VL;  // columns of the chunk
+    using A = acc_t<T>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* ring = reinterpret_cast<T*>(smem_raw);  // [kRing][KC]
     const int ty = threadIdx.x / kNmLanes, lane = threadIdx.x % kNmLanes;
@@ -248,7 +295,7 @@ __global__ void __launch_bounds__(kNmThreads) dia_stencil_kernel(const T* __rest
 #pragma unroll
                     for (int e = 0; e < VL; ++e) {
                         const bool ok = row_ok && c + e < k;
-                        cp_async<sizeof(T)>(dst + e, ok ? V + row * k + c + e : V, ok ? static_cast<int>(sizeof(T)) : 0);
+                        copy_elem(dst + e, ok ? V + row * k + c + e : V, ok);
                     }
                 }
             }
@@ -263,27 +310,27 @@ __global__ void __launch_bounds__(kNmThreads) dia_stencil_kernel(const T* __rest
             __syncthreads();     // ... and every thread's
             const int64_t r = rs + ty;
             if (r < r1) {
-                T acc[VL];
+                A acc[VL];
 #pragma unroll
-                for (int e = 0; e < VL; ++e) acc[e] = T(0);
+                for (int e = 0; e < VL; ++e) acc[e] = A(0);
                 for (int d0 = 0; d0 < n_d; d0 += kNmChunk) {
-                    T w[kNmChunk], x[kNmChunk][VL];
+                    A w[kNmChunk], x[kNmChunk][VL];
 #pragma unroll
                     for (int j = 0; j < kNmChunk; ++j) {
-                        w[j] = T(0);
+                        w[j] = A(0);
 #pragma unroll
-                        for (int e = 0; e < VL; ++e) x[j][e] = T(0);
+                        for (int e = 0; e < VL; ++e) x[j][e] = A(0);
                         if (d0 + j >= n_d) continue;
                         const int64_t off = __ldg(offsets + d0 + j), rr = r + off;
                         if (rr < 0 || rr >= n) continue;
-                        w[j] = ldg(bands + (d0 + j) * n + r);
+                        w[j] = to_acc(ldg(bands + (d0 + j) * n + r));
                         if (off >= -H && off <= H) {
                             unpack(*reinterpret_cast<const typename Vec<T>::type*>(ring + (rr & (kRing - 1)) * KC + lane * VL), x[j]);
                         } else if (kVec) {
                             if (c < k) unpack(__ldg(reinterpret_cast<const typename Vec<T>::type*>(V + rr * k + c)), x[j]);
                         } else {
 #pragma unroll
-                            for (int e = 0; e < VL; ++e) x[j][e] = c + e < k ? ldg(V + rr * k + c + e) : T(0);
+                            for (int e = 0; e < VL; ++e) x[j][e] = c + e < k ? to_acc(ldg(V + rr * k + c + e)) : A(0);
                         }
                     }
 #pragma unroll
@@ -296,7 +343,7 @@ __global__ void __launch_bounds__(kNmThreads) dia_stencil_kernel(const T* __rest
                 } else {
 #pragma unroll
                     for (int e = 0; e < VL; ++e) {
-                        if (c + e < k) out[r * k + c + e] = acc[e];
+                        if (c + e < k) out[r * k + c + e] = from_acc<T>(acc[e]);
                     }
                 }
             }
@@ -322,35 +369,57 @@ constexpr int kStepWarps = kStepThreads / 32;
 constexpr int kStepProbes = 8;  // probes per block (blockIdx.y)
 constexpr int kHalo = 16;       // rows staged on each side of a tile; a multiple of both vector lengths
 
-// Elements r .. r + len - 1 of a carry row; those outside [lo_b, hi_b) read as 0.
-// kVec: one 16-byte load (the bounds and r are multiples of len, so a vector lies
-// wholly inside or wholly outside them).
+// Elements r .. r + len - 1 of a carry row, in the accumulation type; those outside
+// [lo_b, hi_b) read as 0. kVec: one 16-byte load (the bounds and r are multiples of
+// len, so a vector lies wholly inside or wholly outside them).
 template <typename T, bool kVec>
-__device__ __forceinline__ void load_seg(const T* row, int64_t r, int64_t lo_b, int64_t hi_b, T (&o)[Vec<T>::len]) {
+__device__ __forceinline__ void load_seg(const T* row, int64_t r, int64_t lo_b, int64_t hi_b,
+                                         acc_t<T> (&o)[Vec<T>::len]) {
     constexpr int VL = Vec<T>::len;
     if (kVec) {
         if (r >= lo_b && r < hi_b) {
             unpack(*reinterpret_cast<const typename Vec<T>::type*>(row + r), o);
         } else {
 #pragma unroll
-            for (int i = 0; i < VL; ++i) o[i] = T(0);
+            for (int i = 0; i < VL; ++i) o[i] = acc_t<T>(0);
         }
     } else {
 #pragma unroll
-        for (int i = 0; i < VL; ++i) o[i] = (r + i >= lo_b && r + i < hi_b) ? row[r + i] : T(0);
+        for (int i = 0; i < VL; ++i) o[i] = (r + i >= lo_b && r + i < hi_b) ? to_acc(row[r + i]) : acc_t<T>(0);
     }
 }
 
-// kVec: the whole vector (the carry's columns past the own rows are inside the row's
-// ld and take the zeros the caller computed); else the elements before n.
+// The same elements as stored (no conversion) into shared memory at dst.
 template <typename T, bool kVec>
-__device__ __forceinline__ void store_seg(T* row, int64_t r, int64_t n, const T (&o)[Vec<T>::len]) {
+__device__ __forceinline__ void copy_seg(const T* row, int64_t r, int64_t lo_b, int64_t hi_b, T* dst) {
     constexpr int VL = Vec<T>::len;
+    using V = typename Vec<T>::type;
     if (kVec) {
-        *reinterpret_cast<typename Vec<T>::type*>(row + r) = pack(o);
+        *reinterpret_cast<V*>(dst) = r >= lo_b && r < hi_b ? *reinterpret_cast<const V*>(row + r) : V{};
     } else {
 #pragma unroll
-        for (int i = 0; i < VL; ++i) {
+        for (int i = 0; i < VL; ++i) dst[i] = (r + i >= lo_b && r + i < hi_b) ? row[r + i] : zero<T>();
+    }
+}
+
+// N elements E at row + r. kVec: whole 16-byte vectors of E (the carry's columns past
+// the own rows are inside the row's ld and take the zeros the caller computed); else
+// the elements before n.
+template <bool kVec, typename E, int N>
+__device__ __forceinline__ void store_seg(E* row, int64_t r, int64_t n, const E (&o)[N]) {
+    constexpr int VE = Vec<E>::len;
+    static_assert(N % VE == 0, "a segment is whole vectors");
+    if (kVec) {
+#pragma unroll
+        for (int h = 0; h < N / VE; ++h) {
+            E part[VE];
+#pragma unroll
+            for (int i = 0; i < VE; ++i) part[i] = o[h * VE + i];
+            *reinterpret_cast<typename Vec<E>::type*>(row + r + h * VE) = pack(part);
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
             if (r + i < n) row[r + i] = o[i];
         }
     }
@@ -404,35 +473,43 @@ __device__ __forceinline__ T probe_total(const T* partial, int64_t b) {
 // alpha[b] = sum_r w q over the own rows. With a ticket, the last block writes
 // state[kAlpha] and alpha_out (zero where state[kDone]); in the finishing mode
 // (sums given) it writes only the rank's local sums[b] and leaves the state alone.
+// A narrow type (bfloat16) reads q and q_prev as stored (no divisors: its sweep
+// normalises q every step) and stages q as stored; w, the state and the sums are in
+// the accumulation type (float32). `round`: round the stencil sum to T before the
+// beta-axpy (no effect where T is its own accumulation type).
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
     const T* __restrict__ bands, const int64_t* __restrict__ offsets, int n_d, const T* __restrict__ v_cur,
-    const T* __restrict__ v_prev, T* __restrict__ state, T* __restrict__ w, T* __restrict__ partial,
-    unsigned* __restrict__ ticket, T* __restrict__ alpha_out, T* __restrict__ sums, int64_t nv, int64_t ld,
-    int64_t lo, int64_t n) {
+    const T* __restrict__ v_prev, acc_t<T>* __restrict__ state, acc_t<T>* __restrict__ w,
+    acc_t<T>* __restrict__ partial, unsigned* __restrict__ ticket, acc_t<T>* __restrict__ alpha_out,
+    acc_t<T>* __restrict__ sums, int64_t nv, int64_t ld, int64_t lo, int64_t n, int round) {
+    using A = acc_t<T>;
+    using S = std::conditional_t<kNarrow<T>, T, A>;  // the staged q: divided in A, or as stored
     constexpr int VL = Vec<T>::len;
     constexpr int kTile = kStepThreads * VL;
     constexpr int kSpan = kTile + 2 * kHalo;
-    __shared__ __align__(16) T q_s[kStepProbes][kSpan];
-    __shared__ T div_s[kStepProbes], divp_s[kStepProbes], beta_s[kStepProbes];
+    __shared__ __align__(16) S q_s[kStepProbes][kSpan];
+    __shared__ A div_s[kStepProbes], divp_s[kStepProbes], beta_s[kStepProbes];
     const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
     const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
     const int64_t lo_b = -lo, hi_b = ld - lo;  // the carry's columns, counted from the first own row
     if (threadIdx.x < np) {
-        div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
-        divp_s[threadIdx.x] = state[kDivPrev * nv + b0 + threadIdx.x];
+        if constexpr (!kNarrow<T>) {
+            div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
+            divp_s[threadIdx.x] = state[kDivPrev * nv + b0 + threadIdx.x];
+        }
         beta_s[threadIdx.x] = state[kBeta * nv + b0 + threadIdx.x];
     }
     if (blockIdx.x == 0 && ld > n) {  // the margins of w: zero
         for (int p = 0; p < np; ++p) {
-            T* row = w + (b0 + p) * ld;
-            for (int64_t c = threadIdx.x; c < lo; c += kStepThreads) row[c] = T(0);
-            for (int64_t c = lo + n + threadIdx.x; c < ld; c += kStepThreads) row[c] = T(0);
+            A* row = w + (b0 + p) * ld;
+            for (int64_t c = threadIdx.x; c < lo; c += kStepThreads) row[c] = A(0);
+            for (int64_t c = lo + n + threadIdx.x; c < ld; c += kStepThreads) row[c] = A(0);
         }
     }
-    T dot[kStepProbes];
+    A dot[kStepProbes];
 #pragma unroll
-    for (int p = 0; p < kStepProbes; ++p) dot[p] = T(0);
+    for (int p = 0; p < kStepProbes; ++p) dot[p] = A(0);
     const int64_t n_tiles = (n + kTile - 1) / kTile;
     for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const int64_t r0 = t * kTile;
@@ -441,12 +518,17 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
         for (int p = 0; p < kStepProbes; ++p) {
             if (p >= np) break;
             const T* row = v_cur + (b0 + p) * ld + lo;
-            const T div = div_s[p];
-            for (int e = threadIdx.x; e < kSpan / VL; e += kStepThreads) {
-                T o[VL];
-                load_seg<T, kVec>(row, r0 - kHalo + e * VL, lo_b, hi_b, o);
+            if constexpr (kNarrow<T>) {
+                for (int e = threadIdx.x; e < kSpan / VL; e += kStepThreads)
+                    copy_seg<T, kVec>(row, r0 - kHalo + e * VL, lo_b, hi_b, &q_s[p][e * VL]);
+            } else {
+                const A div = div_s[p];
+                for (int e = threadIdx.x; e < kSpan / VL; e += kStepThreads) {
+                    A o[VL];
+                    load_seg<T, kVec>(row, r0 - kHalo + e * VL, lo_b, hi_b, o);
 #pragma unroll
-                for (int i = 0; i < VL; ++i) q_s[p][e * VL + i] = o[i] / div;
+                    for (int i = 0; i < VL; ++i) q_s[p][e * VL + i] = o[i] / div;
+                }
             }
         }
         __syncthreads();
@@ -458,18 +540,24 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
             if (p >= np) break;
             const int64_t b = b0 + p;
             const T* row = v_cur + b * ld + lo;
-            T acc[VL];
+            A acc[VL];
 #pragma unroll
-            for (int i = 0; i < VL; ++i) acc[i] = T(0);
+            for (int i = 0; i < VL; ++i) acc[i] = A(0);
             for (int d = 0; d < n_d; ++d) {
                 const int64_t off = offsets[d];
-                T band[VL];
+                A band[VL];
                 load_seg<T, kVec>(bands + d * ld + lo, r, lo_b, n, band);
                 if (off >= -kHalo && off <= kHalo) {  // staged: q_s is 0 outside the carry
 #pragma unroll
-                    for (int i = 0; i < VL; ++i) acc[i] += band[i] * q_s[p][loc + i + off];
+                    for (int i = 0; i < VL; ++i) acc[i] += band[i] * to_acc(q_s[p][loc + i + off]);
+                } else if constexpr (kNarrow<T>) {
+#pragma unroll
+                    for (int i = 0; i < VL; ++i) {
+                        const int64_t c = r + i + off;
+                        if (c >= lo_b && c < hi_b) acc[i] += band[i] * to_acc(row[c]);
+                    }
                 } else {
-                    const T div = div_s[p];
+                    const A div = div_s[p];
 #pragma unroll
                     for (int i = 0; i < VL; ++i) {
                         const int64_t c = r + i + off;
@@ -477,26 +565,36 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
                     }
                 }
             }
-            T vp[VL], out[VL];
+            A vp[VL], out[VL];
             load_seg<T, kVec>(v_prev + b * ld + lo, r, lo_b, hi_b, vp);
-            const T beta = beta_s[p], divp = divp_s[p];
+            if constexpr (kNarrow<T>) {
+                const A beta = beta_s[p];
 #pragma unroll
-            for (int i = 0; i < VL; ++i) {
-                out[i] = r + i < n ? acc[i] - beta * (vp[i] / divp) : T(0);  // a margin column: 0
-                dot[p] += out[i] * q_s[p][loc + i];
+                for (int i = 0; i < VL; ++i) {
+                    const A s = round ? to_acc(from_acc<T>(acc[i])) : acc[i];
+                    out[i] = r + i < n ? s - beta * vp[i] : A(0);  // a margin column: 0
+                    dot[p] += out[i] * to_acc(q_s[p][loc + i]);
+                }
+            } else {
+                const A beta = beta_s[p], divp = divp_s[p];
+#pragma unroll
+                for (int i = 0; i < VL; ++i) {
+                    out[i] = r + i < n ? acc[i] - beta * (vp[i] / divp) : A(0);  // a margin column: 0
+                    dot[p] += out[i] * q_s[p][loc + i];
+                }
             }
-            store_seg<T, kVec>(w + b * ld + lo, r, n, out);
+            store_seg<kVec>(w + b * ld + lo, r, n, out);
         }
     }
     if (!reduce_and_take_ticket(dot, np, b0, partial, ticket)) return;
     for (int64_t b = threadIdx.x / 32; b < nv; b += kStepWarps) {
-        const T s = probe_total(partial, b);
+        const A s = probe_total(partial, b);
         if (threadIdx.x % 32 == 0) {
             if (sums != nullptr) {
                 sums[b] = s;
             } else {
                 state[kAlpha * nv + b] = s;
-                alpha_out[b] = state[kDone * nv + b] != T(0) ? T(0) : s;
+                alpha_out[b] = state[kDone * nv + b] != A(0) ? A(0) : s;
             }
         }
     }
@@ -544,7 +642,7 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_b_kernel(const T* _
                 wv[i] = r + i < n ? wv[i] - alpha * (vc[i] / div) : T(0);
                 ss[p] += wv[i] * wv[i];
             }
-            store_seg<T, kVec>(w + b * ld + lo, r, n, wv);
+            store_seg<kVec>(w + b * ld + lo, r, n, wv);
         }
     }
     if (!reduce_and_take_ticket(ss, np, b0, partial, ticket)) return;
@@ -587,22 +685,25 @@ __global__ void lanczos_advance_kernel(const T* __restrict__ sums, T* __restrict
 }
 
 template <typename T, bool kVec>
-cudaError_t launch_stencil_t_as(const T* bands, const int64_t* offsets, int n_d, const T* x, T* out, int64_t nv,
-                                int64_t n, cudaStream_t stream) {
+cudaError_t launch_stencil_t_as(const T* bands, const int64_t* offsets, int n_d, const T* x, T* out, acc_t<T>* mid,
+                                int64_t nv, int64_t n, cudaStream_t stream) {
     constexpr int64_t rows = static_cast<int64_t>(kTThreads) * Vec<T>::len;  // rows per block
     const int64_t blocks = (n + rows - 1) / rows;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
     dia_stencil_t_kernel<T, kVec><<<static_cast<unsigned>(blocks), kTThreads, 0, stream>>>(bands, offsets, n_d, x, out,
-                                                                                         nv, n);
+                                                                                         mid, nv, n);
     return cudaGetLastError();
 }
 
+// mid: an (nv, n) float32 scratch block, needed by a narrow type (bfloat16) with more
+// diagonals than one chunk (kTChunk), null otherwise.
 template <typename T>
-cudaError_t launch_stencil_t(const T* bands, const int64_t* offsets, int n_d, const T* x, T* out, int64_t nv,
-                             int64_t n, int vec, cudaStream_t stream) {
+cudaError_t launch_stencil_t(const T* bands, const int64_t* offsets, int n_d, const T* x, T* out, acc_t<T>* mid,
+                             int64_t nv, int64_t n, int vec, cudaStream_t stream) {
     if (nv == 0 || n == 0) return cudaSuccess;
-    return vec ? launch_stencil_t_as<T, true>(bands, offsets, n_d, x, out, nv, n, stream)
-               : launch_stencil_t_as<T, false>(bands, offsets, n_d, x, out, nv, n, stream);
+    if (kNarrow<T> && n_d > kTChunk && mid == nullptr) return cudaErrorInvalidValue;
+    return vec ? launch_stencil_t_as<T, true>(bands, offsets, n_d, x, out, mid, nv, n, stream)
+               : launch_stencil_t_as<T, false>(bands, offsets, n_d, x, out, mid, nv, n, stream);
 }
 
 template <typename T, bool kVec>
@@ -656,18 +757,20 @@ inline bool step_grid_ok(int64_t nv, int64_t ld, int64_t lo, int64_t n, int64_t 
            (nv + kStepProbes - 1) / kStepProbes <= 65535;
 }
 
-template <typename T>
-cudaError_t launch_pass_a(const T* bands, const int64_t* offsets, int n_d, const T* v_cur, const T* v_prev, T* state,
-                          T* w, T* partial, unsigned* ticket, T* alpha_out, T* sums, int64_t nv, int64_t ld, int64_t lo,
-                          int64_t n, int64_t gx, int vec, cudaStream_t stream) {
+template <typename T, typename A = acc_t<T>>
+cudaError_t launch_pass_a(const T* bands, const int64_t* offsets, int n_d, const T* v_cur, const T* v_prev, A* state,
+                          A* w, A* partial, unsigned* ticket, A* alpha_out, A* sums, int64_t nv, int64_t ld, int64_t lo,
+                          int64_t n, int64_t gx, int round, int vec, cudaStream_t stream) {
     if (!step_grid_ok(nv, ld, lo, n, gx)) return cudaErrorInvalidConfiguration;
     const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>((nv + kStepProbes - 1) / kStepProbes));
     if (vec) {
         lanczos_pass_a_kernel<T, true><<<grid, kStepThreads, 0, stream>>>(bands, offsets, n_d, v_cur, v_prev, state, w,
-                                                                          partial, ticket, alpha_out, sums, nv, ld, lo, n);
+                                                                          partial, ticket, alpha_out, sums, nv, ld, lo, n,
+                                                                          round);
     } else {
         lanczos_pass_a_kernel<T, false><<<grid, kStepThreads, 0, stream>>>(bands, offsets, n_d, v_cur, v_prev, state, w,
-                                                                           partial, ticket, alpha_out, sums, nv, ld, lo, n);
+                                                                           partial, ticket, alpha_out, sums, nv, ld, lo, n,
+                                                                           round);
     }
     return cudaGetLastError();
 }
@@ -707,33 +810,41 @@ extern "C" {
 // Columns of the (nv, columns) partials buffer that both step passes fill, and the
 // gridDim.x to launch them with; -1 if the device cannot be queried.
 int64_t lanczos_step_blocks(int64_t nv, int64_t n, int elem_bytes) {
-    return elem_bytes == 8 ? step_blocks<double>(nv, n) : step_blocks<float>(nv, n);
+    return elem_bytes == 8 ? step_blocks<double>(nv, n) : elem_bytes == 2 ? step_blocks<bf16>(nv, n) : step_blocks<float>(nv, n);
 }
 
 const char* primate_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
+// The probe-major stencil; mid is the float32 scratch of a bfloat16 call with more
+// than 8 diagonals (null otherwise, and ignored by the other types).
 cudaError_t dia_stencil_t_f32(const float* bands, const int64_t* offsets, int n_d, const float* x, float* out,
-                              int64_t nv, int64_t n, int vec, cudaStream_t stream) {
-    return launch_stencil_t(bands, offsets, n_d, x, out, nv, n, vec, stream);
+                              void* mid, int64_t nv, int64_t n, int vec, cudaStream_t stream) {
+    return launch_stencil_t(bands, offsets, n_d, x, out, static_cast<float*>(mid), nv, n, vec, stream);
 }
 
 cudaError_t dia_stencil_t_f64(const double* bands, const int64_t* offsets, int n_d, const double* x, double* out,
-                              int64_t nv, int64_t n, int vec, cudaStream_t stream) {
-    return launch_stencil_t(bands, offsets, n_d, x, out, nv, n, vec, stream);
+                              void* mid, int64_t nv, int64_t n, int vec, cudaStream_t stream) {
+    return launch_stencil_t(bands, offsets, n_d, x, out, static_cast<double*>(mid), nv, n, vec, stream);
+}
+
+cudaError_t dia_stencil_t_bf16(const void* bands, const int64_t* offsets, int n_d, const void* x, void* out, void* mid,
+                               int64_t nv, int64_t n, int vec, cudaStream_t stream) {
+    return launch_stencil_t(static_cast<const bf16*>(bands), offsets, n_d, static_cast<const bf16*>(x),
+                            static_cast<bf16*>(out), static_cast<float*>(mid), nv, n, vec, stream);
 }
 
 // Complex instantiations of the two stencils (complex64 / complex128 as torch
 // lays them out), for Hermitian operators; the step kernels stay real.
-cudaError_t dia_stencil_t_c64(const void* bands, const int64_t* offsets, int n_d, const void* x, void* out, int64_t nv,
-                              int64_t n, int vec, cudaStream_t stream) {
+cudaError_t dia_stencil_t_c64(const void* bands, const int64_t* offsets, int n_d, const void* x, void* out, void* mid,
+                              int64_t nv, int64_t n, int vec, cudaStream_t stream) {
     return launch_stencil_t(static_cast<const c64*>(bands), offsets, n_d, static_cast<const c64*>(x),
-                            static_cast<c64*>(out), nv, n, vec, stream);
+                            static_cast<c64*>(out), static_cast<c64*>(mid), nv, n, vec, stream);
 }
 
-cudaError_t dia_stencil_t_c128(const void* bands, const int64_t* offsets, int n_d, const void* x, void* out, int64_t nv,
-                               int64_t n, int vec, cudaStream_t stream) {
+cudaError_t dia_stencil_t_c128(const void* bands, const int64_t* offsets, int n_d, const void* x, void* out, void* mid,
+                               int64_t nv, int64_t n, int vec, cudaStream_t stream) {
     return launch_stencil_t(static_cast<const c128*>(bands), offsets, n_d, static_cast<const c128*>(x),
-                            static_cast<c128*>(out), nv, n, vec, stream);
+                            static_cast<c128*>(out), static_cast<c128*>(mid), nv, n, vec, stream);
 }
 
 cudaError_t dia_stencil_c64(const void* bands, const int64_t* offsets, int n_d, const void* V, void* out, int64_t n,
@@ -758,23 +869,40 @@ cudaError_t dia_stencil_f64(const double* bands, const int64_t* offsets, int n_d
     return launch_stencil_nm(bands, offsets, n_d, V, out, n, k, vec, stream);
 }
 
+cudaError_t dia_stencil_bf16(const void* bands, const int64_t* offsets, int n_d, const void* V, void* out, int64_t n,
+                             int64_t k, int vec, cudaStream_t stream) {
+    return launch_stencil_nm(static_cast<const bf16*>(bands), offsets, n_d, static_cast<const bf16*>(V),
+                             static_cast<bf16*>(out), n, k, vec, stream);
+}
+
 // The step passes on a carry of row stride ld with its own rows at [lo, lo + n) (the flat
 // carry: ld = n, lo = 0); sums (nv,) non-null selects the finishing mode (the rank's local
-// sum of each probe, for an all-reduce and lanczos_dia_advance).
+// sum of each probe, for an all-reduce and lanczos_dia_advance). Pass A's round: round the
+// stencil sum to the carry's dtype before the beta-axpy (only bfloat16 rounds).
 cudaError_t lanczos_dia_step_f32(const float* bands, const int64_t* offsets, int n_d, const float* v_cur,
                                  const float* v_prev, float* state, float* w, float* partial, unsigned* ticket,
                                  float* alpha_out, float* sums, int64_t nv, int64_t ld, int64_t lo, int64_t n,
-                                 int64_t gx, int vec, cudaStream_t stream) {
+                                 int64_t gx, int round, int vec, cudaStream_t stream) {
     return launch_pass_a(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, sums, nv, ld, lo, n,
-                         gx, vec, stream);
+                         gx, round, vec, stream);
 }
 
 cudaError_t lanczos_dia_step_f64(const double* bands, const int64_t* offsets, int n_d, const double* v_cur,
                                  const double* v_prev, double* state, double* w, double* partial, unsigned* ticket,
                                  double* alpha_out, double* sums, int64_t nv, int64_t ld, int64_t lo, int64_t n,
-                                 int64_t gx, int vec, cudaStream_t stream) {
+                                 int64_t gx, int round, int vec, cudaStream_t stream) {
     return launch_pass_a(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, sums, nv, ld, lo, n,
-                         gx, vec, stream);
+                         gx, round, vec, stream);
+}
+
+// bfloat16 bands and carries; the state, w, the partials and the sums in float32.
+cudaError_t lanczos_dia_step_bf16(const void* bands, const int64_t* offsets, int n_d, const void* v_cur,
+                                  const void* v_prev, float* state, float* w, float* partial, unsigned* ticket,
+                                  float* alpha_out, float* sums, int64_t nv, int64_t ld, int64_t lo, int64_t n,
+                                  int64_t gx, int round, int vec, cudaStream_t stream) {
+    return launch_pass_a(static_cast<const bf16*>(bands), offsets, n_d, static_cast<const bf16*>(v_cur),
+                         static_cast<const bf16*>(v_prev), state, w, partial, ticket, alpha_out, sums, nv, ld, lo, n, gx,
+                         round, vec, stream);
 }
 
 cudaError_t lanczos_dia_residual_f32(const float* v_cur, float* w, float* state, const float* alpha_src,

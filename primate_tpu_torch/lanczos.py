@@ -13,7 +13,8 @@ rounding pass A uses) into the basis window after pass B, and one that takes
 PyTorch ops. With ``orth>0``, ``selective=True`` or a bfloat16 block (whose
 ``q_next`` the reference rounds to bfloat16 every step), each step calls
 ``op.lanczos_step(q_cur, q_prev, β)`` (on a DIA operator the stencil, β-axpy and
-α kernel) and the rest (``v −= α·q``, the CGS window, β = ‖v‖, the done flags
+α kernel, pass A: its bfloat16 instantiation for a bf16 block, with ``w`` and α in
+float32) and the rest (``v −= α·q``, the CGS window, β = ‖v‖, the done flags
 and ``q_next``) stays in PyTorch. Selective re-orthogonalisation reads one flag
 from the device per step, where the JAX package branches by ``lax.cond``.
 

@@ -92,11 +92,11 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 	p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 	sigs = {
 		"dia_stencil": {
-			# bands, offsets, n_d, x, out, nv, n, vec, stream
-			"dia_stencil_t": [p, p, i32, p, p, i64, i64, i32, p],
-			# bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, sums, nv, ld, lo, n, grid_x, vec,
-			# stream
-			"lanczos_dia_step": [p, p, i32, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i32, p],
+			# bands, offsets, n_d, x, out, mid, nv, n, vec, stream
+			"dia_stencil_t": [p, p, i32, p, p, p, i64, i64, i32, p],
+			# bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, sums, nv, ld, lo, n, grid_x,
+			# round, vec, stream
+			"lanczos_dia_step": [p, p, i32, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i32, i32, p],
 			# v_cur, w, state, alpha_src, partial, ticket, beta_out, sums, nv, ld, lo, n, tol, grid_x, vec, stream
 			"lanczos_dia_residual": [p, p, p, p, p, p, p, p, i64, i64, i64, i64, ctypes.c_double, i64, i32, p],
 			# sums, state, alpha_out, beta_out, nv, tol, stream
@@ -108,9 +108,14 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 		"bsr_spmm": {"bsr_spmm": [p, p, p, p, p, i64, i32, i32, i64, i64, i64, i32, p]},
 	}[stem]
 	for name, args in sigs.items():
-		# The two DIA stencils and the BSR SpMM also have complex64 / complex128 entry points.
-		complex_too = name in ("dia_stencil_t", "dia_stencil", "bsr_spmm")
-		for dt in ("f32", "f64", "c64", "c128") if complex_too else ("f32", "f64"):
+		# The two DIA stencils and the BSR SpMM also have complex64 / complex128 entry points;
+		# they and pass A have bfloat16 ones.
+		dts = ("f32", "f64")
+		if name in ("dia_stencil_t", "dia_stencil", "bsr_spmm", "lanczos_dia_step"):
+			dts += ("bf16",)
+		if name in ("dia_stencil_t", "dia_stencil", "bsr_spmm"):
+			dts += ("c64", "c128")
+		for dt in dts:
 			fn = getattr(lib, f"{name}_{dt}")
 			fn.argtypes = args
 			fn.restype = i32

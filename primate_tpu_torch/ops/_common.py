@@ -2,7 +2,7 @@
 
 import torch
 
-__all__ = ["LAUNCHES", "LAYOUT_COPIES", "SCALAR_LAUNCHES", "reset_launches"]
+__all__ = ["LAUNCHES", "BF16_LAUNCHES", "LAYOUT_COPIES", "SCALAR_LAUNCHES", "reset_launches"]
 
 # Kernel launches per wrapper since the last `reset_launches()`. Each wrapper adds
 # one where it launches its kernel and nowhere else; its plain version counts nothing.
@@ -10,6 +10,8 @@ LAUNCHES = {
 	"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "lanczos_dia_advance": 0, "dia_stencil": 0,
 	"bsr_spmm": 0,
 }
+# The launches of LAUNCHES that ran a kernel's bfloat16 instantiation.
+BF16_LAUNCHES = {"dia_stencil_t": 0, "lanczos_dia_step": 0, "dia_stencil": 0, "bsr_spmm": 0}
 # Copies an operator made to hand a kernel or library call the layout it reads
 # (a probe-major block made node-major for the BSR kernel), or to hand back the
 # layout its caller reads (the CSR product of a probe-major block), per apply.
@@ -21,12 +23,14 @@ SCALAR_LAUNCHES = {
 	"bsr_spmm": 0,
 }
 # The C entry point's suffix of each dtype a kernel takes.
-SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64", torch.complex128: "c128"}
+SUFFIX = {
+	torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16", torch.complex64: "c64", torch.complex128: "c128",
+}
 
 
 def reset_launches() -> None:
-	"""Zero :data:`LAUNCHES`, :data:`LAYOUT_COPIES` and :data:`SCALAR_LAUNCHES`."""
-	for counts in (LAUNCHES, LAYOUT_COPIES, SCALAR_LAUNCHES):
+	"""Zero :data:`LAUNCHES`, :data:`BF16_LAUNCHES`, :data:`LAYOUT_COPIES` and :data:`SCALAR_LAUNCHES`."""
+	for counts in (LAUNCHES, BF16_LAUNCHES, LAYOUT_COPIES, SCALAR_LAUNCHES):
 		for k in counts:
 			counts[k] = 0
 
@@ -35,24 +39,39 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 	return torch.promote_types(dtype, torch.float32)
 
 
-def check_cuda(name: str, dtype: torch.dtype, device: torch.device, int_keys=(), complex_ok: bool = False, **tensors) -> None:
-	"""Raise on anything the kernels do not take: float32/float64 contiguous
-	tensors (also complex64/complex128 where ``complex_ok``: the two DIA stencils and the BSR SpMM)
-	on one CUDA device, and int64 index tensors (``int_keys``)."""
+def check_cuda(
+	name: str, dtype: torch.dtype, device: torch.device, int_keys=(), complex_ok: bool = False, bf16_ok: bool = False,
+	acc_keys=(), **tensors,
+) -> None:
+	"""Raise on anything the kernels do not take: float32/float64 contiguous tensors (also
+	bfloat16 where ``bf16_ok``: the two DIA stencils, pass A and the BSR SpMM; complex64/complex128
+	where ``complex_ok``: the two stencils and the BSR SpMM) on one CUDA device, int64 index tensors
+	(``int_keys``), and tensors in the accumulation dtype (``acc_keys``: float32 for bfloat16).
+	float16 raises ``TypeError``, as the JAX package's operators refuse it."""
 	if device.type != "cuda":
 		raise ValueError(f"{name}: tensors must lie on the CPU (plain version) or on a CUDA device; got {device}")
 	if dtype.is_complex and not complex_ok:
 		raise NotImplementedError(f"{name}: complex operators have no CUDA kernel of this kind (ROADMAP B.7)")
-	if dtype not in (torch.float32, torch.float64, torch.complex64, torch.complex128):
-		raise TypeError(f"{name}: the CUDA kernel takes float32 or float64{' (or complex)' if complex_ok else ''}, got {dtype}")
+	takes = (torch.float32, torch.float64) + ((torch.bfloat16,) if bf16_ok else ()) + ((torch.complex64, torch.complex128) if complex_ok else ())
+	if dtype not in takes:
+		raise TypeError(f"{name}: the CUDA kernel takes {', '.join(str(t).replace('torch.', '') for t in takes)}; got {dtype}")
 	for key, t in tensors.items():
-		want = torch.int64 if key in int_keys else dtype
+		want = torch.int64 if key in int_keys else acc_dtype(dtype) if key in acc_keys else dtype
 		if t.device != device:
 			raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")
 		if t.dtype != want:
 			raise TypeError(f"{name}: {key} has dtype {t.dtype}, expected {want}")
 		if not t.is_contiguous():
 			raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def count_launch(name: str, dtype: torch.dtype, vec: bool) -> None:
+	"""One launch of ``name``'s kernel: in :data:`LAUNCHES`, and in :data:`BF16_LAUNCHES` or
+	:data:`SCALAR_LAUNCHES` where it ran the bfloat16 instantiation or the scalar path."""
+	LAUNCHES[name] += 1
+	SCALAR_LAUNCHES[name] += not vec
+	if dtype == torch.bfloat16:
+		BF16_LAUNCHES[name] += 1
 
 
 def raise_on(lib, err: int, name: str) -> None:

@@ -22,7 +22,7 @@ CUDA tensor it launches the kernel or raises, and counts each launch in
 
 import torch
 
-from ._common import LAUNCHES, LAYOUT_COPIES, SCALAR_LAUNCHES, SUFFIX, acc_dtype, check_cuda, raise_on, reset_launches, stream, vector_ok
+from ._common import LAUNCHES, LAYOUT_COPIES, SUFFIX, acc_dtype, check_cuda, count_launch, raise_on, reset_launches, stream, vector_ok
 
 __all__ = ["LAUNCHES", "LAYOUT_COPIES", "reset_launches", "bsr_spmm", "bsr_spmm_ref", "block_rowids"]
 
@@ -69,8 +69,8 @@ def bsr_spmm(blocks: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor, 
 	``indices (nnzb,)`` int64 block-row pointers and block-column ids, ``V (m, k)``
 	contiguous, whose rows past ``m`` in the last block column count as zero
 	(every block-column id is below ``ceil(m / bn)``), and ``n_out ≤ n_brow·bm``.
-	Any ``bm``, ``bn`` and ``k``; float32, float64, complex64 or complex128 (tiles and
-	``V`` of one dtype).
+	Any ``bm``, ``bn`` and ``k``; float32, float64, bfloat16 (summed in float32, rounded once),
+	complex64 or complex128 (tiles and ``V`` of one dtype).
 	"""
 	if blocks.ndim != 3 or indptr.ndim != 1 or indices.ndim != 1 or V.ndim != 2:
 		raise ValueError("bsr_spmm: expected blocks (nnzb, bm, bn), indptr (n_brow + 1,), indices (nnzb,), V (m, k)")
@@ -81,7 +81,8 @@ def bsr_spmm(blocks: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor, 
 	if V.device.type == "cpu":
 		return bsr_spmm_ref(blocks, indptr, indices, V, n_out)
 	check_cuda(
-		"bsr_spmm", V.dtype, V.device, ("indptr", "indices"), complex_ok=True, blocks=blocks, indptr=indptr, indices=indices, V=V
+		"bsr_spmm", V.dtype, V.device, ("indptr", "indices"), complex_ok=True, bf16_ok=True, blocks=blocks, indptr=indptr,
+		indices=indices, V=V,
 	)
 	from ._build import load_library
 
@@ -95,6 +96,5 @@ def bsr_spmm(blocks: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor, 
 		n_brow, bm, bn, m, k, n_out, int(vec), stream(V.device),
 	)
 	raise_on(lib, err, "bsr_spmm")
-	LAUNCHES["bsr_spmm"] += 1
-	SCALAR_LAUNCHES["bsr_spmm"] += not vec
+	count_launch("bsr_spmm", V.dtype, vec)
 	return out

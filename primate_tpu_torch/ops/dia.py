@@ -37,6 +37,14 @@ kernels of ``primate_tpu/ops/dia_pallas.py``:
   rank's sums, the caller all-reduces them between the passes, and ``lanczos_dia_advance`` (one
   thread a probe) finishes the step from the reduced sums, so every rank advances alike.
 
+bfloat16 (JAX's third operator dtype): the two stencils and pass A read bf16 bands and blocks
+and sum in float32; the stencils round once to bf16 where they write, pass A writes ``w`` and α
+in float32. Pass A takes one switch, ``rounded``: round the stencil sum to the carry's dtype
+before ``− β·q_prev`` (the flat and the row-sharded sweeps, as JAX's ``matmat_t`` returns the
+operator's dtype) or not (``lanczos_block_op(phys=True)``, as ``dia_matmat_t_phys`` returns
+float32). It changes nothing in float32 and float64. The bf16 sweep rounds q every step and
+runs pass A alone: pass B, the advance and the unnormalised carry are float32/float64 only.
+
 All are bound by HBM bytes (a few flops per loaded element); the kernels make
 one pass over the probe block and bounds-check the ragged edges, so neither the
 TPU's 128-lane halo and ``LANE_TILE`` rounding nor its ``nv % 8`` and ``k % 128``
@@ -51,7 +59,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ._common import LAUNCHES, SCALAR_LAUNCHES, SUFFIX, acc_dtype, check_cuda, raise_on, reset_launches, stream, vector_ok
+from ._common import LAUNCHES, SUFFIX, acc_dtype, check_cuda, count_launch, raise_on, reset_launches, stream, vector_ok
 
 __all__ = [
 	"LAUNCHES",
@@ -89,9 +97,8 @@ def dia_stencil_ref(bands: torch.Tensor, offsets: torch.Tensor, V: torch.Tensor)
 	return out.to(V.dtype)
 
 
-def dia_stencil_t_ref(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-	"""Plain version of :func:`dia_stencil_t`: ``out[b, r] = Σ_d bands[d, r]·x[b, r + off_d]``,
-	accumulated in ``promote_types(dtype, float32)`` and returned in ``x.dtype``."""
+def _stencil_t_acc(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+	"""``Σ_d bands[d, r]·x[b, r + off_d]`` in ``promote_types(dtype, float32)``, unrounded."""
 	nv, n = x.shape
 	acc = acc_dtype(x.dtype)
 	out = torch.zeros((nv, n), dtype=acc, device=x.device)
@@ -99,7 +106,13 @@ def dia_stencil_t_ref(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tenso
 		lo, hi = max(0, -off), min(n, n - off)
 		if lo < hi:
 			out[:, lo:hi] += bands[d, lo:hi].to(acc) * x[:, lo + off : hi + off].to(acc)
-	return out.to(x.dtype)
+	return out
+
+
+def dia_stencil_t_ref(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+	"""Plain version of :func:`dia_stencil_t`: ``out[b, r] = Σ_d bands[d, r]·x[b, r + off_d]``,
+	accumulated in ``promote_types(dtype, float32)`` and returned in ``x.dtype``."""
+	return _stencil_t_acc(bands, offsets, x).to(x.dtype)
 
 
 def row_dot(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
@@ -156,6 +169,10 @@ def carry_spec(n: int, max_offset: int, elem_size: int) -> CarrySpec:
 	return CarrySpec(-(-(lo + n + max_offset) // line) * line, lo, n)
 
 
+# Diagonals whose band values a thread of the probe-major stencil holds (``kTChunk``).
+T_CHUNK = 8
+
+
 def _flat(X: torch.Tensor) -> CarrySpec:
 	return CarrySpec(X.shape[-1], 0, X.shape[-1])
 
@@ -166,14 +183,20 @@ def _same(x):
 
 def lanczos_dia_step_ref(
 	bands: torch.Tensor, offsets: torch.Tensor, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor,
-	spec: Optional[CarrySpec] = None, reduce=_same,
+	spec: Optional[CarrySpec] = None, reduce=_same, rounded: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
 	"""Plain version of :func:`lanczos_dia_step`: ``v = A·q_cur − β·q_prev`` (zero outside the
 	own rows of ``spec``'s carry) and ``α = Σ_r v·q_cur`` over the own rows, finished by
-	``reduce``; both in the accumulation dtype (``primate_tpu/lanczos.py:309-315``)."""
+	``reduce``; both in the accumulation dtype (``primate_tpu/lanczos.py:309-315``). ``rounded``:
+	``A·q_cur`` is rounded to ``q_cur``'s dtype first, as JAX's flat step rounds ``matmat_t``'s
+	output (``:309``), or kept in the accumulation dtype, as ``dia_matmat_t_phys`` returns it
+	(a no-op in float32 and float64)."""
 	spec = spec or _flat(q_cur)
 	acc = acc_dtype(q_cur.dtype)
-	v = spec.zero_margins(dia_stencil_t_ref(bands, offsets, q_cur).to(acc) - beta[:, None].to(acc) * q_prev.to(acc))
+	Aq = _stencil_t_acc(bands, offsets, q_cur)
+	if rounded:
+		Aq = Aq.to(q_cur.dtype).to(acc)
+	v = spec.zero_margins(Aq - beta[:, None].to(acc) * q_prev.to(acc))
 	alpha = reduce(torch.sum(spec.rows(v) * spec.rows(q_cur).to(acc), dim=1))
 	return v, alpha
 
@@ -297,42 +320,50 @@ def dia_stencil_t(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -
 	_check_shapes("dia_stencil_t", bands, offsets, x)
 	if x.device.type == "cpu":
 		return dia_stencil_t_ref(bands, offsets, x)
-	check_cuda("dia_stencil_t", x.dtype, x.device, ("offsets",), complex_ok=True, bands=bands, offsets=offsets, x=x)
+	check_cuda(
+		"dia_stencil_t", x.dtype, x.device, ("offsets",), complex_ok=True, bf16_ok=True, bands=bands, offsets=offsets, x=x
+	)
 	from ._build import load_library
 
 	lib = load_library()
 	nv, n = x.shape
 	out = torch.empty_like(x)
-	vec = vector_ok(n, x.element_size(), x, out)
+	# bfloat16 with more diagonals than the kernel's chunk of band slots: the float32 sums of the
+	# chunks before the last go through this scratch, so the output is rounded once.
+	mid = torch.empty((nv, n), dtype=torch.float32, device=x.device) if x.dtype == torch.bfloat16 and bands.shape[0] > T_CHUNK else None
+	vec = vector_ok(n, x.element_size(), x, out, *([mid] if mid is not None else []))
 	fn = getattr(lib, f"dia_stencil_t_{SUFFIX[x.dtype]}")
-	err = fn(bands.data_ptr(), offsets.data_ptr(), bands.shape[0], x.data_ptr(), out.data_ptr(), nv, n, int(vec), stream(x.device))
+	err = fn(
+		bands.data_ptr(), offsets.data_ptr(), bands.shape[0], x.data_ptr(), out.data_ptr(), mid.data_ptr() if mid is not None else None,
+		nv, n, int(vec), stream(x.device),
+	)
 	raise_on(lib, err, "dia_stencil_t")
-	LAUNCHES["dia_stencil_t"] += 1
-	SCALAR_LAUNCHES["dia_stencil_t"] += not vec
+	count_launch("dia_stencil_t", x.dtype, vec)
 	return out
 
 
-def _launch_pass_a(lib, bands, offsets, v_cur, v_prev, scal, ticket, alpha_out, spec=None, sums=None):
-	"""Pass A on the card: returns w, the (nv, grid) α partials, the grid and the vector flag.
-	With ``sums`` (nv,) the last block writes the rank's α sums there and leaves the state alone."""
+def _launch_pass_a(lib, bands, offsets, v_cur, v_prev, scal, ticket, alpha_out, spec=None, sums=None, rounded=True):
+	"""Pass A on the card: returns w, the (nv, grid) α partials (both in the accumulation dtype:
+	float32 for a bfloat16 carry), the grid and the vector flag. With ``sums`` (nv,) the last block
+	writes the rank's α sums there and leaves the state alone."""
 	spec = spec or _flat(v_cur)
 	nv = v_cur.shape[0]
 	gx = lib.lanczos_step_blocks(nv, spec.n, v_cur.element_size())
 	if gx < 1:
 		raise RuntimeError("lanczos_dia_step: could not query the CUDA device for the grid size")
-	w = torch.empty_like(v_cur)
-	partial = torch.empty((nv, gx), dtype=v_cur.dtype, device=v_cur.device)
+	acc = acc_dtype(v_cur.dtype)
+	w = torch.empty(v_cur.shape, dtype=acc, device=v_cur.device)
+	partial = torch.empty((nv, gx), dtype=acc, device=v_cur.device)
 	vec = vector_ok(spec.ld, v_cur.element_size(), bands, v_cur, v_prev, w, lead=spec.lo)
-	fn = lib.lanczos_dia_step_f32 if v_cur.dtype == torch.float32 else lib.lanczos_dia_step_f64
+	fn = getattr(lib, f"lanczos_dia_step_{SUFFIX[v_cur.dtype]}")
 	ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
 	err = fn(
 		bands.data_ptr(), offsets.data_ptr(), bands.shape[0], v_cur.data_ptr(), v_prev.data_ptr(), scal.data_ptr(),
 		w.data_ptr(), partial.data_ptr(), ptr(ticket), ptr(alpha_out), ptr(sums), nv, spec.ld, spec.lo, spec.n, gx,
-		int(vec), stream(v_cur.device),
+		int(rounded), int(vec), stream(v_cur.device),
 	)
 	raise_on(lib, err, "lanczos_dia_step")
-	LAUNCHES["lanczos_dia_step"] += 1
-	SCALAR_LAUNCHES["lanczos_dia_step"] += not vec
+	count_launch("lanczos_dia_step", v_cur.dtype, vec)
 	return w, partial, gx, vec
 
 
@@ -350,8 +381,7 @@ def _launch_pass_b(lib, v_cur, w, state, partial, beta_out, residual_tol, gx, ve
 		float(residual_tol), gx, int(vec), stream(v_cur.device),
 	)
 	raise_on(lib, err, "lanczos_dia_residual")
-	LAUNCHES["lanczos_dia_residual"] += 1
-	SCALAR_LAUNCHES["lanczos_dia_residual"] += not vec
+	count_launch("lanczos_dia_residual", v_cur.dtype, vec)
 
 
 def _launch_advance(lib, sums, state, alpha_out, beta_out, residual_tol) -> None:
@@ -367,29 +397,31 @@ def _launch_advance(lib, sums, state, alpha_out, beta_out, residual_tol) -> None
 
 def lanczos_dia_step(
 	bands: torch.Tensor, offsets: torch.Tensor, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor,
-	spec: Optional[CarrySpec] = None, reduce=None,
+	spec: Optional[CarrySpec] = None, reduce=None, rounded: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
 	"""Pass A of the Lanczos step alone, for a sweep that re-orthogonalises
-	(``orth > 0``): ``v = A·q_cur − β[:, None]·q_prev`` (zero outside the own rows) and
-	``α = Σ_r v·q_cur`` over the own rows per probe (the kernel's partials summed by
-	``torch.sum``, then by ``reduce`` over a row-sharded carry's ranks). ``q_cur``/``q_prev``
-	``(nv, ld)`` carries of layout ``spec`` (default flat ``(nv, n)``), ``bands (n_d, ld)`` in
-	the carry's columns, ``β (nv,)``."""
+	(``orth > 0``) or stores bfloat16: ``v = A·q_cur − β[:, None]·q_prev`` (zero outside the own
+	rows) and ``α = Σ_r v·q_cur`` over the own rows per probe (the kernel's partials summed by
+	``torch.sum``, then by ``reduce`` over a row-sharded carry's ranks), both in the accumulation
+	dtype. ``q_cur``/``q_prev`` ``(nv, ld)`` carries of layout ``spec`` (default flat ``(nv, n)``),
+	``bands (n_d, ld)`` in the carry's columns, ``β (nv,)`` in the accumulation dtype. ``rounded``:
+	round ``A·q_cur`` to the carry's dtype before the β-axpy (see :func:`lanczos_dia_step_ref`)."""
 	_check_shapes("lanczos_dia_step", bands, offsets, q_cur)
 	if q_prev.shape != q_cur.shape or beta.shape != (q_cur.shape[0],):
 		raise ValueError("lanczos_dia_step: q_prev must match q_cur (nv, n) and beta be (nv,)")
 	spec = _check_spec("lanczos_dia_step", spec, q_cur)
 	reduce = reduce or _same
 	if q_cur.device.type == "cpu":
-		return lanczos_dia_step_ref(bands, offsets, q_cur, q_prev, beta, spec, reduce)
+		return lanczos_dia_step_ref(bands, offsets, q_cur, q_prev, beta, spec, reduce, rounded)
 	check_cuda(
-		"lanczos_dia_step", q_cur.dtype, q_cur.device, ("offsets",), bands=bands, offsets=offsets, q_cur=q_cur, q_prev=q_prev, beta=beta
+		"lanczos_dia_step", q_cur.dtype, q_cur.device, ("offsets",), bf16_ok=True, acc_keys=("beta",), bands=bands,
+		offsets=offsets, q_cur=q_cur, q_prev=q_prev, beta=beta,
 	)
 	from ._build import load_library
 
 	ones, zeros = torch.ones_like(beta), torch.zeros_like(beta)
 	scal = torch.stack([ones, ones, beta, zeros, zeros])  # rows DIV_CUR … ALPHA: q given normalised
-	v, partial, _, _ = _launch_pass_a(load_library(), bands, offsets, q_cur, q_prev, scal, None, None, spec)
+	v, partial, _, _ = _launch_pass_a(load_library(), bands, offsets, q_cur, q_prev, scal, None, None, spec, rounded=rounded)
 	return v, reduce(torch.sum(partial, dim=1))
 
 
@@ -452,7 +484,7 @@ def dia_stencil(bands: torch.Tensor, offsets: torch.Tensor, V: torch.Tensor) -> 
 		raise ValueError(f"dia_stencil: bands {tuple(bands.shape)} do not match offsets {tuple(offsets.shape)} and n={V.shape[0]}")
 	if V.device.type == "cpu":
 		return dia_stencil_ref(bands, offsets, V)
-	check_cuda("dia_stencil", V.dtype, V.device, ("offsets",), complex_ok=True, bands=bands, offsets=offsets, V=V)
+	check_cuda("dia_stencil", V.dtype, V.device, ("offsets",), complex_ok=True, bf16_ok=True, bands=bands, offsets=offsets, V=V)
 	from ._build import load_library
 
 	lib = load_library()
@@ -462,6 +494,5 @@ def dia_stencil(bands: torch.Tensor, offsets: torch.Tensor, V: torch.Tensor) -> 
 	fn = getattr(lib, f"dia_stencil_{SUFFIX[V.dtype]}")
 	err = fn(bands.data_ptr(), offsets.data_ptr(), bands.shape[0], V.data_ptr(), out.data_ptr(), n, k, int(vec), stream(V.device))
 	raise_on(lib, err, "dia_stencil")
-	LAUNCHES["dia_stencil"] += 1
-	SCALAR_LAUNCHES["dia_stencil"] += not vec
+	count_launch("dia_stencil", V.dtype, vec)
 	return out

@@ -25,7 +25,9 @@ on one NCCL rank through ``shard_operator(DIAOperator(L))`` (the sweep on the ra
 kernels on the padded carry) and on the unsharded operator, and the global face's probe-major apply
 of each, then
 times by the host clock (synced, no trace) ``linalg.tall_qr`` of Hutch++'s (10M, 30) sketch block
-and its parts (the Gram product, the Cholesky, the triangular solve). Prints one JSON line per call: the
+and its parts (the Gram product, the Cholesky, the triangular solve). ``--bf16`` traces phase 24's 10M
+full-bf16 flagship alone (a bf16 ``DIAOperator`` and ``MatrixFunction(..., dtype=bfloat16)``: pass A's
+bf16 kernel and the sweep's PyTorch tail) beside the float32 flagship. Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
 count); writes them all to ``--out``. Needs a CUDA device; without one it exits
@@ -71,6 +73,7 @@ def main() -> None:
 	ap.add_argument("--recipes", action="store_true", help="trace the phase-19 recipes only")
 	ap.add_argument("--grad", action="store_true", help="trace phase 20's differentiated f(A)V only")
 	ap.add_argument("--sharded", action="store_true", help="trace phase 23's sharded flagship only; time tall_qr at 10M")
+	ap.add_argument("--bf16", action="store_true", help="trace phase 24's 10M full-bf16 flagship (and the float32 one) only")
 	args = ap.parse_args()
 	import torch
 
@@ -80,8 +83,16 @@ def main() -> None:
 	import primate_tpu_torch as ptt
 
 	dev = torch.device("cuda", 0)
-	rows = [] if (args.recipes or args.grad or args.sharded) else other_calls(torch, ptt, cs, dev)
-	if args.sharded:
+	rows = [] if (args.recipes or args.grad or args.sharded or args.bf16) else other_calls(torch, ptt, cs, dev)
+	if args.bf16:
+		calls = {}
+		for dt in (torch.bfloat16, torch.float32):
+			op = ptt.DIAOperator.from_scipy(cs.build_laplacian(cs.N_LARGE), dtype=dt, device=dev)
+			M = ptt.MatrixFunction(op, fun="log", deg=cs.DEG, orth=cs.ORTH, reorth_passes=1, dtype=dt)
+			calls[f"flagship_{cs.N_LARGE}_{str(dt).removeprefix('torch.')}"] = functools.partial(
+				ptt.hutch, M, batch=cs.PROBES, converge="count", count=cs.PROBES, seed=42
+			)
+	elif args.sharded:
 		calls = sharded_calls(torch, ptt, cs, dev)
 	elif args.grad:
 		mesh = ptt.DIAOperator.from_scipy(cs.mesh_laplacian(cs.MESH_SIDE), dtype=torch.float32, device=dev)

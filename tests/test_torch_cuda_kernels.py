@@ -5,6 +5,8 @@ card's machine has none). Run on the card with
 ``python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda_kernels.py``.
 """
 
+import math
+
 import numpy as np
 import pytest
 import scipy.sparse as sps
@@ -267,8 +269,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 	bands, offs, x, q_cur, q_prev, beta = _inputs(cuda, 4, 100, (-1, 0, 1), torch.float32)
 	with pytest.raises(TypeError):
 		dia.dia_stencil_t(bands, offs, x.double())
-	with pytest.raises(TypeError):
-		dia.dia_stencil_t(bands.bfloat16(), offs, x.bfloat16())
+	with pytest.raises(TypeError):  # float16: no kernel takes it (bfloat16 does)
+		dia.dia_stencil_t(bands.half(), offs, x.half())
 	c64 = torch.complex64
 	with pytest.raises(NotImplementedError):  # the step kernels are real only (the stencils take complex)
 		dia.lanczos_dia_step(bands.to(c64), offs, q_cur.to(c64), q_prev.to(c64), beta)
@@ -413,7 +415,7 @@ def test_sparse_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 	blocks, indptr, indices, n = _bsr_arrays(cuda, torch.float32, 8, 8)
 	V = torch.randn((n, 4), device=cuda)
 	with pytest.raises(TypeError):
-		bsr.bsr_spmm(blocks.bfloat16(), indptr, indices, V.bfloat16(), n)
+		bsr.bsr_spmm(blocks.half(), indptr, indices, V.half(), n)
 	with pytest.raises(TypeError):
 		bsr.bsr_spmm(blocks, indptr, indices, V.double(), n)
 	with pytest.raises(TypeError):  # complex tiles with a real block: the kernel takes one dtype
@@ -425,7 +427,7 @@ def test_sparse_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 	bands = torch.ones((3, 100), device=cuda)
 	offs = torch.tensor([-1, 0, 1], device=cuda)
 	with pytest.raises(TypeError):
-		dia.dia_stencil(bands.bfloat16(), offs, torch.ones((100, 3), device=cuda, dtype=torch.bfloat16))
+		dia.dia_stencil(bands.half(), offs, torch.ones((100, 3), device=cuda, dtype=torch.float16))
 
 
 def test_xtrace_stays_exact_with_tf32_switched_on(cuda):
@@ -843,3 +845,168 @@ def test_eigensolvers_and_bidiag_launch_the_kernels(cuda):
 	out = lanczos_bidiag(X, deg=20, seed=1)
 	assert torch.all(torch.isfinite(out.alphas))
 	assert GramOperator(X).matmat_t(torch.ones((2, 700), dtype=torch.float64, device=cuda)).shape == (2, 700)
+
+
+# --- bfloat16: the four kernels at bf16 storage with float32 sums --------------------------------
+#
+# A bf16 output is held within one bf16 ulp of its largest entry (2^(⌊log2 max⌋ − 7)): the kernel and
+# the plain version sum the same float32 products in other orders, and a sum within a float32 ulp of a
+# bf16 rounding boundary may round the other way. Pass A's float32 w, unrounded, within 1e-5 of its
+# largest entry; rounded, see _assert_rounded_pass_a. α within 1e-4 relative.
+BF16 = torch.bfloat16
+
+
+def _ulp_of_max(want) -> float:
+	return 2.0 ** (math.floor(math.log2(float(want.float().abs().max()))) - 7)
+
+
+def _assert_rounded_pass_a(v, bands, offs, q_cur, q_prev, beta):
+	"""Rounded pass A against its plain version: every entry within 1e-5 of the largest, except flips (a
+	stencil sum rounded to its other bf16 neighbour, one bf16 ulp of that sum away), at most 1e-4 of the
+	entries; and v nearer the rounded plain version than the unrounded one, which a kernel that ignores
+	the switch is not."""
+	v_r, _ = dia.lanczos_dia_step_ref(bands, offs, q_cur, q_prev, beta)
+	v_u, _ = dia.lanczos_dia_step_ref(bands, offs, q_cur, q_prev, beta, rounded=False)
+	s = dia._stencil_t_acc(bands, offs, q_cur)
+	d, tol = (v - v_r).abs(), 1e-5 * float(v_r.abs().max())
+	flip = (d > tol) & (d <= torch.exp2(torch.floor(torch.log2(s.abs())) - 7) + tol)
+	assert bool(torch.all((d <= tol) | flip)) and int(flip.sum()) <= 1e-4 * v.numel()
+	assert float(d.double().mean()) < float((v - v_u).abs().double().mean())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_kernels_match_plain_versions(cuda, shape):
+	"""The probe-major stencil and pass A (rounded and not) in bf16 at the float32 shapes: more
+	diagonals than one chunk (the float32 scratch), offsets of whole vectors and not, n below the
+	offsets, and a misaligned block (the scalar path)."""
+	bands, offs, x, q_cur, q_prev, beta = _inputs(cuda, *shape[:3], torch.float32, *shape[3:])
+	bands, q_cur, q_prev = bands.to(BF16), q_cur.to(BF16), q_prev.to(BF16)
+	lead = shape[3] if len(shape) > 3 else 0
+	x = torch.empty(lead + x.numel(), device=cuda, dtype=BF16)[lead:].view(x.shape).copy_(x)
+	before = dict(dia.LAUNCHES)
+	got, want = dia.dia_stencil_t(bands, offs, x), dia.dia_stencil_t_ref(bands, offs, x)
+	torch.cuda.synchronize()
+	assert got.dtype == BF16 and dia.LAUNCHES["dia_stencil_t"] == before["dia_stencil_t"] + 1
+	assert float((got.float() - want.float()).abs().max()) <= _ulp_of_max(want)
+	for rounded in (True, False):
+		v, alpha = dia.lanczos_dia_step(bands, offs, q_cur, q_prev, beta, rounded=rounded)
+		v_ref, alpha_ref = dia.lanczos_dia_step_ref(bands, offs, q_cur, q_prev, beta, rounded=rounded)
+		torch.cuda.synchronize()
+		assert v.dtype == torch.float32 and alpha.dtype == torch.float32
+		if rounded:
+			_assert_rounded_pass_a(v, bands, offs, q_cur, q_prev, beta)
+		else:
+			assert float((v - v_ref).abs().max()) <= 1e-5 * float(v_ref.abs().max())
+		assert float(((alpha - alpha_ref).abs() / alpha_ref.abs()).max()) <= 1e-4
+	assert dia.LAUNCHES["lanczos_dia_step"] == before["lanczos_dia_step"] + 2
+
+
+@pytest.mark.parametrize("shape", PADDED_SHAPES)
+def test_bf16_pass_a_on_a_padded_carry(cuda, shape):
+	"""Pass A unrounded on the bf16 padded carry (lo and ld whole 128-byte lines, 64 bf16; w float32
+	of the same ld) against its plain version, on the vector path, margins of w exactly zero; with an
+	identity ``reduce`` (the sharded operator's call) the same bit for bit."""
+	nv, n, offsets = shape
+	g = torch.Generator(device=cuda)
+	g.manual_seed(13)
+	spec = dia.carry_spec(n, max(abs(o) for o in offsets), 2)
+	assert spec.lo % 64 == 0 and spec.ld % 64 == 0
+	bands = spec.pad((torch.rand((len(offsets), n), generator=g, device=cuda) + 0.5).to(BF16))
+	offs = torch.tensor(offsets, dtype=torch.int64, device=cuda)
+	unit = lambda X: X / torch.linalg.vector_norm(X, dim=1, keepdim=True)  # noqa: E731
+	q, qp = (spec.pad(unit(torch.randn((nv, n), generator=g, device=cuda)).to(BF16)) for _ in range(2))
+	beta = torch.rand(nv, generator=g, device=cuda) + 0.5
+	scalar = dict(_common.SCALAR_LAUNCHES)
+	v, alpha = dia.lanczos_dia_step(bands, offs, q, qp, beta, spec, rounded=False)
+	v_ref, alpha_ref = dia.lanczos_dia_step_ref(bands, offs, q, qp, beta, spec, rounded=False)
+	torch.cuda.synchronize()
+	assert _common.SCALAR_LAUNCHES == scalar
+	assert not v[:, : spec.lo].any() and not v[:, spec.lo + n :].any()
+	assert float((v - v_ref).abs().max()) <= 1e-5 * float(v_ref.abs().max())
+	assert float(((alpha - alpha_ref).abs() / alpha_ref.abs()).max()) <= 1e-4
+	v2, alpha2 = dia.lanczos_dia_step(bands, offs, q, qp, beta, spec, lambda t: t, rounded=False)
+	assert torch.equal(v2, v) and torch.equal(alpha2, alpha)
+
+
+@pytest.mark.parametrize("k", [1, 64, 65, 240])
+@pytest.mark.parametrize("offsets", DIA_OFFSETS)
+def test_bf16_dia_stencil_matches_plain_version(cuda, offsets, k):
+	n = 12_000
+	g = torch.Generator(device=cuda)
+	g.manual_seed(k)
+	bands = (torch.rand((len(offsets), n), generator=g, device=cuda) + 0.5).to(BF16)
+	offs = torch.tensor(offsets, dtype=torch.int64, device=cuda)
+	V = torch.randn((n, k), generator=g, device=cuda).to(BF16)
+	before = dict(dia.LAUNCHES)
+	got, want = dia.dia_stencil(bands, offs, V), dia.dia_stencil_ref(bands, offs, V)
+	torch.cuda.synchronize()
+	assert got.dtype == BF16 and dia.LAUNCHES["dia_stencil"] == before["dia_stencil"] + 1
+	assert float((got.float() - want.float()).abs().max()) <= _ulp_of_max(want)
+
+
+@pytest.mark.parametrize("k", [1, 5, 64, 240])
+@pytest.mark.parametrize("tile", [(8, 16), (4, 4), (8, 8)])
+def test_bf16_bsr_spmm_matches_plain_version(cuda, tile, k):
+	blocks, indptr, indices, n = _bsr_arrays(cuda, BF16, *tile)
+	g = torch.Generator(device=cuda)
+	g.manual_seed(k)
+	V = torch.randn((n, k), generator=g, device=cuda).to(BF16)
+	before = dia.LAUNCHES["bsr_spmm"]
+	got, want = bsr.bsr_spmm(blocks, indptr, indices, V, n), bsr.bsr_spmm_ref(blocks, indptr, indices, V, n)
+	torch.cuda.synchronize()
+	assert got.dtype == BF16 and dia.LAUNCHES["bsr_spmm"] == before + 1
+	assert float((got.float() - want.float()).abs().max()) <= _ulp_of_max(want)
+	assert float(got[3 * tile[0] : 4 * tile[0]].float().abs().max()) == 0.0  # the empty block row
+
+
+def test_bf16_scalar_paths_for_a_misaligned_block(cuda):
+	blocks, indptr, indices, n = _bsr_arrays(cuda, BF16, 8, 8)
+	V = torch.randn(n * 64 + 1, device=cuda).to(BF16)[1:].view(n, 64)
+	assert V.data_ptr() % 16 != 0
+	bands = (torch.rand((3, n), device=cuda) + 0.5).to(BF16)
+	offs = torch.tensor([-1, 0, 1], device=cuda)
+	before = dict(_common.SCALAR_LAUNCHES)
+	got_b, got_d = bsr.bsr_spmm(blocks, indptr, indices, V, n), dia.dia_stencil(bands, offs, V)
+	torch.cuda.synchronize()
+	assert _common.SCALAR_LAUNCHES["bsr_spmm"] == before["bsr_spmm"] + 1
+	assert _common.SCALAR_LAUNCHES["dia_stencil"] == before["dia_stencil"] + 1
+	for got, want in ((got_b, bsr.bsr_spmm_ref(blocks, indptr, indices, V, n)), (got_d, dia.dia_stencil_ref(bands, offs, V))):
+		assert float((got.float() - want.float()).abs().max()) <= _ulp_of_max(want)
+
+
+def test_bf16_stencil_gradient_matches_autograd_of_the_plain_version(cuda):
+	"""The bf16 ``dia_stencil_t`` Function at the flagship's pattern (64 × 500k, 3 diagonals): its
+	backward's adjoint apply is the bf16 kernel on the adjoint bands (one launch), its band gradient
+	a float32 reduction rounded once. Autograd through the plain version adds each diagonal's bf16
+	gradient in bf16, so the two are held within n_d bf16 ulps of the largest entry."""
+	n, nv, offsets = 500_000, 64, (-1, 0, 1)
+	g = torch.Generator(device=cuda)
+	g.manual_seed(21)
+	bands = (torch.rand((3, n), generator=g, device=cuda) + 0.5).to(BF16).requires_grad_()
+	x = torch.randn((nv, n), generator=g, device=cuda).to(BF16).requires_grad_()
+	G = torch.randn((nv, n), generator=g, device=cuda).to(BF16)
+	offs = torch.tensor(offsets, device=cuda)
+	before = dia.LAUNCHES["dia_stencil_t"]
+	got = torch.autograd.grad(ptt_autograd.dia_stencil_t_ad(bands, x, offs, offsets), (bands, x), G)
+	assert dia.LAUNCHES["dia_stencil_t"] == before + 2  # forward and the adjoint apply
+	want = torch.autograd.grad(dia.dia_stencil_t_ref(bands, offs, x), (bands, x), G)
+	torch.cuda.synchronize()
+	for gv, wv in zip(got, want):
+		assert gv.dtype == BF16
+		assert float((gv.float() - wv.float()).abs().max()) <= len(offsets) * _ulp_of_max(wv)
+
+
+def test_bf16_sweeps_on_the_card_match_the_cpu_port(cuda):
+	"""``lanczos_block_op`` on a bf16 DIA operator, flat and ``phys=True``, on the card (pass A's
+	bf16 kernel, rounded and not) against the CPU port on the same bf16 probes: α and β within 1e-3
+	relative (q is rounded to bf16 every step)."""
+	n, nv = 20_001, 8
+	L = sps.diags([-np.ones(n - 1), 3.0 * np.ones(n), -np.ones(n - 1)], [-1, 0, 1]).tocsr()
+	V0 = torch.from_numpy(np.random.default_rng(6).choice([-1.0, 1.0], size=(n, nv))).to(BF16)
+	for phys in (False, True):
+		before = dia.LAUNCHES["lanczos_dia_step"]
+		got = lanczos_block_op(DIAOperator.from_scipy(L, dtype=BF16, device=cuda), V0.to(cuda), deg=12, ncv=2, orth=0, return_basis=False, phys=phys)
+		assert dia.LAUNCHES["lanczos_dia_step"] == before + 12
+		want = lanczos_block_op(DIAOperator.from_scipy(L, dtype=BF16, device="cpu"), V0, deg=12, ncv=2, orth=0, return_basis=False, phys=phys)
+		for gv, wv in ((got.alphas, want.alphas), (got.betas, want.betas)):
+			assert float((gv.cpu() - wv).abs().max() / wv.abs().max()) <= 1e-3
