@@ -132,9 +132,9 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    its vector path, and ``dia_stencil`` once each, equal to the unsharded applies); phase 7's
    sketches through ``ShardedBSROperator`` (within phase 7's limits, ``bsr_spmm`` once an apply) and
    phase 9's logdet through ``ShardedCSROperator`` (within its bounds). (b) Two ranks over gloo, both
-   on cuda:0, as subprocesses of this script (``--sharded-rank``; the collectives staged through host
-   memory): the flagship at n = 500,000 through the halo DIA operator and an allgather BSR one, each
-   on (op, probe) meshes (2, 1) and (1, 2): both ranks' estimates equal bit for bit and within 5%,
+   on cuda:0, as subprocesses of this script (``--sharded-rank``, meeting through a file store in a
+   temporary directory; the collectives staged through host memory): the flagship at n = 500,000
+   through the halo DIA operator and an allgather BSR one, each on (op, probe) meshes (2, 1) and (1, 2): both ranks' estimates equal bit for bit and within 5%,
    each rank's kernels launched (the DIA sweep: the step kernels, no ``dia_stencil_t``).
 24. runs bfloat16, JAX's third operator dtype: each of the four kernels' bf16 instantiations
    (``dia_stencil_t``, pass A, ``dia_stencil``, ``bsr_spmm``) against its bf16 plain version at the
@@ -147,7 +147,13 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    of the exact logdet, walls and peaks (the 10M bf16 peak below the float32 one); the plain trace on
    the bf16 DIA operator; a node-major apply of the bf16 FEM operator; the bf16 BSR trace on phase 7's
    cell within 1e-2 of the float32 one on the same probes; the sharded bf16 flagship on one NCCL rank at
-   10M (within 1e-3 of the unsharded bf16 one) and on two gloo ranks at 500k (equal bit for bit).
+   10M (within 1e-3 of the unsharded bf16 one) and on two gloo ranks at 500k (equal bit for bit). The
+   round pair that finishes a bf16 step (``lanczos_dia_round``: B1 the norm, B2 the rounded q_next) is
+   held to its plain version, the PyTorch tail it replaces, on pass A's output at 64 × 500k and 64 × 10M,
+   flat and padded (α outputs and done flags equal, β' within 1e-6, q_next equal but for one-ulp flips
+   on at most 1e-4 of its entries), B1, B2 and the pair timed beside their bounds and the tail; every
+   full-bf16 sweep of the phase runs pass A and the pair once a step (the sharded ones the advance too)
+   and pass B never; the 10M and 500k wall and peak ratios against float32 go out on lines of their own.
 
 Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
 (``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
@@ -178,6 +184,9 @@ keys (the advance kernel's own numbers are its 500k ones, and its launches those
 sharded flagship, the one path that runs it); the four kernels of phase 24 their bf16 numbers under
 ``bf16_`` keys (pass A's 64 × 10M ones under ``bf16_10M_``), and every kernel its bf16 launches on
 phase 24's calls (``bf16_launches``; 0 for pass B and the advance, which have no bf16 instantiation);
+the round pair, bfloat16 only, takes its plain keys and its launches from phase 24 (64 × 500k, flat;
+the 500k full-bf16 flagship), with B1's and B2's own times (``b1_ms``, ``b2_ms``) and the 10M and padded
+numbers under ``bf16_10M_``, ``bf16_padded_500k_`` and ``bf16_padded_10M_``;
 the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing anything.
 """
@@ -193,14 +202,19 @@ import numpy as np
 
 DEG, PROBES, ORTH = 20, 64, 0
 N_FLAGSHIP, N_LARGE = 500_000, 10_000_000
-KERNELS = ("dia_stencil_t", "lanczos_dia_step", "lanczos_dia_residual", "lanczos_dia_advance", "bsr_spmm", "dia_stencil")
+KERNELS = (
+	"dia_stencil_t", "lanczos_dia_step", "lanczos_dia_residual", "lanczos_dia_advance", "lanczos_dia_round", "bsr_spmm", "dia_stencil",
+)
 # Kernels that only a row-sharded sweep launches (phase 23): the phases of unsharded calls launch them no time.
 SHARDED_ONLY = ("lanczos_dia_advance",)
+# Kernels that only a bfloat16 sweep launches (phase 24): the float32 phases launch them no time.
+BF16_ONLY = ("lanczos_dia_round",)
 SOURCE = {
 	"dia_stencil_t": "primate_tpu_torch/csrc/dia_stencil.cu",
 	"lanczos_dia_step": "primate_tpu_torch/csrc/dia_stencil.cu",
 	"lanczos_dia_residual": "primate_tpu_torch/csrc/dia_stencil.cu",
 	"lanczos_dia_advance": "primate_tpu_torch/csrc/dia_stencil.cu",
+	"lanczos_dia_round": "primate_tpu_torch/csrc/dia_stencil.cu",
 	"bsr_spmm": "primate_tpu_torch/csrc/bsr_spmm.cu",
 	"dia_stencil": "primate_tpu_torch/csrc/dia_stencil.cu",
 }
@@ -212,6 +226,8 @@ REPLACES = {
 	"lanczos_dia_residual": "primate_tpu/ops/dia_pallas.py:273",
 	# The finish of a row-sharded step (the sweep on dia_matmat_t_phys's halo-padded carry).
 	"lanczos_dia_advance": "primate_tpu/ops/dia_pallas.py:273",
+	# The rest of a bfloat16 step after pass A (the round pair), in place of pass B.
+	"lanczos_dia_round": "primate_tpu/ops/dia_pallas.py:273",
 	"bsr_spmm": "primate_tpu/ops/spmm_pallas.py:96",  # bsr_matmat_pallas's pallas_call
 	"dia_stencil": "primate_tpu/ops/dia_pallas.py:93",  # dia_matmat_pallas's pallas_call
 }
@@ -2282,7 +2298,7 @@ def recipes_phase(torch, ptt, dev, X, fro2: float) -> dict:
 
 	emit({"phase": "recipes", "call": "launches", "launches": total})
 	for k in KERNELS:
-		if k not in SHARDED_ONLY and total.get(k, 0) < 1:
+		if k not in SHARDED_ONLY + BF16_ONLY and total.get(k, 0) < 1:
 			raise AssertionError(f"{k} launched no time in phase 19: {total}")
 	return total
 
@@ -2757,21 +2773,36 @@ def sharded_one_rank(torch, ptt, dev) -> dict:
 	return total
 
 
-def sharded_rank(rank: int, world: int, port: int, device: str = "cuda", dtype: str = "float32") -> None:
-	"""Phase 23 (b), one rank: over gloo, on cuda:0 (the collectives staged through host memory). With
+def sharded_rank(rank: int, world: int, store: str, device: str = "cuda", dtype: str = "float32") -> None:
+	"""Phase 23 (b), one rank: over gloo, on cuda:0 (the collectives staged through host memory), meeting
+	the other ranks through the file ``store`` (``file://`` rendezvous: no port to probe). With
 	``dtype="bfloat16"``, phase 24 (e): the full-bf16 flagship through the halo DIA operator on the
-	(world, 1) mesh alone."""
+	(world, 1) mesh alone. The operators and meshes, and so their process groups, are freed before the
+	ranks meet at a barrier and destroy the default group: left to the interpreter's exit, a gloo group
+	freed there aborted the process now and then ("terminate called without an active exception")."""
+	import gc
+
 	import torch
 
-	import primate_tpu_torch as ptt
-	from primate_tpu_torch.ops import _common
-	from primate_tpu_torch.parallel import initialize_distributed, make_mesh, shard_operator
+	from primate_tpu_torch.parallel import initialize_distributed
 
 	dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
 	if dev.type == "cuda":
 		torch.cuda.set_device(dev)
-	dt = getattr(torch, dtype)
-	initialize_distributed("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+	initialize_distributed("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
+	_sharded_rank_calls(torch, rank, world, dev, getattr(torch, dtype))
+	gc.collect()
+	torch.distributed.barrier()
+	torch.distributed.destroy_process_group()
+
+
+def _sharded_rank_calls(torch, rank: int, world: int, dev, dt) -> None:
+	"""The calls of :func:`sharded_rank`; every operator and mesh they make dies with this frame."""
+	import primate_tpu_torch as ptt
+	from primate_tpu_torch.ops import _common
+	from primate_tpu_torch.parallel import make_mesh, shard_operator
+
+	dtype = str(dt).removeprefix("torch.")
 	L = build_laplacian(SHARD_N)
 	for shape in ((world, 1), (1, world)) if dt == torch.float32 else ((world, 1),):
 		mesh = make_mesh(shape, ("op", "probe"), device_type=dev.type)
@@ -2790,29 +2821,39 @@ def sharded_rank(rank: int, world: int, port: int, device: str = "cuda", dtype: 
 			emit({"phase": "sharded_rank", "rank": rank, "world": world, "mesh": list(shape), "comm": comm, "kind": type(op).__name__,
 				"dtype": dtype, "estimate": est, "estimate_hex": float(est).hex(), "wall_s": time.perf_counter() - t0,
 				"launches": dict(_common.LAUNCHES), "bf16_launches": dict(_common.BF16_LAUNCHES)})
-	torch.distributed.destroy_process_group()
+
+
+def _run_ranks(world: int, *extra: str) -> list:
+	"""``world`` ranks of :func:`sharded_rank` as subprocesses of this script, meeting through a file store
+	in a fresh temporary directory; each rank's JSON lines. Raises if a rank fails."""
+	import tempfile
+
+	with tempfile.TemporaryDirectory() as tmp:
+		store = f"{tmp}/store"
+		procs = [
+			subprocess.Popen([sys.executable, __file__, "--sharded-rank", str(r), str(world), store, *extra], stdout=subprocess.PIPE,
+				stderr=subprocess.PIPE, text=True)
+			for r in range(world)
+		]
+		outs = []
+		try:
+			for p in procs:
+				out, err = p.communicate(timeout=SHARD_TIMEOUT_S)
+				if p.returncode != 0:
+					raise AssertionError(f"a sharded rank failed ({p.returncode}):\n{out[-2000:]}\n{err[-4000:]}")
+				outs.append([json.loads(line) for line in out.splitlines() if line.startswith("{")])
+		finally:
+			for p in procs:
+				if p.poll() is None:
+					p.kill()
+					p.wait()
+	return outs
 
 
 def sharded_two_ranks(torch) -> dict:
 	"""Phase 23 (b): two gloo ranks on the one card, as subprocesses of this script. Both must print the
 	same estimate bit for bit, within 5% of the exact logdet, and each its kernels' launches."""
-	port = _free_port()
-	procs = [
-		subprocess.Popen([sys.executable, __file__, "--sharded-rank", str(r), "2", str(port)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-		for r in range(2)
-	]
-	outs = []
-	try:
-		for p in procs:
-			out, err = p.communicate(timeout=SHARD_TIMEOUT_S)
-			if p.returncode != 0:
-				raise AssertionError(f"a sharded rank failed ({p.returncode}):\n{out[-2000:]}\n{err[-4000:]}")
-			outs.append([json.loads(line) for line in out.splitlines() if line.startswith("{")])
-	finally:
-		for p in procs:
-			if p.poll() is None:
-				p.kill()
-				p.wait()
+	outs = _run_ranks(2)
 	exact = exact_logdet(SHARD_N)
 	total = {}
 	for r0, r1 in zip(*outs):
@@ -2841,7 +2882,7 @@ def sharded_two_ranks(torch) -> dict:
 # the plain trace on the bf16 DIA operator; a node-major apply of the bf16 FEM operator; the bf16 BSR
 # trace on phase 7's cell against the float32 one on the same probes; the sharded bf16 flagship on one
 # NCCL rank at 10M and on two gloo ranks at SHARD_N.
-BF16_KERNELS = ("dia_stencil_t", "lanczos_dia_step", "dia_stencil", "bsr_spmm")
+BF16_KERNELS = ("dia_stencil_t", "lanczos_dia_step", "lanczos_dia_round", "dia_stencil", "bsr_spmm")
 BF16_W_RTOL = 1e-5  # pass A's float32 w (unrounded) and α, relative to their largest entry
 BF16_SHARD_TOL = 1e-3  # the sharded bf16 estimate against the unsharded one on the same probes
 BF16_BSR_TOL = 1e-2  # the bf16 BSR trace against the float32 one on the same probes
@@ -2898,6 +2939,69 @@ def rounded_pass_a_check(torch, dia, w, alpha, bands, offsets, q, qp, beta) -> d
 	ok = stray == 0 and flips <= BF16_FLIP_SHARE * w.numel() and err_rounded < err_unrounded and err_a <= BF16_W_RTOL
 	return {"ok": ok, "tol": tol, "max_abs_err_unflipped": err_unflipped, "rounding_flips": flips, "stray_entries": stray,
 		"mean_abs_err_vs_rounded": err_rounded, "mean_abs_err_vs_unrounded": err_unrounded, "alpha_rel_err": err_a}
+
+
+def check_round_pair(torch, dia, lib, w, q, alpha, beta, spec, label: str, reps: int = 10) -> dict:
+	"""Phase 24 (a): the round pair (``lanczos_dia_round``: B1, the norm and the step's scalars; B2, the
+	rounded ``q_next``) against its plain version, the PyTorch tail it replaces, on pass A's plain
+	output ``w``/α at a flagship shape: the α outputs and the done flags equal, β' within 1e-6 relative,
+	``q_next`` equal but for flips of one bf16 ulp on at most BF16_FLIP_SHARE of its entries, its margins
+	zero. B1, B2 and the pair timed beside their bounds (6, 8 and 14 bytes an element), the pair
+	beside the tail (plain, kernel, kernel, plain). Returns the numbers for the ``kernels`` line."""
+	from primate_tpu_torch.ops import _common
+
+	nv, n, dev = q.shape[0], spec.n, q.device
+	tol = float(np.sqrt(n) * 1e-8)
+
+	def state():
+		st = dia.lanczos_state(nv, torch.float32, dev)
+		st.scal[dia.ALPHA], st.scal[dia.BETA] = alpha, beta
+		return st
+
+	outs = []
+	for fn in (dia.lanczos_dia_round, dia.lanczos_dia_round_ref):
+		st, ab = state(), torch.empty((2, nv), device=dev)
+		outs.append((fn(w.clone(), q, st, ab[0], ab[1], tol, spec), ab, st.scal))
+	torch.cuda.synchronize()
+	(q_k, ab_k, s_k), (q_r, ab_r, s_r) = outs
+	beta_err = float(((ab_k[1] - ab_r[1]).abs() / ab_r[1].abs()).max())
+	d = (q_k.float() - q_r.float()).abs()
+	ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(q_k.float().abs(), q_r.float().abs()))) - 7)
+	flips, stray, err = int((d > 0).sum()), int((d > ulp).sum()), float(d.max())
+	del d, ulp, outs, q_r
+	margins = not (q_k[:, : spec.lo].any() or q_k[:, spec.lo + n :].any())
+	same = torch.equal(ab_k[0], ab_r[0]) and torch.equal(s_k[dia.DONE], s_r[dia.DONE])
+
+	gx = lib.lanczos_step_blocks(nv, n, q.element_size())
+	partial = torch.empty((nv, gx), device=dev)
+	vec = _common.vector_ok(spec.ld, q.element_size(), w, q, q_k, lead=spec.lo)
+	st1, st2, ab = state(), state(), torch.empty((2, nv), device=dev)
+	stream = _common.stream(dev)
+	b1 = lambda: lib.lanczos_dia_round_norm_bf16(  # noqa: E731
+		w.data_ptr(), q.data_ptr(), st1.scal.data_ptr(), st1.scal[dia.ALPHA].data_ptr(), partial.data_ptr(), st1.ticket.data_ptr(),
+		ab[0].data_ptr(), ab[1].data_ptr(), None, nv, spec.ld, spec.lo, n, tol, gx, int(vec), stream)
+	b2 = lambda: lib.lanczos_dia_round_write_bf16(  # noqa: E731
+		w.data_ptr(), q.data_ptr(), st2.scal.data_ptr(), q_k.data_ptr(), nv, spec.ld, spec.lo, n, gx, int(vec), stream)
+	if b1() != 0 or b2() != 0:
+		raise AssertionError(f"the round pair did not launch at {label}")
+	st_p, w_p = state(), w.clone()
+	ms, plain_ms = _timed_pair(
+		torch, lambda: dia.lanczos_dia_round(w, q, st_p, ab[0], ab[1], tol, spec),
+		lambda: dia.lanczos_dia_round_ref(w_p, q, st_p, ab[0], ab[1], tol, spec), reps,
+	)
+	b1_ms, b2_ms = time_ms(torch, b1, reps), time_ms(torch, b2, reps)
+	(b_ms, b_by), (b1_bound, _), (b2_bound, _) = (bound(k * nv * n, f * nv * n) for k, f in ((14, 7), (6, 4), (8, 3)))
+	note = "none: no single PyTorch call computes ||w - alpha q|| and the rounded quotient"
+	row = {"phase": "bf16_round_check", "kernel": "lanczos_dia_round", "shape": label, "spec": list(spec), "vector_path": vec,
+		"beta_rel_err": beta_err, "alpha_and_done_equal": same, "q_next_flips": flips, "q_next_entries": q_k.numel(),
+		"q_next_stray": stray, "max_abs_err": err, "margins_zero": margins, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+		"bound_by": b_by, "b1_ms": b1_ms, "b1_bound_ms": b1_bound, "b2_ms": b2_ms, "b2_bound_ms": b2_bound,
+		"GBps": 14 * nv * n / ms / 1e6, "library_ms": None, "library_note": note}
+	emit(row)
+	if not (same and beta_err <= 1e-6 and stray == 0 and flips <= BF16_FLIP_SHARE * q_k.numel() and margins and vec):
+		raise AssertionError(f"the round pair disagrees with the PyTorch tail or left its vector path at {label}: {row}")
+	return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "b1_ms", "b1_bound_ms", "b2_ms",
+		"b2_bound_ms", "beta_rel_err", "q_next_flips")}
 
 
 def bf16_kernels(torch, ptt, dev, reps: int = 10) -> dict:
@@ -2976,7 +3080,20 @@ def bf16_kernels(torch, ptt, dev, reps: int = 10) -> dict:
 			lambda: dia.lanczos_dia_step_ref(bands, offs_host, q, qp, beta), (2 * nv * n + n_d * n) * 2 + nv * n * 4,
 			(2 * n_d + 4) * nv * n, note="no single PyTorch call computes a Lanczos step", prefix="bf16_" if n == N_FLAGSHIP else "bf16_10M_",
 			**{k: v for k, v in chk.items() if k not in ("ok", "tol")})
-		del op, bands, q, qp, w, alpha
+		del w, alpha
+		# The round pair on pass A's plain output, on the flat carry (rounded) and the padded one.
+		w, alpha = dia.lanczos_dia_step_ref(bands, offs_host, q, qp, beta)
+		got = check_round_pair(torch, dia, lib, w, q, alpha, beta, dia.CarrySpec(n, 0, n), f"flat_{nv}x{n}", reps)
+		out.setdefault("lanczos_dia_round", {}).update({f"bf16_{'' if n == N_FLAGSHIP else '10M_'}{k}": v for k, v in got.items()})
+		if n == N_FLAGSHIP:
+			out["lanczos_dia_round"].update(got)
+		del w, alpha
+		spec = op.carry_spec(nv)
+		cb, qs, qps = op._carry_bands(spec), spec.pad(q), spec.pad(qp)
+		w, alpha = dia.lanczos_dia_step_ref(cb, offs_host, qs, qps, beta, spec, rounded=False)
+		got = check_round_pair(torch, dia, lib, w, qs, alpha, beta, spec, f"padded_{nv}x{n}", reps)
+		out["lanczos_dia_round"].update({f"bf16_padded_{tag}_{k}": v for k, v in got.items()})
+		del op, bands, q, qp, w, alpha, cb, qs, qps
 		torch.cuda.empty_cache()
 
 	# The node-major stencil at the FEM cell (1M × 64, 7 diagonals).
@@ -3023,12 +3140,13 @@ def _flagship_run(torch, ptt, dev, n: int, dtype, reps: int) -> dict:
 		"wall_s_median": statistics.median(run["wall_s"]), **run}
 
 
-def bf16_flagships(torch, ptt, dev) -> dict:
+def bf16_flagships(torch, ptt, dev) -> tuple:
 	"""Phase 24 (b): JAX's full-bf16 SLQ at 500k and 10M beside the float32 flagship, each within 5% of the
-	exact logdet; the bf16 sweep runs pass A's bf16 kernel once a step (pass B and the advance are
-	float32 only) and no stencil; at 10M its peak memory is below the float32 flagship's. Returns the
-	bf16 launches of both calls."""
-	total = {}
+	exact logdet; the bf16 sweep runs pass A's bf16 kernel and the round pair once a step each (pass B,
+	a float32 pass, never) and no stencil; at 10M its peak memory is below the float32 flagship's. The
+	wall and peak ratios of each size go out on a line of their own. Returns the bf16 launches of both
+	calls and those of the 500k call alone."""
+	total, first = {}, None
 	for n, reps in ((N_FLAGSHIP, 5), (N_LARGE, 2)):
 		f32 = _flagship_run(torch, ptt, dev, n, torch.float32, reps)
 		torch.cuda.empty_cache()
@@ -3038,14 +3156,20 @@ def bf16_flagships(torch, ptt, dev) -> dict:
 			"wall_ratio": b16["wall_s_median"] / f32["wall_s_median"],
 			"peak_ratio": b16["max_memory_allocated_bytes"] / f32["max_memory_allocated_bytes"]}
 		emit(row)
-		want = {"lanczos_dia_step": DEG, "lanczos_dia_residual": 0, "dia_stencil_t": 0}
+		emit({"phase": "bf16_flagship_ratios", "n": n, "wall_ratio": row["wall_ratio"], "peak_ratio": row["peak_ratio"],
+			"bf16_wall_s_median": b16["wall_s_median"], "float32_wall_s_median": f32["wall_s_median"],
+			"bf16_peak_bytes": b16["max_memory_allocated_bytes"], "float32_peak_bytes": f32["max_memory_allocated_bytes"]})
+		want = {"lanczos_dia_step": DEG, "lanczos_dia_round": DEG, "lanczos_dia_residual": 0, "dia_stencil_t": 0}
 		got = {k: b16["launches"][k] for k in want}
-		if not (b16["rel_err"] < 0.05 and f32["rel_err"] < 0.05) or got != want or b16["bf16_launches"]["lanczos_dia_step"] != DEG:
+		bf16_got = {k: b16["bf16_launches"][k] for k in ("lanczos_dia_step", "lanczos_dia_round")}
+		bf16_want = {"lanczos_dia_step": DEG, "lanczos_dia_round": DEG}
+		if not (b16["rel_err"] < 0.05 and f32["rel_err"] < 0.05) or got != want or bf16_got != bf16_want:
 			raise AssertionError(f"the full-bf16 flagship at n={n} misses the logdet or its launches: {row}")
 		if n == N_LARGE and not row["peak_ratio"] < 1:
 			raise AssertionError(f"the 10M full-bf16 flagship's peak memory is not below the float32 one's: {row}")
 		_add(total, b16["bf16_launches"])
-	return total
+		first = first or dict(b16["bf16_launches"])
+	return total, first
 
 
 def bf16_applies(torch, ptt, dev) -> dict:
@@ -3141,8 +3265,9 @@ def _counted_calls(torch, fn, reps: int) -> dict:
 def bf16_sharded_one_rank(torch, ptt, dev) -> dict:
 	"""Phase 24 (d): the full-bf16 flagship at 10M through ``shard_operator(DIAOperator(L, bf16))`` on one NCCL
 	rank (pass A's bf16 kernel on the padded carry after the halo exchange, the stencil rounded as JAX's
-	sharded apply rounds it, α all-reduced) against the unsharded bf16 operator on the same probes: the
-	estimates within 1e-3, the sharded one within 5% of the exact logdet. Returns its bf16 launches."""
+	sharded apply rounds it, α all-reduced; the round pair with Σv² all-reduced and the advance kernel
+	between its two launches) against the unsharded bf16 operator on the same probes: the estimates within
+	1e-3, the sharded one within 5% of the exact logdet. Returns its bf16 launches."""
 	from primate_tpu_torch.parallel import initialize_distributed, make_mesh, shard_operator
 
 	bf = torch.bfloat16
@@ -3161,8 +3286,10 @@ def bf16_sharded_one_rank(torch, ptt, dev) -> dict:
 	row = {"phase": "bf16_sharded_flagship", "world": 1, "backend": "nccl", "n": N_LARGE, "deg": DEG, "probes": PROBES, "exact": exact,
 		"estimate_rel_diff": diff, "rel_err": abs(rows["sharded"]["result"] - exact) / abs(exact), **rows}
 	emit(row)
-	got = {k: rows["sharded"]["bf16_launches"][k] for k in ("lanczos_dia_step", "dia_stencil_t")}
-	if not (diff < BF16_SHARD_TOL and row["rel_err"] < 0.05) or got != {"lanczos_dia_step": DEG, "dia_stencil_t": 0}:
+	got = {k: rows["sharded"]["bf16_launches"][k] for k in ("lanczos_dia_step", "lanczos_dia_round", "dia_stencil_t")}
+	got["lanczos_dia_advance"] = rows["sharded"]["launches"]["lanczos_dia_advance"]
+	want = {"lanczos_dia_step": DEG, "lanczos_dia_round": DEG, "dia_stencil_t": 0, "lanczos_dia_advance": DEG}
+	if not (diff < BF16_SHARD_TOL and row["rel_err"] < 0.05) or got != want:
 		raise AssertionError(f"the sharded bf16 flagship disagrees with the unsharded one, or its launches {got} are off: {row}")
 	del op, sop
 	torch.distributed.destroy_process_group()
@@ -3173,26 +3300,9 @@ def bf16_sharded_one_rank(torch, ptt, dev) -> dict:
 def bf16_sharded_two_ranks(torch) -> dict:
 	"""Phase 24 (e): the full-bf16 flagship at SHARD_N through the halo DIA operator on two gloo ranks,
 	both on cuda:0 (subprocesses, ``--sharded-rank ... bfloat16``): both ranks' estimates equal bit for
-	bit and within 5% of the exact logdet, each rank's bf16 pass A launched. Returns their bf16 launches."""
-	port = _free_port()
-	procs = [
-		subprocess.Popen([sys.executable, __file__, "--sharded-rank", str(r), "2", str(port), "bfloat16"], stdout=subprocess.PIPE,
-			stderr=subprocess.PIPE, text=True)
-		for r in range(2)
-	]
-	outs = []
-	try:
-		for p in procs:
-			out, err = p.communicate(timeout=SHARD_TIMEOUT_S)
-			if p.returncode != 0:
-				raise AssertionError(f"a bf16 sharded rank failed ({p.returncode}):\n{out[-2000:]}\n{err[-4000:]}")
-			outs.append([json.loads(line) for line in out.splitlines() if line.startswith("{")])
-	finally:
-		for p in procs:
-			if p.poll() is None:
-				p.kill()
-				p.wait()
-	(r0,), (r1,) = outs
+	bit and within 5% of the exact logdet, each rank's bf16 pass A and round pair launched. Returns their
+	bf16 launches."""
+	(r0,), (r1,) = _run_ranks(2, "bfloat16")
 	exact = exact_logdet(SHARD_N)
 	row = {"phase": "bf16_sharded_two_ranks", "world": 2, "backend": "gloo", "n": SHARD_N, "mesh": r0["mesh"], "comm": r0["comm"],
 		"estimates": [r0["estimate"], r1["estimate"]], "exact": exact, "rel_err": abs(r0["estimate"] - exact) / abs(exact),
@@ -3200,8 +3310,10 @@ def bf16_sharded_two_ranks(torch) -> dict:
 	emit(row)
 	if r0["estimate_hex"] != r1["estimate_hex"] or not row["rel_err"] < 0.05:
 		raise AssertionError(f"the two bf16 ranks disagree or miss the logdet: {row}")
-	if min(r["bf16_launches"]["lanczos_dia_step"] for r in (r0, r1)) < 1 or max(r["launches"]["dia_stencil_t"] for r in (r0, r1)) > 0:
-		raise AssertionError(f"the bf16 pass A did not launch on every rank (or the plain step ran): {row}")
+	if min(r["bf16_launches"][k] for r in (r0, r1) for k in ("lanczos_dia_step", "lanczos_dia_round")) < 1 or max(
+		r["launches"]["dia_stencil_t"] for r in (r0, r1)
+	) > 0:
+		raise AssertionError(f"the bf16 pass A or the round pair did not launch on every rank (or the plain step ran): {row}")
 	total = {}
 	for r in (r0, r1):
 		_add(total, r["bf16_launches"])
@@ -3228,6 +3340,7 @@ def main() -> None:
 	emit({"phase": "build", "seconds": time.perf_counter() - t0, "torch": torch.__version__, "cuda": torch.version.cuda})
 
 	kernels = check_kernels(torch, dia, dev)
+	kernels["lanczos_dia_round"] = {}  # bfloat16 only: its numbers come from phase 24
 	for k, v in check_padded_kernels(torch, dia, dev).items():
 		kernels.setdefault(k, {}).update(v)
 	flag = flagship(torch, ptt, dia, dev, N_FLAGSHIP, reps=5)
@@ -3266,7 +3379,8 @@ def main() -> None:
 	gram, X, fro2 = rectangular(torch, ptt, dev)
 	for k in KERNELS:
 		kernels[k].update({"prep_launches": prep.get(k, 0), "eig_launches": eig.get(k, 0), "gram_launches": gram.get(k, 0)})
-		if k not in SHARDED_ONLY and kernels[k]["prep_launches"] + kernels[k]["eig_launches"] + kernels[k]["gram_launches"] < 1:
+		phases_16_18 = kernels[k]["prep_launches"] + kernels[k]["eig_launches"] + kernels[k]["gram_launches"]
+		if k not in SHARDED_ONLY + BF16_ONLY and phases_16_18 < 1:
 			raise AssertionError(f"{k} launched no time in phases 16-18")
 	torch.cuda.empty_cache()
 	rec = recipes_phase(torch, ptt, dev, X, fro2)
@@ -3289,7 +3403,7 @@ def main() -> None:
 	for k in KERNELS:
 		kernels[k].update({"sharded_launches": one.get(k, 0), "sharded_two_rank_launches": two.get(k, 0)})
 	for k in KERNELS:
-		if kernels[k]["sharded_launches"] < 1:
+		if k not in BF16_ONLY and kernels[k]["sharded_launches"] < 1:
 			raise AssertionError(f"{k} launched no time through the sharded operators")
 	torch.cuda.empty_cache()
 
@@ -3297,9 +3411,12 @@ def main() -> None:
 	# counted from zero; bf16_launches sums the bf16 launches of those calls.
 	for k, v in bf16_kernels(torch, ptt, dev).items():
 		kernels[k].update(v)
-	bf16 = {}
+	bf16, bf16_flag = {}, {}
 	for part in (bf16_flagships, bf16_applies, bf16_sharded_one_rank):
-		_add(bf16, part(torch, ptt, dev))
+		counts = part(torch, ptt, dev)
+		if part is bf16_flagships:
+			counts, bf16_flag = counts
+		_add(bf16, counts)
 	_add(bf16, bf16_sharded_two_ranks(torch))
 	for k in KERNELS:
 		kernels[k]["bf16_launches"] = bf16.get(k, 0)
@@ -3312,6 +3429,7 @@ def main() -> None:
 		"lanczos_dia_step": flag["launches"]["lanczos_dia_step"],
 		"lanczos_dia_residual": flag["launches"]["lanczos_dia_residual"],
 		"lanczos_dia_advance": one.get("lanczos_dia_advance", 0),  # phase 23 (a): the sharded 10M flagship's sweeps
+		"lanczos_dia_round": bf16_flag["lanczos_dia_round"],  # phase 24 (b): the 500k full-bf16 flagship
 		"bsr_spmm": bsr_launches,
 		"dia_stencil": dia_launches,
 	}
@@ -3324,6 +3442,6 @@ def main() -> None:
 
 if __name__ == "__main__":
 	if sys.argv[1:2] == ["--sharded-rank"]:
-		sharded_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), dtype=(sys.argv[5:6] or ["float32"])[0])
+		sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], dtype=(sys.argv[5:6] or ["float32"])[0])
 	else:
 		main()

@@ -1,12 +1,14 @@
 // DIA stencil kernels for Hopper (sm_90a), float32, float64 and bfloat16 (pass A of
-// the step too); the two stencils also complex64 and complex128 (Hermitian operators).
+// the step too, and the bf16 step's round pair); the two stencils also complex64 and
+// complex128 (Hermitian operators).
 //
 // Replaces the Pallas TPU kernels of primate_tpu/ops/dia_pallas.py:
 //   dia_stencil_t        <- dia_matmat_t_pallas (_dia_t_kernel): out = A X, probe-major
 //   dia_stencil          <- dia_matmat_pallas (_dia_kernel): out = A V, node-major
 //   lanczos_dia_step     <- dia_matmat_t_phys (_dia_t_phys_kernel), the Lanczos sweep's
 //   lanczos_dia_residual    stencil on its halo-padded carry; here the whole three-term
-//   lanczos_dia_advance     step in two passes, and the finish of a row-sharded step
+//   lanczos_dia_advance     step in two passes, and the finish of a row-sharded step;
+//   lanczos_dia_round       for a bfloat16 carry, pass A and this pair of passes
 //
 // Layout: row-aligned bands (n_d, n) with band[d][r] = A[r, r + offsets[d]];
 // probe-major blocks (nv, n) for dia_stencil_t, node-major blocks (n, k) for
@@ -85,7 +87,8 @@
 // beta-axpy, as JAX's flat and sharded applies do (matmat_t returns the operator's
 // dtype), or not, as dia_matmat_t_phys does. The bf16 sweep rounds and normalises q
 // every step (JAX's lanczos.py:388), so its pass A reads q as stored and takes no
-// divisors, and the bf16 sweep has no pass B (its tail is PyTorch: ROADMAP B.16).
+// divisors, and the rest of its step is the round pair below (B1 the norm, B2 the
+// rounded q_next) in place of pass B.
 // With more diagonals than one chunk of band slots, the probe-major stencil keeps the
 // float32 partial sums of the chunks in a float32 scratch block (mid) and rounds once.
 //
@@ -471,7 +474,7 @@ __device__ __forceinline__ T probe_total(const T* partial, int64_t b) {
 // Pass A: w[b, r] = sum_d band[d, r] q[b, r + off_d] - beta[b] q_prev[b, r] with
 // q = v_cur / div_cur, q_prev = v_prev / div_prev, and the partials of
 // alpha[b] = sum_r w q over the own rows. With a ticket, the last block writes
-// state[kAlpha] and alpha_out (zero where state[kDone]); in the finishing mode
+// state[kAlpha] and alpha_out if given (zero where state[kDone]); in the finishing mode
 // (sums given) it writes only the rank's local sums[b] and leaves the state alone.
 // A narrow type (bfloat16) reads q and q_prev as stored (no divisors: its sweep
 // normalises q every step) and stages q as stored; w, the state and the sums are in
@@ -594,7 +597,7 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
                 sums[b] = s;
             } else {
                 state[kAlpha * nv + b] = s;
-                alpha_out[b] = state[kDone * nv + b] != A(0) ? A(0) : s;
+                if (alpha_out != nullptr) alpha_out[b] = state[kDone * nv + b] != A(0) ? A(0) : s;
             }
         }
     }
@@ -682,6 +685,139 @@ __global__ void lanczos_advance_kernel(const T* __restrict__ sums, T* __restrict
     state[kDivCur * nv + b] = beta > tol ? beta : T(INFINITY);
     state[kBeta * nv + b] = beta;
     state[kDone * nv + b] = (done || beta < tol) ? T(1) : T(0);
+}
+
+// ---- The rest of a bfloat16 step: the round pair (lanczos_dia_round) ----
+//
+// The bf16 sweep rounds q to bf16 every step (JAX's lanczos.py:388), so the unnormalised
+// carry of pass B cannot serve it: q_next = bf16(v / beta') needs beta' = |v| before any
+// element of it is written. After pass A (w = A q - beta q_prev and alpha, float32) two
+// launches finish the step, each reading w (float32) and q (bf16) over the own rows and
+// recomputing v = w - alpha q in float32 the same way:
+//   B1 (norm): the partials of |v|^2; its last block (ticket) writes alpha_out and
+//     beta_out (zero where a probe was done) and advances the state: div_prev = div_cur,
+//     div_cur = beta' > tol ? beta' : inf, beta = beta', done |= beta' < tol. In the
+//     finishing mode (sums given) it writes only the rank's sums, and the caller
+//     all-reduces them and finishes the step with lanczos_advance_kernel.
+//   B2 (write): q_next = bf16_rn(v / div_cur) over the own rows, zero in the margins.
+// Neither reads what its own launch writes: B1's blocks read alpha (written by pass A or
+// the all-reduce), B2's the state that B1's last block or the advance left behind.
+// 6 bytes an element for B1, 8 for B2 (with pass A's 8: 22 a step, against float32's 24).
+
+// v = w - alpha q for the rows r .. r + 7 of a carry row (zero past the own rows' end n):
+// w as two 16-byte vectors of float32, q as one of bf16 (kVec), else element by element.
+// The product is rounded before the difference (no FMA), as PyTorch's addcmul_ computes it
+// in the step's plain version: fused, q_next moved by more than one bf16 ulp where the
+// difference cancels (w close to alpha q).
+template <bool kVec>
+__device__ __forceinline__ void round_residual(const float* w_row, const bf16* q_row, int64_t r, int64_t lo_b,
+                                               int64_t hi_b, int64_t n, float alpha, float (&v)[Vec<bf16>::len]) {
+    constexpr int VF = Vec<float>::len;
+    float wv[2][VF], q[Vec<bf16>::len];
+    load_seg<float, kVec>(w_row, r, lo_b, hi_b, wv[0]);
+    load_seg<float, kVec>(w_row, r + VF, lo_b, hi_b, wv[1]);
+    load_seg<bf16, kVec>(q_row, r, lo_b, hi_b, q);
+#pragma unroll
+    for (int i = 0; i < Vec<bf16>::len; ++i) v[i] = r + i < n ? __fsub_rn(wv[i / VF][i % VF], __fmul_rn(alpha, q[i])) : 0.0f;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kStepThreads) lanczos_round_norm_kernel(
+    const float* __restrict__ w, const bf16* __restrict__ q, float* state, const float* alpha_src, float* partial,
+    unsigned* ticket, float* alpha_out, float* beta_out, float* sums, int64_t nv, int64_t ld, int64_t lo, int64_t n,
+    float tol) {
+    constexpr int VL = Vec<bf16>::len;
+    constexpr int kTile = kStepThreads * VL;
+    __shared__ float alpha_s[kStepProbes];
+    const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
+    const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
+    if (threadIdx.x < np) alpha_s[threadIdx.x] = alpha_src[b0 + threadIdx.x];
+    __syncthreads();
+    float ss[kStepProbes];
+#pragma unroll
+    for (int p = 0; p < kStepProbes; ++p) ss[p] = 0.0f;
+    const int64_t n_tiles = (n + kTile - 1) / kTile;
+    for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int64_t r = t * kTile + threadIdx.x * VL;
+        if (r >= n) continue;
+#pragma unroll
+        for (int p = 0; p < kStepProbes; ++p) {
+            if (p >= np) break;
+            const int64_t b = b0 + p;
+            float v[VL];
+            round_residual<kVec>(w + b * ld + lo, q + b * ld + lo, r, -lo, ld - lo, n, alpha_s[p], v);
+#pragma unroll
+            for (int i = 0; i < VL; ++i) ss[p] += v[i] * v[i];
+        }
+    }
+    if (!reduce_and_take_ticket(ss, np, b0, partial, ticket)) return;
+    for (int64_t b = threadIdx.x / 32; b < nv; b += kStepWarps) {
+        const float s = probe_total(partial, b);
+        if (threadIdx.x % 32 == 0) {
+            if (sums != nullptr) {
+                sums[b] = s;
+            } else {
+                const float beta = sqrtf(s);
+                const bool done = state[kDone * nv + b] != 0.0f;
+                alpha_out[b] = done ? 0.0f : alpha_src[b];
+                beta_out[b] = done ? 0.0f : beta;
+                state[kDivPrev * nv + b] = state[kDivCur * nv + b];
+                state[kDivCur * nv + b] = beta > tol ? beta : INFINITY;
+                state[kBeta * nv + b] = beta;
+                state[kDone * nv + b] = (done || beta < tol) ? 1.0f : 0.0f;
+            }
+        }
+    }
+    if (threadIdx.x == 0) *ticket = 0u;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kStepThreads) lanczos_round_write_kernel(const float* __restrict__ w,
+                                                                           const bf16* __restrict__ q,
+                                                                           const float* __restrict__ state,
+                                                                           bf16* __restrict__ q_next, int64_t nv,
+                                                                           int64_t ld, int64_t lo, int64_t n) {
+    constexpr int VL = Vec<bf16>::len;
+    constexpr int kTile = kStepThreads * VL;
+    __shared__ float alpha_s[kStepProbes], div_s[kStepProbes];
+    const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
+    const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
+    if (threadIdx.x < np) {
+        alpha_s[threadIdx.x] = state[kAlpha * nv + b0 + threadIdx.x];
+        div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
+    }
+    if (blockIdx.x == 0 && ld > n) {  // the margins of q_next: zero
+        for (int p = 0; p < np; ++p) {
+            bf16* row = q_next + (b0 + p) * ld;
+            for (int64_t c = threadIdx.x; c < lo; c += kStepThreads) row[c] = zero<bf16>();
+            for (int64_t c = lo + n + threadIdx.x; c < ld; c += kStepThreads) row[c] = zero<bf16>();
+        }
+    }
+    __syncthreads();
+    const int64_t n_tiles = (n + kTile - 1) / kTile;
+    for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int64_t r = t * kTile + threadIdx.x * VL;
+        if (r >= n) continue;
+#pragma unroll
+        for (int p = 0; p < kStepProbes; ++p) {
+            if (p >= np) break;
+            const int64_t b = b0 + p;
+            float v[VL];
+            round_residual<kVec>(w + b * ld + lo, q + b * ld + lo, r, -lo, ld - lo, n, alpha_s[p], v);
+            const float div = div_s[p];
+#pragma unroll
+            for (int i = 0; i < VL; ++i) v[i] = v[i] / div;  // 0 past n; 0 where div is inf (a done probe)
+            bf16* row = q_next + b * ld + lo;
+            if (kVec) {
+                *reinterpret_cast<uint4*>(row + r) = pack(v);
+            } else {
+#pragma unroll
+                for (int i = 0; i < VL; ++i) {
+                    if (r + i < n) row[r + i] = __float2bfloat16_rn(v[i]);
+                }
+            }
+        }
+    }
 }
 
 template <typename T, bool kVec>
@@ -803,6 +939,37 @@ cudaError_t launch_advance(const T* sums, T* state, T* alpha_out, T* beta_out, i
     return cudaGetLastError();
 }
 
+inline dim3 step_grid(int64_t nv, int64_t gx) {
+    return dim3(static_cast<unsigned>(gx), static_cast<unsigned>((nv + kStepProbes - 1) / kStepProbes));
+}
+
+cudaError_t launch_round_norm(const float* w, const bf16* q, float* state, const float* alpha_src, float* partial,
+                              unsigned* ticket, float* alpha_out, float* beta_out, float* sums, int64_t nv, int64_t ld,
+                              int64_t lo, int64_t n, double tol, int64_t gx, int vec, cudaStream_t stream) {
+    if (!step_grid_ok(nv, ld, lo, n, gx) || ticket == nullptr || (sums == nullptr && (alpha_out == nullptr || beta_out == nullptr)))
+        return cudaErrorInvalidConfiguration;
+    const float t = static_cast<float>(tol);
+    if (vec) {
+        lanczos_round_norm_kernel<true><<<step_grid(nv, gx), kStepThreads, 0, stream>>>(
+            w, q, state, alpha_src, partial, ticket, alpha_out, beta_out, sums, nv, ld, lo, n, t);
+    } else {
+        lanczos_round_norm_kernel<false><<<step_grid(nv, gx), kStepThreads, 0, stream>>>(
+            w, q, state, alpha_src, partial, ticket, alpha_out, beta_out, sums, nv, ld, lo, n, t);
+    }
+    return cudaGetLastError();
+}
+
+cudaError_t launch_round_write(const float* w, const bf16* q, const float* state, bf16* q_next, int64_t nv, int64_t ld,
+                               int64_t lo, int64_t n, int64_t gx, int vec, cudaStream_t stream) {
+    if (!step_grid_ok(nv, ld, lo, n, gx)) return cudaErrorInvalidConfiguration;
+    if (vec) {
+        lanczos_round_write_kernel<true><<<step_grid(nv, gx), kStepThreads, 0, stream>>>(w, q, state, q_next, nv, ld, lo, n);
+    } else {
+        lanczos_round_write_kernel<false><<<step_grid(nv, gx), kStepThreads, 0, stream>>>(w, q, state, q_next, nv, ld, lo, n);
+    }
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -919,6 +1086,24 @@ cudaError_t lanczos_dia_residual_f64(const double* v_cur, double* w, double* sta
                                      cudaStream_t stream) {
     return launch_pass_b(v_cur, w, state, alpha_src, partial, ticket, beta_out, sums, nv, ld, lo, n, tol, gx, vec,
                          stream);
+}
+
+// The round pair of a bfloat16 step (after pass A): w, the state, alpha_src, the partials, the
+// outputs and the sums in float32, q and q_next bf16 on the carry (ld, lo, n). B1 (norm) with
+// sums (nv,) non-null writes the rank's sums of |v|^2 (the finishing mode); else its last block
+// writes alpha_out, beta_out and the state. B2 (write) reads alpha and the divisor from the state.
+cudaError_t lanczos_dia_round_norm_bf16(const float* w, const void* q, float* state, const float* alpha_src,
+                                        float* partial, unsigned* ticket, float* alpha_out, float* beta_out, float* sums,
+                                        int64_t nv, int64_t ld, int64_t lo, int64_t n, double tol, int64_t gx, int vec,
+                                        cudaStream_t stream) {
+    return launch_round_norm(w, static_cast<const bf16*>(q), state, alpha_src, partial, ticket, alpha_out, beta_out, sums,
+                             nv, ld, lo, n, tol, gx, vec, stream);
+}
+
+cudaError_t lanczos_dia_round_write_bf16(const float* w, const void* q, const float* state, void* q_next, int64_t nv,
+                                         int64_t ld, int64_t lo, int64_t n, int64_t gx, int vec, cudaStream_t stream) {
+    return launch_round_write(w, static_cast<const bf16*>(q), state, static_cast<bf16*>(q_next), nv, ld, lo, n, gx, vec,
+                              stream);
 }
 
 cudaError_t lanczos_dia_advance_f32(const float* sums, float* state, float* alpha_out, float* beta_out, int64_t nv,

@@ -10,12 +10,14 @@ the residuals unnormalised with their guarded divisors so that no pass
 normalises. A sweep that returns its basis writes ``q = v / divisor`` (the
 rounding pass A uses) into the basis window after pass B, and one that takes
 ``coeffs`` adds ``c_j·q_j`` to its running sum before each step; both are
-PyTorch ops. With ``orth>0``, ``selective=True`` or a bfloat16 block (whose
-``q_next`` the reference rounds to bfloat16 every step), each step calls
-``op.lanczos_step(q_cur, q_prev, β)`` (on a DIA operator the stencil, β-axpy and
-α kernel, pass A: its bfloat16 instantiation for a bf16 block, with ``w`` and α in
-float32) and the rest (``v −= α·q``, the CGS window, β = ‖v‖, the done flags
-and ``q_next``) stays in PyTorch. Selective re-orthogonalisation reads one flag
+PyTorch ops. A bfloat16 block without re-orthogonalisation (whose ``q_next`` the
+reference rounds to bfloat16 every step) takes ``op.lanczos_round_step`` a step: on a
+DIA operator on the card pass A's bf16 instantiation (``w`` and α in float32) and the
+round pair (β', the done flags and ``q_next`` rounded to bf16), three kernels; on any
+other operator ``op.lanczos_step`` and the same arithmetic as PyTorch ops. With
+``orth>0`` or ``selective=True``, each step calls ``op.lanczos_step(q_cur, q_prev, β)``
+(on a DIA operator pass A) and the rest (``v −= α·q``, the CGS window, β = ‖v‖, the
+done flags and ``q_next``) stays in PyTorch. Selective re-orthogonalisation reads one flag
 from the device per step, where the JAX package branches by ``lax.cond``.
 
 Reverse mode (``jax.grad`` through the JAX package's ``lax.scan``): while grad mode is on and
@@ -224,9 +226,22 @@ def _lanczos_core(
 				write_slot(j, rows(v_cur) / state.scal[DIV_CUR][:, None], state.scal[DONE] == 0)
 		return output()
 
-	# Re-orthogonalisation, or a storage dtype narrower than the accumulation
-	# (bfloat16): q_next is rounded to the storage dtype every step, as in JAX
-	# (``primate_tpu/lanczos.py:388``), which the unnormalised carry above cannot do.
+	# A storage dtype narrower than the accumulation (bfloat16): q_next is rounded to the
+	# storage dtype every step, as in JAX (``primate_tpu/lanczos.py:388``), which the
+	# unnormalised carry above cannot do. Each step is ``op.lanczos_round_step``: pass A and
+	# the rest of the step (on a DIA operator on the card three kernels), the state as above.
+	if orth == 0 and not selective:
+		state = lanczos_state(nv_l, r_acc, device)
+		q_prev, q_cur = torch.zeros_like(q0), q0
+		for j in range(deg):
+			if y is not None:
+				y.addcmul_(coeffs[j][..., None], rows(q_cur).to(acc))
+			q_prev, q_cur = q_cur, op.lanczos_round_step(q_cur, q_prev, state, alphas[j], betas[j], residual_tol, layout=layout)
+			if keep_window:
+				write_slot(j, rows(q_cur).to(b_dtype), state.scal[DONE] == 0)
+		return output()
+
+	# Re-orthogonalisation: each step is ``op.lanczos_step`` and PyTorch ops.
 	slot_ids = torch.arange(ncv, device=device)
 
 	def _cgs_window(v, valid) -> None:

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..linalg import full_f32_matmul
-from ..ops.dia import lanczos_sweep_step_ref, row_dot
+from ..ops.dia import BETA, lanczos_round_ref, lanczos_sweep_step_ref, row_dot
 
 __all__ = [
 	"LinearOperator",
@@ -173,6 +173,18 @@ class LinearOperator:
 		(:func:`~primate_tpu_torch.ops.dia.lanczos_sweep_step_ref`; default: that plain version).
 		``layout`` is the sweep's :meth:`sweep_rows` (the flat carry here)."""
 		return lanczos_sweep_step_ref(self.matmat_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
+
+	def lanczos_round_step(
+		self, q_cur: torch.Tensor, q_prev: torch.Tensor, state, alpha_out: torch.Tensor, beta_out: torch.Tensor,
+		residual_tol: float, layout=WholeRows,
+	) -> torch.Tensor:
+		"""One whole step of a sweep without re-orthogonalisation whose q is stored narrower than it
+		is summed (bfloat16; ``primate_tpu/lanczos.py:316,378-388``): :meth:`lanczos_step` with β from
+		``state``, then :func:`~primate_tpu_torch.ops.dia.lanczos_round_ref` as PyTorch ops over
+		``layout``'s rows (α, β and the done flags in ``state`` and the outputs). Returns ``q_next``
+		rounded to the carry's dtype. A real DIA operator runs it on the step kernels."""
+		v, alpha = self.lanczos_step(q_cur, q_prev, state.scal[BETA], layout=layout)
+		return lanczos_round_ref(v, alpha, q_cur, state, alpha_out, beta_out, residual_tol, layout.rows, layout.reduce_rows)
 
 	def sweep_rows(self, nv: int, split_probes: bool = True, phys: bool = False):
 		"""What the Lanczos sweep carries of an ``nv``-probe block and how it finishes its sums over n

@@ -37,7 +37,7 @@ import torch
 from ..ops._common import LAYOUT_COPIES
 from ..ops.autograd import bsr_spmm_ad, bsr_transpose, csr_spmm_ad, dia_adjoint, dia_stencil_ad, dia_stencil_t_ad
 from ..ops.bsr import block_rowids
-from ..ops.dia import CarrySpec, carry_spec, lanczos_dia_step, lanczos_dia_sweep_step
+from ..ops.dia import CarrySpec, carry_spec, lanczos_dia_round_step, lanczos_dia_step, lanczos_dia_sweep_step
 from .base import LinearOperator, PaddedRows, WholeRows, aslinop
 
 __all__ = ["COOOperator", "CSROperator", "BSROperator", "DIAOperator", "GramOperator"]
@@ -643,6 +643,17 @@ class DIAOperator(LinearOperator):
 			return super().lanczos_sweep_step(v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
 		return lanczos_dia_sweep_step(
 			self._carry_bands(layout.spec), self.offsets_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol, layout.spec
+		)
+
+	def lanczos_round_step(
+		self, q_cur, q_prev, state, alpha_out, beta_out, residual_tol: float, layout=WholeRows
+	) -> torch.Tensor:
+		"""The whole bfloat16 step without re-orthogonalisation on the carry of ``layout`` (flat, or
+		padded for ``phys=True``): pass A rounded as :meth:`lanczos_step` rounds it, then the round pair
+		(three kernels on the card, :func:`~primate_tpu_torch.ops.dia.lanczos_dia_round_step`)."""
+		return lanczos_dia_round_step(
+			self._carry_bands(layout.spec), self.offsets_t, q_cur, q_prev, state, alpha_out, beta_out, residual_tol, layout.spec,
+			rounded=layout.spec is None,
 		)
 
 

@@ -101,6 +101,10 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 			"lanczos_dia_residual": [p, p, p, p, p, p, p, p, i64, i64, i64, i64, ctypes.c_double, i64, i32, p],
 			# sums, state, alpha_out, beta_out, nv, tol, stream
 			"lanczos_dia_advance": [p, p, p, p, i64, ctypes.c_double, p],
+			# w, q, state, alpha_src, partial, ticket, alpha_out, beta_out, sums, nv, ld, lo, n, tol, grid_x, vec, stream
+			"lanczos_dia_round_norm": [p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, ctypes.c_double, i64, i32, p],
+			# w, q, state, q_next, nv, ld, lo, n, grid_x, vec, stream
+			"lanczos_dia_round_write": [p, p, p, p, i64, i64, i64, i64, i64, i32, p],
 			# bands, offsets, n_d, V, out, n, k, vec, stream
 			"dia_stencil": [p, p, i32, p, p, i64, i64, i32, p],
 		},
@@ -109,8 +113,8 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 	}[stem]
 	for name, args in sigs.items():
 		# The two DIA stencils and the BSR SpMM also have complex64 / complex128 entry points;
-		# they and pass A have bfloat16 ones.
-		dts = ("f32", "f64")
+		# they and pass A have bfloat16 ones, and the round pair has only bfloat16 ones.
+		dts = ("bf16",) if name.startswith("lanczos_dia_round") else ("f32", "f64")
 		if name in ("dia_stencil_t", "dia_stencil", "bsr_spmm", "lanczos_dia_step"):
 			dts += ("bf16",)
 		if name in ("dia_stencil_t", "dia_stencil", "bsr_spmm"):

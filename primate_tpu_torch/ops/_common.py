@@ -6,12 +6,13 @@ __all__ = ["LAUNCHES", "BF16_LAUNCHES", "LAYOUT_COPIES", "SCALAR_LAUNCHES", "res
 
 # Kernel launches per wrapper since the last `reset_launches()`. Each wrapper adds
 # one where it launches its kernel and nowhere else; its plain version counts nothing.
+# The round pair (``lanczos_dia_round``, two kernels that finish a bfloat16 step) counts one a pair.
 LAUNCHES = {
-	"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "lanczos_dia_advance": 0, "dia_stencil": 0,
-	"bsr_spmm": 0,
+	"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "lanczos_dia_advance": 0, "lanczos_dia_round": 0,
+	"dia_stencil": 0, "bsr_spmm": 0,
 }
 # The launches of LAUNCHES that ran a kernel's bfloat16 instantiation.
-BF16_LAUNCHES = {"dia_stencil_t": 0, "lanczos_dia_step": 0, "dia_stencil": 0, "bsr_spmm": 0}
+BF16_LAUNCHES = {"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_round": 0, "dia_stencil": 0, "bsr_spmm": 0}
 # Copies an operator made to hand a kernel or library call the layout it reads
 # (a probe-major block made node-major for the BSR kernel), or to hand back the
 # layout its caller reads (the CSR product of a probe-major block), per apply.
@@ -19,8 +20,8 @@ LAYOUT_COPIES = {"bsr_spmm": 0, "csr_spmm": 0}
 # Launches that took a kernel's scalar path: a length or a pointer that does not
 # allow its 16-byte loads and stores (see `vector_ok`).
 SCALAR_LAUNCHES = {
-	"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "lanczos_dia_advance": 0, "dia_stencil": 0,
-	"bsr_spmm": 0,
+	"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "lanczos_dia_advance": 0, "lanczos_dia_round": 0,
+	"dia_stencil": 0, "bsr_spmm": 0,
 }
 # The C entry point's suffix of each dtype a kernel takes.
 SUFFIX = {
@@ -41,18 +42,22 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def check_cuda(
 	name: str, dtype: torch.dtype, device: torch.device, int_keys=(), complex_ok: bool = False, bf16_ok: bool = False,
-	acc_keys=(), **tensors,
+	acc_keys=(), bf16_only: bool = False, **tensors,
 ) -> None:
 	"""Raise on anything the kernels do not take: float32/float64 contiguous tensors (also
-	bfloat16 where ``bf16_ok``: the two DIA stencils, pass A and the BSR SpMM; complex64/complex128
-	where ``complex_ok``: the two stencils and the BSR SpMM) on one CUDA device, int64 index tensors
-	(``int_keys``), and tensors in the accumulation dtype (``acc_keys``: float32 for bfloat16).
-	float16 raises ``TypeError``, as the JAX package's operators refuse it."""
+	bfloat16 where ``bf16_ok``: the two DIA stencils, pass A and the BSR SpMM; bfloat16 alone where
+	``bf16_only``: the round pair; complex64/complex128 where ``complex_ok``: the two stencils and the
+	BSR SpMM) on one CUDA device, int64 index tensors (``int_keys``), and tensors in the accumulation
+	dtype (``acc_keys``: float32 for bfloat16). float16 raises ``TypeError``, as the JAX package's
+	operators refuse it."""
 	if device.type != "cuda":
 		raise ValueError(f"{name}: tensors must lie on the CPU (plain version) or on a CUDA device; got {device}")
 	if dtype.is_complex and not complex_ok:
 		raise NotImplementedError(f"{name}: complex operators have no CUDA kernel of this kind (ROADMAP B.7)")
-	takes = (torch.float32, torch.float64) + ((torch.bfloat16,) if bf16_ok else ()) + ((torch.complex64, torch.complex128) if complex_ok else ())
+	if bf16_only:
+		takes = (torch.bfloat16,)
+	else:
+		takes = (torch.float32, torch.float64) + ((torch.bfloat16,) if bf16_ok else ()) + ((torch.complex64, torch.complex128) if complex_ok else ())
 	if dtype not in takes:
 		raise TypeError(f"{name}: the CUDA kernel takes {', '.join(str(t).replace('torch.', '') for t in takes)}; got {dtype}")
 	for key, t in tensors.items():

@@ -42,8 +42,12 @@ and sum in float32; the stencils round once to bf16 where they write, pass A wri
 in float32. Pass A takes one switch, ``rounded``: round the stencil sum to the carry's dtype
 before ``− β·q_prev`` (the flat and the row-sharded sweeps, as JAX's ``matmat_t`` returns the
 operator's dtype) or not (``lanczos_block_op(phys=True)``, as ``dia_matmat_t_phys`` returns
-float32). It changes nothing in float32 and float64. The bf16 sweep rounds q every step and
-runs pass A alone: pass B, the advance and the unnormalised carry are float32/float64 only.
+float32). It changes nothing in float32 and float64. The bf16 sweep rounds q every step, so the
+unnormalised carry of pass B cannot serve it (pass B and the advance's state arithmetic are
+float32/float64): :func:`lanczos_dia_round_step` runs pass A and :func:`lanczos_dia_round`, a pair
+of kernels over w and q (B1 ``‖w − α·q‖²`` and the step's scalars, B2 ``q_next = bf16((w − α·q)/β')``),
+three launches a step with no PyTorch op between them (on a row-sharded carry the two sums are
+all-reduced and ``lanczos_dia_advance`` finishes the scalars before B2).
 
 All are bound by HBM bytes (a few flops per loaded element); the kernels make
 one pass over the probe block and bounds-check the ragged edges, so neither the
@@ -79,6 +83,10 @@ __all__ = [
 	"lanczos_sweep_pass_a_ref",
 	"lanczos_sweep_pass_b_ref",
 	"lanczos_dia_advance_ref",
+	"lanczos_round_ref",
+	"lanczos_dia_round",
+	"lanczos_dia_round_ref",
+	"lanczos_dia_round_step",
 	"CarrySpec",
 	"carry_spec",
 ]
@@ -298,6 +306,37 @@ def lanczos_sweep_step_ref(
 	return lanczos_sweep_pass_b_ref(v_cur, w, state, beta_out, residual_tol, reduce, spec)
 
 
+def lanczos_round_ref(
+	w: torch.Tensor, alpha: torch.Tensor, q_cur: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor,
+	beta_out: torch.Tensor, residual_tol: float, rows=_same, reduce=_same,
+) -> torch.Tensor:
+	"""The rest of a Lanczos step whose q is stored narrower than it is summed (bfloat16), after
+	``w = A·q_cur − β·q_prev`` and α (``primate_tpu/lanczos.py:316,378-388``), as PyTorch ops:
+	``v = w − α·q_cur`` in place of ``w``, ``β' = √Σ|v|²`` over ``rows`` finished by ``reduce``;
+	writes ``alpha_out``/``beta_out`` (zero where a probe was done) and advances ``state`` as pass B
+	does (``β = β'``, ``div_cur = β'`` if ``β' > residual_tol`` else ``inf``, ``done |= β' <
+	residual_tol``, and ``state[ALPHA] = α``); returns ``q_next = v / div_cur`` rounded to
+	``q_cur``'s dtype (0 for a probe that broke down)."""
+	s = state.scal
+	w.addcmul_(alpha[:, None], q_cur.to(w.dtype), value=-1)
+	beta = torch.sqrt(reduce(row_sq_norm(rows(w))))
+	_finish_alpha(s, alpha, alpha_out)
+	_finish_beta(s, beta, beta_out, residual_tol)
+	return w.div_(s[DIV_CUR, :, None]).to(q_cur.dtype)
+
+
+def lanczos_dia_round_ref(
+	w: torch.Tensor, q_cur: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor, beta_out: torch.Tensor,
+	residual_tol: float, spec: Optional[CarrySpec] = None, reduce=_same, sums: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+	"""Plain version of :func:`lanczos_dia_round`: :func:`lanczos_round_ref` over the own rows of
+	``spec``'s carry, α from ``state[ALPHA]`` (pass A's) or, on a row-sharded carry, from the reduced
+	``sums[0]``; ``q_next`` with zero margins."""
+	spec = spec or _flat(q_cur)
+	alpha = state.scal[ALPHA] if sums is None else sums[0]
+	return spec.zero_margins(lanczos_round_ref(w, alpha, q_cur, state, alpha_out, beta_out, residual_tol, spec.rows, reduce))
+
+
 def _check_shapes(name: str, bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -> None:
 	if x.ndim != 2 or bands.ndim != 2 or offsets.ndim != 1:
 		raise ValueError(f"{name}: expected x (nv, n), bands (n_d, n), offsets (n_d,)")
@@ -393,6 +432,115 @@ def _launch_advance(lib, sums, state, alpha_out, beta_out, residual_tol) -> None
 	)
 	raise_on(lib, err, "lanczos_dia_advance")
 	LAUNCHES["lanczos_dia_advance"] += 1
+
+
+def _launch_round(lib, w, q_cur, state, partial, gx, alpha_out, beta_out, residual_tol, spec, reduce=None, sums=None):
+	"""The round pair on the card: B1 (α from ``state[ALPHA]``, or from the reduced ``sums[0]``: then B1
+	writes the rank's Σv² to ``sums[1]``, ``reduce`` finishes it and ``lanczos_dia_advance`` the step's
+	scalars), then B2. Returns q_next."""
+	nv = q_cur.shape[0]
+	q_next = torch.empty_like(q_cur)
+	vec = vector_ok(spec.ld, q_cur.element_size(), w, q_cur, q_next, lead=spec.lo)
+	scal = state.scal
+	alpha_src = scal[ALPHA] if sums is None else sums[0]
+	err = lib.lanczos_dia_round_norm_bf16(
+		w.data_ptr(), q_cur.data_ptr(), scal.data_ptr(), alpha_src.data_ptr(), partial.data_ptr(), state.ticket.data_ptr(),
+		alpha_out.data_ptr(), beta_out.data_ptr(), sums[1].data_ptr() if sums is not None else None, nv, spec.ld, spec.lo,
+		spec.n, float(residual_tol), gx, int(vec), stream(q_cur.device),
+	)
+	raise_on(lib, err, "lanczos_dia_round")
+	if sums is not None:
+		reduce(sums[1])
+		_launch_advance(lib, sums, state, alpha_out, beta_out, residual_tol)
+	err = lib.lanczos_dia_round_write_bf16(
+		w.data_ptr(), q_cur.data_ptr(), scal.data_ptr(), q_next.data_ptr(), nv, spec.ld, spec.lo, spec.n, gx, int(vec),
+		stream(q_cur.device),
+	)
+	raise_on(lib, err, "lanczos_dia_round")
+	count_launch("lanczos_dia_round", q_cur.dtype, vec)
+	return q_next
+
+
+def _check_round(name, q_cur, state, alpha_out, beta_out, spec) -> CarrySpec:
+	nv = q_cur.shape[0]
+	if q_cur.ndim != 2 or state.scal.shape != (5, nv) or alpha_out.shape != (nv,) or beta_out.shape != (nv,):
+		raise ValueError(f"{name}: expected q_cur (nv, ld), the state (5, nv) and the outputs (nv,)")
+	return _check_spec(name, spec, q_cur)
+
+
+def _check_round_cuda(name, q_cur, state, alpha_out, beta_out, sums, **tensors) -> None:
+	extra = {"sums": sums} if sums is not None else {}
+	check_cuda(
+		name, q_cur.dtype, q_cur.device, ("offsets",), bf16_only=True, acc_keys=("w", "scal", "alpha_out", "beta_out", "sums"),
+		q_cur=q_cur, scal=state.scal, alpha_out=alpha_out, beta_out=beta_out, **extra, **tensors,
+	)
+	if state.ticket.device != q_cur.device or state.ticket.dtype != torch.int32 or state.ticket.numel() != 1:
+		raise ValueError(f"{name}: the state's ticket must be one int32 on the operator's device")
+
+
+def lanczos_dia_round(
+	w: torch.Tensor, q_cur: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor, beta_out: torch.Tensor,
+	residual_tol: float, spec: Optional[CarrySpec] = None, reduce=None, sums: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+	"""The rest of a bfloat16 Lanczos step after pass A (see :func:`lanczos_round_ref`): on the card
+	the round pair, B1 (``Σ(w − α·q)²``, then β', the outputs and the state) and B2 (``q_next``),
+	with no host sync. ``w (nv, ld)`` float32 (pass A's, zero margins; overwritten on the CPU only),
+	``q_cur (nv, ld)`` bfloat16 carries of layout ``spec`` (default the flat ``(nv, n)``), ``state``
+	from :func:`lanczos_state` with α in ``state[ALPHA]`` and the done flags, ``alpha_out``/``beta_out``
+	``(nv,)``. On a row-sharded carry give ``reduce`` (an in-place all-reduce of an ``(nv,)`` tensor)
+	and ``sums (2, nv)`` float32 with the reduced α in ``sums[0]``: B1 writes the rank's Σv² to
+	``sums[1]``, ``reduce`` finishes it, ``lanczos_dia_advance`` writes the outputs and the state, and B2
+	reads them. Returns ``q_next (nv, ld)`` bfloat16, zero in the margins. bfloat16 only."""
+	spec = _check_round("lanczos_dia_round", q_cur, state, alpha_out, beta_out, spec)
+	if w.shape != q_cur.shape:
+		raise ValueError("lanczos_dia_round: w must match q_cur (nv, ld)")
+	if (reduce is None) != (sums is None) or (sums is not None and sums.shape != (2, q_cur.shape[0])):
+		raise ValueError("lanczos_dia_round: a row-sharded carry takes both reduce and sums (2, nv), an unsharded one neither")
+	if q_cur.device.type == "cpu":
+		return lanczos_dia_round_ref(w, q_cur, state, alpha_out, beta_out, residual_tol, spec, reduce or _same, sums)
+	_check_round_cuda("lanczos_dia_round", q_cur, state, alpha_out, beta_out, sums, w=w)
+	from ._build import load_library
+
+	lib = load_library()
+	nv = q_cur.shape[0]
+	gx = lib.lanczos_step_blocks(nv, spec.n, q_cur.element_size())
+	if gx < 1:
+		raise RuntimeError("lanczos_dia_round: could not query the CUDA device for the grid size")
+	partial = torch.empty((nv, gx), dtype=torch.float32, device=q_cur.device)
+	return _launch_round(lib, w, q_cur, state, partial, gx, alpha_out, beta_out, residual_tol, spec, reduce, sums)
+
+
+def lanczos_dia_round_step(
+	bands: torch.Tensor, offsets: torch.Tensor, q_cur: torch.Tensor, q_prev: torch.Tensor, state: LanczosState,
+	alpha_out: torch.Tensor, beta_out: torch.Tensor, residual_tol: float, spec: Optional[CarrySpec] = None,
+	reduce=None, rounded: bool = True,
+) -> torch.Tensor:
+	"""One whole Lanczos step of a bfloat16 sweep without re-orthogonalisation on a DIA operator
+	(``primate_tpu/lanczos.py:304-316,378-388``): pass A (``w = A·q_cur − β·q_prev`` with β from
+	``state[BETA]``, α; ``rounded`` as in :func:`lanczos_dia_step`), then :func:`lanczos_dia_round`.
+	On the card three launches (pass A's last block writes α to ``state[ALPHA]``) and no PyTorch op;
+	with ``reduce`` (a row-sharded carry) pass A writes the rank's α sums, ``reduce`` finishes them,
+	and the round pair takes them. ``q_cur``/``q_prev`` ``(nv, ld)`` bfloat16 carries of layout ``spec``,
+	``bands (n_d, ld)``. Returns ``q_next``."""
+	_check_shapes("lanczos_dia_round_step", bands, offsets, q_cur)
+	if q_prev.shape != q_cur.shape:
+		raise ValueError("lanczos_dia_round_step: q_prev must match q_cur (nv, ld)")
+	spec = _check_round("lanczos_dia_round_step", q_cur, state, alpha_out, beta_out, spec)
+	s = state.scal
+	if q_cur.device.type == "cpu":
+		w, alpha = lanczos_dia_step_ref(bands, offsets, q_cur, q_prev, s[BETA], spec, reduce or _same, rounded)
+		return spec.zero_margins(lanczos_round_ref(w, alpha, q_cur, state, alpha_out, beta_out, residual_tol, spec.rows, reduce or _same))
+	_check_round_cuda("lanczos_dia_round_step", q_cur, state, alpha_out, beta_out, None, bands=bands, offsets=offsets, q_prev=q_prev)
+	from ._build import load_library
+
+	lib = load_library()
+	if reduce is None:
+		w, partial, gx, _ = _launch_pass_a(lib, bands, offsets, q_cur, q_prev, s, state.ticket, None, spec, rounded=rounded)
+		return _launch_round(lib, w, q_cur, state, partial, gx, alpha_out, beta_out, residual_tol, spec)
+	sums = torch.empty((2, q_cur.shape[0]), dtype=torch.float32, device=q_cur.device)
+	w, partial, gx, _ = _launch_pass_a(lib, bands, offsets, q_cur, q_prev, s, state.ticket, None, spec, sums[0], rounded)
+	reduce(sums[0])
+	return _launch_round(lib, w, q_cur, state, partial, gx, alpha_out, beta_out, residual_tol, spec, reduce, sums)
 
 
 def lanczos_dia_step(

@@ -42,7 +42,9 @@ import torch.nn.functional as F
 
 from ..operators.base import DenseOperator, LinearOperator, torch_dtype
 from ..operators.sparse import BSROperator, CSROperator, DIAOperator
-from ..ops.dia import CarrySpec, carry_spec, lanczos_dia_step, lanczos_dia_sweep_step, lanczos_sweep_step_ref, row_dot
+from ..ops.dia import (
+	CarrySpec, carry_spec, lanczos_dia_round_step, lanczos_dia_step, lanczos_dia_sweep_step, lanczos_sweep_step_ref, row_dot,
+)
 from ._comm import all_gather_rows, all_reduce_rows, halo_exchange
 
 __all__ = ["ShardedCSROperator", "ShardedDenseOperator", "ShardedBSROperator", "ShardedDIAOperator", "shard_operator"]
@@ -423,6 +425,16 @@ class ShardedDIAOperator(_Sharded):
 		self._exchange(v_cur)
 		return lanczos_dia_sweep_step(
 			self.local.bands, self.local.offsets_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol, self._spec,
+			self._reduce,
+		)
+
+	def lanczos_round_step(self, q_cur, q_prev, state, alpha_out, beta_out, residual_tol: float, layout=None):
+		"""The whole bfloat16 step on the carry after the halo exchange: pass A (the stencil rounded, as
+		JAX's sharded apply rounds it) with its α all-reduced over the op group, then the round pair with
+		its Σv² all-reduced before B2 (:func:`~primate_tpu_torch.ops.dia.lanczos_dia_round_step`)."""
+		self._exchange(q_cur)
+		return lanczos_dia_round_step(
+			self.local.bands, self.local.offsets_t, q_cur, q_prev, state, alpha_out, beta_out, residual_tol, self._spec,
 			self._reduce,
 		)
 

@@ -27,7 +27,7 @@ of each, then
 times by the host clock (synced, no trace) ``linalg.tall_qr`` of Hutch++'s (10M, 30) sketch block
 and its parts (the Gram product, the Cholesky, the triangular solve). ``--bf16`` traces phase 24's 10M
 full-bf16 flagship alone (a bf16 ``DIAOperator`` and ``MatrixFunction(..., dtype=bfloat16)``: pass A's
-bf16 kernel and the sweep's PyTorch tail) beside the float32 flagship. Prints one JSON line per call: the
+bf16 kernel and the round pair a step) beside the float32 flagship. Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
 count); writes them all to ``--out``. Needs a CUDA device; without one it exits

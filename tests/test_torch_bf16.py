@@ -2,7 +2,8 @@
 versions of the four kernels (bf16 storage, float32 sums) against JAX's Pallas kernels in interpret
 mode, the Lanczos sweep on the flat and the halo-padded carry (``phys=True``) against JAX's, the
 sweep on a sharded DIA operator over two gloo ranks against JAX's sharded operator, and ``hutch``
-on injected probes. The dtype policy of the CUDA wrappers (bf16 taken by the four kernels, float16
+on injected probes. The rest of a bf16 step after pass A (the round pair's plain version) is held
+bit for bit to the PyTorch tail it replaced, and a breakdown to JAX's zeros. The dtype policy of the CUDA wrappers (bf16 taken by the four kernels, float16
 refused) is checked on the argument checks, which need no card.
 
 Tolerances: a bf16 output within one bf16 ulp of the output's magnitude, ``2⁻⁸·max|ref|``; pass A's
@@ -10,7 +11,6 @@ float32 ``w`` and α within 1e-6 relative; α and β of a 12-step bf16 sweep wit
 (q is rounded to bf16 every step, in the same places in both packages); estimates within 1e-2."""
 
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -32,6 +32,7 @@ from primate_tpu.ops.spmm_pallas import bsr_matmat
 from primate_tpu.parallel import make_mesh as jax_mesh, shard_operator as jax_shard
 from primate_tpu_torch import BSROperator, DIAOperator, MatrixFunction, hutch
 from primate_tpu_torch.lanczos import lanczos_block_op
+from primate_tpu_torch.operators import sparse as sparse_ops
 from primate_tpu_torch.ops import _common, bsr, dia
 
 torch.set_num_threads(1)
@@ -62,16 +63,31 @@ def _rademacher(n, nv, seed):
 # -- the rounding of the stencil sum on the flat and the padded carry ----------------------------
 
 
+def _spy_round_steps(monkeypatch, module):
+	"""Count the calls of ``lanczos_dia_round_step`` through the name ``module`` calls it by."""
+	calls = []
+	real = module.lanczos_dia_round_step
+
+	def spy(*args, **kwargs):
+		calls.append(1)
+		return real(*args, **kwargs)
+
+	monkeypatch.setattr(module, "lanczos_dia_round_step", spy)
+	return calls
+
+
 @pytest.mark.parametrize("phys", [False, True], ids=["flat", "phys"])
-def test_bf16_sweep_matches_jax_on_flat_and_padded_carry(phys):
+def test_bf16_sweep_matches_jax_on_flat_and_padded_carry(phys, monkeypatch):
 	"""``lanczos_block_op`` on a bf16 DIA operator against JAX's, tridiag(−1, 3, −1), n = 2048,
 	8 Rademacher probes, deg 12, orth 0: α and β within 1e-3 relative. JAX's flat step rounds
 	``matmat_t``'s output to bf16 before the β-axpy; its ``phys=True`` step takes
 	``dia_matmat_t_phys``'s float32 output unrounded. Rounding in both layouts put the port's
-	``phys=True`` 7.6e-3 (α) and 2.7e-3 (β) from JAX's."""
+	``phys=True`` 7.6e-3 (α) and 2.7e-3 (β) from JAX's. Each step goes through the operator's round
+	step (pass A and the round pair on the card), once a step."""
 	n, nv, deg = 2048, 8, 12
 	L = _path_laplacian(n)
 	V0 = _rademacher(n, nv, 0)
+	calls = _spy_round_steps(monkeypatch, sparse_ops)
 	got = lanczos_block_op(
 		DIAOperator.from_scipy(L, dtype=BF16, device="cpu"), torch.from_numpy(V0).to(BF16), deg=deg, ncv=2, orth=0,
 		return_basis=False, phys=phys,
@@ -81,8 +97,86 @@ def test_bf16_sweep_matches_jax_on_flat_and_padded_carry(phys):
 		return_basis=False, phys=phys,
 	)
 	assert got.alphas.dtype == torch.float32
+	assert len(calls) == deg
 	assert _rel(got.alphas.numpy(), want.alphas) < 1e-3
 	assert _rel(got.betas.numpy(), want.betas) < 1e-3
+
+
+def _pytorch_tail(v, alpha_j, q_cur, done, residual_tol, rows):
+	"""The bf16 step's tail as the sweep ran it in PyTorch before the round pair (orth 0): α, β,
+	q_next, the done flags."""
+	v.addcmul_(alpha_j[:, None], q_cur.to(v.dtype), value=-1)
+	beta_next = torch.sqrt(dia.row_sq_norm(rows(v)))
+	newly_done = beta_next < residual_tol
+	alpha_out, beta_out = torch.where(done, 0.0, alpha_j), torch.where(done, 0.0, beta_next)
+	q_next = v.div_(torch.where(beta_next > residual_tol, beta_next, torch.inf)[:, None]).to(q_cur.dtype)
+	return alpha_out, beta_out, q_next, beta_next, done | newly_done
+
+
+@pytest.mark.parametrize("phys", [False, True], ids=["flat", "phys"])
+def test_round_plain_version_equals_the_pytorch_tail_bit_for_bit(phys):
+	"""The round pair's plain version against the PyTorch tail it replaces, step by step on the same
+	pass A output: α, β, q_next and the done flags bit for bit, on the flat and the padded carry,
+	tridiag(−1, 3, −1), n = 2048, 8 probes, 12 steps; ``lanczos_dia_round_step`` (pass A and the pair)
+	gives the same q_next."""
+	n, nv, deg = 2048, 8, 12
+	op = DIAOperator.from_scipy(_path_laplacian(n), dtype=BF16, device="cpu")
+	spec = op.carry_spec(nv) if phys else dia.CarrySpec(n, 0, n)
+	bands = op._carry_bands(spec if phys else None)
+	X = torch.from_numpy(_rademacher(n, nv, 0).T.copy())
+	q_cur = spec.pad((X / torch.linalg.vector_norm(X, dim=1, keepdim=True)).to(BF16))
+	q_prev = torch.zeros_like(q_cur)
+	tol = float(np.sqrt(n) * 1e-8)
+	state = dia.lanczos_state(nv, torch.float32, "cpu")
+	beta, done = torch.zeros(nv), torch.zeros(nv, dtype=torch.bool)
+	for _ in range(deg):
+		w, alpha = dia.lanczos_dia_step(bands, op.offsets_t, q_cur, q_prev, beta, spec, rounded=not phys)
+		a_t, b_t, q_t, beta, done = _pytorch_tail(w.clone(), alpha, q_cur, done, tol, spec.rows)
+		state.scal[dia.ALPHA] = alpha
+		step_state = dia.LanczosState(state.scal.clone(), state.ticket)
+		a_r, b_r = torch.empty(nv), torch.empty(nv)
+		q_r = dia.lanczos_dia_round(w, q_cur, state, a_r, b_r, tol, spec)
+		a_s, b_s = torch.empty(nv), torch.empty(nv)
+		q_s = dia.lanczos_dia_round_step(bands, op.offsets_t, q_cur, q_prev, step_state, a_s, b_s, tol, spec, rounded=not phys)
+		for got in ((a_r, b_r, q_r), (a_s, b_s, q_s)):
+			assert all(torch.equal(g, t) for g, t in zip(got, (a_t, b_t, q_t)))
+		assert torch.equal(state.scal[dia.BETA], beta) and torch.equal(state.scal[dia.DONE] != 0, done)
+		assert torch.equal(step_state.scal, state.scal)
+		q_prev, q_cur = q_cur, q_r
+	assert q_cur.dtype == BF16 and not spec.zero_margins(q_cur.clone()).ne(q_cur).any()
+
+
+def _split_path(n, k):
+	"""tridiag(−1, 3, −1) with row and column ``k`` cut loose (exact in bf16): ``e_k`` is an
+	eigenvector, so a probe that starts there breaks down at the first step (β' = 0 exactly)."""
+	off = -np.ones(n - 1)
+	off[k - 1 : k + 1] = 0.0
+	return sps.diags([off, 3.0 * np.ones(n), off], [-1, 0, 1]).tocsr()
+
+
+@pytest.mark.parametrize("phys", [False, True], ids=["flat", "phys"])
+def test_bf16_breakdown_emits_zeros_as_jax_does(phys):
+	"""A probe that starts at an eigenvector breaks down at its first step: α = 3 then 0, β = 0 from
+	that step on, in the port (through the round step: q_next = v / inf = 0) as in JAX; the other
+	probes, Rademacher starts, match JAX's within 1e-3 relative."""
+	n, nv, deg, k = 2048, 8, 12, 4
+	A = _split_path(n, k)
+	V0 = _rademacher(n, nv, 3)
+	V0[:, 0] = 0.0
+	V0[k, 0] = 1.0
+	got = lanczos_block_op(
+		DIAOperator.from_scipy(A, dtype=BF16, device="cpu"), torch.from_numpy(V0).to(BF16), deg=deg, ncv=2, orth=0,
+		return_basis=False, phys=phys,
+	)
+	want = jax_lanczos_block_op(
+		JaxDIA.from_scipy(A, dtype=jnp.bfloat16), jnp.asarray(V0, dtype=jnp.bfloat16), deg=deg, ncv=2, orth=0,
+		return_basis=False, phys=phys,
+	)
+	a, b = got.alphas.numpy(), got.betas.numpy()
+	wa, wb = np.asarray(want.alphas), np.asarray(want.betas)
+	assert a[0, 0] == wa[0, 0] == 3.0
+	assert not a[1:, 0].any() and not b[:, 0].any() and not wa[1:, 0].any() and not wb[:, 0].any()
+	assert _rel(a[:, 1:], wa[:, 1:]) < 1e-3 and _rel(b[:, 1:], wb[:, 1:]) < 1e-3
 
 
 def test_padded_carry_and_flat_carry_differ_only_by_the_rounding():
@@ -212,6 +306,18 @@ def test_the_four_kernels_take_bf16_and_refuse_float16(name):
 		_common.check_cuda(name, torch.float16, cuda, **kw)
 
 
+def test_round_pair_takes_bf16_only_and_refuses_float16():
+	"""The round pair exists for bf16 carries alone (a float32/float64 sweep runs pass B); its state,
+	outputs and sums are in the accumulation dtype."""
+	cuda = torch.device("cuda", 0)
+	kw = dict(bf16_only=True, acc_keys=("w",))
+	_common.check_cuda("lanczos_dia_round", BF16, cuda, **kw)
+	for dtype in (torch.float32, torch.float64, torch.float16):
+		with pytest.raises(TypeError, match="takes bfloat16; got"):
+			_common.check_cuda("lanczos_dia_round", dtype, cuda, **kw)
+	assert _common.LAUNCHES["lanczos_dia_round"] == 0 and "lanczos_dia_round" in _common.BF16_LAUNCHES
+
+
 def test_pass_b_refuses_bf16_and_bf16_sums_in_float32():
 	"""Pass B and the advance have no bf16 instantiation (the bf16 sweep runs pass A and a PyTorch
 	tail); a bf16 kernel's sums, pass A's w and α, are float32."""
@@ -262,11 +368,16 @@ def test_bf16_hutch_trace_on_bsr_matches_jax():
 
 # -- the sharded bf16 sweep over two gloo ranks ------------------------------------------------------
 
+# The ranks meet through a file store in tmp_path (no probed TCP port that another process could take
+# first). The sharded operator and its mesh hold gloo process groups: a worker frees them, meets the
+# other rank at a barrier and destroys the default group before it exits. A group left to the
+# interpreter's exit aborted the process now and then ("terminate called without an active exception").
 _WORKER = r'''
+import gc
 import sys
 from datetime import timedelta
 
-rank, port, repo, path = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+rank, store, repo, path = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
 sys.path.insert(0, repo)
 import numpy as np
 import scipy.sparse as sps
@@ -277,26 +388,28 @@ import primate_tpu_torch as ptt
 from primate_tpu_torch.lanczos import lanczos_block_op
 from primate_tpu_torch.parallel import initialize_distributed, make_mesh, shard_operator
 
-initialize_distributed("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank, timeout=timedelta(seconds=90))
-V0 = np.load(path)["V0"]
-n = V0.shape[0]
-L = sps.diags([-np.ones(n - 1), 3.0 * np.ones(n), -np.ones(n - 1)], [-1, 0, 1]).tocsr()
-op = shard_operator(ptt.DIAOperator.from_scipy(L, dtype=torch.bfloat16, device="cpu"), make_mesh((2, 1), device_type="cpu"))
-out = lanczos_block_op(op, torch.from_numpy(V0).to(torch.bfloat16), deg=12, ncv=2, orth=0, return_basis=False)
-np.savez(path.replace(".npz", f".{rank}.npz"), alphas=out.alphas.numpy(), betas=out.betas.numpy(), dtype=str(op.dtype))
+
+def sweep():
+	V0 = np.load(path)["V0"]
+	n = V0.shape[0]
+	L = sps.diags([-np.ones(n - 1), 3.0 * np.ones(n), -np.ones(n - 1)], [-1, 0, 1]).tocsr()
+	op = shard_operator(ptt.DIAOperator.from_scipy(L, dtype=torch.bfloat16, device="cpu"), make_mesh((2, 1), device_type="cpu"))
+	out = lanczos_block_op(op, torch.from_numpy(V0).to(torch.bfloat16), deg=12, ncv=2, orth=0, return_basis=False)
+	np.savez(path.replace(".npz", f".{rank}.npz"), alphas=out.alphas.numpy(), betas=out.betas.numpy(), dtype=str(op.dtype))
+
+
+initialize_distributed("gloo", init_method=f"file://{store}", world_size=2, rank=rank, timeout=timedelta(seconds=90))
+sweep()
+gc.collect()
+torch.distributed.barrier()
 torch.distributed.destroy_process_group()
 '''
 
 
-def _free_port():
-	with socket.socket() as s:
-		s.bind(("localhost", 0))
-		return s.getsockname()[1]
-
-
 def test_sharded_bf16_sweep_on_two_gloo_ranks_matches_jax_sharded(tmp_path):
-	"""The bf16 sweep on ``ShardedDIAOperator`` (pass A on the padded carry after the halo exchange,
-	the stencil rounded as JAX's sharded apply rounds it, α all-reduced) over two gloo ranks: both
+	"""The bf16 sweep on ``ShardedDIAOperator`` (its round step: pass A on the padded carry after the
+	halo exchange, the stencil rounded as JAX's sharded apply rounds it, α all-reduced, then the round
+	pair's plain version with Σv² all-reduced) over two gloo ranks: both
 	ranks bit for bit alike, α and β within 1e-3 relative of JAX's sharded bf16 operator on its
 	8-device mesh and of the unsharded port."""
 	n, nv = 2048, 8
@@ -305,9 +418,9 @@ def test_sharded_bf16_sweep_on_two_gloo_ranks_matches_jax_sharded(tmp_path):
 	np.savez(path, V0=V0)
 	script = tmp_path / "worker.py"
 	script.write_text(_WORKER)
-	port = str(_free_port())
+	store = str(tmp_path / "store")
 	env = {**os.environ, "OMP_NUM_THREADS": "1"}
-	procs = [subprocess.Popen([sys.executable, str(script), str(r), port, REPO, path], env=env, stderr=subprocess.PIPE, text=True) for r in range(2)]
+	procs = [subprocess.Popen([sys.executable, str(script), str(r), store, REPO, path], env=env, stderr=subprocess.PIPE, text=True) for r in range(2)]
 	try:
 		for p in procs:
 			_, err = p.communicate(timeout=240)

@@ -998,15 +998,109 @@ def test_bf16_stencil_gradient_matches_autograd_of_the_plain_version(cuda):
 
 def test_bf16_sweeps_on_the_card_match_the_cpu_port(cuda):
 	"""``lanczos_block_op`` on a bf16 DIA operator, flat and ``phys=True``, on the card (pass A's
-	bf16 kernel, rounded and not) against the CPU port on the same bf16 probes: α and β within 1e-3
-	relative (q is rounded to bf16 every step)."""
+	bf16 kernel, rounded and not, and the round pair, once a step each; no pass B) against the CPU port
+	on the same bf16 probes: α and β within 1e-3 relative (q is rounded to bf16 every step)."""
 	n, nv = 20_001, 8
 	L = sps.diags([-np.ones(n - 1), 3.0 * np.ones(n), -np.ones(n - 1)], [-1, 0, 1]).tocsr()
 	V0 = torch.from_numpy(np.random.default_rng(6).choice([-1.0, 1.0], size=(n, nv))).to(BF16)
 	for phys in (False, True):
-		before = dia.LAUNCHES["lanczos_dia_step"]
+		before = dict(dia.LAUNCHES)
 		got = lanczos_block_op(DIAOperator.from_scipy(L, dtype=BF16, device=cuda), V0.to(cuda), deg=12, ncv=2, orth=0, return_basis=False, phys=phys)
-		assert dia.LAUNCHES["lanczos_dia_step"] == before + 12
+		assert dia.LAUNCHES["lanczos_dia_step"] == before["lanczos_dia_step"] + 12
+		assert dia.LAUNCHES["lanczos_dia_round"] == before["lanczos_dia_round"] + 12
+		assert dia.LAUNCHES["lanczos_dia_residual"] == before["lanczos_dia_residual"]
 		want = lanczos_block_op(DIAOperator.from_scipy(L, dtype=BF16, device="cpu"), V0, deg=12, ncv=2, orth=0, return_basis=False, phys=phys)
 		for gv, wv in ((got.alphas, want.alphas), (got.betas, want.betas)):
 			assert float((gv.cpu() - wv).abs().max() / wv.abs().max()) <= 1e-3
+
+
+# --- bfloat16: the round pair that finishes a bf16 step after pass A ------------------------------
+#
+# (nv, n, max offset of the padded carry or None for the flat one, lead): probe counts past and below
+# a block's 8, a padded carry of whole lines, a flat block of rows that are not whole vectors and one
+# that starts one element into its buffer (both the scalar path). β' within 1e-6 relative; α outputs
+# and the done flags equal; q_next equal but for flips of one bf16 ulp (a quotient within a float32 ulp
+# of a rounding boundary), at most 1e-4 of the entries (each shape has 20,000 entries or more, so that
+# share allows one).
+ROUND_SHAPES = [(64, 20_000, None, 0), (13, 3001, 128, 0), (5, 4001, 7, 0), (7, 20_001, None, 0), (9, 12_000, None, 1)]
+
+
+def _round_inputs(dev, nv, n, moff, lead, seed=31):
+	"""A carry q (bf16), pass A's w and α (its plain version on the card), and a state in which probe 1
+	was done before the step and probe 2 breaks down at it (w = 2·q, α = 2: v = 0 exactly)."""
+	g = torch.Generator(device=dev)
+	g.manual_seed(seed)
+	spec = dia.carry_spec(n, moff, 2) if moff else dia.CarrySpec(n, 0, n)
+	offsets = (-1, 0, 1) if not moff else (-moff, -1, 0, 1, moff)
+	bands = spec.pad((torch.rand((len(offsets), n), generator=g, device=dev) + 0.5).to(BF16))
+	offs = torch.tensor(offsets, dtype=torch.int64, device=dev)
+	unit = lambda X: X / torch.linalg.vector_norm(X, dim=1, keepdim=True)  # noqa: E731
+	q = torch.empty(lead + nv * spec.ld, device=dev, dtype=BF16)[lead:].view(nv, spec.ld).zero_()
+	spec.rows(q).copy_(unit(torch.randn((nv, n), generator=g, device=dev)).to(BF16))
+	qp = spec.pad(unit(torch.randn((nv, n), generator=g, device=dev)).to(BF16))
+	beta = torch.rand(nv, generator=g, device=dev) + 0.5
+	w, alpha = dia.lanczos_dia_step_ref(bands, offs, q, qp, beta, spec)
+	w[2], alpha[2] = spec.zero_margins(2.0 * q[2].float()), 2.0
+	state = dia.lanczos_state(nv, torch.float32, dev)
+	state.scal[dia.ALPHA], state.scal[dia.BETA], state.scal[dia.DONE, 1] = alpha, beta, 1.0
+	return spec, w, q, state
+
+
+def _assert_round_matches(got, want, spec, label):
+	(q_k, a_k, b_k, s_k), (q_r, a_r, b_r, s_r) = got, want
+	assert torch.equal(a_k, a_r) and torch.equal(s_k[dia.DONE], s_r[dia.DONE]) and torch.equal(s_k[dia.ALPHA], s_r[dia.ALPHA])
+	for k, r in ((b_k, b_r), (s_k[dia.BETA], s_r[dia.BETA]), (s_k[dia.DIV_CUR], s_r[dia.DIV_CUR])):
+		fin = torch.isfinite(r)
+		assert torch.equal(fin, torch.isfinite(k)) and torch.equal(k[~fin], r[~fin])
+		assert bool(torch.all((k[fin] - r[fin]).abs() <= 1e-6 * r[fin].abs()))
+	assert bool(torch.all(b_k[1] == 0)) and float(s_k[dia.DONE, 2]) == 1.0 and not q_k[2].any()
+	assert not q_k[:, : spec.lo].any() and not q_k[:, spec.lo + spec.n :].any()
+	d = (q_k.float() - q_r.float()).abs()
+	ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(q_k.float().abs(), q_r.float().abs()))) - 7)
+	flips = int((d > 0).sum())
+	print(f"{label}: {flips} of {q_k.numel()} entries of q_next one bf16 ulp from the plain version")
+	assert bool(torch.all(d <= ulp)) and flips <= 1e-4 * q_k.numel()
+
+
+@pytest.mark.parametrize("finishing", [False, True], ids=["whole", "finishing"])
+@pytest.mark.parametrize("shape", ROUND_SHAPES)
+def test_bf16_round_pair_matches_plain_version(cuda, shape, finishing):
+	"""The round pair (B1 and B2, one launch of ``lanczos_dia_round``) against its plain version on the
+	same pass A output: the flat and the padded carry, nv past and below 8, a misaligned block (its
+	scalar path), a probe done before the step and one that breaks down at it; whole (B1's last block
+	advances the state) and in the finishing mode (α from the reduced sums, Σv² through ``reduce``,
+	the advance kernel)."""
+	nv, n, moff, lead = shape
+	spec, w, q, state = _round_inputs(cuda, nv, n, moff, lead)
+	tol = float(np.sqrt(n) * 1e-8)
+	runs = []
+	before, scalar = dict(dia.LAUNCHES), dict(_common.SCALAR_LAUNCHES)
+	for fn in (dia.lanczos_dia_round, dia.lanczos_dia_round_ref):
+		st = dia.LanczosState(state.scal.clone(), state.ticket.clone())
+		a_out, b_out = torch.full((nv,), -1.0, device=cuda), torch.full((nv,), -1.0, device=cuda)
+		kw = {}
+		if finishing:
+			sums = torch.stack([st.scal[dia.ALPHA], torch.zeros(nv, device=cuda)])
+			st.scal[dia.ALPHA] = 7.0  # the finishing mode reads α from the sums
+			kw = dict(reduce=lambda t: t, sums=sums)
+		q_next = fn(w.clone(), q, st, a_out, b_out, tol, spec, **kw)
+		torch.cuda.synchronize()
+		runs.append((q_next, a_out, b_out, st.scal))
+	assert dia.LAUNCHES["lanczos_dia_round"] == before["lanczos_dia_round"] + 1
+	assert dia.LAUNCHES["lanczos_dia_advance"] == before["lanczos_dia_advance"] + finishing
+	vec = _common.vector_ok(spec.ld, 2, w, q, lead=spec.lo)
+	assert vec == (lead == 0 and n % 8 == 0 or moff is not None)
+	assert _common.SCALAR_LAUNCHES["lanczos_dia_round"] == scalar["lanczos_dia_round"] + (not vec)
+	assert int(runs[0][3][dia.DONE].sum()) == 2 and float(runs[0][1][2]) == 2.0
+	_assert_round_matches(runs[0], runs[1], spec, f"{shape} {'finishing' if finishing else 'whole'}")
+
+
+def test_round_pair_takes_bf16_only(cuda):
+	spec, w, q, state = _round_inputs(cuda, 4, 1000, None, 0)
+	out = torch.empty(4, device=cuda)
+	with pytest.raises(TypeError, match="takes bfloat16; got torch.float32"):
+		dia.lanczos_dia_round(w, q.float(), state, out, out.clone(), 1e-7)
+	with pytest.raises(TypeError, match="float16"):
+		dia.lanczos_dia_round(w, q.half(), state, out, out.clone(), 1e-7)
+	with pytest.raises(TypeError, match="w has dtype"):
+		dia.lanczos_dia_round(w.to(BF16), q, state, out, out.clone(), 1e-7)

@@ -471,7 +471,7 @@ def _count(mod, name):
 
 
 for _mod in (_sparse, _sharded):
-	for _name in ("lanczos_dia_sweep_step", "lanczos_dia_step"):
+	for _name in ("lanczos_dia_sweep_step", "lanczos_dia_step", "lanczos_dia_round_step"):
 		_count(_mod, _name)
 
 
@@ -493,6 +493,25 @@ def band_sweep(n, deg, orth, nv, shape, ranks=None, probe=None):
 		M = ptt.MatrixFunction(o, "log", deg=deg, orth=orth)
 		out[name + "f"] = a(M.matmat(t(V)))
 		out[name + "q"] = a(M.quad(t(V)))
+	return out
+
+
+@case
+def bf16_round_sweep(n, deg, nv, shape, ranks=None, probe=None):
+	"""The bf16 sweep (orth 0) of the sharded and the unsharded DIA operator of tridiag(−1, 3, −1) on
+	the same Rademacher block: α, β and the calls of the step wrappers each made."""
+	m = mesh(shape, ranks)
+	if m is None:
+		return None
+	A = lap(n)
+	V = torch.from_numpy(np.random.default_rng(0).choice([-1.0, 1.0], size=(n, nv))).to(torch.bfloat16)
+	out = {}
+	for name, o in (("s", shard_operator(ptt.DIAOperator.from_scipy(A, dtype=torch.bfloat16, **CPU), m, probe_axis=probe)),
+			("u", ptt.DIAOperator.from_scipy(A, dtype=torch.bfloat16, **CPU))):
+		STEP_CALLS.clear()
+		res = ptt.lanczos_block_op(o, V, deg=deg, ncv=2, orth=0, return_basis=False)
+		out[name + "calls"] = np.array([STEP_CALLS.get(k, 0) for k in ("lanczos_dia_round_step", "lanczos_dia_step", "lanczos_dia_sweep_step")])
+		out[name + "a"], out[name + "b"] = a(res.alphas), a(res.betas)
 	return out
 
 
@@ -1117,6 +1136,20 @@ def test_sharded_dia_sweep_runs_the_step_kernels(pool, mesh8, n, orth, shape, ra
 		V = np.random.default_rng(0).normal(size=(n, nv))
 		jop = jax_shard(JaxDIA.from_scipy(_band(n)), mesh8)
 		_close(r["sq"], np.asarray(pt.MatrixFunction(jop, fun="log", deg=deg, orth=orth).quad(jnp.asarray(V))), tol=1e-10)
+
+
+@pytest.mark.parametrize("shape,ranks,probe", [([2, 1], [0, 1], None), ([4, 1], None, None), ([2, 2], None, "probe")])
+def test_sharded_bf16_sweep_runs_the_round_step(pool, shape, ranks, probe):
+	"""The bf16 sweep without re-orthogonalisation on a sharded DIA operator (tridiag(−1, 3, −1),
+	n = 2048, 8 Rademacher probes, deg 12, as the two-rank test of ``test_torch_bf16.py``) goes through
+	``lanczos_dia_round_step`` once a step and through no other step wrapper, as the unsharded operator
+	does, and its α and β match the unsharded port within 1e-3 relative (q is rounded to bf16 every
+	step; the sums are taken rank by rank)."""
+	deg = 12
+	r = _one(pool.run("bf16_round_sweep", n=2048, deg=deg, nv=8, shape=shape, ranks=ranks, probe=probe))
+	assert r["scalls"].tolist() == [deg, 0, 0] and r["ucalls"].tolist() == [deg, 0, 0]
+	for key in ("a", "b"):
+		assert np.abs(r["s" + key] - r["u" + key]).max() <= 1e-3 * np.abs(r["u" + key]).max()
 
 
 @pytest.mark.parametrize("ws", [2, 4])
