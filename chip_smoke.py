@@ -67,13 +67,17 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
 15. runs ``examples/tight_binding.py`` on the Hofstadter model at 2000 × 2048 = 4,096,000
    sites (flux 1/5, periodic) as a complex64 DIA operator of 8 diagonals: the complex
    stencils against their plain versions, complex64 and complex128, at the cell's shapes
-   and at awkward ones, timed beside bound, plain version and complex cuSPARSE; then, each
+   and at awkward ones, timed beside bound, plain version and complex cuSPARSE; the complex
+   step passes (``lanczos_dia_step``, ``lanczos_dia_residual``) against the plain step, complex64
+   and complex128, two steps at the cell's 16 × n block (a probe broken down) and at awkward shapes
+   (n odd, a misaligned block: complex64's scalar path; offsets past the 16-row staging and n), pass
+   A alone, and passes A, B and the step timed at the cell beside bound and plain versions; then, each
    counted and timed, ``kpm_trace`` of x² and x⁴ against the closed forms 4n and
    (28 + 8 cos 2πα)·n (10 σ of its own probes), the KPM density (mass 1, second moment 4),
-   Lanczos against Chebyshev quadrature probe for probe (1e-4), the β sweep of
-   ``tr e^{−βH}`` (48 probe-major stencils a batch, no step kernel; within 2% of the KPM
-   density's), ``diag`` of H² (mean 4 within 1e-3, L2 error within 10% of its closed form),
-   the LDOS window, the SLQ density, Hutch++ of H·H (within 1e-2 of 4n; two node-major
+   Lanczos against Chebyshev quadrature probe for probe (1e-4; the Lanczos sweep 40 complex steps,
+   passes A and B each, no ``dia_stencil_t``), the β sweep of ``tr e^{−βH}`` (48 steps a batch, the
+   same; within 2% of the KPM density's), ``diag`` of H² (mean 4 within 1e-3, L2 error within 10% of
+   its closed form), the LDOS window, the SLQ density (64 steps), Hutch++ of H·H (within 1e-2 of 4n; two node-major
    stencils for the QR block) and the same Chebyshev quadrature through complex CSR (1e-5);
 16. builds the native loader (g++) and holds its DIA build of the 10M tridiagonal and its BSR
    build of phase 7's matrix to scipy's, bit for bit, each timed; runs ``auto_operator`` on a 1M
@@ -171,8 +175,9 @@ shape follow under ``fem_`` keys, with its launches in that call
 (``grad_max_abs_err``, over float32 and float64, relative to the largest entry) and
 times (``backward_ms``, ``backward_plain_ms``), and the three kernels of phase 13 their
 launches in its forward and backward passes (``gp_forward_launches``,
-``gp_backward_launches``), and the two stencils their complex64 numbers at phase 15's cell
-shapes under ``c64_`` keys, with ``c64_launches`` the complex launches of its calls 2-8;
+``gp_backward_launches``), and the two stencils and the two step passes their complex64 numbers at
+phase 15's cell shapes under ``c64_`` keys (the passes their complex128 ones under ``c128_``), with
+``c64_launches`` the complex launches of its calls 2-8;
 every kernel also carries its launches in phases 16, 17, 18, 19 and 22 (``prep_launches``,
 ``eig_launches``, ``gram_launches``, ``recipe_launches``, ``example_launches``); ``dia_stencil_t``
 and ``bsr_spmm`` their forward and backward launches in phase 20 (``grad_launches``), and
@@ -235,6 +240,7 @@ REPLACES = {
 # tensor cores (the kernels run FP32 FMAs on the CUDA cores), 989 TFLOP/s dense
 # bfloat16 (the card's peak for bf16 operands, on the tensor cores).
 HBM_BYTES_PER_S, FP32_FLOP_PER_S, BF16_FLOP_PER_S = 3.35e12, 67e12, 989e12
+FP64_FLOP_PER_S = 34e12  # the same sheet: float64 outside the tensor cores (complex128's operations)
 STENCIL_TOL = {"float32": 1e-5, "float64": 1e-12}  # max-abs error over max|out|
 # Phase 7: BASELINE config 3 at audikw_1's scale (943,695 rows, 77.7M nonzeros).
 BSR_CELL = dict(n=1_048_576, bs=8, density=3.5e-5, seed=7)
@@ -1398,6 +1404,150 @@ def check_complex_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 	return out
 
 
+# The complex step's tolerances beside CPLX_TOL (v and w: max-abs error over max|out|): α over
+# ‖q‖·‖w‖ of its probe (the Cauchy-Schwarz bound of |α|, which a Hermitian probe's α may sit far
+# below), β' relative.
+CPLX_AB_TOL = {"complex64": 1e-5, "complex128": 1e-12}
+
+
+def check_complex_step_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
+	"""Phase 15, call 1 (continued): the complex step passes (``lanczos_dia_step``, pass A, and
+	``lanczos_dia_residual``, pass B) against the plain step on the card, complex64 and complex128. At
+	the cell's shape (16 probes, the Hamiltonian's own bands) two whole flat steps from a mid-sweep
+	state whose probe 0 broke down (its divisor inf: q = 0, its α and β zero), each from the same blocks
+	and state as the plain step, then pass A, pass B and the step timed beside their bounds and plain
+	versions; pass A alone (``lanczos_dia_step``, the ``orth > 0`` route). At awkward shapes (n odd and a
+	block one element into its buffer: complex64's scalar path; 13 and 7 probes; offsets inside, at and
+	past the 16-row staging and at and past n) two whole steps. Returns the complex64 cell numbers under
+	``c64_`` keys, the complex128 ones under ``c128_``."""
+	from primate_tpu_torch.ops import _common
+	from primate_tpu_torch.ops._build import load_library
+
+	lib = load_library()
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(151)
+	out = {}
+
+	def crandn(shape, dtype):
+		return torch.view_as_complex(torch.randn(tuple(shape) + (2,), generator=gen, device=dev, dtype=dtype.to_real()))
+
+	def unit(X):
+		return X.div_(torch.linalg.vector_norm(X, dim=1, keepdim=True))
+
+	def mid_sweep_state(nv, r):
+		st = dia.lanczos_state(nv, r, dev)
+		st.scal[dia.DIV_CUR] = torch.rand(nv, generator=gen, device=dev, dtype=r) + 0.5
+		st.scal[dia.DIV_PREV] = torch.rand(nv, generator=gen, device=dev, dtype=r) + 0.5
+		st.scal[dia.BETA] = torch.rand(nv, generator=gen, device=dev, dtype=r) + 0.5
+		st.scal[dia.DIV_CUR, 0], st.scal[dia.BETA, 0], st.scal[dia.DONE, 0] = torch.inf, 1e-9, 1.0
+		return st
+
+	def two_steps(label, bands, offs, offs_host, v_cur, v_prev, dtype, scalar: bool) -> dict:
+		"""Two whole steps, kernels against the plain step from the same blocks and state each time."""
+		tname, r = str(dtype).removeprefix("torch."), dtype.to_real()
+		nv = v_cur.shape[0]
+		apply_ref = lambda q: dia.dia_stencil_t_ref(bands, offs_host, q)  # noqa: E731
+		st = mid_sweep_state(nv, r)
+		errs_v, errs_a, errs_b, bits, finite, done_ok = [], [], [], 0, True, True
+		scalar_before, before = dict(_common.SCALAR_LAUNCHES), dict(_common.LAUNCHES)
+		for _ in range(2):
+			st_ref = dia.LanczosState(st.scal.clone(), torch.zeros(1, dtype=torch.int32, device=dev))
+			ab, ab_ref = torch.empty((2, nv), dtype=r, device=dev), torch.empty((2, nv), dtype=r, device=dev)
+			v = dia.lanczos_dia_sweep_step(bands, offs, v_cur, v_prev, st, ab[0], ab[1], 1e-8)
+			v_ref = dia.lanczos_sweep_step_ref(apply_ref, v_cur, v_prev, st_ref, ab_ref[0], ab_ref[1], 1e-8)
+			torch.cuda.synchronize()
+			q = v_cur / st_ref.scal[dia.DIV_PREV, :, None]  # the step's q (the state has advanced)
+			scale = torch.linalg.vector_norm(q, dim=1) * torch.linalg.vector_norm(v_ref + st_ref.scal[dia.ALPHA, :, None] * q, dim=1)
+			errs_v.append(_rel_err(torch, v, v_ref))
+			errs_a.append(float(((ab[0] - ab_ref[0]).abs() / scale.clamp_min(1e-30))[1:].max()))
+			errs_b.append(float(((ab[1] - ab_ref[1]).abs() / ab_ref[1].abs())[1:].max()))
+			bits += int((v != v_ref).sum())
+			finite = finite and bool(torch.isfinite(torch.view_as_real(v)).all())
+			done_ok = done_ok and bool(ab[0, 0] == 0 and ab[1, 0] == 0) and torch.equal(st.scal[dia.DONE], st_ref.scal[dia.DONE])
+			v_prev, v_cur = v_cur, v
+			del q, v_ref, scale
+		launched = {k: _common.LAUNCHES[k] - before[k] for k in ("lanczos_dia_step", "lanczos_dia_residual", "dia_stencil_t")}
+		took_scalar = {k: _common.SCALAR_LAUNCHES[k] - scalar_before[k] for k in ("lanczos_dia_step", "lanczos_dia_residual")}
+		rel_v, rel_a, rel_b = max(e[1] for e in errs_v), max(errs_a), max(errs_b)
+		row = {"phase": "tight_binding_step_check", "shape": label, "nv": nv, "n": v_cur.shape[1], "dtype": tname,
+			"v_max_abs_err": max(e[0] for e in errs_v), "v_rel_err": rel_v, "v_entries_differing_in_bits": bits,
+			"alpha_err_over_q_w": rel_a, "beta_rel_err": rel_b, "tol": CPLX_TOL[tname], "ab_tol": CPLX_AB_TOL[tname],
+			"launches": launched, "scalar_launches": took_scalar, "done_probe_ok": done_ok}
+		emit(row)
+		if not (rel_v <= CPLX_TOL[tname] and rel_a <= CPLX_AB_TOL[tname] and rel_b <= CPLX_AB_TOL[tname] and finite and done_ok
+			and launched == {"lanczos_dia_step": 2, "lanczos_dia_residual": 2, "dia_stencil_t": 0}):
+			raise AssertionError(f"the complex step kernels disagree with the plain step: {row}")
+		# A misaligned start stays in the second step's v_prev, so both steps take the scalar path.
+		if took_scalar != {"lanczos_dia_step": 2 * int(scalar), "lanczos_dia_residual": 2 * int(scalar)}:
+			raise AssertionError(f"the complex step took its scalar path {took_scalar} times, expected {2 * int(scalar)}: {row}")
+		return row
+
+	n, n_d = op.shape[0], len(op.offsets)
+	offs, offs_host = op.offsets_t, op.offsets_t.cpu()
+	for dtype in (torch.complex64, torch.complex128):
+		tname, r = str(dtype).removeprefix("torch."), dtype.to_real()
+		key, item = ("c64" if dtype == torch.complex64 else "c128"), (8 if dtype == torch.complex64 else 16)
+		bands = op.bands.to(dtype)
+		nv = TB_NV
+		v_cur, v_prev = unit(crandn((nv, n), dtype)), unit(crandn((nv, n), dtype))
+		cell = two_steps("cell", bands, offs, offs_host, v_cur, v_prev, dtype, False)
+		# Pass A alone (orth > 0): w and α from unit q, β.
+		beta = torch.rand(nv, generator=gen, device=dev, dtype=r) + 0.5
+		w, alpha = dia.lanczos_dia_step(bands, offs, v_cur, v_prev, beta)
+		w_ref, alpha_ref = dia.lanczos_dia_step_ref(bands, offs_host, v_cur, v_prev, beta)
+		torch.cuda.synchronize()
+		err_w = _rel_err(torch, w, w_ref)
+		err_alpha = float(((alpha - alpha_ref).abs() / torch.linalg.vector_norm(w_ref, dim=1)).max())
+		del w, w_ref
+		# Timed: pass A, pass B and the whole step, kernels in the sweep's mode, beside the plain passes.
+		apply_ref = lambda q: dia.dia_stencil_t_ref(bands, offs_host, q)  # noqa: E731
+		st, st_ref = mid_sweep_state(nv, r), mid_sweep_state(nv, r)
+		ab = torch.empty((2, nv), dtype=r, device=dev)
+		w_a, partial, gx, vec = dia._launch_pass_a(lib, bands, offs, v_cur, v_prev, st.scal, st.ticket, ab[0])
+		w_b_ref = w_a.clone()
+		timed = {
+			"lanczos_dia_step": (
+				lambda: dia._launch_pass_a(lib, bands, offs, v_cur, v_prev, st.scal, st.ticket, ab[0]),
+				lambda: dia.lanczos_sweep_pass_a_ref(apply_ref, v_cur, v_prev, st_ref, ab[0]),
+				(3 * nv * n + n_d * n) * item, (8 * n_d + 12) * nv * n),
+			"lanczos_dia_residual": (
+				lambda: dia._launch_pass_b(lib, v_cur, w_a, st, partial, ab[1], 1e-8, gx, vec),
+				lambda: dia.lanczos_sweep_pass_b_ref(v_cur, w_b_ref, st_ref, ab[1], 1e-8),
+				3 * nv * n * item, 10 * nv * n),
+			"whole_step": (
+				lambda: dia.lanczos_dia_sweep_step(bands, offs, v_cur, v_prev, st, ab[0], ab[1], 1e-8),
+				lambda: dia.lanczos_sweep_step_ref(apply_ref, v_cur, v_prev, st_ref, ab[0], ab[1], 1e-8),
+				(6 * nv * n + n_d * n) * item, (8 * n_d + 22) * nv * n),
+		}
+		row = {"phase": "tight_binding_step_timing", "shape": "cell", "nv": nv, "n": n, "dtype": tname, "grid_x": gx,
+			"vector_path": vec, "pass_a_alone_w_rel_err": err_w[1], "pass_a_alone_alpha_err_over_w": err_alpha}
+		errs = {"lanczos_dia_step": max(err_w[0], cell["v_max_abs_err"]), "lanczos_dia_residual": cell["v_max_abs_err"]}
+		for k, (kern, plain, bytes_, flops) in timed.items():
+			ms, plain_ms = _timed_pair(torch, kern, plain, reps)
+			b_ms, b_by = bound(bytes_, flops, FP32_FLOP_PER_S if dtype == torch.complex64 else FP64_FLOP_PER_S)
+			row.update({f"{k}_ms": ms, f"{k}_plain_ms": plain_ms, f"{k}_bound_ms": b_ms, f"{k}_bound_by": b_by,
+				f"{k}_GBps": bytes_ / ms / 1e6, f"{k}_share_of_bound": b_ms / ms})
+			if k != "whole_step":
+				out.setdefault(k, {}).update({f"{key}_max_abs_err": errs[k], f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+					f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by, f"{key}_library_ms": None})
+		emit(row)
+		if not (err_w[1] <= CPLX_TOL[tname] and err_alpha <= CPLX_AB_TOL[tname]):
+			raise AssertionError(f"complex pass A alone disagrees with its plain version: {row}")
+		del w_a, w_b_ref, partial, v_cur, v_prev, bands, st, st_ref
+		torch.cuda.empty_cache()
+		# Awkward shapes: (probes, n, offsets, lead); complex64 takes the scalar path where n is odd or
+		# the block starts one element into its buffer, complex128 never does.
+		for nv, m, offsets, lead in ((13, 3001, (-200, -17, -16, -7, 0, 7, 16, 17, 200), 0),
+				(7, 12_000, (-12_000, -10_000, -1, 0, 1, 10_000, 11_999), 0), (9, 5000, (-5000, -4999, -1, 0, 1, 4999, 5000, 6000), 1)):
+			b = crandn((len(offsets), m), dtype)
+			o = torch.tensor(offsets, dtype=torch.int64, device=dev)
+			vc = unit(crandn((lead + nv * m,), dtype)[lead:].view(nv, m))
+			vp = unit(crandn((lead + nv * m,), dtype)[lead:].view(nv, m))
+			two_steps(f"nv{nv}_n{m}" + ("_misaligned" if lead else ""), b, o, o.cpu(), vc, vp, dtype,
+				dtype == torch.complex64 and (m % 2 == 1 or lead == 1))
+	return out
+
+
 def _tb_calls(torch, ptt, dev, op, H) -> dict:
 	"""Phase 15, calls 2-8, on the Hamiltonian as a complex64 DIA operator (and as complex CSR for call 8).
 	Each call is counted (every launch count set to 0 just before it, read just after) and then timed."""
@@ -1460,7 +1610,7 @@ def _tb_calls(torch, ptt, dev, op, H) -> dict:
 	C = ptt.ChebyshevFunction(op, "exp", t=-1.0, deg=64, damping="none", interval="gershgorin")
 	q_l, counts_l = run("lanczos_quad", lambda: M.quad(V), deg=40)
 	q_c, counts_c = run("chebyshev_quad", lambda: C.quad(V), deg=64)
-	launched("lanczos_quad", counts_l, {"dia_stencil_t": 40, **no_steps})
+	launched("lanczos_quad", counts_l, {"dia_stencil_t": 0, "lanczos_dia_step": 40, "lanczos_dia_residual": 40})
 	launched("chebyshev_quad", counts_c, {"dia_stencil_t": 63, **no_steps})
 	q_l, q_c = q_l.double().cpu().numpy(), q_c.double().cpu().numpy()
 	rel = float(np.max(np.abs(q_l - q_c) / np.abs(q_c)))
@@ -1470,7 +1620,7 @@ def _tb_calls(torch, ptt, dev, op, H) -> dict:
 	sweep = ptt.MatrixFunction(op, ptt.stacked("exp", -betas), deg=48, orth=0)
 	Z, counts = run("beta_sweep", lambda: ptt.hutch(sweep, pdf="phase", batch=16, converge="count", count=64, seed=155),
 		betas=betas.tolist(), deg=48, batch=16, count=64)
-	launched("beta_sweep", counts, {"dia_stencil_t": 48 * 4, **no_steps})
+	launched("beta_sweep", counts, {"dia_stencil_t": 0, "lanczos_dia_step": 48 * 4, "lanczos_dia_residual": 48 * 4})
 	# The same traces from call 3's density: n ∫ e^{−βt} φ(t) dt.
 	Z_dos = np.array([n * _integral(np.exp(-b * ts) * phi, ts) for b in betas])
 	z_rel = np.abs(np.asarray(Z) - Z_dos) / Z_dos
@@ -1511,7 +1661,7 @@ def _tb_calls(torch, ptt, dev, op, H) -> dict:
 	# 6. The SLQ density on the complex sweep: mass 1, second moment 4 (plus the broadening's σ²).
 	(ts6, phi6), counts = run("spectral_density", lambda: ptt.spectral_density(op, deg=64, nv=TB_NV, seed=158), deg=64, nv=TB_NV)
 	mass6, second6 = _integral(phi6, ts6), _integral(ts6**2 * phi6, ts6)
-	launched("spectral_density", counts, {"dia_stencil_t": 64, **no_steps})
+	launched("spectral_density", counts, {"dia_stencil_t": 0, "lanczos_dia_step": 64, "lanczos_dia_residual": 64})
 	done("spectral_density", abs(mass6 - 1.0) <= 1e-2 and abs(second6 - 4.0) <= 0.08, mass=mass6, second_moment=second6)
 
 	# 7. Hutch++ on H·H: tr H² = 4n. The sketch's QR block is node-major, so each apply of the
@@ -1533,8 +1683,8 @@ def _tb_calls(torch, ptt, dev, op, H) -> dict:
 
 def tight_binding(torch, ptt, dia, dev) -> dict:
 	"""Phase 15: the Hofstadter model of ``examples/tight_binding.py`` at 4,096,000 sites as a
-	complex64 DIA operator: the complex stencils held to their plain versions (call 1), then the
-	example's calls through the port (calls 2-8, ``_tb_calls``)."""
+	complex64 DIA operator: the complex stencils and step passes held to their plain versions (call 1),
+	then the example's calls through the port (calls 2-8, ``_tb_calls``)."""
 	t0 = time.perf_counter()
 	H = hofstadter_csr(**TB)
 	t_gen = time.perf_counter() - t0
@@ -1549,8 +1699,10 @@ def tight_binding(torch, ptt, dia, dev) -> dict:
 	if sorted(op.offsets) != want:
 		raise AssertionError(f"Hofstadter offsets {op.offsets}, expected {want}")
 	kernels = check_complex_kernels(torch, dia, op, dev)
+	kernels.update(check_complex_step_kernels(torch, dia, op, dev))
 	calls = _tb_calls(torch, ptt, dev, op, H)
-	for k in ("dia_stencil_t", "dia_stencil"):  # the complex launches of calls 2-8, each counted from 0
+	for k in ("dia_stencil_t", "dia_stencil", "lanczos_dia_step", "lanczos_dia_residual"):
+		# the complex launches of calls 2-8, each counted from 0
 		kernels[k]["c64_launches"] = sum(r["launches"][k] for r in calls.values())
 	return kernels
 
@@ -2972,7 +3124,7 @@ def check_round_pair(torch, dia, lib, w, q, alpha, beta, spec, label: str, reps:
 	margins = not (q_k[:, : spec.lo].any() or q_k[:, spec.lo + n :].any())
 	same = torch.equal(ab_k[0], ab_r[0]) and torch.equal(s_k[dia.DONE], s_r[dia.DONE])
 
-	gx = lib.lanczos_step_blocks(nv, n, q.element_size())
+	gx = lib.lanczos_step_blocks(nv, n, q.element_size(), 0)
 	partial = torch.empty((nv, gx), device=dev)
 	vec = _common.vector_ok(spec.ld, q.element_size(), w, q, q_k, lead=spec.lo)
 	st1, st2, ab = state(), state(), torch.empty((2, nv), device=dev)

@@ -34,6 +34,13 @@ using c64 = Cplx<float>;
 using c128 = Cplx<double>;
 static_assert(sizeof(c64) == 8 && alignof(c64) == 8 && sizeof(c128) == 16 && alignof(c128) == 16, "torch's complex layout");
 
+// The real type of each element type: the type itself, and R for Cplx<R>. The Lanczos step's
+// per-probe state and its sums (alpha, |v|^2) are real for complex (Hermitian) blocks too.
+template <typename T> struct RealOf { using type = T; };
+template <typename R> struct RealOf<Cplx<R>> { using type = R; };
+template <typename T> using real_t = typename RealOf<T>::type;
+template <typename T> constexpr bool kCplx = !std::is_same<T, real_t<T>>::value;
+
 using bf16 = __nv_bfloat16;
 
 // The type a kernel sums in for each storage type: the type itself, and float32 for

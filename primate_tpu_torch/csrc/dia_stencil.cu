@@ -1,6 +1,6 @@
 // DIA stencil kernels for Hopper (sm_90a), float32, float64 and bfloat16 (pass A of
-// the step too, and the bf16 step's round pair); the two stencils also complex64 and
-// complex128 (Hermitian operators).
+// the step too, and the bf16 step's round pair); the two stencils and the two passes of
+// the Lanczos step also complex64 and complex128 (Hermitian operators).
 //
 // Replaces the Pallas TPU kernels of primate_tpu/ops/dia_pallas.py:
 //   dia_stencil_t        <- dia_matmat_t_pallas (_dia_t_kernel): out = A X, probe-major
@@ -43,10 +43,18 @@
 // promote_types(complex64, float32) does): a 16-byte vector holds 2 complex64 or
 // 1 complex128, so a thread moves the same bytes and holds the same registers as
 // in float32 / float64, and the kernels stay bound by HBM bytes (a complex
-// multiply-add is 8 flops on 8 or 16 loaded bytes).
+// multiply-add is 8 flops on 8 or 16 loaded bytes). The two step passes too: the
+// JAX package runs its Hermitian sweep (primate_tpu/lanczos.py:226-227,309-316) through
+// XLA, with alpha = Re sum conj(q) w and beta real. Here w and v are complex and the
+// per-probe state and every sum are the real type (real_t), so the ticketed reductions
+// are the real kernels'; alpha is summed from the parts (q.re w.re + q.im w.im). A
+// thread owns 2 rows (complex64) or 1 (complex128), and the staged tile of q is 34,816
+// or 36,864 bytes of static shared memory. The elementwise steps round as the plain
+// version's PyTorch ops do on the card (mul_rn, sub_rn below), so w and v come out as
+// the plain step's wherever the stencil sums do.
 //
 // The Lanczos step (primate_tpu/lanczos.py:304-316,378-388 with orth = 0)
-//   w = A q - beta q_prev;  alpha = sum w q;  v = w - alpha q;  beta' = |v|;
+//   w = A q - beta q_prev;  alpha = Re sum conj(q) w;  v = w - alpha q;  beta' = |v|;
 //   done |= beta' < tol;  q' = v / (beta' > tol ? beta' : inf)
 // is two passes over the (nv, n) block, with no host sync and nothing between
 // them. The sweep carries the residuals v unnormalised together with their
@@ -370,7 +378,40 @@ constexpr int kDivCur = 0, kDivPrev = 1, kBeta = 2, kDone = 3, kAlpha = 4;
 constexpr int kStepThreads = 256;
 constexpr int kStepWarps = kStepThreads / 32;
 constexpr int kStepProbes = 8;  // probes per block (blockIdx.y)
-constexpr int kHalo = 16;       // rows staged on each side of a tile; a multiple of both vector lengths
+constexpr int kHalo = 16;       // rows staged on each side of a tile; a multiple of every vector length
+
+// The step's elementwise arithmetic on a carry element x (real, or complex with a real
+// divisor and real coefficients). Real: as written, the compiler free to contract. Complex:
+// rounded as the plain version's PyTorch ops round on the card, each product once before the
+// difference: x / div is PyTorch's complex division by (div, 0), which multiplies each part
+// by the correctly rounded reciprocal inv = 1 / div (0 where div is inf, so a done probe's q
+// is 0), and w - a x is a product tensor, then a difference.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+template <typename R>
+__device__ __forceinline__ R quot(R x, R div, R) { return x / div; }
+template <typename R>
+__device__ __forceinline__ Cplx<R> quot(Cplx<R> x, R, R inv) { return Cplx<R>(mul_rn(x.re, inv), mul_rn(x.im, inv)); }
+// w - a x
+template <typename R>
+__device__ __forceinline__ R minus_scaled(R w, R a, R x) { return w - a * x; }
+template <typename R>
+__device__ __forceinline__ Cplx<R> minus_scaled(Cplx<R> w, R a, Cplx<R> x) {
+    return Cplx<R>(sub_rn(w.re, mul_rn(a, x.re)), sub_rn(w.im, mul_rn(a, x.im)));
+}
+// Re(conj(q) w), from the parts (the bra conjugated; real for a Hermitian operator's alpha).
+template <typename R>
+__device__ __forceinline__ R re_dot(R q, R w) { return w * q; }
+template <typename R>
+__device__ __forceinline__ R re_dot(Cplx<R> q, Cplx<R> w) { return q.re * w.re + q.im * w.im; }
+// |v|^2
+template <typename R>
+__device__ __forceinline__ R sq_abs(R v) { return v * v; }
+template <typename R>
+__device__ __forceinline__ R sq_abs(Cplx<R> v) { return v.re * v.re + v.im * v.im; }
 
 // Elements r .. r + len - 1 of a carry row, in the accumulation type; those outside
 // [lo_b, hi_b) read as 0. kVec: one 16-byte load (the bounds and r are multiples of
@@ -473,33 +514,40 @@ __device__ __forceinline__ T probe_total(const T* partial, int64_t b) {
 //
 // Pass A: w[b, r] = sum_d band[d, r] q[b, r + off_d] - beta[b] q_prev[b, r] with
 // q = v_cur / div_cur, q_prev = v_prev / div_prev, and the partials of
-// alpha[b] = sum_r w q over the own rows. With a ticket, the last block writes
+// alpha[b] = Re sum_r conj(q) w over the own rows. With a ticket, the last block writes
 // state[kAlpha] and alpha_out if given (zero where state[kDone]); in the finishing mode
 // (sums given) it writes only the rank's local sums[b] and leaves the state alone.
 // A narrow type (bfloat16) reads q and q_prev as stored (no divisors: its sweep
 // normalises q every step) and stages q as stored; w, the state and the sums are in
 // the accumulation type (float32). `round`: round the stencil sum to T before the
-// beta-axpy (no effect where T is its own accumulation type).
+// beta-axpy (no effect where T is its own accumulation type). A complex carry: w is
+// complex, the state, the partials and the sums real.
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
     const T* __restrict__ bands, const int64_t* __restrict__ offsets, int n_d, const T* __restrict__ v_cur,
-    const T* __restrict__ v_prev, acc_t<T>* __restrict__ state, acc_t<T>* __restrict__ w,
-    acc_t<T>* __restrict__ partial, unsigned* __restrict__ ticket, acc_t<T>* __restrict__ alpha_out,
-    acc_t<T>* __restrict__ sums, int64_t nv, int64_t ld, int64_t lo, int64_t n, int round) {
+    const T* __restrict__ v_prev, real_t<acc_t<T>>* __restrict__ state, acc_t<T>* __restrict__ w,
+    real_t<acc_t<T>>* __restrict__ partial, unsigned* __restrict__ ticket, real_t<acc_t<T>>* __restrict__ alpha_out,
+    real_t<acc_t<T>>* __restrict__ sums, int64_t nv, int64_t ld, int64_t lo, int64_t n, int round) {
     using A = acc_t<T>;
+    using R = real_t<A>;  // the state and the sums: real for complex blocks too
     using S = std::conditional_t<kNarrow<T>, T, A>;  // the staged q: divided in A, or as stored
     constexpr int VL = Vec<T>::len;
     constexpr int kTile = kStepThreads * VL;
     constexpr int kSpan = kTile + 2 * kHalo;
     __shared__ __align__(16) S q_s[kStepProbes][kSpan];
-    __shared__ A div_s[kStepProbes], divp_s[kStepProbes], beta_s[kStepProbes];
+    __shared__ R div_s[kStepProbes], divp_s[kStepProbes], beta_s[kStepProbes], inv_s[kStepProbes], invp_s[kStepProbes];
     const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
     const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
     const int64_t lo_b = -lo, hi_b = ld - lo;  // the carry's columns, counted from the first own row
     if (threadIdx.x < np) {
         if constexpr (!kNarrow<T>) {
-            div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
-            divp_s[threadIdx.x] = state[kDivPrev * nv + b0 + threadIdx.x];
+            const R div = state[kDivCur * nv + b0 + threadIdx.x], divp = state[kDivPrev * nv + b0 + threadIdx.x];
+            div_s[threadIdx.x] = div;
+            divp_s[threadIdx.x] = divp;
+            if constexpr (kCplx<A>) {  // the complex quotients' reciprocals (a real quotient divides)
+                inv_s[threadIdx.x] = R(1) / div;
+                invp_s[threadIdx.x] = R(1) / divp;
+            }
         }
         beta_s[threadIdx.x] = state[kBeta * nv + b0 + threadIdx.x];
     }
@@ -510,9 +558,9 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
             for (int64_t c = lo + n + threadIdx.x; c < ld; c += kStepThreads) row[c] = A(0);
         }
     }
-    A dot[kStepProbes];
+    R dot[kStepProbes];
 #pragma unroll
-    for (int p = 0; p < kStepProbes; ++p) dot[p] = A(0);
+    for (int p = 0; p < kStepProbes; ++p) dot[p] = R(0);
     const int64_t n_tiles = (n + kTile - 1) / kTile;
     for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const int64_t r0 = t * kTile;
@@ -525,12 +573,12 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
                 for (int e = threadIdx.x; e < kSpan / VL; e += kStepThreads)
                     copy_seg<T, kVec>(row, r0 - kHalo + e * VL, lo_b, hi_b, &q_s[p][e * VL]);
             } else {
-                const A div = div_s[p];
+                const R div = div_s[p], inv = inv_s[p];
                 for (int e = threadIdx.x; e < kSpan / VL; e += kStepThreads) {
                     A o[VL];
                     load_seg<T, kVec>(row, r0 - kHalo + e * VL, lo_b, hi_b, o);
 #pragma unroll
-                    for (int i = 0; i < VL; ++i) q_s[p][e * VL + i] = o[i] / div;
+                    for (int i = 0; i < VL; ++i) q_s[p][e * VL + i] = quot(o[i], div, inv);
                 }
             }
         }
@@ -560,11 +608,11 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
                         if (c >= lo_b && c < hi_b) acc[i] += band[i] * to_acc(row[c]);
                     }
                 } else {
-                    const A div = div_s[p];
+                    const R div = div_s[p], inv = inv_s[p];
 #pragma unroll
                     for (int i = 0; i < VL; ++i) {
                         const int64_t c = r + i + off;
-                        if (c >= lo_b && c < hi_b) acc[i] += band[i] * (row[c] / div);
+                        if (c >= lo_b && c < hi_b) acc[i] += band[i] * quot(row[c], div, inv);
                     }
                 }
             }
@@ -579,11 +627,11 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
                     dot[p] += out[i] * to_acc(q_s[p][loc + i]);
                 }
             } else {
-                const A beta = beta_s[p], divp = divp_s[p];
+                const R beta = beta_s[p], divp = divp_s[p], invp = invp_s[p];
 #pragma unroll
                 for (int i = 0; i < VL; ++i) {
-                    out[i] = r + i < n ? acc[i] - beta * (vp[i] / divp) : A(0);  // a margin column: 0
-                    dot[p] += out[i] * q_s[p][loc + i];
+                    out[i] = r + i < n ? minus_scaled(acc[i], beta, quot(vp[i], divp, invp)) : A(0);  // a margin column: 0
+                    dot[p] += re_dot(q_s[p][loc + i], out[i]);
                 }
             }
             store_seg<kVec>(w + b * ld + lo, r, n, out);
@@ -591,13 +639,13 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
     }
     if (!reduce_and_take_ticket(dot, np, b0, partial, ticket)) return;
     for (int64_t b = threadIdx.x / 32; b < nv; b += kStepWarps) {
-        const A s = probe_total(partial, b);
+        const R s = probe_total(partial, b);
         if (threadIdx.x % 32 == 0) {
             if (sums != nullptr) {
                 sums[b] = s;
             } else {
                 state[kAlpha * nv + b] = s;
-                if (alpha_out != nullptr) alpha_out[b] = state[kDone * nv + b] != A(0) ? A(0) : s;
+                if (alpha_out != nullptr) alpha_out[b] = state[kDone * nv + b] != R(0) ? R(0) : s;
             }
         }
     }
@@ -611,23 +659,27 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
 // beta' : inf, beta = beta', done |= beta' < tol; or, in the finishing mode, writes
 // only the rank's local sums[b].
 template <typename T, bool kVec>
-__global__ void __launch_bounds__(kStepThreads) lanczos_pass_b_kernel(const T* __restrict__ v_cur, T* w, T* state,
-                                                                      const T* alpha_src, T* partial, unsigned* ticket,
-                                                                      T* beta_out, T* sums, int64_t nv, int64_t ld,
-                                                                      int64_t lo, int64_t n, T tol) {
+__global__ void __launch_bounds__(kStepThreads) lanczos_pass_b_kernel(const T* __restrict__ v_cur, T* w,
+                                                                      real_t<T>* state, const real_t<T>* alpha_src,
+                                                                      real_t<T>* partial, unsigned* ticket,
+                                                                      real_t<T>* beta_out, real_t<T>* sums, int64_t nv,
+                                                                      int64_t ld, int64_t lo, int64_t n, real_t<T> tol) {
+    using R = real_t<T>;  // the state and the sums: real for complex blocks too
     constexpr int VL = Vec<T>::len;
     constexpr int kTile = kStepThreads * VL;
-    __shared__ T div_s[kStepProbes], alpha_s[kStepProbes];
+    __shared__ R div_s[kStepProbes], inv_s[kStepProbes], alpha_s[kStepProbes];
     const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
     const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
     if (threadIdx.x < np) {
-        div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
+        const R div = state[kDivCur * nv + b0 + threadIdx.x];
+        div_s[threadIdx.x] = div;
+        if constexpr (kCplx<T>) inv_s[threadIdx.x] = R(1) / div;  // a real quotient divides
         alpha_s[threadIdx.x] = alpha_src[b0 + threadIdx.x];
     }
     __syncthreads();
-    T ss[kStepProbes];
+    R ss[kStepProbes];
 #pragma unroll
-    for (int p = 0; p < kStepProbes; ++p) ss[p] = T(0);
+    for (int p = 0; p < kStepProbes; ++p) ss[p] = R(0);
     const int64_t n_tiles = (n + kTile - 1) / kTile;
     for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const int64_t r = t * kTile + threadIdx.x * VL;
@@ -639,29 +691,29 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_b_kernel(const T* _
             T wv[VL], vc[VL];
             load_seg<T, kVec>(w + b * ld + lo, r, -lo, ld - lo, wv);
             load_seg<T, kVec>(v_cur + b * ld + lo, r, -lo, ld - lo, vc);
-            const T div = div_s[p], alpha = alpha_s[p];
+            const R div = div_s[p], inv = inv_s[p], alpha = alpha_s[p];
 #pragma unroll
             for (int i = 0; i < VL; ++i) {
-                wv[i] = r + i < n ? wv[i] - alpha * (vc[i] / div) : T(0);
-                ss[p] += wv[i] * wv[i];
+                wv[i] = r + i < n ? minus_scaled(wv[i], alpha, quot(vc[i], div, inv)) : T(0);
+                ss[p] += sq_abs(wv[i]);
             }
             store_seg<kVec>(w + b * ld + lo, r, n, wv);
         }
     }
     if (!reduce_and_take_ticket(ss, np, b0, partial, ticket)) return;
     for (int64_t b = threadIdx.x / 32; b < nv; b += kStepWarps) {
-        const T s = probe_total(partial, b);
+        const R s = probe_total(partial, b);
         if (threadIdx.x % 32 == 0) {
             if (sums != nullptr) {
                 sums[b] = s;
             } else {
-                const T beta = sqrt(s);
-                const bool done = state[kDone * nv + b] != T(0);
-                beta_out[b] = done ? T(0) : beta;
+                const R beta = sqrt(s);
+                const bool done = state[kDone * nv + b] != R(0);
+                beta_out[b] = done ? R(0) : beta;
                 state[kDivPrev * nv + b] = state[kDivCur * nv + b];
-                state[kDivCur * nv + b] = beta > tol ? beta : T(INFINITY);
+                state[kDivCur * nv + b] = beta > tol ? beta : R(INFINITY);
                 state[kBeta * nv + b] = beta;
-                state[kDone * nv + b] = (done || beta < tol) ? T(1) : T(0);
+                state[kDone * nv + b] = (done || beta < tol) ? R(1) : R(0);
             }
         }
     }
@@ -893,9 +945,9 @@ inline bool step_grid_ok(int64_t nv, int64_t ld, int64_t lo, int64_t n, int64_t 
            (nv + kStepProbes - 1) / kStepProbes <= 65535;
 }
 
-template <typename T, typename A = acc_t<T>>
-cudaError_t launch_pass_a(const T* bands, const int64_t* offsets, int n_d, const T* v_cur, const T* v_prev, A* state,
-                          A* w, A* partial, unsigned* ticket, A* alpha_out, A* sums, int64_t nv, int64_t ld, int64_t lo,
+template <typename T, typename A = acc_t<T>, typename R = real_t<A>>
+cudaError_t launch_pass_a(const T* bands, const int64_t* offsets, int n_d, const T* v_cur, const T* v_prev, R* state,
+                          A* w, R* partial, unsigned* ticket, R* alpha_out, R* sums, int64_t nv, int64_t ld, int64_t lo,
                           int64_t n, int64_t gx, int round, int vec, cudaStream_t stream) {
     if (!step_grid_ok(nv, ld, lo, n, gx)) return cudaErrorInvalidConfiguration;
     const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>((nv + kStepProbes - 1) / kStepProbes));
@@ -911,18 +963,18 @@ cudaError_t launch_pass_a(const T* bands, const int64_t* offsets, int n_d, const
     return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_pass_b(const T* v_cur, T* w, T* state, const T* alpha_src, T* partial, unsigned* ticket, T* beta_out,
-                          T* sums, int64_t nv, int64_t ld, int64_t lo, int64_t n, double tol, int64_t gx, int vec,
+template <typename T, typename R = real_t<T>>
+cudaError_t launch_pass_b(const T* v_cur, T* w, R* state, const R* alpha_src, R* partial, unsigned* ticket, R* beta_out,
+                          R* sums, int64_t nv, int64_t ld, int64_t lo, int64_t n, double tol, int64_t gx, int vec,
                           cudaStream_t stream) {
     if (!step_grid_ok(nv, ld, lo, n, gx)) return cudaErrorInvalidConfiguration;
     const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>((nv + kStepProbes - 1) / kStepProbes));
     if (vec) {
         lanczos_pass_b_kernel<T, true><<<grid, kStepThreads, 0, stream>>>(v_cur, w, state, alpha_src, partial, ticket,
-                                                                          beta_out, sums, nv, ld, lo, n, static_cast<T>(tol));
+                                                                          beta_out, sums, nv, ld, lo, n, static_cast<R>(tol));
     } else {
         lanczos_pass_b_kernel<T, false><<<grid, kStepThreads, 0, stream>>>(v_cur, w, state, alpha_src, partial, ticket,
-                                                                           beta_out, sums, nv, ld, lo, n, static_cast<T>(tol));
+                                                                           beta_out, sums, nv, ld, lo, n, static_cast<R>(tol));
     }
     return cudaGetLastError();
 }
@@ -975,8 +1027,10 @@ cudaError_t launch_round_write(const float* w, const bf16* q, const float* state
 extern "C" {
 
 // Columns of the (nv, columns) partials buffer that both step passes fill, and the
-// gridDim.x to launch them with; -1 if the device cannot be queried.
-int64_t lanczos_step_blocks(int64_t nv, int64_t n, int elem_bytes) {
+// gridDim.x to launch them with, for a carry of elem_bytes-byte elements (cplx: complex);
+// -1 if the device cannot be queried.
+int64_t lanczos_step_blocks(int64_t nv, int64_t n, int elem_bytes, int cplx) {
+    if (cplx) return elem_bytes == 16 ? step_blocks<c128>(nv, n) : step_blocks<c64>(nv, n);
     return elem_bytes == 8 ? step_blocks<double>(nv, n) : elem_bytes == 2 ? step_blocks<bf16>(nv, n) : step_blocks<float>(nv, n);
 }
 
@@ -1001,7 +1055,7 @@ cudaError_t dia_stencil_t_bf16(const void* bands, const int64_t* offsets, int n_
 }
 
 // Complex instantiations of the two stencils (complex64 / complex128 as torch
-// lays them out), for Hermitian operators; the step kernels stay real.
+// lays them out), for Hermitian operators; the step passes' are below.
 cudaError_t dia_stencil_t_c64(const void* bands, const int64_t* offsets, int n_d, const void* x, void* out, void* mid,
                               int64_t nv, int64_t n, int vec, cudaStream_t stream) {
     return launch_stencil_t(static_cast<const c64*>(bands), offsets, n_d, static_cast<const c64*>(x),
@@ -1086,6 +1140,42 @@ cudaError_t lanczos_dia_residual_f64(const double* v_cur, double* w, double* sta
                                      cudaStream_t stream) {
     return launch_pass_b(v_cur, w, state, alpha_src, partial, ticket, beta_out, sums, nv, ld, lo, n, tol, gx, vec,
                          stream);
+}
+
+// Complex64 / complex128 carries and bands (Hermitian operators): w complex, the state, the
+// partials, alpha_src, the outputs and the sums real (float32 / float64). Pass A's round has no
+// effect; alpha = Re sum conj(q) w.
+cudaError_t lanczos_dia_step_c64(const void* bands, const int64_t* offsets, int n_d, const void* v_cur, const void* v_prev,
+                                 float* state, void* w, float* partial, unsigned* ticket, float* alpha_out, float* sums,
+                                 int64_t nv, int64_t ld, int64_t lo, int64_t n, int64_t gx, int round, int vec,
+                                 cudaStream_t stream) {
+    return launch_pass_a(static_cast<const c64*>(bands), offsets, n_d, static_cast<const c64*>(v_cur),
+                         static_cast<const c64*>(v_prev), state, static_cast<c64*>(w), partial, ticket, alpha_out, sums, nv,
+                         ld, lo, n, gx, round, vec, stream);
+}
+
+cudaError_t lanczos_dia_step_c128(const void* bands, const int64_t* offsets, int n_d, const void* v_cur,
+                                  const void* v_prev, double* state, void* w, double* partial, unsigned* ticket,
+                                  double* alpha_out, double* sums, int64_t nv, int64_t ld, int64_t lo, int64_t n,
+                                  int64_t gx, int round, int vec, cudaStream_t stream) {
+    return launch_pass_a(static_cast<const c128*>(bands), offsets, n_d, static_cast<const c128*>(v_cur),
+                         static_cast<const c128*>(v_prev), state, static_cast<c128*>(w), partial, ticket, alpha_out, sums,
+                         nv, ld, lo, n, gx, round, vec, stream);
+}
+
+cudaError_t lanczos_dia_residual_c64(const void* v_cur, void* w, float* state, const float* alpha_src, float* partial,
+                                     unsigned* ticket, float* beta_out, float* sums, int64_t nv, int64_t ld, int64_t lo,
+                                     int64_t n, double tol, int64_t gx, int vec, cudaStream_t stream) {
+    return launch_pass_b(static_cast<const c64*>(v_cur), static_cast<c64*>(w), state, alpha_src, partial, ticket, beta_out,
+                         sums, nv, ld, lo, n, tol, gx, vec, stream);
+}
+
+cudaError_t lanczos_dia_residual_c128(const void* v_cur, void* w, double* state, const double* alpha_src,
+                                      double* partial, unsigned* ticket, double* beta_out, double* sums, int64_t nv,
+                                      int64_t ld, int64_t lo, int64_t n, double tol, int64_t gx, int vec,
+                                      cudaStream_t stream) {
+    return launch_pass_b(static_cast<const c128*>(v_cur), static_cast<c128*>(w), state, alpha_src, partial, ticket,
+                         beta_out, sums, nv, ld, lo, n, tol, gx, vec, stream);
 }
 
 // The round pair of a bfloat16 step (after pass A): w, the state, alpha_src, the partials, the

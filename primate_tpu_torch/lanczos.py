@@ -4,7 +4,7 @@ Counterpart of ``primate_tpu/lanczos.py``. All nv probes advance together; the
 JAX ``lax.scan`` over ``deg`` steps becomes a Python loop that enqueues device
 work and, but for selective re-orthogonalisation, never reads the device.
 
-Without re-orthogonalisation (``orth=0``) on float32 or float64 each step is
+Without re-orthogonalisation (``orth=0``) on float32, float64, complex64 or complex128 each step is
 ``op.lanczos_sweep_step``: on a DIA operator on the card two kernels, carrying
 the residuals unnormalised with their guarded divisors so that no pass
 normalises. A sweep that returns its basis writes ``q = v / divisor`` (the
@@ -41,8 +41,9 @@ operator's replicated ``matmat_t`` instead.
 Complex (Hermitian) operators (``primate_tpu/lanczos.py:223-227,298-316``): every
 inner product conjugates its bra, α and β (the Jacobi matrix, the quadrature and
 the sweep's state) are real, and the CGS window projects with ``conj(Q)``. On a
-DIA operator each step is the complex ``dia_stencil_t`` kernel and PyTorch: the
-step kernels are real only.
+DIA operator the step kernels take complex64/complex128 carries as they take real
+ones (passes A and B a step at ``orth=0``, pass A at ``orth>0``), with a real state;
+the padded carry (``phys=True``) and the row-sharded sweep stay real only.
 """
 
 from typing import Callable, NamedTuple, Optional, Tuple

@@ -622,14 +622,11 @@ class DIAOperator(LinearOperator):
 	def lanczos_step(
 		self, q_cur: torch.Tensor, q_prev: torch.Tensor, beta: torch.Tensor, layout=WholeRows
 	) -> Tuple[torch.Tensor, torch.Tensor]:
-		"""Step ``v = A·q_cur − β·q_prev``, ``α = Σ v·q_cur`` (pass A of the step kernels on the card)
-		on the carry of ``layout`` (flat, or padded for ``phys=True``). A bfloat16 operator rounds
-		``A·q_cur`` to bfloat16 on the flat carry, as JAX's flat step takes ``matmat_t``'s bf16
-		output, and keeps it in float32 on the padded one, as JAX's ``dia_matmat_t_phys`` does.
-		A complex (Hermitian) operator takes the base class's step: the complex stencil
-		``dia_stencil_t`` (counted in ``LAUNCHES``) and PyTorch; the step kernels are real only."""
-		if self.dtype.is_complex:
-			return super().lanczos_step(q_cur, q_prev, beta)
+		"""Step ``v = A·q_cur − β·q_prev``, ``α = Re Σ conj(q_cur)·v`` (pass A of the step kernels on
+		the card, complex64/complex128 too) on the carry of ``layout`` (flat, or padded for
+		``phys=True``, which a complex operator does not have). A bfloat16 operator rounds ``A·q_cur``
+		to bfloat16 on the flat carry, as JAX's flat step takes ``matmat_t``'s bf16 output, and keeps it
+		in float32 on the padded one, as JAX's ``dia_matmat_t_phys`` does."""
 		return lanczos_dia_step(
 			self._carry_bands(layout.spec), self.offsets_t, q_cur, q_prev, beta, layout.spec, rounded=layout.spec is None
 		)
@@ -637,10 +634,8 @@ class DIAOperator(LinearOperator):
 	def lanczos_sweep_step(
 		self, v_cur, v_prev, state, alpha_out, beta_out, residual_tol: float, layout=WholeRows
 	) -> torch.Tensor:
-		"""The whole step without re-orthogonalisation (both step kernels on the card) on the carry of
-		``layout``; a complex operator takes the base class's step, through the complex ``dia_stencil_t``."""
-		if self.dtype.is_complex:
-			return super().lanczos_sweep_step(v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
+		"""The whole step without re-orthogonalisation (both step kernels on the card, complex64/complex128
+		too: complex w and v, a real state) on the carry of ``layout``."""
 		return lanczos_dia_sweep_step(
 			self._carry_bands(layout.spec), self.offsets_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol, layout.spec
 		)

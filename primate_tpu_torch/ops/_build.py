@@ -112,19 +112,20 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 		"bsr_spmm": {"bsr_spmm": [p, p, p, p, p, i64, i32, i32, i64, i64, i64, i32, p]},
 	}[stem]
 	for name, args in sigs.items():
-		# The two DIA stencils and the BSR SpMM also have complex64 / complex128 entry points;
-		# they and pass A have bfloat16 ones, and the round pair has only bfloat16 ones.
+		# The two DIA stencils, the BSR SpMM and the two step passes also have complex64 /
+		# complex128 entry points; the stencils, the SpMM and pass A have bfloat16 ones, and the
+		# round pair has only bfloat16 ones.
 		dts = ("bf16",) if name.startswith("lanczos_dia_round") else ("f32", "f64")
 		if name in ("dia_stencil_t", "dia_stencil", "bsr_spmm", "lanczos_dia_step"):
 			dts += ("bf16",)
-		if name in ("dia_stencil_t", "dia_stencil", "bsr_spmm"):
+		if name in ("dia_stencil_t", "dia_stencil", "bsr_spmm", "lanczos_dia_step", "lanczos_dia_residual"):
 			dts += ("c64", "c128")
 		for dt in dts:
 			fn = getattr(lib, f"{name}_{dt}")
 			fn.argtypes = args
 			fn.restype = i32
 	if stem == "dia_stencil":
-		lib.lanczos_step_blocks.argtypes = [i64, i64, i32]
+		lib.lanczos_step_blocks.argtypes = [i64, i64, i32, i32]  # nv, n, element bytes, complex
 		lib.lanczos_step_blocks.restype = i64
 	lib.primate_cuda_error_string.argtypes = [i32]
 	lib.primate_cuda_error_string.restype = ctypes.c_char_p

@@ -46,14 +46,15 @@ def check_cuda(
 ) -> None:
 	"""Raise on anything the kernels do not take: float32/float64 contiguous tensors (also
 	bfloat16 where ``bf16_ok``: the two DIA stencils, pass A and the BSR SpMM; bfloat16 alone where
-	``bf16_only``: the round pair; complex64/complex128 where ``complex_ok``: the two stencils and the
-	BSR SpMM) on one CUDA device, int64 index tensors (``int_keys``), and tensors in the accumulation
-	dtype (``acc_keys``: float32 for bfloat16). float16 raises ``TypeError``, as the JAX package's
-	operators refuse it."""
+	``bf16_only``: the round pair; complex64/complex128 where ``complex_ok``: the two stencils, the
+	BSR SpMM and the two step passes) on one CUDA device, int64 index tensors (``int_keys``), and
+	tensors in the real accumulation dtype (``acc_keys``: float32 for bfloat16 and complex64, float64
+	for complex128: a step's state, β and outputs). float16 raises ``TypeError``, as the JAX
+	package's operators refuse it."""
 	if device.type != "cuda":
 		raise ValueError(f"{name}: tensors must lie on the CPU (plain version) or on a CUDA device; got {device}")
 	if dtype.is_complex and not complex_ok:
-		raise NotImplementedError(f"{name}: complex operators have no CUDA kernel of this kind (ROADMAP B.7)")
+		raise NotImplementedError(f"{name}: complex operators have no CUDA kernel of this kind")
 	if bf16_only:
 		takes = (torch.bfloat16,)
 	else:
@@ -61,7 +62,7 @@ def check_cuda(
 	if dtype not in takes:
 		raise TypeError(f"{name}: the CUDA kernel takes {', '.join(str(t).replace('torch.', '') for t in takes)}; got {dtype}")
 	for key, t in tensors.items():
-		want = torch.int64 if key in int_keys else acc_dtype(dtype) if key in acc_keys else dtype
+		want = torch.int64 if key in int_keys else acc_dtype(dtype).to_real() if key in acc_keys else dtype
 		if t.device != device:
 			raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")
 		if t.dtype != want:

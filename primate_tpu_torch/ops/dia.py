@@ -49,6 +49,11 @@ of kernels over w and q (B1 ``‖w − α·q‖²`` and the step's scalars, B2 `
 three launches a step with no PyTorch op between them (on a row-sharded carry the two sums are
 all-reduced and ``lanczos_dia_advance`` finishes the scalars before B2).
 
+Complex (Hermitian) blocks: the two stencils and both step passes have complex64/complex128
+instantiations (a 16-byte vector holds 2 or 1 elements). The step's ``w`` and ``v`` are complex, its
+state, α, β and every sum real (``α = Re Σ conj(q)·w``, JAX's ``primate_tpu/lanczos.py:309-316``), and
+its elementwise ops round as the plain version's PyTorch ops do on the card.
+
 All are bound by HBM bytes (a few flops per loaded element); the kernels make
 one pass over the probe block and bounds-check the ragged edges, so neither the
 TPU's 128-lane halo and ``LANE_TILE`` rounding nor its ``nv % 8`` and ``k % 128``
@@ -194,8 +199,9 @@ def lanczos_dia_step_ref(
 	spec: Optional[CarrySpec] = None, reduce=_same, rounded: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
 	"""Plain version of :func:`lanczos_dia_step`: ``v = A·q_cur − β·q_prev`` (zero outside the
-	own rows of ``spec``'s carry) and ``α = Σ_r v·q_cur`` over the own rows, finished by
-	``reduce``; both in the accumulation dtype (``primate_tpu/lanczos.py:309-315``). ``rounded``:
+	own rows of ``spec``'s carry) in the accumulation dtype and ``α = Re Σ_r conj(q_cur)·v`` over the
+	own rows (``Σ v·q_cur`` for real blocks; real), finished by ``reduce``
+	(``primate_tpu/lanczos.py:309-315``). ``rounded``:
 	``A·q_cur`` is rounded to ``q_cur``'s dtype first, as JAX's flat step rounds ``matmat_t``'s
 	output (``:309``), or kept in the accumulation dtype, as ``dia_matmat_t_phys`` returns it
 	(a no-op in float32 and float64)."""
@@ -205,7 +211,7 @@ def lanczos_dia_step_ref(
 	if rounded:
 		Aq = Aq.to(q_cur.dtype).to(acc)
 	v = spec.zero_margins(Aq - beta[:, None].to(acc) * q_prev.to(acc))
-	alpha = reduce(torch.sum(spec.rows(v) * spec.rows(q_cur).to(acc), dim=1))
+	alpha = reduce(row_dot(spec.rows(q_cur).to(acc), spec.rows(v)))
 	return v, alpha
 
 
@@ -351,6 +357,13 @@ def _check_spec(name: str, spec: CarrySpec, x: torch.Tensor) -> CarrySpec:
 	return spec
 
 
+def _check_real(name: str, **tensors) -> None:
+	"""A step's state, β and outputs are real, for complex (Hermitian) carries too."""
+	for key, t in tensors.items():
+		if t.is_complex():
+			raise TypeError(f"{name}: {key} must be real (the real accumulation dtype); got {t.dtype}")
+
+
 def dia_stencil_t(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 	"""Probe-major DIA stencil ``out[b, r] = Σ_d bands[d, r]·x[b, r + off_d]``.
 
@@ -382,17 +395,17 @@ def dia_stencil_t(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -
 
 
 def _launch_pass_a(lib, bands, offsets, v_cur, v_prev, scal, ticket, alpha_out, spec=None, sums=None, rounded=True):
-	"""Pass A on the card: returns w, the (nv, grid) α partials (both in the accumulation dtype:
-	float32 for a bfloat16 carry), the grid and the vector flag. With ``sums`` (nv,) the last block
-	writes the rank's α sums there and leaves the state alone."""
+	"""Pass A on the card: returns w (in the accumulation dtype: float32 for a bfloat16 carry,
+	complex for a complex one), the (nv, grid) α partials (real), the grid and the vector flag. With
+	``sums`` (nv,) the last block writes the rank's α sums there and leaves the state alone."""
 	spec = spec or _flat(v_cur)
 	nv = v_cur.shape[0]
-	gx = lib.lanczos_step_blocks(nv, spec.n, v_cur.element_size())
+	gx = lib.lanczos_step_blocks(nv, spec.n, v_cur.element_size(), int(v_cur.is_complex()))
 	if gx < 1:
 		raise RuntimeError("lanczos_dia_step: could not query the CUDA device for the grid size")
 	acc = acc_dtype(v_cur.dtype)
 	w = torch.empty(v_cur.shape, dtype=acc, device=v_cur.device)
-	partial = torch.empty((nv, gx), dtype=acc, device=v_cur.device)
+	partial = torch.empty((nv, gx), dtype=acc.to_real(), device=v_cur.device)
 	vec = vector_ok(spec.ld, v_cur.element_size(), bands, v_cur, v_prev, w, lead=spec.lo)
 	fn = getattr(lib, f"lanczos_dia_step_{SUFFIX[v_cur.dtype]}")
 	ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
@@ -411,7 +424,7 @@ def _launch_pass_b(lib, v_cur, w, state, partial, beta_out, residual_tol, gx, ve
 	reads α from ``sums[0]`` (reduced) and writes the rank's ``|v|²`` sums to ``sums[1]``."""
 	spec = spec or _flat(v_cur)
 	nv = v_cur.shape[0]
-	fn = lib.lanczos_dia_residual_f32 if v_cur.dtype == torch.float32 else lib.lanczos_dia_residual_f64
+	fn = getattr(lib, f"lanczos_dia_residual_{SUFFIX[v_cur.dtype]}")
 	scal = state.scal
 	alpha_src = sums[0] if sums is not None else scal[ALPHA]
 	err = fn(
@@ -503,7 +516,7 @@ def lanczos_dia_round(
 
 	lib = load_library()
 	nv = q_cur.shape[0]
-	gx = lib.lanczos_step_blocks(nv, spec.n, q_cur.element_size())
+	gx = lib.lanczos_step_blocks(nv, spec.n, q_cur.element_size(), 0)
 	if gx < 1:
 		raise RuntimeError("lanczos_dia_round: could not query the CUDA device for the grid size")
 	partial = torch.empty((nv, gx), dtype=torch.float32, device=q_cur.device)
@@ -549,21 +562,23 @@ def lanczos_dia_step(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
 	"""Pass A of the Lanczos step alone, for a sweep that re-orthogonalises
 	(``orth > 0``) or stores bfloat16: ``v = A·q_cur − β[:, None]·q_prev`` (zero outside the own
-	rows) and ``α = Σ_r v·q_cur`` over the own rows per probe (the kernel's partials summed by
-	``torch.sum``, then by ``reduce`` over a row-sharded carry's ranks), both in the accumulation
-	dtype. ``q_cur``/``q_prev`` ``(nv, ld)`` carries of layout ``spec`` (default flat ``(nv, n)``),
-	``bands (n_d, ld)`` in the carry's columns, ``β (nv,)`` in the accumulation dtype. ``rounded``:
+	rows) in the accumulation dtype and ``α = Re Σ_r conj(q_cur)·v`` over the own rows per probe,
+	real (the kernel's partials summed by ``torch.sum``, then by ``reduce`` over a row-sharded
+	carry's ranks). ``q_cur``/``q_prev`` ``(nv, ld)`` carries of layout ``spec`` (default flat
+	``(nv, n)``), ``bands (n_d, ld)`` in the carry's columns, ``β (nv,)`` in the real accumulation
+	dtype (float32 for complex64 and bfloat16). ``rounded``:
 	round ``A·q_cur`` to the carry's dtype before the β-axpy (see :func:`lanczos_dia_step_ref`)."""
 	_check_shapes("lanczos_dia_step", bands, offsets, q_cur)
 	if q_prev.shape != q_cur.shape or beta.shape != (q_cur.shape[0],):
 		raise ValueError("lanczos_dia_step: q_prev must match q_cur (nv, n) and beta be (nv,)")
 	spec = _check_spec("lanczos_dia_step", spec, q_cur)
+	_check_real("lanczos_dia_step", beta=beta)
 	reduce = reduce or _same
 	if q_cur.device.type == "cpu":
 		return lanczos_dia_step_ref(bands, offsets, q_cur, q_prev, beta, spec, reduce, rounded)
 	check_cuda(
-		"lanczos_dia_step", q_cur.dtype, q_cur.device, ("offsets",), bf16_ok=True, acc_keys=("beta",), bands=bands,
-		offsets=offsets, q_cur=q_cur, q_prev=q_prev, beta=beta,
+		"lanczos_dia_step", q_cur.dtype, q_cur.device, ("offsets",), complex_ok=True, bf16_ok=True, acc_keys=("beta",),
+		bands=bands, offsets=offsets, q_cur=q_cur, q_prev=q_prev, beta=beta,
 	)
 	from ._build import load_library
 
@@ -587,20 +602,23 @@ def lanczos_dia_sweep_step(
 	outputs). With ``reduce`` (a row-sharded carry: an in-place all-reduce of an ``(nv,)`` tensor
 	over the ranks), the passes write only the rank's sums, ``reduce`` finishes each between the
 	passes, and ``lanczos_dia_advance`` advances the state from the reduced sums: three launches,
-	two all-reduces of nv numbers. Returns the new residual block v."""
+	two all-reduces of nv numbers. Complex64/complex128 carries take their own instantiations; the
+	state, the outputs and the sums stay real. Returns the new residual block v."""
 	_check_shapes("lanczos_dia_sweep_step", bands, offsets, v_cur)
 	nv = v_cur.shape[0]
 	if v_prev.shape != v_cur.shape or state.scal.shape != (5, nv) or alpha_out.shape != (nv,) or beta_out.shape != (nv,):
 		raise ValueError("lanczos_dia_sweep_step: v_prev must match v_cur (nv, n), the state be (5, nv) and the outputs (nv,)")
 	spec = _check_spec("lanczos_dia_sweep_step", spec, v_cur)
+	_check_real("lanczos_dia_sweep_step", scal=state.scal, alpha_out=alpha_out, beta_out=beta_out)
 	if v_cur.device.type == "cpu":
 		return lanczos_sweep_step_ref(
 			lambda q: dia_stencil_t_ref(bands, offsets, q), v_cur, v_prev, state, alpha_out, beta_out, residual_tol,
 			reduce or _same, spec,
 		)
 	check_cuda(
-		"lanczos_dia_sweep_step", v_cur.dtype, v_cur.device, ("offsets",), bands=bands, offsets=offsets, v_cur=v_cur,
-		v_prev=v_prev, scal=state.scal, alpha_out=alpha_out, beta_out=beta_out,
+		"lanczos_dia_sweep_step", v_cur.dtype, v_cur.device, ("offsets",), complex_ok=True,
+		acc_keys=("scal", "alpha_out", "beta_out"), bands=bands, offsets=offsets, v_cur=v_cur, v_prev=v_prev,
+		scal=state.scal, alpha_out=alpha_out, beta_out=beta_out,
 	)
 	if state.ticket.device != v_cur.device or state.ticket.dtype != torch.int32 or state.ticket.numel() != 1:
 		raise ValueError("lanczos_dia_sweep_step: the state's ticket must be one int32 on the operator's device")
@@ -611,7 +629,7 @@ def lanczos_dia_sweep_step(
 		w, partial, gx, vec = _launch_pass_a(lib, bands, offsets, v_cur, v_prev, state.scal, state.ticket, alpha_out, spec)
 		_launch_pass_b(lib, v_cur, w, state, partial, beta_out, residual_tol, gx, vec, spec)
 		return w
-	sums = torch.empty((2, nv), dtype=v_cur.dtype, device=v_cur.device)
+	sums = torch.empty((2, nv), dtype=state.scal.dtype, device=v_cur.device)
 	w, partial, gx, vec = _launch_pass_a(lib, bands, offsets, v_cur, v_prev, state.scal, state.ticket, None, spec, sums[0])
 	reduce(sums[0])
 	_launch_pass_b(lib, v_cur, w, state, partial, beta_out, residual_tol, gx, vec, spec, sums)

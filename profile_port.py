@@ -27,7 +27,9 @@ of each, then
 times by the host clock (synced, no trace) ``linalg.tall_qr`` of Hutch++'s (10M, 30) sketch block
 and its parts (the Gram product, the Cholesky, the triangular solve). ``--bf16`` traces phase 24's 10M
 full-bf16 flagship alone (a bf16 ``DIAOperator`` and ``MatrixFunction(..., dtype=bfloat16)``: pass A's
-bf16 kernel and the round pair a step) beside the float32 flagship. Prints one JSON line per call: the
+bf16 kernel and the round pair a step) beside the float32 flagship. ``--complex`` traces phase 15's β sweep
+of ``tr e^{−βH}`` (4 × 48 steps) and its SLQ density (64 steps) alone, on the 4M-site complex64 Hofstadter
+operator: the complex step kernels, passes A and B a step. Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
 count); writes them all to ``--out``. Needs a CUDA device; without one it exits
@@ -74,6 +76,7 @@ def main() -> None:
 	ap.add_argument("--grad", action="store_true", help="trace phase 20's differentiated f(A)V only")
 	ap.add_argument("--sharded", action="store_true", help="trace phase 23's sharded flagship only; time tall_qr at 10M")
 	ap.add_argument("--bf16", action="store_true", help="trace phase 24's 10M full-bf16 flagship (and the float32 one) only")
+	ap.add_argument("--complex", action="store_true", help="trace phase 15's complex β sweep and SLQ density only")
 	args = ap.parse_args()
 	import torch
 
@@ -83,8 +86,10 @@ def main() -> None:
 	import primate_tpu_torch as ptt
 
 	dev = torch.device("cuda", 0)
-	rows = [] if (args.recipes or args.grad or args.sharded or args.bf16) else other_calls(torch, ptt, cs, dev)
-	if args.bf16:
+	rows = [] if (args.recipes or args.grad or args.sharded or args.bf16 or args.complex) else other_calls(torch, ptt, cs, dev)
+	if args.complex:
+		calls = complex_calls(torch, ptt, cs, dev)
+	elif args.bf16:
 		calls = {}
 		for dt in (torch.bfloat16, torch.float32):
 			op = ptt.DIAOperator.from_scipy(cs.build_laplacian(cs.N_LARGE), dtype=dt, device=dev)
@@ -118,6 +123,18 @@ def main() -> None:
 	with open(args.out, "w") as f:
 		json.dump({"device": smi, "torch": torch.__version__, "calls": rows}, f, indent=1)
 	print(smi, flush=True)
+
+
+def complex_calls(torch, ptt, cs, dev) -> dict:
+	"""``chip_smoke.py`` phase 15's two complex sweeps on the 4M-site Hofstadter operator (complex64 DIA):
+	the β sweep ``hutch(MatrixFunction(H, stacked("exp", −β)), deg=48)`` on 4 batches of 16 phase probes,
+	and ``spectral_density(H, deg=64)`` on 16."""
+	H = ptt.DIAOperator.from_scipy(cs.hofstadter_csr(**cs.TB), dtype=torch.complex64, device=dev)
+	sweep = ptt.MatrixFunction(H, ptt.stacked("exp", -np.array(cs.TB_BETAS)), deg=48, orth=0)
+	return {
+		"tb_beta_sweep": lambda: ptt.hutch(sweep, pdf="phase", batch=16, converge="count", count=64, seed=155),
+		"tb_spectral_density": lambda: ptt.spectral_density(H, deg=64, nv=cs.TB_NV, seed=158),
+	}
 
 
 def sharded_calls(torch, ptt, cs, dev) -> dict:

@@ -272,8 +272,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 	with pytest.raises(TypeError):  # float16: no kernel takes it (bfloat16 does)
 		dia.dia_stencil_t(bands.half(), offs, x.half())
 	c64 = torch.complex64
-	with pytest.raises(NotImplementedError):  # the step kernels are real only (the stencils take complex)
-		dia.lanczos_dia_step(bands.to(c64), offs, q_cur.to(c64), q_prev.to(c64), beta)
+	with pytest.raises(TypeError):  # a complex carry's β is real (the real accumulation dtype)
+		dia.lanczos_dia_step(bands.to(c64), offs, q_cur.to(c64), q_prev.to(c64), beta.to(c64))
 	with pytest.raises(TypeError):
 		dia.dia_stencil_t(bands.to(c64), offs, x)
 	with pytest.raises(ValueError, match="contiguous"):
@@ -666,10 +666,145 @@ def test_complex_node_major_stencil_at_the_cell_width(cuda, dtype):
 		assert float((got - want).abs().max()) <= CPLX_TOL[dtype] * float(want.abs().max())
 
 
+# (nv, n, offsets[, lead]) for the complex step passes: the tight-binding cell's probe block and
+# offsets at a cut n; n odd (the complex64 scalar path), nv past a probe group of 8 and short of it,
+# offsets inside, at and past the 16-row staging (kHalo) and at and past n; a block one element into
+# its buffer (the complex64 scalar path).
+CPLX_STEP_SHAPES = [
+	(16, 409_600, (-409_600 + 2048, -2048, -2047, -1, 1, 2047, 2048, 409_600 - 2048)),
+	(13, 3001, (-200, -17, -16, -7, 0, 7, 16, 17, 200)),
+	(7, 12_000, (-12_000, -10_000, -1, 0, 1, 10_000, 11_999)),
+	(9, 5000, (-5000, -4999, -1, 0, 1, 4999, 5000, 6000), 1),
+]
+# α: |Δα| over ‖q‖·‖w‖ of its probe, the Cauchy-Schwarz bound of |α| (α sums n terms of both signs,
+# so a relative error of α itself says little where it nearly cancels); β' = ‖v‖: relative.
+CPLX_AB_TOL = {torch.complex64: 1e-5, torch.complex128: 1e-12}
+
+
+def _cplx_step_inputs(dev, nv, n, offsets, dtype, lead):
+	g = torch.Generator(device=dev)
+	g.manual_seed(15)
+	r = dtype.to_real()
+	bands = _cplx(dev, (len(offsets), n), dtype, seed=5)
+	offs = torch.tensor(offsets, dtype=torch.int64, device=dev)
+
+	def carry(seed):
+		X = _cplx(dev, (lead + nv * n,), dtype, seed=seed)[lead:].view(nv, n)
+		return X.div_(torch.linalg.vector_norm(X, dim=1, keepdim=True))
+
+	state = dia.lanczos_state(nv, r, dev)
+	state.scal[dia.DIV_CUR] = torch.rand(nv, generator=g, device=dev, dtype=r) + 0.5
+	state.scal[dia.DIV_PREV] = torch.rand(nv, generator=g, device=dev, dtype=r) + 0.5
+	state.scal[dia.BETA] = torch.rand(nv, generator=g, device=dev, dtype=r) + 0.5
+	# Probe 0 broke down a step ago: its divisor is inf, so its q is 0 (not NaN), and it is done.
+	state.scal[dia.DIV_CUR, 0] = torch.inf
+	state.scal[dia.BETA, 0] = 1e-9
+	state.scal[dia.DONE, 0] = 1.0
+	return bands, offs, carry(6), carry(7), state
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("shape", CPLX_STEP_SHAPES)
+def test_complex_step_kernels_match_plain_versions(cuda, shape, dtype):
+	"""The complex step passes against the plain step, three steps of a flat sweep, each from the same
+	blocks and state (the kernels' own, cloned for the plain step), then pass A alone
+	(``lanczos_dia_step``): v within ``CPLX_TOL`` of its largest entry, α and β within ``CPLX_AB_TOL``,
+	the done flags equal, the broken-down probe's α and β zero and its block finite. Each step launches
+	both passes once, ``dia_stencil_t`` no time, on the scalar path exactly where complex64's 16-byte
+	vectors are ruled out (n odd, a misaligned block)."""
+	nv, n, offsets = shape[:3]
+	lead = shape[3] if len(shape) > 3 else 0
+	bands, offs, v_cur, v_prev, state = _cplx_step_inputs(cuda, nv, n, offsets, dtype, lead)
+	r = dtype.to_real()
+	scalar = not _common.vector_ok(n, v_cur.element_size(), v_cur, v_prev, bands)
+	assert scalar == (dtype == torch.complex64 and (n % 2 == 1 or lead == 1))
+	apply_ref = lambda q: dia.dia_stencil_t_ref(bands, offs, q)  # noqa: E731
+	for _ in range(3):
+		# The third step's blocks are the kernel's own outputs, aligned: a misaligned start leaves the path then.
+		scalar = not _common.vector_ok(n, v_cur.element_size(), v_cur, v_prev, bands)
+		st_ref = dia.LanczosState(state.scal.clone(), torch.zeros(1, dtype=torch.int32, device=cuda))
+		a, b = torch.empty(nv, dtype=r, device=cuda), torch.empty(nv, dtype=r, device=cuda)
+		a_ref, b_ref = torch.empty_like(a), torch.empty_like(b)
+		before, scalar_before = dict(dia.LAUNCHES), dict(_common.SCALAR_LAUNCHES)
+		v = dia.lanczos_dia_sweep_step(bands, offs, v_cur, v_prev, state, a, b, 1e-8)
+		launched = {k: dia.LAUNCHES[k] - before[k] for k in ("lanczos_dia_step", "lanczos_dia_residual", "dia_stencil_t")}
+		assert launched == {"lanczos_dia_step": 1, "lanczos_dia_residual": 1, "dia_stencil_t": 0}
+		assert _common.SCALAR_LAUNCHES["lanczos_dia_step"] - scalar_before["lanczos_dia_step"] == scalar
+		assert _common.SCALAR_LAUNCHES["lanczos_dia_residual"] - scalar_before["lanczos_dia_residual"] == scalar
+		v_ref = dia.lanczos_sweep_step_ref(apply_ref, v_cur, v_prev, st_ref, a_ref, b_ref, 1e-8)
+		torch.cuda.synchronize()
+		assert v.dtype == dtype and a.dtype == r and bool(torch.isfinite(torch.view_as_real(v)).all())
+		assert float((v - v_ref).abs().max()) <= CPLX_TOL[dtype] * float(v_ref.abs().max())
+		q = v_cur / st_ref.scal[dia.DIV_PREV, :, None]  # the step's q (the state has advanced)
+		w = v_ref + st_ref.scal[dia.ALPHA, :, None] * q
+		scale = torch.linalg.vector_norm(q, dim=1) * torch.linalg.vector_norm(w, dim=1)
+		assert float(((a - a_ref).abs() / scale.clamp_min(1e-30))[1:].max()) <= CPLX_AB_TOL[dtype]
+		assert float(((b - b_ref).abs() / b_ref.abs().clamp_min(1e-30))[1:].max()) <= CPLX_AB_TOL[dtype]
+		assert a[0] == 0 and b[0] == 0 and torch.equal(state.scal[dia.DONE], st_ref.scal[dia.DONE])
+		assert int(state.ticket) == 0
+		v_prev, v_cur = v_cur, v
+	beta = torch.rand(nv, device=cuda, dtype=r) + 0.5
+	_, _, q_cur, q_prev, _ = _cplx_step_inputs(cuda, nv, n, offsets, dtype, lead)  # unit rows (probe 0's v is 0 by now)
+	before = dict(dia.LAUNCHES)
+	w, alpha = dia.lanczos_dia_step(bands, offs, q_cur, q_prev, beta)
+	assert dia.LAUNCHES["lanczos_dia_step"] == before["lanczos_dia_step"] + 1 and dia.LAUNCHES["dia_stencil_t"] == before["dia_stencil_t"]
+	w_ref, alpha_ref = dia.lanczos_dia_step_ref(bands, offs, q_cur, q_prev, beta)
+	torch.cuda.synchronize()
+	assert w.dtype == dtype and alpha.dtype == r
+	assert float((w - w_ref).abs().max()) <= CPLX_TOL[dtype] * float(w_ref.abs().max())
+	scale = torch.linalg.vector_norm(w_ref, dim=1)
+	assert float(((alpha - alpha_ref).abs() / scale).max()) <= CPLX_AB_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_sweeps_on_the_card_match_the_cpu_port(cuda, dtype):
+	"""``lanczos_block_op`` on a Hermitian DIA operator (a 15 × 41 Hofstadter lattice plus a diagonal,
+	n odd) at ``orth`` 0 and 5 on the card against the CPU port on the same probes: at 0 both passes a
+	step, at 5 pass A alone, ``dia_stencil_t`` no time. Then a probe in a 3-dimensional invariant
+	subspace of a complex tridiagonal operator breaks down at step 3: α and β exactly zero after it."""
+	nx, ny = 15, 41
+	x, y = np.repeat(np.arange(nx), ny), np.tile(np.arange(ny), nx)
+	i, jx, jy = x * ny + y, (x + 1) % nx * ny + y, x * ny + (y + 1) % ny
+	t = -np.exp(2j * np.pi * 0.2 * x)
+	H = sps.csr_matrix((np.r_[-np.ones(2 * i.size), t, t.conj()], (np.r_[i, jx, i, jy], np.r_[jx, i, jy, i])), shape=(nx * ny,) * 2)
+	H = H + sps.diags(np.linspace(-1.0, 1.0, nx * ny))
+	op, op_cpu = DIAOperator.from_scipy(H, dtype=dtype, device=cuda), DIAOperator.from_scipy(H, dtype=dtype, device="cpu")
+	rng = np.random.default_rng(15)
+	Vt = torch.tensor(rng.normal(size=(nx * ny, 11)) + 1j * rng.normal(size=(nx * ny, 11))).to(dtype)
+	# complex64: a shorter sweep, before its Ritz values converge and round-off differences grow.
+	deg, tol = (12, 1e-4) if dtype == torch.complex64 else (24, 1e-10)
+	for orth, want_steps in ((0, (deg, deg)), (5, (deg, 0))):
+		dia.reset_launches()
+		got = lanczos_block_op(op, Vt.to(cuda), deg=deg, ncv=6, orth=orth)
+		torch.cuda.synchronize()
+		assert (dia.LAUNCHES["lanczos_dia_step"], dia.LAUNCHES["lanczos_dia_residual"]) == want_steps
+		assert dia.LAUNCHES["dia_stencil_t"] == 0
+		want = lanczos_block_op(op_cpu, Vt, deg=deg, ncv=6, orth=orth)
+		for g, w in ((got.alphas, want.alphas), (got.betas, want.betas)):
+			assert g.dtype == dtype.to_real()
+			assert float((g.cpu() - w).abs().max()) <= tol * float(w.abs().max())
+	n = 50
+	off = -0.5 * np.exp(1j * np.linspace(0.0, 3.0, n - 1))
+	off[2] = 0.0
+	A = sps.diags([off.conj(), np.linspace(1.0, 4.0, n), off], [-1, 0, 1]).tocsr()
+	V0 = rng.normal(size=(n, 4)) + 1j * rng.normal(size=(n, 4))
+	V0[3:, 0] = 0.0
+	rtol = 1e-5 if dtype == torch.complex64 else 1e-8  # complex64 leaves β₃ at its round-off
+	for orth in (0, 5):
+		kw = dict(deg=8, ncv=8, orth=orth, rtol=rtol)
+		got = lanczos_block_op(DIAOperator.from_scipy(A, dtype=dtype, device=cuda), torch.tensor(V0).to(dtype).to(cuda), **kw)
+		want = lanczos_block_op(DIAOperator.from_scipy(A, dtype=dtype, device="cpu"), torch.tensor(V0).to(dtype), **kw)
+		a, b = got.alphas.cpu(), got.betas.cpu()
+		assert float(b[2, 0]) < 1e-5 and bool(torch.all(a[3:, 0] == 0)) and bool(torch.all(b[3:, 0] == 0))
+		assert bool(torch.all(want.alphas[3:, 0] == 0)) and bool(torch.all(want.betas[3:, 0] == 0))
+		torch.testing.assert_close(a, want.alphas, rtol=1e-4, atol=1e-4)
+		torch.testing.assert_close(b, want.betas, rtol=1e-4, atol=1e-4)
+
+
 def test_complex_operators_on_the_card(cuda):
-	"""A Hermitian DIA operator's Lanczos sweep takes the complex stencil and no step kernel and
-	matches the CPU port; a complex BSR apply takes the complex ``bsr_spmm``, and a complex kernel
-	backward raises."""
+	"""A Hermitian DIA operator's Lanczos sweep takes the complex step kernels (passes A and B a
+	step, no ``dia_stencil_t``) and matches the CPU port; a complex BSR apply takes the complex
+	``bsr_spmm``, and a complex kernel backward raises."""
 	nx = ny = 40
 	rng = np.random.default_rng(0)
 	x, y = np.repeat(np.arange(nx), ny), np.tile(np.arange(ny), nx)
@@ -680,7 +815,7 @@ def test_complex_operators_on_the_card(cuda):
 	V0 = rng.normal(size=(nx * ny, 8)) + 1j * rng.normal(size=(nx * ny, 8))
 	dia.reset_launches()
 	out = lanczos_block_op(op, torch.tensor(V0, device=cuda), deg=20, ncv=2, orth=0, return_basis=False)
-	assert dia.LAUNCHES["dia_stencil_t"] == 20 and dia.LAUNCHES["lanczos_dia_step"] == dia.LAUNCHES["lanczos_dia_residual"] == 0
+	assert dia.LAUNCHES["dia_stencil_t"] == 0 and dia.LAUNCHES["lanczos_dia_step"] == dia.LAUNCHES["lanczos_dia_residual"] == 20
 	want = lanczos_block_op(op_cpu, torch.tensor(V0), deg=20, ncv=2, orth=0, return_basis=False)
 	np.testing.assert_allclose(out.alphas.cpu().numpy(), want.alphas.numpy(), rtol=0, atol=1e-12)
 	np.testing.assert_allclose(out.betas.cpu().numpy(), want.betas.numpy(), rtol=0, atol=1e-12)
