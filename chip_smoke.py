@@ -70,8 +70,10 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    and at awkward ones, timed beside bound, plain version and complex cuSPARSE; the complex
    step passes (``lanczos_dia_step``, ``lanczos_dia_residual``) against the plain step, complex64
    and complex128, two steps at the cell's 16 × n block (a probe broken down) and at awkward shapes
-   (n odd, a misaligned block: complex64's scalar path; offsets past the 16-row staging and n), pass
-   A alone, and passes A, B and the step timed at the cell beside bound and plain versions; then, each
+   (n odd, a misaligned block: complex64's scalar path; offsets inside, at and past 16 rows and at and
+   past n; 9 and 12 diagonals; far offsets that are and are not whole 16-byte vectors; wrap offsets near
+   ±n), pass A alone (its ``w`` the plain version's bit for bit), and passes A, B and the step timed at
+   the cell beside bound and plain versions; then, each
    counted and timed, ``kpm_trace`` of x² and x⁴ against the closed forms 4n and
    (28 + 8 cos 2πα)·n (10 σ of its own probes), the KPM density (mass 1, second moment 4),
    Lanczos against Chebyshev quadrature probe for probe (1e-4; the Lanczos sweep 40 complex steps,
@@ -240,7 +242,9 @@ REPLACES = {
 # tensor cores (the kernels run FP32 FMAs on the CUDA cores), 989 TFLOP/s dense
 # bfloat16 (the card's peak for bf16 operands, on the tensor cores).
 HBM_BYTES_PER_S, FP32_FLOP_PER_S, BF16_FLOP_PER_S = 3.35e12, 67e12, 989e12
-FP64_FLOP_PER_S = 34e12  # the same sheet: float64 outside the tensor cores (complex128's operations)
+# The same sheet: 67 TFLOP/s float64 on the tensor cores (DMMA, exact IEEE float64), the card's peak
+# for float64 operands (complex128's operations); 34 outside them.
+FP64_FLOP_PER_S = 67e12
 STENCIL_TOL = {"float32": 1e-5, "float64": 1e-12}  # max-abs error over max|out|
 # Phase 7: BASELINE config 3 at audikw_1's scale (943,695 rows, 77.7M nonzeros).
 BSR_CELL = dict(n=1_048_576, bs=8, density=3.5e-5, seed=7)
@@ -1408,6 +1412,17 @@ def check_complex_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 # ‖q‖·‖w‖ of its probe (the Cauchy-Schwarz bound of |α|, which a Hermitian probe's α may sit far
 # below), β' relative.
 CPLX_AB_TOL = {"complex64": 1e-5, "complex128": 1e-12}
+# The complex step's awkward shapes (probes, n, offsets, lead): offsets inside, at and past 16 rows
+# and at and past n, 9 diagonals (two chunks of pass A's band registers); 7 probes; a block one
+# element into its buffer; 12 diagonals with far offsets that are even (256) and odd (258) multiples of
+# complex64's 2-element vector and not multiples (255) and wrap offsets near ±n; n odd and misaligned.
+CPLX_STEP_SHAPES = (
+	(13, 3001, (-200, -17, -16, -7, 0, 7, 16, 17, 200), 0),
+	(7, 12_000, (-12_000, -10_000, -1, 0, 1, 10_000, 11_999), 0),
+	(9, 5000, (-5000, -4999, -1, 0, 1, 4999, 5000, 6000), 1),
+	(16, 65_536, (-65_536 + 256, -258, -256, -255, -17, -1, 1, 16, 255, 256, 258, 65_536 - 256), 0),
+	(7, 4097, (-4097 + 5, -64, -63, -1, 0, 1, 63, 64, 4097 - 5), 1),
+)
 
 
 def check_complex_step_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
@@ -1416,10 +1431,9 @@ def check_complex_step_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 	the cell's shape (16 probes, the Hamiltonian's own bands) two whole flat steps from a mid-sweep
 	state whose probe 0 broke down (its divisor inf: q = 0, its α and β zero), each from the same blocks
 	and state as the plain step, then pass A, pass B and the step timed beside their bounds and plain
-	versions; pass A alone (``lanczos_dia_step``, the ``orth > 0`` route). At awkward shapes (n odd and a
-	block one element into its buffer: complex64's scalar path; 13 and 7 probes; offsets inside, at and
-	past the 16-row staging and at and past n) two whole steps. Returns the complex64 cell numbers under
-	``c64_`` keys, the complex128 ones under ``c128_``."""
+	versions; pass A alone (``lanczos_dia_step``, the ``orth > 0`` route), its ``w`` equal to the plain
+	version's bit for bit. At the awkward shapes of ``CPLX_STEP_SHAPES`` two whole steps. Returns the
+	complex64 cell numbers under ``c64_`` keys, the complex128 ones under ``c128_``."""
 	from primate_tpu_torch.ops import _common
 	from primate_tpu_torch.ops._build import load_library
 
@@ -1448,7 +1462,7 @@ def check_complex_step_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 		nv = v_cur.shape[0]
 		apply_ref = lambda q: dia.dia_stencil_t_ref(bands, offs_host, q)  # noqa: E731
 		st = mid_sweep_state(nv, r)
-		errs_v, errs_a, errs_b, bits, finite, done_ok = [], [], [], 0, True, True
+		errs_v, errs_a, errs_ar, share_a, errs_b, bits, finite, done_ok = [], [], [], [], [], 0, True, True
 		scalar_before, before = dict(_common.SCALAR_LAUNCHES), dict(_common.LAUNCHES)
 		for _ in range(2):
 			st_ref = dia.LanczosState(st.scal.clone(), torch.zeros(1, dtype=torch.int32, device=dev))
@@ -1460,6 +1474,8 @@ def check_complex_step_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 			scale = torch.linalg.vector_norm(q, dim=1) * torch.linalg.vector_norm(v_ref + st_ref.scal[dia.ALPHA, :, None] * q, dim=1)
 			errs_v.append(_rel_err(torch, v, v_ref))
 			errs_a.append(float(((ab[0] - ab_ref[0]).abs() / scale.clamp_min(1e-30))[1:].max()))
+			errs_ar.append(float(((ab[0] - ab_ref[0]).abs() / ab_ref[0].abs().clamp_min(1e-30))[1:].max()))
+			share_a.append(float((ab_ref[0].abs() / scale.clamp_min(1e-30))[1:].min()))
 			errs_b.append(float(((ab[1] - ab_ref[1]).abs() / ab_ref[1].abs())[1:].max()))
 			bits += int((v != v_ref).sum())
 			finite = finite and bool(torch.isfinite(torch.view_as_real(v)).all())
@@ -1471,7 +1487,8 @@ def check_complex_step_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 		rel_v, rel_a, rel_b = max(e[1] for e in errs_v), max(errs_a), max(errs_b)
 		row = {"phase": "tight_binding_step_check", "shape": label, "nv": nv, "n": v_cur.shape[1], "dtype": tname,
 			"v_max_abs_err": max(e[0] for e in errs_v), "v_rel_err": rel_v, "v_entries_differing_in_bits": bits,
-			"alpha_err_over_q_w": rel_a, "beta_rel_err": rel_b, "tol": CPLX_TOL[tname], "ab_tol": CPLX_AB_TOL[tname],
+			"alpha_err_over_q_w": rel_a, "alpha_rel_err": max(errs_ar), "alpha_over_q_w_min": min(share_a),
+			"beta_rel_err": rel_b, "tol": CPLX_TOL[tname], "ab_tol": CPLX_AB_TOL[tname],
 			"launches": launched, "scalar_launches": took_scalar, "done_probe_ok": done_ok}
 		emit(row)
 		if not (rel_v <= CPLX_TOL[tname] and rel_a <= CPLX_AB_TOL[tname] and rel_b <= CPLX_AB_TOL[tname] and finite and done_ok
@@ -1491,6 +1508,30 @@ def check_complex_step_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 		nv = TB_NV
 		v_cur, v_prev = unit(crandn((nv, n), dtype)), unit(crandn((nv, n), dtype))
 		cell = two_steps("cell", bands, offs, offs_host, v_cur, v_prev, dtype, False)
+		# H's spectrum is symmetric about 0, so a random probe's α nearly cancels (|α| far below ‖q‖·‖w‖)
+		# and its relative error says little. From q ∝ (H + 2)x, α is near 2/d² (d the probe's divisor):
+		# α and β relative to the plain step's, and pass A's α and the plain pass's against a float64 sum
+		# of the same w.
+		x = crandn((nv, n), dtype)
+		q_s = unit(dia.dia_stencil_t_ref(bands, offs_host, x).add_(x, alpha=2.0))
+		del x
+		shifted = two_steps("cell_shifted_start", bands, offs, offs_host, q_s, v_prev, dtype, False)
+		beta = torch.rand(nv, generator=gen, device=dev, dtype=r) + 0.5
+		w, alpha = dia.lanczos_dia_step(bands, offs, q_s, v_prev, beta)
+		w_ref, alpha_ref = dia.lanczos_dia_step_ref(bands, offs_host, q_s, v_prev, beta)
+		wide = torch.complex128
+		exact = dia.row_dot(q_s.to(wide), w.to(wide))
+		torch.cuda.synchronize()
+		emit({"phase": "tight_binding_pass_a_alpha", "shape": "cell_shifted_start", "dtype": tname,
+			"w_equal": bool(torch.equal(w, w_ref)),
+			"alpha_rel_err_vs_float64": float(((alpha.double() - exact) / exact).abs().max()),
+			"plain_alpha_rel_err_vs_float64": float(((alpha_ref.double() - exact) / exact).abs().max()),
+			"alpha_rel_err": float(((alpha - alpha_ref) / alpha_ref).abs().max())})
+		if not shifted["alpha_rel_err"] <= CPLX_AB_TOL[tname]:
+			raise AssertionError(f"complex step's α off the plain step's from a non-cancelling start: {shifted}")
+		del w, w_ref, q_s, exact
+		out.setdefault("lanczos_dia_step", {}).update({f"{key}_alpha_rel_err": shifted["alpha_rel_err"],
+			f"{key}_beta_rel_err": shifted["beta_rel_err"]})
 		# Pass A alone (orth > 0): w and α from unit q, β.
 		beta = torch.rand(nv, generator=gen, device=dev, dtype=r) + 0.5
 		w, alpha = dia.lanczos_dia_step(bands, offs, v_cur, v_prev, beta)
@@ -1498,6 +1539,8 @@ def check_complex_step_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 		torch.cuda.synchronize()
 		err_w = _rel_err(torch, w, w_ref)
 		err_alpha = float(((alpha - alpha_ref).abs() / torch.linalg.vector_norm(w_ref, dim=1)).max())
+		as_int = torch.int32 if dtype == torch.complex64 else torch.int64
+		bits_w = int((torch.view_as_real(w).view(as_int) != torch.view_as_real(w_ref).view(as_int)).sum())
 		del w, w_ref
 		# Timed: pass A, pass B and the whole step, kernels in the sweep's mode, beside the plain passes.
 		apply_ref = lambda q: dia.dia_stencil_t_ref(bands, offs_host, q)  # noqa: E731
@@ -1520,7 +1563,8 @@ def check_complex_step_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 				(6 * nv * n + n_d * n) * item, (8 * n_d + 22) * nv * n),
 		}
 		row = {"phase": "tight_binding_step_timing", "shape": "cell", "nv": nv, "n": n, "dtype": tname, "grid_x": gx,
-			"vector_path": vec, "pass_a_alone_w_rel_err": err_w[1], "pass_a_alone_alpha_err_over_w": err_alpha}
+			"vector_path": vec, "pass_a_alone_w_rel_err": err_w[1], "pass_a_alone_alpha_err_over_w": err_alpha,
+			"pass_a_alone_w_entries_differing_in_bits": bits_w}
 		errs = {"lanczos_dia_step": max(err_w[0], cell["v_max_abs_err"]), "lanczos_dia_residual": cell["v_max_abs_err"]}
 		for k, (kern, plain, bytes_, flops) in timed.items():
 			ms, plain_ms = _timed_pair(torch, kern, plain, reps)
@@ -1531,14 +1575,13 @@ def check_complex_step_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 				out.setdefault(k, {}).update({f"{key}_max_abs_err": errs[k], f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
 					f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by, f"{key}_library_ms": None})
 		emit(row)
-		if not (err_w[1] <= CPLX_TOL[tname] and err_alpha <= CPLX_AB_TOL[tname]):
+		if not (err_w[1] <= CPLX_TOL[tname] and err_alpha <= CPLX_AB_TOL[tname] and bits_w == 0):
 			raise AssertionError(f"complex pass A alone disagrees with its plain version: {row}")
 		del w_a, w_b_ref, partial, v_cur, v_prev, bands, st, st_ref
 		torch.cuda.empty_cache()
 		# Awkward shapes: (probes, n, offsets, lead); complex64 takes the scalar path where n is odd or
 		# the block starts one element into its buffer, complex128 never does.
-		for nv, m, offsets, lead in ((13, 3001, (-200, -17, -16, -7, 0, 7, 16, 17, 200), 0),
-				(7, 12_000, (-12_000, -10_000, -1, 0, 1, 10_000, 11_999), 0), (9, 5000, (-5000, -4999, -1, 0, 1, 4999, 5000, 6000), 1)):
+		for nv, m, offsets, lead in CPLX_STEP_SHAPES:
 			b = crandn((len(offsets), m), dtype)
 			o = torch.tensor(offsets, dtype=torch.int64, device=dev)
 			vc = unit(crandn((lead + nv * m,), dtype)[lead:].view(nv, m))
@@ -2643,7 +2686,7 @@ def complex_bsr(torch, ptt, dev, reps: int = 10) -> dict:
 	A's pattern, complex64: Hutchinson (phase probes) within 5σ of tr H = tr A, and phase 7's calls
 	(Hutch++, XTrace, XNysTrace within 1e-3, XDiag finite) through the complex kernel; the adjoint
 	against the conjugate transpose; the kernel against its plain version at k = 64 and 240, timed
-	beside its bound, its plain version and the library call, and complex128 at a small shape."""
+	beside its bound, its plain version and the library call, and complex128 at a small shape (the same numbers)."""
 	from primate_tpu_torch.ops import bsr
 	from primate_tpu_torch.ops.autograd import bsr_transpose
 
@@ -2740,12 +2783,17 @@ def complex_bsr(torch, ptt, dev, reps: int = 10) -> dict:
 	torch.cuda.synchronize()
 	err, rel = _rel_err(torch, got, want)
 	ms, plain_ms = _timed_pair(torch, lambda: bsr.bsr_spmm(*args), lambda: bsr.bsr_spmm_ref(*args), reps)
+	b_ms, b_by = bound((blocks.numel() + 2 * CBSR_C128_N * 64) * 16, 8 * blocks.numel() * 64, FP64_FLOP_PER_S)
+	B_lib = torch.sparse_bsr_tensor(As.indptr, As.indices, blocks, size=As.pshape)
+	lib_ms, lib_note = library_ms(torch, lambda: B_lib @ V, want, reps)  # complex128 cuSPARSE BSR
 	row = {"phase": "complex_bsr_kernel_check", "kernel": "bsr_spmm", "shape": f"block_random_spd({CBSR_C128_N})", "k": 64,
 		"dtype": "complex128", "tiles": int(blocks.shape[0]), "max_abs_err": err, "rel_err": rel, "tol": CPLX_TOL["complex128"],
-		"ms": ms, "plain_ms": plain_ms}
+		"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+		"library_rel_err_or_error": lib_note}
 	emit(row)
 	if not rel <= CPLX_TOL["complex128"]:
 		raise AssertionError(f"complex128 bsr_spmm disagrees with its plain version: {row}")
+	out.update({f"c128_{key}": row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
 	return {"bsr_spmm": out}
 
 

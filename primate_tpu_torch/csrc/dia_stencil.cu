@@ -48,10 +48,10 @@
 // XLA, with alpha = Re sum conj(q) w and beta real. Here w and v are complex and the
 // per-probe state and every sum are the real type (real_t), so the ticketed reductions
 // are the real kernels'; alpha is summed from the parts (q.re w.re + q.im w.im). A
-// thread owns 2 rows (complex64) or 1 (complex128), and the staged tile of q is 34,816
-// or 36,864 bytes of static shared memory. The elementwise steps round as the plain
-// version's PyTorch ops do on the card (mul_rn, sub_rn below), so w and v come out as
-// the plain step's wherever the stencil sums do.
+// thread owns 2 rows (complex64) or 1 (complex128); complex pass A keeps its band values
+// in registers as dia_stencil_t does (no staged tile). The elementwise steps round as the
+// plain version's PyTorch ops do on the card (mul_rn, sub_rn, mac below), so w comes out
+// as the plain pass A's bit for bit, and v as the plain step's wherever alpha agrees.
 //
 // The Lanczos step (primate_tpu/lanczos.py:304-316,378-388 with orth = 0)
 //   w = A q - beta q_prev;  alpha = Re sum conj(q) w;  v = w - alpha q;  beta' = |v|;
@@ -76,10 +76,11 @@
 // rank's sum of each probe; the caller all-reduces it between the passes, and
 // lanczos_dia_advance (one thread a probe) writes from the reduced sums what the
 // last blocks write above, so every rank's state advances alike. Loads and
-// stores are 16 bytes along r; a tile of q with kHalo rows on each side is staged
-// in shared memory, so neighbours at offsets up to kHalo come from there, larger
-// offsets from direct (L1/L2) loads. When ld or lo is not a multiple of the vector
-// length, or a pointer is not 16-byte aligned, the same kernels take scalar loads.
+// stores are 16 bytes along r. The real and bfloat16 pass A stage a tile of q with kHalo
+// rows on each side in shared memory, so neighbours at offsets up to kHalo come from there,
+// larger offsets from direct (L1/L2) loads; the complex one holds the band values in
+// registers and loads every neighbour directly. When ld or lo is not a multiple of the
+// vector length, or a pointer is not 16-byte aligned, the same kernels take scalar loads.
 //
 // bfloat16 (JAX's third operator dtype; its Pallas kernels take bf16 and accumulate
 // in promote_types(dtype, float32)): the two stencils and pass A read bf16 bands and
@@ -520,34 +521,30 @@ __device__ __forceinline__ T probe_total(const T* partial, int64_t b) {
 // A narrow type (bfloat16) reads q and q_prev as stored (no divisors: its sweep
 // normalises q every step) and stages q as stored; w, the state and the sums are in
 // the accumulation type (float32). `round`: round the stencil sum to T before the
-// beta-axpy (no effect where T is its own accumulation type). A complex carry: w is
-// complex, the state, the partials and the sums real.
+// beta-axpy (no effect where T is its own accumulation type). This staged kernel serves
+// float32, float64 and bfloat16 carries; a complex carry (w complex, the state, the
+// partials and the sums real) takes the register kernel below.
 template <typename T, bool kVec>
-__global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
+__global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_staged_kernel(
     const T* __restrict__ bands, const int64_t* __restrict__ offsets, int n_d, const T* __restrict__ v_cur,
     const T* __restrict__ v_prev, real_t<acc_t<T>>* __restrict__ state, acc_t<T>* __restrict__ w,
     real_t<acc_t<T>>* __restrict__ partial, unsigned* __restrict__ ticket, real_t<acc_t<T>>* __restrict__ alpha_out,
     real_t<acc_t<T>>* __restrict__ sums, int64_t nv, int64_t ld, int64_t lo, int64_t n, int round) {
     using A = acc_t<T>;
-    using R = real_t<A>;  // the state and the sums: real for complex blocks too
+    using R = real_t<A>;  // the state and the sums
     using S = std::conditional_t<kNarrow<T>, T, A>;  // the staged q: divided in A, or as stored
     constexpr int VL = Vec<T>::len;
     constexpr int kTile = kStepThreads * VL;
     constexpr int kSpan = kTile + 2 * kHalo;
     __shared__ __align__(16) S q_s[kStepProbes][kSpan];
-    __shared__ R div_s[kStepProbes], divp_s[kStepProbes], beta_s[kStepProbes], inv_s[kStepProbes], invp_s[kStepProbes];
+    __shared__ R div_s[kStepProbes], divp_s[kStepProbes], beta_s[kStepProbes];
     const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
     const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
     const int64_t lo_b = -lo, hi_b = ld - lo;  // the carry's columns, counted from the first own row
     if (threadIdx.x < np) {
         if constexpr (!kNarrow<T>) {
-            const R div = state[kDivCur * nv + b0 + threadIdx.x], divp = state[kDivPrev * nv + b0 + threadIdx.x];
-            div_s[threadIdx.x] = div;
-            divp_s[threadIdx.x] = divp;
-            if constexpr (kCplx<A>) {  // the complex quotients' reciprocals (a real quotient divides)
-                inv_s[threadIdx.x] = R(1) / div;
-                invp_s[threadIdx.x] = R(1) / divp;
-            }
+            div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
+            divp_s[threadIdx.x] = state[kDivPrev * nv + b0 + threadIdx.x];
         }
         beta_s[threadIdx.x] = state[kBeta * nv + b0 + threadIdx.x];
     }
@@ -573,12 +570,12 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
                 for (int e = threadIdx.x; e < kSpan / VL; e += kStepThreads)
                     copy_seg<T, kVec>(row, r0 - kHalo + e * VL, lo_b, hi_b, &q_s[p][e * VL]);
             } else {
-                const R div = div_s[p], inv = inv_s[p];
+                const R div = div_s[p];
                 for (int e = threadIdx.x; e < kSpan / VL; e += kStepThreads) {
                     A o[VL];
                     load_seg<T, kVec>(row, r0 - kHalo + e * VL, lo_b, hi_b, o);
 #pragma unroll
-                    for (int i = 0; i < VL; ++i) q_s[p][e * VL + i] = quot(o[i], div, inv);
+                    for (int i = 0; i < VL; ++i) q_s[p][e * VL + i] = o[i] / div;
                 }
             }
         }
@@ -608,11 +605,11 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
                         if (c >= lo_b && c < hi_b) acc[i] += band[i] * to_acc(row[c]);
                     }
                 } else {
-                    const R div = div_s[p], inv = inv_s[p];
+                    const R div = div_s[p];
 #pragma unroll
                     for (int i = 0; i < VL; ++i) {
                         const int64_t c = r + i + off;
-                        if (c >= lo_b && c < hi_b) acc[i] += band[i] * quot(row[c], div, inv);
+                        if (c >= lo_b && c < hi_b) acc[i] += band[i] * (row[c] / div);
                     }
                 }
             }
@@ -627,14 +624,242 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_kernel(
                     dot[p] += out[i] * to_acc(q_s[p][loc + i]);
                 }
             } else {
-                const R beta = beta_s[p], divp = divp_s[p], invp = invp_s[p];
+                const R beta = beta_s[p], divp = divp_s[p];
 #pragma unroll
                 for (int i = 0; i < VL; ++i) {
-                    out[i] = r + i < n ? minus_scaled(acc[i], beta, quot(vp[i], divp, invp)) : A(0);  // a margin column: 0
+                    out[i] = r + i < n ? acc[i] - beta * (vp[i] / divp) : A(0);  // a margin column: 0
                     dot[p] += re_dot(q_s[p][loc + i], out[i]);
                 }
             }
             store_seg<kVec>(w + b * ld + lo, r, n, out);
+        }
+    }
+    if (!reduce_and_take_ticket(dot, np, b0, partial, ticket)) return;
+    for (int64_t b = threadIdx.x / 32; b < nv; b += kStepWarps) {
+        const R s = probe_total(partial, b);
+        if (threadIdx.x % 32 == 0) {
+            if (sums != nullptr) {
+                sums[b] = s;
+            } else {
+                state[kAlpha * nv + b] = s;
+                if (alpha_out != nullptr) alpha_out[b] = state[kDone * nv + b] != R(0) ? R(0) : s;
+            }
+        }
+    }
+    if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// Pass A with the band values in registers (complex64, complex128): dia_stencil_t's structure
+// on the step, in place of the staged kernel above. Each thread owns VL rows (one 16-byte
+// vector) of a row tile and takes them through the block's probes. It reads the band values of
+// a chunk of up to kTChunk diagonals once a tile and keeps them in registers with their
+// in-range bits (with more diagonals than a chunk, each chunk is read again for each group of
+// probes, so one chunk is live at a time), and issues the neighbour loads of kAProbes probes
+// together: one 16-byte load a probe where the offset is a whole number of vectors and every
+// neighbour lies in the carry, element loads otherwise, and none on a diagonal with no
+// neighbour in the carry (the wrap diagonals of a periodic lattice). Every loaded element is
+// divided as the staged kernel divides it (quot), the diagonals are summed in their order and
+// each complex product is rounded before its sum (mac), as PyTorch's ops round on the card: w is
+// the plain pass A's bit for bit (the staged kernel's complex128 w differed from it in the last
+// bit of a few imaginary parts); the alpha partials take another order. No shared memory but the
+// per-probe scalars and the block's reduction, and no barrier in the row loop: the nearby
+// diagonals find their lines in L1, the far ones in L2. Complex only: the staged kernel measured
+// faster for float32, float64 and bfloat16, whose threads hold 4 to 8 rows (PERF.md).
+constexpr int kAProbes = 4;  // probes whose neighbour loads a thread issues together
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// acc + b x, the stencil's multiply-add: the product (re = b.re x.re - b.im x.im with one FMA,
+// im = b.re x.im + b.im x.re with one FMA), then the sum, as PyTorch's product and sum tensors round
+// on the card; written out, so that no other contraction of the compiler moves a bit.
+template <typename R>
+__device__ __forceinline__ void mac(Cplx<R>& acc, const Cplx<R>& b, const Cplx<R>& x) {
+    acc.re = add_rn(acc.re, fma_rn(b.re, x.re, -mul_rn(b.im, x.im)));
+    acc.im = add_rn(acc.im, fma_rn(b.re, x.im, mul_rn(b.im, x.re)));
+}
+
+// Up to kTChunk diagonals at a thread's rows: the band values (0 where the row lies past the own
+// rows or its neighbour outside the carry); bit j * VL + e of `in`: row e's neighbour on diagonal
+// j lies in the carry; bit j of `whole`: all of them do and one 16-byte load reads them.
+template <typename T>
+struct BandChunk {
+    T w[kTChunk][Vec<T>::len];
+    TBits<T> in;
+    unsigned whole;
+};
+
+// The nd diagonals from offsets[0] (bands[0]: their first band row) at rows r .. r + rows - 1.
+template <typename T, bool kVec>
+__device__ __forceinline__ void load_band_chunk(BandChunk<T>& c, const T* __restrict__ bands,
+                                                const int64_t* __restrict__ offsets, int nd, int64_t ld, int64_t lo,
+                                                int64_t r, int rows, int64_t lo_b, int64_t hi_b) {
+    constexpr int VL = Vec<T>::len;
+    c.in = 0;
+    c.whole = 0;
+#pragma unroll
+    for (int j = 0; j < kTChunk; ++j) {
+        const int64_t off = j < nd ? __ldg(offsets + j) : 0;
+        const T* row = bands + static_cast<int64_t>(j) * ld + lo + r;
+        T band[VL];
+        if (kVec && j < nd) {
+            unpack(__ldg(reinterpret_cast<const typename Vec<T>::type*>(row)), band);
+        } else {
+#pragma unroll
+            for (int e = 0; e < VL; ++e) band[e] = j < nd && e < rows ? ldg(row + e) : T(0);
+        }
+        unsigned bits = 0;
+#pragma unroll
+        for (int e = 0; e < VL; ++e) {
+            const int64_t rr = r + e;
+            const bool ok = j < nd && e < rows && off >= lo_b - rr && off < hi_b - rr;
+            c.w[j][e] = ok ? band[e] : T(0);
+            bits |= ok ? 1u << e : 0u;
+        }
+        c.in |= static_cast<TBits<T>>(bits) << (j * VL);
+        if (kVec && bits == (1u << VL) - 1 && off % VL == 0) c.whole |= 1u << j;
+    }
+}
+
+// acc[k] += the chunk's stencil sum at probe k's rows (vb: the first probe's row r, probes ld
+// apart), each neighbour divided by its probe's divisor.
+template <typename T, bool kVec, int kNP, typename R = real_t<T>>
+__device__ __forceinline__ void accumulate_chunk(const BandChunk<T>& c, const int64_t* __restrict__ offsets, int nd,
+                                                 const T* __restrict__ vb, int64_t ld, const R* div_s, const R* inv_s,
+                                                 T (&acc)[kNP][Vec<T>::len]) {
+    constexpr int VL = Vec<T>::len;
+#pragma unroll
+    for (int j = 0; j < kTChunk; ++j) {
+        if (j >= nd) break;
+        if (((c.in >> (j * VL)) & ((1u << VL) - 1)) == 0) continue;  // no neighbour in the carry
+        const T* src = vb + __ldg(offsets + j);
+        T x[kNP][VL];
+        if (kVec && ((c.whole >> j) & 1u)) {
+#pragma unroll
+            for (int k = 0; k < kNP; ++k) unpack(__ldg(reinterpret_cast<const typename Vec<T>::type*>(src + k * ld)), x[k]);
+        } else {
+#pragma unroll
+            for (int k = 0; k < kNP; ++k)
+#pragma unroll
+                for (int e = 0; e < VL; ++e) x[k][e] = (c.in >> (j * VL + e)) & 1u ? ldg(src + k * ld + e) : T(0);
+        }
+#pragma unroll
+        for (int k = 0; k < kNP; ++k)
+#pragma unroll
+            for (int e = 0; e < VL; ++e) mac(acc[k][e], c.w[j][e], quot(x[k][e], div_s[k], inv_s[k]));
+    }
+}
+
+// Probes p .. p + kNP - 1 of the block's group (b: the first one's index) at a thread's rows
+// r .. r + rows - 1: the stencil sum over the chunks (c: the first chunk, loaded by the caller, if
+// it is the only one; else each chunk is loaded into c here), then w = sum - beta q_prev, its
+// store, and dot[p + k] += Re(conj(q) w).
+template <typename T, bool kVec, int kNP, typename R = real_t<T>>
+__device__ __forceinline__ void pass_a_probes(BandChunk<T>& c, const T* __restrict__ bands,
+                                              const int64_t* __restrict__ offsets, int n_d,
+                                              const T* __restrict__ v_cur, const T* __restrict__ v_prev,
+                                              T* __restrict__ w, int64_t b, int p, const R* div_s, const R* inv_s,
+                                              const R* divp_s, const R* invp_s, const R* beta_s, int64_t ld, int64_t lo,
+                                              int64_t n, int64_t r, int rows, int64_t lo_b, int64_t hi_b,
+                                              R (&dot)[kStepProbes]) {
+    constexpr int VL = Vec<T>::len;
+    T acc[kNP][VL];
+#pragma unroll
+    for (int k = 0; k < kNP; ++k)
+#pragma unroll
+        for (int e = 0; e < VL; ++e) acc[k][e] = T(0);
+    const T* vb = v_cur + b * ld + lo + r;
+    for (int d0 = 0; d0 < n_d; d0 += kTChunk) {
+        const int nd = n_d - d0 < kTChunk ? n_d - d0 : kTChunk;
+        if (n_d > kTChunk) load_band_chunk<T, kVec>(c, bands + d0 * ld, offsets + d0, nd, ld, lo, r, rows, lo_b, hi_b);
+        accumulate_chunk<T, kVec, kNP>(c, offsets + d0, nd, vb, ld, div_s + p, inv_s + p, acc);
+    }
+#pragma unroll
+    for (int k = 0; k < kNP; ++k) {
+        const int64_t bk = b + k;
+        using V = typename Vec<T>::type;
+        T q[VL], vp[VL], out[VL];
+        load_seg<T, kVec>(v_cur + bk * ld + lo, r, lo_b, hi_b, q);
+        if constexpr (kVec && sizeof(T) == 8) {
+            // complex64: v_prev's only read, evict-first (16 x 4,096,000, H100 80GB HBM3 at 700 W: 0.875 ->
+            // 0.855 ms; complex128 took 1.483 -> 1.587 ms with it, so it reads through the cache).
+            unpack(__ldcs(reinterpret_cast<const V*>(v_prev + bk * ld + lo + r)), vp);
+        } else {
+            load_seg<T, kVec>(v_prev + bk * ld + lo, r, lo_b, hi_b, vp);
+        }
+        const R div = div_s[p + k], inv = inv_s[p + k], divp = divp_s[p + k], invp = invp_s[p + k], beta = beta_s[p + k];
+#pragma unroll
+        for (int i = 0; i < VL; ++i) {
+            out[i] = r + i < n ? minus_scaled(acc[k][i], beta, quot(vp[i], divp, invp)) : T(0);  // a margin column: 0
+            dot[p + k] += re_dot(quot(q[i], div, inv), out[i]);
+        }
+        if constexpr (kVec) {
+            __stcs(reinterpret_cast<V*>(w + bk * ld + lo + r), pack(out));  // streaming: keep v_cur's rows in L2
+        } else {
+            store_seg<kVec>(w + bk * ld + lo, r, n, out);
+        }
+    }
+}
+
+// The kernel's arguments are the staged kernel's; `round` has no effect on a complex carry.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kStepThreads, kTBlocks) lanczos_pass_a_kernel(
+    const T* __restrict__ bands, const int64_t* __restrict__ offsets, int n_d, const T* __restrict__ v_cur,
+    const T* __restrict__ v_prev, real_t<T>* __restrict__ state, T* __restrict__ w, real_t<T>* __restrict__ partial,
+    unsigned* __restrict__ ticket, real_t<T>* __restrict__ alpha_out, real_t<T>* __restrict__ sums, int64_t nv,
+    int64_t ld, int64_t lo, int64_t n, int) {
+    static_assert(kCplx<T>, "the register pass A is complex only");
+    using R = real_t<T>;
+    constexpr int VL = Vec<T>::len;
+    constexpr int kTile = kStepThreads * VL;
+    __shared__ R div_s[kStepProbes], divp_s[kStepProbes], beta_s[kStepProbes], inv_s[kStepProbes], invp_s[kStepProbes];
+    const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
+    const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
+    const int64_t lo_b = -lo, hi_b = ld - lo;  // the carry's columns, counted from the first own row
+    if (threadIdx.x < kStepProbes) {  // slots past np: divisors 1, so no quotient there is inf or NaN
+        const bool own = threadIdx.x < np;
+        const R div = own ? state[kDivCur * nv + b0 + threadIdx.x] : R(1);
+        const R divp = own ? state[kDivPrev * nv + b0 + threadIdx.x] : R(1);
+        div_s[threadIdx.x] = div;
+        divp_s[threadIdx.x] = divp;
+        inv_s[threadIdx.x] = R(1) / div;  // the complex quotient multiplies by the reciprocal
+        invp_s[threadIdx.x] = R(1) / divp;
+        beta_s[threadIdx.x] = own ? state[kBeta * nv + b0 + threadIdx.x] : R(0);
+    }
+    if (blockIdx.x == 0 && ld > n) {  // the margins of w: zero
+        for (int p = 0; p < np; ++p) {
+            T* row = w + (b0 + p) * ld;
+            for (int64_t c = threadIdx.x; c < lo; c += kStepThreads) row[c] = T(0);
+            for (int64_t c = lo + n + threadIdx.x; c < ld; c += kStepThreads) row[c] = T(0);
+        }
+    }
+    __syncthreads();
+    R dot[kStepProbes];
+#pragma unroll
+    for (int p = 0; p < kStepProbes; ++p) dot[p] = R(0);
+    const int64_t n_tiles = (n + kTile - 1) / kTile;
+    for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int64_t r = t * kTile + threadIdx.x * VL;
+        if (r >= n) break;
+        const int rows = n - r < VL ? static_cast<int>(n - r) : VL;
+        BandChunk<T> c;
+        if (n_d <= kTChunk) load_band_chunk<T, kVec>(c, bands, offsets, n_d, ld, lo, r, rows, lo_b, hi_b);
+#pragma unroll
+        for (int p = 0; p < kStepProbes; p += kAProbes) {
+            if (p >= np) break;
+            if (p + kAProbes <= np) {
+                pass_a_probes<T, kVec, kAProbes>(c, bands, offsets, n_d, v_cur, v_prev, w, b0 + p, p, div_s, inv_s, divp_s,
+                                                 invp_s, beta_s, ld, lo, n, r, rows, lo_b, hi_b, dot);
+            } else {
+#pragma unroll
+                for (int q = p; q < p + kAProbes; ++q) {
+                    if (q >= np) break;
+                    pass_a_probes<T, kVec, 1>(c, bands, offsets, n_d, v_cur, v_prev, w, b0 + q, q, div_s, inv_s, divp_s,
+                                              invp_s, beta_s, ld, lo, n, r, rows, lo_b, hi_b, dot);
+                }
+            }
         }
     }
     if (!reduce_and_take_ticket(dot, np, b0, partial, ticket)) return;
@@ -922,6 +1147,16 @@ cudaError_t launch_stencil_nm(const T* bands, const int64_t* offsets, int n_d, c
                : launch_stencil_nm_as<T, false>(bands, offsets, n_d, V, out, n, k, stream);
 }
 
+// The pass A kernel of a carry of element type T: the register kernel for complex, else the staged one.
+template <typename T, bool kVec>
+auto pass_a_kernel() {
+    if constexpr (kCplx<T>) {
+        return lanczos_pass_a_kernel<T, kVec>;
+    } else {
+        return lanczos_pass_a_staged_kernel<T, kVec>;
+    }
+}
+
 // Row-tile walkers per probe group of the step's persistent grid: enough blocks to
 // fill every SM at the pass-A kernel's occupancy, at most one per row tile.
 template <typename T>
@@ -929,7 +1164,7 @@ int64_t step_blocks(int64_t nv, int64_t n) {
     int dev = 0, sms = 0, occ = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, lanczos_pass_a_kernel<T, true>, kStepThreads, 0) !=
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, pass_a_kernel<T, true>(), kStepThreads, 0) !=
             cudaSuccess) {
         return -1;
     }
@@ -951,15 +1186,9 @@ cudaError_t launch_pass_a(const T* bands, const int64_t* offsets, int n_d, const
                           int64_t n, int64_t gx, int round, int vec, cudaStream_t stream) {
     if (!step_grid_ok(nv, ld, lo, n, gx)) return cudaErrorInvalidConfiguration;
     const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>((nv + kStepProbes - 1) / kStepProbes));
-    if (vec) {
-        lanczos_pass_a_kernel<T, true><<<grid, kStepThreads, 0, stream>>>(bands, offsets, n_d, v_cur, v_prev, state, w,
-                                                                          partial, ticket, alpha_out, sums, nv, ld, lo, n,
-                                                                          round);
-    } else {
-        lanczos_pass_a_kernel<T, false><<<grid, kStepThreads, 0, stream>>>(bands, offsets, n_d, v_cur, v_prev, state, w,
-                                                                           partial, ticket, alpha_out, sums, nv, ld, lo, n,
-                                                                           round);
-    }
+    auto kern = vec ? pass_a_kernel<T, true>() : pass_a_kernel<T, false>();
+    kern<<<grid, kStepThreads, 0, stream>>>(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, sums,
+                                            nv, ld, lo, n, round);
     return cudaGetLastError();
 }
 

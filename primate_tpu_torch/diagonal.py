@@ -13,13 +13,14 @@ operator (a ``MatrixFunction`` of a stacked family) gives one diagonal per
 member, ``(nt, n)``, from one sweep per iteration.
 """
 
-import warnings
 from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
-from .estimators import ConvergenceCriterion, EstimatorResult, EstSnapshot, convergence_criterion, criterion_needs_values
+from .estimators import (
+	ConvergenceCriterion, EstimatorResult, EstSnapshot, convergence_criterion, criterion_needs_values, note_capped,
+)
 from .linalg import full_f32, tall_qr
 from .random import classify_pdf, real_dtype
 from .stats import MeanState
@@ -79,9 +80,9 @@ def run_diag(
 		if callback is not None:
 			result.estimate, result.nit = estimate(), n
 			callback(result)
-	if n >= maxiter and not criterion.check(snapshot()):
-		warnings.warn(f"diag: stopped by maxiter={maxiter} before the convergence criterion was met", stacklevel=3)
+	capped = n >= maxiter and not criterion.check(snapshot())
 	result.estimate, result.nit = estimate(), n
+	note_capped(capped, maxiter, result if full else None, name="diag")
 	if not full:
 		return result.estimate
 	result.info["m2"] = m2
@@ -121,8 +122,7 @@ def _diag_differentiable(op, pdf, converge, seed, maxiter: int, batch: int, kwar
 		converge = "count"
 	count = count_budget("diag", converge, kwargs)
 	iters = min(count, int(maxiter))
-	if iters < count:
-		warnings.warn(f"diag: stopped by maxiter={maxiter} before the convergence criterion was met", stacklevel=3)
+	note_capped(iters < count, maxiter, name="diag")
 	sample = probe_sampler(op, _base_seed(seed), pdf)
 	return diag_ratio(op, lambda i: sample(i, batch), iters)
 

@@ -9,6 +9,8 @@ so a decided count skips those reads; ``~`` negates.
 """
 
 import inspect
+import typing
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, NamedTuple, Optional, Union
 
@@ -34,7 +36,58 @@ __all__ = [
 	"ConfidenceEstimator",
 	"ControlVariableEstimator",
 	"EstimatorResult",
+	"CRITERIA",
+	"Estimator",
+	"arr_summary",
+	"note_capped",
 ]
+
+
+def note_capped(capped: bool, maxiter: int, result: "EstimatorResult" = None, name: str = "estimator") -> None:
+	"""A budget-capped stop made visible (``primate_tpu/estimators.py:55-72``): when a loop used up
+	``maxiter`` with its criterion unmet, warn, and, given the result record, set
+	``info["capped"]`` and append ``[capped at maxiter=N]`` to its ``message``."""
+	if not capped:
+		return
+	warnings.warn(
+		f"{name}: stopped by maxiter={maxiter} before the convergence criterion was met; "
+		"the estimate may not have the requested accuracy/confidence (raise maxiter, or "
+		"resume= from the returned result to continue the same probe stream)",
+		stacklevel=3,
+	)
+	if result is not None:
+		result.info["capped"] = True
+		result.message = (result.message + " " if result.message else "") + f"[capped at maxiter={maxiter}]"
+
+
+def arr_summary(x) -> str:
+	"""A short print of an array for criterion messages (``primate_tpu/estimators.py:75-88``)."""
+	if x is None:
+		return "None"
+	if isinstance(x, torch.Tensor):
+		x = x.detach().cpu()
+	x = np.atleast_1d(np.asarray(x))
+	with np.printoptions(precision=2, suppress=True, threshold=3, floatmode="fixed"):
+		if len(x) == 1:
+			return f"{x.item():.3f}"
+		elif len(x) <= 3:
+			return np.array2string(x, separator=",")
+		x1 = np.array2string(x[:2], separator=",").strip("[]")
+		x2 = np.array2string(x[-1], separator=",").strip("[]")
+		return "[" + x1 + ",...," + x2 + "]"
+
+
+class Estimator(typing.Protocol):
+	"""The estimator protocol (``primate_tpu/estimators.py:112-122``): sample count, update, estimate."""
+
+	n_samples: int
+
+	def __len__(self) -> int: ...
+
+	def update(self, x) -> None: ...
+
+	@property
+	def estimate(self): ...
 
 
 class EstSnapshot(NamedTuple):
@@ -146,7 +199,7 @@ class CountCriterion(ConvergenceCriterion):
 		return snap.n >= self.count
 
 	def message(self, est) -> str:
-		return f"Est: {_summary(est.estimate)} (#S:{est.n_samples})"
+		return f"Est: {arr_summary(est.estimate)} (#S:{est.n_samples})"
 
 
 def clt_quantiles(confidence: float) -> tuple:
@@ -191,7 +244,7 @@ class ConfidenceCriterion(ConvergenceCriterion):
 
 	def message(self, est) -> str:
 		moe, _ = self._error(est.snapshot())
-		return f"Est: {_summary(est.estimate)} +/- {moe:.3f} ({self.confidence * 100:.0f}% CI, #S:{est.n_samples})"
+		return f"Est: {arr_summary(est.estimate)} +/- {moe:.3f} ({self.confidence * 100:.0f}% CI, #S:{est.n_samples})"
 
 
 class ToleranceCriterion(ConvergenceCriterion):
@@ -234,7 +287,7 @@ class KneeCriterion(ConvergenceCriterion):
 
 	def message(self, est) -> str:
 		snap = est if isinstance(est, EstSnapshot) else est.snapshot()
-		return f"Est: {_summary(snap.estimate.cpu())} (#S:{snap.n}, S={float(self.S):3f})"
+		return f"Est: {arr_summary(snap.estimate.cpu())} (#S:{snap.n}, S={float(self.S):3f})"
 
 
 CRITERIA = {"count": CountCriterion, "confidence": ConfidenceCriterion, "tolerance": ToleranceCriterion, "knee": KneeCriterion}
@@ -270,11 +323,6 @@ def criterion_needs_values(criterion) -> bool:
 def default_trace_criterion() -> ConvergenceCriterion:
 	"""The reference's default for `hutch`: 200 samples OR 95% CI within ±1.0."""
 	return CountCriterion(count=200) | ConfidenceCriterion(confidence=0.95, atol=1.0, rtol=0.0)
-
-
-def _summary(x) -> str:
-	x = np.atleast_1d(np.asarray(x, dtype=float))
-	return f"{x.item():.3f}" if x.size == 1 else np.array2string(x, precision=2, threshold=3)
 
 
 class MeanEstimator:
@@ -377,7 +425,7 @@ class ConfidenceEstimator(MeanEstimator):
 		if self.n_samples == 0:
 			return f"ConfidenceEstimator(confidence={self.confidence}, <empty>)"
 		return (
-			f"ConfidenceEstimator({_summary(np.atleast_1d(np.asarray(self.estimate))[:1])} "
+			f"ConfidenceEstimator({arr_summary(np.atleast_1d(np.asarray(self.estimate))[:1])} "
 			f"+/- {self.margin_of_error:.4g} @ {self.confidence * 100:.0f}%, #S:{self.n_samples})"
 		)
 

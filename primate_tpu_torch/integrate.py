@@ -15,7 +15,14 @@ import torch
 from .fttr import fttr_weights
 from .tridiag import eigh_tridiag, eigvalsh_tridiag, tridiag_matrix
 
-__all__ = ["spectral_quad_form", "quadrature", "lanczos_quadrature", "radau_rule", "lobatto_rule"]
+__all__ = ["spectral_quad_form", "quadrature", "lanczos_quadrature", "radau_rule", "lobatto_rule", "spectral_density"]
+
+
+def spectral_density(*args, **kwargs):
+	"""Alias of :func:`primate_tpu_torch.density.spectral_density` (``primate_tpu/integrate.py:25-34``)."""
+	from .density import spectral_density as _sd
+
+	return _sd(*args, **kwargs)
 
 
 def spectral_quad_form(d: torch.Tensor, e: torch.Tensor, fun: Callable) -> torch.Tensor:

@@ -29,7 +29,7 @@ from ..special import param_callable
 from ..tridiag import eigh_tridiag
 from .base import LinearOperator, ScaledOperator, aslinop, torch_dtype
 
-__all__ = ["MatrixFunction", "matrix_function", "Toeplitz", "normalize_unit"]
+__all__ = ["MatrixFunction", "matrix_function", "Toeplitz", "normalize_unit", "ScaledOperator"]
 
 # The keywords the constructor passes on: the breakdown tolerance and the builtin
 # functions' parameters (``special._cached_builtin``).

@@ -52,7 +52,8 @@ all-reduced and ``lanczos_dia_advance`` finishes the scalars before B2).
 Complex (Hermitian) blocks: the two stencils and both step passes have complex64/complex128
 instantiations (a 16-byte vector holds 2 or 1 elements). The step's ``w`` and ``v`` are complex, its
 state, α, β and every sum real (``α = Re Σ conj(q)·w``, JAX's ``primate_tpu/lanczos.py:309-316``), and
-its elementwise ops round as the plain version's PyTorch ops do on the card.
+its elementwise ops round as the plain version's PyTorch ops do on the card. Complex pass A holds
+its band values in registers as ``dia_stencil_t`` does; the real and bfloat16 ones stage the carry.
 
 All are bound by HBM bytes (a few flops per loaded element); the kernels make
 one pass over the probe block and bounds-check the ragged edges, so neither the

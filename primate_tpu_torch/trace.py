@@ -39,6 +39,7 @@ from .estimators import (
 	convergence_criterion,
 	criterion_needs_values,
 	default_trace_criterion,
+	note_capped,
 )
 from .linalg import colwise_dot, full_f32, qr_append, tall_qr, update_trinv_block
 from .operators.base import DeflatedOperator, aslinop, is_valid_operator, quad_form
@@ -168,8 +169,7 @@ def _hutch_differentiable(op, batch, pdf, converge, seed, maxiter, kwargs) -> to
 	grad_opts = {k: kwargs.pop(k) for k in DIFFERENTIABLE_KWARGS if k in kwargs}
 	count = count_budget("hutch", converge, kwargs)
 	nv = min(count, int(maxiter) * int(batch))
-	if nv < count:
-		warnings.warn(f"hutch: stopped by maxiter={maxiter} before the convergence criterion was met", stacklevel=3)
+	note_capped(nv < count, maxiter, name="hutch")
 	from .operators.special_ops import MatrixFunction
 
 	if isinstance(op, MatrixFunction):
@@ -299,18 +299,12 @@ def hutch(
 
 	estimate = current_estimate()
 	capped = it >= maxiter and not criterion.check(estimator.snapshot())
-	if capped:
-		warnings.warn(
-			f"hutch: stopped by maxiter={maxiter} before the convergence criterion was met; "
-			"resume= from the returned result to continue the same probe stream",
-			stacklevel=2,
-		)
 	if not full:
+		note_capped(capped, maxiter, name="hutch")
 		return estimate
 	result.estimate, result.nit = estimate, estimator.n_samples
 	result.message = criterion.message(estimator) if hasattr(criterion, "message") else ""
-	if capped:
-		result.info["capped"] = True
+	note_capped(capped, maxiter, result, name="hutch")
 	return estimate, result
 
 

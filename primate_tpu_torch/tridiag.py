@@ -16,7 +16,16 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["tridiag_matrix", "eigh_tridiag", "eigvalsh_tridiag", "tqli"]
+__all__ = ["tridiag_matrix", "eigh_tridiag", "eigvalsh_tridiag", "sign", "tqli"]
+
+
+def sign(a, b):
+	"""Transfer of sign: ``|a|`` carrying the sign of ``b`` (Fortran ``SIGN``), elementwise, ``b == 0``
+	counted as positive (``primate_tpu/tridiag.py:27-37``, which fixes the reference helper's
+	``b > 1`` comparison)."""
+	a, b = torch.as_tensor(a), torch.as_tensor(b)
+	return torch.where(b >= 0, torch.abs(a), -torch.abs(a))
+
 
 _METHODS = ("auto", "eigh", "mrrr", "tqli")
 

@@ -29,7 +29,9 @@ and its parts (the Gram product, the Cholesky, the triangular solve). ``--bf16``
 full-bf16 flagship alone (a bf16 ``DIAOperator`` and ``MatrixFunction(..., dtype=bfloat16)``: pass A's
 bf16 kernel and the round pair a step) beside the float32 flagship. ``--complex`` traces phase 15's β sweep
 of ``tr e^{−βH}`` (4 × 48 steps) and its SLQ density (64 steps) alone, on the 4M-site complex64 Hofstadter
-operator: the complex step kernels, passes A and B a step. Prints one JSON line per call: the
+operator: the complex step kernels, passes A and B a step. ``--against DIR`` (repeatable) traces nothing:
+it times pass A of this tree and of each checkout ``DIR`` in turns at the paths' shapes (``pass_a_turns``).
+Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
 count); writes them all to ``--out``. Needs a CUDA device; without one it exits
@@ -39,6 +41,7 @@ non-zero.
 import argparse
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -77,6 +80,8 @@ def main() -> None:
 	ap.add_argument("--sharded", action="store_true", help="trace phase 23's sharded flagship only; time tall_qr at 10M")
 	ap.add_argument("--bf16", action="store_true", help="trace phase 24's 10M full-bf16 flagship (and the float32 one) only")
 	ap.add_argument("--complex", action="store_true", help="trace phase 15's complex β sweep and SLQ density only")
+	ap.add_argument("--against", action="append", default=[], metavar="DIR",
+		help="time pass A of this tree and of the checkout DIR in turns, and compare their w and α (no trace)")
 	args = ap.parse_args()
 	import torch
 
@@ -86,8 +91,11 @@ def main() -> None:
 	import primate_tpu_torch as ptt
 
 	dev = torch.device("cuda", 0)
-	rows = [] if (args.recipes or args.grad or args.sharded or args.bf16 or args.complex) else other_calls(torch, ptt, cs, dev)
-	if args.complex:
+	only = args.recipes or args.grad or args.sharded or args.bf16 or args.complex or args.against
+	rows = [] if only else other_calls(torch, ptt, cs, dev)
+	if args.against:
+		rows, calls = pass_a_turns(torch, ptt, cs, dev, args.against), {}
+	elif args.complex:
 		calls = complex_calls(torch, ptt, cs, dev)
 	elif args.bf16:
 		calls = {}
@@ -123,6 +131,125 @@ def main() -> None:
 	with open(args.out, "w") as f:
 		json.dump({"device": smi, "torch": torch.__version__, "calls": rows}, f, indent=1)
 	print(smi, flush=True)
+
+
+def _ptxas(nvcc: str, err: str) -> list:
+	"""The lines of ``nvcc -Xptxas -v``'s report (``err``) on the pass A kernels: registers, spills, shared memory."""
+	from pathlib import Path
+
+	filt, rows, name = Path(nvcc).with_name("cu++filt"), [], None
+	for line in err.splitlines():
+		m = re.search(r"Compiling entry function '([^']+)'", line)
+		if m:
+			name = m.group(1)
+			if filt.exists():
+				name = subprocess.run([str(filt), name], capture_output=True, text=True).stdout.strip()
+				name = name[: name.find(">(") + 1] if ">(" in name else name
+		elif name and "lanczos_pass_a" in name and ("spill" in line or "Used" in line):
+			rows.append(f"{name}: {line.strip()}")
+	return rows
+
+
+def pass_a_turns(torch, ptt, cs, dev, dirs, reps: int = 20) -> list:
+	"""Pass A in the sweep's mode (the state's divisors and β, the ticket, α written by the last block),
+	built by nvcc from this tree's ``csrc/dia_stencil.cu`` and from each checkout's in ``dirs`` (the same C
+	interface) and launched through this tree's wrappers on the same inputs, at the paths' shapes: phase
+	15's Hofstadter cell (16 × 4,096,000, 8 diagonals) in complex64 and complex128; the flagship's
+	``tridiag(-1, 3, -1)``, 64 probes, at 500k and 10M in float32 and float64, float32 10M also on the
+	padded carry in the row-sharded mode, and bfloat16 rounded at 10M (the full-bf16 flagship's step).
+	Per shape the libraries take turns (this tree, each checkout, then back), ``reps`` launches each by
+	CUDA events; every library's ``w`` is compared bit for bit (by part where complex) with every other's,
+	and its α with this tree's. The first rows are ``-Xptxas -v``'s report on each library's pass A."""
+	import ctypes
+	import os
+	from pathlib import Path
+
+	from primate_tpu_torch.ops import _build, dia
+
+	nvcc, jobs, libs, rows = _build.nvcc_path(), [], [], []
+	_build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+	for i, tree in enumerate(["this", *dirs]):
+		src = Path(__file__).resolve().parent if tree == "this" else Path(tree).resolve()
+		so = _build._BUILD_DIR / f"libpass_a{i}.{os.getpid()}.so"
+		cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so), str(src / "primate_tpu_torch" / "csrc" / "dia_stencil.cu")]
+		jobs.append((tree, so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+	for tree, so, proc in jobs:
+		err = proc.communicate()[1]
+		if proc.returncode != 0:
+			sys.exit(f"profile_port: nvcc failed for {tree}:\n{err}")
+		lib = ctypes.CDLL(str(so))
+		so.unlink()
+		_build._declare(lib, "dia_stencil")
+		libs.append((tree, lib))
+		rows.append({"ptxas": tree, "lines": _ptxas(nvcc, err)})
+		print(json.dumps(rows[-1]), flush=True)
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(16)
+
+	def block(nv, n, dtype):
+		if dtype.is_complex:
+			X = torch.view_as_complex(torch.randn((nv, n, 2), generator=gen, device=dev, dtype=dtype.to_real()))
+		else:
+			X = torch.randn((nv, n), generator=gen, device=dev, dtype=torch.float32 if dtype == torch.bfloat16 else dtype)
+		return (X / torch.linalg.vector_norm(X, dim=1, keepdim=True)).to(dtype)
+
+	def run(label, bands, offs, v_cur, v_prev, r, bytes_, spec=None):
+		nv = v_cur.shape[0]
+		st0 = dia.lanczos_state(nv, r, dev)
+		for k in (dia.DIV_CUR, dia.DIV_PREV, dia.BETA):
+			st0.scal[k] = torch.rand(nv, generator=gen, device=dev, dtype=r) + 0.5
+		outs = []
+		for _, lib in libs:
+			st = dia.LanczosState(st0.scal.clone(), torch.zeros(1, dtype=torch.int32, device=dev))
+			sums = torch.zeros(nv, dtype=r, device=dev) if spec is not None else None
+			launch = functools.partial(dia._launch_pass_a, lib, bands, offs, v_cur, v_prev, st.scal, st.ticket, None, spec, sums)
+			w, _, gx, vec = launch()
+			torch.cuda.synchronize()
+			outs.append((w, sums if spec is not None else st.scal[dia.ALPHA].clone(), launch))
+		a0 = outs[0][1]
+		parts = lambda w: torch.view_as_real(w).unbind(-1) if w.is_complex() else (w,)  # noqa: E731
+		row = {"shape": label, "nv": nv, "ld": v_cur.shape[1], "dtype": str(v_cur.dtype).removeprefix("torch."),
+			"grid_x": gx, "vector_path": vec, "bound_ms": bytes_ / cs.HBM_BYTES_PER_S * 1e3, "libs": {}}
+		for (tree, _), (w, alpha, _) in zip(libs, outs):
+			row["libs"][tree] = {"alpha_max_rel_diff": float(((alpha - a0).abs() / a0.abs().clamp_min(1e-30)).max()),
+				"w_entries_differing_in_bits": {t: [int((x != y).sum()) for x, y in zip(parts(w), parts(w2))]
+					for (t, _), (w2, _, _) in zip(libs, outs)}, "ms": []}
+		for turn in (range(len(libs)), reversed(range(len(libs)))):
+			for i in turn:
+				row["libs"][libs[i][0]]["ms"].append(cs.time_ms(torch, outs[i][2], reps))
+		for v in row["libs"].values():
+			v["mean_ms"] = sum(v["ms"]) / len(v["ms"])
+			v["share_of_bound"] = row["bound_ms"] / v["mean_ms"]
+		print(json.dumps(row), flush=True)
+		rows.append(row)
+		del outs
+		torch.cuda.empty_cache()
+
+	H = ptt.DIAOperator.from_scipy(cs.hofstadter_csr(**cs.TB), dtype=torch.complex64, device=dev)
+	n, n_d, nv = H.shape[0], len(H.offsets), cs.TB_NV
+	for dtype, key in ((torch.complex64, "c64"), (torch.complex128, "c128")):
+		item = 8 if dtype == torch.complex64 else 16
+		run(f"{key}_cell", H.bands.to(dtype), H.offsets_t, block(nv, n, dtype), block(nv, n, dtype), dtype.to_real(),
+			(3 * nv * n + n_d * n) * item)
+	del H
+	nv = cs.PROBES
+	for n, tag in ((cs.N_FLAGSHIP, "500k"), (cs.N_LARGE, "10M")):
+		for dtype, key in ((torch.float32, "f32"), (torch.float64, "f64")):
+			op = ptt.DIAOperator.from_scipy(cs.build_laplacian(n), dtype=dtype, device=dev)
+			v_cur, v_prev, item = block(nv, n, dtype), block(nv, n, dtype), dtype.itemsize
+			run(f"{key}_{tag}", op.bands, op.offsets_t, v_cur, v_prev, dtype, (3 * nv * n + 3 * n) * item)
+			if dtype == torch.float32 and n == cs.N_LARGE:
+				spec = op.carry_spec(nv)
+				cb, vc, vp = op._carry_bands(spec), spec.pad(v_cur), spec.pad(v_prev)
+				del v_cur, v_prev
+				run(f"{key}_{tag}_padded", cb, op.offsets_t, vc, vp, dtype, (3 * nv * n + 3 * n) * item, spec)
+				del cb, vc, vp
+			del op
+	op = ptt.DIAOperator.from_scipy(cs.build_laplacian(cs.N_LARGE), dtype=torch.bfloat16, device=dev)
+	n = cs.N_LARGE
+	run("bf16_10M", op.bands, op.offsets_t, block(nv, n, torch.bfloat16), block(nv, n, torch.bfloat16), torch.float32,
+		(2 * nv * n + 3 * n) * 2 + nv * n * 4)
+	return rows
 
 
 def complex_calls(torch, ptt, cs, dev) -> dict:

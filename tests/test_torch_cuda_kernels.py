@@ -6,6 +6,8 @@ card's machine has none). Run on the card with
 """
 
 import math
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -17,6 +19,9 @@ from primate_tpu_torch.operators.base import LinearOperator
 from primate_tpu_torch.ops import _common, bsr, dia
 from primate_tpu_torch.ops import autograd as ptt_autograd
 from primate_tpu_torch.random import real_dtype
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -666,15 +671,11 @@ def test_complex_node_major_stencil_at_the_cell_width(cuda, dtype):
 		assert float((got - want).abs().max()) <= CPLX_TOL[dtype] * float(want.abs().max())
 
 
-# (nv, n, offsets[, lead]) for the complex step passes: the tight-binding cell's probe block and
-# offsets at a cut n; n odd (the complex64 scalar path), nv past a probe group of 8 and short of it,
-# offsets inside, at and past the 16-row staging (kHalo) and at and past n; a block one element into
-# its buffer (the complex64 scalar path).
+# (nv, n, offsets, lead) for the complex step passes: the tight-binding cell's probe block and offsets
+# at a cut n, then ``chip_smoke.py``'s awkward shapes (``CPLX_STEP_SHAPES``, described there).
 CPLX_STEP_SHAPES = [
-	(16, 409_600, (-409_600 + 2048, -2048, -2047, -1, 1, 2047, 2048, 409_600 - 2048)),
-	(13, 3001, (-200, -17, -16, -7, 0, 7, 16, 17, 200)),
-	(7, 12_000, (-12_000, -10_000, -1, 0, 1, 10_000, 11_999)),
-	(9, 5000, (-5000, -4999, -1, 0, 1, 4999, 5000, 6000), 1),
+	(16, 409_600, (-409_600 + 2048, -2048, -2047, -1, 1, 2047, 2048, 409_600 - 2048), 0),
+	*chip_smoke.CPLX_STEP_SHAPES,
 ]
 # α: |Δα| over ‖q‖·‖w‖ of its probe, the Cauchy-Schwarz bound of |α| (α sums n terms of both signs,
 # so a relative error of α itself says little where it nearly cancels); β' = ‖v‖: relative.
@@ -712,8 +713,7 @@ def test_complex_step_kernels_match_plain_versions(cuda, shape, dtype):
 	the done flags equal, the broken-down probe's α and β zero and its block finite. Each step launches
 	both passes once, ``dia_stencil_t`` no time, on the scalar path exactly where complex64's 16-byte
 	vectors are ruled out (n odd, a misaligned block)."""
-	nv, n, offsets = shape[:3]
-	lead = shape[3] if len(shape) > 3 else 0
+	nv, n, offsets, lead = shape
 	bands, offs, v_cur, v_prev, state = _cplx_step_inputs(cuda, nv, n, offsets, dtype, lead)
 	r = dtype.to_real()
 	scalar = not _common.vector_ok(n, v_cur.element_size(), v_cur, v_prev, bands)
@@ -754,6 +754,32 @@ def test_complex_step_kernels_match_plain_versions(cuda, shape, dtype):
 	assert float((w - w_ref).abs().max()) <= CPLX_TOL[dtype] * float(w_ref.abs().max())
 	scale = torch.linalg.vector_norm(w_ref, dim=1)
 	assert float(((alpha - alpha_ref).abs() / scale).max()) <= CPLX_AB_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("shape", CPLX_STEP_SHAPES)
+def test_complex_pass_a_is_the_plain_pass_a_bit_for_bit(cuda, shape, dtype):
+	"""Complex pass A in the sweep's mode (the state's divisors and β, a broken-down probe 0) against the
+	plain pass A on the same blocks and state: ``w`` equal bit for bit (the kernel divides, multiplies
+	and adds as PyTorch's ops round on the card, and sums the diagonals in their order), α within
+	``CPLX_AB_TOL`` of ‖q‖·‖w‖ (the partial sums' order differs)."""
+	nv, n, offsets, lead = shape
+	bands, offs, v_cur, v_prev, state = _cplx_step_inputs(cuda, nv, n, offsets, dtype, lead)
+	r = dtype.to_real()
+	st_ref = dia.LanczosState(state.scal.clone(), torch.zeros(1, dtype=torch.int32, device=cuda))
+	a, a_ref = torch.empty(nv, dtype=r, device=cuda), torch.empty(nv, dtype=r, device=cuda)
+	from primate_tpu_torch.ops._build import load_library
+
+	w, _, _, vec = dia._launch_pass_a(load_library(), bands, offs, v_cur, v_prev, state.scal, state.ticket, a)
+	w_ref = dia.lanczos_sweep_pass_a_ref(lambda q: dia.dia_stencil_t_ref(bands, offs, q), v_cur, v_prev, st_ref, a_ref)
+	torch.cuda.synchronize()
+	assert vec == (dtype == torch.complex128 or (n % 2 == 0 and lead == 0))
+	as_int = torch.int32 if dtype == torch.complex64 else torch.int64
+	assert torch.equal(torch.view_as_real(w).view(as_int), torch.view_as_real(w_ref).view(as_int))
+	q = v_cur / st_ref.scal[dia.DIV_CUR, :, None]
+	scale = torch.linalg.vector_norm(q, dim=1) * torch.linalg.vector_norm(w_ref, dim=1)
+	assert a[0] == 0 and float(((a - a_ref).abs() / scale.clamp_min(1e-30))[1:].max()) <= CPLX_AB_TOL[dtype]
+	assert torch.equal(state.scal[dia.ALPHA][1:], a[1:]) and int(state.ticket) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])

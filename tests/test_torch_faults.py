@@ -7,6 +7,8 @@
   padded on the way in and cut on the way out, in both layouts and for both ``from_scipy`` engines.
   Its adjoint and its Gram operator are held to scipy's ``A.T @ U`` (the JAX package's adjoint of a
   rectangular DIA operator returns the wrong shape), and its applies to the JAX package's.
+* A run that used up ``maxiter`` with its criterion unmet warns and labels its result as the JAX
+  package does (``note_capped``): ``info["capped"]`` and ``[capped at maxiter=N]`` in ``message``.
 """
 
 import numpy as np
@@ -135,3 +137,45 @@ def test_rectangular_dia_gram_quadrature_is_the_path_laplacian():
 	E = torch.eye(40, dtype=torch.float64)
 	want = (_difference(39, 40).T @ _difference(39, 40)).diagonal()
 	np.testing.assert_allclose(M.quad(E).numpy(), want, rtol=0, atol=1e-12)
+
+
+def test_maxiter_capped_stop_is_surfaced():
+	"""``tests/test_estimators.py:300-332`` on the port: a run that exhausts maxiter with its criterion
+	unmet must warn and label the result, never silently read as converged."""
+	import warnings as _w
+
+	A = ptt.symmetric(32, pd=True, seed=0, device="cpu")
+	# Tolerance impossible in 2 batches → capped.
+	with pytest.warns(UserWarning, match="maxiter=2"):
+		est, res = ptt.hutch(A, batch=4, converge="tolerance", atol=0.0, rtol=0.0, maxiter=2, seed=1, full=True)
+	assert res.info.get("capped") is True
+	assert "capped at maxiter=2" in res.message
+	# full=False still warns.
+	with pytest.warns(UserWarning, match="maxiter=2"):
+		ptt.hutch(A, batch=4, converge="tolerance", atol=0.0, rtol=0.0, maxiter=2, seed=1)
+	# A converged run carries no cap flag and no warning.
+	with _w.catch_warnings():
+		_w.simplefilter("error")
+		est2, res2 = ptt.hutch(A, batch=4, converge="count", count=8, maxiter=64, seed=1, full=True)
+	assert "capped" not in res2.info and "capped" not in res2.message
+
+	# diag: fused path.
+	with pytest.warns(UserWarning, match="diag: stopped by maxiter=3"):
+		d, dres = ptt.diag(A, converge="tolerance", atol=0.0, rtol=0.0, maxiter=3, seed=2, full=True)
+	assert dres.info.get("capped") is True and "capped at maxiter=3" in dres.message
+	# diag: host-stepped path (callback forces it).
+	with pytest.warns(UserWarning, match="diag: stopped by maxiter=3"):
+		d2, dres2 = ptt.diag(A, converge="tolerance", atol=0.0, rtol=0.0, maxiter=3, seed=2, full=True, callback=lambda r: None)
+	assert dres2.info.get("capped") is True
+	# hutch: host-stepped path.
+	with pytest.warns(UserWarning, match="hutch: stopped by maxiter=2"):
+		ptt.hutch(A, batch=4, converge="tolerance", atol=0.0, rtol=0.0, maxiter=2, seed=1, callback=lambda r: None)
+
+
+@pytest.mark.parametrize("fn", ["hutch", "diag"])
+def test_differentiable_capped_budget_warns(fn):
+	"""The fixed-budget ``differentiable=True`` paths warn through ``note_capped`` as JAX's do
+	(``primate_tpu/trace.py:221``, ``primate_tpu/diagonal.py:102``)."""
+	A = ptt.symmetric(16, pd=True, seed=0, device="cpu")
+	with pytest.warns(UserWarning, match=f"{fn}: stopped by maxiter=2 before the convergence criterion was met; the estimate"):
+		getattr(ptt, fn)(A, batch=2, converge="count", count=8, maxiter=2, seed=1, differentiable=True)
