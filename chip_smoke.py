@@ -245,6 +245,9 @@ HBM_BYTES_PER_S, FP32_FLOP_PER_S, BF16_FLOP_PER_S = 3.35e12, 67e12, 989e12
 # The same sheet: 67 TFLOP/s float64 on the tensor cores (DMMA, exact IEEE float64), the card's peak
 # for float64 operands (complex128's operations); 34 outside them.
 FP64_FLOP_PER_S = 67e12
+# The same sheet: 50 MB of L2. A BSR SpMM's V that fits there is fetched from HBM about once, whatever
+# the order of the tiles, so only a larger V has a gathered-traffic bound (``_bsr_traffic``).
+L2_BYTES = 50 * 2**20
 STENCIL_TOL = {"float32": 1e-5, "float64": 1e-12}  # max-abs error over max|out|
 # Phase 7: BASELINE config 3 at audikw_1's scale (943,695 rows, 77.7M nonzeros).
 BSR_CELL = dict(n=1_048_576, bs=8, density=3.5e-5, seed=7)
@@ -664,10 +667,34 @@ def _gathered_bytes_bsr(op, k: int, item: int) -> int:
 	return (op.nnz + nnzb * bn * k + op.shape[0] * k) * item
 
 
+def _bsr_traffic(op, k: int, item: int, ms: float, bound_ms: float, dtype: str) -> dict:
+	"""Emits the BSR SpMM's time against its byte counts: the least (V read once; its bound is the kernel's
+	``bound_ms``) and, where V is larger than the L2, the gathered: ``bn`` rows of V fetched from HBM for
+	every tile, as the kernel's order of tiles (block row by block row) reads a random block structure.
+	That is the bound of this traversal, not of the function. Returns the gathered bound and share, or
+	nothing where V fits in L2."""
+	v_bytes = op.shape[1] * k * item
+	row = {"phase": "bsr_traffic", "dtype": dtype, "k": k, "ms": ms, "least_bytes": _bytes_bsr(op, k, item),
+		"least_share_of_bound": bound_ms / ms, "v_bytes": v_bytes, "l2_bytes": L2_BYTES}
+	g = {}
+	if v_bytes > L2_BYTES:
+		gathered = _gathered_bytes_bsr(op, k, item)
+		g = {"gathered_bound_ms": gathered / HBM_BYTES_PER_S * 1e3, "gathered_share_of_bound": gathered / HBM_BYTES_PER_S * 1e3 / ms}
+		row.update({"gathered_bytes": gathered, "gathered_GBps": gathered / ms / 1e6, **g})
+	emit(row)
+	return g
+
+
+def _timed_turns(torch, fns, reps: int) -> list:
+	"""Each of ``fns`` by CUDA events, in turns (in order, then back): the mean of its two times each."""
+	t = [time_ms(torch, f, reps) for f in (*fns, *reversed(fns))]
+	return [(t[i] + t[-1 - i]) / 2 for i in range(len(fns))]
+
+
 def _timed_pair(torch, kern, plain, reps: int) -> tuple:
 	"""Kernel and plain version by CUDA events, in the order plain, kernel, kernel, plain."""
-	p1, k1, k2, p2 = (time_ms(torch, f, reps) for f in (plain, kern, kern, plain))
-	return (k1 + k2) / 2, (p1 + p2) / 2
+	plain_ms, ms = _timed_turns(torch, (plain, kern), reps)
+	return ms, plain_ms
 
 
 def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), reps: int = 10) -> dict:
@@ -727,9 +754,9 @@ def check_sparse_kernels(torch, ptt, bsr_op, dia_op, dev, cell_ks=(64, 240), rep
 				timed=(_bytes_bsr(B, k, item), 2 * nnzb * bm * bn * k) if f32 else None,
 				library=(lambda: B_lib @ V) if f32 else None)
 			if f32:
-				gathered = _gathered_bytes_bsr(B, k, item)
-				emit({"phase": "bsr_traffic", "k": k, "least_bytes": _bytes_bsr(B, k, item), "gathered_bytes": gathered,
-					"gathered_GBps": gathered / row["ms"] / 1e6, "least_share_of_bound": row["bound_ms"] / row["ms"]})
+				g = _bsr_traffic(B, k, item, row["ms"], row["bound_ms"], "float32")
+				if k == cell_ks[0]:
+					out["bsr_spmm"].update(g)
 			del V
 			V = torch.randn((D.shape[0], k), generator=gen, device=dev, dtype=dtype)
 			run("fem_cell", "dia_stencil", lambda: dia.dia_stencil(D.bands, D.offsets_t, V),
@@ -1336,8 +1363,9 @@ def check_complex_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 	and complex128, on the Hamiltonian's own bands at the cell's shapes (the 16 × n probe-major
 	block of the KPM and Lanczos sweeps, an n × 64 node-major block) and at awkward shapes (1, 7,
 	13 and 65 probes, n odd, offsets at and past n, a block one element into its buffer); the
-	complex64 cell shapes timed beside their bound, their plain version and the complex cuSPARSE
-	product. Each launch that must take the complex64 scalar path is counted in ``SCALAR_LAUNCHES``."""
+	complex64 cell shapes and the complex128 node-major block timed beside their bound, their plain
+	version and the complex cuSPARSE product. Each launch that must take the complex64 scalar path is
+	counted in ``SCALAR_LAUNCHES``."""
 	from primate_tpu_torch.ops import _common
 
 	gen = torch.Generator(device=dev)
@@ -1366,8 +1394,9 @@ def check_complex_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 			lib_ms, lib_note = library_ms(torch, library, want, reps)
 			row.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "GBps": bytes_ / ms / 1e6,
 				"library_ms": lib_ms, "library_rel_err_or_error": lib_note})
-			out[name] = {"c64_max_abs_err": err, "c64_ms": ms, "c64_plain_ms": plain_ms, "c64_bound_ms": b_ms,
-				"c64_bound_by": b_by, "c64_library_ms": lib_ms}
+			pre = "c64_" if tname == "complex64" else "c128_"
+			out.setdefault(name, {}).update({f"{pre}max_abs_err": err, f"{pre}ms": ms, f"{pre}plain_ms": plain_ms,
+				f"{pre}bound_ms": b_ms, f"{pre}bound_by": b_by, f"{pre}library_ms": lib_ms})
 		emit(row)
 		if not rel <= CPLX_TOL[tname]:
 			raise AssertionError(f"complex {name} disagrees with its plain version: {row}")
@@ -1378,7 +1407,7 @@ def check_complex_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 		c64 = dtype == torch.complex64
 		item = 8 if c64 else 16
 		bands = op.bands.to(dtype)
-		A_csr = csr_of_dia(torch, bands, op.offsets, n) if c64 else None
+		A_csr = csr_of_dia(torch, bands, op.offsets, n)
 		# A complex multiply-add is 8 real operations; complex64 runs them in float32.
 		X = crandn((TB_NV, n), dtype)
 		check("cell_probe_major", "dia_stencil_t", lambda: dia.dia_stencil_t(bands, offs, X),
@@ -1389,7 +1418,7 @@ def check_complex_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 		V = crandn((n, 64), dtype)
 		check("cell_node_major", "dia_stencil", lambda: dia.dia_stencil(bands, offs, V),
 			lambda: dia.dia_stencil_ref(bands, offs_host, V), dtype, False,
-			timed=((2 * 64 * n + n_d * n) * item, 8 * n_d * 64 * n) if c64 else None, library=lambda: A_csr @ V)
+			timed=((2 * 64 * n + n_d * n) * item, 8 * n_d * 64 * n), library=lambda: A_csr @ V)
 		del V, A_csr, bands
 		# (probes, n, offsets, lead): a 16-byte vector holds 2 complex64 and 1 complex128, so
 		# complex64 takes the scalar path where a row length is odd or the block starts one
@@ -2767,8 +2796,10 @@ def complex_bsr(torch, ptt, dev, reps: int = 10) -> dict:
 		emit(row)
 		if not rel <= CBSR_TOL:
 			raise AssertionError(f"complex64 bsr_spmm disagrees with its plain version: {row}")
+		g = _bsr_traffic(op, k, 8, ms, b_ms, "complex64")
 		if k == 64:
 			out.update({f"c64_{key}": row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+			out.update({f"c64_{key}": v for key, v in g.items()})
 		else:
 			out.update({f"c64_k240_{key}": row[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")})
 		del V, got, want
@@ -2794,6 +2825,7 @@ def complex_bsr(torch, ptt, dev, reps: int = 10) -> dict:
 	if not rel <= CPLX_TOL["complex128"]:
 		raise AssertionError(f"complex128 bsr_spmm disagrees with its plain version: {row}")
 	out.update({f"c128_{key}": row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+	out.update({f"c128_{key}": v for key, v in _bsr_traffic(As, 64, 16, ms, b_ms, "complex128").items()})
 	return {"bsr_spmm": out}
 
 
@@ -3218,8 +3250,14 @@ def bf16_kernels(torch, ptt, dev, reps: int = 10) -> dict:
 	gen.manual_seed(24)
 	out = {}
 
-	def record(name, label, err, tol, kern, plain, bytes_, flops, library=None, want=None, note=None, prefix="bf16_", **extra):
-		ms, plain_ms = _timed_pair(torch, kern, plain, reps)
+	def record(name, label, err, tol, kern, plain, bytes_, flops, library=None, want=None, note=None, prefix="bf16_", float32=None,
+			**extra):
+		"""``float32``: the float32 instantiation on the same block, timed in turns with the kernel and its plain
+		version (plain, float32, kernel, kernel, float32, plain) into the row's ``float32_ms``."""
+		if float32 is None:
+			ms, plain_ms = _timed_pair(torch, kern, plain, reps)
+		else:
+			plain_ms, extra["float32_ms"], ms = _timed_turns(torch, (plain, float32, kern), reps)
 		b_ms, b_by = bound(bytes_, flops, BF16_FLOP_PER_S)
 		lib_ms = None
 		if library is not None:
@@ -3296,7 +3334,8 @@ def bf16_kernels(torch, ptt, dev, reps: int = 10) -> dict:
 		del op, bands, q, qp, w, alpha, cb, qs, qps
 		torch.cuda.empty_cache()
 
-	# The node-major stencil at the FEM cell (1M × 64, 7 diagonals).
+	# The node-major stencil at the FEM cell (1M × 64, 7 diagonals), beside the float32 instantiation on
+	# the same block in float32.
 	D = ptt.DIAOperator.from_scipy(fem_laplacian_3d(FEM_SIDE), dtype=bf, device=dev)
 	k, n = 64, D.shape[0]
 	V = torch.randn((n, k), generator=gen, device=dev).to(bf)
@@ -3304,10 +3343,12 @@ def bf16_kernels(torch, ptt, dev, reps: int = 10) -> dict:
 	got, want = dia.dia_stencil(D.bands, D.offsets_t, V), dia.dia_stencil_ref(D.bands, offs_host, V)
 	torch.cuda.synchronize()
 	A_csr, refusal = _csr_or_refusal(torch, D.bands, D.offsets, n)
+	b32, V32 = D.bands.float(), V.float()
 	record("dia_stencil", f"fem_{n}x{k}", float((got.float() - want.float()).abs().max()), _ulp_of_max(want),
 		lambda: dia.dia_stencil(D.bands, D.offsets_t, V), lambda: dia.dia_stencil_ref(D.bands, offs_host, V),
-		(2 * n * k + D.nnz) * 2, 2 * D.nnz * k, library=(lambda: A_csr @ V) if A_csr is not None else None, want=want, note=refusal)
-	del D, V, got, want, A_csr
+		(2 * n * k + D.nnz) * 2, 2 * D.nnz * k, library=(lambda: A_csr @ V) if A_csr is not None else None, want=want, note=refusal,
+		float32=lambda: dia.dia_stencil(b32, D.offsets_t, V32), float32_bound_ms=(2 * n * k + D.nnz) * 4 / HBM_BYTES_PER_S * 1e3)
+	del D, V, got, want, A_csr, b32, V32
 
 	# The BSR SpMM at phase 7's cell, k = 64.
 	S = _bsr_cell(**BSR_CELL)
@@ -3324,6 +3365,8 @@ def bf16_kernels(torch, ptt, dev, reps: int = 10) -> dict:
 	record("bsr_spmm", f"bsr_cell_k{k}", float((got.float() - want.float()).abs().max()), _ulp_of_max(want),
 		lambda: bsr.bsr_spmm(*args), lambda: bsr.bsr_spmm_ref(*args), _bytes_bsr(B, k, 2), 2 * nnzb * bm * bn * k,
 		library=(lambda: B_lib @ V) if B_lib is not None else None, want=want, note=refusal)
+	bo = out["bsr_spmm"]
+	bo.update({f"bf16_{key}": v for key, v in _bsr_traffic(B, k, 2, bo["bf16_ms"], bo["bf16_bound_ms"], "bfloat16").items()})
 	del B, V, got, want, B_lib
 	torch.cuda.empty_cache()
 	return out

@@ -31,10 +31,11 @@
 // halo DMA has no counterpart (see below and PERF.md for a shared-memory ring that
 // was tried and measured slower). The node-major kernel reads rows r + off of V,
 // each k elements away, so a diagonal does not share cache lines with its
-// neighbours as in the probe-major layout: it stages a ring of V rows in shared
-// memory (cp.async, 16 bytes along k) and reads the nearby diagonals from there,
-// so each row comes from memory once per block, and loads the far ones directly.
-// See the kernels below and PERF.md for the measurements.
+// neighbours as in the probe-major layout: a thread takes a 16-byte vector of
+// columns through two rows and issues the loads of four diagonals together, and
+// the rows its neighbours in the block read come from L1, the far ones from L2
+// (shared-memory rings of staged rows measured slower). See the kernels below and
+// PERF.md.
 //
 // Complex: the JAX package sends complex DIA applies to XLA's stencil
 // (primate_tpu/operators/sparse.py:816-827), since its Pallas kernels take no
@@ -250,118 +251,6 @@ __global__ void __launch_bounds__(kTThreads, kTBlocks) dia_stencil_t_kernel(cons
         for (; b < nv; ++b)
             stencil_group<T, kVec, 1>(w, off, nd, in, whole, x + b * n + r, out + b * n + r, mid + b * n + r, n, rows, add,
                                       last);
-    }
-}
-
-// ---- The node-major stencil (dia_stencil) ----
-//
-// out[r, c] = sum_d band[d, r] V[r + off_d, c] on a row-major (n, k) block. The
-// work is items (part, chunk): the rows of a part, kNmPart of them, in steps of
-// kNmRows, for a column chunk of kNmLanes 16-byte vectors (128 bytes of a row).
-// A persistent grid takes the items in order, so the blocks resident at one time
-// sweep neighbouring parts together. The rows of V a block reads go through a
-// ring of kRing rows in shared memory, filled by cp.async one step ahead: rows
-// r + off for |off| up to kNmHalo (the nearby diagonals, +-1 and +-100 on the FEM
-// cell) come from the ring, so each V row is read from memory once per part
-// instead of once per such diagonal. Farther diagonals (+-10,000) are direct
-// 16-byte loads, kNmChunk of them issued together; parts are short so that the
-// blocks sweeping together read each row within a few steps of one another,
-// while it is still in L2.
-constexpr int kNmThreads = 256;
-constexpr int kNmLanes = 8;                           // 16-byte vectors of a row per block
-constexpr int kNmRows = kNmThreads / kNmLanes;        // rows per step
-constexpr int kRing = 512;                            // rows of V staged per block (a power of two)
-constexpr int kNmHalo = (kRing - 2 * kNmRows) / 2;    // offsets up to this read the ring
-constexpr int kNmChunk = 8;                           // diagonals whose loads are issued together
-constexpr int kNmPart = 768;                          // rows per part: a whole number of steps
-
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kNmThreads) dia_stencil_kernel(const T* __restrict__ bands,
-                                                                 const int64_t* __restrict__ offsets, int n_d,
-                                                                 const T* __restrict__ V, T* __restrict__ out,
-                                                                 int64_t n, int64_t k, int64_t chunks) {
-    constexpr int VL = Vec<T>::len;
-    constexpr int KC = kNmLanes * VL;  // columns of the chunk
-    using A = acc_t<T>;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* ring = reinterpret_cast<T*>(smem_raw);  // [kRing][KC]
-    const int ty = threadIdx.x / kNmLanes, lane = threadIdx.x % kNmLanes;
-    int64_t H = 0;  // the largest offset that reads the ring
-    for (int d = 0; d < n_d; ++d) {
-        const int64_t off = __ldg(offsets + d), a = off < 0 ? -off : off;
-        if (a <= kNmHalo && a > H) H = a;
-    }
-    const int64_t items = (n + kNmPart - 1) / kNmPart * chunks;
-    for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
-        const int64_t c = item % chunks * KC + lane * VL;
-        const int64_t r0 = item / chunks * kNmPart;
-        const int64_t r1 = r0 + kNmPart < n ? r0 + kNmPart : n;
-        auto stage = [&](int64_t a, int64_t b) {  // rows [a, b) of V into the ring; rows outside [0, n) read 0
-            for (int64_t row = a + ty; row < b; row += kNmRows) {
-                T* dst = ring + (row & (kRing - 1)) * KC + lane * VL;
-                const bool row_ok = row >= 0 && row < n;
-                if (kVec) {
-                    const bool ok = row_ok && c < k;
-                    cp_async<16>(dst, ok ? V + row * k + c : V, ok ? 16 : 0);
-                } else {
-#pragma unroll
-                    for (int e = 0; e < VL; ++e) {
-                        const bool ok = row_ok && c + e < k;
-                        copy_elem(dst + e, ok ? V + row * k + c + e : V, ok);
-                    }
-                }
-            }
-        };
-        stage(r0 - H, r0 + kNmRows + H);
-        cp_async_commit();
-        for (int64_t rs = r0; rs < r1; rs += kNmRows) {
-            const int64_t next = rs + kNmRows + H, last = r1 + H;
-            stage(next, next + kNmRows < last ? next + kNmRows : last);  // the next step's new rows
-            cp_async_commit();
-            cp_async_wait<1>();  // this step's rows have landed (this thread's copies) ...
-            __syncthreads();     // ... and every thread's
-            const int64_t r = rs + ty;
-            if (r < r1) {
-                A acc[VL];
-#pragma unroll
-                for (int e = 0; e < VL; ++e) acc[e] = A(0);
-                for (int d0 = 0; d0 < n_d; d0 += kNmChunk) {
-                    A w[kNmChunk], x[kNmChunk][VL];
-#pragma unroll
-                    for (int j = 0; j < kNmChunk; ++j) {
-                        w[j] = A(0);
-#pragma unroll
-                        for (int e = 0; e < VL; ++e) x[j][e] = A(0);
-                        if (d0 + j >= n_d) continue;
-                        const int64_t off = __ldg(offsets + d0 + j), rr = r + off;
-                        if (rr < 0 || rr >= n) continue;
-                        w[j] = to_acc(ldg(bands + (d0 + j) * n + r));
-                        if (off >= -H && off <= H) {
-                            unpack(*reinterpret_cast<const typename Vec<T>::type*>(ring + (rr & (kRing - 1)) * KC + lane * VL), x[j]);
-                        } else if (kVec) {
-                            if (c < k) unpack(__ldg(reinterpret_cast<const typename Vec<T>::type*>(V + rr * k + c)), x[j]);
-                        } else {
-#pragma unroll
-                            for (int e = 0; e < VL; ++e) x[j][e] = c + e < k ? to_acc(ldg(V + rr * k + c + e)) : A(0);
-                        }
-                    }
-#pragma unroll
-                    for (int j = 0; j < kNmChunk; ++j)
-#pragma unroll
-                        for (int e = 0; e < VL; ++e) acc[e] += w[j] * x[j][e];
-                }
-                if (kVec) {
-                    if (c < k) *reinterpret_cast<typename Vec<T>::type*>(out + r * k + c) = pack(acc);
-                } else {
-#pragma unroll
-                    for (int e = 0; e < VL; ++e) {
-                        if (c + e < k) out[r * k + c + e] = from_acc<T>(acc[e]);
-                    }
-                }
-            }
-            __syncthreads();  // the ring slots of this step are read before the next step's copies land
-        }
-        cp_async_wait<0>();
     }
 }
 
@@ -679,6 +568,102 @@ template <typename R>
 __device__ __forceinline__ void mac(Cplx<R>& acc, const Cplx<R>& b, const Cplx<R>& x) {
     acc.re = add_rn(acc.re, fma_rn(b.re, x.re, -mul_rn(b.im, x.im)));
     acc.im = add_rn(acc.im, fma_rn(b.re, x.im, mul_rn(b.im, x.re)));
+}
+
+// ---- The node-major stencil (dia_stencil) ----
+//
+// out[r, c] = sum_d band[d, r] V[r + off_d, c] on a row-major (n, k) block. A thread takes one
+// 16-byte vector of columns through kNmRows consecutive rows; the `lanes` threads of a row group
+// cover up to 512 bytes of each row (a chunk: lanes = the row's vectors rounded up to a power of
+// two, at most 32, so a warp's loads of one diagonal are whole 128-byte lines of one to 32 rows).
+// For each batch of kNmDiags diagonals it issues the band values and the neighbour loads of all its
+// rows together (a thread holds kNmDiags x kNmRows 16-byte vectors in flight), then sums them: no
+// shared memory and no barrier. The nearby diagonals find in L1 the lines that the same warp and
+// block load for the other rows (the rows r - 1, r, r + 1 of a group overlap those of its
+// neighbours); far ones (the FEM cell's +-10,000, the lattice's +-2047/+-2048, whose two loads of
+// a pair overlap in L1 too) find in L2 the rows that the blocks sweeping that part of V read at
+// about the same time, since blocks are handed out in row order. Rings of rows staged in shared
+// memory, one step or several ahead, with their reach set from the offsets or with every window of
+// rows and the band values staged, measured slower at every cell (PERF.md): a step's work is small
+// beside its barrier and its index arithmetic, and fewer blocks fit an SM. The sum runs over the
+// diagonals in their order, one multiply-add each: real types contracted (the float32 / float64
+// bits of the ring kernel this one replaced), complex by mac (complex64 equals the plain version
+// bit for bit). Every in-range neighbour is loaded whatever its band value, so 0 * inf stays NaN.
+// kVec false (k or a pointer off 16 bytes): element loads and stores.
+constexpr int kNmThreads = 128;
+constexpr int kNmRows = 2;   // consecutive rows a thread takes
+constexpr int kNmDiags = 4;  // diagonals whose loads a thread issues together
+
+// acc + w x: a real type's multiply-add as written (the compiler contracts it), complex's mac.
+template <typename A>
+__device__ __forceinline__ void nm_mac(A& acc, const A& w, const A& x) {
+    if constexpr (kCplx<A>) {
+        mac(acc, w, x);
+    } else {
+        acc += w * x;
+    }
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kNmThreads) dia_stencil_kernel(const T* __restrict__ bands,
+                                                                 const int64_t* __restrict__ offsets, int n_d,
+                                                                 const T* __restrict__ V, T* __restrict__ out,
+                                                                 int64_t n, int64_t k, int lanes) {
+    constexpr int VL = Vec<T>::len;
+    using Vv = typename Vec<T>::type;
+    using A = acc_t<T>;
+    const int lane = threadIdx.x % lanes, groups = kNmThreads / lanes;
+    const int64_t c = (static_cast<int64_t>(blockIdx.y) * lanes + lane) * VL;  // this thread's first column
+    const int64_t r = (static_cast<int64_t>(blockIdx.x) * groups + threadIdx.x / lanes) * kNmRows;  // first row
+    if (r >= n || c >= k) return;
+    const int rows = n - r < kNmRows ? static_cast<int>(n - r) : kNmRows;
+    A acc[kNmRows][VL];
+#pragma unroll
+    for (int i = 0; i < kNmRows; ++i)
+#pragma unroll
+        for (int e = 0; e < VL; ++e) acc[i][e] = A(0);
+    for (int d0 = 0; d0 < n_d; d0 += kNmDiags) {
+        A w[kNmDiags][kNmRows];
+        Vv x[kNmDiags][kNmRows];        // the vector path: packed until the multiply
+        A xs[kNmDiags][kNmRows][VL];    // the element path
+#pragma unroll
+        for (int j = 0; j < kNmDiags; ++j) {
+            const bool dj = d0 + j < n_d;
+            const int64_t off = dj ? __ldg(offsets + d0 + j) : 0;
+#pragma unroll
+            for (int i = 0; i < kNmRows; ++i) {
+                const int64_t rr = r + i + off;
+                const bool ok = dj && i < rows && rr >= 0 && rr < n;
+                w[j][i] = ok ? to_acc(ldg(bands + (d0 + j) * n + r + i)) : A(0);
+                if constexpr (kVec) {
+                    x[j][i] = ok ? __ldg(reinterpret_cast<const Vv*>(V + rr * k + c)) : Vv{};
+                } else {
+#pragma unroll
+                    for (int e = 0; e < VL; ++e) xs[j][i][e] = ok && c + e < k ? to_acc(ldg(V + rr * k + c + e)) : A(0);
+                }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < kNmDiags; ++j)
+#pragma unroll
+            for (int i = 0; i < kNmRows; ++i) {
+                if constexpr (kVec) unpack(x[j][i], xs[j][i]);
+#pragma unroll
+                for (int e = 0; e < VL; ++e) nm_mac(acc[i][e], w[j][i], xs[j][i][e]);
+            }
+    }
+#pragma unroll
+    for (int i = 0; i < kNmRows; ++i) {
+        if (i >= rows) break;
+        if constexpr (kVec) {
+            *reinterpret_cast<Vv*>(out + (r + i) * k + c) = pack(acc[i]);
+        } else {
+#pragma unroll
+            for (int e = 0; e < VL; ++e) {
+                if (c + e < k) out[(r + i) * k + c + e] = from_acc<T>(acc[i][e]);
+            }
+        }
+    }
 }
 
 // Up to kTChunk diagonals at a thread's rows: the band values (0 where the row lies past the own
@@ -1122,20 +1107,15 @@ cudaError_t launch_stencil_t(const T* bands, const int64_t* offsets, int n_d, co
 template <typename T, bool kVec>
 cudaError_t launch_stencil_nm_as(const T* bands, const int64_t* offsets, int n_d, const T* V, T* out, int64_t n,
                                  int64_t k, cudaStream_t stream) {
-    constexpr int KC = kNmLanes * Vec<T>::len;
-    constexpr size_t smem = static_cast<size_t>(kRing) * KC * sizeof(T);
-    auto kern = dia_stencil_kernel<T, kVec>;
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0, occ = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kNmThreads, smem)) != cudaSuccess) return err;
-    const int64_t chunks = (k + KC - 1) / KC;
-    const int64_t items = (n + kNmPart - 1) / kNmPart * chunks;
-    int64_t blocks = static_cast<int64_t>(sms) * (occ > 0 ? occ : 1);  // as many as the card holds at once
-    if (blocks > items) blocks = items;
-    kern<<<static_cast<unsigned>(blocks), kNmThreads, smem, stream>>>(bands, offsets, n_d, V, out, n, k, chunks);
+    constexpr int VL = Vec<T>::len;
+    const int64_t vecs = (k + VL - 1) / VL;  // 16-byte vectors of a row
+    int lanes = 1;
+    while (lanes < 32 && lanes < vecs) lanes *= 2;
+    const int64_t rows = static_cast<int64_t>(kNmThreads / lanes) * kNmRows;  // rows of a block
+    const int64_t bx = (n + rows - 1) / rows, by = (vecs + lanes - 1) / lanes;
+    if (bx > 0x7fffffffLL || by > 65535) return cudaErrorInvalidConfiguration;
+    const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(by));
+    dia_stencil_kernel<T, kVec><<<grid, kNmThreads, 0, stream>>>(bands, offsets, n_d, V, out, n, k, lanes);
     return cudaGetLastError();
 }
 

@@ -12,10 +12,11 @@ kernels of ``primate_tpu/ops/dia_pallas.py``:
   elements otherwise (counted in ``SCALAR_LAUNCHES``).
 * :func:`dia_stencil` replaces ``dia_matmat_pallas`` (``_dia_kernel``):
   ``out[r, :] = Σ_d bands[d, r] · V[r + off_d, :]``, node-major, the apply of a
-  contiguous ``(n, k)`` block (a QR factor, a GEMM product). Its blocks stage a
-  ring of V rows in shared memory, so the nearby diagonals read each row once;
-  16-byte vectors along k where ``k`` and the pointers allow, elements otherwise
-  (counted in ``SCALAR_LAUNCHES``).
+  contiguous ``(n, k)`` block (a QR factor, a GEMM product). A thread takes one
+  16-byte vector of columns through two rows and issues the loads of four diagonals
+  together; the nearby diagonals find their rows in L1, the far ones in L2. 16-byte
+  vectors along k where ``k`` and the pointers allow, elements otherwise (counted in
+  ``SCALAR_LAUNCHES``).
 * :func:`lanczos_dia_step` (pass A) and ``lanczos_dia_residual`` (pass B) replace
   ``dia_matmat_t_phys`` (``_dia_t_phys_kernel``), the stencil of the Lanczos sweep.
   On the TPU a ``pallas_call`` could not join XLA's fusion of the stencil with the

@@ -30,7 +30,8 @@ full-bf16 flagship alone (a bf16 ``DIAOperator`` and ``MatrixFunction(..., dtype
 bf16 kernel and the round pair a step) beside the float32 flagship. ``--complex`` traces phase 15's β sweep
 of ``tr e^{−βH}`` (4 × 48 steps) and its SLQ density (64 steps) alone, on the 4M-site complex64 Hofstadter
 operator: the complex step kernels, passes A and B a step. ``--against DIR`` (repeatable) traces nothing:
-it times pass A of this tree and of each checkout ``DIR`` in turns at the paths' shapes (``pass_a_turns``).
+it times pass A (``pass_a_turns``) and the node-major stencil (``stencil_turns``) of this tree and of each
+checkout ``DIR`` in turns at the paths' shapes.
 Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
@@ -81,7 +82,7 @@ def main() -> None:
 	ap.add_argument("--bf16", action="store_true", help="trace phase 24's 10M full-bf16 flagship (and the float32 one) only")
 	ap.add_argument("--complex", action="store_true", help="trace phase 15's complex β sweep and SLQ density only")
 	ap.add_argument("--against", action="append", default=[], metavar="DIR",
-		help="time pass A of this tree and of the checkout DIR in turns, and compare their w and α (no trace)")
+		help="time pass A and the node-major stencil of this tree and of the checkout DIR in turns, and compare their outputs (no trace)")
 	args = ap.parse_args()
 	import torch
 
@@ -94,7 +95,8 @@ def main() -> None:
 	only = args.recipes or args.grad or args.sharded or args.bf16 or args.complex or args.against
 	rows = [] if only else other_calls(torch, ptt, cs, dev)
 	if args.against:
-		rows, calls = pass_a_turns(torch, ptt, cs, dev, args.against), {}
+		libs, rows = build_libs(args.against)
+		rows, calls = rows + pass_a_turns(torch, ptt, cs, dev, libs) + stencil_turns(torch, ptt, cs, dev, libs), {}
 	elif args.complex:
 		calls = complex_calls(torch, ptt, cs, dev)
 	elif args.bf16:
@@ -134,7 +136,8 @@ def main() -> None:
 
 
 def _ptxas(nvcc: str, err: str) -> list:
-	"""The lines of ``nvcc -Xptxas -v``'s report (``err``) on the pass A kernels: registers, spills, shared memory."""
+	"""The lines of ``nvcc -Xptxas -v``'s report (``err``) on the pass A kernels and the node-major stencil
+	(``dia_stencil_kernel``): registers, spills, shared memory."""
 	from pathlib import Path
 
 	filt, rows, name = Path(nvcc).with_name("cu++filt"), [], None
@@ -145,32 +148,26 @@ def _ptxas(nvcc: str, err: str) -> list:
 			if filt.exists():
 				name = subprocess.run([str(filt), name], capture_output=True, text=True).stdout.strip()
 				name = name[: name.find(">(") + 1] if ">(" in name else name
-		elif name and "lanczos_pass_a" in name and ("spill" in line or "Used" in line):
+		elif name and ("lanczos_pass_a" in name or "dia_stencil_kernel" in name) and ("spill" in line or "Used" in line):
 			rows.append(f"{name}: {line.strip()}")
 	return rows
 
 
-def pass_a_turns(torch, ptt, cs, dev, dirs, reps: int = 20) -> list:
-	"""Pass A in the sweep's mode (the state's divisors and β, the ticket, α written by the last block),
-	built by nvcc from this tree's ``csrc/dia_stencil.cu`` and from each checkout's in ``dirs`` (the same C
-	interface) and launched through this tree's wrappers on the same inputs, at the paths' shapes: phase
-	15's Hofstadter cell (16 × 4,096,000, 8 diagonals) in complex64 and complex128; the flagship's
-	``tridiag(-1, 3, -1)``, 64 probes, at 500k and 10M in float32 and float64, float32 10M also on the
-	padded carry in the row-sharded mode, and bfloat16 rounded at 10M (the full-bf16 flagship's step).
-	Per shape the libraries take turns (this tree, each checkout, then back), ``reps`` launches each by
-	CUDA events; every library's ``w`` is compared bit for bit (by part where complex) with every other's,
-	and its α with this tree's. The first rows are ``-Xptxas -v``'s report on each library's pass A."""
+def build_libs(dirs) -> tuple:
+	"""``csrc/dia_stencil.cu`` of this tree and of each checkout in ``dirs`` (the same C interface), built
+	by nvcc with ``-Xptxas -v`` (one process each, started together) and loaded: ``[(tree, lib)]``, and the
+	ptxas rows."""
 	import ctypes
 	import os
 	from pathlib import Path
 
-	from primate_tpu_torch.ops import _build, dia
+	from primate_tpu_torch.ops import _build
 
 	nvcc, jobs, libs, rows = _build.nvcc_path(), [], [], []
 	_build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
 	for i, tree in enumerate(["this", *dirs]):
 		src = Path(__file__).resolve().parent if tree == "this" else Path(tree).resolve()
-		so = _build._BUILD_DIR / f"libpass_a{i}.{os.getpid()}.so"
+		so = _build._BUILD_DIR / f"libturns{i}.{os.getpid()}.so"
 		cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so), str(src / "primate_tpu_torch" / "csrc" / "dia_stencil.cu")]
 		jobs.append((tree, so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
 	for tree, so, proc in jobs:
@@ -183,6 +180,41 @@ def pass_a_turns(torch, ptt, cs, dev, dirs, reps: int = 20) -> list:
 		libs.append((tree, lib))
 		rows.append({"ptxas": tree, "lines": _ptxas(nvcc, err)})
 		print(json.dumps(rows[-1]), flush=True)
+	return libs, rows
+
+
+def _turns(torch, cs, row: dict, ents: list, others=(), reps: int = 20) -> dict:
+	"""Fills ``row["libs"]`` from ``ents``, one ``(tree, launch, out, fields)`` a library, and prints ``row``:
+	each ``out`` compared bit for bit (by part where complex) with every other entry's and with ``others``
+	(``[(name, tensor)]``); then the libraries take turns (in order, then back), ``reps`` launches each by
+	CUDA events, and each gets its mean and its share of ``row["bound_ms"]``."""
+	parts = lambda t: torch.view_as_real(t).unbind(-1) if t.is_complex() else (t,)  # noqa: E731
+	outs = [(tree, o) for tree, _, o, _ in ents] + list(others)
+	row["libs"] = {tree: {**fields, "entries_differing_in_bits": {t: [int((x != y).sum()) for x, y in zip(parts(o), parts(o2))]
+		for t, o2 in outs if t != tree}, "ms": []} for tree, _, o, fields in ents}
+	del outs
+	for turn in (range(len(ents)), reversed(range(len(ents)))):
+		for i in turn:
+			row["libs"][ents[i][0]]["ms"].append(cs.time_ms(torch, ents[i][1], reps))
+	for v in row["libs"].values():
+		v["mean_ms"] = sum(v["ms"]) / len(v["ms"])
+		v["share_of_bound"] = row["bound_ms"] / v["mean_ms"]
+	print(json.dumps(row), flush=True)
+	return row
+
+
+def pass_a_turns(torch, ptt, cs, dev, libs, reps: int = 20) -> list:
+	"""Pass A in the sweep's mode (the state's divisors and β, the ticket, α written by the last block),
+	from each library of ``build_libs`` (this tree's ``csrc/dia_stencil.cu`` and each checkout's, the same
+	C interface for pass A) launched through this tree's wrappers on the same inputs, at the paths'
+	shapes: phase 15's Hofstadter cell (16 × 4,096,000, 8 diagonals) in complex64 and complex128; the
+	flagship's ``tridiag(-1, 3, -1)``, 64 probes, at 500k and 10M in float32 and float64, float32 10M also
+	on the padded carry in the row-sharded mode, and bfloat16 rounded at 10M (the full-bf16 flagship's
+	step). Per shape the libraries take turns (``_turns``); every library's ``w`` is compared bit for bit
+	with every other's, and its α with this tree's."""
+	from primate_tpu_torch.ops import dia
+
+	rows = []
 	gen = torch.Generator(device=dev)
 	gen.manual_seed(16)
 
@@ -198,31 +230,19 @@ def pass_a_turns(torch, ptt, cs, dev, dirs, reps: int = 20) -> list:
 		st0 = dia.lanczos_state(nv, r, dev)
 		for k in (dia.DIV_CUR, dia.DIV_PREV, dia.BETA):
 			st0.scal[k] = torch.rand(nv, generator=gen, device=dev, dtype=r) + 0.5
-		outs = []
-		for _, lib in libs:
+		ents, a0 = [], None
+		for tree, lib in libs:
 			st = dia.LanczosState(st0.scal.clone(), torch.zeros(1, dtype=torch.int32, device=dev))
 			sums = torch.zeros(nv, dtype=r, device=dev) if spec is not None else None
 			launch = functools.partial(dia._launch_pass_a, lib, bands, offs, v_cur, v_prev, st.scal, st.ticket, None, spec, sums)
 			w, _, gx, vec = launch()
 			torch.cuda.synchronize()
-			outs.append((w, sums if spec is not None else st.scal[dia.ALPHA].clone(), launch))
-		a0 = outs[0][1]
-		parts = lambda w: torch.view_as_real(w).unbind(-1) if w.is_complex() else (w,)  # noqa: E731
-		row = {"shape": label, "nv": nv, "ld": v_cur.shape[1], "dtype": str(v_cur.dtype).removeprefix("torch."),
-			"grid_x": gx, "vector_path": vec, "bound_ms": bytes_ / cs.HBM_BYTES_PER_S * 1e3, "libs": {}}
-		for (tree, _), (w, alpha, _) in zip(libs, outs):
-			row["libs"][tree] = {"alpha_max_rel_diff": float(((alpha - a0).abs() / a0.abs().clamp_min(1e-30)).max()),
-				"w_entries_differing_in_bits": {t: [int((x != y).sum()) for x, y in zip(parts(w), parts(w2))]
-					for (t, _), (w2, _, _) in zip(libs, outs)}, "ms": []}
-		for turn in (range(len(libs)), reversed(range(len(libs)))):
-			for i in turn:
-				row["libs"][libs[i][0]]["ms"].append(cs.time_ms(torch, outs[i][2], reps))
-		for v in row["libs"].values():
-			v["mean_ms"] = sum(v["ms"]) / len(v["ms"])
-			v["share_of_bound"] = row["bound_ms"] / v["mean_ms"]
-		print(json.dumps(row), flush=True)
-		rows.append(row)
-		del outs
+			alpha = sums if spec is not None else st.scal[dia.ALPHA].clone()
+			a0 = alpha if a0 is None else a0
+			ents.append((tree, launch, w, {"alpha_max_rel_diff": float(((alpha - a0).abs() / a0.abs().clamp_min(1e-30)).max())}))
+		rows.append(_turns(torch, cs, {"shape": label, "nv": nv, "ld": v_cur.shape[1], "dtype": str(v_cur.dtype).removeprefix("torch."),
+			"grid_x": gx, "vector_path": vec, "bound_ms": bytes_ / cs.HBM_BYTES_PER_S * 1e3}, ents, reps=reps))
+		del ents
 		torch.cuda.empty_cache()
 
 	H = ptt.DIAOperator.from_scipy(cs.hofstadter_csr(**cs.TB), dtype=torch.complex64, device=dev)
@@ -249,6 +269,57 @@ def pass_a_turns(torch, ptt, cs, dev, dirs, reps: int = 20) -> list:
 	n = cs.N_LARGE
 	run("bf16_10M", op.bands, op.offsets_t, block(nv, n, torch.bfloat16), block(nv, n, torch.bfloat16), torch.float32,
 		(2 * nv * n + 3 * n) * 2 + nv * n * 4)
+	return rows
+
+
+def stencil_turns(torch, ptt, cs, dev, libs, reps: int = 20) -> list:
+	"""The node-major stencil (``dia_stencil``) of each library of ``build_libs`` on the same inputs, at the
+	paths' shapes: phase 15's Hofstadter cell (4,096,000 × 64, 8 diagonals) in complex64 and complex128; the
+	FEM cell ``fem_laplacian_3d(100)`` (1M × 64, 7 diagonals) in bfloat16, float32 and float64, and float32
+	at k = 240; phase 17's LOBPCG block on the 1M mesh (1M × 10, float32: the element path). Per shape the
+	libraries take turns (``_turns``); each output is compared bit for bit with every other library's and
+	with the plain version's on the card."""
+	from benchmarks.matrices import fem_laplacian_3d
+	from primate_tpu_torch.ops import _common, dia
+
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(17)
+	rows = []
+
+	def run(label, bands, offs, V):
+		(n, k), item, n_d = V.shape, V.element_size(), bands.shape[0]
+		vec = _common.vector_ok(k, item, V)
+		ents = []
+		for tree, lib in libs:
+			o = torch.empty_like(V)
+			fn = getattr(lib, f"dia_stencil_{_common.SUFFIX[V.dtype]}")
+
+			def go(fn=fn, lib=lib, o=o):
+				_common.raise_on(lib, fn(bands.data_ptr(), offs.data_ptr(), n_d, V.data_ptr(), o.data_ptr(), n, k, int(vec),
+					_common.stream(dev)), "dia_stencil")
+
+			go()
+			ents.append((tree, go, o, {}))
+		rows.append(_turns(torch, cs, {"stencil": label, "n": n, "k": k, "n_d": n_d, "dtype": str(V.dtype).removeprefix("torch."),
+			"vector_path": vec, "bound_ms": (2 * n * k + n_d * n) * item / cs.HBM_BYTES_PER_S * 1e3}, ents,
+			[("plain", dia.dia_stencil_ref(bands, offs, V))], reps))
+		del ents
+		torch.cuda.empty_cache()
+
+	def crandn(shape, dtype):
+		return torch.view_as_complex(torch.randn(tuple(shape) + (2,), generator=gen, device=dev, dtype=dtype.to_real()))
+
+	H = ptt.DIAOperator.from_scipy(cs.hofstadter_csr(**cs.TB), dtype=torch.complex64, device=dev)
+	for dtype, key in ((torch.complex64, "c64"), (torch.complex128, "c128")):
+		run(f"{key}_cell", H.bands.to(dtype), H.offsets_t, crandn((H.shape[0], 64), dtype))
+	del H
+	A = fem_laplacian_3d(cs.FEM_SIDE)
+	for dtype, key, k in ((torch.bfloat16, "bf16", 64), (torch.float32, "f32", 64), (torch.float64, "f64", 64), (torch.float32, "f32", 240)):
+		D = ptt.DIAOperator.from_scipy(A, dtype=dtype, device=dev)
+		run(f"{key}_fem_k{k}", D.bands, D.offsets_t, torch.randn((D.shape[0], k), generator=gen, device=dev).to(dtype))
+		del D
+	M = ptt.DIAOperator.from_scipy(cs.mesh_laplacian(cs.MESH_SIDE), dtype=torch.float32, device=dev)
+	run("f32_mesh_k10", M.bands, M.offsets_t, torch.randn((M.shape[0], 10), generator=gen, device=dev))
 	return rows
 
 

@@ -230,11 +230,25 @@ def test_dia_stencil_t_plain_bf16_matches_jax_pallas(offsets):
 	assert np.abs(got.float().numpy() - want).max() <= ULP * np.abs(want).max()
 
 
-@pytest.mark.parametrize("offsets", OFFSETS[:2], ids=["tridiagonal", "wide"])
+@pytest.mark.parametrize("offsets", OFFSETS[:2] + ["fem12"], ids=["tridiagonal", "wide", "fem12"])
 def test_dia_stencil_plain_bf16_matches_jax_pallas(offsets):
-	"""Node-major, k = 128 (the Pallas kernel's lane rule)."""
+	"""Node-major, k = 128 (the Pallas kernel's lane rule). ``fem12``: the FEM cell's operator at side 12
+	(``fem_laplacian_3d(12)``: n = 1,728, offsets ±1, ±12, ±144, its bands exact in bf16)."""
 	n, k = 900, 128
 	rng = np.random.default_rng(2)
+	if offsets == "fem12":
+		from benchmarks.matrices import fem_laplacian_3d
+
+		op = DIAOperator.from_scipy(fem_laplacian_3d(12), dtype=torch.float32, device="cpu")
+		n, offsets, bands = op.shape[0], op.offsets, op.bands.numpy()
+		assert sorted(offsets) == [-144, -12, -1, 0, 1, 12, 144] and np.array_equal(_bf(bands), bands)
+		V = _bf(rng.normal(size=(n, k)))
+		jop = JaxDIA(jnp.asarray(bands, dtype=jnp.bfloat16), offsets, (n, n))
+		want = np.asarray(dia_matmat(jop, jnp.asarray(V, dtype=jnp.bfloat16), interpret=True), dtype=np.float32)
+		got = dia.dia_stencil(torch.from_numpy(bands).to(BF16), torch.tensor(offsets), torch.from_numpy(V).to(BF16))
+		assert got.dtype == BF16
+		assert np.abs(got.float().numpy() - want).max() <= ULP * np.abs(want).max()
+		return
 	bands, V = _bf(rng.normal(size=(len(offsets), n))), _bf(rng.normal(size=(n, k)))
 	jop = JaxDIA(jnp.asarray(bands, dtype=jnp.bfloat16), offsets, (n, n))
 	want = np.asarray(dia_matmat(jop, jnp.asarray(V, dtype=jnp.bfloat16), interpret=True), dtype=np.float32)

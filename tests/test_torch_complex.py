@@ -122,8 +122,24 @@ def test_complex_dtype_draws_keep_the_reference_contract(pdf):
 # --- the complex stencils' plain versions and the operators --------------------
 
 
-@pytest.mark.parametrize("layout", ["probe_major", "node_major"])
+@pytest.mark.parametrize("layout", ["probe_major", "node_major", "node_major_lattice_c64", "node_major_lattice_c128"])
 def test_complex_stencils_plain_versions_match_jax(layout):
+	"""The lattice cases: a 10 × 48 lattice, whose offsets (±1, ±47, ±48 and the wrap ±(n − 48)) have the
+	shape of the Hofstadter cell's (ny = 2048 there), through ``dia_stencil`` at k = 64 (the plain version
+	on the CPU), against the JAX operator in the same dtype."""
+	if layout.startswith("node_major_lattice"):
+		H, jop, op = _hofstadter_ops(10, 48)
+		n, c64 = H.shape[0], layout.endswith("c64")
+		assert sorted(op.offsets) == sorted([-1, 1, -47, 47, -48, 48, 48 - n, n - 48])
+		dt, jdt = (torch.complex64, jnp.complex64) if c64 else (torch.complex128, jnp.complex128)
+		rng = np.random.default_rng(3)
+		X = (rng.normal(size=(n, 64)) + 1j * rng.normal(size=(n, 64))).astype(np.complex64 if c64 else np.complex128)
+		got = dia.dia_stencil(op.bands.to(dt), op.offsets_t, torch.from_numpy(X))
+		want = np.asarray(JaxDIA(jop.bands.astype(jdt), jop.offsets, jop.shape).matmat(jnp.asarray(X)))
+		assert got.dtype == dt and want.dtype == jdt
+		_close(got.numpy(), want, rtol=0, atol=(1e-6 if c64 else 1e-13) * np.abs(want).max())
+		_close(want, H @ X, rtol=0, atol=(1e-5 if c64 else 1e-13) * np.abs(want).max())
+		return
 	H, jop, op = _hofstadter_ops(6, 7)
 	n = H.shape[0]
 	rng = np.random.default_rng(1)

@@ -1265,3 +1265,86 @@ def test_round_pair_takes_bf16_only(cuda):
 		dia.lanczos_dia_round(w, q.half(), state, out, out.clone(), 1e-7)
 	with pytest.raises(TypeError, match="w has dtype"):
 		dia.lanczos_dia_round(w.to(BF16), q, state, out, out.clone(), 1e-7)
+
+
+# --- the node-major stencil in all five dtypes ---------------------------------------------------
+
+NM_DTYPES = [torch.float32, torch.float64, BF16, torch.complex64, torch.complex128]
+# Max-abs error over max|out| against the plain version on the card: the real kernels contract each
+# multiply-add where the plain version rounds the product first; complex64 is held bit for bit.
+NM_TOL = {torch.float32: 1e-5, torch.float64: 1e-12, BF16: None, torch.complex64: 0.0, torch.complex128: 1e-14}
+
+
+def _nm_inputs(dev, n, k, offsets, dtype, lead=0, seed=0):
+	g = torch.Generator(device=dev)
+	g.manual_seed(seed)
+	real = dtype.to_real() if dtype.is_complex else torch.float32 if dtype == BF16 else dtype
+
+	def draw(shape):
+		if dtype.is_complex:
+			return torch.complex(torch.randn(shape, generator=g, device=dev, dtype=real), torch.randn(shape, generator=g, device=dev, dtype=real))
+		return torch.randn(shape, generator=g, device=dev, dtype=real).to(dtype)
+
+	bands = draw((len(offsets), n))
+	V = draw((lead + n * k,))[lead:].view(n, k)
+	return bands, torch.tensor(offsets, dtype=torch.int64, device=dev), V
+
+
+def _nm_close(got, want, dtype, label=""):
+	torch.cuda.synchronize()
+	assert got.dtype == dtype and got.shape == want.shape
+	if dtype == torch.complex64:
+		assert torch.equal(torch.view_as_real(got), torch.view_as_real(want)), f"complex64 not bit for bit: {label}"
+		return
+	tol = _ulp_of_max(want) if dtype == BF16 else NM_TOL[dtype] * float(want.abs().max())
+	diff = got - want if dtype.is_complex else got.double() - want.double()
+	assert float(diff.abs().max()) <= tol, label
+
+
+def _nm_widths():
+	"""(dtype, k): every width of the spec, on the vector path where k is a whole number of 16-byte
+	vectors and on the element path otherwise."""
+	return [(dtype, k) for dtype in NM_DTYPES for k in (1, 3, 63, 64, 65, 240)]
+
+
+@pytest.mark.parametrize("dtype,k", _nm_widths(), ids=lambda v: str(v).replace("torch.", ""))
+def test_node_major_kernel_at_every_width(cuda, dtype, k):
+	"""The kernel against ``dia_stencil_ref`` at n = 3001 (a ragged last block of rows): offsets near
+	(±1, ±3, 0), at and one past ±40, far (−200) and the wrap offsets near ±n, 12 diagonals (three batches
+	of loads), and at 9 and 17 diagonals."""
+	n, reach = 3001, 40
+	for offsets in ((-(n - 2), -5 * reach, -reach - 1, -reach, -3, -1, 0, 1, 3, reach, reach + 1, n - 2),
+			(-2049, -2048, -100, -1, 0, 1, 100, 2048, 2049), tuple(range(-8, 9))):
+		bands, offs, V = _nm_inputs(cuda, n, k, offsets, dtype, seed=k)
+		vec = _common.vector_ok(k, V.element_size(), V)
+		assert vec == (k % (16 // V.element_size()) == 0)
+		scalar = _common.SCALAR_LAUNCHES["dia_stencil"]
+		got = dia.dia_stencil(bands, offs, V)
+		assert _common.SCALAR_LAUNCHES["dia_stencil"] == scalar + (not vec)
+		_nm_close(got, dia.dia_stencil_ref(bands, offs, V), dtype, f"{offsets}")
+
+
+NM_CASES = {
+	# n smaller than a block's rows; offsets past n
+	"n_below_a_block": (50, (-60, -7, -1, 0, 1, 7, 49, 60)),
+	"nine_diagonals": (4099, (-2049, -2048, -100, -1, 0, 1, 100, 2048, 2049)),
+	"seventeen_diagonals": (5000, tuple(range(-8, 9))),
+	# the Hofstadter lattice's offsets (ny = 2048) at a cut n: ±1, ±2047, ±2048 and the wrap ±(n − 2048)
+	"hofstadter_cut": (12 * 2048, (-(12 * 2048 - 2048), -2048, -2047, -1, 1, 2047, 2048, 12 * 2048 - 2048)),
+}
+
+
+@pytest.mark.parametrize("dtype", NM_DTYPES, ids=lambda v: str(v).replace("torch.", ""))
+@pytest.mark.parametrize("case", list(NM_CASES))
+@pytest.mark.parametrize("k", [1, 64, 65])
+def test_node_major_stencil_cases(cuda, case, k, dtype):
+	"""``dia_stencil`` against ``dia_stencil_ref``, and once more on a block one element into its buffer
+	(the element path where a vector holds more than one element)."""
+	n, offsets = NM_CASES[case]
+	for lead in (0, 1):
+		bands, offs, V = _nm_inputs(cuda, n, k, offsets, dtype, lead=lead, seed=7)
+		before, scalar = dia.LAUNCHES["dia_stencil"], _common.SCALAR_LAUNCHES["dia_stencil"]
+		got = dia.dia_stencil(bands, offs, V)
+		assert dia.LAUNCHES["dia_stencil"] == before + 1
+		assert _common.SCALAR_LAUNCHES["dia_stencil"] == scalar + (not _common.vector_ok(k, V.element_size(), V))
+		_nm_close(got, dia.dia_stencil_ref(bands, offs, V), dtype, f"{case} lead {lead}")
