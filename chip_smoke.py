@@ -148,7 +148,8 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    within 1e-5; rounded, w may differ by one bf16 ulp of a stencil sum on at most 1e-4 of its entries
    and lies nearer the rounded plain version than the unrounded one), timed beside its bound at 2-byte
    elements and the card's bf16 rate and beside its library call where torch
-   takes bf16 (a refusal is printed); JAX's full-bf16 SLQ (a bf16 ``DIAOperator`` and
+   takes bf16 (a refusal is printed), pass A and ``dia_stencil_t`` (their bf16 register kernels) also beside
+   the times of the kernels they replaced, quoted from PERF.md (``predecessor_ms_quoted``); JAX's full-bf16 SLQ (a bf16 ``DIAOperator`` and
    ``MatrixFunction(..., dtype=bfloat16)``) at 500k and 10M beside the float32 flagship, each within 5%
    of the exact logdet, walls and peaks (the 10M bf16 peak below the float32 one); the plain trace on
    the bf16 DIA operator; a node-major apply of the bf16 FEM operator; the bf16 BSR trace on phase 7's
@@ -173,12 +174,12 @@ against its plain version, its time, its plain version's time, its bound
 float32 rate, the bf16 rate for bf16 operands) and its library call's time (``library_ms``, null where no single
 call computes it); for ``dia_stencil_t`` the same numbers at the FEM ``diag``
 shape follow under ``fem_`` keys, with its launches in that call
-(``fem_launches``); the three kernels with a backward carry its error
+(``fem_launches``), and its float64 numbers at the flagship shape under ``f64_`` keys; the three kernels with a backward carry its error
 (``grad_max_abs_err``, over float32 and float64, relative to the largest entry) and
 times (``backward_ms``, ``backward_plain_ms``), and the three kernels of phase 13 their
 launches in its forward and backward passes (``gp_forward_launches``,
 ``gp_backward_launches``), and the two stencils and the two step passes their complex64 numbers at
-phase 15's cell shapes under ``c64_`` keys (the passes their complex128 ones under ``c128_``), with
+phase 15's cell shapes under ``c64_`` keys (the passes and the stencils their complex128 ones under ``c128_``), with
 ``c64_launches`` the complex launches of its calls 2-8;
 every kernel also carries its launches in phases 16, 17, 18, 19 and 22 (``prep_launches``,
 ``eig_launches``, ``gram_launches``, ``recipe_launches``, ``example_launches``); ``dia_stencil_t``
@@ -393,7 +394,8 @@ def csr_of_dia(torch, bands, offsets, n: int):
 
 def check_kernels(torch, dia, dev) -> dict:
 	"""Phase 2: each DIA kernel and the two step passes against their plain versions
-	on the same inputs on the card; times at the flagship shape in float32."""
+	on the same inputs on the card; times at the flagship shape in float32, and the probe-major stencil's
+	in float64 too (``f64_`` keys)."""
 	from primate_tpu_torch.ops import _common
 	from primate_tpu_torch.ops._build import load_library
 
@@ -487,6 +489,17 @@ def check_kernels(torch, dia, dev) -> dict:
 						"library_ms": lib_ms}
 				row["scalar_launches"] = dict(_common.SCALAR_LAUNCHES)
 				del A_csr
+			if label == "flagship" and dtype == torch.float64:  # the probe-major stencil in float64 at the same shape
+				bytes_, flops = (2 * nv * n + len(offsets) * n) * 8, 2 * len(offsets) * nv * n
+				ms, plain_ms = _timed_pair(torch, lambda: dia.dia_stencil_t(bands, offs, x), lambda: dia.dia_stencil_t_ref(bands, offs_host, x), 20)
+				b_ms, b_by = bound(bytes_, flops, FP64_FLOP_PER_S)
+				A_csr, X_t = csr_of_dia(torch, bands, offsets, n), x.T
+				lib_ms, lib_note = library_ms(torch, lambda: A_csr @ X_t, want.T)
+				del A_csr
+				row.update({"dia_stencil_t_ms": ms, "dia_stencil_t_plain_ms": plain_ms, "dia_stencil_t_bound_ms": b_ms,
+					"dia_stencil_t_bound_by": b_by, "dia_stencil_t_library_ms": lib_ms, "dia_stencil_t_library_note": lib_note})
+				out.setdefault("dia_stencil_t", {}).update({"f64_max_abs_err": err_s, "f64_ms": ms, "f64_plain_ms": plain_ms,
+					"f64_bound_ms": b_ms, "f64_bound_by": b_by, "f64_library_ms": lib_ms})
 			emit(row)
 			if not (rel_s <= STENCIL_TOL[name] and rel_v <= STENCIL_TOL[name] and rel_a <= ALPHA_TOL[name]
 				and rel_w <= STENCIL_TOL[name] and rel_ab <= ALPHA_TOL[name]):
@@ -1363,8 +1376,8 @@ def check_complex_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 	and complex128, on the Hamiltonian's own bands at the cell's shapes (the 16 × n probe-major
 	block of the KPM and Lanczos sweeps, an n × 64 node-major block) and at awkward shapes (1, 7,
 	13 and 65 probes, n odd, offsets at and past n, a block one element into its buffer); the
-	complex64 cell shapes and the complex128 node-major block timed beside their bound, their plain
-	version and the complex cuSPARSE product. Each launch that must take the complex64 scalar path is
+	cell shapes timed beside their bound, their plain version and the complex cuSPARSE product, complex64 and
+	complex128. Each launch that must take the complex64 scalar path is
 	counted in ``SCALAR_LAUNCHES``."""
 	from primate_tpu_torch.ops import _common
 
@@ -1412,8 +1425,7 @@ def check_complex_kernels(torch, dia, op, dev, reps: int = 10) -> dict:
 		X = crandn((TB_NV, n), dtype)
 		check("cell_probe_major", "dia_stencil_t", lambda: dia.dia_stencil_t(bands, offs, X),
 			lambda: dia.dia_stencil_t_ref(bands, offs_host, X), dtype, False,
-			timed=((2 * TB_NV * n + n_d * n) * item, 8 * n_d * TB_NV * n) if c64 else None,
-			library=lambda: (A_csr @ X.T).T)
+			timed=((2 * TB_NV * n + n_d * n) * item, 8 * n_d * TB_NV * n), library=lambda: (A_csr @ X.T).T)
 		del X
 		V = crandn((n, 64), dtype)
 		check("cell_node_major", "dia_stencil", lambda: dia.dia_stencil(bands, offs, V),
@@ -3119,6 +3131,10 @@ BF16_W_RTOL = 1e-5  # pass A's float32 w (unrounded) and α, relative to their l
 BF16_SHARD_TOL = 1e-3  # the sharded bf16 estimate against the unsharded one on the same probes
 BF16_BSR_TOL = 1e-2  # the bf16 BSR trace against the float32 one on the same probes
 BF16_FLIP_SHARE = 1e-4  # rounded pass A: the most entries whose stencil sum rounds to the other bf16 neighbour
+# The bf16 times of the kernels that the bf16 register kernels of pass A and dia_stencil_t replaced (the staged pass A,
+# the probe-major kernel with float32 band values), quoted from PERF.md §6 beside this run's times, not measured here:
+# NVIDIA H100 80GB HBM3, 700.00 W. Keyed by (kernel, n) at 64 probes and the flagship's 3 diagonals.
+BF16_PREDECESSOR_MS = {("dia_stencil_t", N_FLAGSHIP): 0.0944, ("lanczos_dia_step", N_FLAGSHIP): 0.1681, ("lanczos_dia_step", N_LARGE): 2.675}
 
 
 def _rademacher_f32(g, shape, dtype):
@@ -3204,7 +3220,7 @@ def check_round_pair(torch, dia, lib, w, q, alpha, beta, spec, label: str, reps:
 	margins = not (q_k[:, : spec.lo].any() or q_k[:, spec.lo + n :].any())
 	same = torch.equal(ab_k[0], ab_r[0]) and torch.equal(s_k[dia.DONE], s_r[dia.DONE])
 
-	gx = lib.lanczos_step_blocks(nv, n, q.element_size(), 0)
+	gx = lib.lanczos_round_blocks(nv, n)
 	partial = torch.empty((nv, gx), device=dev)
 	vec = _common.vector_ok(spec.ld, q.element_size(), w, q, q_k, lead=spec.lo)
 	st1, st2, ab = state(), state(), torch.empty((2, nv), device=dev)
@@ -3263,8 +3279,8 @@ def bf16_kernels(torch, ptt, dev, reps: int = 10) -> dict:
 		if library is not None:
 			lib_ms, note = library_ms(torch, library, want, reps)
 		row = {"phase": "bf16_kernel_check", "kernel": name, "shape": label, "max_abs_err": err, "tol": tol, "ms": ms,
-			"plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "GBps": bytes_ / ms / 1e6, "library_ms": lib_ms,
-			"library_rel_err_or_error": note, **extra}
+			"plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms, "GBps": bytes_ / ms / 1e6,
+			"library_ms": lib_ms, "library_rel_err_or_error": note, **extra}
 		emit(row)
 		if not err <= tol:
 			raise AssertionError(f"the bf16 {name} disagrees with its plain version: {row}")
@@ -3287,7 +3303,7 @@ def bf16_kernels(torch, ptt, dev, reps: int = 10) -> dict:
 			record("dia_stencil_t", f"flagship_{nv}x{n}", float((got.float() - want.float()).abs().max()), _ulp_of_max(want),
 				lambda: dia.dia_stencil_t(bands, offs, q), lambda: dia.dia_stencil_t_ref(bands, offs_host, q),
 				(2 * nv * n + n_d * n) * 2, 2 * n_d * nv * n, library=(lambda: A_csr @ q.T) if A_csr is not None else None,
-				want=want.T, note=refusal)
+				want=want.T, note=refusal, predecessor_ms_quoted=BF16_PREDECESSOR_MS[("dia_stencil_t", n)])
 			del A_csr, got, want
 			# Pass A unrounded on the padded carry (phys=True's step) against its plain version.
 			spec = op.carry_spec(nv)
@@ -3317,7 +3333,7 @@ def bf16_kernels(torch, ptt, dev, reps: int = 10) -> dict:
 			lambda: dia._launch_pass_a(lib, bands, offs, q, qp, scal, None, None),
 			lambda: dia.lanczos_dia_step_ref(bands, offs_host, q, qp, beta), (2 * nv * n + n_d * n) * 2 + nv * n * 4,
 			(2 * n_d + 4) * nv * n, note="no single PyTorch call computes a Lanczos step", prefix="bf16_" if n == N_FLAGSHIP else "bf16_10M_",
-			**{k: v for k, v in chk.items() if k not in ("ok", "tol")})
+			predecessor_ms_quoted=BF16_PREDECESSOR_MS[("lanczos_dia_step", n)], **{k: v for k, v in chk.items() if k not in ("ok", "tol")})
 		del w, alpha
 		# The round pair on pass A's plain output, on the flat carry (rounded) and the padded one.
 		w, alpha = dia.lanczos_dia_step_ref(bands, offs_host, q, qp, beta)

@@ -77,11 +77,12 @@
 // rank's sum of each probe; the caller all-reduces it between the passes, and
 // lanczos_dia_advance (one thread a probe) writes from the reduced sums what the
 // last blocks write above, so every rank's state advances alike. Loads and
-// stores are 16 bytes along r. The real and bfloat16 pass A stage a tile of q with kHalo
+// stores are 16 bytes along r. The float32 / float64 pass A stages a tile of q with kHalo
 // rows on each side in shared memory, so neighbours at offsets up to kHalo come from there,
-// larger offsets from direct (L1/L2) loads; the complex one holds the band values in
-// registers and loads every neighbour directly. When ld or lo is not a multiple of the
-// vector length, or a pointer is not 16-byte aligned, the same kernels take scalar loads.
+// larger offsets from direct (L1/L2) loads; the complex and bfloat16 ones hold the band values
+// in registers and take every neighbour from their own rows, a neighbouring lane's or a direct
+// load. When ld or lo is not a multiple of the vector length, or a pointer is not 16-byte
+// aligned, the same kernels take scalar loads.
 //
 // bfloat16 (JAX's third operator dtype; its Pallas kernels take bf16 and accumulate
 // in promote_types(dtype, float32)): the two stencils and pass A read bf16 bands and
@@ -91,7 +92,8 @@
 // A) or 8 columns (the node-major one) and issues the same 16-byte loads as in float32
 // on half the bytes of a row; the kernels stay bound by HBM bytes. (A node-major lane of
 // 8-byte vectors, 4 columns as in float32, measured slower at the FEM cell, with 8 lanes
-// a row and with 16: PERF.md.) Pass A writes w and the
+// a row and with 16: PERF.md.) The probe-major stencil and pass A have register kernels of
+// their own for bf16 (below), which keep the band values packed as stored. Pass A writes w and the
 // alpha partials in float32, as dia_matmat_t_phys writes its f32 output for a bf16
 // carry, and takes a switch (round): round the stencil sum to bf16 before the
 // beta-axpy, as JAX's flat and sharded applies do (matmat_t returns the operator's
@@ -130,49 +132,36 @@ namespace {
 // in row order and each walks the probes in order. Diagonals past kTChunk are taken
 // kTChunk at a time, each further chunk adding its sum to out. PERF.md lists the
 // designs that measured slower (a cp.async ring of staged tiles, more loads in
-// flight, band values in shared memory, prefetches).
+// flight, band values in shared memory, prefetches). This kernel serves float32,
+// float64 and complex; bfloat16 takes dia_stencil_t_bf16_kernel below.
 constexpr int kTThreads = 256;
 constexpr int kTBlocks = 2;  // resident blocks an SM it is compiled for: 128 registers a thread
 constexpr int kTProbes = 4;  // probes whose loads a thread issues together
 constexpr int kTChunk = 8;   // diagonals whose band values a thread holds
-// Probes whose loads a thread issues together: fewer for bfloat16, whose thread holds
-// 8 rows of float32 band values, sums and loads where a float32 thread holds 4.
-template <typename T> constexpr int kTProbesOf = Vec<T>::len > 4 ? 2 : kTProbes;
-// One bit per (diagonal, row) of a chunk: 32 in float32, 64 in bfloat16.
-template <typename T>
-using TBits = std::conditional_t<(kTChunk * Vec<T>::len > 32), unsigned long long, unsigned>;
+// One bit per (diagonal, row) of a chunk.
+using TBits = unsigned;
 
 // Rows r .. r + rows - 1 of kNP probes, from xb and ob at row r of the first probe:
 // ob[k n + e] = (ob[k n + e] if add) + sum_j w[j][e] xb[k n + e + off[j]] over the
 // chunk's nd diagonals. Bit j * VL + e of `in`: row r + e's neighbour on diagonal j
 // lies in [0, n); bit j of `whole`: all of them do and one 16-byte load reads them.
-// A narrow type (bfloat16) sums in float32: the chunks before the last keep their
-// sums in mb (float32, the same layout as ob) and the last one rounds once into ob.
 template <typename T, bool kVec, int kNP>
-__device__ __forceinline__ void stencil_group(const acc_t<T> (&w)[kTChunk][Vec<T>::len], const int64_t (&off)[kTChunk],
-                                              int nd, TBits<T> in, unsigned whole, const T* __restrict__ xb,
-                                              T* __restrict__ ob, acc_t<T>* __restrict__ mb, int64_t n, int rows,
-                                              bool add, bool last) {
+__device__ __forceinline__ void stencil_group(const T (&w)[kTChunk][Vec<T>::len], const int64_t (&off)[kTChunk], int nd,
+                                              TBits in, unsigned whole, const T* __restrict__ xb, T* __restrict__ ob,
+                                              int64_t n, int rows, bool add) {
     constexpr int VL = Vec<T>::len;
+    static_assert(kTChunk * VL <= 32, "a chunk's bits fit one word");
     using V = typename Vec<T>::type;
-    using A = acc_t<T>;
-    A acc[kNP][VL];
+    T acc[kNP][VL];
 #pragma unroll
     for (int k = 0; k < kNP; ++k)
 #pragma unroll
-        for (int e = 0; e < VL; ++e) {
-            acc[k][e] = A(0);
-            if constexpr (kNarrow<T>) {
-                if (add && e < rows) acc[k][e] = mb[k * n + e];
-            } else {
-                if (add && e < rows) acc[k][e] = ob[k * n + e];
-            }
-        }
+        for (int e = 0; e < VL; ++e) acc[k][e] = add && e < rows ? ob[k * n + e] : T(0);
 #pragma unroll
     for (int j = 0; j < kTChunk; ++j) {
         if (j >= nd) break;
         const T* src = xb + off[j];
-        A v[kNP][VL];
+        T v[kNP][VL];
         if (kVec && ((whole >> j) & 1u)) {
 #pragma unroll
             for (int k = 0; k < kNP; ++k) unpack(__ldg(reinterpret_cast<const V*>(src + k * n)), v[k]);
@@ -180,7 +169,7 @@ __device__ __forceinline__ void stencil_group(const acc_t<T> (&w)[kTChunk][Vec<T
 #pragma unroll
             for (int k = 0; k < kNP; ++k)
 #pragma unroll
-                for (int e = 0; e < VL; ++e) v[k][e] = (in >> (j * VL + e)) & 1u ? to_acc(ldg(src + k * n + e)) : A(0);
+                for (int e = 0; e < VL; ++e) v[k][e] = (in >> (j * VL + e)) & 1u ? ldg(src + k * n + e) : T(0);
         }
 #pragma unroll
         for (int k = 0; k < kNP; ++k)
@@ -189,17 +178,12 @@ __device__ __forceinline__ void stencil_group(const acc_t<T> (&w)[kTChunk][Vec<T
     }
 #pragma unroll
     for (int k = 0; k < kNP; ++k) {
-        if (kNarrow<T> && !last) {
-#pragma unroll
-            for (int e = 0; e < VL; ++e) {
-                if (e < rows) mb[k * n + e] = acc[k][e];
-            }
-        } else if (kVec) {
+        if (kVec) {
             __stcs(reinterpret_cast<V*>(ob + k * n), pack(acc[k]));
         } else {
 #pragma unroll
             for (int e = 0; e < VL; ++e) {
-                if (e < rows) stcs(ob + k * n + e, from_acc<T>(acc[k][e]));
+                if (e < rows) stcs(ob + k * n + e, acc[k][e]);
             }
         }
     }
@@ -211,22 +195,19 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(kTThreads, kTBlocks) dia_stencil_t_kernel(const T* __restrict__ bands,
                                                                            const int64_t* __restrict__ offsets,
                                                                            int n_d, const T* __restrict__ x,
-                                                                           T* __restrict__ out,
-                                                                           acc_t<T>* __restrict__ mid, int64_t nv,
+                                                                           T* __restrict__ out, int64_t nv,
                                                                            int64_t n) {
+    static_assert(!kNarrow<T>, "bfloat16 takes dia_stencil_t_bf16_kernel");
     constexpr int VL = Vec<T>::len;
-    constexpr int kNP = kTProbesOf<T>;
-    using A = acc_t<T>;
-    using Bits = TBits<T>;
     const int64_t r = (static_cast<int64_t>(blockIdx.x) * kTThreads + threadIdx.x) * VL;  // this thread's first row
     if (r >= n) return;
     const int rows = n - r < VL ? static_cast<int>(n - r) : VL;
     const int chunks = n_d > 0 ? (n_d + kTChunk - 1) / kTChunk : 1;  // no diagonal: one chunk that writes zeros
     for (int c = 0; c < chunks; ++c) {
         const int d0 = c * kTChunk, nd = n_d - d0 < kTChunk ? n_d - d0 : kTChunk;
-        A w[kTChunk][VL];
+        T w[kTChunk][VL];
         int64_t off[kTChunk];
-        Bits in = 0;
+        TBits in = 0;
         unsigned whole = 0;
 #pragma unroll
         for (int j = 0; j < kTChunk; ++j) {
@@ -236,21 +217,18 @@ __global__ void __launch_bounds__(kTThreads, kTBlocks) dia_stencil_t_kernel(cons
             for (int e = 0; e < VL; ++e) {  // the band value, 0 where the row or its neighbour lies outside [0, n)
                 const int64_t rr = r + e;
                 const bool ok = j < nd && e < rows && off[j] >= -rr && off[j] < n - rr;
-                w[j][e] = ok ? to_acc(ldg(bands + static_cast<int64_t>(d0 + j) * n + rr)) : A(0);
+                w[j][e] = ok ? ldg(bands + static_cast<int64_t>(d0 + j) * n + rr) : T(0);
                 bits |= ok ? 1u << e : 0u;
             }
-            in |= static_cast<Bits>(bits) << (j * VL);
+            in |= bits << (j * VL);
             if (kVec && bits == (1u << VL) - 1 && off[j] % VL == 0) whole |= 1u << j;
             if (bits == 0) off[j] = 0;  // no neighbour in range: nothing is loaded, keep the address in the block
         }
-        const bool add = c > 0, last = c == chunks - 1;
+        const bool add = c > 0;
         int64_t b = 0;
-        for (; b + kNP <= nv; b += kNP)
-            stencil_group<T, kVec, kNP>(w, off, nd, in, whole, x + b * n + r, out + b * n + r, mid + b * n + r, n, rows,
-                                        add, last);
-        for (; b < nv; ++b)
-            stencil_group<T, kVec, 1>(w, off, nd, in, whole, x + b * n + r, out + b * n + r, mid + b * n + r, n, rows, add,
-                                      last);
+        for (; b + kTProbes <= nv; b += kTProbes)
+            stencil_group<T, kVec, kTProbes>(w, off, nd, in, whole, x + b * n + r, out + b * n + r, n, rows, add);
+        for (; b < nv; ++b) stencil_group<T, kVec, 1>(w, off, nd, in, whole, x + b * n + r, out + b * n + r, n, rows, add);
     }
 }
 
@@ -323,19 +301,6 @@ __device__ __forceinline__ void load_seg(const T* row, int64_t r, int64_t lo_b, 
     }
 }
 
-// The same elements as stored (no conversion) into shared memory at dst.
-template <typename T, bool kVec>
-__device__ __forceinline__ void copy_seg(const T* row, int64_t r, int64_t lo_b, int64_t hi_b, T* dst) {
-    constexpr int VL = Vec<T>::len;
-    using V = typename Vec<T>::type;
-    if (kVec) {
-        *reinterpret_cast<V*>(dst) = r >= lo_b && r < hi_b ? *reinterpret_cast<const V*>(row + r) : V{};
-    } else {
-#pragma unroll
-        for (int i = 0; i < VL; ++i) dst[i] = (r + i >= lo_b && r + i < hi_b) ? row[r + i] : zero<T>();
-    }
-}
-
 // N elements E at row + r. kVec: whole 16-byte vectors of E (the carry's columns past
 // the own rows are inside the row's ld and take the zeros the caller computed); else
 // the elements before n.
@@ -396,133 +361,12 @@ __device__ __forceinline__ T probe_total(const T* partial, int64_t b) {
     return warp_sum(s);
 }
 
-// The carry layout of both passes: probe b's row starts at b * ld, its own rows are
-// columns [lo, lo + n), and the bands are (n_d, ld) in the same columns. The columns
-// outside the own rows are the zero margins of a padded carry, or, on a row-sharded
-// carry, the neighbour ranks' rows after a halo exchange: pass A reads them as data
-// and both passes write zeros there. The flat carry is ld = n, lo = 0.
-//
-// Pass A: w[b, r] = sum_d band[d, r] q[b, r + off_d] - beta[b] q_prev[b, r] with
-// q = v_cur / div_cur, q_prev = v_prev / div_prev, and the partials of
-// alpha[b] = Re sum_r conj(q) w over the own rows. With a ticket, the last block writes
-// state[kAlpha] and alpha_out if given (zero where state[kDone]); in the finishing mode
-// (sums given) it writes only the rank's local sums[b] and leaves the state alone.
-// A narrow type (bfloat16) reads q and q_prev as stored (no divisors: its sweep
-// normalises q every step) and stages q as stored; w, the state and the sums are in
-// the accumulation type (float32). `round`: round the stencil sum to T before the
-// beta-axpy (no effect where T is its own accumulation type). This staged kernel serves
-// float32, float64 and bfloat16 carries; a complex carry (w complex, the state, the
-// partials and the sums real) takes the register kernel below.
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_staged_kernel(
-    const T* __restrict__ bands, const int64_t* __restrict__ offsets, int n_d, const T* __restrict__ v_cur,
-    const T* __restrict__ v_prev, real_t<acc_t<T>>* __restrict__ state, acc_t<T>* __restrict__ w,
-    real_t<acc_t<T>>* __restrict__ partial, unsigned* __restrict__ ticket, real_t<acc_t<T>>* __restrict__ alpha_out,
-    real_t<acc_t<T>>* __restrict__ sums, int64_t nv, int64_t ld, int64_t lo, int64_t n, int round) {
-    using A = acc_t<T>;
-    using R = real_t<A>;  // the state and the sums
-    using S = std::conditional_t<kNarrow<T>, T, A>;  // the staged q: divided in A, or as stored
-    constexpr int VL = Vec<T>::len;
-    constexpr int kTile = kStepThreads * VL;
-    constexpr int kSpan = kTile + 2 * kHalo;
-    __shared__ __align__(16) S q_s[kStepProbes][kSpan];
-    __shared__ R div_s[kStepProbes], divp_s[kStepProbes], beta_s[kStepProbes];
-    const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
-    const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
-    const int64_t lo_b = -lo, hi_b = ld - lo;  // the carry's columns, counted from the first own row
-    if (threadIdx.x < np) {
-        if constexpr (!kNarrow<T>) {
-            div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
-            divp_s[threadIdx.x] = state[kDivPrev * nv + b0 + threadIdx.x];
-        }
-        beta_s[threadIdx.x] = state[kBeta * nv + b0 + threadIdx.x];
-    }
-    if (blockIdx.x == 0 && ld > n) {  // the margins of w: zero
-        for (int p = 0; p < np; ++p) {
-            A* row = w + (b0 + p) * ld;
-            for (int64_t c = threadIdx.x; c < lo; c += kStepThreads) row[c] = A(0);
-            for (int64_t c = lo + n + threadIdx.x; c < ld; c += kStepThreads) row[c] = A(0);
-        }
-    }
-    R dot[kStepProbes];
-#pragma unroll
-    for (int p = 0; p < kStepProbes; ++p) dot[p] = R(0);
-    const int64_t n_tiles = (n + kTile - 1) / kTile;
-    for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-        const int64_t r0 = t * kTile;
-        __syncthreads();  // the previous tile's reads of q_s are done (and div_s is written)
-#pragma unroll
-        for (int p = 0; p < kStepProbes; ++p) {
-            if (p >= np) break;
-            const T* row = v_cur + (b0 + p) * ld + lo;
-            if constexpr (kNarrow<T>) {
-                for (int e = threadIdx.x; e < kSpan / VL; e += kStepThreads)
-                    copy_seg<T, kVec>(row, r0 - kHalo + e * VL, lo_b, hi_b, &q_s[p][e * VL]);
-            } else {
-                const R div = div_s[p];
-                for (int e = threadIdx.x; e < kSpan / VL; e += kStepThreads) {
-                    A o[VL];
-                    load_seg<T, kVec>(row, r0 - kHalo + e * VL, lo_b, hi_b, o);
-#pragma unroll
-                    for (int i = 0; i < VL; ++i) q_s[p][e * VL + i] = o[i] / div;
-                }
-            }
-        }
-        __syncthreads();
-        const int64_t r = r0 + threadIdx.x * VL;
-        if (r >= n) continue;
-        const int loc = kHalo + threadIdx.x * VL;  // this thread's first row in q_s
-#pragma unroll
-        for (int p = 0; p < kStepProbes; ++p) {
-            if (p >= np) break;
-            const int64_t b = b0 + p;
-            const T* row = v_cur + b * ld + lo;
-            A acc[VL];
-#pragma unroll
-            for (int i = 0; i < VL; ++i) acc[i] = A(0);
-            for (int d = 0; d < n_d; ++d) {
-                const int64_t off = offsets[d];
-                A band[VL];
-                load_seg<T, kVec>(bands + d * ld + lo, r, lo_b, n, band);
-                if (off >= -kHalo && off <= kHalo) {  // staged: q_s is 0 outside the carry
-#pragma unroll
-                    for (int i = 0; i < VL; ++i) acc[i] += band[i] * to_acc(q_s[p][loc + i + off]);
-                } else if constexpr (kNarrow<T>) {
-#pragma unroll
-                    for (int i = 0; i < VL; ++i) {
-                        const int64_t c = r + i + off;
-                        if (c >= lo_b && c < hi_b) acc[i] += band[i] * to_acc(row[c]);
-                    }
-                } else {
-                    const R div = div_s[p];
-#pragma unroll
-                    for (int i = 0; i < VL; ++i) {
-                        const int64_t c = r + i + off;
-                        if (c >= lo_b && c < hi_b) acc[i] += band[i] * (row[c] / div);
-                    }
-                }
-            }
-            A vp[VL], out[VL];
-            load_seg<T, kVec>(v_prev + b * ld + lo, r, lo_b, hi_b, vp);
-            if constexpr (kNarrow<T>) {
-                const A beta = beta_s[p];
-#pragma unroll
-                for (int i = 0; i < VL; ++i) {
-                    const A s = round ? to_acc(from_acc<T>(acc[i])) : acc[i];
-                    out[i] = r + i < n ? s - beta * vp[i] : A(0);  // a margin column: 0
-                    dot[p] += out[i] * to_acc(q_s[p][loc + i]);
-                }
-            } else {
-                const R beta = beta_s[p], divp = divp_s[p];
-#pragma unroll
-                for (int i = 0; i < VL; ++i) {
-                    out[i] = r + i < n ? acc[i] - beta * (vp[i] / divp) : A(0);  // a margin column: 0
-                    dot[p] += re_dot(q_s[p][loc + i], out[i]);
-                }
-            }
-            store_seg<kVec>(w + b * ld + lo, r, n, out);
-        }
-    }
+// The end of pass A: the block's alpha partials (dot) reduced in a fixed order; the last block to finish sums
+// each probe's partials and writes state[kAlpha] and alpha_out if given (zero where state[kDone]), or, in the
+// finishing mode (sums given), only the rank's sums[b].
+template <typename R>
+__device__ __forceinline__ void finish_pass_a(R (&dot)[kStepProbes], int np, int64_t b0, R* partial, unsigned* ticket,
+                                              R* state, R* alpha_out, R* sums, int64_t nv) {
     if (!reduce_and_take_ticket(dot, np, b0, partial, ticket)) return;
     for (int64_t b = threadIdx.x / 32; b < nv; b += kStepWarps) {
         const R s = probe_total(partial, b);
@@ -536,6 +380,108 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_staged_kernel(
         }
     }
     if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// The carry layout of both passes: probe b's row starts at b * ld, its own rows are
+// columns [lo, lo + n), and the bands are (n_d, ld) in the same columns. The columns
+// outside the own rows are the zero margins of a padded carry, or, on a row-sharded
+// carry, the neighbour ranks' rows after a halo exchange: pass A reads them as data
+// and both passes write zeros there. The flat carry is ld = n, lo = 0.
+//
+// Pass A: w[b, r] = sum_d band[d, r] q[b, r + off_d] - beta[b] q_prev[b, r] with
+// q = v_cur / div_cur, q_prev = v_prev / div_prev, and the partials of
+// alpha[b] = Re sum_r conj(q) w over the own rows. With a ticket, the last block writes
+// state[kAlpha] and alpha_out if given (zero where state[kDone]); in the finishing mode
+// (sums given) it writes only the rank's local sums[b] and leaves the state alone.
+// This staged kernel serves float32 and float64 carries; a complex carry (w complex, the
+// state, the partials and the sums real) takes the register kernel below, a bfloat16 one
+// lanczos_pass_a_bf16_kernel.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_staged_kernel(
+    const T* __restrict__ bands, const int64_t* __restrict__ offsets, int n_d, const T* __restrict__ v_cur,
+    const T* __restrict__ v_prev, T* __restrict__ state, T* __restrict__ w, T* __restrict__ partial,
+    unsigned* __restrict__ ticket, T* __restrict__ alpha_out, T* __restrict__ sums, int64_t nv, int64_t ld, int64_t lo,
+    int64_t n, int) {
+    static_assert(!kNarrow<T> && !kCplx<T>, "the staged pass A is float32 / float64 only");
+    constexpr int VL = Vec<T>::len;
+    constexpr int kTile = kStepThreads * VL;
+    constexpr int kSpan = kTile + 2 * kHalo;
+    __shared__ __align__(16) T q_s[kStepProbes][kSpan];
+    __shared__ T div_s[kStepProbes], divp_s[kStepProbes], beta_s[kStepProbes];
+    const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
+    const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
+    const int64_t lo_b = -lo, hi_b = ld - lo;  // the carry's columns, counted from the first own row
+    if (threadIdx.x < np) {
+        div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
+        divp_s[threadIdx.x] = state[kDivPrev * nv + b0 + threadIdx.x];
+        beta_s[threadIdx.x] = state[kBeta * nv + b0 + threadIdx.x];
+    }
+    if (blockIdx.x == 0 && ld > n) {  // the margins of w: zero
+        for (int p = 0; p < np; ++p) {
+            T* row = w + (b0 + p) * ld;
+            for (int64_t c = threadIdx.x; c < lo; c += kStepThreads) row[c] = T(0);
+            for (int64_t c = lo + n + threadIdx.x; c < ld; c += kStepThreads) row[c] = T(0);
+        }
+    }
+    T dot[kStepProbes];
+#pragma unroll
+    for (int p = 0; p < kStepProbes; ++p) dot[p] = T(0);
+    const int64_t n_tiles = (n + kTile - 1) / kTile;
+    for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int64_t r0 = t * kTile;
+        __syncthreads();  // the previous tile's reads of q_s are done (and div_s is written)
+#pragma unroll
+        for (int p = 0; p < kStepProbes; ++p) {
+            if (p >= np) break;
+            const T* row = v_cur + (b0 + p) * ld + lo;
+            const T div = div_s[p];
+            for (int e = threadIdx.x; e < kSpan / VL; e += kStepThreads) {
+                T o[VL];
+                load_seg<T, kVec>(row, r0 - kHalo + e * VL, lo_b, hi_b, o);
+#pragma unroll
+                for (int i = 0; i < VL; ++i) q_s[p][e * VL + i] = o[i] / div;
+            }
+        }
+        __syncthreads();
+        const int64_t r = r0 + threadIdx.x * VL;
+        if (r >= n) continue;
+        const int loc = kHalo + threadIdx.x * VL;  // this thread's first row in q_s
+#pragma unroll
+        for (int p = 0; p < kStepProbes; ++p) {
+            if (p >= np) break;
+            const int64_t b = b0 + p;
+            const T* row = v_cur + b * ld + lo;
+            T acc[VL];
+#pragma unroll
+            for (int i = 0; i < VL; ++i) acc[i] = T(0);
+            for (int d = 0; d < n_d; ++d) {
+                const int64_t off = offsets[d];
+                T band[VL];
+                load_seg<T, kVec>(bands + d * ld + lo, r, lo_b, n, band);
+                if (off >= -kHalo && off <= kHalo) {  // staged: q_s is 0 outside the carry
+#pragma unroll
+                    for (int i = 0; i < VL; ++i) acc[i] += band[i] * q_s[p][loc + i + off];
+                } else {
+                    const T div = div_s[p];
+#pragma unroll
+                    for (int i = 0; i < VL; ++i) {
+                        const int64_t c = r + i + off;
+                        if (c >= lo_b && c < hi_b) acc[i] += band[i] * (row[c] / div);
+                    }
+                }
+            }
+            T vp[VL], out[VL];
+            load_seg<T, kVec>(v_prev + b * ld + lo, r, lo_b, hi_b, vp);
+            const T beta = beta_s[p], divp = divp_s[p];
+#pragma unroll
+            for (int i = 0; i < VL; ++i) {
+                out[i] = r + i < n ? acc[i] - beta * (vp[i] / divp) : T(0);  // a margin column: 0
+                dot[p] += re_dot(q_s[p][loc + i], out[i]);
+            }
+            store_seg<kVec>(w + b * ld + lo, r, n, out);
+        }
+    }
+    finish_pass_a(dot, np, b0, partial, ticket, state, alpha_out, sums, nv);
 }
 
 // Pass A with the band values in registers (complex64, complex128): dia_stencil_t's structure
@@ -553,7 +499,8 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_staged_kernel(
 // bit of a few imaginary parts); the alpha partials take another order. No shared memory but the
 // per-probe scalars and the block's reduction, and no barrier in the row loop: the nearby
 // diagonals find their lines in L1, the far ones in L2. Complex only: the staged kernel measured
-// faster for float32, float64 and bfloat16, whose threads hold 4 to 8 rows (PERF.md).
+// faster for float32 and float64, whose threads hold 4 and 2 rows, and bfloat16 has its own
+// register kernel with packed band values (PERF.md).
 constexpr int kAProbes = 4;  // probes whose neighbour loads a thread issues together
 
 __device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
@@ -672,7 +619,7 @@ __global__ void __launch_bounds__(kNmThreads) dia_stencil_kernel(const T* __rest
 template <typename T>
 struct BandChunk {
     T w[kTChunk][Vec<T>::len];
-    TBits<T> in;
+    TBits in;
     unsigned whole;
 };
 
@@ -703,7 +650,7 @@ __device__ __forceinline__ void load_band_chunk(BandChunk<T>& c, const T* __rest
             c.w[j][e] = ok ? band[e] : T(0);
             bits |= ok ? 1u << e : 0u;
         }
-        c.in |= static_cast<TBits<T>>(bits) << (j * VL);
+        c.in |= bits << (j * VL);
         if (kVec && bits == (1u << VL) - 1 && off % VL == 0) c.whole |= 1u << j;
     }
 }
@@ -847,19 +794,429 @@ __global__ void __launch_bounds__(kStepThreads, kTBlocks) lanczos_pass_a_kernel(
             }
         }
     }
-    if (!reduce_and_take_ticket(dot, np, b0, partial, ticket)) return;
-    for (int64_t b = threadIdx.x / 32; b < nv; b += kStepWarps) {
-        const R s = probe_total(partial, b);
-        if (threadIdx.x % 32 == 0) {
-            if (sums != nullptr) {
-                sums[b] = s;
-            } else {
-                state[kAlpha * nv + b] = s;
-                if (alpha_out != nullptr) alpha_out[b] = state[kDone * nv + b] != R(0) ? R(0) : s;
+    finish_pass_a(dot, np, b0, partial, ticket, state, alpha_out, sums, nv);
+}
+
+// ---- bfloat16: the probe-major stencil and pass A in registers ----
+//
+// Both bf16 kernels give a thread one 16-byte vector (8 rows) of every probe, as the kernels above do, and keep what it
+// reads packed as it is stored until the multiply (Bf8: 8 rows in 4 registers); each bf16 value becomes float32 at its
+// multiply (exactly: its bits shifted up), and the sums are float32. Where a neighbour comes from depends on the
+// diagonal's offset (the same in every lane, so no lane diverges):
+//   0: the thread's own rows;
+//   +-1, +-2: the own rows and one 32-bit word of the neighbouring lane's, by __shfl_down_sync / __shfl_up_sync; the
+//     lanes at a warp's edges (0 and 31) take that word from memory instead, loaded with their own rows (it is the
+//     next warp's first or the previous warp's last rows, in L1);
+//   a whole number of vectors: one 16-byte load;
+//   any other offset: the two aligned 16-byte vectors that hold its rows and a byte permute (__byte_perm).
+// No shared memory but pass A's per-probe scalars and its reduction, and no barrier in the row loop. The diagonals are
+// summed in their order with one multiply-add each, as the earlier bf16 kernels summed them (a staged pass A, and a
+// probe-major kernel that held float32 band values), so w and out keep those kernels' bits. The two kernels hold the
+// band values differently, each as it measured faster (PERF.md): the stencil keeps a chunk of them for all nv probes,
+// pass A loads each where it multiplies.
+constexpr int kBfProbes = 4;   // pass A: probes whose q and q_prev loads a thread issues together
+constexpr int kBfTProbes = 2;  // dia_stencil_t: probes whose loads of a diagonal a thread issues together
+
+// 8 bf16 rows packed as a 16-byte vector holds them: row e in word e / 2, the low half for even e.
+struct Bf8 {
+    unsigned w[4];
+};
+
+// Row e of a packed vector in float32 (exact).
+__device__ __forceinline__ float bf8_at(const Bf8& v, int e) {
+    return __uint_as_float(e & 1 ? v.w[e >> 1] & 0xffff0000u : v.w[e >> 1] << 16);
+}
+
+// acc[e] += w[e] x[e], one multiply-add a row.
+__device__ __forceinline__ void bf8_fma(float (&acc)[8], const Bf8& w, const Bf8& x) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] += bf8_at(w, e) * bf8_at(x, e);
+}
+
+// Rows c .. c + 7 of row (counted from its column 0), zero outside [lo_b, hi_b). kVec: c, lo_b and hi_b are
+// multiples of 8 and row is 16-byte aligned, so the vector lies wholly inside or outside and one load reads it.
+template <bool kVec>
+__device__ __forceinline__ Bf8 bf8_load(const bf16* row, int64_t c, int64_t lo_b, int64_t hi_b) {
+    Bf8 v = {{0u, 0u, 0u, 0u}};
+    if constexpr (kVec) {
+        if (c >= lo_b && c < hi_b) {
+            const uint4 u = __ldg(reinterpret_cast<const uint4*>(row + c));
+            v = {{u.x, u.y, u.z, u.w}};
+        }
+    } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            if (c + e >= lo_b && c + e < hi_b) {
+                v.w[e >> 1] |= static_cast<unsigned>(__bfloat16_as_ushort(ldg(row + c + e))) << (16 * (e & 1));
             }
         }
     }
-    if (threadIdx.x == 0) *ticket = 0u;
+    return v;
+}
+
+// Rows c, c + 1 as one word (c even), zero outside [lo_b, hi_b).
+template <bool kVec>
+__device__ __forceinline__ unsigned bf2_load(const bf16* row, int64_t c, int64_t lo_b, int64_t hi_b) {
+    if constexpr (kVec) {
+        return c >= lo_b && c < hi_b ? __ldg(reinterpret_cast<const unsigned*>(row + c)) : 0u;
+    } else {
+        unsigned v = 0u;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            if (c + e >= lo_b && c + e < hi_b) {
+                v |= static_cast<unsigned>(__bfloat16_as_ushort(ldg(row + c + e))) << (16 * e);
+            }
+        }
+        return v;
+    }
+}
+
+// Rows k .. k + 7 of the 16 rows a, b (0 < k < 8, the same in every lane): whole words where k is even, a half-word
+// shift by byte permutes where it is odd.
+__device__ __forceinline__ Bf8 bf8_window(const Bf8& a, const Bf8& b, int k) {
+    const unsigned x[8] = {a.w[0], a.w[1], a.w[2], a.w[3], b.w[0], b.w[1], b.w[2], b.w[3]};
+    const int m = k >> 1;
+    const unsigned sel = k & 1 ? 0x5432u : 0x3210u;
+    Bf8 o;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        const unsigned lo = m == 0 ? x[j] : m == 1 ? x[j + 1] : m == 2 ? x[j + 2] : x[j + 3];
+        const unsigned hi = m == 0 ? x[j + 1] : m == 1 ? x[j + 2] : m == 2 ? x[j + 3] : x[j + 4];
+        o.w[j] = __byte_perm(lo, hi, sel);
+    }
+    return o;
+}
+
+// Rows r + off .. r + off + 7 for 0 < |off| <= 2, from the own rows r .. r + 7 and one word of the neighbouring
+// vector: `side` holds rows r + 8, r + 9 (off > 0) or r - 2, r - 1 (off < 0).
+__device__ __forceinline__ Bf8 bf8_near(const Bf8& own, unsigned side, int off) {
+    const unsigned sel = off & 1 ? 0x5432u : 0x3210u;
+    Bf8 o;
+    if (off > 0) {
+        const unsigned x[5] = {own.w[0], own.w[1], own.w[2], own.w[3], side};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o.w[j] = __byte_perm(off == 1 ? x[j] : x[j + 1], x[j + 1], sel);
+    } else {
+        const unsigned x[5] = {side, own.w[0], own.w[1], own.w[2], own.w[3]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o.w[j] = __byte_perm(x[j], x[j + 1], sel);
+    }
+    return o;
+}
+
+// The band values of the diagonal at `off` (band: its band row, counted from row 0) at rows r .. r + 7, zero where the
+// row lies at or past `rows` or its neighbour outside [lo_b, hi_b). Loaded where they are used (a 16-byte load that
+// the warp's earlier probes brought into L1), so no thread holds a chunk of them; masked only at an edge.
+template <bool kVec>
+__device__ __forceinline__ Bf8 bf8_band(const bf16* __restrict__ band, int64_t off, int64_t r, int rows, int64_t lo_b,
+                                        int64_t hi_b) {
+    Bf8 b = bf8_load<kVec>(band, r, r, r + rows);
+    if (rows < 8 || r + off < lo_b || r + off + 8 > hi_b) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            const int64_t rr = r + e;
+            if (!(e < rows && off >= lo_b - rr && off < hi_b - rr)) b.w[e >> 1] &= ~(0xffffu << (16 * (e & 1)));
+        }
+    }
+    return b;
+}
+
+// Rows r + off .. r + off + 7 of the probe row x (counted from its row 0), zero outside [lo_b, hi_b): the own rows (own),
+// a neighbouring lane's word (lanes 0 and 31: prv, rows r - 2, r - 1, and nxt, rows r + 8, r + 9), one load, or two
+// aligned loads and a byte permute. Every lane of the warp calls it (the shuffles).
+template <bool kVec>
+__device__ __forceinline__ Bf8 bf8_neighbours(const bf16* __restrict__ x, int64_t off, int64_t r, int64_t lo_b,
+                                              int64_t hi_b, const Bf8& own, unsigned prv, unsigned nxt) {
+    if (off == 0) return own;
+    if (off >= -2 && off <= 2) {
+        const int lane = threadIdx.x % 32;
+        unsigned side;
+        if (off > 0) {
+            side = __shfl_down_sync(0xffffffffu, own.w[0], 1);
+            if (lane == 31) side = nxt;
+        } else {
+            side = __shfl_up_sync(0xffffffffu, own.w[3], 1);
+            if (lane == 0) side = prv;
+        }
+        return bf8_near(own, side, static_cast<int>(off));
+    }
+    if (!kVec || (off & 7) == 0) return bf8_load<kVec>(x, r + off, lo_b, hi_b);  // the element path: 8 element loads
+    const int64_t a = r + (off & ~static_cast<int64_t>(7));  // the aligned vector that holds row r + off
+    return bf8_window(bf8_load<kVec>(x, a, lo_b, hi_b), bf8_load<kVec>(x, a + 8, lo_b, hi_b), static_cast<int>(off & 7));
+}
+
+// The own rows r .. r + 7 of kNP probes (x: the first probe's row, counted from its row 0, probes `stride` apart), zero
+// outside [lo_b, hi_b), and in lanes 0 and 31 the word beside them.
+template <bool kVec, int kNP>
+__device__ __forceinline__ void bf8_own(const bf16* __restrict__ x, int64_t stride, int64_t r, int64_t lo_b, int64_t hi_b,
+                                        Bf8 (&own)[kNP], unsigned (&prv)[kNP], unsigned (&nxt)[kNP]) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int k = 0; k < kNP; ++k) {
+        own[k] = bf8_load<kVec>(x + k * stride, r, lo_b, hi_b);
+        prv[k] = lane == 0 ? bf2_load<kVec>(x + k * stride, r - 2, lo_b, hi_b) : 0u;
+        nxt[k] = lane == 31 ? bf2_load<kVec>(x + k * stride, r + 8, lo_b, hi_b) : 0u;
+    }
+}
+
+// ---- dia_stencil_t, bfloat16 ----
+//
+// A thread holds the band values of a chunk of up to kTChunk diagonals (packed, 4 registers a diagonal) for all nv
+// probes, and takes kBfTProbes probes at a time through the chunk diagonal by diagonal, the loads of the probes issued
+// together. Two probes: with three or four in flight it spilled at its 128 registers (2 blocks of 256 an SM), and
+// 128-thread blocks with room for them cost the 500k block its single wave (PERF.md).
+
+// Up to kTChunk diagonals at a thread's rows r .. r + 7 (bf8_band each).
+struct Bf8Chunk {
+    Bf8 w[kTChunk];
+};
+
+// The nd diagonals from offsets[0] (bands: their first band row, rows n apart).
+template <bool kVec>
+__device__ __forceinline__ void load_bf8_chunk(Bf8Chunk& c, const bf16* __restrict__ bands,
+                                               const int64_t* __restrict__ offsets, int nd, int64_t n, int64_t r, int rows) {
+#pragma unroll
+    for (int j = 0; j < kTChunk; ++j)
+        c.w[j] = j < nd ? bf8_band<kVec>(bands + j * n, __ldg(offsets + j), r, rows, 0, n) : Bf8{{0u, 0u, 0u, 0u}};
+}
+
+// acc[k] += the chunk's sum at rows r .. r + 7 of probe k, in the chunk's order of diagonals. x: the first probe's
+// row (counted from its row 0), probes n apart; own[k]: probe k's rows r .. r + 7, zero outside [0, n); prv[k],
+// nxt[k]: its rows r - 2, r - 1 and r + 8, r + 9 in lanes 0 and 31. Every lane of the warp takes part (the shuffles),
+// also one whose rows lie past n. bf8_neighbours' cases written out for kNP probes, each case's loads issued before
+// its arithmetic: taking each probe's neighbours through bf8_neighbours measured 5-17% slower (PERF.md).
+template <bool kVec, int kNP>
+__device__ __forceinline__ void bf8_chunk_sum(const Bf8Chunk& c, const int64_t* __restrict__ offsets, int nd,
+                                              const bf16* __restrict__ x, int64_t n, int64_t r, const Bf8 (&own)[kNP],
+                                              const unsigned (&prv)[kNP], const unsigned (&nxt)[kNP],
+                                              float (&acc)[kNP][8]) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int j = 0; j < kTChunk; ++j) {
+        if (j >= nd) break;
+        const int64_t off = __ldg(offsets + j);
+        if (off == 0) {
+#pragma unroll
+            for (int k = 0; k < kNP; ++k) bf8_fma(acc[k], c.w[j], own[k]);
+        } else if (off >= -2 && off <= 2) {
+#pragma unroll
+            for (int k = 0; k < kNP; ++k) {
+                unsigned side;
+                if (off > 0) {
+                    side = __shfl_down_sync(0xffffffffu, own[k].w[0], 1);
+                    if (lane == 31) side = nxt[k];
+                } else {
+                    side = __shfl_up_sync(0xffffffffu, own[k].w[3], 1);
+                    if (lane == 0) side = prv[k];
+                }
+                bf8_fma(acc[k], c.w[j], bf8_near(own[k], side, static_cast<int>(off)));
+            }
+        } else if (!kVec || (off & 7) == 0) {  // one load a probe (the element path: 8 element loads)
+            Bf8 v[kNP];
+#pragma unroll
+            for (int k = 0; k < kNP; ++k) v[k] = bf8_load<kVec>(x + k * n, r + off, 0, n);
+#pragma unroll
+            for (int k = 0; k < kNP; ++k) bf8_fma(acc[k], c.w[j], v[k]);
+        } else {
+            const int64_t a = r + (off & ~static_cast<int64_t>(7));  // the aligned vector that holds row r + off
+            Bf8 lo_v[kNP], hi_v[kNP];
+#pragma unroll
+            for (int k = 0; k < kNP; ++k) {
+                lo_v[k] = bf8_load<kVec>(x + k * n, a, 0, n);
+                hi_v[k] = bf8_load<kVec>(x + k * n, a + 8, 0, n);
+            }
+#pragma unroll
+            for (int k = 0; k < kNP; ++k) bf8_fma(acc[k], c.w[j], bf8_window(lo_v[k], hi_v[k], static_cast<int>(off & 7)));
+        }
+    }
+}
+
+// The probe-major stencil for bfloat16: out = A X rounded once to bf16. Rows r .. r + 7 of kNP probes from xb, ob, mb
+// (row 0 of the first probe, probes n apart); the chunks before the last keep their float32 sums in mb (the (nv, n)
+// scratch `mid`), and a later chunk starts from them.
+template <bool kVec, int kNP>
+__device__ __forceinline__ void stencil_t_bf16_group(const Bf8Chunk& c, const int64_t* __restrict__ offsets, int nd,
+                                                     const bf16* __restrict__ xb, bf16* __restrict__ ob,
+                                                     float* __restrict__ mb, int64_t n, int64_t r, int rows, bool add,
+                                                     bool last) {
+    Bf8 own[kNP];
+    unsigned prv[kNP], nxt[kNP];
+    bf8_own<kVec, kNP>(xb, n, r, 0, n, own, prv, nxt);
+    float acc[kNP][8];
+#pragma unroll
+    for (int k = 0; k < kNP; ++k) {
+        float* m = mb + k * n + r;
+        if (kVec && add && rows > 0) {
+            const float4 u = *reinterpret_cast<const float4*>(m), v = *reinterpret_cast<const float4*>(m + 4);
+            acc[k][0] = u.x, acc[k][1] = u.y, acc[k][2] = u.z, acc[k][3] = u.w;
+            acc[k][4] = v.x, acc[k][5] = v.y, acc[k][6] = v.z, acc[k][7] = v.w;
+        } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[k][e] = add && e < rows ? m[e] : 0.0f;
+        }
+    }
+    bf8_chunk_sum<kVec, kNP>(c, offsets, nd, xb, n, r, own, prv, nxt, acc);
+    if (rows <= 0) return;  // a lane past the rows: it lent its (zero) rows to the shuffles
+#pragma unroll
+    for (int k = 0; k < kNP; ++k) {
+        if (!last) {
+            float* m = mb + k * n + r;
+            if (kVec) {
+                *reinterpret_cast<float4*>(m) = make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+                *reinterpret_cast<float4*>(m + 4) = make_float4(acc[k][4], acc[k][5], acc[k][6], acc[k][7]);
+            } else {
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    if (e < rows) m[e] = acc[k][e];
+                }
+            }
+        } else if (kVec) {
+            *reinterpret_cast<uint4*>(ob + k * n + r) = pack(acc[k]);
+        } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+                if (e < rows) ob[k * n + r + e] = from_acc<bf16>(acc[k][e]);
+            }
+        }
+    }
+}
+
+// kVec: n is a multiple of 8 and bands, x, out and mid are 16-byte aligned. A warp's lanes hold 32 consecutive
+// vectors; a warp whose rows all lie past n leaves, the others keep every lane for the shuffles.
+template <bool kVec>
+__global__ void __launch_bounds__(kTThreads, kTBlocks) dia_stencil_t_bf16_kernel(const bf16* __restrict__ bands,
+                                                                                const int64_t* __restrict__ offsets,
+                                                                                int n_d, const bf16* __restrict__ x,
+                                                                                bf16* __restrict__ out,
+                                                                                float* __restrict__ mid, int64_t nv,
+                                                                                int64_t n) {
+    const int64_t r = (static_cast<int64_t>(blockIdx.x) * kTThreads + threadIdx.x) * 8;  // this thread's first row
+    if (r - (threadIdx.x % 32) * 8 >= n) return;
+    const int rows = n - r >= 8 ? 8 : n > r ? static_cast<int>(n - r) : 0;
+    const int chunks = n_d > 0 ? (n_d + kTChunk - 1) / kTChunk : 1;  // no diagonal: one chunk that writes zeros
+    for (int ci = 0; ci < chunks; ++ci) {
+        const int d0 = ci * kTChunk, nd = n_d - d0 < kTChunk ? n_d - d0 : kTChunk;
+        Bf8Chunk c;
+        load_bf8_chunk<kVec>(c, bands + static_cast<int64_t>(d0) * n, offsets + d0, nd, n, r, rows);
+        const bool add = ci > 0, last = ci == chunks - 1;
+        int64_t b = 0;
+        for (; b + kBfTProbes <= nv; b += kBfTProbes)
+            stencil_t_bf16_group<kVec, kBfTProbes>(c, offsets + d0, nd, x + b * n, out + b * n, mid + b * n, n, r, rows, add,
+                                                   last);
+        for (; b < nv; ++b)
+            stencil_t_bf16_group<kVec, 1>(c, offsets + d0, nd, x + b * n, out + b * n, mid + b * n, n, r, rows, add, last);
+    }
+}
+
+// ---- Pass A, bfloat16 ----
+//
+// A thread loads the q and q_prev rows of kBfProbes probes together, then takes the probes one at a time through the
+// diagonals (a runtime loop), each band vector loaded where it multiplies (an L1 hit after the tile's first probe): a
+// chunk of band values held across the tile's probes measured 50% slower here though it did not spill, and a ring of
+// cp.async copies kept in flight ahead of the arithmetic 18% slower (PERF.md). w goes out in streaming stores.
+
+// acc += the sum over the nd diagonals from offsets[0] (bands: the first one's band row, band rows ld apart) at rows
+// r .. r + 7 of the probe row x, in their order, one multiply-add each.
+template <bool kVec>
+__device__ __forceinline__ void bf8_probe_sum(const bf16* __restrict__ bands, const int64_t* __restrict__ offsets, int nd,
+                                              int64_t ld, const bf16* __restrict__ x, int64_t r, int rows, int64_t lo_b,
+                                              int64_t hi_b, const Bf8& own, unsigned prv, unsigned nxt, float (&acc)[8]) {
+    for (int j = 0; j < nd; ++j) {
+        const int64_t off = __ldg(offsets + j);
+        bf8_fma(acc, bf8_band<kVec>(bands + j * ld, off, r, rows, lo_b, hi_b),
+                bf8_neighbours<kVec>(x, off, r, lo_b, hi_b, own, prv, nxt));
+    }
+}
+
+// Pass A of a bfloat16 step: w = (round ? bf16(A q) : A q) - beta q_prev in float32, zero in the margin columns, and
+// alpha = sum q w; q and q_prev read as stored (the bf16 sweep normalises q every step, so there are no divisors).
+// Probes b .. b + kNP - 1 (the block's p ..) at a thread's rows: their q and q_prev rows loaded together, then probe by
+// probe the stencil sum, the beta-axpy, w's store and dot[p + k] += q w, in the staged kernel's order.
+template <bool kVec, int kNP>
+__device__ __forceinline__ void pass_a_bf16_probes(const bf16* __restrict__ bands, const int64_t* __restrict__ offsets,
+                                                   int n_d, const bf16* __restrict__ v_cur, const bf16* __restrict__ v_prev,
+                                                   float* __restrict__ w, int64_t b, int p, const float* beta_s, int64_t ld,
+                                                   int64_t lo, int64_t n, int64_t r, int rows, int64_t lo_b, int64_t hi_b,
+                                                   int round, float (&dot)[kStepProbes]) {
+    Bf8 own[kNP], pv[kNP];
+    unsigned prv[kNP], nxt[kNP];
+    const bf16* q = v_cur + b * ld + lo;
+    bf8_own<kVec, kNP>(q, ld, r, lo_b, hi_b, own, prv, nxt);
+#pragma unroll
+    for (int k = 0; k < kNP; ++k) {
+        pv[k] = rows > 0 ? bf8_load<kVec>(v_prev + (b + k) * ld + lo, r, lo_b, hi_b) : Bf8{{0u, 0u, 0u, 0u}};
+    }
+#pragma unroll
+    for (int k = 0; k < kNP; ++k) {
+        float acc[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
+        bf8_probe_sum<kVec>(bands + lo, offsets, n_d, ld, q + k * ld, r, rows, lo_b, hi_b, own[k], prv[k], nxt[k], acc);
+        if (rows <= 0) continue;  // a lane past the own rows: it lent its rows to the shuffles
+        const float beta = beta_s[p + k];
+        float out[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            const float s = round ? to_acc(from_acc<bf16>(acc[i])) : acc[i];
+            out[i] = i < rows ? s - beta * bf8_at(pv[k], i) : 0.0f;  // a margin column: 0
+            dot[p + k] += out[i] * bf8_at(own[k], i);
+        }
+        float* row = w + (b + k) * ld + lo;
+        if constexpr (kVec) {  // streaming: keep q's rows in L2 for the round pair
+            __stcs(reinterpret_cast<float4*>(row + r), make_float4(out[0], out[1], out[2], out[3]));
+            __stcs(reinterpret_cast<float4*>(row + r + 4), make_float4(out[4], out[5], out[6], out[7]));
+        } else {
+            store_seg<false>(row, r, n, out);
+        }
+    }
+}
+
+// The staged kernel's arguments; no divisors (state[kDivCur], state[kDivPrev] are not read).
+template <bool kVec>
+__global__ void __launch_bounds__(kStepThreads, kTBlocks) lanczos_pass_a_bf16_kernel(
+    const bf16* __restrict__ bands, const int64_t* __restrict__ offsets, int n_d, const bf16* __restrict__ v_cur,
+    const bf16* __restrict__ v_prev, float* __restrict__ state, float* __restrict__ w, float* __restrict__ partial,
+    unsigned* __restrict__ ticket, float* __restrict__ alpha_out, float* __restrict__ sums, int64_t nv, int64_t ld,
+    int64_t lo, int64_t n, int round) {
+    constexpr int kTile = kStepThreads * 8;
+    __shared__ float beta_s[kStepProbes];
+    const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
+    const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
+    const int64_t lo_b = -lo, hi_b = ld - lo;  // the carry's columns, counted from the first own row
+    if (threadIdx.x < kStepProbes) beta_s[threadIdx.x] = threadIdx.x < np ? state[kBeta * nv + b0 + threadIdx.x] : 0.0f;
+    if (blockIdx.x == 0 && ld > n) {  // the margins of w: zero
+        for (int p = 0; p < np; ++p) {
+            float* row = w + (b0 + p) * ld;
+            for (int64_t c = threadIdx.x; c < lo; c += kStepThreads) row[c] = 0.0f;
+            for (int64_t c = lo + n + threadIdx.x; c < ld; c += kStepThreads) row[c] = 0.0f;
+        }
+    }
+    __syncthreads();
+    float dot[kStepProbes];
+#pragma unroll
+    for (int p = 0; p < kStepProbes; ++p) dot[p] = 0.0f;
+    const int64_t n_tiles = (n + kTile - 1) / kTile;
+    for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int64_t r = t * kTile + threadIdx.x * 8;
+        if (r - (threadIdx.x % 32) * 8 >= n) break;  // this warp's rows, and those of its later tiles, lie past the own rows
+        const int rows = n - r >= 8 ? 8 : n > r ? static_cast<int>(n - r) : 0;
+#pragma unroll
+        for (int p = 0; p < kStepProbes; p += kBfProbes) {
+            if (p >= np) break;
+            if (p + kBfProbes <= np) {
+                pass_a_bf16_probes<kVec, kBfProbes>(bands, offsets, n_d, v_cur, v_prev, w, b0 + p, p, beta_s, ld, lo, n, r, rows,
+                                                    lo_b, hi_b, round, dot);
+            } else {
+#pragma unroll
+                for (int q = p; q < p + kBfProbes; ++q) {
+                    if (q >= np) break;
+                    pass_a_bf16_probes<kVec, 1>(bands, offsets, n_d, v_cur, v_prev, w, b0 + q, q, beta_s, ld, lo, n, r, rows, lo_b,
+                                                hi_b, round, dot);
+                }
+            }
+        }
+    }
+    finish_pass_a(dot, np, b0, partial, ticket, state, alpha_out, sums, nv);
 }
 
 // Pass B: v = w - alpha q in place of w over the own rows (zero in the margins), with
@@ -1082,26 +1439,28 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_round_write_kernel(const
     }
 }
 
-template <typename T, bool kVec>
-cudaError_t launch_stencil_t_as(const T* bands, const int64_t* offsets, int n_d, const T* x, T* out, acc_t<T>* mid,
-                                int64_t nv, int64_t n, cudaStream_t stream) {
-    constexpr int64_t rows = static_cast<int64_t>(kTThreads) * Vec<T>::len;  // rows per block
-    const int64_t blocks = (n + rows - 1) / rows;
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    dia_stencil_t_kernel<T, kVec><<<static_cast<unsigned>(blocks), kTThreads, 0, stream>>>(bands, offsets, n_d, x, out,
-                                                                                         mid, nv, n);
-    return cudaGetLastError();
-}
-
-// mid: an (nv, n) float32 scratch block, needed by a narrow type (bfloat16) with more
-// diagonals than one chunk (kTChunk), null otherwise.
+// mid: an (nv, n) float32 scratch block, needed by bfloat16 with more diagonals than one chunk (kTChunk), ignored
+// by the other types.
 template <typename T>
-cudaError_t launch_stencil_t(const T* bands, const int64_t* offsets, int n_d, const T* x, T* out, acc_t<T>* mid,
-                             int64_t nv, int64_t n, int vec, cudaStream_t stream) {
+cudaError_t launch_stencil_t(const T* bands, const int64_t* offsets, int n_d, const T* x, T* out, float* mid, int64_t nv,
+                             int64_t n, int vec, cudaStream_t stream) {
     if (nv == 0 || n == 0) return cudaSuccess;
     if (kNarrow<T> && n_d > kTChunk && mid == nullptr) return cudaErrorInvalidValue;
-    return vec ? launch_stencil_t_as<T, true>(bands, offsets, n_d, x, out, mid, nv, n, stream)
-               : launch_stencil_t_as<T, false>(bands, offsets, n_d, x, out, mid, nv, n, stream);
+    const int64_t blocks = (n + kTThreads * Vec<T>::len - 1) / (kTThreads * Vec<T>::len);  // a vector a thread
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    const unsigned grid = static_cast<unsigned>(blocks);
+    if constexpr (kNarrow<T>) {
+        if (vec) {
+            dia_stencil_t_bf16_kernel<true><<<grid, kTThreads, 0, stream>>>(bands, offsets, n_d, x, out, mid, nv, n);
+        } else {
+            dia_stencil_t_bf16_kernel<false><<<grid, kTThreads, 0, stream>>>(bands, offsets, n_d, x, out, mid, nv, n);
+        }
+    } else if (vec) {
+        dia_stencil_t_kernel<T, true><<<grid, kTThreads, 0, stream>>>(bands, offsets, n_d, x, out, nv, n);
+    } else {
+        dia_stencil_t_kernel<T, false><<<grid, kTThreads, 0, stream>>>(bands, offsets, n_d, x, out, nv, n);
+    }
+    return cudaGetLastError();
 }
 
 template <typename T, bool kVec>
@@ -1127,32 +1486,39 @@ cudaError_t launch_stencil_nm(const T* bands, const int64_t* offsets, int n_d, c
                : launch_stencil_nm_as<T, false>(bands, offsets, n_d, V, out, n, k, stream);
 }
 
-// The pass A kernel of a carry of element type T: the register kernel for complex, else the staged one.
+// The pass A kernel of a carry of element type T: the register kernels for complex and bfloat16, else the staged one.
 template <typename T, bool kVec>
 auto pass_a_kernel() {
     if constexpr (kCplx<T>) {
         return lanczos_pass_a_kernel<T, kVec>;
+    } else if constexpr (kNarrow<T>) {
+        return lanczos_pass_a_bf16_kernel<kVec>;
     } else {
         return lanczos_pass_a_staged_kernel<T, kVec>;
     }
 }
 
-// Row-tile walkers per probe group of the step's persistent grid: enough blocks to
-// fill every SM at the pass-A kernel's occupancy, at most one per row tile.
-template <typename T>
-int64_t step_blocks(int64_t nv, int64_t n) {
+// Row-tile walkers per probe group of a step kernel's persistent grid: enough blocks to fill every SM at the kernel's
+// occupancy, at most one per row tile of vl-element vectors.
+template <typename K>
+int64_t grid_blocks(K kernel, int64_t nv, int64_t n, int vl) {
     int dev = 0, sms = 0, occ = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, pass_a_kernel<T, true>(), kStepThreads, 0) !=
-            cudaSuccess) {
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kStepThreads, 0) != cudaSuccess) {
         return -1;
     }
     const int64_t groups = (nv + kStepProbes - 1) / kStepProbes;
-    const int64_t tiles = (n + kStepThreads * Vec<T>::len - 1) / (kStepThreads * Vec<T>::len);
+    const int64_t tiles = (n + kStepThreads * vl - 1) / (kStepThreads * vl);
     int64_t gx = static_cast<int64_t>(sms) * (occ > 0 ? occ : 1) / (groups > 0 ? groups : 1);
     if (gx > tiles) gx = tiles;
     return gx > 0 ? gx : 1;
+}
+
+// The grid of both passes at the pass-A kernel's occupancy.
+template <typename T>
+int64_t step_blocks(int64_t nv, int64_t n) {
+    return grid_blocks(pass_a_kernel<T, true>(), nv, n, Vec<T>::len);
 }
 
 inline bool step_grid_ok(int64_t nv, int64_t ld, int64_t lo, int64_t n, int64_t gx) {
@@ -1243,6 +1609,11 @@ int64_t lanczos_step_blocks(int64_t nv, int64_t n, int elem_bytes, int cplx) {
     return elem_bytes == 8 ? step_blocks<double>(nv, n) : elem_bytes == 2 ? step_blocks<bf16>(nv, n) : step_blocks<float>(nv, n);
 }
 
+// The same for the bfloat16 round pair (lanczos_dia_round), at B1's occupancy: its own grid, whatever pass A's is.
+int64_t lanczos_round_blocks(int64_t nv, int64_t n) {
+    return grid_blocks(lanczos_round_norm_kernel<true>, nv, n, Vec<bf16>::len);
+}
+
 const char* primate_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 // The probe-major stencil; mid is the float32 scratch of a bfloat16 call with more
@@ -1254,7 +1625,7 @@ cudaError_t dia_stencil_t_f32(const float* bands, const int64_t* offsets, int n_
 
 cudaError_t dia_stencil_t_f64(const double* bands, const int64_t* offsets, int n_d, const double* x, double* out,
                               void* mid, int64_t nv, int64_t n, int vec, cudaStream_t stream) {
-    return launch_stencil_t(bands, offsets, n_d, x, out, static_cast<double*>(mid), nv, n, vec, stream);
+    return launch_stencil_t(bands, offsets, n_d, x, out, static_cast<float*>(mid), nv, n, vec, stream);
 }
 
 cudaError_t dia_stencil_t_bf16(const void* bands, const int64_t* offsets, int n_d, const void* x, void* out, void* mid,
@@ -1268,13 +1639,13 @@ cudaError_t dia_stencil_t_bf16(const void* bands, const int64_t* offsets, int n_
 cudaError_t dia_stencil_t_c64(const void* bands, const int64_t* offsets, int n_d, const void* x, void* out, void* mid,
                               int64_t nv, int64_t n, int vec, cudaStream_t stream) {
     return launch_stencil_t(static_cast<const c64*>(bands), offsets, n_d, static_cast<const c64*>(x),
-                            static_cast<c64*>(out), static_cast<c64*>(mid), nv, n, vec, stream);
+                            static_cast<c64*>(out), static_cast<float*>(mid), nv, n, vec, stream);
 }
 
 cudaError_t dia_stencil_t_c128(const void* bands, const int64_t* offsets, int n_d, const void* x, void* out, void* mid,
                                int64_t nv, int64_t n, int vec, cudaStream_t stream) {
     return launch_stencil_t(static_cast<const c128*>(bands), offsets, n_d, static_cast<const c128*>(x),
-                            static_cast<c128*>(out), static_cast<c128*>(mid), nv, n, vec, stream);
+                            static_cast<c128*>(out), static_cast<float*>(mid), nv, n, vec, stream);
 }
 
 cudaError_t dia_stencil_c64(const void* bands, const int64_t* offsets, int n_d, const void* V, void* out, int64_t n,

@@ -127,6 +127,9 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 	if stem == "dia_stencil":
 		lib.lanczos_step_blocks.argtypes = [i64, i64, i32, i32]  # nv, n, element bytes, complex
 		lib.lanczos_step_blocks.restype = i64
+		if hasattr(lib, "lanczos_round_blocks"):  # the bf16 round pair's grid; a build of an earlier source lacks it
+			lib.lanczos_round_blocks.argtypes = [i64, i64]  # nv, n
+			lib.lanczos_round_blocks.restype = i64
 	lib.primate_cuda_error_string.argtypes = [i32]
 	lib.primate_cuda_error_string.restype = ctypes.c_char_p
 

@@ -385,7 +385,7 @@ def dia_stencil_t(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -
 	# bfloat16 with more diagonals than the kernel's chunk of band slots: the float32 sums of the
 	# chunks before the last go through this scratch, so the output is rounded once.
 	mid = torch.empty((nv, n), dtype=torch.float32, device=x.device) if x.dtype == torch.bfloat16 and bands.shape[0] > T_CHUNK else None
-	vec = vector_ok(n, x.element_size(), x, out, *([mid] if mid is not None else []))
+	vec = vector_ok(n, x.element_size(), x, out, bands, *([mid] if mid is not None else []))
 	fn = getattr(lib, f"dia_stencil_t_{SUFFIX[x.dtype]}")
 	err = fn(
 		bands.data_ptr(), offsets.data_ptr(), bands.shape[0], x.data_ptr(), out.data_ptr(), mid.data_ptr() if mid is not None else None,
@@ -449,11 +449,15 @@ def _launch_advance(lib, sums, state, alpha_out, beta_out, residual_tol) -> None
 	LAUNCHES["lanczos_dia_advance"] += 1
 
 
-def _launch_round(lib, w, q_cur, state, partial, gx, alpha_out, beta_out, residual_tol, spec, reduce=None, sums=None):
-	"""The round pair on the card: B1 (α from ``state[ALPHA]``, or from the reduced ``sums[0]``: then B1
-	writes the rank's Σv² to ``sums[1]``, ``reduce`` finishes it and ``lanczos_dia_advance`` the step's
-	scalars), then B2. Returns q_next."""
+def _launch_round(lib, w, q_cur, state, alpha_out, beta_out, residual_tol, spec, reduce=None, sums=None):
+	"""The round pair on the card, on a grid of its own (``lanczos_round_blocks``): B1 (α from ``state[ALPHA]``,
+	or from the reduced ``sums[0]``: then B1 writes the rank's Σv² to ``sums[1]``, ``reduce`` finishes it and
+	``lanczos_dia_advance`` the step's scalars), then B2. Returns q_next."""
 	nv = q_cur.shape[0]
+	gx = lib.lanczos_round_blocks(nv, spec.n)
+	if gx < 1:
+		raise RuntimeError("lanczos_dia_round: could not query the CUDA device for the grid size")
+	partial = torch.empty((nv, gx), dtype=torch.float32, device=q_cur.device)
 	q_next = torch.empty_like(q_cur)
 	vec = vector_ok(spec.ld, q_cur.element_size(), w, q_cur, q_next, lead=spec.lo)
 	scal = state.scal
@@ -516,13 +520,7 @@ def lanczos_dia_round(
 	_check_round_cuda("lanczos_dia_round", q_cur, state, alpha_out, beta_out, sums, w=w)
 	from ._build import load_library
 
-	lib = load_library()
-	nv = q_cur.shape[0]
-	gx = lib.lanczos_step_blocks(nv, spec.n, q_cur.element_size(), 0)
-	if gx < 1:
-		raise RuntimeError("lanczos_dia_round: could not query the CUDA device for the grid size")
-	partial = torch.empty((nv, gx), dtype=torch.float32, device=q_cur.device)
-	return _launch_round(lib, w, q_cur, state, partial, gx, alpha_out, beta_out, residual_tol, spec, reduce, sums)
+	return _launch_round(load_library(), w, q_cur, state, alpha_out, beta_out, residual_tol, spec, reduce, sums)
 
 
 def lanczos_dia_round_step(
@@ -550,12 +548,12 @@ def lanczos_dia_round_step(
 
 	lib = load_library()
 	if reduce is None:
-		w, partial, gx, _ = _launch_pass_a(lib, bands, offsets, q_cur, q_prev, s, state.ticket, None, spec, rounded=rounded)
-		return _launch_round(lib, w, q_cur, state, partial, gx, alpha_out, beta_out, residual_tol, spec)
+		w = _launch_pass_a(lib, bands, offsets, q_cur, q_prev, s, state.ticket, None, spec, rounded=rounded)[0]
+		return _launch_round(lib, w, q_cur, state, alpha_out, beta_out, residual_tol, spec)
 	sums = torch.empty((2, q_cur.shape[0]), dtype=torch.float32, device=q_cur.device)
-	w, partial, gx, _ = _launch_pass_a(lib, bands, offsets, q_cur, q_prev, s, state.ticket, None, spec, sums[0], rounded)
+	w = _launch_pass_a(lib, bands, offsets, q_cur, q_prev, s, state.ticket, None, spec, sums[0], rounded)[0]
 	reduce(sums[0])
-	return _launch_round(lib, w, q_cur, state, partial, gx, alpha_out, beta_out, residual_tol, spec, reduce, sums)
+	return _launch_round(lib, w, q_cur, state, alpha_out, beta_out, residual_tol, spec, reduce, sums)
 
 
 def lanczos_dia_step(

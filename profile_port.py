@@ -30,8 +30,11 @@ full-bf16 flagship alone (a bf16 ``DIAOperator`` and ``MatrixFunction(..., dtype
 bf16 kernel and the round pair a step) beside the float32 flagship. ``--complex`` traces phase 15's β sweep
 of ``tr e^{−βH}`` (4 × 48 steps) and its SLQ density (64 steps) alone, on the 4M-site complex64 Hofstadter
 operator: the complex step kernels, passes A and B a step. ``--against DIR`` (repeatable) traces nothing:
-it times pass A (``pass_a_turns``) and the node-major stencil (``stencil_turns``) of this tree and of each
-checkout ``DIR`` in turns at the paths' shapes.
+it times pass A (``pass_a_turns``: bf16 at 500k and 10M rounded, and 10M unrounded on the padded carry in the
+finishing mode, beside the float32/float64/complex rows), the probe-major stencil (``stencil_t_turns``: bf16 at
+64 × 500k and 64 × 10M with 3 diagonals and at the FEM cell, float32/float64, complex64) and the node-major stencil
+(``stencil_turns``) of this tree and of each checkout ``DIR`` in turns at the paths' shapes, and prints
+``-Xptxas -v``'s registers and spills for each build's pass A and stencil kernels.
 Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
@@ -96,7 +99,8 @@ def main() -> None:
 	rows = [] if only else other_calls(torch, ptt, cs, dev)
 	if args.against:
 		libs, rows = build_libs(args.against)
-		rows, calls = rows + pass_a_turns(torch, ptt, cs, dev, libs) + stencil_turns(torch, ptt, cs, dev, libs), {}
+		rows, calls = rows + pass_a_turns(torch, ptt, cs, dev, libs) + stencil_t_turns(torch, ptt, cs, dev, libs) + stencil_turns(
+			torch, ptt, cs, dev, libs), {}
 	elif args.complex:
 		calls = complex_calls(torch, ptt, cs, dev)
 	elif args.bf16:
@@ -136,8 +140,8 @@ def main() -> None:
 
 
 def _ptxas(nvcc: str, err: str) -> list:
-	"""The lines of ``nvcc -Xptxas -v``'s report (``err``) on the pass A kernels and the node-major stencil
-	(``dia_stencil_kernel``): registers, spills, shared memory."""
+	"""The lines of ``nvcc -Xptxas -v``'s report (``err``) on the pass A kernels and the two stencils
+	(the probe-major ``dia_stencil_t`` kernels, the node-major ``dia_stencil_kernel``): registers, spills, shared memory."""
 	from pathlib import Path
 
 	filt, rows, name = Path(nvcc).with_name("cu++filt"), [], None
@@ -148,7 +152,7 @@ def _ptxas(nvcc: str, err: str) -> list:
 			if filt.exists():
 				name = subprocess.run([str(filt), name], capture_output=True, text=True).stdout.strip()
 				name = name[: name.find(">(") + 1] if ">(" in name else name
-		elif name and ("lanczos_pass_a" in name or "dia_stencil_kernel" in name) and ("spill" in line or "Used" in line):
+		elif name and ("lanczos_pass_a" in name or "dia_stencil" in name) and ("spill" in line or "Used" in line):
 			rows.append(f"{name}: {line.strip()}")
 	return rows
 
@@ -225,7 +229,7 @@ def pass_a_turns(torch, ptt, cs, dev, libs, reps: int = 20) -> list:
 			X = torch.randn((nv, n), generator=gen, device=dev, dtype=torch.float32 if dtype == torch.bfloat16 else dtype)
 		return (X / torch.linalg.vector_norm(X, dim=1, keepdim=True)).to(dtype)
 
-	def run(label, bands, offs, v_cur, v_prev, r, bytes_, spec=None):
+	def run(label, bands, offs, v_cur, v_prev, r, bytes_, spec=None, rounded=True):
 		nv = v_cur.shape[0]
 		st0 = dia.lanczos_state(nv, r, dev)
 		for k in (dia.DIV_CUR, dia.DIV_PREV, dia.BETA):
@@ -234,14 +238,15 @@ def pass_a_turns(torch, ptt, cs, dev, libs, reps: int = 20) -> list:
 		for tree, lib in libs:
 			st = dia.LanczosState(st0.scal.clone(), torch.zeros(1, dtype=torch.int32, device=dev))
 			sums = torch.zeros(nv, dtype=r, device=dev) if spec is not None else None
-			launch = functools.partial(dia._launch_pass_a, lib, bands, offs, v_cur, v_prev, st.scal, st.ticket, None, spec, sums)
+			launch = functools.partial(dia._launch_pass_a, lib, bands, offs, v_cur, v_prev, st.scal, st.ticket, None, spec, sums, rounded)
 			w, _, gx, vec = launch()
 			torch.cuda.synchronize()
 			alpha = sums if spec is not None else st.scal[dia.ALPHA].clone()
 			a0 = alpha if a0 is None else a0
-			ents.append((tree, launch, w, {"alpha_max_rel_diff": float(((alpha - a0).abs() / a0.abs().clamp_min(1e-30)).max())}))
+			ents.append((tree, launch, w, {"alpha_max_rel_diff": float(((alpha - a0).abs() / a0.abs().clamp_min(1e-30)).max()),
+				"grid_x": gx}))
 		rows.append(_turns(torch, cs, {"shape": label, "nv": nv, "ld": v_cur.shape[1], "dtype": str(v_cur.dtype).removeprefix("torch."),
-			"grid_x": gx, "vector_path": vec, "bound_ms": bytes_ / cs.HBM_BYTES_PER_S * 1e3}, ents, reps=reps))
+			"rounded": rounded, "vector_path": vec, "bound_ms": bytes_ / cs.HBM_BYTES_PER_S * 1e3}, ents, reps=reps))
 		del ents
 		torch.cuda.empty_cache()
 
@@ -265,10 +270,69 @@ def pass_a_turns(torch, ptt, cs, dev, libs, reps: int = 20) -> list:
 				run(f"{key}_{tag}_padded", cb, op.offsets_t, vc, vp, dtype, (3 * nv * n + 3 * n) * item, spec)
 				del cb, vc, vp
 			del op
-	op = ptt.DIAOperator.from_scipy(cs.build_laplacian(cs.N_LARGE), dtype=torch.bfloat16, device=dev)
-	n = cs.N_LARGE
-	run("bf16_10M", op.bands, op.offsets_t, block(nv, n, torch.bfloat16), block(nv, n, torch.bfloat16), torch.float32,
-		(2 * nv * n + 3 * n) * 2 + nv * n * 4)
+	for n, tag in ((cs.N_FLAGSHIP, "500k"), (cs.N_LARGE, "10M")):
+		op = ptt.DIAOperator.from_scipy(cs.build_laplacian(n), dtype=torch.bfloat16, device=dev)
+		v_cur, v_prev, bytes_ = block(nv, n, torch.bfloat16), block(nv, n, torch.bfloat16), (2 * nv * n + 3 * n) * 2 + nv * n * 4
+		run(f"bf16_{tag}", op.bands, op.offsets_t, v_cur, v_prev, torch.float32, bytes_)
+		if n == cs.N_LARGE:  # the sharded and phys=True sweeps' step: unrounded, on the padded carry, the rank's sums
+			spec = op.carry_spec(nv)
+			cb, vc, vp = op._carry_bands(spec), spec.pad(v_cur), spec.pad(v_prev)
+			del v_cur, v_prev
+			run(f"bf16_{tag}_padded", cb, op.offsets_t, vc, vp, torch.float32, bytes_, spec, rounded=False)
+			del cb, vc, vp
+		del op
+	return rows
+
+
+def stencil_t_turns(torch, ptt, cs, dev, libs, reps: int = 20) -> list:
+	"""The probe-major stencil (``dia_stencil_t``) of each library of ``build_libs`` on the same inputs: bfloat16
+	at 64 × 500k with the flagship's 3 diagonals (phase 24's plain trace), at 64 × 10M with the same 3 (on no
+	path: it tells a fixed cost a launch from a cost a byte) and at the FEM cell ``fem_laplacian_3d(100)`` (64 × 1M,
+	7 diagonals, one chunk); float32 and float64 at 64 × 500k and float32 at the FEM cell; complex64 at phase 15's
+	Hofstadter cell (16 × 4,096,000, 8 diagonals). Per shape the libraries take turns (``_turns``); each output is
+	compared bit for bit with every other library's and with the plain version's on the card."""
+	from benchmarks.matrices import fem_laplacian_3d
+	from primate_tpu_torch.ops import _common, dia
+
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(18)
+	rows = []
+
+	def run(label, bands, offs, X):
+		(nv, n), item, n_d = X.shape, X.element_size(), bands.shape[0]
+		vec = _common.vector_ok(n, item, X)
+		ents = []
+		for tree, lib in libs:
+			o = torch.empty_like(X)
+			fn = getattr(lib, f"dia_stencil_t_{_common.SUFFIX[X.dtype]}")
+
+			def go(fn=fn, lib=lib, o=o):
+				_common.raise_on(lib, fn(bands.data_ptr(), offs.data_ptr(), n_d, X.data_ptr(), o.data_ptr(), None, nv, n, int(vec),
+					_common.stream(dev)), "dia_stencil_t")
+
+			go()
+			ents.append((tree, go, o, {}))
+		rows.append(_turns(torch, cs, {"stencil_t": label, "nv": nv, "n": n, "n_d": n_d, "dtype": str(X.dtype).removeprefix("torch."),
+			"vector_path": vec, "bound_ms": (2 * nv * n + n_d * n) * item / cs.HBM_BYTES_PER_S * 1e3}, ents,
+			[("plain", dia.dia_stencil_t_ref(bands, offs, X))], reps))
+		del ents
+		torch.cuda.empty_cache()
+
+	nv = cs.PROBES
+	for n, tag in ((cs.N_FLAGSHIP, "500k"), (cs.N_LARGE, "10M")):
+		for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32"), (torch.float64, "f64")):
+			if n == cs.N_LARGE and dtype != torch.bfloat16:
+				continue
+			op = ptt.DIAOperator.from_scipy(cs.build_laplacian(n), dtype=dtype, device=dev)
+			run(f"{key}_{tag}", op.bands, op.offsets_t, torch.randn((nv, n), generator=gen, device=dev).to(dtype))
+			del op
+	A = fem_laplacian_3d(cs.FEM_SIDE)
+	for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+		D = ptt.DIAOperator.from_scipy(A, dtype=dtype, device=dev)
+		run(f"{key}_fem", D.bands, D.offsets_t, torch.randn((nv, D.shape[0]), generator=gen, device=dev).to(dtype))
+		del D
+	H = ptt.DIAOperator.from_scipy(cs.hofstadter_csr(**cs.TB), dtype=torch.complex64, device=dev)
+	run("c64_cell", H.bands, H.offsets_t, torch.view_as_complex(torch.randn((cs.TB_NV, H.shape[0], 2), generator=gen, device=dev)))
 	return rows
 
 

@@ -1175,6 +1175,162 @@ def test_bf16_sweeps_on_the_card_match_the_cpu_port(cuda):
 			assert float((gv.cpu() - wv).abs().max() / wv.abs().max()) <= 1e-3
 
 
+# --- bfloat16: the register kernels of pass A and the probe-major stencil ---------------------------
+#
+# (nv, n, offsets, lead). Neighbours from the lane's own rows and one word of the neighbouring lane's
+# (±1, ±2; lanes 0 and 31 load that word), from one whole 16-byte vector (±8, ±1024), from two aligned
+# vectors and a byte permute (±3 … ±7, ±9, ±100); more diagonals than a chunk of 8; n not a multiple of
+# a tile of 2048 rows; probe counts past and below a group of 4; a block that starts one element into
+# its buffer (the scalar path).
+BF16_PASS_A_CASES = {
+	"near": (64, 20_000, (-2, -1, 0, 1, 2), 0),
+	"permute": (13, 5_000, (-7, -6, -5, -4, -3, 0, 3, 4, 5, 6, 7), 0),
+	"whole": (7, 12_296, (-1024, -8, 0, 8, 1024), 0),
+	"far": (9, 3_000, (-100, -9, 0, 9, 100), 0),
+	"all_small": (5, 4_104, tuple(range(-9, 10)), 0),
+	"single_probe": (1, 40_000, (-1, 0, 1), 0),
+	"scalar_path": (13, 3_001, (-9, -2, -1, 0, 1, 2, 9), 1),
+}
+
+
+def _bf16_carry(dev, nv, n, lead, g):
+	"""Unit rows in bf16, in a block that starts ``lead`` elements into its buffer."""
+	X = torch.randn((nv, n), generator=g, device=dev)
+	X = (X / torch.linalg.vector_norm(X, dim=1, keepdim=True)).to(BF16)
+	return torch.empty(lead + nv * n, device=dev, dtype=BF16)[lead:].view(nv, n).copy_(X)
+
+
+@pytest.mark.parametrize("rounded", [True, False], ids=["rounded", "unrounded"])
+@pytest.mark.parametrize("case", list(BF16_PASS_A_CASES))
+def test_bf16_pass_a_register_kernel(cuda, case, rounded):
+	"""bf16 pass A through its wrapper against its plain version: rounded, every entry of w within 1e-5 of
+	the largest but for one-ulp flips of the stencil sum on at most 1e-4 of the entries; unrounded, within
+	1e-5; α within 1e-4 relative. One launch, on the scalar path only for the misaligned block."""
+	nv, n, offsets, lead = BF16_PASS_A_CASES[case]
+	g = torch.Generator(device=cuda)
+	g.manual_seed(18)
+	bands = (torch.rand((len(offsets), n), generator=g, device=cuda) + 0.5).to(BF16)
+	offs = torch.tensor(offsets, dtype=torch.int64, device=cuda)
+	q, qp = _bf16_carry(cuda, nv, n, lead, g), _bf16_carry(cuda, nv, n, lead, g)
+	beta = torch.rand(nv, generator=g, device=cuda) + 0.5
+	before, scalar = dict(_common.BF16_LAUNCHES), _common.SCALAR_LAUNCHES["lanczos_dia_step"]
+	v, alpha = dia.lanczos_dia_step(bands, offs, q, qp, beta, rounded=rounded)
+	torch.cuda.synchronize()
+	assert _common.BF16_LAUNCHES["lanczos_dia_step"] == before["lanczos_dia_step"] + 1
+	assert _common.SCALAR_LAUNCHES["lanczos_dia_step"] == scalar + (case == "scalar_path")
+	v_ref, alpha_ref = dia.lanczos_dia_step_ref(bands, offs, q, qp, beta, rounded=rounded)
+	if rounded:
+		_assert_rounded_pass_a(v, bands, offs, q, qp, beta)
+	else:
+		assert float((v - v_ref).abs().max()) <= 1e-5 * float(v_ref.abs().max())
+	assert float(((alpha - alpha_ref).abs() / alpha_ref.abs()).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("halo", [False, True], ids=["zero_margins", "halo_margins"])
+@pytest.mark.parametrize("shape", PADDED_SHAPES)
+def test_bf16_pass_a_finishing_mode_and_a_done_probe(cuda, shape, halo):
+	"""bf16 pass A unrounded on the padded carry, launched as the sharded sweep launches it: in the finishing
+	mode (the rank's α sums, the state left alone) and in the whole mode (the last block writes α to the
+	state and to ``alpha_out``, zero for a probe that is done). With ``halo_margins`` the margins hold data, as
+	after a halo exchange: the lanes past the own rows hold it for their neighbours. w's margins exactly zero."""
+	from primate_tpu_torch.ops._build import load_library
+
+	nv, n, offsets = shape
+	g = torch.Generator(device=cuda)
+	g.manual_seed(19)
+	spec = dia.carry_spec(n, max(abs(o) for o in offsets), 2)
+	bands = spec.pad((torch.rand((len(offsets), n), generator=g, device=cuda) + 0.5).to(BF16))
+	offs = torch.tensor(offsets, dtype=torch.int64, device=cuda)
+	q, qp = (spec.pad(_bf16_carry(cuda, nv, n, 0, g)) for _ in range(2))
+	if halo:
+		for X in (q, qp):
+			X[:, : spec.lo] = (torch.randn((nv, spec.lo), generator=g, device=cuda) / n**0.5).to(BF16)
+			X[:, spec.lo + n :] = (torch.randn((nv, spec.ld - spec.lo - n), generator=g, device=cuda) / n**0.5).to(BF16)
+	beta = torch.rand(nv, generator=g, device=cuda) + 0.5
+	v_ref, alpha_ref = dia.lanczos_dia_step_ref(bands, offs, q, qp, beta, spec, rounded=False)
+	lib, tol = load_library(), 1e-5 * float(v_ref.abs().max())
+	for finishing in (True, False):
+		state = dia.lanczos_state(nv, torch.float32, cuda)
+		state.scal[dia.BETA] = beta
+		state.scal[dia.DONE, 0] = 1.0
+		sums, alpha_out = torch.full((nv,), -1.0, device=cuda), torch.full((nv,), -1.0, device=cuda)
+		scal0 = state.scal.clone()
+		v, _, _, vec = dia._launch_pass_a(lib, bands, offs, q, qp, state.scal, state.ticket, None if finishing else alpha_out, spec,
+			sums if finishing else None, rounded=False)
+		torch.cuda.synchronize()
+		assert vec and int(state.ticket) == 0
+		assert not v[:, : spec.lo].any() and not v[:, spec.lo + n :].any()
+		assert float((v - v_ref).abs().max()) <= tol
+		if finishing:
+			assert torch.equal(state.scal, scal0) and bool((alpha_out == -1).all())
+			got = sums
+		else:
+			got = state.scal[dia.ALPHA]
+			assert float(alpha_out[0]) == 0.0 and torch.equal(alpha_out[1:], got[1:]) and bool((sums == -1).all())
+		assert float(((got - alpha_ref).abs() / alpha_ref.abs()).max()) <= 1e-4
+
+
+# (nv, n, offsets, lead) for the bf16 probe-major stencil: one full chunk of 8 diagonals, and 9 (the second
+# chunk starts from the float32 scratch), with neighbours of all three kinds; the flagship's 3 at a width
+# that is not whole blocks of 2048 rows; the scalar path.
+BF16_T_CASES = {
+	"chunk_8": (13, 20_000, (-100, -9, -2, -1, 0, 1, 8, 100), 0),
+	"chunks_9": (7, 12_008, (-100, -9, -8, -2, -1, 0, 1, 3, 100), 0),
+	"flagship": (64, 30_000, (-1, 0, 1), 0),
+	"chunk_8_scalar": (6, 3_000, (-100, -9, -2, -1, 0, 1, 8, 100), 1),
+	"chunks_9_scalar": (5, 3_001, (-100, -9, -8, -2, -1, 0, 1, 3, 100), 0),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_T_CASES))
+def test_bf16_stencil_t_register_kernel(cuda, case):
+	"""bf16 ``dia_stencil_t`` against its plain version, within one bf16 ulp of the largest entry; one launch,
+	on the scalar path only where n or the block's start rules out 16-byte vectors."""
+	nv, n, offsets, lead = BF16_T_CASES[case]
+	g = torch.Generator(device=cuda)
+	g.manual_seed(20)
+	bands = (torch.rand((len(offsets), n), generator=g, device=cuda) + 0.5).to(BF16)
+	offs = torch.tensor(offsets, dtype=torch.int64, device=cuda)
+	x = _bf16_carry(cuda, nv, n, lead, g)
+	before, scalar = _common.BF16_LAUNCHES["dia_stencil_t"], _common.SCALAR_LAUNCHES["dia_stencil_t"]
+	got = dia.dia_stencil_t(bands, offs, x)
+	torch.cuda.synchronize()
+	assert _common.BF16_LAUNCHES["dia_stencil_t"] == before + 1
+	assert _common.SCALAR_LAUNCHES["dia_stencil_t"] == scalar + (lead > 0 or n % 8 != 0)
+	want = dia.dia_stencil_t_ref(bands, offs, x)
+	assert got.dtype == BF16 and float((got.float() - want.float()).abs().max()) <= _ulp_of_max(want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64], ids=lambda v: str(v).replace("torch.", ""))
+def test_other_dtypes_keep_their_pass_a_kernels(cuda, dtype):
+	"""float32, float64 and complex64 pass A launch their own kernels (not the bf16 one) and, on a fixed
+	small input whose every product and sum is exact (small integers, divisors powers of two), equal the plain
+	pass A bit for bit: w, α, and ``alpha_out`` zero for the done probe."""
+	from primate_tpu_torch.ops._build import load_library
+
+	nv, n, offsets = 9, 512, (-9, -2, -1, 0, 1, 8, 100)  # every partial sum of α below 2^24 units of its last bit
+	idx = torch.arange(nv * n, device=cuda, dtype=torch.int64)
+	ints = lambda m, shift: ((idx * 7 + shift) % m - m // 2).to(torch.float64)  # noqa: E731
+	part = lambda v: v.to(dtype) if not dtype.is_complex else torch.complex(v, ints(5, 3)[: v.numel()].view(v.shape)).to(dtype)  # noqa: E731
+	v_cur, v_prev = part(ints(9, 1).view(nv, n)), part(ints(7, 2).view(nv, n))
+	bands = part(ints(5, 4)[: len(offsets) * n].view(len(offsets), n))
+	offs = torch.tensor(offsets, dtype=torch.int64, device=cuda)
+	r = real_dtype(dtype)
+	state = dia.lanczos_state(nv, r, cuda)
+	state.scal[dia.DIV_CUR] = 2.0 ** torch.arange(nv, device=cuda, dtype=r).remainder(3)
+	state.scal[dia.DIV_PREV] = 0.5
+	state.scal[dia.BETA] = torch.arange(nv, device=cuda, dtype=r) - 4
+	state.scal[dia.DONE, 2] = 1.0
+	ref = dia.LanczosState(state.scal.clone(), state.ticket.clone())
+	a, a_ref = torch.empty(nv, dtype=r, device=cuda), torch.empty(nv, dtype=r, device=cuda)
+	before = dict(_common.BF16_LAUNCHES), dia.LAUNCHES["lanczos_dia_step"]
+	w, _, _, vec = dia._launch_pass_a(load_library(), bands, offs, v_cur, v_prev, state.scal, state.ticket, a)
+	w_ref = dia.lanczos_sweep_pass_a_ref(lambda q: dia.dia_stencil_t_ref(bands, offs, q), v_cur, v_prev, ref, a_ref)
+	torch.cuda.synchronize()
+	assert vec and _common.BF16_LAUNCHES == before[0] and dia.LAUNCHES["lanczos_dia_step"] == before[1] + 1
+	assert torch.equal(w, w_ref) and torch.equal(state.scal, ref.scal) and torch.equal(a, a_ref) and float(a[2]) == 0.0
+
+
 # --- bfloat16: the round pair that finishes a bf16 step after pass A ------------------------------
 #
 # (nv, n, max offset of the padded carry or None for the flat one, lead): probe counts past and below
