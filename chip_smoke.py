@@ -11,8 +11,10 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    and, where one PyTorch call computes the same function, that call (``library_ms``);
    then the two passes and ``lanczos_dia_advance`` on the padded carry (``DIAOperator.carry_spec``,
    the layout of ``lanczos_block_op(phys=True)`` and of the row-sharded sweep) at 64 × 500k and
-   64 × 10M, in the row-sharded mode, against their plain versions, the carry's margins exactly
-   zero, each timed beside its plain version and bound;
+   64 × 10M, in the row-sharded mode (each step's finish left for the next step's pass A, the last
+   one run by the advance kernel), against their plain versions, the carry's margins exactly zero,
+   pass A with a pending finish bit for bit the advance kernel and then pass A, each timed beside its
+   plain version and bound, the advance split into host and device time a launch;
 3. runs the flagship SLQ logdet (``bench.py``'s configuration) at n = 500,000 in
    float32: the estimate must be within 5% of the exact logdet, and both step
    kernels must have launched deg × batches times;
@@ -124,15 +126,17 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    H = A + i·s(B − Bᵀ), phase 7's cell A with a seeded real block operator B on its pattern, as a
    complex64 BSR operator (tr H = tr A), through the complex ``bsr_spmm``; its adjoint against the
    conjugate transpose; the complex64 kernel against its plain version at k = 64 and 240, timed
-   beside its bound, plain version and library call, and complex128 at a small shape;
+   beside its bound, plain version and library call, and complex128 at a small shape whose V fits in
+   L2 (the L2 path: float64 MMAs, within 1e-14), with host and device time a call and complex64 there;
 22. runs the five port examples (``primate_tpu_torch.examples``) at their own sizes, each with its
    checks against closed forms or a dense reference;
 23. runs the sharded path (``primate_tpu_torch.parallel``). (a) One rank over NCCL, in this process:
    the 10M flagship through ``shard_operator(DIAOperator(L))`` at ``orth`` 0 and 5 against the
    unsharded operator on the same probes (α, β and the estimate within float32's 1e-4, the estimate
    within 5% of the exact logdet; the sharded sweep's step is the halo exchange and the step kernels
-   on the padded carry: passes A and B and ``lanczos_dia_advance`` deg times each at ``orth = 0``,
-   pass A deg times at 5, ``dia_stencil_t`` no time), walls and peak memory of both;
+   on the padded carry: passes A and B deg times each and ``lanczos_dia_advance`` once, for the last
+   step's finish, at ``orth = 0``; pass A deg times at 5; ``dia_stencil_t`` no time), walls and peak
+   memory of both;
    ``lanczos_block_op(phys=True)`` on the 10M operator against the flat sweep (α, β within 1e-4);
    the sharded operator's global face in both layouts at the flagship shape (``dia_stencil_t``, on
    its vector path, and ``dia_stencil`` once each, equal to the unsharded applies); phase 7's
@@ -159,8 +163,9 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    held to its plain version, the PyTorch tail it replaces, on pass A's output at 64 × 500k and 64 × 10M,
    flat and padded (α outputs and done flags equal, β' within 1e-6, q_next equal but for one-ulp flips
    on at most 1e-4 of its entries), B1, B2 and the pair timed beside their bounds and the tail; every
-   full-bf16 sweep of the phase runs pass A and the pair once a step (the sharded ones the advance too)
-   and pass B never; the 10M and 500k wall and peak ratios against float32 go out on lines of their own.
+   full-bf16 sweep of the phase runs pass A and the pair once a step (the sharded ones too: B2 finishes
+   their steps) and pass B and the advance never; the 10M and 500k wall and peak ratios against float32
+   go out on lines of their own.
 
 Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
 (``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
@@ -188,8 +193,9 @@ and ``bsr_spmm`` their forward and backward launches in phase 20 (``grad_launche
 launches in phase 21's estimator calls; every kernel its launches through the sharded operators in
 phase 23 (a) (``sharded_launches``) and on both ranks of (b) (``sharded_two_rank_launches``); the
 two passes and ``lanczos_dia_advance`` their padded-carry numbers under ``padded_500k_``/``padded_10M_``
-keys (the advance kernel's own numbers are its 500k ones, and its launches those of phase 23 (a)'s
-sharded flagship, the one path that runs it); the four kernels of phase 24 their bf16 numbers under
+keys (the advance kernel's own numbers are its 500k ones, with ``host_ms``/``device_ms`` a launch, its
+launches those of phase 23 (a)'s sharded flagship, once a sweep, and ``launches_a_sweep`` its launches on
+each sharded sweep of phases 23-24); the four kernels of phase 24 their bf16 numbers under
 ``bf16_`` keys (pass A's 64 × 10M ones under ``bf16_10M_``), and every kernel its bf16 launches on
 phase 24's calls (``bf16_launches``; 0 for pass B and the advance, which have no bf16 instantiation);
 the round pair, bfloat16 only, takes its plain keys and its launches from phase 24 (64 × 500k, flat;
@@ -215,6 +221,9 @@ KERNELS = (
 )
 # Kernels that only a row-sharded sweep launches (phase 23): the phases of unsharded calls launch them no time.
 SHARDED_ONLY = ("lanczos_dia_advance",)
+# The standalone finishes (``lanczos_dia_advance``) of each row-sharded sweep of phases 23-24, as counted there:
+# one a float32 sweep (its last step's; the others run in the next step's pass A), none a bfloat16 one (B2).
+ADVANCE_A_SWEEP = {}
 # Kernels that only a bfloat16 sweep launches (phase 24): the float32 phases launch them no time.
 BF16_ONLY = ("lanczos_dia_round",)
 SOURCE = {
@@ -356,6 +365,47 @@ def time_ms(torch, fn, reps: int = 20) -> float:
 	end.record()
 	torch.cuda.synchronize()
 	return start.elapsed_time(end) / reps
+
+
+def launch_times(torch, fn, reps: int = 200) -> dict:
+	"""A call's time split into host and device: ``host_ms`` the host clock over a burst of ``reps`` calls with no
+	sync (what the host spends to enqueue one), ``device_ms`` the profiler's device time of the kernels a call runs,
+	``one_launch_events_ms`` CUDA events around one call after a sync (the median of 20), ``burst_events_ms`` CUDA
+	events over the burst (:func:`time_ms`'s way), each per call. Where ``host_ms`` exceeds ``device_ms`` the host
+	sets the time of a burst."""
+	from torch.autograd import DeviceType
+	from torch.profiler import ProfilerActivity, profile
+
+	fn()
+	torch.cuda.synchronize()
+	t0 = time.perf_counter()
+	for _ in range(reps):
+		fn()
+	host_ms = (time.perf_counter() - t0) * 1e3 / reps
+	torch.cuda.synchronize()
+	start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+	one = []
+	for _ in range(20):
+		torch.cuda.synchronize()
+		start.record()
+		fn()
+		end.record()
+		torch.cuda.synchronize()
+		one.append(start.elapsed_time(end))
+	start.record()
+	for _ in range(reps):
+		fn()
+	end.record()
+	torch.cuda.synchronize()
+	burst = start.elapsed_time(end) / reps
+	with profile(activities=[ProfilerActivity.CUDA]) as prof:
+		for _ in range(reps):
+			fn()
+		torch.cuda.synchronize()
+	dev_ms = lambda e: (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)) / 1e3  # noqa: E731
+	kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_ms(e) > 0]
+	return {"host_ms": host_ms, "device_ms": sum(dev_ms(e) for e in kernels) / reps, "one_launch_events_ms": statistics.median(one),
+		"burst_events_ms": burst, "device_kernels": {e.key[:60]: e.count / reps for e in kernels}}
 
 
 def bound(bytes_: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S) -> tuple:
@@ -510,9 +560,12 @@ def check_kernels(torch, dia, dev) -> dict:
 def check_padded_kernels(torch, dia, dev) -> dict:
 	"""Phase 2 on the padded carry (``DIAOperator.carry_spec``: the layout of ``lanczos_block_op(phys=True)``
 	and of the row-sharded sweep) at the flagship's 64 × 500k and 64 × 10M, float32: two whole steps in
-	the row-sharded mode (pass A, pass B, ``lanczos_dia_advance``; an identity all-reduce) against the
-	plain step, the margins exactly zero, and each kernel timed in that mode beside its plain version
-	and bound. Returns ``{kernel: {"padded_<shape>_ms", ...}}`` and the advance kernel's own entry."""
+	the row-sharded mode (an identity all-reduce; pass A and pass B a step, each step's finish left pending
+	for the next step's pass A and the last one run by ``lanczos_dia_finish``, the advance kernel) against the
+	eager plain step, the margins exactly zero, and each kernel timed in that mode beside its plain version
+	and bound: pass A also with a pending finish (``folded_ms``, in turns with pass A without one), the advance
+	kernel also split into host and device time (:func:`launch_times`). Returns ``{kernel: {"padded_<shape>_ms",
+	...}}`` and the advance kernel's own entry."""
 	from primate_tpu_torch.ops import _common
 	from primate_tpu_torch.ops._build import load_library
 
@@ -546,17 +599,22 @@ def check_padded_kernels(torch, dia, dev) -> dict:
 
 		st, st_ref = mid_sweep_state(), mid_sweep_state()
 		blocks, blocks_ref = (v_cur, v_prev), (v_cur, v_prev)
-		errs_w, errs_ab, margins = [], [], 0.0
-		scalar_before = dict(_common.SCALAR_LAUNCHES)
-		for _ in range(2):
-			ab, ab_ref = torch.empty((2, nv), dtype=dtype, device=dev), torch.empty((2, nv), dtype=dtype, device=dev)
-			w = dia.lanczos_dia_sweep_step(bands, offs, *blocks, st, ab[0], ab[1], 1e-8, spec, lambda t: t)
-			w_ref = dia.lanczos_sweep_step_ref(apply_ref, *blocks_ref, st_ref, ab_ref[0], ab_ref[1], 1e-8, spec=spec)
+		errs_w, margins = [], 0.0
+		scalar_before, launch_before = dict(_common.SCALAR_LAUNCHES), dict(dia.LAUNCHES)
+		ab, ab_ref = torch.empty((2, 2, nv), dtype=dtype, device=dev), torch.empty((2, 2, nv), dtype=dtype, device=dev)
+		for j in range(2):
+			w = dia.lanczos_dia_sweep_step(bands, offs, *blocks, st, ab[j, 0], ab[j, 1], 1e-8, spec, lambda t: t)
+			w_ref = dia.lanczos_sweep_step_ref(apply_ref, *blocks_ref, st_ref, ab_ref[j, 0], ab_ref[j, 1], 1e-8, spec=spec)
 			blocks, blocks_ref = (w, blocks[0]), (w_ref, blocks_ref[0])
 			errs_w.append(_rel_err(torch, w, w_ref))
-			errs_ab.append(float(((ab - ab_ref).abs() / ab_ref.abs()).max()))
 			margins = max(margins, float(w[:, : spec.lo].abs().max()), float(w[:, spec.lo + n :].abs().max()))
+		dia.lanczos_dia_finish(st)  # the second step's finish (the first one's ran in the second step's pass A)
 		torch.cuda.synchronize()
+		sweep_launches = {k: dia.LAUNCHES[k] - launch_before[k] for k in ("lanczos_dia_step", "lanczos_dia_residual", "lanczos_dia_advance")}
+		errs_ab = [float(((ab - ab_ref).abs() / ab_ref.abs()).max())]
+		rows_ = [dia.DIV_CUR, dia.DIV_PREV, dia.BETA, dia.ALPHA]
+		errs_ab.append(float(((st.scal[rows_] - st_ref.scal[rows_]).abs() / st_ref.scal[rows_].abs()).max()))
+		done_same = torch.equal(st.scal[dia.DONE], st_ref.scal[dia.DONE])
 		scalar = {k: _common.SCALAR_LAUNCHES[k] - scalar_before[k] for k in ("lanczos_dia_step", "lanczos_dia_residual")}
 		rel_w, rel_ab = max(e[1] for e in errs_w), max(errs_ab)
 		# The advance kernel alone against its plain version, from the same sums and state.
@@ -568,9 +626,22 @@ def check_padded_kernels(torch, dia, dev) -> dict:
 		dia.lanczos_dia_advance_ref(sums, st_b, ab_b[0], ab_b[1], 1e-8)
 		torch.cuda.synchronize()
 		err_adv = max(float((st_a.scal - st_b.scal).abs().max()), float((ab_a - ab_b).abs().max()))
+		# Pass A with a pending finish (the step before's, from seeded sums) against the advance kernel, then pass A.
+		fin_a = dia.Finish(sums.clone(), torch.empty(nv, dtype=dtype, device=dev), torch.empty(nv, dtype=dtype, device=dev), 1e-8)
+		fin_b = dia.Finish(sums.clone(), torch.empty(nv, dtype=dtype, device=dev), torch.empty(nv, dtype=dtype, device=dev), 1e-8)
+		st_a, st_b = mid_sweep_state(), mid_sweep_state()
+		s_a, s_b = torch.empty(nv, dtype=dtype, device=dev), torch.empty(nv, dtype=dtype, device=dev)
+		w_fa = dia._launch_pass_a(lib, bands, offs, v_cur, v_prev, st_a.scal, st_a.ticket, None, spec, s_a, pending=fin_a)[0]
+		dia._launch_advance(lib, fin_b.sums, st_b, fin_b.alpha_out, fin_b.beta_out, 1e-8)
+		w_fb = dia._launch_pass_a(lib, bands, offs, v_cur, v_prev, st_b.scal, st_b.ticket, None, spec, s_b)[0]
+		torch.cuda.synchronize()
+		folded_bits = (torch.equal(w_fa, w_fb) and torch.equal(s_a, s_b) and torch.equal(st_a.scal, st_b.scal)
+			and torch.equal(fin_a.alpha_out, fin_b.alpha_out) and torch.equal(fin_a.beta_out, fin_b.beta_out))
+		del w_fa, w_fb
 		row = {"phase": "padded_kernel_check", "shape": label, "nv": nv, "n": n, "ld": spec.ld, "lo": spec.lo,
 			"offsets": list(offsets), "dtype": "float32", "whole_step_v_rel_err": rel_w, "whole_step_alpha_beta_rel_err": rel_ab,
-			"margin_max_abs": margins, "scalar_launches": scalar, "advance_max_abs_err": err_adv}
+			"done_flags_equal": done_same, "margin_max_abs": margins, "scalar_launches": scalar, "sweep_launches": sweep_launches,
+			"advance_max_abs_err": err_adv, "folded_pass_a_equals_advance_then_pass_a": folded_bits}
 		# Timed in the row-sharded mode, as the sharded sweep runs them.
 		st, st_ref = mid_sweep_state(), mid_sweep_state()
 		ab = torch.empty((2, nv), dtype=dtype, device=dev)
@@ -601,11 +672,26 @@ def check_padded_kernels(torch, dia, dev) -> dict:
 			entry.update({f"padded_{label}_ms": ms, f"padded_{label}_plain_ms": plain_ms, f"padded_{label}_bound_ms": b_ms,
 				f"padded_{label}_max_abs_err": errs[k]})
 			if k == "lanczos_dia_advance" and label == "500k":  # its entry in the kernels line: nv = 64
+				split = launch_times(torch, kern)
 				entry.update({"max_abs_err": err_adv, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-					"library_ms": None})
+					"library_ms": None, "host_ms": split["host_ms"], "device_ms": split["device_ms"],
+					"one_launch_events_ms": split["one_launch_events_ms"]})
+				row.update({"advance_host_ms": split["host_ms"], "advance_device_ms": split["device_ms"]})
+		# Pass A with the step before's finish pending, in turns with pass A without one (the row-sharded mode), on a
+		# state of their own: the finish's sums stay as seeded, so every launch finds the same positive divisors.
+		fin = dia.Finish(torch.rand((2, nv), generator=gen, device=dev, dtype=dtype) + 0.5, ab[0].clone(), ab[1].clone(), 1e-8)
+		st_f, s_out = mid_sweep_state(), torch.empty((2, nv), dtype=dtype, device=dev)
+		no_fin, with_fin = (
+			lambda: dia._launch_pass_a(lib, bands, offs, v_cur, v_prev, st_f.scal, st_f.ticket, None, spec, s_out[0]),
+			lambda: dia._launch_pass_a(lib, bands, offs, v_cur, v_prev, st_f.scal, st_f.ticket, None, spec, s_out[1], pending=fin),
+		)
+		t_no, t_with = _timed_pair(torch, no_fin, with_fin, reps)
+		row.update({"lanczos_dia_step_folded_ms": t_with, "lanczos_dia_step_unfolded_ms": t_no})
+		out["lanczos_dia_step"].update({f"padded_{label}_folded_ms": t_with, f"padded_{label}_unfolded_ms": t_no})
 		emit(row)
-		if not (rel_w <= STENCIL_TOL["float32"] and rel_ab <= ALPHA_TOL["float32"] and margins == 0.0 and err_adv <= 1e-6
-			and not any(scalar.values())):
+		want_launches = {"lanczos_dia_step": 2, "lanczos_dia_residual": 2, "lanczos_dia_advance": 1}
+		if not (rel_w <= STENCIL_TOL["float32"] and rel_ab <= ALPHA_TOL["float32"] and done_same and margins == 0.0 and err_adv <= 1e-6
+			and not any(scalar.values()) and folded_bits and sweep_launches == want_launches):
 			raise AssertionError(f"the step kernels on the padded carry disagree with their plain versions: {row}")
 		del bands, v_cur, v_prev, blocks, blocks_ref, w, w_ref, w_a, w_b_ref, partial
 		torch.cuda.empty_cache()
@@ -2727,7 +2813,10 @@ def complex_bsr(torch, ptt, dev, reps: int = 10) -> dict:
 	A's pattern, complex64: Hutchinson (phase probes) within 5σ of tr H = tr A, and phase 7's calls
 	(Hutch++, XTrace, XNysTrace within 1e-3, XDiag finite) through the complex kernel; the adjoint
 	against the conjugate transpose; the kernel against its plain version at k = 64 and 240, timed
-	beside its bound, its plain version and the library call, and complex128 at a small shape (the same numbers)."""
+	beside its bound, its plain version and the library call, and complex128 at a small shape whose V fits in L2
+	(``block_random_spd(CBSR_C128_N)``, k = 64: the same numbers, the L2 path's launch, host and device time a call
+	split by :func:`launch_times`, the share of the least bound, and complex64 at the same shape beside it)."""
+	from primate_tpu_torch.ops import _common
 	from primate_tpu_torch.ops import bsr
 	from primate_tpu_torch.ops.autograd import bsr_transpose
 
@@ -2822,22 +2911,38 @@ def complex_bsr(torch, ptt, dev, reps: int = 10) -> dict:
 	blocks = torch.complex(As.blocks, torch.randn(As.blocks.shape, generator=gen, device=dev, dtype=torch.float64))
 	V = torch.randn((CBSR_C128_N, 64), generator=gen, device=dev, dtype=torch.complex128)
 	args = (blocks, As.indptr, As.indices, V, CBSR_C128_N)
+	l2_before = _common.L2_LAUNCHES["bsr_spmm"]
 	got, want = bsr.bsr_spmm(*args), bsr.bsr_spmm_ref(*args)
 	torch.cuda.synchronize()
+	l2_path = _common.L2_LAUNCHES["bsr_spmm"] - l2_before
 	err, rel = _rel_err(torch, got, want)
 	ms, plain_ms = _timed_pair(torch, lambda: bsr.bsr_spmm(*args), lambda: bsr.bsr_spmm_ref(*args), reps)
 	b_ms, b_by = bound((blocks.numel() + 2 * CBSR_C128_N * 64) * 16, 8 * blocks.numel() * 64, FP64_FLOP_PER_S)
+	split = launch_times(torch, lambda: bsr.bsr_spmm(*args), 100)
 	B_lib = torch.sparse_bsr_tensor(As.indptr, As.indices, blocks, size=As.pshape)
 	lib_ms, lib_note = library_ms(torch, lambda: B_lib @ V, want, reps)  # complex128 cuSPARSE BSR
 	row = {"phase": "complex_bsr_kernel_check", "kernel": "bsr_spmm", "shape": f"block_random_spd({CBSR_C128_N})", "k": 64,
-		"dtype": "complex128", "tiles": int(blocks.shape[0]), "max_abs_err": err, "rel_err": rel, "tol": CPLX_TOL["complex128"],
-		"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-		"library_rel_err_or_error": lib_note}
+		"dtype": "complex128", "tiles": int(blocks.shape[0]), "v_bytes": V.numel() * 16, "l2_path_launches": l2_path,
+		"max_abs_err": err, "rel_err": rel, "tol": CPLX_TOL["complex128"], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+		"bound_by": b_by, "share_of_bound": b_ms / ms, "host_ms": split["host_ms"], "device_ms": split["device_ms"],
+		"share_of_bound_device": b_ms / split["device_ms"], "library_ms": lib_ms, "library_rel_err_or_error": lib_note}
+	# complex64 at the same shape (the ring kernel), the same numbers.
+	args64 = (blocks.to(torch.complex64), As.indptr, As.indices, V.to(torch.complex64), CBSR_C128_N)
+	got64, want64 = bsr.bsr_spmm(*args64), bsr.bsr_spmm_ref(*args64)
+	torch.cuda.synchronize()
+	rel64 = _rel_err(torch, got64, want64)[1]
+	ms64, plain64 = _timed_pair(torch, lambda: bsr.bsr_spmm(*args64), lambda: bsr.bsr_spmm_ref(*args64), reps)
+	b64, b64_by = bound((blocks.numel() + 2 * CBSR_C128_N * 64) * 8, 8 * blocks.numel() * 64)
+	split64 = launch_times(torch, lambda: bsr.bsr_spmm(*args64), 100)
+	row["complex64"] = {"rel_err": rel64, "ms": ms64, "plain_ms": plain64, "bound_ms": b64, "bound_by": b64_by, "share_of_bound": b64 / ms64,
+		"host_ms": split64["host_ms"], "device_ms": split64["device_ms"]}
 	emit(row)
-	if not rel <= CPLX_TOL["complex128"]:
-		raise AssertionError(f"complex128 bsr_spmm disagrees with its plain version: {row}")
-	out.update({f"c128_{key}": row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+	if not (rel <= CPLX_TOL["complex128"] and rel64 <= CPLX_TOL["complex64"] and l2_path == 1):
+		raise AssertionError(f"complex128 bsr_spmm disagrees with its plain version or skipped its L2 path: {row}")
+	out.update({f"c128_{key}": row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
+		"host_ms", "device_ms", "share_of_bound_device", "l2_path_launches")})
 	out.update({f"c128_{key}": v for key, v in _bsr_traffic(As, 64, 16, ms, b_ms, "complex128").items()})
+	out.update({f"c64_small_{key}": v for key, v in row["complex64"].items()})
 	return {"bsr_spmm": out}
 
 
@@ -2926,10 +3031,13 @@ def sharded_one_rank(torch, ptt, dev) -> dict:
 		if not (ab_err < ALPHA_TOL["float32"] and row["estimate_rel_diff"] < ALPHA_TOL["float32"] and rows["sharded"]["rel_err"] < 0.05):
 			raise AssertionError(f"the sharded flagship (orth={orth}) disagrees: {row}")
 		# One batch of PROBES: the sharded sweep runs the step kernels on its padded carry, pass A a
-		# step, and at orth = 0 pass B and the advance too; no plain-step stencil.
+		# step, and at orth = 0 pass B a step and the advance kernel once, for the last step's finish
+		# (each other step's runs in the next step's pass A); no plain-step stencil.
 		got = {k: rows["sharded"]["launches"][k] for k in ("lanczos_dia_step", "lanczos_dia_residual", "lanczos_dia_advance", "dia_stencil_t")}
-		want = {"lanczos_dia_step": DEG, "lanczos_dia_residual": DEG if orth == 0 else 0, "lanczos_dia_advance": DEG if orth == 0 else 0,
+		want = {"lanczos_dia_step": DEG, "lanczos_dia_residual": DEG if orth == 0 else 0, "lanczos_dia_advance": 1 if orth == 0 else 0,
 			"dia_stencil_t": 0}
+		if orth == 0:
+			ADVANCE_A_SWEEP[f"sharded_{N_LARGE}_float32"] = got["lanczos_dia_advance"]
 		if got != want:
 			raise AssertionError(f"the sharded sweep (orth={orth}) launched {got}, expected {want}")
 		_add(total, rows["sharded"]["launches"])
@@ -3105,8 +3213,8 @@ def sharded_two_ranks(torch) -> dict:
 			"kind": r0["kind"], "estimates": [r0["estimate"], r1["estimate"]], "exact": exact, "rel_err": abs(r0["estimate"] - exact) / abs(exact),
 			"wall_s": [r0["wall_s"], r1["wall_s"]], "launches": [r0["launches"], r1["launches"]]}
 		emit(row)
-		# The halo DIA operator's sweep runs the step kernels (pass A, pass B, the advance) on every
-		# rank, and no plain-step stencil; the allgather BSR operator's runs bsr_spmm.
+		# The halo DIA operator's sweep runs the step kernels (pass A and pass B a step, the advance once
+		# for the last step) on every rank, and no plain-step stencil; the allgather BSR operator's runs bsr_spmm.
 		kernels = ("lanczos_dia_step", "lanczos_dia_residual", "lanczos_dia_advance") if r0["comm"] == "halo" else ("bsr_spmm",)
 		if r0["estimate_hex"] != r1["estimate_hex"] or not row["rel_err"] < 0.05:
 			raise AssertionError(f"the two ranks disagree or miss the logdet: {row}")
@@ -3114,6 +3222,11 @@ def sharded_two_ranks(torch) -> dict:
 			r0["comm"] == "halo" and max(r0["launches"]["dia_stencil_t"], r1["launches"]["dia_stencil_t"]) > 0
 		):
 			raise AssertionError(f"{kernels} did not launch on every rank (or the plain step ran): {row}")
+		if r0["comm"] == "halo":
+			advances = [r["launches"]["lanczos_dia_advance"] for r in (r0, r1)]
+			ADVANCE_A_SWEEP[f"gloo_{SHARD_N}_float32_mesh{r0['mesh'][0]}x{r0['mesh'][1]}"] = advances
+			if advances != [1, 1]:
+				raise AssertionError(f"a gloo rank's sweep launched the advance kernel {advances} times, not once: {row}")
 		for r in (r0, r1):
 			_add(total, r["launches"])
 	return total
@@ -3189,13 +3302,70 @@ def rounded_pass_a_check(torch, dia, w, alpha, bands, offsets, q, qp, beta) -> d
 		"mean_abs_err_vs_rounded": err_rounded, "mean_abs_err_vs_unrounded": err_unrounded, "alpha_rel_err": err_a}
 
 
+def _bf16_flips(torch, got, want) -> tuple:
+	"""Entries of two bf16 blocks that differ, those that differ by more than one bf16 ulp, and the largest difference."""
+	d = (got.float() - want.float()).abs()
+	ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(got.float().abs(), want.float().abs()))) - 7)
+	return int((d > 0).sum()), int((d > ulp).sum()), float(d.max())
+
+
+def check_round_finish(torch, dia, w, q, alpha, beta, spec, tol: float, label: str) -> dict:
+	"""Phase 24 (a): the round pair in the finishing mode (a row-sharded bf16 step's: B1 writes Σv² to ``sums[1]``,
+	an identity all-reduce, then B2 finishes the step from the sums) through the wrapper the sharded step calls,
+	``lanczos_dia_round(..., reduce, sums)``, with probe 0 done before the step and probe 1 breaking down in it
+	(its w and α zero). Held to ``lanczos_dia_advance_ref`` on the kernel's own reduced sums: the state rows and
+	``alpha_out``/``beta_out`` bit for bit; and to ``lanczos_round_pair_ref`` (its own sums): ``alpha_out`` and the
+	done flags equal, ``beta_out`` within 1e-6 relative, ``q_next`` within B2's flip rules, margins zero. Raises
+	if any of these fails."""
+	nv, dev = q.shape[0], q.device
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(241)
+	a_in, w_in = alpha.clone(), w.clone()
+	a_in[1], w_in[1] = 0.0, 0.0
+	div0 = torch.rand(nv, generator=gen, device=dev) + 0.5
+
+	def state():
+		st = dia.lanczos_state(nv, torch.float32, dev)
+		st.scal[dia.DIV_CUR], st.scal[dia.ALPHA], st.scal[dia.BETA] = div0, a_in, beta
+		st.scal[dia.DONE, 0] = 1.0
+		return st
+
+	def sums():
+		return torch.stack([a_in, torch.zeros_like(a_in)])
+
+	same = lambda t: t  # noqa: E731  (one rank: the all-reduce is the identity)
+	st_k, ab_k, sums_k = state(), torch.empty((2, nv), device=dev), sums()
+	q_k = dia.lanczos_dia_round(w_in, q, st_k, ab_k[0], ab_k[1], tol, spec, same, sums_k)
+	st_a, ab_a = state(), torch.empty((2, nv), device=dev)
+	dia.lanczos_dia_advance_ref(sums_k.clone(), st_a, ab_a[0], ab_a[1], tol)
+	st_r, ab_r = state(), torch.empty((2, nv), device=dev)
+	q_r = dia.lanczos_round_pair_ref(w_in, q, st_r, ab_r[0], ab_r[1], tol, spec, same, sums())
+	torch.cuda.synchronize()
+	flips, stray, err = _bf16_flips(torch, q_k, q_r)
+	cases = bool(ab_k[0, 0] == 0 and ab_k[1, 0] == 0 and st_k.scal[dia.DONE, :2].eq(1).all() and torch.isinf(st_k.scal[dia.DIV_CUR, 1])
+		and not q_k[1].any())
+	row = {"phase": "bf16_round_finish_check", "kernel": "lanczos_dia_round", "shape": label,
+		"state_and_outputs_bits_equal_advance": torch.equal(st_k.scal, st_a.scal) and torch.equal(ab_k, ab_a),
+		"alpha_and_done_equal": torch.equal(ab_k[0], ab_r[0]) and torch.equal(st_k.scal[dia.DONE], st_r.scal[dia.DONE]),
+		"beta_rel_err": float(((ab_k[1] - ab_r[1]).abs() / ab_r[1].abs().clamp_min(1e-30)).max()),
+		"done_and_breakdown_probes": cases, "q_next_flips": flips, "q_next_stray": stray, "max_abs_err": err,
+		"margins_zero": not (q_k[:, : spec.lo].any() or q_k[:, spec.lo + spec.n :].any())}
+	emit(row)
+	del w_in, q_k, q_r
+	if not (row["state_and_outputs_bits_equal_advance"] and row["alpha_and_done_equal"] and row["beta_rel_err"] <= 1e-6 and cases
+			and stray == 0 and flips <= BF16_FLIP_SHARE * q.numel() and row["margins_zero"]):
+		raise AssertionError(f"the round pair's finishing mode disagrees with its plain versions at {label}: {row}")
+	return {"finishing_beta_rel_err": row["beta_rel_err"], "finishing_q_next_flips": flips}
+
+
 def check_round_pair(torch, dia, lib, w, q, alpha, beta, spec, label: str, reps: int = 10) -> dict:
 	"""Phase 24 (a): the round pair (``lanczos_dia_round``: B1, the norm and the step's scalars; B2, the
 	rounded ``q_next``) against its plain version, the PyTorch tail it replaces, on pass A's plain
 	output ``w``/α at a flagship shape: the α outputs and the done flags equal, β' within 1e-6 relative,
 	``q_next`` equal but for flips of one bf16 ulp on at most BF16_FLIP_SHARE of its entries, its margins
 	zero. B1, B2 and the pair timed beside their bounds (6, 8 and 14 bytes an element), the pair
-	beside the tail (plain, kernel, kernel, plain). Returns the numbers for the ``kernels`` line."""
+	beside the tail (plain, kernel, kernel, plain), B2 in the finishing mode too; the finishing mode held
+	to its plain versions (:func:`check_round_finish`). Returns the numbers for the ``kernels`` line."""
 	from primate_tpu_torch.ops import _common
 
 	nv, n, dev = q.shape[0], spec.n, q.device
@@ -3213,10 +3383,8 @@ def check_round_pair(torch, dia, lib, w, q, alpha, beta, spec, label: str, reps:
 	torch.cuda.synchronize()
 	(q_k, ab_k, s_k), (q_r, ab_r, s_r) = outs
 	beta_err = float(((ab_k[1] - ab_r[1]).abs() / ab_r[1].abs()).max())
-	d = (q_k.float() - q_r.float()).abs()
-	ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(q_k.float().abs(), q_r.float().abs()))) - 7)
-	flips, stray, err = int((d > 0).sum()), int((d > ulp).sum()), float(d.max())
-	del d, ulp, outs, q_r
+	flips, stray, err = _bf16_flips(torch, q_k, q_r)
+	del outs, q_r
 	margins = not (q_k[:, : spec.lo].any() or q_k[:, spec.lo + n :].any())
 	same = torch.equal(ab_k[0], ab_r[0]) and torch.equal(s_k[dia.DONE], s_r[dia.DONE])
 
@@ -3229,8 +3397,15 @@ def check_round_pair(torch, dia, lib, w, q, alpha, beta, spec, label: str, reps:
 		w.data_ptr(), q.data_ptr(), st1.scal.data_ptr(), st1.scal[dia.ALPHA].data_ptr(), partial.data_ptr(), st1.ticket.data_ptr(),
 		ab[0].data_ptr(), ab[1].data_ptr(), None, nv, spec.ld, spec.lo, n, tol, gx, int(vec), stream)
 	b2 = lambda: lib.lanczos_dia_round_write_bf16(  # noqa: E731
-		w.data_ptr(), q.data_ptr(), st2.scal.data_ptr(), q_k.data_ptr(), nv, spec.ld, spec.lo, n, gx, int(vec), stream)
-	if b1() != 0 or b2() != 0:
+		w.data_ptr(), q.data_ptr(), st2.scal.data_ptr(), None, None, None, q_k.data_ptr(), nv, spec.ld, spec.lo, n, tol, gx, int(vec),
+		stream)
+	# B2 in the finishing mode (a row-sharded step's): the step's scalars from the reduced sums, its first blocks the finish.
+	sums, st3 = torch.stack([alpha, torch.rand(nv, device=dev) + 0.5]), state()
+	q_f = torch.empty_like(q_k)
+	b2_fin = lambda: lib.lanczos_dia_round_write_bf16(  # noqa: E731
+		w.data_ptr(), q.data_ptr(), st3.scal.data_ptr(), sums.data_ptr(), ab[0].data_ptr(), ab[1].data_ptr(), q_f.data_ptr(), nv,
+		spec.ld, spec.lo, n, tol, gx, int(vec), stream)
+	if b1() != 0 or b2() != 0 or b2_fin() != 0:
 		raise AssertionError(f"the round pair did not launch at {label}")
 	st_p, w_p = state(), w.clone()
 	ms, plain_ms = _timed_pair(
@@ -3238,18 +3413,21 @@ def check_round_pair(torch, dia, lib, w, q, alpha, beta, spec, label: str, reps:
 		lambda: dia.lanczos_dia_round_ref(w_p, q, st_p, ab[0], ab[1], tol, spec), reps,
 	)
 	b1_ms, b2_ms = time_ms(torch, b1, reps), time_ms(torch, b2, reps)
+	b2_fin_ms = time_ms(torch, b2_fin, reps)
 	(b_ms, b_by), (b1_bound, _), (b2_bound, _) = (bound(k * nv * n, f * nv * n) for k, f in ((14, 7), (6, 4), (8, 3)))
 	note = "none: no single PyTorch call computes ||w - alpha q|| and the rounded quotient"
 	row = {"phase": "bf16_round_check", "kernel": "lanczos_dia_round", "shape": label, "spec": list(spec), "vector_path": vec,
 		"beta_rel_err": beta_err, "alpha_and_done_equal": same, "q_next_flips": flips, "q_next_entries": q_k.numel(),
 		"q_next_stray": stray, "max_abs_err": err, "margins_zero": margins, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
 		"bound_by": b_by, "b1_ms": b1_ms, "b1_bound_ms": b1_bound, "b2_ms": b2_ms, "b2_bound_ms": b2_bound,
-		"GBps": 14 * nv * n / ms / 1e6, "library_ms": None, "library_note": note}
+		"b2_finishing_ms": b2_fin_ms, "GBps": 14 * nv * n / ms / 1e6, "library_ms": None, "library_note": note}
 	emit(row)
 	if not (same and beta_err <= 1e-6 and stray == 0 and flips <= BF16_FLIP_SHARE * q_k.numel() and margins and vec):
 		raise AssertionError(f"the round pair disagrees with the PyTorch tail or left its vector path at {label}: {row}")
-	return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "b1_ms", "b1_bound_ms", "b2_ms",
-		"b2_bound_ms", "beta_rel_err", "q_next_flips")}
+	del q_k, q_f, st1, st2, st3, st_p, w_p
+	fin = check_round_finish(torch, dia, w, q, alpha, beta, spec, tol, label)
+	return {**{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "b1_ms", "b1_bound_ms", "b2_ms",
+		"b2_bound_ms", "b2_finishing_ms", "beta_rel_err", "q_next_flips")}, **fin}
 
 
 def bf16_kernels(torch, ptt, dev, reps: int = 10) -> dict:
@@ -3524,8 +3702,8 @@ def _counted_calls(torch, fn, reps: int) -> dict:
 def bf16_sharded_one_rank(torch, ptt, dev) -> dict:
 	"""Phase 24 (d): the full-bf16 flagship at 10M through ``shard_operator(DIAOperator(L, bf16))`` on one NCCL
 	rank (pass A's bf16 kernel on the padded carry after the halo exchange, the stencil rounded as JAX's
-	sharded apply rounds it, α all-reduced; the round pair with Σv² all-reduced and the advance kernel
-	between its two launches) against the unsharded bf16 operator on the same probes: the estimates within
+	sharded apply rounds it, α all-reduced; the round pair with Σv² all-reduced between its two launches,
+	B2 finishing the step: no advance kernel) against the unsharded bf16 operator on the same probes: the estimates within
 	1e-3, the sharded one within 5% of the exact logdet. Returns its bf16 launches."""
 	from primate_tpu_torch.parallel import initialize_distributed, make_mesh, shard_operator
 
@@ -3547,7 +3725,8 @@ def bf16_sharded_one_rank(torch, ptt, dev) -> dict:
 	emit(row)
 	got = {k: rows["sharded"]["bf16_launches"][k] for k in ("lanczos_dia_step", "lanczos_dia_round", "dia_stencil_t")}
 	got["lanczos_dia_advance"] = rows["sharded"]["launches"]["lanczos_dia_advance"]
-	want = {"lanczos_dia_step": DEG, "lanczos_dia_round": DEG, "dia_stencil_t": 0, "lanczos_dia_advance": DEG}
+	want = {"lanczos_dia_step": DEG, "lanczos_dia_round": DEG, "dia_stencil_t": 0, "lanczos_dia_advance": 0}
+	ADVANCE_A_SWEEP[f"sharded_{N_LARGE}_bfloat16"] = got["lanczos_dia_advance"]
 	if not (diff < BF16_SHARD_TOL and row["rel_err"] < 0.05) or got != want:
 		raise AssertionError(f"the sharded bf16 flagship disagrees with the unsharded one, or its launches {got} are off: {row}")
 	del op, sop
@@ -3573,6 +3752,9 @@ def bf16_sharded_two_ranks(torch) -> dict:
 		r["launches"]["dia_stencil_t"] for r in (r0, r1)
 	) > 0:
 		raise AssertionError(f"the bf16 pass A or the round pair did not launch on every rank (or the plain step ran): {row}")
+	ADVANCE_A_SWEEP[f"gloo_{SHARD_N}_bfloat16"] = [r["launches"]["lanczos_dia_advance"] for r in (r0, r1)]
+	if ADVANCE_A_SWEEP[f"gloo_{SHARD_N}_bfloat16"] != [0, 0]:
+		raise AssertionError(f"a bf16 gloo rank launched the advance kernel (B2 finishes its steps): {row}")
 	total = {}
 	for r in (r0, r1):
 		_add(total, r["bf16_launches"])
@@ -3679,6 +3861,7 @@ def main() -> None:
 	_add(bf16, bf16_sharded_two_ranks(torch))
 	for k in KERNELS:
 		kernels[k]["bf16_launches"] = bf16.get(k, 0)
+	kernels["lanczos_dia_advance"]["launches_a_sweep"] = dict(ADVANCE_A_SWEEP)
 	for k in BF16_KERNELS:
 		if kernels[k]["bf16_launches"] < 1:
 			raise AssertionError(f"the bf16 {k} launched no time on the bf16 path")

@@ -74,9 +74,15 @@
 // writes alpha, or beta', the done flags and the next divisors, and alphas[j] /
 // betas[j] zeroed where a probe was done. On a row-sharded carry each rank holds
 // part of every sum, so in the finishing mode the last block writes only the
-// rank's sum of each probe; the caller all-reduces it between the passes, and
-// lanczos_dia_advance (one thread a probe) writes from the reduced sums what the
-// last blocks write above, so every rank's state advances alike. Loads and
+// rank's sum of each probe, and the caller all-reduces it between the passes. The
+// step's finish (what the last blocks write above, from the reduced sums, so every
+// rank's state advances alike) waits for the next kernel of the sweep, which runs
+// after the second all-reduce anyway: pass A of the next step takes its divisors and
+// beta from the pending sums and its last block writes the finish (Pending), so a
+// row-sharded step is two launches, as an unsharded one; the bfloat16 step's B2 does
+// the same within the step. lanczos_dia_advance (one thread a probe) runs a finish by
+// itself where the sweep reads the state between steps and after its last step: its
+// cost is the host's launch, not the device's (PERF.md). Loads and
 // stores are 16 bytes along r. The float32 / float64 pass A stages a tile of q with kHalo
 // rows on each side in shared memory, so neighbours at offsets up to kHalo come from there,
 // larger offsets from direct (L1/L2) loads; the complex and bfloat16 ones hold the band values
@@ -361,12 +367,47 @@ __device__ __forceinline__ T probe_total(const T* partial, int64_t b) {
     return warp_sum(s);
 }
 
+// The finish of a row-sharded step for probe b, from the step's sums after their all-reduce (sums[b] = alpha,
+// sums[nv + b] = |v|^2 over every rank's rows): what the two passes' last blocks write in the unsharded step.
+// The standalone advance kernel, pass A of the next step (a pending finish) and B2 of a bfloat16 step all
+// finish through these two functions, so they write the same bits.
+template <typename R>
+__device__ __forceinline__ R guarded_divisor(R beta, R tol) {
+    return beta > tol ? beta : R(INFINITY);
+}
+
+template <typename R>
+__device__ __forceinline__ void advance_probe(const R* sums, R* state, R* alpha_out, R* beta_out, int64_t nv, int64_t b,
+                                              R tol) {
+    const R alpha = sums[b], beta = sqrt(sums[nv + b]);
+    const bool done = state[kDone * nv + b] != R(0);
+    state[kAlpha * nv + b] = alpha;
+    alpha_out[b] = done ? R(0) : alpha;
+    beta_out[b] = done ? R(0) : beta;
+    state[kDivPrev * nv + b] = state[kDivCur * nv + b];
+    state[kDivCur * nv + b] = guarded_divisor(beta, tol);
+    state[kBeta * nv + b] = beta;
+    state[kDone * nv + b] = (done || beta < tol) ? R(1) : R(0);
+}
+
+// A row-sharded step's finish left pending for pass A of the next step (float32 / float64): the step's
+// reduced sums (2, nv), the sweep's output rows it writes and the residual tolerance; sums null: none.
+// Every block of that pass A takes its divisors and beta from it (what the finish would write), and
+// the pass's last block writes it (advance_probe) once every block has read the state.
+template <typename R>
+struct Pending {
+    const R* sums;
+    R* alpha_out;
+    R* beta_out;
+    R tol;
+};
+
 // The end of pass A: the block's alpha partials (dot) reduced in a fixed order; the last block to finish sums
 // each probe's partials and writes state[kAlpha] and alpha_out if given (zero where state[kDone]), or, in the
-// finishing mode (sums given), only the rank's sums[b].
+// finishing mode (sums given), only the rank's sums[b], and then the pending finish of the step before, if any.
 template <typename R>
 __device__ __forceinline__ void finish_pass_a(R (&dot)[kStepProbes], int np, int64_t b0, R* partial, unsigned* ticket,
-                                              R* state, R* alpha_out, R* sums, int64_t nv) {
+                                              R* state, R* alpha_out, R* sums, int64_t nv, Pending<R> pend = {}) {
     if (!reduce_and_take_ticket(dot, np, b0, partial, ticket)) return;
     for (int64_t b = threadIdx.x / 32; b < nv; b += kStepWarps) {
         const R s = probe_total(partial, b);
@@ -379,8 +420,16 @@ __device__ __forceinline__ void finish_pass_a(R (&dot)[kStepProbes], int np, int
             }
         }
     }
+    if (pend.sums != nullptr) {
+        for (int64_t b = threadIdx.x; b < nv; b += kStepThreads)
+            advance_probe(pend.sums, state, pend.alpha_out, pend.beta_out, nv, b, pend.tol);
+    }
     if (threadIdx.x == 0) *ticket = 0u;
 }
+
+// The staged kernel's resident blocks an SM without a pending finish (48 / 64 registers at 256 threads: 5 / 4 blocks).
+template <typename T>
+constexpr int kStagedBlocks = sizeof(T) == 4 ? 5 : 4;
 
 // The carry layout of both passes: probe b's row starts at b * ld, its own rows are
 // columns [lo, lo + n), and the bands are (n_d, ld) in the same columns. The columns
@@ -392,16 +441,21 @@ __device__ __forceinline__ void finish_pass_a(R (&dot)[kStepProbes], int np, int
 // q = v_cur / div_cur, q_prev = v_prev / div_prev, and the partials of
 // alpha[b] = Re sum_r conj(q) w over the own rows. With a ticket, the last block writes
 // state[kAlpha] and alpha_out if given (zero where state[kDone]); in the finishing mode
-// (sums given) it writes only the rank's local sums[b] and leaves the state alone.
+// (sums given) it writes only the rank's local sums[b] and leaves the state alone, but for a
+// pending finish (pend.sums given): then div_cur, div_prev and beta come from it and the state as
+// it stands (the divisors and beta the finish writes), and the last block writes the finish. The
+// finish's prologue and epilogue raised the float32 kernel from 48 to 56 registers, 5 blocks an SM
+// to 4, and a row-sharded step's pass A took 8% longer at 64 x 10M (PERF.md): the kernel is held to
+// the occupancy it had without them (kStagedBlocks).
 // This staged kernel serves float32 and float64 carries; a complex carry (w complex, the
 // state, the partials and the sums real) takes the register kernel below, a bfloat16 one
 // lanczos_pass_a_bf16_kernel.
 template <typename T, bool kVec>
-__global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_staged_kernel(
+__global__ void __launch_bounds__(kStepThreads, kStagedBlocks<T>) lanczos_pass_a_staged_kernel(
     const T* __restrict__ bands, const int64_t* __restrict__ offsets, int n_d, const T* __restrict__ v_cur,
     const T* __restrict__ v_prev, T* __restrict__ state, T* __restrict__ w, T* __restrict__ partial,
     unsigned* __restrict__ ticket, T* __restrict__ alpha_out, T* __restrict__ sums, int64_t nv, int64_t ld, int64_t lo,
-    int64_t n, int) {
+    int64_t n, Pending<T> pend) {
     static_assert(!kNarrow<T> && !kCplx<T>, "the staged pass A is float32 / float64 only");
     constexpr int VL = Vec<T>::len;
     constexpr int kTile = kStepThreads * VL;
@@ -412,9 +466,17 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_staged_kernel(
     const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
     const int64_t lo_b = -lo, hi_b = ld - lo;  // the carry's columns, counted from the first own row
     if (threadIdx.x < np) {
-        div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
-        divp_s[threadIdx.x] = state[kDivPrev * nv + b0 + threadIdx.x];
-        beta_s[threadIdx.x] = state[kBeta * nv + b0 + threadIdx.x];
+        const int64_t b = b0 + threadIdx.x;
+        if (pend.sums != nullptr) {  // the step before's finish: its beta', and div_cur moves to div_prev
+            const T beta = sqrt(pend.sums[nv + b]);
+            div_s[threadIdx.x] = guarded_divisor(beta, pend.tol);
+            divp_s[threadIdx.x] = state[kDivCur * nv + b];
+            beta_s[threadIdx.x] = beta;
+        } else {
+            div_s[threadIdx.x] = state[kDivCur * nv + b];
+            divp_s[threadIdx.x] = state[kDivPrev * nv + b];
+            beta_s[threadIdx.x] = state[kBeta * nv + b];
+        }
     }
     if (blockIdx.x == 0 && ld > n) {  // the margins of w: zero
         for (int p = 0; p < np; ++p) {
@@ -481,7 +543,7 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_a_staged_kernel(
             store_seg<kVec>(w + b * ld + lo, r, n, out);
         }
     }
-    finish_pass_a(dot, np, b0, partial, ticket, state, alpha_out, sums, nv);
+    finish_pass_a(dot, np, b0, partial, ticket, state, alpha_out, sums, nv, pend);
 }
 
 // Pass A with the band values in registers (complex64, complex128): dia_stencil_t's structure
@@ -1287,23 +1349,14 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_pass_b_kernel(const T* _
     if (threadIdx.x == 0) *ticket = 0u;
 }
 
-// The step's finish on a row-sharded carry, one thread a probe, from the sums of
-// passes A and B after their all-reduce (sums[0, b] = alpha, sums[1, b] = |v|^2):
-// what the two passes' last blocks write in the unsharded step.
+// The step's finish on a row-sharded carry by itself, one thread a probe (advance_probe): for a sweep that
+// reads the state between steps, and for the last step of a sweep. Every other step's finish runs in the
+// kernel after the step's second all-reduce: pass A of the next step (float32 / float64) or B2 (bfloat16).
 template <typename T>
 __global__ void lanczos_advance_kernel(const T* __restrict__ sums, T* __restrict__ state, T* __restrict__ alpha_out,
                                        T* __restrict__ beta_out, int64_t nv, T tol) {
     const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (b >= nv) return;
-    const T alpha = sums[b], beta = sqrt(sums[nv + b]);
-    const bool done = state[kDone * nv + b] != T(0);
-    state[kAlpha * nv + b] = alpha;
-    alpha_out[b] = done ? T(0) : alpha;
-    beta_out[b] = done ? T(0) : beta;
-    state[kDivPrev * nv + b] = state[kDivCur * nv + b];
-    state[kDivCur * nv + b] = beta > tol ? beta : T(INFINITY);
-    state[kBeta * nv + b] = beta;
-    state[kDone * nv + b] = (done || beta < tol) ? T(1) : T(0);
+    if (b < nv) advance_probe(sums, state, alpha_out, beta_out, nv, b, tol);
 }
 
 // ---- The rest of a bfloat16 step: the round pair (lanczos_dia_round) ----
@@ -1317,10 +1370,15 @@ __global__ void lanczos_advance_kernel(const T* __restrict__ sums, T* __restrict
 //     beta_out (zero where a probe was done) and advances the state: div_prev = div_cur,
 //     div_cur = beta' > tol ? beta' : inf, beta = beta', done |= beta' < tol. In the
 //     finishing mode (sums given) it writes only the rank's sums, and the caller
-//     all-reduces them and finishes the step with lanczos_advance_kernel.
-//   B2 (write): q_next = bf16_rn(v / div_cur) over the own rows, zero in the margins.
+//     all-reduces them for B2, which finishes the step.
+//   B2 (write): q_next = bf16_rn(v / div_cur) over the own rows, zero in the margins. In the
+//     finishing mode (sums given, after the all-reduce of B1's) every block takes alpha from
+//     sums[0] and computes div_cur from sums[1] itself, and the first block of each probe group
+//     writes the step's finish for its probes (advance_probe): so a row-sharded step takes three
+//     launches, as the unsharded one.
 // Neither reads what its own launch writes: B1's blocks read alpha (written by pass A or
-// the all-reduce), B2's the state that B1's last block or the advance left behind.
+// the all-reduce), B2's the state that B1's last block left behind, or in the finishing mode
+// only the sums (its first blocks write state rows that no block of B2 reads).
 // 6 bytes an element for B1, 8 for B2 (with pass A's 8: 22 a step, against float32's 24).
 
 // v = w - alpha q for the rows r .. r + 7 of a carry row (zero past the own rows' end n):
@@ -1391,19 +1449,25 @@ __global__ void __launch_bounds__(kStepThreads) lanczos_round_norm_kernel(
 }
 
 template <bool kVec>
-__global__ void __launch_bounds__(kStepThreads) lanczos_round_write_kernel(const float* __restrict__ w,
-                                                                           const bf16* __restrict__ q,
-                                                                           const float* __restrict__ state,
-                                                                           bf16* __restrict__ q_next, int64_t nv,
-                                                                           int64_t ld, int64_t lo, int64_t n) {
+__global__ void __launch_bounds__(kStepThreads) lanczos_round_write_kernel(
+    const float* __restrict__ w, const bf16* __restrict__ q, float* __restrict__ state, const float* __restrict__ sums,
+    float* __restrict__ alpha_out, float* __restrict__ beta_out, bf16* __restrict__ q_next, int64_t nv, int64_t ld,
+    int64_t lo, int64_t n, float tol) {
     constexpr int VL = Vec<bf16>::len;
     constexpr int kTile = kStepThreads * VL;
     __shared__ float alpha_s[kStepProbes], div_s[kStepProbes];
     const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kStepProbes;
     const int np = nv - b0 < kStepProbes ? static_cast<int>(nv - b0) : kStepProbes;
     if (threadIdx.x < np) {
-        alpha_s[threadIdx.x] = state[kAlpha * nv + b0 + threadIdx.x];
-        div_s[threadIdx.x] = state[kDivCur * nv + b0 + threadIdx.x];
+        const int64_t b = b0 + threadIdx.x;
+        if (sums != nullptr) {  // the finishing mode: the step's scalars from the reduced sums
+            alpha_s[threadIdx.x] = sums[b];
+            div_s[threadIdx.x] = guarded_divisor(sqrtf(sums[nv + b]), tol);
+            if (blockIdx.x == 0) advance_probe(sums, state, alpha_out, beta_out, nv, b, tol);
+        } else {
+            alpha_s[threadIdx.x] = state[kAlpha * nv + b];
+            div_s[threadIdx.x] = state[kDivCur * nv + b];
+        }
     }
     if (blockIdx.x == 0 && ld > n) {  // the margins of q_next: zero
         for (int p = 0; p < np; ++p) {
@@ -1526,15 +1590,24 @@ inline bool step_grid_ok(int64_t nv, int64_t ld, int64_t lo, int64_t n, int64_t 
            (nv + kStepProbes - 1) / kStepProbes <= 65535;
 }
 
+// pend: a row-sharded step's finish for pass A to run (float32 / float64, in the finishing mode), or none.
 template <typename T, typename A = acc_t<T>, typename R = real_t<A>>
 cudaError_t launch_pass_a(const T* bands, const int64_t* offsets, int n_d, const T* v_cur, const T* v_prev, R* state,
                           A* w, R* partial, unsigned* ticket, R* alpha_out, R* sums, int64_t nv, int64_t ld, int64_t lo,
-                          int64_t n, int64_t gx, int round, int vec, cudaStream_t stream) {
+                          int64_t n, int64_t gx, int round, int vec, cudaStream_t stream, Pending<R> pend = {}) {
     if (!step_grid_ok(nv, ld, lo, n, gx)) return cudaErrorInvalidConfiguration;
     const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>((nv + kStepProbes - 1) / kStepProbes));
     auto kern = vec ? pass_a_kernel<T, true>() : pass_a_kernel<T, false>();
-    kern<<<grid, kStepThreads, 0, stream>>>(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out, sums,
-                                            nv, ld, lo, n, round);
+    if constexpr (kCplx<T> || kNarrow<T>) {
+        if (pend.sums != nullptr) return cudaErrorInvalidValue;  // only the staged kernel runs a pending finish
+        kern<<<grid, kStepThreads, 0, stream>>>(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out,
+                                                sums, nv, ld, lo, n, round);
+    } else {
+        if (pend.sums != nullptr && (ticket == nullptr || sums == nullptr || pend.alpha_out == nullptr || pend.beta_out == nullptr))
+            return cudaErrorInvalidValue;
+        kern<<<grid, kStepThreads, 0, stream>>>(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, alpha_out,
+                                                sums, nv, ld, lo, n, pend);
+    }
     return cudaGetLastError();
 }
 
@@ -1586,13 +1659,18 @@ cudaError_t launch_round_norm(const float* w, const bf16* q, float* state, const
     return cudaGetLastError();
 }
 
-cudaError_t launch_round_write(const float* w, const bf16* q, const float* state, bf16* q_next, int64_t nv, int64_t ld,
-                               int64_t lo, int64_t n, int64_t gx, int vec, cudaStream_t stream) {
-    if (!step_grid_ok(nv, ld, lo, n, gx)) return cudaErrorInvalidConfiguration;
+cudaError_t launch_round_write(const float* w, const bf16* q, float* state, const float* sums, float* alpha_out,
+                               float* beta_out, bf16* q_next, int64_t nv, int64_t ld, int64_t lo, int64_t n, double tol,
+                               int64_t gx, int vec, cudaStream_t stream) {
+    if (!step_grid_ok(nv, ld, lo, n, gx) || (sums != nullptr && (alpha_out == nullptr || beta_out == nullptr)))
+        return cudaErrorInvalidConfiguration;
+    const float t = static_cast<float>(tol);
     if (vec) {
-        lanczos_round_write_kernel<true><<<step_grid(nv, gx), kStepThreads, 0, stream>>>(w, q, state, q_next, nv, ld, lo, n);
+        lanczos_round_write_kernel<true><<<step_grid(nv, gx), kStepThreads, 0, stream>>>(w, q, state, sums, alpha_out,
+                                                                                        beta_out, q_next, nv, ld, lo, n, t);
     } else {
-        lanczos_round_write_kernel<false><<<step_grid(nv, gx), kStepThreads, 0, stream>>>(w, q, state, q_next, nv, ld, lo, n);
+        lanczos_round_write_kernel<false><<<step_grid(nv, gx), kStepThreads, 0, stream>>>(w, q, state, sums, alpha_out,
+                                                                                         beta_out, q_next, nv, ld, lo, n, t);
     }
     return cudaGetLastError();
 }
@@ -1678,7 +1756,7 @@ cudaError_t dia_stencil_bf16(const void* bands, const int64_t* offsets, int n_d,
 
 // The step passes on a carry of row stride ld with its own rows at [lo, lo + n) (the flat
 // carry: ld = n, lo = 0); sums (nv,) non-null selects the finishing mode (the rank's local
-// sum of each probe, for an all-reduce and lanczos_dia_advance). Pass A's round: round the
+// sum of each probe, for an all-reduce; the step's finish then runs in a later kernel). Pass A's round: round the
 // stencil sum to the carry's dtype before the beta-axpy (only bfloat16 rounds).
 cudaError_t lanczos_dia_step_f32(const float* bands, const int64_t* offsets, int n_d, const float* v_cur,
                                  const float* v_prev, float* state, float* w, float* partial, unsigned* ticket,
@@ -1704,6 +1782,29 @@ cudaError_t lanczos_dia_step_bf16(const void* bands, const int64_t* offsets, int
     return launch_pass_a(static_cast<const bf16*>(bands), offsets, n_d, static_cast<const bf16*>(v_cur),
                          static_cast<const bf16*>(v_prev), state, w, partial, ticket, alpha_out, sums, nv, ld, lo, n, gx,
                          round, vec, stream);
+}
+
+// Pass A of a row-sharded step in the finishing mode (sums non-null) that first runs the pending finish
+// of the step before from its reduced sums pend_sums (2, nv): each block takes its divisors and beta from
+// it, and the last block writes it to the state, pend_alpha_out and pend_beta_out (see Pending).
+cudaError_t lanczos_dia_step_finish_f32(const float* bands, const int64_t* offsets, int n_d, const float* v_cur,
+                                        const float* v_prev, float* state, float* w, float* partial, unsigned* ticket,
+                                        float* sums, const float* pend_sums, float* pend_alpha_out, float* pend_beta_out,
+                                        double tol, int64_t nv, int64_t ld, int64_t lo, int64_t n, int64_t gx, int vec,
+                                        cudaStream_t stream) {
+    if (pend_sums == nullptr) return cudaErrorInvalidValue;
+    return launch_pass_a(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, static_cast<float*>(nullptr), sums, nv, ld,
+                         lo, n, gx, 0, vec, stream, Pending<float>{pend_sums, pend_alpha_out, pend_beta_out, static_cast<float>(tol)});
+}
+
+cudaError_t lanczos_dia_step_finish_f64(const double* bands, const int64_t* offsets, int n_d, const double* v_cur,
+                                        const double* v_prev, double* state, double* w, double* partial, unsigned* ticket,
+                                        double* sums, const double* pend_sums, double* pend_alpha_out,
+                                        double* pend_beta_out, double tol, int64_t nv, int64_t ld, int64_t lo, int64_t n,
+                                        int64_t gx, int vec, cudaStream_t stream) {
+    if (pend_sums == nullptr) return cudaErrorInvalidValue;
+    return launch_pass_a(bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, static_cast<double*>(nullptr), sums, nv, ld,
+                         lo, n, gx, 0, vec, stream, Pending<double>{pend_sums, pend_alpha_out, pend_beta_out, tol});
 }
 
 cudaError_t lanczos_dia_residual_f32(const float* v_cur, float* w, float* state, const float* alpha_src,
@@ -1761,7 +1862,9 @@ cudaError_t lanczos_dia_residual_c128(const void* v_cur, void* w, double* state,
 // The round pair of a bfloat16 step (after pass A): w, the state, alpha_src, the partials, the
 // outputs and the sums in float32, q and q_next bf16 on the carry (ld, lo, n). B1 (norm) with
 // sums (nv,) non-null writes the rank's sums of |v|^2 (the finishing mode); else its last block
-// writes alpha_out, beta_out and the state. B2 (write) reads alpha and the divisor from the state.
+// writes alpha_out, beta_out and the state. B2 (write) reads alpha and the divisor from the state,
+// or, with sums (2, nv) non-null (the finishing mode, after the all-reduce), from the sums, and
+// writes the step's finish (the state, alpha_out, beta_out) beside q_next.
 cudaError_t lanczos_dia_round_norm_bf16(const float* w, const void* q, float* state, const float* alpha_src,
                                         float* partial, unsigned* ticket, float* alpha_out, float* beta_out, float* sums,
                                         int64_t nv, int64_t ld, int64_t lo, int64_t n, double tol, int64_t gx, int vec,
@@ -1770,10 +1873,11 @@ cudaError_t lanczos_dia_round_norm_bf16(const float* w, const void* q, float* st
                              nv, ld, lo, n, tol, gx, vec, stream);
 }
 
-cudaError_t lanczos_dia_round_write_bf16(const float* w, const void* q, const float* state, void* q_next, int64_t nv,
-                                         int64_t ld, int64_t lo, int64_t n, int64_t gx, int vec, cudaStream_t stream) {
-    return launch_round_write(w, static_cast<const bf16*>(q), state, static_cast<bf16*>(q_next), nv, ld, lo, n, gx, vec,
-                              stream);
+cudaError_t lanczos_dia_round_write_bf16(const float* w, const void* q, float* state, const float* sums, float* alpha_out,
+                                         float* beta_out, void* q_next, int64_t nv, int64_t ld, int64_t lo, int64_t n,
+                                         double tol, int64_t gx, int vec, cudaStream_t stream) {
+    return launch_round_write(w, static_cast<const bf16*>(q), state, sums, alpha_out, beta_out, static_cast<bf16*>(q_next), nv,
+                              ld, lo, n, tol, gx, vec, stream);
 }
 
 cudaError_t lanczos_dia_advance_f32(const float* sums, float* state, float* alpha_out, float* beta_out, int64_t nv,

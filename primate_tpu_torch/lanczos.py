@@ -10,12 +10,14 @@ the residuals unnormalised with their guarded divisors so that no pass
 normalises. A sweep that returns its basis writes ``q = v / divisor`` (the
 rounding pass A uses) into the basis window after pass B, and one that takes
 ``coeffs`` adds ``c_j·q_j`` to its running sum before each step; both are
-PyTorch ops. A bfloat16 block without re-orthogonalisation (whose ``q_next`` the
-reference rounds to bfloat16 every step) takes ``op.lanczos_round_step`` a step: on a
-DIA operator on the card pass A's bf16 instantiation (``w`` and α in float32) and the
-round pair (β', the done flags and ``q_next`` rounded to bf16), three kernels; on any
-other operator ``op.lanczos_step`` and the same arithmetic as PyTorch ops. With
-``orth>0`` or ``selective=True``, each step calls ``op.lanczos_step(q_cur, q_prev, β)``
+PyTorch ops. A step may leave its finish (α, β, the state) pending, as a row-sharded DIA
+operator's does for the next step's pass A; the sweep calls ``op.lanczos_sweep_flush``
+before it reads the state between steps (the basis, ``coeffs``) and at its end. A bfloat16
+block without re-orthogonalisation (whose ``q_next`` the reference rounds to bfloat16 every
+step) takes ``op.lanczos_round_step`` a step: on a DIA operator on the card pass A's bf16
+instantiation (``w`` and α in float32) and the round pair (β', the done flags and ``q_next``
+rounded to bf16), three kernels; on any other operator ``op.lanczos_step`` and the same
+arithmetic as PyTorch ops. With ``orth>0`` or ``selective=True``, each step calls ``op.lanczos_step(q_cur, q_prev, β)``
 (on a DIA operator pass A) and the rest (``v −= α·q``, the CGS window, β = ‖v‖, the
 done flags and ``q_next``) stays in PyTorch. Selective re-orthogonalisation reads one flag
 from the device per step, where the JAX package branches by ``lax.cond``.
@@ -221,10 +223,13 @@ def _lanczos_core(
 		v_prev, v_cur = torch.zeros_like(q0), q0
 		for j in range(deg):
 			if y is not None:
+				op.lanczos_sweep_flush(state)  # the divisor is read here
 				y.addcmul_(coeffs[j][..., None], rows(v_cur) / state.scal[DIV_CUR][:, None])
 			v_prev, v_cur = v_cur, op.lanczos_sweep_step(v_cur, v_prev, state, alphas[j], betas[j], residual_tol, layout=layout)
 			if return_basis:
+				op.lanczos_sweep_flush(state)
 				write_slot(j, rows(v_cur) / state.scal[DIV_CUR][:, None], state.scal[DONE] == 0)
+		op.lanczos_sweep_flush(state)  # before α and β are read
 		return output()
 
 	# A storage dtype narrower than the accumulation (bfloat16): q_next is rounded to the

@@ -3,8 +3,8 @@
 Counterpart of ``primate_tpu/operators/base.py``. Operators apply to node-major
 ``(n, k)`` blocks (``matmat``) and to probe-major ``(k, n)`` blocks
 (``matmat_t``, the layout the Lanczos sweep carries). ``lanczos_step`` and
-``lanczos_sweep_step`` are the sweep's per-step hooks: operators with step kernels
-(``DIAOperator``) override them, and ``sweep_rows`` says what the sweep carries (the whole
+``lanczos_sweep_step`` are the sweep's per-step hooks (with ``lanczos_sweep_flush``, which
+finishes what a step left pending): operators with step kernels (``DIAOperator``) override them, and ``sweep_rows`` says what the sweep carries (the whole
 block, a padded block for ``phys=True``, or a row-sharded operator's rank's rows;
 :mod:`~primate_tpu_torch.parallel`).
 
@@ -173,6 +173,12 @@ class LinearOperator:
 		(:func:`~primate_tpu_torch.ops.dia.lanczos_sweep_step_ref`; default: that plain version).
 		``layout`` is the sweep's :meth:`sweep_rows` (the flat carry here)."""
 		return lanczos_sweep_step_ref(self.matmat_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
+
+	def lanczos_sweep_flush(self, state) -> None:
+		"""Finish what :meth:`lanczos_sweep_step` left pending in ``state``, so that ``state`` and the
+		step's ``alpha_out``/``beta_out`` can be read: the sweep calls it before it reads them between
+		steps and after its last step. Nothing is left pending here (a row-sharded DIA operator defers
+		its step's finish to the next step)."""
 
 	def lanczos_round_step(
 		self, q_cur: torch.Tensor, q_prev: torch.Tensor, state, alpha_out: torch.Tensor, beta_out: torch.Tensor,

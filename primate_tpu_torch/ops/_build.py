@@ -99,12 +99,15 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 			"lanczos_dia_step": [p, p, i32, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i32, i32, p],
 			# v_cur, w, state, alpha_src, partial, ticket, beta_out, sums, nv, ld, lo, n, tol, grid_x, vec, stream
 			"lanczos_dia_residual": [p, p, p, p, p, p, p, p, i64, i64, i64, i64, ctypes.c_double, i64, i32, p],
+			# bands, offsets, n_d, v_cur, v_prev, state, w, partial, ticket, sums, pend_sums, pend_alpha_out,
+			# pend_beta_out, tol, nv, ld, lo, n, grid_x, vec, stream
+			"lanczos_dia_step_finish": [p, p, i32, p, p, p, p, p, p, p, p, p, p, ctypes.c_double, i64, i64, i64, i64, i64, i32, p],
 			# sums, state, alpha_out, beta_out, nv, tol, stream
 			"lanczos_dia_advance": [p, p, p, p, i64, ctypes.c_double, p],
 			# w, q, state, alpha_src, partial, ticket, alpha_out, beta_out, sums, nv, ld, lo, n, tol, grid_x, vec, stream
 			"lanczos_dia_round_norm": [p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, ctypes.c_double, i64, i32, p],
-			# w, q, state, q_next, nv, ld, lo, n, grid_x, vec, stream
-			"lanczos_dia_round_write": [p, p, p, p, i64, i64, i64, i64, i64, i32, p],
+			# w, q, state, sums, alpha_out, beta_out, q_next, nv, ld, lo, n, tol, grid_x, vec, stream
+			"lanczos_dia_round_write": [p, p, p, p, p, p, p, i64, i64, i64, i64, ctypes.c_double, i64, i32, p],
 			# bands, offsets, n_d, V, out, n, k, vec, stream
 			"dia_stencil": [p, p, i32, p, p, i64, i64, i32, p],
 		},
@@ -121,6 +124,8 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 		if name in ("dia_stencil_t", "dia_stencil", "bsr_spmm", "lanczos_dia_step", "lanczos_dia_residual"):
 			dts += ("c64", "c128")
 		for dt in dts:
+			if not hasattr(lib, f"{name}_{dt}"):  # a build of an earlier source (profile_port.py --against)
+				continue
 			fn = getattr(lib, f"{name}_{dt}")
 			fn.argtypes = args
 			fn.restype = i32
@@ -130,6 +135,9 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 		if hasattr(lib, "lanczos_round_blocks"):  # the bf16 round pair's grid; a build of an earlier source lacks it
 			lib.lanczos_round_blocks.argtypes = [i64, i64]  # nv, n
 			lib.lanczos_round_blocks.restype = i64
+	if hasattr(lib, "bsr_spmm_l2_path"):
+		lib.bsr_spmm_l2_path.argtypes = [i32, i32, i64, i64]  # bm, bn, m, k: whether complex128 takes its L2 path
+		lib.bsr_spmm_l2_path.restype = i32
 	lib.primate_cuda_error_string.argtypes = [i32]
 	lib.primate_cuda_error_string.restype = ctypes.c_char_p
 

@@ -2,7 +2,7 @@
 
 import torch
 
-__all__ = ["LAUNCHES", "BF16_LAUNCHES", "LAYOUT_COPIES", "SCALAR_LAUNCHES", "reset_launches"]
+__all__ = ["LAUNCHES", "BF16_LAUNCHES", "LAYOUT_COPIES", "SCALAR_LAUNCHES", "L2_LAUNCHES", "reset_launches"]
 
 # Kernel launches per wrapper since the last `reset_launches()`. Each wrapper adds
 # one where it launches its kernel and nowhere else; its plain version counts nothing.
@@ -23,6 +23,8 @@ SCALAR_LAUNCHES = {
 	"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "lanczos_dia_advance": 0, "lanczos_dia_round": 0,
 	"dia_stencil": 0, "bsr_spmm": 0,
 }
+# Launches of ``bsr_spmm`` that took its L2 path (complex128, 8×8 tiles, V small enough for the L2).
+L2_LAUNCHES = {"bsr_spmm": 0}
 # The C entry point's suffix of each dtype a kernel takes.
 SUFFIX = {
 	torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16", torch.complex64: "c64", torch.complex128: "c128",
@@ -30,8 +32,8 @@ SUFFIX = {
 
 
 def reset_launches() -> None:
-	"""Zero :data:`LAUNCHES`, :data:`BF16_LAUNCHES`, :data:`LAYOUT_COPIES` and :data:`SCALAR_LAUNCHES`."""
-	for counts in (LAUNCHES, BF16_LAUNCHES, LAYOUT_COPIES, SCALAR_LAUNCHES):
+	"""Zero :data:`LAUNCHES`, :data:`BF16_LAUNCHES`, :data:`LAYOUT_COPIES`, :data:`SCALAR_LAUNCHES` and :data:`L2_LAUNCHES`."""
+	for counts in (LAUNCHES, BF16_LAUNCHES, LAYOUT_COPIES, SCALAR_LAUNCHES, L2_LAUNCHES):
 		for k in counts:
 			counts[k] = 0
 

@@ -10,7 +10,10 @@ kernel's scalar-prefetch cap of 16,384 tiles, its 128-lane probe padding and its
 fallback have no counterpart. It moves V and the output in 16-byte vectors when
 ``k`` is a whole number of them and ``V``, the output and the tiles are 16-byte
 aligned, element by element otherwise; the launches that took the scalar path
-are counted in ``SCALAR_LAUNCHES["bsr_spmm"]``.
+are counted in ``SCALAR_LAUNCHES["bsr_spmm"]``. A complex128 product with 8×8 tiles whose ``V`` fits
+in the card's L2 takes a path of its own (float64 MMAs on the tensor cores, ``V`` read straight
+through L2; ``csrc/bsr_spmm.cu``), counted in ``L2_LAUNCHES["bsr_spmm"]``: its sum order is the
+MMA's, so it agrees with the plain version within complex128's rounding, not bit for bit.
 
 The kernel reads ``V`` node-major: ``(m, k)`` contiguous, probes along the fast
 axis. The wrapper does not copy: a caller with a probe-major block makes it
@@ -22,9 +25,11 @@ CUDA tensor it launches the kernel or raises, and counts each launch in
 
 import torch
 
-from ._common import LAUNCHES, LAYOUT_COPIES, SUFFIX, acc_dtype, check_cuda, count_launch, raise_on, reset_launches, stream, vector_ok
+from ._common import (
+	L2_LAUNCHES, LAUNCHES, LAYOUT_COPIES, SUFFIX, acc_dtype, check_cuda, count_launch, raise_on, reset_launches, stream, vector_ok,
+)
 
-__all__ = ["LAUNCHES", "LAYOUT_COPIES", "reset_launches", "bsr_spmm", "bsr_spmm_ref", "block_rowids"]
+__all__ = ["LAUNCHES", "LAYOUT_COPIES", "L2_LAUNCHES", "reset_launches", "bsr_spmm", "bsr_spmm_ref", "block_rowids"]
 
 # Elements of the gathered (tiles, bn, k) block the plain version holds at once.
 _REF_CHUNK_ELEMS = 1 << 27
@@ -97,4 +102,5 @@ def bsr_spmm(blocks: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor, 
 	)
 	raise_on(lib, err, "bsr_spmm")
 	count_launch("bsr_spmm", V.dtype, vec)
+	L2_LAUNCHES["bsr_spmm"] += V.dtype == torch.complex128 and bool(lib.bsr_spmm_l2_path(bm, bn, m, k))
 	return out

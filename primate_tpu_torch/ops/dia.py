@@ -35,8 +35,11 @@ kernels of ``primate_tpu/ops/dia_pallas.py``:
   (``lo`` and ``ld`` whole 128-byte lines, so both passes take their vector paths on aligned lines). They read
   the columns outside the rows as data (zeros, or a neighbour rank's rows after a halo exchange)
   and write zeros there. On a row-sharded carry (``reduce`` given) each pass writes only the
-  rank's sums, the caller all-reduces them between the passes, and ``lanczos_dia_advance`` (one
-  thread a probe) finishes the step from the reduced sums, so every rank advances alike.
+  rank's sums and the caller all-reduces them between the passes; the step's finish (α, β, the
+  divisors and the done flags, from the reduced sums, so every rank advances alike) is left
+  pending in the state and runs in pass A of the next step: two launches a step, as unsharded.
+  :func:`lanczos_dia_finish` runs a pending finish by itself (``lanczos_dia_advance``, one thread a
+  probe) where the sweep reads the state between steps and at its end.
 
 bfloat16 (JAX's third operator dtype): the two stencils and pass A read bf16 bands and blocks
 and sum in float32; the stencils round once to bf16 where they write, pass A writes ``w`` and α
@@ -48,7 +51,7 @@ unnormalised carry of pass B cannot serve it (pass B and the advance's state ari
 float32/float64): :func:`lanczos_dia_round_step` runs pass A and :func:`lanczos_dia_round`, a pair
 of kernels over w and q (B1 ``‖w − α·q‖²`` and the step's scalars, B2 ``q_next = bf16((w − α·q)/β')``),
 three launches a step with no PyTorch op between them (on a row-sharded carry the two sums are
-all-reduced and ``lanczos_dia_advance`` finishes the scalars before B2).
+all-reduced and B2 finishes the step's scalars from them).
 
 Complex (Hermitian) blocks: the two stencils and both step passes have complex64/complex128
 instantiations (a 16-byte vector holds 2 or 1 elements). The step's ``w`` and ``v`` are complex, its
@@ -66,7 +69,8 @@ a CUDA tensor it launches the kernel or raises; it counts each launch in
 :data:`LAUNCHES`.
 """
 
-from typing import NamedTuple, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -82,6 +86,7 @@ __all__ = [
 	"lanczos_dia_step",
 	"lanczos_dia_step_ref",
 	"LanczosState",
+	"Finish",
 	"row_dot",
 	"row_sq_norm",
 	"lanczos_state",
@@ -90,9 +95,12 @@ __all__ = [
 	"lanczos_sweep_pass_a_ref",
 	"lanczos_sweep_pass_b_ref",
 	"lanczos_dia_advance_ref",
+	"lanczos_dia_finish",
+	"lanczos_sharded_step_ref",
 	"lanczos_round_ref",
 	"lanczos_dia_round",
 	"lanczos_dia_round_ref",
+	"lanczos_round_pair_ref",
 	"lanczos_dia_round_step",
 	"CarrySpec",
 	"carry_spec",
@@ -223,18 +231,33 @@ def lanczos_dia_step_ref(
 DIV_CUR, DIV_PREV, BETA, DONE, ALPHA = range(5)
 
 
-class LanczosState(NamedTuple):
+class Finish(NamedTuple):
+	"""The finish of a row-sharded step, pending: its reduced sums ``(2, nv)`` (α, and Σ|v|² over every
+	rank's rows), the sweep's output rows it writes (``alpha_out``, ``beta_out``) and the residual
+	tolerance. The sums tensor is the step's own, so it stays alive until the finish has read it."""
+
+	sums: torch.Tensor
+	alpha_out: torch.Tensor
+	beta_out: torch.Tensor
+	tol: float
+
+
+@dataclass
+class LanczosState:
 	"""What a sweep carries from step to step besides its two residual blocks:
 	``scal (5, nv)`` in the accumulation dtype (rows :data:`DIV_CUR` … :data:`ALPHA`),
-	updated in place by each step, and ``ticket (1,)`` int32, a counter the kernels
-	use to find the last block of a pass; it is 0 between launches."""
+	updated in place by each step, ``ticket (1,)`` int32, a counter the kernels
+	use to find the last block of a pass (0 between launches), and ``pending``, the finish of a
+	row-sharded step not yet run (:class:`Finish`; at most one, run by the next step's pass A or by
+	:func:`lanczos_dia_finish`)."""
 
 	scal: torch.Tensor
 	ticket: torch.Tensor
+	pending: List[Finish] = field(default_factory=list)
 
 
 def lanczos_state(nv: int, dtype: torch.dtype, device) -> LanczosState:
-	"""The state before the first step: q = v (divisors 1), β = 0, nothing done."""
+	"""The state before the first step: q = v (divisors 1), β = 0, nothing done, nothing pending."""
 	scal = torch.zeros((5, nv), dtype=dtype, device=device)
 	scal[DIV_CUR] = 1
 	scal[DIV_PREV] = 1
@@ -257,6 +280,19 @@ def _finish_beta(s: torch.Tensor, beta: torch.Tensor, beta_out: torch.Tensor, re
 	s[DONE] = (done | (beta < residual_tol)).to(s.dtype)
 
 
+def _pass_a_plain(apply_t, v_cur, v_prev, s, reduce, spec: CarrySpec) -> Tuple[torch.Tensor, torch.Tensor]:
+	"""Pass A's arithmetic from the state ``s`` as it stands, writing nothing: ``w`` and the reduced α."""
+	q = v_cur / s[DIV_CUR, :, None]
+	w = spec.zero_margins(apply_t(q).to(v_cur.dtype) - s[BETA, :, None] * (v_prev / s[DIV_PREV, :, None]))
+	return w, reduce(row_dot(spec.rows(q), spec.rows(w)))
+
+
+def _pass_b_plain(v_cur, w, alpha, s, reduce, spec: CarrySpec) -> Tuple[torch.Tensor, torch.Tensor]:
+	"""Pass B's arithmetic, writing nothing but ``v`` in place of ``w``: ``v`` and the reduced Σ|v|²."""
+	v = spec.zero_margins(w.sub_(alpha[:, None] * (v_cur / s[DIV_CUR, :, None])))
+	return v, reduce(row_sq_norm(spec.rows(v)))
+
+
 def lanczos_sweep_pass_a_ref(
 	apply_t, v_cur: torch.Tensor, v_prev: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor,
 	reduce=_same, spec: Optional[CarrySpec] = None,
@@ -267,11 +303,8 @@ def lanczos_sweep_pass_a_ref(
 	``state.scal[ALPHA]`` and to ``alpha_out`` (zero where a probe is done). The state is real for
 	complex (Hermitian) blocks too. On a row-sharded carry ``reduce`` finishes the sum over the
 	other ranks' rows (the identity otherwise)."""
-	spec = spec or _flat(v_cur)
-	s = state.scal
-	q = v_cur / s[DIV_CUR, :, None]
-	w = spec.zero_margins(apply_t(q).to(v_cur.dtype) - s[BETA, :, None] * (v_prev / s[DIV_PREV, :, None]))
-	_finish_alpha(s, reduce(row_dot(spec.rows(q), spec.rows(w))), alpha_out)
+	w, alpha = _pass_a_plain(apply_t, v_cur, v_prev, state.scal, reduce, spec or _flat(v_cur))
+	_finish_alpha(state.scal, alpha, alpha_out)
 	return w
 
 
@@ -283,10 +316,9 @@ def lanczos_sweep_pass_b_ref(
 	``β' = ‖v‖`` (``√Σ|v|²`` over the own rows); writes ``beta_out`` (zero where a probe was done)
 	and advances ``state``: ``div_prev = div_cur``, ``div_cur = β'`` if ``β' > residual_tol`` else
 	``inf``, ``β = β'``, ``done |= β' < residual_tol``. ``reduce`` and ``spec`` as in pass A."""
-	spec = spec or _flat(v_cur)
 	s = state.scal
-	v = spec.zero_margins(w.sub_(s[ALPHA, :, None] * (v_cur / s[DIV_CUR, :, None])))
-	_finish_beta(s, torch.sqrt(reduce(row_sq_norm(spec.rows(v)))), beta_out, residual_tol)
+	v, sq = _pass_b_plain(v_cur, w, s[ALPHA], s, reduce, spec or _flat(v_cur))
+	_finish_beta(s, torch.sqrt(sq), beta_out, residual_tol)
 	return v
 
 
@@ -300,6 +332,48 @@ def lanczos_dia_advance_ref(
 	``done |= β' < residual_tol`` with ``β' = √Σ|v|²``."""
 	_finish_alpha(state.scal, sums[0], alpha_out)
 	_finish_beta(state.scal, torch.sqrt(sums[1]), beta_out, residual_tol)
+
+
+def _finish_plain(state: LanczosState) -> None:
+	"""The pending finish of ``state``, if any, by :func:`lanczos_dia_advance_ref`."""
+	if state.pending:
+		f = state.pending.pop()
+		lanczos_dia_advance_ref(f.sums, state, f.alpha_out, f.beta_out, f.tol)
+
+
+def lanczos_dia_finish(state: LanczosState) -> None:
+	"""Run the pending finish of a row-sharded sweep's last step (see :class:`Finish`), if there is one:
+	on the card the ``lanczos_dia_advance`` kernel, on the CPU its plain version. The sweep calls it
+	(through ``ShardedDIAOperator.lanczos_sweep_flush``) before it reads the state between steps and
+	at its end; with nothing pending it does nothing."""
+	if not state.pending:
+		return
+	if state.scal.device.type == "cpu":
+		_finish_plain(state)
+		return
+	from ._build import load_library
+
+	f = state.pending.pop()
+	_launch_advance(load_library(), f.sums, state, f.alpha_out, f.beta_out, f.tol)
+
+
+def lanczos_sharded_step_ref(
+	apply_t, v_cur: torch.Tensor, v_prev: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor,
+	beta_out: torch.Tensor, residual_tol: float, reduce, spec: Optional[CarrySpec] = None,
+) -> torch.Tensor:
+	"""Plain version of :func:`lanczos_dia_sweep_step` on a row-sharded carry, the finish deferred as the
+	kernels defer it: the pending finish of the step before runs first (where pass A runs it on the card),
+	then both passes' arithmetic from the state as it stands, each sum finished by ``reduce``, and this
+	step's finish is left pending in ``state`` (its outputs and the state are written by the next step or
+	by :func:`lanczos_dia_finish`). Bit for bit :func:`lanczos_sweep_step_ref` with ``reduce`` once the
+	finish has run: the same operations on the same values, only later."""
+	spec = spec or _flat(v_cur)
+	_finish_plain(state)
+	s = state.scal
+	w, alpha = _pass_a_plain(apply_t, v_cur, v_prev, s, reduce, spec)
+	v, sq = _pass_b_plain(v_cur, w, alpha, s, reduce, spec)
+	state.pending.append(Finish(torch.stack([alpha, sq]), alpha_out, beta_out, float(residual_tol)))
+	return v
 
 
 def lanczos_sweep_step_ref(
@@ -343,6 +417,20 @@ def lanczos_dia_round_ref(
 	spec = spec or _flat(q_cur)
 	alpha = state.scal[ALPHA] if sums is None else sums[0]
 	return spec.zero_margins(lanczos_round_ref(w, alpha, q_cur, state, alpha_out, beta_out, residual_tol, spec.rows, reduce))
+
+
+def lanczos_round_pair_ref(
+	w: torch.Tensor, q_cur: torch.Tensor, state: LanczosState, alpha_out: torch.Tensor, beta_out: torch.Tensor,
+	residual_tol: float, spec: CarrySpec, reduce, sums: torch.Tensor,
+) -> torch.Tensor:
+	"""Plain version of :func:`lanczos_dia_round` on a row-sharded carry, split as its kernels split it: B1
+	the rank's ``Σ(w − α·q)²`` over the own rows (α the reduced ``sums[0]``) into ``sums[1]``, ``reduce``
+	finishes it, then B2 the step's finish from the reduced sums (what :func:`lanczos_dia_advance_ref`
+	writes) and ``q_next``. ``w`` is left alone. Bit for bit :func:`lanczos_dia_round_ref` with ``sums``."""
+	v = w.addcmul(sums[0][:, None], q_cur.to(w.dtype), value=-1)
+	sums[1] = reduce(row_sq_norm(spec.rows(v)))
+	lanczos_dia_advance_ref(sums, state, alpha_out, beta_out, residual_tol)
+	return spec.zero_margins(v.div_(state.scal[DIV_CUR, :, None]).to(q_cur.dtype))
 
 
 def _check_shapes(name: str, bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -> None:
@@ -396,10 +484,12 @@ def dia_stencil_t(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -
 	return out
 
 
-def _launch_pass_a(lib, bands, offsets, v_cur, v_prev, scal, ticket, alpha_out, spec=None, sums=None, rounded=True):
+def _launch_pass_a(lib, bands, offsets, v_cur, v_prev, scal, ticket, alpha_out, spec=None, sums=None, rounded=True, pending=None):
 	"""Pass A on the card: returns w (in the accumulation dtype: float32 for a bfloat16 carry,
 	complex for a complex one), the (nv, grid) α partials (real), the grid and the vector flag. With
-	``sums`` (nv,) the last block writes the rank's α sums there and leaves the state alone."""
+	``sums`` (nv,) the last block writes the rank's α sums there and leaves the state alone, but for
+	``pending`` (a :class:`Finish`, float32/float64 only): the step before's finish, which every block
+	applies to the divisors and β it reads, and the last block writes to the state and the outputs."""
 	spec = spec or _flat(v_cur)
 	nv = v_cur.shape[0]
 	gx = lib.lanczos_step_blocks(nv, spec.n, v_cur.element_size(), int(v_cur.is_complex()))
@@ -409,13 +499,21 @@ def _launch_pass_a(lib, bands, offsets, v_cur, v_prev, scal, ticket, alpha_out, 
 	w = torch.empty(v_cur.shape, dtype=acc, device=v_cur.device)
 	partial = torch.empty((nv, gx), dtype=acc.to_real(), device=v_cur.device)
 	vec = vector_ok(spec.ld, v_cur.element_size(), bands, v_cur, v_prev, w, lead=spec.lo)
-	fn = getattr(lib, f"lanczos_dia_step_{SUFFIX[v_cur.dtype]}")
 	ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-	err = fn(
-		bands.data_ptr(), offsets.data_ptr(), bands.shape[0], v_cur.data_ptr(), v_prev.data_ptr(), scal.data_ptr(),
-		w.data_ptr(), partial.data_ptr(), ptr(ticket), ptr(alpha_out), ptr(sums), nv, spec.ld, spec.lo, spec.n, gx,
-		int(rounded), int(vec), stream(v_cur.device),
-	)
+	if pending is None:
+		err = getattr(lib, f"lanczos_dia_step_{SUFFIX[v_cur.dtype]}")(
+			bands.data_ptr(), offsets.data_ptr(), bands.shape[0], v_cur.data_ptr(), v_prev.data_ptr(), scal.data_ptr(),
+			w.data_ptr(), partial.data_ptr(), ptr(ticket), ptr(alpha_out), ptr(sums), nv, spec.ld, spec.lo, spec.n, gx,
+			int(rounded), int(vec), stream(v_cur.device),
+		)
+	else:
+		if v_cur.dtype not in (torch.float32, torch.float64) or pending.sums.dtype != scal.dtype:
+			raise TypeError(f"lanczos_dia_step: a pending finish takes a float32/float64 carry and its state's dtype; got {v_cur.dtype}")
+		err = getattr(lib, f"lanczos_dia_step_finish_{SUFFIX[v_cur.dtype]}")(
+			bands.data_ptr(), offsets.data_ptr(), bands.shape[0], v_cur.data_ptr(), v_prev.data_ptr(), scal.data_ptr(),
+			w.data_ptr(), partial.data_ptr(), ptr(ticket), ptr(sums), pending.sums.data_ptr(), pending.alpha_out.data_ptr(),
+			pending.beta_out.data_ptr(), pending.tol, nv, spec.ld, spec.lo, spec.n, gx, int(vec), stream(v_cur.device),
+		)
 	raise_on(lib, err, "lanczos_dia_step")
 	count_launch("lanczos_dia_step", v_cur.dtype, vec)
 	return w, partial, gx, vec
@@ -451,8 +549,8 @@ def _launch_advance(lib, sums, state, alpha_out, beta_out, residual_tol) -> None
 
 def _launch_round(lib, w, q_cur, state, alpha_out, beta_out, residual_tol, spec, reduce=None, sums=None):
 	"""The round pair on the card, on a grid of its own (``lanczos_round_blocks``): B1 (α from ``state[ALPHA]``,
-	or from the reduced ``sums[0]``: then B1 writes the rank's Σv² to ``sums[1]``, ``reduce`` finishes it and
-	``lanczos_dia_advance`` the step's scalars), then B2. Returns q_next."""
+	or from the reduced ``sums[0]``: then B1 writes the rank's Σv² to ``sums[1]`` and ``reduce`` finishes it),
+	then B2 (with ``sums``, it finishes the step's scalars from them). Returns q_next."""
 	nv = q_cur.shape[0]
 	gx = lib.lanczos_round_blocks(nv, spec.n)
 	if gx < 1:
@@ -468,12 +566,13 @@ def _launch_round(lib, w, q_cur, state, alpha_out, beta_out, residual_tol, spec,
 		spec.n, float(residual_tol), gx, int(vec), stream(q_cur.device),
 	)
 	raise_on(lib, err, "lanczos_dia_round")
+	fin = (None, None, None)
 	if sums is not None:
 		reduce(sums[1])
-		_launch_advance(lib, sums, state, alpha_out, beta_out, residual_tol)
+		fin = (sums.data_ptr(), alpha_out.data_ptr(), beta_out.data_ptr())
 	err = lib.lanczos_dia_round_write_bf16(
-		w.data_ptr(), q_cur.data_ptr(), scal.data_ptr(), q_next.data_ptr(), nv, spec.ld, spec.lo, spec.n, gx, int(vec),
-		stream(q_cur.device),
+		w.data_ptr(), q_cur.data_ptr(), scal.data_ptr(), *fin, q_next.data_ptr(), nv, spec.ld, spec.lo, spec.n,
+		float(residual_tol), gx, int(vec), stream(q_cur.device),
 	)
 	raise_on(lib, err, "lanczos_dia_round")
 	count_launch("lanczos_dia_round", q_cur.dtype, vec)
@@ -508,15 +607,18 @@ def lanczos_dia_round(
 	from :func:`lanczos_state` with α in ``state[ALPHA]`` and the done flags, ``alpha_out``/``beta_out``
 	``(nv,)``. On a row-sharded carry give ``reduce`` (an in-place all-reduce of an ``(nv,)`` tensor)
 	and ``sums (2, nv)`` float32 with the reduced α in ``sums[0]``: B1 writes the rank's Σv² to
-	``sums[1]``, ``reduce`` finishes it, ``lanczos_dia_advance`` writes the outputs and the state, and B2
-	reads them. Returns ``q_next (nv, ld)`` bfloat16, zero in the margins. bfloat16 only."""
+	``sums[1]``, ``reduce`` finishes it, and B2 writes the outputs and the state from the reduced sums
+	beside ``q_next`` (:func:`lanczos_round_pair_ref` on the CPU). Returns ``q_next (nv, ld)`` bfloat16,
+	zero in the margins. bfloat16 only."""
 	spec = _check_round("lanczos_dia_round", q_cur, state, alpha_out, beta_out, spec)
 	if w.shape != q_cur.shape:
 		raise ValueError("lanczos_dia_round: w must match q_cur (nv, ld)")
 	if (reduce is None) != (sums is None) or (sums is not None and sums.shape != (2, q_cur.shape[0])):
 		raise ValueError("lanczos_dia_round: a row-sharded carry takes both reduce and sums (2, nv), an unsharded one neither")
 	if q_cur.device.type == "cpu":
-		return lanczos_dia_round_ref(w, q_cur, state, alpha_out, beta_out, residual_tol, spec, reduce or _same, sums)
+		if sums is not None:
+			return lanczos_round_pair_ref(w, q_cur, state, alpha_out, beta_out, residual_tol, spec, reduce, sums)
+		return lanczos_dia_round_ref(w, q_cur, state, alpha_out, beta_out, residual_tol, spec)
 	_check_round_cuda("lanczos_dia_round", q_cur, state, alpha_out, beta_out, sums, w=w)
 	from ._build import load_library
 
@@ -533,8 +635,8 @@ def lanczos_dia_round_step(
 	``state[BETA]``, α; ``rounded`` as in :func:`lanczos_dia_step`), then :func:`lanczos_dia_round`.
 	On the card three launches (pass A's last block writes α to ``state[ALPHA]``) and no PyTorch op;
 	with ``reduce`` (a row-sharded carry) pass A writes the rank's α sums, ``reduce`` finishes them,
-	and the round pair takes them. ``q_cur``/``q_prev`` ``(nv, ld)`` bfloat16 carries of layout ``spec``,
-	``bands (n_d, ld)``. Returns ``q_next``."""
+	and the round pair takes them and finishes the step: three launches too. ``q_cur``/``q_prev``
+	``(nv, ld)`` bfloat16 carries of layout ``spec``, ``bands (n_d, ld)``. Returns ``q_next``."""
 	_check_shapes("lanczos_dia_round_step", bands, offsets, q_cur)
 	if q_prev.shape != q_cur.shape:
 		raise ValueError("lanczos_dia_round_step: q_prev must match q_cur (nv, ld)")
@@ -542,7 +644,10 @@ def lanczos_dia_round_step(
 	s = state.scal
 	if q_cur.device.type == "cpu":
 		w, alpha = lanczos_dia_step_ref(bands, offsets, q_cur, q_prev, s[BETA], spec, reduce or _same, rounded)
-		return spec.zero_margins(lanczos_round_ref(w, alpha, q_cur, state, alpha_out, beta_out, residual_tol, spec.rows, reduce or _same))
+		if reduce is not None:
+			sums = torch.stack([alpha, torch.empty_like(alpha)])
+			return lanczos_round_pair_ref(w, q_cur, state, alpha_out, beta_out, residual_tol, spec, reduce, sums)
+		return spec.zero_margins(lanczos_round_ref(w, alpha, q_cur, state, alpha_out, beta_out, residual_tol, spec.rows))
 	_check_round_cuda("lanczos_dia_round_step", q_cur, state, alpha_out, beta_out, None, bands=bands, offsets=offsets, q_prev=q_prev)
 	from ._build import load_library
 
@@ -601,9 +706,12 @@ def lanczos_dia_sweep_step(
 	:func:`lanczos_state`, ``alpha_out``/``beta_out`` ``(nv,)`` (rows of the sweep's ``(deg, nv)``
 	outputs). With ``reduce`` (a row-sharded carry: an in-place all-reduce of an ``(nv,)`` tensor
 	over the ranks), the passes write only the rank's sums, ``reduce`` finishes each between the
-	passes, and ``lanczos_dia_advance`` advances the state from the reduced sums: three launches,
-	two all-reduces of nv numbers. Complex64/complex128 carries take their own instantiations; the
-	state, the outputs and the sums stay real. Returns the new residual block v."""
+	passes, and the step's finish (``alpha_out``, ``beta_out`` and the advanced state, from the
+	reduced sums) is left pending in ``state.pending``: pass A of
+	the next step runs it, or :func:`lanczos_dia_finish`, which the caller runs before it reads the
+	state or the outputs. Two launches a step, two all-reduces of nv numbers (on the CPU
+	:func:`lanczos_sharded_step_ref`). Complex64/complex128 carries take their own instantiations
+	(unsharded only); the state, the outputs and the sums stay real. Returns the new residual block v."""
 	_check_shapes("lanczos_dia_sweep_step", bands, offsets, v_cur)
 	nv = v_cur.shape[0]
 	if v_prev.shape != v_cur.shape or state.scal.shape != (5, nv) or alpha_out.shape != (nv,) or beta_out.shape != (nv,):
@@ -611,10 +719,10 @@ def lanczos_dia_sweep_step(
 	spec = _check_spec("lanczos_dia_sweep_step", spec, v_cur)
 	_check_real("lanczos_dia_sweep_step", scal=state.scal, alpha_out=alpha_out, beta_out=beta_out)
 	if v_cur.device.type == "cpu":
-		return lanczos_sweep_step_ref(
-			lambda q: dia_stencil_t_ref(bands, offsets, q), v_cur, v_prev, state, alpha_out, beta_out, residual_tol,
-			reduce or _same, spec,
-		)
+		apply_t = lambda q: dia_stencil_t_ref(bands, offsets, q)  # noqa: E731
+		if reduce is not None:
+			return lanczos_sharded_step_ref(apply_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol, reduce, spec)
+		return lanczos_sweep_step_ref(apply_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol, spec=spec)
 	check_cuda(
 		"lanczos_dia_sweep_step", v_cur.dtype, v_cur.device, ("offsets",), complex_ok=True,
 		acc_keys=("scal", "alpha_out", "beta_out"), bands=bands, offsets=offsets, v_cur=v_cur, v_prev=v_prev,
@@ -629,12 +737,15 @@ def lanczos_dia_sweep_step(
 		w, partial, gx, vec = _launch_pass_a(lib, bands, offsets, v_cur, v_prev, state.scal, state.ticket, alpha_out, spec)
 		_launch_pass_b(lib, v_cur, w, state, partial, beta_out, residual_tol, gx, vec, spec)
 		return w
-	sums = torch.empty((2, nv), dtype=state.scal.dtype, device=v_cur.device)
-	w, partial, gx, vec = _launch_pass_a(lib, bands, offsets, v_cur, v_prev, state.scal, state.ticket, None, spec, sums[0])
+	sums = torch.empty((2, nv), dtype=state.scal.dtype, device=v_cur.device)  # this step's own: the next pass A reads it
+	pending = state.pending.pop() if state.pending else None
+	w, partial, gx, vec = _launch_pass_a(
+		lib, bands, offsets, v_cur, v_prev, state.scal, state.ticket, None, spec, sums[0], pending=pending
+	)
 	reduce(sums[0])
 	_launch_pass_b(lib, v_cur, w, state, partial, beta_out, residual_tol, gx, vec, spec, sums)
 	reduce(sums[1])
-	_launch_advance(lib, sums, state, alpha_out, beta_out, residual_tol)
+	state.pending.append(Finish(sums, alpha_out, beta_out, float(residual_tol)))
 	return w
 
 

@@ -43,7 +43,8 @@ import torch.nn.functional as F
 from ..operators.base import DenseOperator, LinearOperator, torch_dtype
 from ..operators.sparse import BSROperator, CSROperator, DIAOperator
 from ..ops.dia import (
-	CarrySpec, carry_spec, lanczos_dia_round_step, lanczos_dia_step, lanczos_dia_sweep_step, lanczos_sweep_step_ref, row_dot,
+	CarrySpec, carry_spec, lanczos_dia_finish, lanczos_dia_round_step, lanczos_dia_step, lanczos_dia_sweep_step,
+	lanczos_sweep_step_ref, row_dot,
 )
 from ._comm import all_gather_rows, all_reduce_rows, halo_exchange
 
@@ -418,8 +419,9 @@ class ShardedDIAOperator(_Sharded):
 
 	def lanczos_sweep_step(self, v_cur, v_prev, state, alpha_out, beta_out, residual_tol: float, layout=None):
 		"""The whole step on the carry after the halo exchange: ``lanczos_dia_sweep_step`` with its two
-		sums all-reduced over the op group between the passes, and the state advanced from them; a
-		complex operator takes the plain step through the complex ``dia_stencil_t``."""
+		sums all-reduced over the op group between the passes, and the state advanced from them by the
+		next step's pass A or by :meth:`lanczos_sweep_flush`; a complex operator takes the plain step
+		through the complex ``dia_stencil_t``."""
 		if self.dtype.is_complex:
 			return super().lanczos_sweep_step(v_cur, v_prev, state, alpha_out, beta_out, residual_tol)
 		self._exchange(v_cur)
@@ -427,6 +429,11 @@ class ShardedDIAOperator(_Sharded):
 			self.local.bands, self.local.offsets_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol, self._spec,
 			self._reduce,
 		)
+
+	def lanczos_sweep_flush(self, state) -> None:
+		"""Run the finish that the last real step left pending (``lanczos_dia_finish``: the advance kernel on
+		the card), so that the state and the step's α and β can be read."""
+		lanczos_dia_finish(state)
 
 	def lanczos_round_step(self, q_cur, q_prev, state, alpha_out, beta_out, residual_tol: float, layout=None):
 		"""The whole bfloat16 step on the carry after the halo exchange: pass A (the stencil rounded, as

@@ -29,12 +29,23 @@ and its parts (the Gram product, the Cholesky, the triangular solve). ``--bf16``
 full-bf16 flagship alone (a bf16 ``DIAOperator`` and ``MatrixFunction(..., dtype=bfloat16)``: pass A's
 bf16 kernel and the round pair a step) beside the float32 flagship. ``--complex`` traces phase 15's β sweep
 of ``tr e^{−βH}`` (4 × 48 steps) and its SLQ density (64 steps) alone, on the 4M-site complex64 Hofstadter
-operator: the complex step kernels, passes A and B a step. ``--against DIR`` (repeatable) traces nothing:
+operator: the complex step kernels, passes A and B a step. ``--launch`` traces nothing: it times the launches of
+two small kernels apart into host and device time (``chip_smoke.launch_times``: the host's enqueue of a burst, the
+profiler's device time, CUDA events around one launch after a sync and over a burst) for ``lanczos_dia_advance`` (64 probes) and
+``bsr_spmm`` where V fits in L2 (complex128 and complex64 at ``block_random_spd(8192)``, float32 at phase 20's
+131,072 rows, k = 64) and at the BSR cell (float32, bfloat16, complex64, k = 64), each beside its least-traffic bound;
+then the sweeps that launch the advance (``sharded_walls``): phase 23's 10M flagship sharded on one NCCL rank and
+unsharded, in float32 and bfloat16 (traced, and three synced walls), and the flagship at 500k through the halo DIA
+operator on two gloo ranks (meshes (2, 1) and (1, 2); bf16 on (2, 1)), each with its launches a sweep. Run it in
+two checkouts in turns to compare them (copy this file and chip_smoke.py into the other checkout: the mode calls
+only what every checkout of the package has). ``--against DIR`` (repeatable) traces nothing:
 it times pass A (``pass_a_turns``: bf16 at 500k and 10M rounded, and 10M unrounded on the padded carry in the
 finishing mode, beside the float32/float64/complex rows), the probe-major stencil (``stencil_t_turns``: bf16 at
 64 × 500k and 64 × 10M with 3 diagonals and at the FEM cell, float32/float64, complex64) and the node-major stencil
-(``stencil_turns``) of this tree and of each checkout ``DIR`` in turns at the paths' shapes, and prints
-``-Xptxas -v``'s registers and spills for each build's pass A and stencil kernels.
+(``stencil_turns``) and ``bsr_spmm`` (``bsr_turns``: complex128 and complex64 where V fits in L2, float32 at phase
+20's operator, the BSR cell in float32, bf16 and complex64) of this tree and of each checkout ``DIR`` in turns at the
+paths' shapes, pass A on the padded carry also with a pending finish (this tree's row-sharded step), and prints
+``-Xptxas -v``'s registers and spills for each build's pass A, stencil, B2 and BSR kernels.
 Prints one JSON line per call: the
 traced host wall (ms), the summed device time of its kernels (ms), the device's
 busy share of the wall, and the kernels that take the most device time (ms and
@@ -84,6 +95,7 @@ def main() -> None:
 	ap.add_argument("--sharded", action="store_true", help="trace phase 23's sharded flagship only; time tall_qr at 10M")
 	ap.add_argument("--bf16", action="store_true", help="trace phase 24's 10M full-bf16 flagship (and the float32 one) only")
 	ap.add_argument("--complex", action="store_true", help="trace phase 15's complex β sweep and SLQ density only")
+	ap.add_argument("--launch", action="store_true", help="host and device time of the advance and of bsr_spmm, and the sharded sweeps' walls")
 	ap.add_argument("--against", action="append", default=[], metavar="DIR",
 		help="time pass A and the node-major stencil of this tree and of the checkout DIR in turns, and compare their outputs (no trace)")
 	args = ap.parse_args()
@@ -95,12 +107,15 @@ def main() -> None:
 	import primate_tpu_torch as ptt
 
 	dev = torch.device("cuda", 0)
-	only = args.recipes or args.grad or args.sharded or args.bf16 or args.complex or args.against
+	only = args.recipes or args.grad or args.sharded or args.bf16 or args.complex or args.against or args.launch
 	rows = [] if only else other_calls(torch, ptt, cs, dev)
-	if args.against:
+	if args.launch:
+		rows, calls = launch_yardstick(torch, ptt, cs, dev) + sharded_walls(torch, ptt, cs, dev), {}
+	elif args.against:
 		libs, rows = build_libs(args.against)
-		rows, calls = rows + pass_a_turns(torch, ptt, cs, dev, libs) + stencil_t_turns(torch, ptt, cs, dev, libs) + stencil_turns(
-			torch, ptt, cs, dev, libs), {}
+		bsr_libs, bsr_rows = build_libs(args.against, "bsr_spmm")
+		rows, calls = rows + bsr_rows + pass_a_turns(torch, ptt, cs, dev, libs) + stencil_t_turns(torch, ptt, cs, dev, libs) + stencil_turns(
+			torch, ptt, cs, dev, libs) + bsr_turns(torch, ptt, cs, dev, bsr_libs), {}
 	elif args.complex:
 		calls = complex_calls(torch, ptt, cs, dev)
 	elif args.bf16:
@@ -140,8 +155,9 @@ def main() -> None:
 
 
 def _ptxas(nvcc: str, err: str) -> list:
-	"""The lines of ``nvcc -Xptxas -v``'s report (``err``) on the pass A kernels and the two stencils
-	(the probe-major ``dia_stencil_t`` kernels, the node-major ``dia_stencil_kernel``): registers, spills, shared memory."""
+	"""The lines of ``nvcc -Xptxas -v``'s report (``err``) on the pass A kernels, the two stencils (the probe-major
+	``dia_stencil_t`` kernels, the node-major ``dia_stencil_kernel``), B2 and the BSR kernels: registers, spills,
+	shared memory."""
 	from pathlib import Path
 
 	filt, rows, name = Path(nvcc).with_name("cu++filt"), [], None
@@ -152,15 +168,18 @@ def _ptxas(nvcc: str, err: str) -> list:
 			if filt.exists():
 				name = subprocess.run([str(filt), name], capture_output=True, text=True).stdout.strip()
 				name = name[: name.find(">(") + 1] if ">(" in name else name
-		elif name and ("lanczos_pass_a" in name or "dia_stencil" in name) and ("spill" in line or "Used" in line):
+		elif name and any(k in name for k in ("lanczos_pass_a", "dia_stencil", "bsr_spmm", "round_write")) and (
+			"spill" in line or "Used" in line
+		):
 			rows.append(f"{name}: {line.strip()}")
 	return rows
 
 
-def build_libs(dirs) -> tuple:
-	"""``csrc/dia_stencil.cu`` of this tree and of each checkout in ``dirs`` (the same C interface), built
-	by nvcc with ``-Xptxas -v`` (one process each, started together) and loaded: ``[(tree, lib)]``, and the
-	ptxas rows."""
+def build_libs(dirs, stem: str = "dia_stencil") -> tuple:
+	"""``csrc/<stem>.cu`` of this tree and of each checkout in ``dirs``, built by nvcc with ``-Xptxas -v`` (one
+	process each, started together) and loaded: ``[(tree, lib)]``, and the ptxas rows. The pass A, stencil and
+	BSR entry points keep their C interface across checkouts, but for ``bsr_spmm``'s ``l2`` argument (``bsr_turns``
+	calls a build without it the old way)."""
 	import ctypes
 	import os
 	from pathlib import Path
@@ -171,8 +190,8 @@ def build_libs(dirs) -> tuple:
 	_build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
 	for i, tree in enumerate(["this", *dirs]):
 		src = Path(__file__).resolve().parent if tree == "this" else Path(tree).resolve()
-		so = _build._BUILD_DIR / f"libturns{i}.{os.getpid()}.so"
-		cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so), str(src / "primate_tpu_torch" / "csrc" / "dia_stencil.cu")]
+		so = _build._BUILD_DIR / f"libturns_{stem}{i}.{os.getpid()}.so"
+		cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so), str(src / "primate_tpu_torch" / "csrc" / f"{stem}.cu")]
 		jobs.append((tree, so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
 	for tree, so, proc in jobs:
 		err = proc.communicate()[1]
@@ -180,7 +199,7 @@ def build_libs(dirs) -> tuple:
 			sys.exit(f"profile_port: nvcc failed for {tree}:\n{err}")
 		lib = ctypes.CDLL(str(so))
 		so.unlink()
-		_build._declare(lib, "dia_stencil")
+		_build._declare(lib, stem)
 		libs.append((tree, lib))
 		rows.append({"ptxas": tree, "lines": _ptxas(nvcc, err)})
 		print(json.dumps(rows[-1]), flush=True)
@@ -229,11 +248,14 @@ def pass_a_turns(torch, ptt, cs, dev, libs, reps: int = 20) -> list:
 			X = torch.randn((nv, n), generator=gen, device=dev, dtype=torch.float32 if dtype == torch.bfloat16 else dtype)
 		return (X / torch.linalg.vector_norm(X, dim=1, keepdim=True)).to(dtype)
 
-	def run(label, bands, offs, v_cur, v_prev, r, bytes_, spec=None, rounded=True):
+	def run(label, bands, offs, v_cur, v_prev, r, bytes_, spec=None, rounded=True, finish=False):
 		nv = v_cur.shape[0]
 		st0 = dia.lanczos_state(nv, r, dev)
 		for k in (dia.DIV_CUR, dia.DIV_PREV, dia.BETA):
 			st0.scal[k] = torch.rand(nv, generator=gen, device=dev, dtype=r) + 0.5
+		if finish:  # one power of two a probe for both divisors and β: the pending finish below leaves them as they are
+			c = torch.exp2(torch.randint(-2, 3, (nv,), generator=gen, device=dev)).to(r)
+			st0.scal[dia.DIV_CUR] = st0.scal[dia.DIV_PREV] = st0.scal[dia.BETA] = c
 		ents, a0 = [], None
 		for tree, lib in libs:
 			st = dia.LanczosState(st0.scal.clone(), torch.zeros(1, dtype=torch.int32, device=dev))
@@ -244,6 +266,19 @@ def pass_a_turns(torch, ptt, cs, dev, libs, reps: int = 20) -> list:
 			alpha = sums if spec is not None else st.scal[dia.ALPHA].clone()
 			a0 = alpha if a0 is None else a0
 			ents.append((tree, launch, w, {"alpha_max_rel_diff": float(((alpha - a0).abs() / a0.abs().clamp_min(1e-30)).max()),
+				"grid_x": gx}))
+		for tree, lib in libs if finish else ():  # pass A with the step before's finish pending (the row-sharded step)
+			if not hasattr(lib, "lanczos_dia_step_finish_f32"):
+				continue
+			st = dia.LanczosState(st0.scal.clone(), torch.zeros(1, dtype=torch.int32, device=dev))
+			fin = dia.Finish(torch.stack([torch.randn(nv, generator=gen, device=dev, dtype=r), st0.scal[dia.DIV_CUR] ** 2]),
+				torch.empty(nv, dtype=r, device=dev), torch.empty(nv, dtype=r, device=dev), 1e-8)
+			sums = torch.zeros(nv, dtype=r, device=dev)
+			launch = functools.partial(dia._launch_pass_a, lib, bands, offs, v_cur, v_prev, st.scal, st.ticket, None, spec, sums, rounded,
+				fin)
+			w, _, gx, _ = launch()
+			torch.cuda.synchronize()
+			ents.append((f"{tree}_with_finish", launch, w, {"alpha_max_rel_diff": float(((sums - a0).abs() / a0.abs().clamp_min(1e-30)).max()),
 				"grid_x": gx}))
 		rows.append(_turns(torch, cs, {"shape": label, "nv": nv, "ld": v_cur.shape[1], "dtype": str(v_cur.dtype).removeprefix("torch."),
 			"rounded": rounded, "vector_path": vec, "bound_ms": bytes_ / cs.HBM_BYTES_PER_S * 1e3}, ents, reps=reps))
@@ -267,7 +302,7 @@ def pass_a_turns(torch, ptt, cs, dev, libs, reps: int = 20) -> list:
 				spec = op.carry_spec(nv)
 				cb, vc, vp = op._carry_bands(spec), spec.pad(v_cur), spec.pad(v_prev)
 				del v_cur, v_prev
-				run(f"{key}_{tag}_padded", cb, op.offsets_t, vc, vp, dtype, (3 * nv * n + 3 * n) * item, spec)
+				run(f"{key}_{tag}_padded", cb, op.offsets_t, vc, vp, dtype, (3 * nv * n + 3 * n) * item, spec, finish=True)
 				del cb, vc, vp
 			del op
 	for n, tag in ((cs.N_FLAGSHIP, "500k"), (cs.N_LARGE, "10M")):
@@ -281,6 +316,71 @@ def pass_a_turns(torch, ptt, cs, dev, libs, reps: int = 20) -> list:
 			run(f"bf16_{tag}_padded", cb, op.offsets_t, vc, vp, torch.float32, bytes_, spec, rounded=False)
 			del cb, vc, vp
 		del op
+	return rows
+
+
+def _bsr_launcher(lib, blocks, indptr, indices, V, n: int):
+	"""``bsr_spmm`` of ``lib`` (a build of any checkout's ``csrc/bsr_spmm.cu``) on these arrays, as a call that returns
+	its output, and whether it takes the L2 path (where the build has one and takes the call)."""
+	import torch
+
+	from primate_tpu_torch.ops import _common
+
+	nnzb, bm, bn = blocks.shape
+	m, k = V.shape
+	fn = getattr(lib, f"bsr_spmm_{_common.SUFFIX[V.dtype]}")
+	l2 = hasattr(lib, "bsr_spmm_l2_path") and V.dtype == torch.complex128 and bool(lib.bsr_spmm_l2_path(bm, bn, m, k))
+
+	def launch():
+		out = torch.empty((n, k), dtype=V.dtype, device=V.device)
+		vec = _common.vector_ok(k, V.element_size(), blocks, V, out)
+		err = fn(blocks.data_ptr(), indptr.data_ptr(), indices.data_ptr(), V.data_ptr(), out.data_ptr(), indptr.shape[0] - 1, bm, bn, m,
+			k, n, int(vec), _common.stream(V.device))
+		_common.raise_on(lib, err, "bsr_spmm")
+		return out
+
+	return launch, l2
+
+
+def bsr_turns(torch, ptt, cs, dev, libs, reps: int = 20) -> list:
+	"""``bsr_spmm`` of each library of ``build_libs(..., "bsr_spmm")`` on the same inputs at k = 64: complex128 and
+	complex64 at ``block_random_spd(CBSR_C128_N)`` with seeded imaginary tiles (phase 21's small shape; V in L2), float32
+	at phase 20's 131,072 rows, and float32, bfloat16 and complex64 at the BSR cell; each beside its least-traffic
+	bound, the outputs compared bit for bit, and each library's error against the plain version."""
+	from primate_tpu_torch.ops import bsr
+
+	rows = []
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(19)
+	As = ptt.BSROperator.from_scipy(cs._bsr_cell(n=cs.CBSR_C128_N, bs=8, density=0.01, seed=cs.CBSR_SEED), blocksize=(8, 8),
+		dtype=torch.float64, device=dev)
+	im = torch.randn(As.blocks.shape, generator=gen, device=dev, dtype=torch.float64)
+	shapes = [(f"c128_{cs.CBSR_C128_N}", As, lambda: torch.complex(As.blocks, im), torch.complex128),
+		(f"c64_{cs.CBSR_C128_N}", As, lambda: torch.complex(As.blocks, im).to(torch.complex64), torch.complex64)]
+	Ag = ptt.BSROperator.from_scipy(cs._bsr_cell(**cs.GRAD_BSR), blocksize=(8, 8), dtype=torch.float32, device=dev)
+	shapes.append((f"f32_{cs.GRAD_BSR['n']}", Ag, lambda: Ag.blocks, torch.float32))
+	A = ptt.BSROperator.from_scipy(cs._bsr_cell(**cs.BSR_CELL), blocksize=(8, 8), dtype=torch.float32, device=dev)
+	shapes += [("f32_cell", A, lambda: A.blocks, torch.float32), ("bf16_cell", A, lambda: A.blocks.to(torch.bfloat16), torch.bfloat16),
+		("c64_cell", A, lambda: torch.complex(A.blocks, 0.01 * torch.randn(A.blocks.shape, generator=gen, device=dev)), torch.complex64)]
+	k = 64
+	for label, op, make, dt in shapes:
+		blocks, n = make(), op.shape[0]
+		V = torch.randn((n, k), generator=gen, device=dev, dtype=dt)
+		item = V.element_size()
+		peak = cs.FP64_FLOP_PER_S if dt == torch.complex128 else cs.BF16_FLOP_PER_S if dt == torch.bfloat16 else cs.FP32_FLOP_PER_S
+		b_ms, b_by = cs.bound((blocks.numel() + 2 * n * k) * item, (8 if dt.is_complex else 2) * blocks.numel() * k, peak)
+		want = bsr.bsr_spmm_ref(blocks, op.indptr, op.indices, V, n)
+		ents = []
+		for tree, lib in libs:
+			launch, l2 = _bsr_launcher(lib, blocks, op.indptr, op.indices, V, n)
+			out = launch()
+			torch.cuda.synchronize()
+			ents.append((tree, launch, out, {"l2_path": l2, "rel_err": float((out - want).abs().max() / want.abs().max())}))
+		del want
+		rows.append(_turns(torch, cs, {"shape": label, "k": k, "dtype": str(dt).removeprefix("torch."), "tiles": int(blocks.shape[0]),
+			"bound_ms": b_ms, "bound_by": b_by}, ents, reps=reps))
+		del ents, blocks, V
+		torch.cuda.empty_cache()
 	return rows
 
 
@@ -418,6 +518,172 @@ def sharded_calls(torch, ptt, cs, dev) -> dict:
 		)
 		calls[f"{name}_matmat_t_{cs.PROBES}x{cs.N_LARGE}"] = functools.partial(o.matmat_t, X)  # phase 23's global face
 	return calls
+
+
+def launch_yardstick(torch, ptt, cs, dev) -> list:
+	"""``chip_smoke.launch_times`` of ``lanczos_dia_advance`` (64 probes, float32, from seeded sums) and of ``bsr_spmm`` at k = 64:
+	complex128 and complex64 at ``block_random_spd(CBSR_C128_N)`` with seeded imaginary tiles (phase 21's small
+	shape), float32 at phase 20's 131,072-row operator, and float32, bfloat16 and complex64 at the BSR cell (phase
+	7's matrix; the complex tiles get a seeded imaginary part); each with its least-traffic bound (tiles, V and the
+	output once: ``(nnzb·bm·bn + 2·n·k)·item`` over 3.35 TB/s, or the operations at the card's peak)."""
+	from primate_tpu_torch.ops import bsr, dia
+	from primate_tpu_torch.ops._build import load_library
+
+	rows = []
+	lib = load_library()
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(19)
+	nv = cs.PROBES
+	sums = torch.rand((2, nv), generator=gen, device=dev) + 0.5
+	st = dia.lanczos_state(nv, torch.float32, dev)
+	ab = torch.empty((2, nv), device=dev)
+	row = {"call": f"lanczos_dia_advance_nv{nv}", "bound_ms": cs.bound(11 * nv * 4, 6 * nv)[0],
+		**cs.launch_times(torch, lambda: dia._launch_advance(lib, sums, st, ab[0], ab[1], 1e-8))}
+	print(json.dumps(row), flush=True)
+	rows.append(row)
+	shapes = []
+	Ss = cs._bsr_cell(n=cs.CBSR_C128_N, bs=8, density=0.01, seed=cs.CBSR_SEED)
+	As = ptt.BSROperator.from_scipy(Ss, blocksize=(8, 8), dtype=torch.float64, device=dev)
+	im = torch.randn(As.blocks.shape, generator=gen, device=dev, dtype=torch.float64)
+	for dt in (torch.complex128, torch.complex64):
+		blocks = torch.complex(As.blocks, im).to(dt)
+		shapes.append((f"block_random_spd({cs.CBSR_C128_N})", As, blocks, dt))
+	Sg = cs._bsr_cell(**cs.GRAD_BSR)
+	Ag = ptt.BSROperator.from_scipy(Sg, blocksize=(8, 8), dtype=torch.float32, device=dev)
+	shapes.append((f"block_random_spd({cs.GRAD_BSR['n']})", Ag, Ag.blocks, torch.float32))
+	S = cs._bsr_cell(**cs.BSR_CELL)
+	A = ptt.BSROperator.from_scipy(S, blocksize=(8, 8), dtype=torch.float32, device=dev)
+	for dt in (torch.float32, torch.bfloat16, torch.complex64):
+		shapes.append(("cell", A, A.blocks.to(dt) if not dt.is_complex else None, dt))
+	k = 64
+	for label, op, blocks, dt in shapes:
+		if blocks is None:  # the cell's complex tiles, made when they are timed (683 MB)
+			blocks = torch.complex(op.blocks, 0.01 * torch.randn(op.blocks.shape, generator=gen, device=dev))
+		n = op.shape[0]
+		V = torch.randn((n, k), generator=gen, device=dev, dtype=dt)
+		args = (blocks, op.indptr, op.indices, V, n)
+		item = V.element_size()
+		real_ops = (8 if dt.is_complex else 2) * blocks.numel() * k
+		peak = cs.FP64_FLOP_PER_S if dt == torch.complex128 else cs.BF16_FLOP_PER_S if dt == torch.bfloat16 else cs.FP32_FLOP_PER_S
+		b_ms, b_by = cs.bound((blocks.numel() + 2 * n * k) * item, real_ops, peak)
+		row = {"call": f"bsr_spmm_{str(dt).removeprefix('torch.')}_{label}_k{k}", "tiles": int(blocks.shape[0]), "n": n,
+			"v_bytes": n * k * item, "bound_ms": b_ms, "bound_by": b_by, **cs.launch_times(torch, lambda: bsr.bsr_spmm(*args), 100)}
+		row["share_of_bound_device"] = b_ms / row["device_ms"]
+		print(json.dumps(row), flush=True)
+		rows.append(row)
+		del V, blocks, args
+	torch.cuda.empty_cache()
+	return rows
+
+
+def _sweep_digest(torch, ptt, op, n: int, dtype, dev) -> str:
+	"""A digest of the α and β bits of one ``lanczos_block_op`` sweep of ``op`` (deg ``chip_smoke.DEG``, orth 0) on a
+	seeded Rademacher block of 64 probes: two checkouts whose digests agree computed the same α and β bit for bit."""
+	import hashlib
+
+	import chip_smoke as cs
+
+	g = torch.Generator(device=dev)
+	g.manual_seed(42)
+	V = (torch.randint(0, 2, (n, cs.PROBES), generator=g, device=dev) * 2 - 1).to(dtype)
+	res = ptt.lanczos_block_op(op, V, deg=cs.DEG, ncv=2, orth=0, return_basis=False)
+	return hashlib.sha1(res.alphas.float().cpu().numpy().tobytes() + res.betas.float().cpu().numpy().tobytes()).hexdigest()
+
+
+def _counted_walls(torch, fn, reps: int = 3) -> dict:
+	"""The launches of one call of ``fn`` (after a warm-up), then ``reps`` synced walls (s)."""
+	from primate_tpu_torch.ops import _common
+
+	fn()
+	torch.cuda.synchronize()
+	_common.reset_launches()
+	fn()
+	torch.cuda.synchronize()
+	launches = {k: v for k, v in _common.LAUNCHES.items() if v}
+	walls = []
+	for _ in range(reps):
+		t0 = time.perf_counter()
+		fn()
+		torch.cuda.synchronize()
+		walls.append(time.perf_counter() - t0)
+	return {"launches": launches, "wall_s": walls, "wall_s_median": sorted(walls)[len(walls) // 2]}
+
+
+def sharded_walls(torch, ptt, cs, dev) -> list:
+	"""The sweeps that launch ``lanczos_dia_advance``: the 10M flagship through ``shard_operator`` on one NCCL rank and
+	unsharded, in float32 and bfloat16 (one traced call, then the launches of a call and three synced walls), and
+	the 500k flagship through the halo DIA operator on two gloo ranks on this card (subprocesses, ``--rank``); each
+	with its estimate's bits and a digest of one sweep's α and β bits (``_sweep_digest``)."""
+	import tempfile
+
+	from primate_tpu_torch.parallel import initialize_distributed, make_mesh, shard_operator
+
+	rows = []
+	torch.cuda.set_device(dev)
+	initialize_distributed("nccl", init_method=f"tcp://localhost:{cs._free_port()}", world_size=1, rank=0)
+	for dt in (torch.float32, torch.bfloat16):
+		op = ptt.DIAOperator.from_scipy(cs.build_laplacian(cs.N_LARGE), dtype=dt, device=dev)
+		for name, o in (("sharded", shard_operator(op, make_mesh((1, 1)))), ("unsharded", op)):
+			M = ptt.MatrixFunction(o, fun="log", deg=cs.DEG, orth=cs.ORTH, reorth_passes=1, dtype=dt)
+			fn = functools.partial(ptt.hutch, M, batch=cs.PROBES, converge="count", count=cs.PROBES, seed=42)
+			row = {"call": f"{name}_flagship_{cs.N_LARGE}_{str(dt).removeprefix('torch.')}", **trace(torch, fn), **_counted_walls(torch, fn)}
+			row["estimate_hex"] = float(fn()).hex()
+			row["alpha_beta_sha1"] = _sweep_digest(torch, ptt, o, cs.N_LARGE, dt, dev)
+			print(json.dumps(row), flush=True)
+			rows.append(row)
+			del M, fn
+		del op, o
+		torch.cuda.empty_cache()
+	torch.distributed.destroy_process_group()
+	for dtype in ("float32", "bfloat16"):
+		with tempfile.TemporaryDirectory() as tmp:
+			procs = [subprocess.Popen([sys.executable, __file__, "--rank", str(r), "2", f"{tmp}/store", dtype], stdout=subprocess.PIPE,
+				stderr=subprocess.PIPE, text=True) for r in range(2)]
+			outs = [p.communicate(timeout=cs.SHARD_TIMEOUT_S) for p in procs]
+		for p, (out, err) in zip(procs, outs):
+			if p.returncode != 0:
+				sys.exit(f"profile_port: a gloo rank failed ({p.returncode}):\n{out[-2000:]}\n{err[-4000:]}")
+		for r, (out, _) in enumerate(outs):
+			for line in out.splitlines():
+				if line.startswith("{"):
+					row = json.loads(line)
+					print(json.dumps(row), flush=True)
+					rows.append(row)
+	return rows
+
+
+def gloo_rank(rank: int, world: int, store: str, dtype: str) -> None:
+	"""One rank of ``sharded_walls``' gloo sweeps: the flagship at ``SHARD_N`` through the halo DIA operator on cuda:0,
+	on the (world, 1) and (1, world) meshes (bfloat16: (world, 1) alone), a warm-up call, then its launches and
+	three synced walls; prints a JSON line each."""
+	import gc
+
+	import torch
+
+	import chip_smoke as cs
+	import primate_tpu_torch as ptt
+	from primate_tpu_torch.parallel import initialize_distributed, make_mesh, shard_operator
+
+	dev = torch.device("cuda", 0)
+	torch.cuda.set_device(dev)
+	initialize_distributed("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
+	dt = getattr(torch, dtype)
+
+	def calls():
+		L = cs.build_laplacian(cs.SHARD_N)
+		for shape in ((world, 1), (1, world)) if dt == torch.float32 else ((world, 1),):
+			op = shard_operator(ptt.DIAOperator.from_scipy(L, dtype=dt, device="cpu"), make_mesh(shape, ("op", "probe"), device_type="cuda"),
+				probe_axis="probe", device=dev)
+			M = ptt.MatrixFunction(op, fun="log", deg=cs.DEG, orth=cs.ORTH, reorth_passes=1, dtype=dt)
+			fn = functools.partial(ptt.hutch, M, batch=cs.PROBES, converge="count", count=cs.PROBES, seed=42)
+			print(json.dumps({"call": f"gloo_flagship_{cs.SHARD_N}_{dtype}", "rank": rank, "world": world, "mesh": list(shape),
+				**_counted_walls(torch, fn), "estimate_hex": float(fn()).hex(), "alpha_beta_sha1": _sweep_digest(torch, ptt, op, cs.SHARD_N, dt, dev)}),
+				flush=True)
+
+	calls()
+	gc.collect()
+	torch.distributed.barrier()
+	torch.distributed.destroy_process_group()
 
 
 def tall_qr_walls(torch, cs, dev, m: int = 30) -> list:
@@ -594,4 +860,7 @@ def other_calls(torch, ptt, cs, dev) -> list:
 
 
 if __name__ == "__main__":
-	main()
+	if sys.argv[1:2] == ["--rank"]:
+		gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+	else:
+		main()

@@ -146,6 +146,40 @@ def test_round_plain_version_equals_the_pytorch_tail_bit_for_bit(phys):
 	assert q_cur.dtype == BF16 and not spec.zero_margins(q_cur.clone()).ne(q_cur).any()
 
 
+def test_round_pair_finishing_mode_splits_as_its_kernels():
+	"""On a row-sharded carry (``reduce`` and ``sums`` given) the round pair runs, on the CPU, as its kernels split
+	it (``lanczos_round_pair_ref``): B1's Σ(w − α·q)² into ``sums[1]``, ``reduce``, then B2 the step's finish (the
+	outputs, the divisors, β, the done flags) from the reduced sums beside ``q_next``. On a padded carry whose
+	margins hold halo data, with a probe done before the step and one whose β' vanishes in it, that equals
+	``lanczos_dia_round_ref`` on the same sums bit for bit (``q_next``, the outputs, the state), and leaves ``w``."""
+	n, nv = 2048, 8
+	rng = np.random.default_rng(19)
+	spec = dia.carry_spec(n, 1, 2)
+	q = spec.pad(torch.from_numpy(rng.normal(size=(nv, n)) / np.sqrt(n)).float()).to(BF16)
+	q[:, : spec.lo] = torch.from_numpy(rng.normal(size=(nv, spec.lo))).to(BF16)  # a neighbour's rows
+	alpha = torch.from_numpy(rng.uniform(1.0, 3.0, size=nv)).float()
+	w = spec.pad(torch.from_numpy(rng.normal(size=(nv, n)) / np.sqrt(n)).float())
+	spec.rows(w)[1] = alpha[1] * spec.rows(q)[1].float()  # probe 1: v = 0, β' = 0
+	tol = float(np.sqrt(n) * 1e-6)
+	states, outs = [], []
+	for run in range(2):
+		st = dia.lanczos_state(nv, torch.float32, "cpu")
+		st.scal[dia.DIV_CUR], st.scal[dia.BETA], st.scal[dia.DONE, 0] = 1.5, 0.7, 1.0
+		sums = torch.stack([alpha.clone(), torch.zeros(nv)])
+		ab = torch.zeros((2, nv))
+		w_in = w.clone()
+		if run == 0:
+			q_next = dia.lanczos_dia_round(w_in, q, st, ab[0], ab[1], tol, spec, reduce=lambda t: t, sums=sums)
+			assert torch.equal(w_in, w)
+		else:
+			q_next = dia.lanczos_dia_round_ref(w_in, q, st, ab[0], ab[1], tol, spec, sums=sums)
+		states.append(st.scal)
+		outs.append((q_next, ab))
+	assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1]) and torch.equal(states[0], states[1])
+	assert outs[0][1][0, 0] == 0 and outs[0][1][1, 0] == 0 and states[0][dia.DONE, 1] == 1 and outs[0][1][1, 1] < tol
+	assert not spec.zero_margins(outs[0][0].clone()).ne(outs[0][0]).any()
+
+
 def _split_path(n, k):
 	"""tridiag(−1, 3, −1) with row and column ``k`` cut loose (exact in bf16): ``e_k`` is an
 	eigenvector, so a probe that starts there breaks down at the first step (β' = 0 exactly)."""

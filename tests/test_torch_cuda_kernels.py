@@ -196,9 +196,11 @@ PADDED_SHAPES = [(64, 20_001, (-1, 0, 1)), (13, 3001, (-128, -17, -16, -3, 0, 16
 def test_step_kernels_on_a_padded_carry(cuda, shape, dtype, halo):
 	"""The step kernels on the padded carry (``CarrySpec``), three whole steps from a mid-sweep state
 	against the plain step on the same carry: fused (two launches) and in the finishing mode with an
-	identity ``reduce`` (pass A, pass B, ``lanczos_dia_advance``), on their vector paths. With
-	``halo_margins`` the margins of the first carries hold data, as after a halo exchange: the kernels
-	read it as the neighbours' rows. The new carries' margins are exactly zero; pass A alone too."""
+	identity ``reduce`` (pass A and pass B, two launches a step too: each step's finish is left pending
+	and runs in the next step's pass A, the last one in ``lanczos_dia_finish``, the advance kernel, so
+	a step's outputs are checked one step later and the state after the finish), on their vector paths.
+	With ``halo_margins`` the margins of the first carries hold data, as after a halo exchange: the
+	kernels read it as the neighbours' rows. The new carries' margins are exactly zero; pass A alone too."""
 	tol_v, tol_a = TOL[dtype]
 	nv, n, offsets = shape
 	g = torch.Generator(device=cuda)
@@ -218,10 +220,23 @@ def test_step_kernels_on_a_padded_carry(cuda, shape, dtype, halo):
 	v0, vp0 = carry(), carry()
 	apply_ref = lambda q: dia.dia_stencil_t_ref(bands, offs, q)  # noqa: E731
 	margins = lambda X: torch.cat([X[:, : spec.lo], X[:, spec.lo + n :]], dim=1)  # noqa: E731
+	def check_outputs(got, want):
+		(a, b), (a_ref, b_ref) = got, want
+		assert a[0] == 0 and b[0] == 0  # probe 0 was done before the first step
+		assert float(((a - a_ref).abs() / a_ref.abs().clamp_min(1e-30))[1:].max()) <= tol_a
+		assert float(((b - b_ref).abs() / b_ref.abs().clamp_min(1e-30))[1:].max()) <= tol_a
+
+	def check_states(got, want):
+		rows = [dia.DIV_CUR, dia.DIV_PREV, dia.BETA, dia.ALPHA]
+		rel = (got.scal[rows] - want.scal[rows]).abs() / want.scal[rows].abs()
+		assert float(rel[:, 1:].max()) <= tol_a
+		assert torch.equal(got.scal[dia.DONE], want.scal[dia.DONE])
+
 	for reduce in (None, lambda t: t):
 		state = _step_state(cuda, nv, dtype, g)
 		states = [state, dia.LanczosState(state.scal.clone(), torch.zeros(1, dtype=torch.int32, device=cuda))]
 		blocks = [(v0, vp0), (v0.clone(), vp0.clone())]
+		held = None  # the finishing mode's outputs of the step before, written by this step's pass A
 		for _ in range(3):
 			outs = []
 			for i in range(2):
@@ -233,21 +248,29 @@ def test_step_kernels_on_a_padded_carry(cuda, shape, dtype, halo):
 					before, scalar = dict(dia.LAUNCHES), dict(_common.SCALAR_LAUNCHES)
 					v = dia.lanczos_dia_sweep_step(bands, offs, vc, vp, states[0], a, b, 1e-8, spec, reduce)
 					steps = {k: dia.LAUNCHES[k] - before[k] for k in ("lanczos_dia_step", "lanczos_dia_residual", "lanczos_dia_advance")}
-					assert steps == {"lanczos_dia_step": 1, "lanczos_dia_residual": 1, "lanczos_dia_advance": int(reduce is not None)}
+					assert steps == {"lanczos_dia_step": 1, "lanczos_dia_residual": 1, "lanczos_dia_advance": 0}
 					assert _common.SCALAR_LAUNCHES == scalar  # ld and lo are whole vectors
+					assert len(states[0].pending) == int(reduce is not None)
 				blocks[i] = (v, vc)
 				outs.append((v, a, b))
 			torch.cuda.synchronize()
 			(v, a, b), (v_ref, a_ref, b_ref) = outs
 			assert not margins(v).any()
 			assert float((v - v_ref).abs().max()) <= tol_v * float(v_ref.abs().max())
-			assert a[0] == 0 and b[0] == 0  # probe 0 was done before the first step
-			assert float(((a - a_ref).abs() / a_ref.abs().clamp_min(1e-30))[1:].max()) <= tol_a
-			assert float(((b - b_ref).abs() / b_ref.abs().clamp_min(1e-30))[1:].max()) <= tol_a
-			rows = [dia.DIV_CUR, dia.DIV_PREV, dia.BETA, dia.ALPHA]
-			rel = (states[0].scal[rows] - states[1].scal[rows]).abs() / states[1].scal[rows].abs()
-			assert float(rel[:, 1:].max()) <= tol_a
-			assert torch.equal(states[0].scal[dia.DONE], states[1].scal[dia.DONE])
+			if reduce is None:
+				check_outputs((a, b), (a_ref, b_ref))
+				check_states(states[0], states[1])
+			else:
+				if held is not None:
+					check_outputs(*held)
+				held = ((a, b), (a_ref, b_ref))
+		if reduce is not None:
+			before = dia.LAUNCHES["lanczos_dia_advance"]
+			dia.lanczos_dia_finish(states[0])
+			torch.cuda.synchronize()
+			assert dia.LAUNCHES["lanczos_dia_advance"] == before + 1 and not states[0].pending
+			check_outputs(*held)
+			check_states(states[0], states[1])
 	beta = torch.rand(nv, generator=g, device=cuda, dtype=dtype) + 0.5
 	v, alpha = dia.lanczos_dia_step(bands, offs, v0, vp0, beta, spec)
 	v_ref, alpha_ref = dia.lanczos_dia_step_ref(bands, offs, v0, vp0, beta, spec)
@@ -1386,7 +1409,7 @@ def test_bf16_round_pair_matches_plain_version(cuda, shape, finishing):
 	same pass A output: the flat and the padded carry, nv past and below 8, a misaligned block (its
 	scalar path), a probe done before the step and one that breaks down at it; whole (B1's last block
 	advances the state) and in the finishing mode (α from the reduced sums, Σv² through ``reduce``,
-	the advance kernel)."""
+	B2 finishing the step from the sums: no advance kernel)."""
 	nv, n, moff, lead = shape
 	spec, w, q, state = _round_inputs(cuda, nv, n, moff, lead)
 	tol = float(np.sqrt(n) * 1e-8)
@@ -1404,7 +1427,7 @@ def test_bf16_round_pair_matches_plain_version(cuda, shape, finishing):
 		torch.cuda.synchronize()
 		runs.append((q_next, a_out, b_out, st.scal))
 	assert dia.LAUNCHES["lanczos_dia_round"] == before["lanczos_dia_round"] + 1
-	assert dia.LAUNCHES["lanczos_dia_advance"] == before["lanczos_dia_advance"] + finishing
+	assert dia.LAUNCHES["lanczos_dia_advance"] == before["lanczos_dia_advance"]
 	vec = _common.vector_ok(spec.ld, 2, w, q, lead=spec.lo)
 	assert vec == (lead == 0 and n % 8 == 0 or moff is not None)
 	assert _common.SCALAR_LAUNCHES["lanczos_dia_round"] == scalar["lanczos_dia_round"] + (not vec)
@@ -1504,3 +1527,164 @@ def test_node_major_stencil_cases(cuda, case, k, dtype):
 		assert dia.LAUNCHES["dia_stencil"] == before + 1
 		assert _common.SCALAR_LAUNCHES["dia_stencil"] == scalar + (not _common.vector_ok(k, V.element_size(), V))
 		_nm_close(got, dia.dia_stencil_ref(bands, offs, V), dtype, f"{case} lead {lead}")
+
+
+# --- the row-sharded step's finish folded into the next kernel, and complex128 bsr_spmm's L2 path ----
+
+# (nv, n, offsets, padded): the flat carry and the padded one, nv past a probe group.
+FINISH_SHAPES = [(64, 20_000, (-1, 0, 1), False), (13, 3001, (-128, -17, 0, 16, 128), True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", FINISH_SHAPES)
+def test_pass_a_runs_the_pending_finish(cuda, shape, dtype):
+	"""Pass A with a row-sharded step's finish pending (``lanczos_dia_step_finish``): from a mid-sweep state (a
+	probe done before the step, one whose β' falls below the tolerance in it) and seeded reduced sums, its last
+	block writes what ``lanczos_dia_advance_ref`` writes (the state and the step's outputs, bit for bit), its
+	blocks take the divisors and β of that finish (``w`` equal, bit for bit, to pass A launched after the
+	standalone advance kernel), and its α sums match the plain pass A after the plain finish."""
+	nv, n, offsets, padded = shape
+	tol_v, tol_a = TOL[dtype]
+	g = torch.Generator(device=cuda)
+	g.manual_seed(31)
+	spec = dia.carry_spec(n, max(abs(o) for o in offsets), torch.empty((), dtype=dtype).element_size()) if padded else dia.CarrySpec(n, 0, n)
+	bands = spec.pad(torch.rand((len(offsets), n), generator=g, device=cuda, dtype=dtype) + 0.5)
+	offs = torch.tensor(offsets, dtype=torch.int64, device=cuda)
+	carry = lambda: spec.pad(torch.randn((nv, n), generator=g, device=cuda, dtype=dtype) / n**0.5)  # noqa: E731
+	v_cur, v_prev = carry(), carry()
+	tol = 1e-6
+	prev = torch.stack([torch.randn(nv, generator=g, device=cuda, dtype=dtype), torch.rand(nv, generator=g, device=cuda, dtype=dtype) + 0.5])
+	prev[1, 2] = 1e-14  # probe 2: β' below the tolerance, so its divisor turns inf
+	from primate_tpu_torch.ops._build import load_library
+
+	lib = load_library()
+	runs = []
+	for mode in ("folded", "advance_then_pass_a", "plain"):
+		st = _step_state(cuda, nv, dtype, torch.Generator(device=cuda).manual_seed(32))
+		ab = torch.full((2, nv), -1.0, dtype=dtype, device=cuda)
+		fin = dia.Finish(prev.clone(), ab[0], ab[1], tol)
+		sums = torch.empty((2, nv), dtype=dtype, device=cuda)
+		if mode == "plain":
+			dia.lanczos_dia_advance_ref(fin.sums, st, fin.alpha_out, fin.beta_out, tol)
+			w, alpha = dia._pass_a_plain(lambda q: dia.dia_stencil_t_ref(bands, offs, q), v_cur, v_prev, st.scal, lambda t: t, spec)
+			sums[0] = alpha
+		else:
+			if mode == "advance_then_pass_a":
+				dia._launch_advance(lib, fin.sums, st, fin.alpha_out, fin.beta_out, tol)
+			before = dict(dia.LAUNCHES)
+			w = dia._launch_pass_a(lib, bands, offs, v_cur, v_prev, st.scal, st.ticket, None, spec, sums[0],
+				pending=fin if mode == "folded" else None)[0]
+			assert dia.LAUNCHES["lanczos_dia_step"] == before["lanczos_dia_step"] + 1
+			assert dia.LAUNCHES["lanczos_dia_advance"] == before["lanczos_dia_advance"]
+		torch.cuda.synchronize()
+		runs.append((w, sums[0].clone(), ab, st.scal))
+	(w_f, s_f, ab_f, st_f), (w_a, s_a, ab_a, st_a), (w_p, s_p, ab_p, st_p) = runs
+	assert torch.equal(st_f, st_p) and torch.equal(ab_f, ab_p) and torch.equal(st_f, st_a) and torch.equal(ab_f, ab_a)
+	assert torch.equal(w_f, w_a) and torch.equal(s_f, s_a)
+	assert float(st_f[dia.DONE, 2]) == 1.0 and ab_f[0, 0] == 0 and ab_f[1, 0] == 0 and math.isinf(float(st_f[dia.DIV_CUR, 2]))
+	assert float((w_f - w_p).abs().max()) <= tol_v * float(w_p.abs().max())
+	assert float(((s_f - s_p).abs() / s_p.abs().clamp_min(1e-30)).max()) <= tol_a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+def test_row_sharded_sweep_takes_the_unsharded_launches(cuda, dtype):
+	"""A 12-step sweep in the row-sharded mode (an identity ``reduce``) on the padded carry: float32/float64 launch
+	pass A and pass B a step and the advance kernel once, for the finish of the last step (``lanczos_dia_finish``),
+	and α and β match the eager plain sweep; bfloat16 launches pass A and the round pair a step and no advance
+	kernel (B2 finishes each step), α and β matching the plain bf16 step."""
+	nv, n, deg, offsets = 16, 50_000, 12, (-1, 0, 1)
+	g = torch.Generator(device=cuda)
+	g.manual_seed(33)
+	acc = torch.float32 if dtype == torch.bfloat16 else dtype
+	spec = dia.carry_spec(n, 1, torch.empty((), dtype=dtype).element_size())
+	bands = spec.pad((torch.rand((3, n), generator=g, device=cuda) + 0.5).to(dtype))
+	offs = torch.tensor(offsets, dtype=torch.int64, device=cuda)
+	X = torch.randn((nv, n), generator=g, device=cuda)
+	q0 = spec.pad((X / torch.linalg.vector_norm(X, dim=1, keepdim=True)).to(dtype))
+	same = lambda t: t  # noqa: E731
+	outs = []
+	for kernels in (True, False):
+		state = dia.lanczos_state(nv, acc, cuda)
+		ab = torch.empty((2, deg, nv), dtype=acc, device=cuda)
+		prev, cur = torch.zeros_like(q0), q0
+		dia.reset_launches()
+		for j in range(deg):
+			if dtype == torch.bfloat16:
+				step = dia.lanczos_dia_round_step if kernels else _plain_round_step
+				prev, cur = cur, step(bands, offs, cur, prev, state, ab[0, j], ab[1, j], 1e-8, spec, reduce=same)
+			elif kernels:
+				prev, cur = cur, dia.lanczos_dia_sweep_step(bands, offs, cur, prev, state, ab[0, j], ab[1, j], 1e-8, spec, same)
+			else:
+				apply_ref = lambda q: dia.dia_stencil_t_ref(bands, offs, q)  # noqa: E731
+				prev, cur = cur, dia.lanczos_sweep_step_ref(apply_ref, cur, prev, state, ab[0, j], ab[1, j], 1e-8, same, spec)
+		dia.lanczos_dia_finish(state)
+		torch.cuda.synchronize()
+		counts = {k: dia.LAUNCHES[k] for k in ("lanczos_dia_step", "lanczos_dia_residual", "lanczos_dia_round", "lanczos_dia_advance")}
+		outs.append(ab)
+		if kernels:
+			bf = dtype == torch.bfloat16
+			assert counts == {"lanczos_dia_step": deg, "lanczos_dia_residual": 0 if bf else deg, "lanczos_dia_round": deg if bf else 0,
+				"lanczos_dia_advance": 0 if bf else 1}
+	tol = 1e-3 if dtype == torch.bfloat16 else TOL[dtype][1]
+	assert float(((outs[0] - outs[1]).abs() / outs[1].abs()).max()) <= tol
+
+
+def _plain_round_step(bands, offs, q_cur, q_prev, state, alpha_out, beta_out, tol, spec, reduce):
+	"""The bf16 row-sharded step as plain PyTorch ops: pass A's plain version, then the round pair's in one piece."""
+	w, alpha = dia.lanczos_dia_step_ref(bands, offs, q_cur, q_prev, state.scal[dia.BETA], spec, reduce)
+	sums = torch.stack([alpha, torch.empty_like(alpha)])
+	return dia.lanczos_dia_round_ref(w, q_cur, state, alpha_out, beta_out, tol, spec, reduce, sums)
+
+
+# (n, k, lead): complex128 with 8x8 tiles where V fits in L2: odd k, k of one column group and of several chunks, an
+# empty block row (every case), and V starting one element into its buffer (still 16-byte aligned: a complex128
+# tensor cannot start between two of its elements' 8-byte halves).
+L2_CASES = [(1001, 1, 0), (1001, 3, 0), (1001, 8, 0), (1001, 33, 0), (1001, 64, 0), (1001, 65, 1), (4099, 240, 0)]
+
+
+@pytest.mark.parametrize("n,k,lead", L2_CASES)
+def test_complex128_bsr_spmm_l2_path(cuda, n, k, lead):
+	"""Complex128 ``bsr_spmm`` on its L2 path (float64 MMAs, ``L2_LAUNCHES``) against ``bsr_spmm_ref`` within
+	complex128's tolerance (the MMA's sum order), the empty block row exactly zero."""
+	blocks, indptr, indices, n = _cplx_bsr(cuda, torch.complex128, 8, 8, n=n)
+	V = _cplx(cuda, (n * k + lead,), torch.complex128, seed=k)[lead:].view(n, k)
+	before, l2 = bsr.LAUNCHES["bsr_spmm"], _common.L2_LAUNCHES["bsr_spmm"]
+	got = bsr.bsr_spmm(blocks, indptr, indices, V, n)
+	assert bsr.LAUNCHES["bsr_spmm"] == before + 1 and _common.L2_LAUNCHES["bsr_spmm"] == l2 + 1
+	want = bsr.bsr_spmm_ref(blocks, indptr, indices, V, n)
+	torch.cuda.synchronize()
+	assert float((got - want).abs().max()) <= CPLX_TOL[torch.complex128] * float(want.abs().max())
+	assert float(got[3 * 8 : 4 * 8].abs().max()) == 0.0
+
+
+def test_complex128_bsr_spmm_l2_path_hub_row_and_cell(cuda):
+	"""The L2 path at phase 21's shape (``block_random_spd(8192)`` with seeded imaginary tiles, k = 64) and on a
+	block row of 3,000 tiles among short and empty ones; a V past the L2 threshold (the same tiles at k = 320, 42 MB)
+	and 4x4 tiles take the ring kernel; each against ``bsr_spmm_ref`` within complex128's tolerance of its largest
+	entry, but the hub row within that tolerance of the largest entry of ``|A|·|V|``: its entries sum 24,000 products,
+	whose rounding in any two orders differs by about 1e-14 of the largest entry (the plain version's ``index_add_``
+	takes its own order from run to run), and ``|A|·|V|`` is the scale that rounding is bounded by."""
+	S = chip_smoke._bsr_cell(n=chip_smoke.CBSR_C128_N, bs=8, density=0.01, seed=chip_smoke.CBSR_SEED)
+	A = BSROperator.from_scipy(S, blocksize=(8, 8), dtype=torch.float64, device=cuda)
+	g = torch.Generator(device=cuda)
+	g.manual_seed(34)
+	blocks = torch.complex(A.blocks, torch.randn(A.blocks.shape, generator=g, device=cuda, dtype=torch.float64))
+	rng = np.random.default_rng(35)
+	counts = rng.integers(0, 4, 2000)
+	counts[::7] = 0
+	counts[1234] = 3000
+	hub_indptr = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int64, device=cuda)
+	hub_indices = torch.tensor(rng.integers(0, 2000, int(counts.sum())), dtype=torch.int64, device=cuda)
+	hub = _cplx(cuda, (int(counts.sum()), 8, 8), torch.complex128, seed=36)
+	small = _cplx_bsr(cuda, torch.complex128, 4, 4)
+	cases = [("cell", blocks, A.indptr, A.indices, A.shape[0], 64, 1), ("hub", hub, hub_indptr, hub_indices, 16_000, 65, 1),
+		("past_l2", blocks, A.indptr, A.indices, A.shape[0], 320, 0), ("tiles_4x4", *small[:3], small[3], 64, 0)]
+	for label, bl, ip, ix, n, k, l2 in cases:
+		V = _cplx(cuda, (n, k), torch.complex128, seed=37)
+		before = _common.L2_LAUNCHES["bsr_spmm"]
+		got = bsr.bsr_spmm(bl, ip, ix, V, n)
+		assert _common.L2_LAUNCHES["bsr_spmm"] == before + l2, label
+		want = bsr.bsr_spmm_ref(bl, ip, ix, V, n)
+		scale = bsr.bsr_spmm_ref(bl.abs(), ip, ix, V.abs(), n) if label == "hub" else want
+		torch.cuda.synchronize()
+		assert float((got - want).abs().max()) <= CPLX_TOL[torch.complex128] * float(scale.abs().max()), label

@@ -515,6 +515,108 @@ def bf16_round_sweep(n, deg, nv, shape, ranks=None, probe=None):
 	return out
 
 
+from primate_tpu_torch.ops import dia as _dia
+
+FINISHES = {"standalone": 0}
+
+
+def _counted_flush(self, state):
+	"""The sweep's own finishes (``lanczos_sweep_flush`` with a step pending), counted."""
+	FINISHES["standalone"] += bool(state.pending)
+	return _REAL_FLUSH(self, state)
+
+
+def _eager_sweep_step(self, v_cur, v_prev, state, alpha_out, beta_out, residual_tol, layout=None):
+	"""The sharded step with its finish run at once (both passes, then the finish: the plain step with ``reduce``)."""
+	self._exchange(v_cur)
+	apply_t = lambda q: _dia.dia_stencil_t_ref(self.local.bands, self.local.offsets_t, q)  # noqa: E731
+	return _dia.lanczos_sweep_step_ref(apply_t, v_cur, v_prev, state, alpha_out, beta_out, residual_tol, self._reduce, self._spec)
+
+
+def _eager_round_step(self, q_cur, q_prev, state, alpha_out, beta_out, residual_tol, layout=None):
+	"""The sharded bf16 step with the round pair's plain version in one piece (``lanczos_dia_round_ref``)."""
+	self._exchange(q_cur)
+	s = state.scal
+	w, alpha = _dia.lanczos_dia_step_ref(self.local.bands, self.local.offsets_t, q_cur, q_prev, s[_dia.BETA], self._spec, self._reduce)
+	sums = torch.stack([alpha, torch.empty_like(alpha)])
+	return _dia.lanczos_dia_round_ref(w, q_cur, state, alpha_out, beta_out, residual_tol, self._spec, self._reduce, sums)
+
+
+def _breakdown(n):
+	"""tridiag(−1, 3, −1) with rows 0-2 cut off from the rest: a probe supported there breaks down at step 3."""
+	A = lap(n).tolil()
+	A[2, 3] = A[3, 2] = 0.0
+	return A.tocsr()
+
+
+@case
+def deferred_finish(kind, n, deg, nv, ws):
+	"""The float64 sweep (orth 0) of a sharded DIA operator on ``ws`` ranks as the port runs it (each step's finish
+	deferred to the next step, ``lanczos_sharded_step_ref``) and with every step finished at once
+	(``_eager_sweep_step``), on the same block: α, β, the basis (``kind`` "basis"), f(A)V (``y``: "fav"), the quad, the
+	standalone finishes of the first, and the unsharded port's α and β. ``kind`` "breakdown": probe 0 breaks down at
+	step 3."""
+	m = sub(ws)
+	if m is None:
+		return None
+	A = _breakdown(n) if kind == "breakdown" else lap(n)
+	V = np.random.default_rng(7).normal(size=(n, nv))
+	if kind == "breakdown":
+		V[3:, 0] = 0.0
+	op = shard_operator(dia(A), m)
+	out = {}
+	for name, step in (("d", None), ("e", _eager_sweep_step)):
+		if step is not None:
+			ShardedDIAOperator.lanczos_sweep_step = step
+		ShardedDIAOperator.lanczos_sweep_flush = _counted_flush
+		try:
+			FINISHES["standalone"] = 0
+			res = ptt.lanczos_block_op(op, t(V), deg=deg, ncv=2, orth=0, return_basis=kind == "basis")
+			out[name + "finishes"] = FINISHES["standalone"]
+			out[name + "a"], out[name + "b"] = a(res.alphas), a(res.betas)
+			if kind == "basis":
+				out[name + "Q"] = a(res.Q)
+			if kind == "fav":
+				FINISHES["standalone"] = 0
+				out[name + "f"] = a(ptt.MatrixFunction(op, "log", deg=deg, orth=0, two_pass=False).matmat(t(V)))
+				out[name + "ffinishes"] = FINISHES["standalone"]
+			if deg > 1:  # MatrixFunction takes deg ≥ 2
+				out[name + "q"] = a(ptt.MatrixFunction(op, "log", deg=deg, orth=0).quad(t(V)))
+		finally:
+			ShardedDIAOperator.lanczos_sweep_step, ShardedDIAOperator.lanczos_sweep_flush = _REAL_SWEEP_STEP, _REAL_FLUSH
+	res = ptt.lanczos_block_op(dia(A), t(V), deg=deg, ncv=2, orth=0)
+	out["ua"], out["ub"] = a(res.alphas), a(res.betas)
+	return out
+
+
+@case
+def deferred_round_finish(n, deg, nv, ws):
+	"""The bf16 sweep of a sharded DIA operator on ``ws`` ranks as the port runs it (the round pair split as its
+	kernels split it, the step's finish in B2: ``lanczos_round_pair_ref``) and with the round pair's plain version
+	in one piece (``lanczos_dia_round_ref``): α and β, and the standalone finishes (none)."""
+	m = sub(ws)
+	if m is None:
+		return None
+	V = torch.from_numpy(np.random.default_rng(1).choice([-1.0, 1.0], size=(n, nv))).to(torch.bfloat16)
+	op = shard_operator(ptt.DIAOperator.from_scipy(lap(n), dtype=torch.bfloat16, **CPU), m)
+	out = {}
+	for name, step in (("d", None), ("e", _eager_round_step)):
+		if step is not None:
+			ShardedDIAOperator.lanczos_round_step = step
+		ShardedDIAOperator.lanczos_sweep_flush = _counted_flush
+		try:
+			FINISHES["standalone"] = 0
+			res = ptt.lanczos_block_op(op, V, deg=deg, ncv=2, orth=0, return_basis=False)
+			out[name + "a"], out[name + "b"], out[name + "finishes"] = a(res.alphas), a(res.betas), FINISHES["standalone"]
+		finally:
+			ShardedDIAOperator.lanczos_round_step, ShardedDIAOperator.lanczos_sweep_flush = _REAL_ROUND_STEP, _REAL_FLUSH
+	return out
+
+
+_REAL_SWEEP_STEP, _REAL_ROUND_STEP = ShardedDIAOperator.lanczos_sweep_step, ShardedDIAOperator.lanczos_round_step
+_REAL_FLUSH = ShardedDIAOperator.lanczos_sweep_flush
+
+
 @case
 def comm_primitives(ws=4):
 	"""halo_exchange fills the inner halos from the ring neighbours and leaves the ends zero;
@@ -1150,6 +1252,51 @@ def test_sharded_bf16_sweep_runs_the_round_step(pool, shape, ranks, probe):
 	assert r["scalls"].tolist() == [deg, 0, 0] and r["ucalls"].tolist() == [deg, 0, 0]
 	for key in ("a", "b"):
 		assert np.abs(r["s" + key] - r["u" + key]).max() <= 1e-3 * np.abs(r["u" + key]).max()
+
+
+@pytest.mark.parametrize("ws", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["plain", "basis", "fav", "breakdown", "deg1"])
+def test_sharded_sweep_deferred_finish_is_the_eager_sweep(pool, mesh8, kind, ws):
+	"""A row-sharded DIA step leaves its finish (α, β, the divisors, the done flags) to the next step's pass A, or
+	to a standalone finish where the sweep reads the state between steps (the basis, f(A)V's ``y``) and at its end.
+	On ``ws`` gloo ranks that composition gives the eager sharded sweep's α, β, basis, f(A)V and quad bit for bit,
+	runs one standalone finish a sweep (``deg`` where the state is read between steps), agrees with the unsharded
+	port at 1e-10 as before (float64), and its quad with the JAX package's sharded operator at 1e-10. ``breakdown``:
+	a probe whose β vanishes at step 3; ``deg1``: a one-step sweep."""
+	n, nv = 120, 4
+	deg = 1 if kind == "deg1" else 10
+	r = _one(pool.run("deferred_finish", kind="plain" if kind == "deg1" else kind, n=n, deg=deg, nv=nv, ws=ws))
+	for key in [k[1:] for k in r if k.startswith("e")]:
+		if key.endswith("finishes"):
+			continue
+		assert np.array_equal(r["d" + key], r["e" + key]), f"the deferred sweep's {key} differs from the eager one's"
+	assert int(r["dfinishes"]) == (deg if kind == "basis" else 1) and int(r["efinishes"]) == 0
+	if kind == "fav":
+		assert int(r["dffinishes"]) == deg
+	_close(r["da"], r["ua"], tol=1e-10)
+	_close(r["db"], r["ub"], tol=1e-10)
+	if kind == "breakdown":
+		assert np.all(r["da"][3:, 0] == 0) and np.all(r["db"][3:, 0] == 0) and r["db"][2, 0] < 1e-6
+	A = _laplacian(n).tolil()
+	if kind == "breakdown":
+		A[2, 3] = A[3, 2] = 0.0
+	V = np.random.default_rng(7).normal(size=(n, nv))
+	if kind == "breakdown":
+		V[3:, 0] = 0.0
+	if deg == 1:
+		return
+	jop = jax_shard(JaxDIA.from_scipy(A.tocsr()), mesh8)
+	_close(r["dq"], np.asarray(pt.MatrixFunction(jop, fun="log", deg=deg, orth=0).quad(jnp.asarray(V))), tol=1e-10)
+
+
+@pytest.mark.parametrize("ws", [1, 2, 4])
+def test_sharded_bf16_round_pair_finishes_in_b2(pool, ws):
+	"""The sharded bf16 step's finish runs in B2 (``lanczos_round_pair_ref``: B1's Σv² all-reduced, then the finish
+	and q_next from the reduced sums, no standalone finish): on ``ws`` gloo ranks α and β equal, bit for bit, the
+	sweep through the round pair's plain version in one piece (``lanczos_dia_round_ref``)."""
+	r = _one(pool.run("deferred_round_finish", n=2048, deg=12, nv=8, ws=ws))
+	assert np.array_equal(r["da"], r["ea"]) and np.array_equal(r["db"], r["eb"])
+	assert int(r["dfinishes"]) == 0
 
 
 @pytest.mark.parametrize("ws", [2, 4])
