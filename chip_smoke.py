@@ -166,6 +166,18 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    full-bf16 sweep of the phase runs pass A and the pair once a step (the sharded ones too: B2 finishes
    their steps) and pass B and the advance never; the 10M and 500k wall and peak ratios against float32
    go out on lines of their own.
+25. runs reverse mode on Hermitian operators (``differentiable=True``, as the JAX package differentiates
+   them): (a) on phase 15's Hofstadter cell, the bands requiring a gradient, ``hutch`` (16 phase
+   probes), ``kpm_trace`` of x² (3 undamped Chebyshev terms on (−4.5, 4.5)) and ``block_slq_trace`` of
+   x² (b = 8, 2 steps, 2 blocks); (b) on phase 21's complex BSR cell, the tiles requiring a gradient,
+   Hutch++, XTrace, XNysTrace and the sum of XDiag at phase 21's budgets. Each holds Euler's identity
+   ``Σ Re(conj(g)·b) = p·estimate`` (p = 1, or 2 for x²) within 1e-5 of ``Σ|g|·|b|``, its value to its
+   phase's limit (KPM within 5σ of tr H² = 4n), and its complex64 gradient within 1e-3 of the largest
+   entry of a complex128 gradient of the same call on the same probes (the BSR sketches at smaller
+   budgets). (c) Each complex kernel's backward (``dia_stencil_t`` at 16 × n and ``dia_stencil`` at n ×
+   64 on the Hofstadter bands, ``bsr_spmm`` at the BSR cell with k = 64; complex64 and complex128; a
+   misaligned block and lazy conjugate views in complex64) against autograd through its plain version,
+   one launch a backward, timed beside it, with the time of the conjugated adjoint bands or tiles.
 
 Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
 (``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
@@ -200,7 +212,11 @@ each sharded sweep of phases 23-24); the four kernels of phase 24 their bf16 num
 phase 24's calls (``bf16_launches``; 0 for pass B and the advance, which have no bf16 instantiation);
 the round pair, bfloat16 only, takes its plain keys and its launches from phase 24 (64 × 500k, flat;
 the 500k full-bf16 flagship), with B1's and B2's own times (``b1_ms``, ``b2_ms``) and the 10M and padded
-numbers under ``bf16_10M_``, ``bf16_padded_500k_`` and ``bf16_padded_10M_``;
+numbers under ``bf16_10M_``, ``bf16_padded_500k_`` and ``bf16_padded_10M_``; the two stencils and
+``bsr_spmm`` their launches in the forward and backward passes of phase 25 (a)-(b)
+(``hermitian_grad_launches``) and their complex backward's error, time, its plain version's autograd's
+time and the adjoint build's time from (c) under ``c64_``/``c128_`` keys (``backward_ms``,
+``backward_plain_ms``, ``adjoint_build_ms``, ``grad_max_abs_err``);
 the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing anything.
 """
@@ -318,6 +334,17 @@ CBSR_S, CBSR_SEED, CBSR_C128_N = 0.01, 21, 8192
 # The complex64 kernel against its plain version at the cell: the real float32 kernel's tolerance
 # (max-abs error over max|out|), as each output sums the same 80-odd tile products in another order.
 CBSR_TOL = STENCIL_TOL["float32"]
+# Phase 25: reverse mode on Hermitian operators. Euler's identity Σ Re(conj(g)·b) = p·estimate is held
+# within HG_EULER_TOL of Σ|g|·|b| (the scale of the sum: its terms cancel, tr H = 0 on the Hofstadter cell),
+# complex64; the complex backward against the plain version's autograd within HG_GRAD_TOL of its largest
+# entry; the complex128 cross-check of the BSR sketches at HG_CROSS's budgets (phase 21's in complex128
+# would hold about 90 GB of graph for XNysTrace's 720 columns). Each QR'd block there keeps 64 columns or
+# more: at 16-48 columns the calls with a thin QR of 1M rows took 44-97 s each on the card (XNysTrace, which
+# has none, 0.1 s; ROADMAP B.6), at 64-240 columns 0.3-1.2 s.
+HG_SEED, HG_KPM_M = 25, 3
+HG_EULER_TOL = 1e-5  # XNysTrace too: its shift ν ∝ ‖AΩ‖ scales with the operator, so it is of degree 1 as well
+HG_GRAD_TOL = {"complex64": STENCIL_TOL["float32"], "complex128": STENCIL_TOL["float64"]}
+HG_CROSS = {"hutchpp": dict(m=96), "xtrace": dict(batch=64, converge="count", count=128), "xnystrace": dict(m=96), "xdiag": dict(m=128)}
 
 
 def _json_default(o):
@@ -2807,6 +2834,22 @@ def lanczos_grad(torch, ptt, dev) -> dict:
 		for k in ("dia_stencil_t", "bsr_spmm")}
 
 
+def _complex_bsr_op(torch, ptt, dev):
+	"""Phase 21's operator ``H = A + i·s(B − Bᵀ)`` on phase 7's cell, complex64: ``(H, A as scipy, the
+	generator that drew B, to go on drawing from)``."""
+	from primate_tpu_torch.ops.autograd import bsr_adjoint
+
+	S = _bsr_cell(**BSR_CELL)
+	A = ptt.BSROperator.from_scipy(S, blocksize=(BSR_CELL["bs"], BSR_CELL["bs"]), dtype=torch.float32, device=dev)
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(CBSR_SEED)
+	B = torch.randn(A.blocks.shape, generator=gen, device=dev, dtype=torch.float32)
+	Bt, indptr_t, indices_t = bsr_adjoint(B, A.indptr, A.indices, A.shape[0])
+	if not (torch.equal(indptr_t, A.indptr) and torch.equal(indices_t, A.indices)):
+		raise AssertionError("the cell's block pattern is not symmetric")
+	return ptt.BSROperator(torch.complex(A.blocks, CBSR_S * (B - Bt)), A.indices, A.indptr, A.shape), S, gen
+
+
 def complex_bsr(torch, ptt, dev, reps: int = 10) -> dict:
 	"""Phase 21: the complex ``bsr_spmm`` at the BSR cell's scale. ``H = A + i·s(B − Bᵀ)`` on phase
 	7's matrix A (``block_random_spd``, 1,333,628 8×8 tiles) with B a seeded real block operator on
@@ -2818,19 +2861,9 @@ def complex_bsr(torch, ptt, dev, reps: int = 10) -> dict:
 	split by :func:`launch_times`, the share of the least bound, and complex64 at the same shape beside it)."""
 	from primate_tpu_torch.ops import _common
 	from primate_tpu_torch.ops import bsr
-	from primate_tpu_torch.ops.autograd import bsr_transpose
 
-	S = _bsr_cell(**BSR_CELL)
-	A = ptt.BSROperator.from_scipy(S, blocksize=(BSR_CELL["bs"], BSR_CELL["bs"]), dtype=torch.float32, device=dev)
-	n = A.shape[0]
-	gen = torch.Generator(device=dev)
-	gen.manual_seed(CBSR_SEED)
-	B = torch.randn(A.blocks.shape, generator=gen, device=dev, dtype=torch.float32)
-	Bt, indptr_t, indices_t = bsr_transpose(B, A.indptr, A.indices, n)
-	if not (torch.equal(indptr_t, A.indptr) and torch.equal(indices_t, A.indices)):
-		raise AssertionError("the cell's block pattern is not symmetric")
-	op = ptt.BSROperator(torch.complex(A.blocks, CBSR_S * (B - Bt)), A.indices, A.indptr, A.shape)
-	del B, Bt
+	op, S, gen = _complex_bsr_op(torch, ptt, dev)
+	n = op.shape[0]
 	tr = float(S.diagonal().astype(np.float64).sum())
 	diag_s = S.diagonal().astype(np.float64)
 	emit({"phase": "complex_bsr_build", "n": n, "tiles": int(op.blocks.shape[0]), "nnz": op.nnz, "s": CBSR_S,
@@ -2944,6 +2977,252 @@ def complex_bsr(torch, ptt, dev, reps: int = 10) -> dict:
 	out.update({f"c128_{key}": v for key, v in _bsr_traffic(As, 64, 16, ms, b_ms, "complex128").items()})
 	out.update({f"c64_small_{key}": v for key, v in row["complex64"].items()})
 	return {"bsr_spmm": out}
+
+
+def _draw32(ptt, pdf: str):
+	"""A probe sampler ``(generator, shape, dtype)`` that draws ``pdf`` in single precision (complex64 for
+	``"phase"``, float32 else) whatever the operator's dtype: a complex64 call and a complex128 call on the
+	same seed then take the same probes, those the complex64 call draws with ``pdf`` itself."""
+	import torch
+
+	def draw(g, shape, dtype):
+		return ptt.sample_isotropic(g, shape, pdf=pdf, dtype=torch.complex64 if pdf == "phase" else torch.float32)
+
+	return draw
+
+
+def _grad_of(torch, fn, leaf) -> dict:
+	"""One differentiable call ``fn()`` and its gradient to ``leaf``: each pass's launches counted from 0,
+	its synced wall, and the peak memory of the two."""
+	from primate_tpu_torch.ops import _common
+
+	torch.cuda.synchronize()
+	torch.cuda.reset_peak_memory_stats()
+	_common.reset_launches()
+	t0 = time.perf_counter()
+	est = fn()
+	torch.cuda.synchronize()
+	fwd_s, fwd = time.perf_counter() - t0, dict(_common.LAUNCHES)
+	_common.reset_launches()
+	t0 = time.perf_counter()
+	(g,) = torch.autograd.grad(est, leaf)
+	torch.cuda.synchronize()
+	return {"est": float(est.detach()), "grad": g, "forward": fwd, "backward": dict(_common.LAUNCHES), "forward_s": fwd_s,
+		"backward_s": time.perf_counter() - t0, "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _euler(torch, g, b, est: float, p: int) -> tuple:
+	"""Euler's identity for an estimate homogeneous of degree ``p`` in ``b``, with PyTorch's gradient
+	``g = ∂L/∂conj(b)``: ``Σ Re(conj(g)·b) = p·est``. Returns the left side and its error over
+	``Σ |g|·|b|``, the scale of a sum whose terms cancel (summed in complex128)."""
+	g64, b64 = g.to(torch.complex128), b.detach().to(torch.complex128)
+	lhs = float(torch.sum(torch.real(g64.conj() * b64)))
+	return lhs, abs(lhs - p * est) / float(torch.sum(g64.abs() * b64.abs()))
+
+
+def _hermitian_backward(torch, tb_op, bsr_op, dev, reps: int) -> dict:
+	"""Phase 25 (c): each complex kernel's backward (its Function's) against autograd through its plain
+	version on the card, complex64 and complex128: ``dia_stencil_t`` at 16 × n and ``dia_stencil`` at n × 64
+	on the Hofstadter bands, ``bsr_spmm`` at the complex BSR cell with k = 64; complex64 also on a
+	misaligned block (one element into its buffer, or k = 65) and on lazy conjugate views of the input and
+	the cotangent. The cell cases are timed beside the plain version's autograd, and the conjugated
+	adjoint bands or tiles that each input gradient's launch reads are timed on their own."""
+	from primate_tpu_torch.ops import autograd as kad
+	from primate_tpu_torch.ops import bsr, dia
+
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(HG_SEED)
+	t_start = time.perf_counter()
+	n, offs, offsets = tb_op.shape[0], tb_op.offsets_t, tb_op.offsets
+	nb, ip, ix = bsr_op.shape[0], bsr_op.indptr, bsr_op.indices
+	out = {}
+
+	def crandn(shape, dtype, lead=0):
+		flat = torch.randn((lead + int(np.prod(shape)), 2), generator=gen, device=dev, dtype=dtype.to_real())
+		return torch.view_as_complex(flat)[lead:].view(shape)
+
+	for dtype in (torch.complex64, torch.complex128):
+		tname = str(dtype).removeprefix("torch.")
+		pre = "c64_" if dtype == torch.complex64 else "c128_"
+		bands = tb_op.bands.to(dtype, copy=True).requires_grad_(True)
+		blocks = bsr_op.blocks.to(dtype, copy=True).requires_grad_(True)
+		st = lambda b, x: kad.dia_stencil_t_ad(b, x, offs, offsets)  # noqa: E731
+		st_ref = lambda b, x: dia.dia_stencil_t_ref(b, offs, x)  # noqa: E731
+		nm = lambda b, v: kad.dia_stencil_ad(b, v, offs, offsets)  # noqa: E731
+		nm_ref = lambda b, v: dia.dia_stencil_ref(b, offs, v)  # noqa: E731
+		sp = lambda b, v: kad.bsr_spmm_ad(b, v, ip, ix, nb)  # noqa: E731
+		sp_ref = lambda b, v: bsr.bsr_spmm_ref(b, ip, ix, v, nb)  # noqa: E731
+		cases = [  # (label, kernel, Function, plain, input shape, lead, conj views, timed)
+			("cell_probe_major", "dia_stencil_t", st, st_ref, (TB_NV, n), 0, False, True),
+			("cell_node_major", "dia_stencil", nm, nm_ref, (n, 64), 0, False, True),
+			("bsr_cell", "bsr_spmm", sp, sp_ref, (nb, 64), 0, False, True),
+		]
+		if dtype == torch.complex64:
+			cases += [
+				("misaligned_probe_major", "dia_stencil_t", st, st_ref, (TB_NV, n), 1, False, False),
+				("node_major_k65", "dia_stencil", nm, nm_ref, (n, 65), 0, False, False),
+				("bsr_cell_k65", "bsr_spmm", sp, sp_ref, (nb, 65), 0, False, False),
+				("conj_view_probe_major", "dia_stencil_t", st, st_ref, (TB_NV, n), 0, True, False),
+				("conj_view_node_major", "dia_stencil", nm, nm_ref, (n, 64), 0, True, False),
+				("conj_view_bsr_cell", "bsr_spmm", sp, sp_ref, (nb, 64), 0, True, False),
+			]
+		for label, name, fn, plain, shape, lead, views, timed in cases:
+			b = blocks if name == "bsr_spmm" else bands
+			x = crandn(shape, dtype, lead).requires_grad_(True)
+			G = crandn(shape, dtype)
+			if views:  # the input and the cotangent as lazy conjugate views (a conj node's output in autograd)
+				x_in, G = x.conj(), G.conj()
+			else:
+				x_in = x
+			y = fn(b, x_in)
+			if not type(y.grad_fn).__name__.endswith("Backward"):
+				raise AssertionError(f"{name}: the apply did not go through its autograd Function")
+			before = dict(dia.LAUNCHES)
+			got = torch.autograd.grad(y, (b, x), G, retain_graph=timed)
+			launched = dia.LAUNCHES[name] - before[name]
+			y_ref = plain(b, x_in)
+			want = torch.autograd.grad(y_ref, (b, x), G, retain_graph=timed)
+			torch.cuda.synchronize()
+			err, rel = _grad_err(torch, got, want)
+			row = {"phase": "hermitian_backward_check", "kernel": name, "shape": label, "dtype": tname, "grad_max_abs_err": err,
+				"grad_rel_err": rel, "tol": HG_GRAD_TOL[tname], "backward_launches": launched, "at_s": time.perf_counter() - t_start}
+			del got, want
+			if timed:
+				ms, plain_ms = _timed_pair(torch, lambda: torch.autograd.grad(y, (b, x), G, retain_graph=True),
+					lambda: torch.autograd.grad(y_ref, (b, x), G, retain_graph=True), reps)
+				if name == "bsr_spmm":
+					adj = lambda: kad.bsr_adjoint(blocks.detach(), ip, ix, nb)  # noqa: E731
+				else:
+					adj = lambda: kad.dia_adjoint(bands.detach(), offsets)  # noqa: E731
+				adj_ms = time_ms(torch, adj, reps)
+				row.update({"backward_ms": ms, "backward_plain_ms": plain_ms, "adjoint_build_ms": adj_ms})
+				out.setdefault(name, {}).update({f"{pre}backward_ms": ms, f"{pre}backward_plain_ms": plain_ms,
+					f"{pre}adjoint_build_ms": adj_ms})
+			entry = out.setdefault(name, {})
+			entry[f"{pre}grad_max_abs_err"] = max(entry.get(f"{pre}grad_max_abs_err", 0.0), err)
+			del y, y_ref, x, x_in, G
+			emit(row)
+			if not (rel <= HG_GRAD_TOL[tname] and launched == 1):
+				raise AssertionError(f"{name}'s complex backward disagrees with its plain version's autograd: {row}")
+		del bands, blocks
+		torch.cuda.empty_cache()
+	return out
+
+
+def hermitian_grad(torch, ptt, dev, reps: int = 3) -> dict:
+	"""Phase 25: reverse mode on Hermitian operators, ``differentiable=True`` at full width. (a) Phase 15's
+	Hofstadter cell (complex64, the bands requiring a gradient): ``hutch`` on 16 phase probes, ``kpm_trace``
+	of x² (3 Chebyshev terms on (−4.5, 4.5), undamped: exact for x²) and ``block_slq_trace`` of x² (2 block
+	steps of 8, exact for x²); (b) phase 21's complex BSR cell (the tiles requiring a gradient): Hutch++,
+	XTrace, XNysTrace and XDiag's sum at phase 21's budgets; (c) :func:`_hermitian_backward`. Each call of
+	(a) and (b) holds Euler's identity (degree 1, or 2 for x²), its value to the phase it came from (KPM:
+	within 5σ of tr H² = 4n; the sketches: within 1e-3 of tr H; XDiag finite), and its complex64 gradient to
+	the complex128 gradient of the same call on the same probes (within ``GRAD_F64_TOL`` of its largest
+	entry; (b) at the smaller budgets of ``HG_CROSS``). Returns each kernel's launches in the forward and
+	backward passes of (a) and (b) and its numbers from (c)."""
+	from primate_tpu_torch import kpm
+	from primate_tpu_torch.ops.dia import row_sq_norm
+
+	fwd, bwd = {}, {}
+	t_start = time.perf_counter()
+
+	def hold(cell, name, r, leaf, p, ok, r128=None, **fields):
+		lhs, euler = _euler(torch, r["grad"], leaf, r["est"], p)
+		row = {"phase": "hermitian_grad", "cell": cell, "call": name, "at_s": time.perf_counter() - t_start, "estimate": r["est"],
+			"degree": p, "euler_lhs": lhs,
+			"euler_rel_err": euler, "euler_tol": HG_EULER_TOL, "forward_s": r["forward_s"], "backward_s": r["backward_s"],
+			"peak_bytes": r["peak_bytes"], "forward_launches": r["forward"], "backward_launches": r["backward"], **fields}
+		_add(fwd, r["forward"])
+		_add(bwd, r["backward"])
+		if r128 is not None:
+			row["c128_estimate"] = r128["est"]
+			row["c64_vs_c128_grad_rel_err"] = float((r["grad"].to(torch.complex128) - r128["grad"]).abs().max() / r128["grad"].abs().max())
+			row.update({"c128_peak_bytes": r128["peak_bytes"], "c128_forward_s": r128["forward_s"], "c128_backward_s": r128["backward_s"]})
+			ok = ok and row["c64_vs_c128_grad_rel_err"] <= GRAD_F64_TOL
+		emit(row)
+		if not (ok and euler <= HG_EULER_TOL):
+			raise AssertionError(f"Hermitian reverse mode, {cell} {name}, is off: {row}")
+
+	# (a) the Hofstadter cell.
+	H = hofstadter_csr(**TB)
+	tb = ptt.DIAOperator.from_scipy(H, dtype=torch.complex64, device=dev)
+	del H
+	n = tb.shape[0]
+	emit({"phase": "hermitian_grad_build", "cell": "hofstadter", "at_s": time.perf_counter() - t_start})
+	phase, normal = _draw32(ptt, "phase"), _draw32(ptt, "normal")
+	calls = {
+		"hutch": (1, lambda op, pdf, _: ptt.hutch(op, pdf=pdf, converge="count", count=TB_NV, batch=TB_NV, seed=HG_SEED,
+			differentiable=True)),
+		"kpm_trace": (2, lambda op, pdf, _: ptt.kpm_trace(op, lambda x: x**2, m=HG_KPM_M, nv=TB_NV, pdf=pdf, interval=(-4.5, 4.5),
+			damping="none", seed=HG_SEED, differentiable=True)),
+		"block_slq_trace": (2, lambda op, _, pdf: ptt.block_slq_trace(op, lambda x: x**2, b=8, deg=2, nblocks=2, pdf=pdf,
+			seed=HG_SEED, differentiable=True)),
+	}
+	for name, (p, call) in calls.items():
+		runs = {}
+		for dtype in (torch.complex64, torch.complex128):
+			bands = tb.bands.to(dtype, copy=True).requires_grad_(True)
+			op = ptt.DIAOperator(bands, tb.offsets, tb.shape)
+			c64 = dtype == torch.complex64
+			r = _grad_of(torch, lambda: call(op, "phase" if c64 else phase, "normal" if c64 else normal), bands)
+			runs[dtype] = (r, bands)
+			del op
+		(r, bands), (r128, _) = runs[torch.complex64], runs[torch.complex128]
+		fields, ok = {}, bool(np.isfinite(r["est"]))
+		if name == "kpm_trace":
+			with torch.no_grad():
+				per = row_sq_norm(tb.matmat_t(kpm._probes(tb, TB_NV, "phase", HG_SEED).T)).double().cpu().numpy()
+			sigma = float(per.std(ddof=1) / np.sqrt(TB_NV))
+			fields = {"exact": 4.0 * n, "sigma": sigma, "z": (r["est"] - 4.0 * n) / sigma}
+			ok = abs(fields["z"]) <= 5.0
+		hold("hofstadter", name, r, bands, p, ok, r128, **fields)
+		del runs, r, r128, bands
+		torch.cuda.empty_cache()
+
+	# (b) the complex BSR cell.
+	cb, S, _ = _complex_bsr_op(torch, ptt, dev)
+	tr = float(S.diagonal().astype(np.float64).sum())
+	emit({"phase": "hermitian_grad_build", "cell": "complex_bsr", "at_s": time.perf_counter() - t_start})
+	sketches = {
+		"hutchpp": (lambda op, pdf, kw: ptt.hutchpp(op, **kw, pdf=pdf, seed=CBSR_SEED, differentiable=True), dict(m=240), "rademacher"),
+		"xtrace": (lambda op, pdf, kw: ptt.xtrace(op, **kw, pdf=pdf, seed=CBSR_SEED, differentiable=True),
+			dict(batch=64, converge="count", count=256), "sphere"),
+		"xnystrace": (lambda op, pdf, kw: ptt.xnystrace(op, **kw, pdf=pdf, seed=CBSR_SEED, differentiable=True), dict(m=720), "normal"),
+		"xdiag": (lambda op, pdf, kw: torch.sum(ptt.xdiag(op, **kw, pdf=pdf, seed=CBSR_SEED, differentiable=True)), dict(m=256), "sphere"),
+	}
+	for name, (call, budget, pdf) in sketches.items():
+		tiles = cb.blocks.detach().clone().requires_grad_(True)
+		op = ptt.BSROperator(tiles, cb.indices, cb.indptr, cb.shape)
+		r = _grad_of(torch, lambda: call(op, pdf, budget), tiles)
+		del op
+		torch.cuda.empty_cache()
+		cross = {}
+		for dtype in (torch.complex64, torch.complex128):  # the cross-check, at HG_CROSS's budget, on the same probes
+			t = cb.blocks.to(dtype, copy=True).requires_grad_(True)
+			cross[dtype] = _grad_of(torch, lambda: call(ptt.BSROperator(t, cb.indices, cb.indptr, cb.shape), _draw32(ptt, pdf),
+				HG_CROSS[name]), t)
+			del t
+		if name == "xdiag":
+			fields, ok = {}, bool(np.isfinite(r["est"]))
+		else:
+			fields = {"exact": tr, "rel_err": abs(r["est"] - tr) / tr}
+			ok = fields["rel_err"] < TRACE_TOL
+		g64, g128 = cross[torch.complex64]["grad"], cross[torch.complex128]["grad"]
+		fields.update({"cross_budget": HG_CROSS[name], "cross_c64_vs_c128_grad_rel_err":
+			float((g64.to(torch.complex128) - g128).abs().max() / g128.abs().max()),
+			"cross_s": {str(d).removeprefix("torch."): c["forward_s"] + c["backward_s"] for d, c in cross.items()}})
+		ok = ok and fields["cross_c64_vs_c128_grad_rel_err"] <= GRAD_F64_TOL
+		hold("complex_bsr", name, r, tiles, 1, ok, budget=budget, **fields)
+		del r, cross, g64, g128, tiles
+		torch.cuda.empty_cache()
+
+	out = _hermitian_backward(torch, tb, cb, dev, reps)
+	emit({"phase": "hermitian_backward_done", "at_s": time.perf_counter() - t_start})
+	for k in ("dia_stencil_t", "dia_stencil", "bsr_spmm"):
+		out.setdefault(k, {})["hermitian_grad_launches"] = {"forward": fwd.get(k, 0), "backward": bwd.get(k, 0)}
+		if bwd.get(k, 0) < 1:
+			raise AssertionError(f"{k} launched no complex backward in phase 25 (a)-(b): {bwd}")
+	return out
 
 
 def port_examples(torch, ptt, dev) -> dict:
@@ -3865,6 +4144,13 @@ def main() -> None:
 	for k in BF16_KERNELS:
 		if kernels[k]["bf16_launches"] < 1:
 			raise AssertionError(f"the bf16 {k} launched no time on the bf16 path")
+	torch.cuda.empty_cache()
+
+	# Phase 25: reverse mode on Hermitian operators.
+	t0 = time.perf_counter()
+	for k, v in hermitian_grad(torch, ptt, dev).items():
+		kernels[k].update(v)
+	emit({"phase": "hermitian_grad_done", "seconds": time.perf_counter() - t0})
 
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],

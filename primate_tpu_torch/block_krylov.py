@@ -85,7 +85,10 @@ def _block_lanczos_core(op, V0: torch.Tensor, deg: int, reorth: bool = True, ret
 					W = W - basis @ (_h(basis) @ W)
 		V_next, B_next = _qr_pos(W)
 		if keep_basis and j + 1 < deg:
-			basis[:, (j + 1) * b : (j + 2) * b] = V_next
+			if V_next.requires_grad:  # out of place: the CGS passes above saved this basis for the backward
+				basis = torch.cat([basis[:, : (j + 1) * b], V_next, basis[:, (j + 2) * b :]], dim=1)
+			else:
+				basis[:, (j + 1) * b : (j + 2) * b] = V_next
 		Ab[j], Bb[j] = Aj, B_next
 		V_prev, V_cur, B_prev = V_cur, V_next, B_next
 	return BlockLanczosOutput(Ab, Bb, R0, basis.reshape(n, deg, b).permute(1, 0, 2) if return_basis else None)
@@ -130,12 +133,48 @@ def block_jacobi_dense(Ablocks: torch.Tensor, Bblocks: torch.Tensor) -> torch.Te
 	return T
 
 
+class _HermitianFunction(torch.autograd.Function):
+	"""``f(T) = Y f(θ) Yᴴ`` of a Hermitian ``T = Y diag(θ) Yᴴ``, differentiated by the Daleckii-Krein
+	formula ``grad_T = Y (K ∘ (Yᴴ G Y)) Yᴴ``, ``K_ij = (f(θ_i) − f(θ_j))/(θ_i − θ_j)`` (``f'`` where the
+	two eigenvalues meet). It is the gradient of ``eigh``'s backward for a loss that depends on the
+	eigenvectors only through ``f(T)``, but reads no eigenvector phase: PyTorch's ``eigh`` backward
+	refuses a complex loss whose phase check (an absolute 1e-2) the rounding of a large complex64
+	gradient trips."""
+
+	@staticmethod
+	def forward(ctx, T, f):
+		with full_f32_matmul():
+			theta, Y = torch.linalg.eigh(T)
+		with torch.enable_grad():
+			th = theta.detach().requires_grad_(True)
+			ft = f(th)
+			fp = torch.autograd.grad(ft.sum(), th)[0] if ft.requires_grad else torch.zeros_like(theta)
+		ft = ft.detach()
+		d, df = theta[:, None] - theta[None, :], ft[:, None] - ft[None, :]
+		near = d.abs() <= torch.finfo(theta.dtype).eps ** 0.5 * max(float(theta.abs().max()), 1.0)
+		K = torch.where(near, 0.5 * (fp[:, None] + fp[None, :]), df / torch.where(near, 1.0, d))
+		ctx.save_for_backward(Y, K)
+		with full_f32_matmul():
+			return (Y * ft[None, :].to(Y.dtype)) @ _h(Y)
+
+	@staticmethod
+	def backward(ctx, G):
+		Y, K = ctx.saved_tensors
+		with full_f32_matmul():
+			return Y @ (K.to(Y.dtype) * (_h(Y) @ G @ Y)) @ _h(Y), None
+
+
 def block_quadrature(out: BlockLanczosOutput, fun: Union[str, Callable, None], **kwargs) -> torch.Tensor:
 	"""The matrix-valued Gauss rule ``Vᵀ f(A) V ≈ R0ᵀ [f(T)]₁₁ R0`` (b×b), exact when
-	``deg·b ≥ n`` with an orthonormal basis."""
+	``deg·b ≥ n`` with an orthonormal basis. A complex ``T`` that carries a gradient takes
+	:class:`_HermitianFunction`, the rest ``eigh`` and its own backward."""
 	f = param_callable(fun, **kwargs) if isinstance(fun, str) else (fun or _identity)
 	T = block_jacobi_dense(out.Ablocks, out.Bblocks)
 	b = out.R0.shape[0]
+	if T.is_complex() and T.requires_grad:
+		F11 = _HermitianFunction.apply(T, f)[:b, :b]
+		with full_f32_matmul():
+			return _h(out.R0) @ F11 @ out.R0
 	with full_f32_matmul():
 		theta, Y = torch.linalg.eigh(T)
 		Y1 = Y[:b, :]

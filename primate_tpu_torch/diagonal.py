@@ -25,7 +25,7 @@ from .linalg import full_f32, tall_qr
 from .random import classify_pdf, real_dtype
 from .stats import MeanState
 from .operators.base import aslinop, is_valid_operator
-from .trace import _base_seed, _rdot, _sketch_op, check_traced_path, count_budget, estimate_only, probe_sampler, refuse_complex_grad
+from .trace import _base_seed, _rdot, _sketch_op, check_traced_path, count_budget, estimate_only, probe_sampler
 
 __all__ = ["diag", "diagpp", "xdiag", "xdiag_core", "diagpp_core", "run_diag", "diag_ratio"]
 
@@ -117,7 +117,8 @@ def _diag_differentiable(op, pdf, converge, seed, maxiter: int, batch: int, kwar
 	plain ratio over ``min(count, maxiter)`` iterations of ``batch`` probes, iteration ``i``
 	drawn as the count path draws it. ``converge="tolerance"`` without keywords, ``diag``'s
 	default, counts as no criterion (a count)."""
-	refuse_complex_grad("diag", op)
+	if op.dtype.is_complex:  # primate_tpu/diagonal.py:96-97
+		raise NotImplementedError("differentiable diag is real-symmetric only (mirrors autodiff.spectral_sum).")
 	if converge == "tolerance" and not kwargs:
 		converge = "count"
 	count = count_budget("diag", converge, kwargs)
@@ -254,8 +255,6 @@ def xdiag(A, m: Optional[int] = None, pdf: str = "sphere", seed=None, differenti
 	applications in two blocks. ``differentiable=True`` returns the tensor, whose
 	gradient is the exact derivative of the fixed program."""
 	op = _sketch_op(A, "xdiag")
-	if differentiable:
-		refuse_complex_grad("xdiag", op)
 	n = op.shape[0]
 	m = 2 * n if m is None else min(int(m) + (int(m) % 2), 2 * n)
 	d = xdiag_core(op, probe_sampler(op, _base_seed(seed), pdf)(0, m // 2))

@@ -61,8 +61,13 @@ def _fresh(Y: torch.Tensor, *others: torch.Tensor) -> torch.Tensor:
 
 def _scaled_apply(op, X: torch.Tensor, c: float, r: float, *keep: torch.Tensor) -> torch.Tensor:
 	"""``Ã X = (A X − c X)/r`` on a probe-major block, in ``X``'s dtype, computed in place
-	on a fresh apply output (never on ``X`` or ``keep``)."""
-	AX = _fresh(op.matmat_t(X).to(X.dtype), X, *keep)
+	on a fresh apply output (never on ``X`` or ``keep``); out of place where the apply carries a
+	gradient (autograd refuses an in-place op on a view of a Function's output, which an
+	operator's ``matmat_t`` may return)."""
+	AX = op.matmat_t(X).to(X.dtype)
+	if AX.requires_grad:
+		return (AX - c * X) / r
+	AX = _fresh(AX, X, *keep)
 	if c != 0.0:
 		AX.sub_(X, alpha=c)
 	return AX.div_(r)
@@ -215,15 +220,13 @@ def kpm_trace(
 
 	A sequence of functions (or a stacked callable) shares one moment sweep and returns
 	``(nt,)``. ``m="auto"`` sizes the degree by :func:`suggest_chebyshev_degree`.
-	``differentiable=True`` (an explicit ``interval`` and a fixed ``m``; real operators)
+	``differentiable=True`` (an explicit ``interval`` and a fixed ``m``; real or Hermitian operators)
 	returns a tensor whose gradient reaches the operator's tensors through its applies.
 	"""
 	differentiable = fun_kwargs.pop("differentiable", False)
 	multi, fs = _resolve_funs(fun, fun_kwargs)
 	op = aslinop(A)
 	if differentiable:
-		if op.dtype.is_complex:
-			raise NotImplementedError("kpm_trace(differentiable=True) is real-symmetric only")
 		if interval is None or isinstance(interval, str):
 			raise ValueError("kpm_trace(differentiable=True) needs an explicit interval=(lmin, lmax)")
 		if m == "auto":

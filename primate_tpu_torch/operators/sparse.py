@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..ops._common import LAYOUT_COPIES
-from ..ops.autograd import bsr_spmm_ad, bsr_transpose, csr_spmm_ad, dia_adjoint, dia_stencil_ad, dia_stencil_t_ad
+from ..ops.autograd import bsr_adjoint, bsr_spmm_ad, csr_spmm_ad, dia_adjoint, dia_stencil_ad, dia_stencil_t_ad
 from ..ops.bsr import block_rowids
 from ..ops.dia import CarrySpec, carry_spec, lanczos_dia_round_step, lanczos_dia_step, lanczos_dia_sweep_step
 from .base import LinearOperator, PaddedRows, WholeRows, aslinop
@@ -140,8 +140,8 @@ class CSROperator(LinearOperator):
 	def float_tensors(self) -> tuple:
 		return (self.data,)
 
-	def transpose_csr(self) -> torch.Tensor:
-		"""``Aᵀ`` as a CSR tensor (the input gradient's operand), its structure built once."""
+	def adjoint_csr(self) -> torch.Tensor:
+		"""``Aᴴ`` (``Aᵀ`` for a real operator) as a CSR tensor (the input gradient's operand), its structure built once."""
 		if self._csr_t is None:
 			cols = self.indices.long()
 			perm = torch.argsort(cols, stable=True)
@@ -149,7 +149,8 @@ class CSROperator(LinearOperator):
 			indptr = torch.cat([torch.zeros(1, dtype=torch.long, device=self.device), torch.cumsum(counts, 0)])
 			self._csr_t = (perm, indptr.to(self.indptr.dtype), self.rowids[perm].to(self.indices.dtype))
 		perm, indptr, indices = self._csr_t
-		return _sparse_csr(indptr, indices, self.data.detach()[perm], (self.shape[1], self.shape[0]))
+		values = self.data.detach()[perm]
+		return _sparse_csr(indptr, indices, torch.conj_physical(values) if values.is_complex() else values, (self.shape[1], self.shape[0]))
 
 	def _matmat(self, V: torch.Tensor) -> torch.Tensor:
 		V = torch.as_tensor(V, dtype=self.dtype, device=self.device)
@@ -370,9 +371,7 @@ class BSROperator(LinearOperator):
 		track = self.blocks.requires_grad and torch.is_grad_enabled()
 		if self._adj is None or track:
 			with torch.set_grad_enabled(track):
-				blocks_t, indptr_t, indices_t = bsr_transpose(self.blocks, self.indptr, self.indices, self.shape[1])
-				if blocks_t.is_complex():
-					blocks_t = torch.conj_physical(blocks_t)
+				blocks_t, indptr_t, indices_t = bsr_adjoint(self.blocks, self.indptr, self.indices, self.shape[1])
 			if track:
 				return blocks_t, indptr_t, indices_t
 			self._adj = (blocks_t, indptr_t, indices_t)
@@ -528,8 +527,6 @@ class DIAOperator(LinearOperator):
 		if self._adj is None or track:
 			with torch.set_grad_enabled(track):
 				adj, offsets = dia_adjoint(self.bands, self.offsets)
-				if adj.is_complex():
-					adj = torch.conj_physical(adj)
 			entry = (adj, -self.offsets_t, offsets)
 			if track:
 				return entry

@@ -2,7 +2,7 @@
 
 import torch
 
-__all__ = ["LAUNCHES", "BF16_LAUNCHES", "LAYOUT_COPIES", "SCALAR_LAUNCHES", "L2_LAUNCHES", "reset_launches"]
+__all__ = ["LAUNCHES", "BF16_LAUNCHES", "LAYOUT_COPIES", "SCALAR_LAUNCHES", "L2_LAUNCHES", "reset_launches", "resolved"]
 
 # Kernel launches per wrapper since the last `reset_launches()`. Each wrapper adds
 # one where it launches its kernel and nowhere else; its plain version counts nothing.
@@ -42,6 +42,13 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 	return torch.promote_types(dtype, torch.float32)
 
 
+def resolved(t: torch.Tensor) -> torch.Tensor:
+	"""``t`` with a lazy conjugate or negation written out (``x.conj()`` and ``x.conj().imag`` are
+	views that share ``x``'s memory and carry a flag): a kernel reads the bytes, not the flag. ``t``
+	itself when it carries neither."""
+	return t.resolve_conj().resolve_neg()
+
+
 def check_cuda(
 	name: str, dtype: torch.dtype, device: torch.device, int_keys=(), complex_ok: bool = False, bf16_ok: bool = False,
 	acc_keys=(), bf16_only: bool = False, **tensors,
@@ -52,7 +59,9 @@ def check_cuda(
 	BSR SpMM and the two step passes) on one CUDA device, int64 index tensors (``int_keys``), and
 	tensors in the real accumulation dtype (``acc_keys``: float32 for bfloat16 and complex64, float64
 	for complex128: a step's state, β and outputs). float16 raises ``TypeError``, as the JAX
-	package's operators refuse it."""
+	package's operators refuse it. A lazy conjugate or negative view raises ``ValueError``: the
+	kernel would read its memory unconjugated (the stencil and SpMM wrappers hand :func:`resolved`
+	tensors)."""
 	if device.type != "cuda":
 		raise ValueError(f"{name}: tensors must lie on the CPU (plain version) or on a CUDA device; got {device}")
 	if dtype.is_complex and not complex_ok:
@@ -64,6 +73,8 @@ def check_cuda(
 	if dtype not in takes:
 		raise TypeError(f"{name}: the CUDA kernel takes {', '.join(str(t).replace('torch.', '') for t in takes)}; got {dtype}")
 	for key, t in tensors.items():
+		if t.is_conj() or t.is_neg():
+			raise ValueError(f"{name}: {key} is a lazy conjugate or negative view; pass resolved(t)")
 		want = torch.int64 if key in int_keys else acc_dtype(dtype).to_real() if key in acc_keys else dtype
 		if t.device != device:
 			raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")

@@ -7,64 +7,61 @@ kernel is a Function:
 
 * forward: the kernel wrapper as it is (the kernel on a CUDA tensor, the plain
   version on a CPU tensor), run under no grad;
-* input gradient: the adjoint apply ``Aᵀ G`` by the same kernel, on the adjoint
-  bands ``band'_{−d}[i] = band_d[i − d]`` (DIA) or on the tiles transposed and
-  sorted by block column (BSR);
-* parameter gradient, by PyTorch reductions: ``grad_band_d[r] = Σ_b G[b, r]·x[b, r + off_d]``
+* input gradient: the adjoint apply ``Aᴴ G`` by the same kernel, on the adjoint
+  bands ``band'_{−d}[i] = conj(band_d[i − d])`` (DIA) or on the tiles conjugate-transposed
+  and sorted by block column (BSR);
+* parameter gradient, by PyTorch reductions: ``grad_band_d[r] = Σ_b G[b, r]·conj(x[b, r + off_d])``
   (exactly 0 where ``r + off_d`` leaves ``[0, n)``, as JAX's zero-padded stencil gives),
-  ``grad_tile_t = G[rowblock_t] · V[colblock_t]ᵀ`` (one batched product over the
+  ``grad_tile_t = G[rowblock_t] · V[colblock_t]ᴴ`` (one batched product over the
   stored tiles, TF32 off).
 
 The CSR apply (cuSPARSE through ``torch.sparse``) gets the same kind of Function,
 so no gradient depends on ``torch.sparse``'s own autograd, which differs between
-devices and versions: ``grad_data[j] = Σ_b G[row_j, b]·V[col_j, b]`` and the input
-gradient through the transposed matrix, built once per operator.
+devices and versions: ``grad_data[j] = Σ_b G[row_j, b]·conj(V[col_j, b])`` and the input
+gradient through the conjugate-transposed matrix, whose structure is built once per operator.
 
+Complex (Hermitian) operators follow PyTorch's convention: for a real loss ``L`` the
+gradient handed back is ``∂L/∂conj(·)``, the conjugate of ``jax.grad``'s. The conjugates
+above are no-ops on real tensors. Every tensor that reaches a kernel is a written-out one
+(``G`` arrives through autograd's ``conj`` nodes as a lazy view; the wrappers resolve it).
 The parameter reductions are chunked so their temporaries stay bounded at any n.
-Complex (Hermitian) operators run the forward; their backward raises, as JAX's
-spectral-sum gradients are real-symmetric only (``primate_tpu/autodiff.py:63-64``).
 """
 
 import torch
 
 from ..linalg import full_f32_matmul
-from ._common import acc_dtype
+from ._common import acc_dtype, resolved
 from .bsr import block_rowids, bsr_spmm
 from .dia import dia_stencil, dia_stencil_t
 
-__all__ = ["dia_stencil_t_ad", "dia_stencil_ad", "bsr_spmm_ad", "csr_spmm_ad", "dia_adjoint", "bsr_transpose"]
+__all__ = ["dia_stencil_t_ad", "dia_stencil_ad", "bsr_spmm_ad", "csr_spmm_ad", "dia_adjoint", "bsr_adjoint"]
 
 # Elements of a parameter reduction's product temporary at once (64 MB in float32).
 _CHUNK_ELEMS = 1 << 24
 
 
 def dia_adjoint(bands: torch.Tensor, offsets: tuple):
-	"""Row-aligned bands and offsets of ``Aᵀ``: ``band'_{−d}[i] = band_d[i − d]``, 0 outside ``[0, n)``."""
+	"""Row-aligned bands and offsets of ``Aᴴ`` (``Aᵀ`` of a real ``A``): ``band'_{−d}[i] = conj(band_d[i − d])``,
+	0 outside ``[0, n)``. One written-out copy of the bands."""
 	n = bands.shape[1]
+	src = bands.conj()
 	adj = torch.zeros_like(bands)
 	for d, off in enumerate(offsets):
 		if abs(off) >= n:
 			continue
 		if off >= 0:
-			adj[d, off:] = bands[d, : n - off]
+			adj[d, off:] = src[d, : n - off]
 		else:
-			adj[d, : n + off] = bands[d, -off:]
+			adj[d, : n + off] = src[d, -off:]
 	return adj, tuple(-o for o in offsets)
 
 
-def _real_only(name: str, t: torch.Tensor) -> None:
-	if t.is_complex():
-		raise NotImplementedError(
-			f"the backward of {name} is real only: differentiate a Hermitian operator through its real "
-			"embedding [[Re, -Im], [Im, Re]]"
-		)
-
-
 def _band_grad(G: torch.Tensor, X: torch.Tensor, offsets: tuple, dtype: torch.dtype, probe_major: bool) -> torch.Tensor:
-	"""``out[d, r] = Σ_b G[r]·X[r + off_d]`` over the probe axis, 0 where ``r + off_d`` leaves ``[0, n)``."""
+	"""``out[d, r] = Σ_b G[r]·conj(X[r + off_d])`` over the probe axis, 0 where ``r + off_d`` leaves ``[0, n)``."""
 	n = G.shape[1] if probe_major else G.shape[0]
 	width = G.shape[0] if probe_major else G.shape[1]
 	acc = acc_dtype(dtype)
+	X = X.conj()
 	out = torch.zeros((len(offsets), n), dtype=acc, device=G.device)
 	step = max(1, _CHUNK_ELEMS // max(1, width))
 	for d, off in enumerate(offsets):
@@ -93,8 +90,7 @@ class _DIAStencil(torch.autograd.Function):
 	@staticmethod
 	def backward(ctx, G):
 		bands, x, offsets_t = ctx.saved_tensors
-		_real_only("the DIA stencil", bands)
-		G = G.contiguous()
+		G = resolved(G).contiguous()
 		grad_bands = grad_x = None
 		if ctx.needs_input_grad[1]:
 			adj, _ = dia_adjoint(bands, ctx.offsets)
@@ -114,16 +110,19 @@ def dia_stencil_ad(bands: torch.Tensor, V: torch.Tensor, offsets_t: torch.Tensor
 	return _DIAStencil.apply(bands, V, offsets_t, offsets, False)
 
 
-def bsr_transpose(blocks: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor, m: int):
-	"""Tiles, block-row pointers and block-column ids of ``Aᵀ`` for a BSR ``A`` with ``m`` columns:
-	each tile transposed, the tiles sorted by their block column (stable, so each block row of
-	``Aᵀ`` keeps its tiles in order)."""
+def bsr_adjoint(blocks: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor, m: int):
+	"""Tiles, block-row pointers and block-column ids of ``Aᴴ`` (``Aᵀ`` of a real ``A``) for a BSR ``A``
+	with ``m`` columns: each tile conjugate-transposed, the tiles sorted by their block column
+	(stable, so each block row of ``Aᴴ`` keeps its tiles in order). The tiles are written out."""
 	bn = blocks.shape[2]
 	n_bcol = -(-m // bn)
 	perm = torch.argsort(indices, stable=True)
 	counts = torch.bincount(indices, minlength=n_bcol)
 	indptr_t = torch.cat([torch.zeros(1, dtype=torch.int64, device=indices.device), torch.cumsum(counts, 0)])
-	return blocks[perm].transpose(1, 2).contiguous(), indptr_t, block_rowids(indptr)[perm].contiguous()
+	tiles = blocks[perm].transpose(1, 2)
+	out = torch.empty(tiles.shape, dtype=blocks.dtype, device=blocks.device)
+	out.copy_(tiles.conj())
+	return out, indptr_t, block_rowids(indptr)[perm].contiguous()
 
 
 def _padded_blocks(X: torch.Tensor, rows: int, b: int, acc: torch.dtype) -> torch.Tensor:
@@ -145,13 +144,12 @@ class _BSRSpMM(torch.autograd.Function):
 	@staticmethod
 	def backward(ctx, G):
 		blocks, V, indptr, indices = ctx.saved_tensors
-		_real_only("bsr_spmm", blocks)
 		nnzb, bm, bn = blocks.shape
 		n_brow, (m, k) = indptr.shape[0] - 1, V.shape
-		G = G.contiguous()
+		G = resolved(G).contiguous()
 		grad_blocks = grad_V = None
 		if ctx.needs_input_grad[1]:
-			blocks_t, indptr_t, indices_t = bsr_transpose(blocks, indptr, indices, m)
+			blocks_t, indptr_t, indices_t = bsr_adjoint(blocks, indptr, indices, m)
 			if n_brow > -(-G.shape[0] // bm):  # block rows past n_out: their rows of G count as zero
 				G_in = torch.zeros((n_brow * bm, k), dtype=G.dtype, device=G.device)
 				G_in[: G.shape[0]] = G
@@ -168,7 +166,7 @@ class _BSRSpMM(torch.autograd.Function):
 			with full_f32_matmul():
 				for z0 in range(0, nnzb, step):
 					z1 = min(nnzb, z0 + step)
-					torch.bmm(Gb[rowids[z0:z1]], Vb[indices[z0:z1]].transpose(1, 2), out=grad_blocks[z0:z1])
+					torch.bmm(Gb[rowids[z0:z1]], Vb[indices[z0:z1]].mH, out=grad_blocks[z0:z1])
 			grad_blocks = grad_blocks.to(blocks.dtype)
 		return grad_blocks, grad_V, None, None, None
 
@@ -185,18 +183,18 @@ class _CSRSpMM(torch.autograd.Function):
 	@staticmethod
 	def forward(ctx, data, V, op):
 		ctx.op = op
+		V = resolved(V)
 		ctx.save_for_backward(data, V)
 		return op.csr @ V
 
 	@staticmethod
 	def backward(ctx, G):
 		data, V = ctx.saved_tensors
-		_real_only("the CSR apply", data)
 		op = ctx.op
-		G = G.contiguous()
+		G = resolved(G).contiguous()
 		grad_data = grad_V = None
 		if ctx.needs_input_grad[1]:
-			grad_V = op.transpose_csr() @ G
+			grad_V = op.adjoint_csr() @ G
 		if ctx.needs_input_grad[0]:
 			acc = acc_dtype(data.dtype)
 			rows, cols = op.rowids, op.indices.long()
@@ -204,7 +202,7 @@ class _CSRSpMM(torch.autograd.Function):
 			step = max(1, _CHUNK_ELEMS // max(1, G.shape[1]))
 			for j0 in range(0, data.shape[0], step):
 				j1 = min(data.shape[0], j0 + step)
-				grad_data[j0:j1] = torch.sum(G[rows[j0:j1]].to(acc) * V[cols[j0:j1]].to(acc), dim=1)
+				grad_data[j0:j1] = torch.sum(G[rows[j0:j1]].to(acc) * V[cols[j0:j1]].conj().to(acc), dim=1)
 			grad_data = grad_data.to(data.dtype)
 		return grad_data, grad_V, None
 

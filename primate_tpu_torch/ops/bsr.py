@@ -20,13 +20,15 @@ axis. The wrapper does not copy: a caller with a probe-major block makes it
 contiguous itself (``BSROperator.matmat`` does, and counts it in
 :data:`LAYOUT_COPIES`). On CPU tensors the wrapper runs :func:`bsr_spmm_ref`; on a
 CUDA tensor it launches the kernel or raises, and counts each launch in
-``LAUNCHES["bsr_spmm"]``.
+``LAUNCHES["bsr_spmm"]``. A lazy conjugate or negation of the tiles or of ``V`` is written out
+before the launch (``V.conj()`` shares ``V``'s memory).
 """
 
 import torch
 
 from ._common import (
-	L2_LAUNCHES, LAUNCHES, LAYOUT_COPIES, SUFFIX, acc_dtype, check_cuda, count_launch, raise_on, reset_launches, stream, vector_ok,
+	L2_LAUNCHES, LAUNCHES, LAYOUT_COPIES, SUFFIX, acc_dtype, check_cuda, count_launch, raise_on, reset_launches, resolved, stream,
+	vector_ok,
 )
 
 __all__ = ["LAUNCHES", "LAYOUT_COPIES", "L2_LAUNCHES", "reset_launches", "bsr_spmm", "bsr_spmm_ref", "block_rowids"]
@@ -85,6 +87,7 @@ def bsr_spmm(blocks: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor, 
 		raise ValueError(f"bsr_spmm: {indices.shape[0]} indices for {nnzb} tiles, n_out={n_out} for {n_brow} block rows of {bm}")
 	if V.device.type == "cpu":
 		return bsr_spmm_ref(blocks, indptr, indices, V, n_out)
+	blocks, V = resolved(blocks), resolved(V)
 	check_cuda(
 		"bsr_spmm", V.dtype, V.device, ("indptr", "indices"), complex_ok=True, bf16_ok=True, blocks=blocks, indptr=indptr,
 		indices=indices, V=V,

@@ -66,7 +66,9 @@ rules carry over.
 
 Each wrapper runs its plain version (``*_ref``) only for tensors on the CPU. For
 a CUDA tensor it launches the kernel or raises; it counts each launch in
-:data:`LAUNCHES`.
+:data:`LAUNCHES`. The two stencils write out a lazy conjugate or negation of their
+inputs first (``x.conj()`` shares ``x``'s memory), so the kernel reads the values the
+plain version reads.
 """
 
 from dataclasses import dataclass, field
@@ -74,7 +76,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ._common import LAUNCHES, SUFFIX, acc_dtype, check_cuda, count_launch, raise_on, reset_launches, stream, vector_ok
+from ._common import LAUNCHES, SUFFIX, acc_dtype, check_cuda, count_launch, raise_on, reset_launches, resolved, stream, vector_ok
 
 __all__ = [
 	"LAUNCHES",
@@ -462,6 +464,7 @@ def dia_stencil_t(bands: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor) -
 	_check_shapes("dia_stencil_t", bands, offsets, x)
 	if x.device.type == "cpu":
 		return dia_stencil_t_ref(bands, offsets, x)
+	bands, x = resolved(bands), resolved(x)
 	check_cuda(
 		"dia_stencil_t", x.dtype, x.device, ("offsets",), complex_ok=True, bf16_ok=True, bands=bands, offsets=offsets, x=x
 	)
@@ -761,6 +764,7 @@ def dia_stencil(bands: torch.Tensor, offsets: torch.Tensor, V: torch.Tensor) -> 
 		raise ValueError(f"dia_stencil: bands {tuple(bands.shape)} do not match offsets {tuple(offsets.shape)} and n={V.shape[0]}")
 	if V.device.type == "cpu":
 		return dia_stencil_ref(bands, offsets, V)
+	bands, V = resolved(bands), resolved(V)
 	check_cuda("dia_stencil", V.dtype, V.device, ("offsets",), complex_ok=True, bf16_ok=True, bands=bands, offsets=offsets, V=V)
 	from ._build import load_library
 

@@ -131,15 +131,6 @@ def count_only_target(criterion) -> Optional[int]:
 DIFFERENTIABLE_KWARGS = ("grad_method", "fprime", "solver_rtol", "solver_maxiter")
 
 
-def refuse_complex_grad(name: str, op) -> None:
-	"""``differentiable=True`` is real-symmetric only (``primate_tpu/autodiff.py:63-64``)."""
-	if op.dtype.is_complex:
-		raise NotImplementedError(
-			f"{name}(differentiable=True) is real-symmetric only; differentiate a Hermitian operator "
-			"through its real embedding [[Re, -Im], [Im, Re]]"
-		)
-
-
 def check_traced_path(name: str, callback=None, resume=None, record: bool = False, full: bool = False, pdf="rademacher") -> None:
 	"""Refuse what a ``differentiable=True`` path cannot do, where the JAX package asserts."""
 	if callback is not None or resume is not None or record or full:
@@ -164,8 +155,9 @@ def _hutch_differentiable(op, batch, pdf, converge, seed, maxiter, kwargs) -> to
 	``min(count, maxiter·batch)`` probes in ``batch``-sized chunks, chunk ``i`` from the
 	generator keyed ``(seed, i)`` as the batch loop draws it. A ``MatrixFunction`` goes to
 	:func:`~primate_tpu_torch.autodiff.spectral_sum`; a plain operator gives the mean of
-	its quadratic forms, differentiable through its applies."""
-	refuse_complex_grad("hutch", op)
+	its quadratic forms, differentiable through its applies (a Hermitian one's too: real
+	quadratic forms ``Re v†Av``, as JAX's ``quad_form``; a Hermitian ``MatrixFunction`` raises in
+	``spectral_sum``, as in JAX)."""
 	grad_opts = {k: kwargs.pop(k) for k in DIFFERENTIABLE_KWARGS if k in kwargs}
 	count = count_budget("hutch", converge, kwargs)
 	nv = min(count, int(maxiter) * int(batch))
@@ -369,8 +361,6 @@ def hutchpp(
 	if mode not in ("reduced", "full"):
 		raise ValueError(f"mode must be 'reduced' or 'full', got {mode!r}")
 	op = _sketch_op(A, "hutchpp")
-	if differentiable:
-		refuse_complex_grad("hutchpp", op)
 	N = op.shape[0]
 	if N == 0:
 		return (0.0, EstimatorResult()) if full else 0.0
@@ -433,8 +423,6 @@ def xnystrace(
 	``[2, N]``) operator applications, one block. ``differentiable=True`` returns the
 	mean as a tensor, whose gradient is the exact derivative of the fixed program."""
 	op = _sketch_op(A, "xnystrace")
-	if differentiable:
-		refuse_complex_grad("xnystrace", op)
 	N = op.shape[0]
 	acc = real_dtype(torch.promote_types(op.dtype, torch.float32))
 	if N < 3:
@@ -543,7 +531,6 @@ def xtrace(
 	record = kwargs.pop("record", False)
 	op = _sketch_op(A, "xtrace")
 	if differentiable:
-		refuse_complex_grad("xtrace", op)
 		check_traced_path("xtrace", callback=callback, resume=resume, record=record, full=full, pdf=pdf)
 		return _xtrace_differentiable(op, batch, pdf, converge, seed, kwargs)
 	criterion = CountCriterion(count=op.shape[0])

@@ -176,18 +176,32 @@ def test_complex_sparse_operators_and_algebra():
 
 
 def test_complex_backward_raises():
-	"""The autograd Functions run a complex forward; their backward is real only."""
+	"""The autograd Functions run a complex forward and a complex backward (they raised before
+	Hermitian reverse mode was ported; the name is kept): the input gradient is ``Aᴴ·G`` against
+	the dense matrix, in both DIA layouts and through a CSR operator, and the value gradient the
+	conjugated reduction (``Σ_b G·conj(x)``)."""
 	H, _, op = _hofstadter_ops(5, 6)
+	n = op.shape[0]
+	Hd = H.toarray()
+	rng = np.random.default_rng(3)
 	bands = op.bands.clone().requires_grad_(True)
-	X = torch.ones((2, op.shape[0]), dtype=torch.complex128)
+	X = torch.tensor(rng.normal(size=(2, n)) + 1j * rng.normal(size=(2, n)), requires_grad=True)
+	G = torch.tensor(rng.normal(size=(2, n)) + 1j * rng.normal(size=(2, n)))
 	y = ptt.ops.autograd.dia_stencil_t_ad(bands, X, op.offsets_t, op.offsets)
-	_close(y.detach().numpy(), (H @ X.numpy().T).T, rtol=0, atol=1e-13)
-	with pytest.raises(NotImplementedError, match="real only"):
-		torch.autograd.grad(y, bands, torch.ones_like(y))
-	C = CSROperator(op.bands[0].clone().requires_grad_(True), np.arange(op.shape[0]), np.arange(op.shape[0] + 1), op.shape)
-	out = C.matmat(X.T)
-	with pytest.raises(NotImplementedError, match="real only"):
-		torch.autograd.grad(out, C.data, torch.ones_like(out))
+	_close(y.detach().numpy(), (Hd @ X.detach().numpy().T).T, rtol=0, atol=1e-13)
+	gb, gx = torch.autograd.grad(y, (bands, X), G)
+	_close(gx.numpy(), (Hd.conj().T @ G.numpy().T).T, rtol=0, atol=1e-12)
+	(wb,) = torch.autograd.grad(dia.dia_stencil_t_ref(bands, op.offsets_t, X.detach()), bands, G)
+	_close(gb.numpy(), wb.numpy(), rtol=0, atol=1e-12)
+	V = X.detach().T.contiguous().requires_grad_(True)
+	(gV,) = torch.autograd.grad(ptt.ops.autograd.dia_stencil_ad(bands, V, op.offsets_t, op.offsets), V, G.T.contiguous())
+	_close(gV.numpy(), Hd.conj().T @ G.numpy().T, rtol=0, atol=1e-12)
+	d = torch.tensor(rng.normal(size=n) + 1j * rng.normal(size=n), requires_grad=True)
+	C = CSROperator(d, np.arange(n), np.arange(n + 1), op.shape)
+	out = C.matmat(V)
+	gd, gV = torch.autograd.grad(out, (C.data, V), G.T.contiguous())
+	_close(gV.numpy(), np.conj(d.detach().numpy())[:, None] * G.numpy().T, rtol=0, atol=1e-13)
+	_close(gd.numpy(), np.sum(G.numpy().T * np.conj(V.detach().numpy()), axis=1), rtol=0, atol=1e-13)
 
 
 # --- Lanczos -------------------------------------------------------------------

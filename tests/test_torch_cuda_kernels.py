@@ -330,7 +330,7 @@ def test_slq_on_the_card_matches_the_cpu_port(cuda):
 # Awkward shapes of the sparse kernels: non-square and small tiles, an empty block
 # row, n not a multiple of bm, one column, k past one block of threads; DIA offsets
 # of ±10,000 on a short n. Tolerance: max-abs error over max|out|.
-SPARSE_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+SPARSE_TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.complex64: 1e-5, torch.complex128: 1e-12}
 
 
 def _bsr_arrays(dev, dtype, bm, bn, n=1001, empty_row=3, seed=0):
@@ -597,6 +597,8 @@ def _functions(dev, dtype, n_dia, n_bsr, k, offsets, density=0.02, seed=0):
 	bands = rnd(len(offsets), n_dia).requires_grad_(True)  # not symmetric: the adjoint bands differ from the bands
 	x, V = rnd(k, n_dia).requires_grad_(True), rnd(n_dia, k).requires_grad_(True)
 	blocks, indptr, indices = _bsr_sparse(dev, dtype, n_bsr, density, seed=seed)
+	if dtype.is_complex:  # complex tiles: the adjoint's conjugate shows
+		blocks = torch.complex(blocks.real, torch.randn(blocks.shape, generator=g, device=dev, dtype=dtype.to_real()))
 	blocks.requires_grad_(True)
 	Vb = rnd(n_bsr, k).requires_grad_(True)
 	return [
@@ -607,22 +609,26 @@ def _functions(dev, dtype, n_dia, n_bsr, k, offsets, density=0.02, seed=0):
 	]
 
 
-def test_kernel_functions_pass_gradcheck(cuda):
-	"""float64 at small shapes: each Function's backward (kernels on the adjoint structure,
-	PyTorch parameter reductions) against finite differences."""
-	for name, fn, _, inputs, _ in _functions(cuda, torch.float64, 61, 45, 3, (-9, -1, 0, 2, 30), density=0.05):
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_kernel_functions_pass_gradcheck(cuda, dtype):
+	"""float64 and complex128 (Wirtinger) at small shapes: each Function's backward (kernels on the
+	conjugated adjoint structure, PyTorch parameter reductions) against finite differences."""
+	for name, fn, _, inputs, _ in _functions(cuda, dtype, 61, 45, 3, (-9, -1, 0, 2, 30), density=0.05):
 		before = dia.LAUNCHES[name]
 		assert torch.autograd.gradcheck(fn, inputs, eps=1e-6, atol=1e-8, rtol=1e-6), name
 		assert dia.LAUNCHES[name] > before
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64, torch.complex128])
 def test_kernel_backward_matches_autograd_of_the_plain_versions(cuda, dtype):
 	"""The FEM cell's DIA pattern at n = 1M (7 diagonals to ±10,000, 64 probes) and 8×8 BSR
 	tiles on n = 200,003 (a ragged last block): input and parameter gradients within 1e-5
-	(float32) or 1e-12 (float64) of the largest entry of the plain version's autograd; each
-	backward launches its kernel once, for the adjoint apply."""
-	cases = _functions(cuda, dtype, 1_000_000, 200_003, 64, (-10_000, -100, -1, 0, 1, 100, 10_000), density=1e-4)
+	(float32, complex64) or 1e-12 (float64, complex128) of the largest entry of the plain version's
+	autograd; each backward launches its kernel once, for the adjoint apply (complex: on the
+	conjugated adjoint bands or tiles). Complex128 at a quarter of the BSR density: the plain version's
+	graph holds every gathered tile's rows (34 GB at 1e-4), and with both gradients that outgrew the card."""
+	density = 2.5e-5 if dtype == torch.complex128 else 1e-4
+	cases = _functions(cuda, dtype, 1_000_000, 200_003, 64, (-10_000, -100, -1, 0, 1, 100, 10_000), density=density)
 	for name, fn, plain, inputs, G in cases:
 		out = fn(*inputs)
 		assert type(out.grad_fn).__name__.endswith("Backward")
@@ -853,7 +859,8 @@ def test_complex_sweeps_on_the_card_match_the_cpu_port(cuda, dtype):
 def test_complex_operators_on_the_card(cuda):
 	"""A Hermitian DIA operator's Lanczos sweep takes the complex step kernels (passes A and B a
 	step, no ``dia_stencil_t``) and matches the CPU port; a complex BSR apply takes the complex
-	``bsr_spmm``, and a complex kernel backward raises."""
+	``bsr_spmm``, and a complex stencil's backward, on a conjugate-view cotangent, launches the
+	kernel on the conjugated adjoint bands and matches the plain version's autograd."""
 	nx = ny = 40
 	rng = np.random.default_rng(0)
 	x, y = np.repeat(np.arange(nx), ny), np.tile(np.arange(ny), nx)
@@ -877,9 +884,42 @@ def test_complex_operators_on_the_card(cuda):
 	want = bsr.bsr_spmm_ref(C.blocks, indptr, indices, X, n)
 	assert float((got - want).abs().max()) <= _tol(torch.complex128) * float(want.abs().max())
 	bands = op.bands.clone().requires_grad_(True)
-	y = ptt_autograd.dia_stencil_t_ad(bands, torch.tensor(V0.T.copy(), device=cuda), op.offsets_t, op.offsets)
-	with pytest.raises(NotImplementedError):
-		torch.autograd.grad(y, bands, torch.ones_like(y))
+	x = torch.tensor(V0.T.copy(), device=cuda).requires_grad_(True)
+	G = torch.tensor(V0.T[::-1].copy(), device=cuda)
+	y = ptt_autograd.dia_stencil_t_ad(bands, x, op.offsets_t, op.offsets)
+	before = dia.LAUNCHES["dia_stencil_t"]
+	got = torch.autograd.grad(y, (bands, x), G.conj())  # the cotangent a lazy conjugate view
+	assert dia.LAUNCHES["dia_stencil_t"] == before + 1
+	want = torch.autograd.grad(dia.dia_stencil_t_ref(bands, op.offsets_t, x), (bands, x), G.conj())
+	for gv, wv in zip(got, want):
+		assert float((gv - wv).abs().max()) <= 1e-12 * float(wv.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("wrapper", ["dia_stencil_t", "dia_stencil", "bsr_spmm"])
+def test_complex_wrappers_take_conjugate_views(cuda, wrapper, dtype):
+	"""A lazy conjugate view (``x.conj()`` shares ``x``'s memory and carries a flag) handed to a
+	complex kernel wrapper, as input and as bands or tiles: the kernel runs on the written-out
+	values and gives the plain version's result (it read the unconjugated memory before)."""
+	n, k = 3001, 5
+	if wrapper == "bsr_spmm":
+		blocks, indptr, indices = _bsr_sparse(cuda, dtype, n, 0.01)
+		blocks = torch.complex(blocks.real, torch.ones_like(blocks.real))
+		A, X = blocks.conj(), _cplx(cuda, (n, k), dtype).conj()
+		call = lambda a, x: bsr.bsr_spmm(a, indptr, indices, x, n)  # noqa: E731
+		plain = lambda a, x: bsr.bsr_spmm_ref(a, indptr, indices, x, n)  # noqa: E731
+	else:
+		offs = torch.tensor([-7, -1, 0, 2, 300], device=cuda)
+		A = _cplx(cuda, (5, n), dtype, seed=3).conj()
+		X = _cplx(cuda, (k, n) if wrapper == "dia_stencil_t" else (n, k), dtype, seed=4).conj()
+		call = lambda a, x: getattr(dia, wrapper)(a, offs, x)  # noqa: E731
+		plain = lambda a, x: getattr(dia, f"{wrapper}_ref")(a, offs, x)  # noqa: E731
+	assert A.is_conj() and X.is_conj() and X.is_contiguous()
+	before = dia.LAUNCHES[wrapper]
+	got, want = call(A, X), plain(A, X)
+	assert dia.LAUNCHES[wrapper] == before + 1
+	assert float((got - want).abs().max()) <= 10 * _tol(dtype) * float(want.abs().max())
+	assert float((got - call(A.resolve_conj(), X.resolve_conj())).abs().max()) == 0.0
 
 
 def test_complex64_sketch_stays_exact_with_tf32_switched_on(cuda):

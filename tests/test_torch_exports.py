@@ -66,22 +66,32 @@ def _hermitian_op():
 @pytest.mark.parametrize("branch", ["complex_hutch", "complex_sketch", "complex_diag", "complex_kpm_trace",
 	"complex_step_kernels_on_the_card"])
 def test_each_unported_branch_raises(branch):
-	"""Name by name, a branch of the JAX package that the port has not taken raises
-	``NotImplementedError``: ``differentiable=True`` on a Hermitian operator, and the complex Lanczos-step kernels (ROADMAP B.7; the
-	dtype rule the wrappers apply to a CUDA tensor, checked here without a card)."""
+	"""Name by name, a branch of the JAX package that the port does not take raises
+	``NotImplementedError``: ``diag(differentiable=True)`` on a Hermitian operator (JAX refuses it too),
+	and the complex Lanczos-step kernels (ROADMAP B.7; the dtype rule the wrappers apply to a CUDA
+	tensor, checked here without a card). The other Hermitian ``differentiable=True`` branches are
+	taken, as the JAX package takes them: ``hutch`` on a plain operator, the sketches and ``kpm_trace``
+	return a tensor that carries a gradient (held to ``jax.grad`` in ``test_torch_complex_grad.py``)."""
 	import torch
 
 	from primate_tpu_torch.ops._common import check_cuda
 
+	H = _hermitian_op().requires_grad_(True)
 	calls = {
-		"complex_hutch": lambda: ptt.hutch(_hermitian_op(), converge="count", count=4, differentiable=True),
-		"complex_sketch": lambda: ptt.hutchpp(_hermitian_op(), m=3, differentiable=True),
-		"complex_diag": lambda: ptt.diag(_hermitian_op(), converge="count", count=2, differentiable=True),
-		"complex_kpm_trace": lambda: ptt.kpm_trace(_hermitian_op(), m=4, interval=(0.0, 2.0), differentiable=True),
+		"complex_hutch": lambda: ptt.hutch(H, converge="count", count=4, differentiable=True),
+		"complex_sketch": lambda: ptt.hutchpp(H, m=3, differentiable=True),
+		"complex_diag": lambda: ptt.diag(H, converge="count", count=2, differentiable=True),
+		"complex_kpm_trace": lambda: ptt.kpm_trace(H, m=4, interval=(0.0, 2.0), differentiable=True),
 		"complex_step_kernels_on_the_card": lambda: check_cuda("lanczos_dia_step", torch.complex128, torch.device("cuda", 0)),
 	}
-	with pytest.raises(NotImplementedError):
-		calls[branch]()
+	if branch in ("complex_diag", "complex_step_kernels_on_the_card"):
+		with pytest.raises(NotImplementedError):
+			calls[branch]()
+	else:
+		est = calls[branch]()
+		assert isinstance(est, torch.Tensor) and est.requires_grad and not est.is_complex()
+		(g,) = torch.autograd.grad(est, H)
+		assert g.dtype == torch.complex128 and bool(torch.all(torch.isfinite(torch.view_as_real(g))))
 	# The two DIA stencils take complex tensors on the card.
 	check_cuda("dia_stencil_t", torch.complex64, torch.device("cuda", 0), complex_ok=True)
 
