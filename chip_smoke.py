@@ -178,6 +178,18 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    64 on the Hofstadter bands, ``bsr_spmm`` at the BSR cell with k = 64; complex64 and complex128; a
    misaligned block and lazy conjugate views in complex64) against autograd through its plain version,
    one launch a backward, timed beside it, with the time of the conjugated adjoint bands or tiles.
+26. runs what the port lacked of the JAX package: (a) the gradient of ``Σ MatrixFunction(op, "log", deg=20,
+   orth=0).quad(V)`` (64 Rademacher probes) to the bands of a batch of molecules, 100,000 disjoint 10-row
+   chains tridiag(−1, 3, −1), float32, where every probe breaks down at step 10: finite, ⟨∂bands, bands⟩
+   within 1e-4 of 64·n, two symmetric chain-preserving directional derivatives within 1e-3 of the float64
+   closed form, ``dia_stencil_t`` 20 launches forward and 19 on the adjoint bands backward, the stencils held
+   to their plain versions there; (b) every operator kind (DIA, CSR, COO, BSR 8×8, a ``FunctionOperator``
+   around the DIA apply, ``AffineOperator``, an identity ``MatrixFunction`` at n = 1,048,576; a tensor and a
+   ``DenseOperator`` at 8192) × ``hutch``, ``hutchpp``, ``xtrace``, ``diag``, ``xdiag``, ``lanczos`` and
+   ``solve``: traces within 1e-3 of 3n, diagonals within 0.1, the residual below its rtol, the formats on
+   the same probes within 1e-5 of each other, each format's kernels launched and no other; (c) the CPU
+   edge cases (``tests/torch_cases.py``, which the CPU suites run too) with their tensors on the card, and DIA operators of 1 and 3 rows through both stencils and
+   both step passes, each held to its plain version.
 
 Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
 (``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
@@ -216,7 +228,8 @@ numbers under ``bf16_10M_``, ``bf16_padded_500k_`` and ``bf16_padded_10M_``; the
 ``bsr_spmm`` their launches in the forward and backward passes of phase 25 (a)-(b)
 (``hermitian_grad_launches``) and their complex backward's error, time, its plain version's autograd's
 time and the adjoint build's time from (c) under ``c64_``/``c128_`` keys (``backward_ms``,
-``backward_plain_ms``, ``adjoint_build_ms``, ``grad_max_abs_err``);
+``backward_plain_ms``, ``adjoint_build_ms``, ``grad_max_abs_err``); every kernel its launches in phase 26
+(``coverage_launches``: the quadrature gradient's forward and backward, the coverage matrix, the edge cases);
 the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing anything.
 """
@@ -227,6 +240,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -4040,6 +4054,303 @@ def bf16_sharded_two_ranks(torch) -> dict:
 	return total
 
 
+# Phase 26: what the port lacked of the JAX package. (a) The degeneracy-stable derivative of the Gauss
+# quadrature on a batch of molecules: C12["chains"] disjoint chains of C12["atoms"] rows, tridiag(−1, 3, −1)
+# with the coupling cut between chains (n = 1,000,000), float32 bands, Σ MatrixFunction(op, "log", deg 20,
+# orth 0).quad(V) on 64 Rademacher probes (each breaks down at step 10) and its gradient to the bands:
+# ⟨∂bands, bands⟩ = Σ‖v‖² = probes·n within C12_HOMOG_TOL (relative; log is homogeneous), and two seeded
+# symmetric block-preserving directional derivatives within C12_DD_TOL (relative) of the float64 closed
+# form. (b) Every operator kind × every estimator entry point (tests/test_torch_matrix_coverage.py at a
+# card's width): tridiag(−1, 3, −1) at COV_N as DIA, CSR, COO, BSR 8×8, a FunctionOperator around the DIA
+# apply, AffineOperator(DIA, t=0) and MatrixFunction(DIA, "identity", deg=2), and at COV_DENSE_N as a
+# tensor and a DenseOperator; traces within COV_TRACE_TOL of 3n, diagonals within COV_DIAG_TOL (relative
+# L2), solve's residual below its rtol, Lanczos finite, and the formats that draw the same probes
+# within COV_AGREE_TOL of each other. (c) The CPU edge cases (tests/torch_cases.py's EDGE_CASES) with their
+# tensors on the card, and DIA operators of 1 and 3 rows through the stencils and the step passes, each
+# kernel held to its plain version there.
+C12 = dict(chains=100_000, atoms=10, probes=64, deg=20, seed=26)
+C12_HOMOG_TOL, C12_DD_TOL = 1e-4, 1e-3
+COV_N, COV_DENSE_N, COV_SEED = 1_048_576, 8192, 26
+COV_TRACE_TOL, COV_DIAG_TOL, COV_AGREE_TOL, COV_SOLVE_RTOL = 1e-3, 0.1, 1e-5, 1e-5
+# Kernels each format must launch in (b), and the family it may launch from: DIA-backed kinds run the DIA
+# kernels (the DIA operator the step passes too, its Lanczos sweeps at orth 0; the identity MatrixFunction,
+# at orth 3, pass A alone), BSR runs bsr_spmm, CSR and COO (cuSPARSE) and the dense kinds (cuBLAS) none.
+_DIA_FAMILY = ("dia_stencil_t", "dia_stencil", "lanczos_dia_step", "lanczos_dia_residual")
+COV_KERNELS = {
+	"dia": (_DIA_FAMILY, _DIA_FAMILY),
+	"function": (("dia_stencil",), _DIA_FAMILY),
+	"affine": (("dia_stencil_t",), _DIA_FAMILY),
+	"matrix_function": (("lanczos_dia_step",), _DIA_FAMILY),
+	"bsr": (("bsr_spmm",), ("bsr_spmm",)),
+	"csr": ((), ()), "coo": ((), ()), "tensor": ((), ()), "dense_op": ((), ()),
+}
+
+
+def _cases():
+	"""``tests/torch_cases.py``: the chains and the edge cases that the CPU suites hold, run here on the card."""
+	sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+	import torch_cases
+
+	return torch_cases
+
+
+def _stencil_pair_check(torch, dia, bands, offsets, X, tol: float, label: str) -> dict:
+	"""``dia_stencil_t`` on ``X (k, n)`` and ``dia_stencil`` on ``Xᵀ`` against their plain versions; not counted."""
+	from primate_tpu_torch.ops import _common
+
+	saved = dict(_common.LAUNCHES)
+	offs = torch.tensor(offsets, dtype=torch.int64, device=bands.device)
+	errs = {}
+	for name, got, want in (
+		("dia_stencil_t", dia.dia_stencil_t(bands, offs, X), dia.dia_stencil_t_ref(bands, offs.cpu(), X)),
+		("dia_stencil", dia.dia_stencil(bands, offs, X.T.contiguous()), dia.dia_stencil_ref(bands, offs.cpu(), X.T.contiguous())),
+	):
+		errs[name] = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+	_common.LAUNCHES.update(saved)
+	if not all(e <= tol for e in errs.values()):
+		raise AssertionError(f"{label}: a stencil disagrees with its plain version: {errs}")
+	return errs
+
+
+def quad_grad_chains(torch, ptt, dev) -> dict:
+	"""Phase 26 (a). Returns the kernels' forward and backward launches."""
+	from primate_tpu_torch.ops import dia
+	from primate_tpu_torch.ops.autograd import dia_adjoint
+
+	chains, atoms, p, deg = C12["chains"], C12["atoms"], C12["probes"], C12["deg"]
+	n = chains * atoms
+	offsets = (-1, 0, 1)
+	cases = _cases()
+	bands = torch.tensor(cases.chain_bands(chains, atoms), dtype=torch.float32, device=dev)
+	gen = torch.Generator(device=dev)
+	gen.manual_seed(C12["seed"])
+	V = torch.randint(0, 2, (n, p), generator=gen, device=dev).to(torch.float32) * 2 - 1
+	# The kernels at this path's shapes (forward bands, and the adjoint bands of the backward).
+	errs = _stencil_pair_check(torch, dia, bands, offsets, V.T.contiguous(), STENCIL_TOL["float32"], "chains")
+	adj, adj_offsets = dia_adjoint(bands, offsets)
+	errs_adj = _stencil_pair_check(torch, dia, adj, adj_offsets, V.T.contiguous(), STENCIL_TOL["float32"], "chains adjoint")
+	# Every probe breaks down at step 10 (β_10 below the sweep's residual tolerance, √n·1e-8), none before.
+	_, betas = ptt.lanczos(ptt.DIAOperator(bands, offsets, (n, n)), v0=V, deg=deg, orth=0)
+	tol = n**0.5 * 1e-8
+	broke = (float(betas[atoms - 1].max()), float(betas[: atoms - 1].min()))
+	if not (broke[0] < tol < broke[1]):
+		raise AssertionError(f"chains: the probes do not break down at step {atoms}: max β_{atoms} {broke[0]}, min before {broke[1]}")
+	leaf = bands.clone().requires_grad_(True)
+
+	def F():
+		op = ptt.DIAOperator(leaf, offsets, (n, n))
+		return ptt.MatrixFunction(op, "log", deg=deg, orth=0).quad(V).sum()
+
+	res = _grad_of(torch, F, leaf)
+	g = res["grad"]
+	finite = bool(torch.isfinite(g).all())
+	g64 = g.double()
+	homog = float(torch.sum(g64 * bands.double()))
+	want_h = float(p * n)
+	Vb = V.double().reshape(chains, atoms, p)
+	S = (Vb @ Vb.mT).cpu().numpy()
+	del Vb
+	gh = g64.cpu().numpy()
+	dds = []
+	for s in (1, 2):
+		H = cases.chain_direction(chains, atoms, C12["seed"] + s)
+		got, want = float(np.sum(gh * H)), cases.chain_log_derivative(atoms, H, S)
+		dds.append({"got": got, "closed_form_f64": want, "rel_err": abs(got - want) / abs(want)})
+	row = {"phase": "quad_grad_chains", "n": n, "chains": chains, "atoms": atoms, "probes": p, "deg": deg, "orth": 0,
+		"value": res["est"], "grad_finite": finite, "homogeneity": homog, "homogeneity_want": want_h,
+		"homogeneity_rel_err": abs(homog - want_h) / want_h, "homogeneity_tol": C12_HOMOG_TOL, "directional": dds,
+		"dd_tol": C12_DD_TOL, "breakdown_beta_max": broke[0], "beta_min_before": broke[1], "forward_s": res["forward_s"], "backward_s": res["backward_s"],
+		"max_memory_allocated_bytes": res["peak_bytes"], "forward_launches": res["forward"],
+		"backward_launches": res["backward"], "stencil_rel_err": errs, "adjoint_stencil_rel_err": errs_adj}
+	emit(row)
+	if not finite:
+		raise AssertionError(f"the quadrature's gradient on the disjoint chains is not finite: {row}")
+	if not (row["homogeneity_rel_err"] <= C12_HOMOG_TOL and all(d["rel_err"] <= C12_DD_TOL for d in dds)):
+		raise AssertionError(f"the quadrature's gradient on the disjoint chains is off its closed form: {row}")
+	fwd, bwd = res["forward"], res["backward"]
+	if (fwd["dia_stencil_t"], bwd["dia_stencil_t"]) != (deg, deg - 1):
+		raise AssertionError(f"dia_stencil_t {fwd['dia_stencil_t']} forward, {bwd['dia_stencil_t']} backward; expected {deg}, {deg - 1}")
+	if fwd["lanczos_dia_step"] + fwd["lanczos_dia_residual"] + bwd["lanczos_dia_step"] + bwd["lanczos_dia_residual"]:
+		raise AssertionError(f"a differentiated sweep launched a step kernel: {fwd} {bwd}")
+	del leaf, g, g64, V, S
+	return {"forward": fwd, "backward": bwd}
+
+
+def _cov_budget(n: int) -> int:
+	"""Probes for an estimate within 1e-3 of tr = 3n at 5σ: a Rademacher quadratic form of tridiag(−1, 3, −1)
+	has variance about 4n, so 2^26 / n probes (at least phase 7's 256). XDiag takes 8 times as many (at most
+	2n): on this flat spectrum phase 7's m = 256 leaves 0.13 of the diagonal (relative L2) at 1M rows."""
+	return max(256, (1 << 26) // n)
+
+
+def _cov_calls(torch, ptt, op, n: int, dev) -> dict:
+	"""The seven entry points on ``op``, each checked against the closed form; their results."""
+	k = _cov_budget(n)
+	g = torch.Generator(device=dev)
+	g.manual_seed(COV_SEED)
+	V0 = torch.randint(0, 2, (n, 64), generator=g, device=dev).to(torch.float32) * 2 - 1
+	y = torch.randn(n, generator=g, device=dev, dtype=torch.float32)
+	calls = {
+		"hutch": lambda: float(ptt.hutch(op, batch=64, converge="count", count=k, seed=COV_SEED)),
+		"hutchpp": lambda: float(ptt.hutchpp(op, m=max(240, k), seed=COV_SEED)),
+		"xtrace": lambda: float(ptt.xtrace(op, batch=64, converge="count", count=k, seed=COV_SEED)),
+		"diag": lambda: torch.as_tensor(ptt.diag(op, batch=64, converge="count", count=k // 64, seed=COV_SEED)),
+		"xdiag": lambda: torch.as_tensor(ptt.xdiag(op, m=min(8 * k, 2 * n), seed=COV_SEED)),
+		"lanczos": lambda: ptt.lanczos(op, v0=V0, deg=20, orth=0),
+		"solve": lambda: ptt.solve(op, y, rtol=COV_SOLVE_RTOL),
+	}
+	out = {}
+	for name, fn in calls.items():
+		t0 = time.perf_counter()
+		r = fn()
+		torch.cuda.synchronize()
+		wall = time.perf_counter() - t0
+		if name in ("hutch", "hutchpp", "xtrace"):
+			err = abs(r - 3.0 * n) / (3.0 * n)
+			ok, out[name] = err <= COV_TRACE_TOL, {"estimate": r, "rel_err": err}
+		elif name in ("diag", "xdiag"):
+			d = r.to(device="cpu", dtype=torch.float64)
+			err = float(torch.linalg.vector_norm(d - 3.0) / (3.0 * n**0.5))
+			ok, out[name] = bool(torch.isfinite(d).all()) and d.shape == (n,) and err <= COV_DIAG_TOL, {"rel_l2_err": err, "vec": d}
+		elif name == "lanczos":
+			a, b = r
+			ok, out[name] = bool(torch.isfinite(a).all() and torch.isfinite(b).all()) and tuple(a.shape) == (20, 64), {}
+		else:
+			x = r.double()
+			res = float(torch.linalg.vector_norm(y.double() - _tridiag_apply64(x)) / torch.linalg.vector_norm(y.double()))
+			ok, out[name] = res <= COV_SOLVE_RTOL, {"rel_residual": res, "rtol": COV_SOLVE_RTOL}
+		out[name]["wall_s"] = wall
+		if not ok:
+			raise AssertionError(f"coverage: {name} is off: { {k2: v for k2, v in out[name].items() if k2 != 'vec'} }")
+	return out
+
+
+def _tridiag_apply64(x):
+	"""``L x`` for tridiag(−1, 3, −1), in ``x``'s dtype, independent of the operator under test."""
+	Lx = 3.0 * x
+	Lx[1:] -= x[:-1]
+	Lx[:-1] -= x[1:]
+	return Lx
+
+
+def coverage(torch, ptt, dev) -> dict:
+	"""Phase 26 (b). Returns the kernels' launches over the phase."""
+	import scipy.sparse as sps
+
+	from primate_tpu_torch.operators import AffineOperator
+	from primate_tpu_torch.ops import _common
+
+	L = build_laplacian(COV_N)
+	t0 = time.perf_counter()
+	dia_op = ptt.DIAOperator.from_scipy(L, dtype=torch.float32, device=dev)
+	Ld = sps.diags([-np.ones(COV_DENSE_N - 1), 3.0 * np.ones(COV_DENSE_N), -np.ones(COV_DENSE_N - 1)], [-1, 0, 1])
+	T = torch.tensor(Ld.toarray(), dtype=torch.float32, device=dev)
+	kinds = {
+		"dia": lambda: dia_op,
+		"csr": lambda: ptt.CSROperator.from_scipy(L, dtype=torch.float32, device=dev),
+		"coo": lambda: ptt.COOOperator.from_scipy(L.tocoo(), dtype=torch.float32, device=dev),
+		"bsr": lambda: ptt.BSROperator.from_scipy(L, blocksize=(8, 8), dtype=torch.float32, device=dev),
+		"function": lambda: ptt.FunctionOperator(dia_op.matmat, (COV_N, COV_N), dtype=torch.float32, device=dev),
+		"affine": lambda: AffineOperator(dia_op, t=0.0, device=dev),
+		"matrix_function": lambda: ptt.MatrixFunction(dia_op, "identity", deg=2, device=dev),
+		"tensor": lambda: T,
+		"dense_op": lambda: ptt.DenseOperator(T, device=dev),
+	}
+	total, results = {}, {}
+	for kind, make in kinds.items():
+		op = make()
+		n = COV_DENSE_N if kind in ("tensor", "dense_op") else COV_N
+		torch.cuda.synchronize()
+		_common.reset_launches()
+		t1 = time.perf_counter()
+		res = _cov_calls(torch, ptt, op, n, dev)
+		torch.cuda.synchronize()
+		wall = time.perf_counter() - t1
+		counts = dict(_common.LAUNCHES)
+		_add(total, counts)
+		results[kind] = res
+		emit({"phase": "coverage", "kind": kind, "n": n, "wall_s": wall, "launches": counts,
+			"calls": {c: {k2: v for k2, v in r.items() if k2 != "vec"} for c, r in res.items()}})
+		need, family = COV_KERNELS[kind]
+		missing = [k2 for k2 in need if counts.get(k2, 0) < 1]
+		foreign = {k2: c for k2, c in counts.items() if c and k2 not in family}
+		if missing or foreign:
+			raise AssertionError(f"coverage: {kind} launched {counts}; expected {need or 'no kernel'} from {family}")
+		del op
+	# The formats that draw the same probes (same n, dtype and device) agree.
+	agree = {}
+	for group in (("dia", "csr", "coo", "bsr", "function", "affine", "matrix_function"), ("tensor", "dense_op")):
+		ref = results[group[0]]
+		for kind in group[1:]:
+			for name in ("hutch", "hutchpp", "xtrace"):
+				e = abs(results[kind][name]["estimate"] - ref[name]["estimate"]) / abs(ref[name]["estimate"])
+				agree[f"{kind}/{name}"] = e
+			for name in ("diag", "xdiag"):
+				a, b = results[kind][name]["vec"], ref[name]["vec"]
+				agree[f"{kind}/{name}"] = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+	worst = max(agree, key=agree.get)
+	emit({"phase": "coverage", "kind": "agreement", "tol": COV_AGREE_TOL, "worst": worst, "worst_rel_err": agree[worst],
+		"rel_err": agree, "launches": total, "seconds": time.perf_counter() - t0})
+	if agree[worst] > COV_AGREE_TOL:
+		raise AssertionError(f"coverage: formats on the same probes disagree: {worst} {agree[worst]}")
+	return total
+
+
+def edge_cases(torch, ptt, dev) -> dict:
+	"""Phase 26 (c): ``tests/torch_cases.py``'s ``EDGE_CASES`` with their tensors on ``dev``, held to the limits
+	that the CPU test holds them to; at the DIA operators of 1 and 3 rows, the stencils and the step passes
+	(not counted) held to their plain versions first. Returns the kernels' launches over the phase."""
+	from primate_tpu_torch.ops import _common, dia
+
+	cases = _cases()
+	f64 = torch.float64
+	torch.cuda.synchronize()
+	_common.reset_launches()
+	t0 = time.perf_counter()
+	for n in (1, 3):
+		A, _ = cases.tiny_dia(n)
+		op = ptt.DIAOperator.from_scipy(A, dtype=f64, device=dev)
+		X = torch.tensor(np.random.default_rng(n).normal(size=(4, n)), dtype=f64, device=dev)
+		errs = _stencil_pair_check(torch, dia, op.bands, op.offsets, X, STENCIL_TOL["float64"], f"dia n={n}")
+		saved = dict(_common.LAUNCHES)
+		st, st_ref = dia.lanczos_state(4, f64, dev), dia.lanczos_state(4, f64, dev)
+		q = X / torch.linalg.vector_norm(X, dim=1, keepdim=True)
+		offs = torch.tensor(op.offsets, dtype=torch.int64, device=dev)
+		ab, ab_ref = torch.empty((2, 4), dtype=f64, device=dev), torch.empty((2, 4), dtype=f64, device=dev)
+		w = dia.lanczos_dia_sweep_step(op.bands, offs, q, torch.zeros_like(q), st, ab[0], ab[1], 1e-8)
+		w_ref = dia.lanczos_sweep_step_ref(lambda x: dia.dia_stencil_t_ref(op.bands, offs.cpu(), x), q, torch.zeros_like(q),
+			st_ref, ab_ref[0], ab_ref[1], 1e-8)
+		_common.LAUNCHES.update(saved)
+		errs["step_w"] = float((w - w_ref).abs().max())
+		errs["step_alpha_beta"] = float((ab - ab_ref).abs().max())
+		emit({"phase": "edge_case", "case": f"tiny_dia_kernels_{n}", "kernel_abs_err": errs})
+		if not (errs["step_w"] <= 1e-12 and errs["step_alpha_beta"] <= 1e-12):
+			raise AssertionError(f"dia n={n}: the step passes disagree with their plain version: {errs}")
+	for name, case in cases.EDGE_CASES.items():
+		emit({"phase": "edge_case", "case": name, "ok": True, **case(dev)})
+	torch.cuda.synchronize()
+	counts = dict(_common.LAUNCHES)
+	emit({"phase": "edge_case", "case": "launches", "cases": len(cases.EDGE_CASES), "launches": counts, "seconds": time.perf_counter() - t0})
+	for k in ("dia_stencil_t", "dia_stencil", "lanczos_dia_step", "lanczos_dia_residual"):
+		if counts.get(k, 0) < 1:
+			raise AssertionError(f"the edge cases launched no {k}: {counts}")
+	return counts
+
+
+def port_gaps(torch, ptt, dev) -> dict:
+	"""Phase 26: (a)-(c) above, each kernel's launches over the phase by part (``coverage_launches``)."""
+	t0 = time.perf_counter()
+	grads = quad_grad_chains(torch, ptt, dev)
+	torch.cuda.empty_cache()
+	cov = coverage(torch, ptt, dev)
+	torch.cuda.empty_cache()
+	edge = edge_cases(torch, ptt, dev)
+	torch.cuda.empty_cache()
+	emit({"phase": "port_gaps_done", "seconds": time.perf_counter() - t0})
+	return {k: {"coverage_launches": {"quad_grad_forward": grads["forward"].get(k, 0), "quad_grad_backward": grads["backward"].get(k, 0),
+		"coverage": cov.get(k, 0), "edge_cases": edge.get(k, 0)}} for k in KERNELS}
+
+
 def main() -> None:
 	import torch
 
@@ -4151,6 +4462,11 @@ def main() -> None:
 	for k, v in hermitian_grad(torch, ptt, dev).items():
 		kernels[k].update(v)
 	emit({"phase": "hermitian_grad_done", "seconds": time.perf_counter() - t0})
+	torch.cuda.empty_cache()
+
+	# Phase 26: the degeneracy-stable quadrature derivative, the coverage matrix and the edge cases.
+	for k, v in port_gaps(torch, ptt, dev).items():
+		kernels[k].update(v)
 
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],

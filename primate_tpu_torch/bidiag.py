@@ -53,7 +53,10 @@ def bidiag_jacobi(alphas: torch.Tensor, betas: torch.Tensor) -> Tuple[torch.Tens
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
-	return torch.sqrt(row_sq_norm(x))
+	"""Row norms; under autograd the gradient at a zero row (a broken-down probe's) is 0, not NaN."""
+	sq = row_sq_norm(x)
+	zero = sq == 0
+	return torch.where(zero, 0.0, torch.sqrt(torch.where(zero, 1.0, sq)))
 
 
 def _guard(x: torch.Tensor, tol) -> torch.Tensor:

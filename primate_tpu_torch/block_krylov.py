@@ -19,6 +19,7 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
+from .integrate import divided_differences, values_and_derivatives
 from .linalg import full_f32_matmul
 from .operators.base import aslinop
 from .random import real_dtype, sample_isotropic
@@ -135,8 +136,8 @@ def block_jacobi_dense(Ablocks: torch.Tensor, Bblocks: torch.Tensor) -> torch.Te
 
 class _HermitianFunction(torch.autograd.Function):
 	"""``f(T) = Y f(θ) Yᴴ`` of a Hermitian ``T = Y diag(θ) Yᴴ``, differentiated by the Daleckii-Krein
-	formula ``grad_T = Y (K ∘ (Yᴴ G Y)) Yᴴ``, ``K_ij = (f(θ_i) − f(θ_j))/(θ_i − θ_j)`` (``f'`` where the
-	two eigenvalues meet). It is the gradient of ``eigh``'s backward for a loss that depends on the
+	formula ``grad_T = Y (K ∘ (Yᴴ G Y)) Yᴴ``, ``K_ij = (f(θ_i) − f(θ_j))/(θ_i − θ_j)`` (the mean of ``f'``
+	where two eigenvalues meet, :func:`~primate_tpu_torch.integrate.divided_differences`). It is the gradient of ``eigh``'s backward for a loss that depends on the
 	eigenvectors only through ``f(T)``, but reads no eigenvector phase: PyTorch's ``eigh`` backward
 	refuses a complex loss whose phase check (an absolute 1e-2) the rounding of a large complex64
 	gradient trips."""
@@ -145,14 +146,8 @@ class _HermitianFunction(torch.autograd.Function):
 	def forward(ctx, T, f):
 		with full_f32_matmul():
 			theta, Y = torch.linalg.eigh(T)
-		with torch.enable_grad():
-			th = theta.detach().requires_grad_(True)
-			ft = f(th)
-			fp = torch.autograd.grad(ft.sum(), th)[0] if ft.requires_grad else torch.zeros_like(theta)
-		ft = ft.detach()
-		d, df = theta[:, None] - theta[None, :], ft[:, None] - ft[None, :]
-		near = d.abs() <= torch.finfo(theta.dtype).eps ** 0.5 * max(float(theta.abs().max()), 1.0)
-		K = torch.where(near, 0.5 * (fp[:, None] + fp[None, :]), df / torch.where(near, 1.0, d))
+		ft, fp = values_and_derivatives(f, theta)
+		K = divided_differences(theta, ft, fp)
 		ctx.save_for_backward(Y, K)
 		with full_f32_matmul():
 			return (Y * ft[None, :].to(Y.dtype)) @ _h(Y)

@@ -1,7 +1,7 @@
 """Gaussian quadrature rules from Jacobi (tridiagonal) matrices.
 
-Counterpart of ``primate_tpu/integrate.py:37-231`` (the forward pass; the
-Daleckii–Krein derivative of ``spectral_quad_form`` is not ported yet). Every
+Counterpart of ``primate_tpu/integrate.py:37-231``, with the Daleckii–Krein
+derivative of ``spectral_quad_form`` (``:58-84``) as its backward. Every
 rule is batched over leading axes: a Lanczos sweep yields nv Jacobi matrices at
 once, and one batched ``torch.linalg.eigh`` (Golub-Welsch), one vectorised
 recurrence (FTTR) or one batched ``torch.linalg.solve`` (the modified corners of
@@ -13,6 +13,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from .fttr import fttr_weights
+from .linalg import full_f32_matmul
 from .tridiag import eigh_tridiag, eigvalsh_tridiag, tridiag_matrix
 
 __all__ = ["spectral_quad_form", "quadrature", "lanczos_quadrature", "radau_rule", "lobatto_rule", "spectral_density"]
@@ -25,11 +26,83 @@ def spectral_density(*args, **kwargs):
 	return _sd(*args, **kwargs)
 
 
+def values_and_derivatives(fun: Callable, theta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+	"""``(f(θ), f'(θ))`` by autograd of ``fun`` on a detached ``θ``; a stacked family gives one
+	``f'`` per member (``fun`` is elementwise, so each member's gradient of its sum is its ``f'``).
+	A ``fun`` whose output carries no gradient (a step) has ``f' = 0``."""
+	with torch.enable_grad():
+		th = theta.detach().requires_grad_(True)
+		ft = fun(th)
+		if not ft.requires_grad:
+			return ft.detach(), torch.zeros_like(ft)
+		members = ft.reshape((-1,) + tuple(theta.shape))
+		fp = [torch.autograd.grad(m.sum(), th, retain_graph=True, allow_unused=True)[0] for m in members]
+		fp = torch.stack([torch.zeros_like(theta) if g is None else g for g in fp]).reshape(ft.shape)
+	return ft.detach(), fp
+
+
+def divided_differences(theta: torch.Tensor, ft: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+	"""The Daleckii–Krein matrix ``L_ij = f[θᵢ, θⱼ] = (f(θᵢ) − f(θⱼ))/(θᵢ − θⱼ)``, with ``½(f'(θᵢ) + f'(θⱼ))``
+	where ``|θᵢ − θⱼ| ≤ 1e-7·max(max|θ|, 1)``, the JAX package's threshold (``primate_tpu/integrate.py:69-73``).
+	Batched over ``θ``'s leading axes; a stacked family's ``ft`` and ``fp`` add theirs in front."""
+	diff = theta[..., :, None] - theta[..., None, :]
+	fdiff = ft[..., :, None] - ft[..., None, :]
+	scale = torch.clamp(theta.abs().amax(dim=-1, keepdim=True)[..., None], min=1.0)
+	near = diff.abs() <= 1e-7 * scale
+	return torch.where(near, 0.5 * (fp[..., :, None] + fp[..., None, :]), fdiff / torch.where(near, 1.0, diff))
+
+
+_CLOSURE_GRAD = (
+	"spectral_quad_form differentiates with respect to d and e only, and fun closes over a tensor that "
+	"requires a gradient; as in the JAX package, where fun is a nondiff argument, that gradient is not "
+	"defined. Build the parameter into the operator, or evaluate the quadrature under torch.no_grad()."
+)
+
+
+class _SpectralQuadForm(torch.autograd.Function):
+	"""``Σᵢ f(θᵢ) y₀ᵢ²`` differentiated by the Daleckii–Krein formula, the transpose of the JAX
+	package's JVP (``primate_tpu/integrate.py:58-84``): with ``L`` of :func:`divided_differences` and
+	``W = Y (L ∘ y₀y₀ᵀ) Yᵀ``, ``∂d = g·diag(W)`` and ``∂e = g·(W_{k,k+1} + W_{k+1,k})``. No
+	``1/(θᵢ − θⱼ)`` survives where Ritz values meet, and a zero-padded node (``y₀ᵢ = 0`` exactly)
+	adds 0, whatever its ``f'``. Under autograd, a ``fun`` whose value carries a gradient of its
+	own (a closure over a tensor that requires one) is refused: ``fun`` takes no gradient here."""
+
+	@staticmethod
+	def forward(ctx, d, e, fun, grad_enabled):
+		theta, Y = eigh_tridiag(d, e)
+		with torch.set_grad_enabled(grad_enabled):
+			ft = fun(theta)
+		if ft.requires_grad:
+			raise NotImplementedError(_CLOSURE_GRAD)
+		ctx.fun, ctx.e_len = fun, e.shape[-1]
+		ctx.save_for_backward(theta, Y)
+		return torch.sum(ft * Y[..., 0, :] ** 2, dim=-1)
+
+	@staticmethod
+	def backward(ctx, g):
+		theta, Y = ctx.saved_tensors
+		L = divided_differences(theta, *values_and_derivatives(ctx.fun, theta))
+		y0 = Y[..., 0, :]
+		P = y0[..., :, None] * y0[..., None, :]
+		K = torch.where(P == 0, 0.0, g[..., None, None].to(L.dtype) * L * P).to(Y.dtype)
+		K = K.sum_to_size(Y.shape)  # a stacked family's members add up
+		with full_f32_matmul():
+			W = Y @ K @ Y.mT
+		dd = torch.diagonal(W, dim1=-2, dim2=-1)
+		de = torch.diagonal(W, offset=1, dim1=-2, dim2=-1) + torch.diagonal(W, offset=-1, dim1=-2, dim2=-1)
+		if ctx.e_len == theta.shape[-1]:  # a length-k e with its leading entry unused
+			de = torch.cat([torch.zeros_like(de[..., :1]), de], dim=-1)
+		return dd, de, None, None
+
+
 def spectral_quad_form(d: torch.Tensor, e: torch.Tensor, fun: Callable) -> torch.Tensor:
 	"""``e₁ᵀ f(J(d, e)) e₁ = Σᵢ f(θᵢ) τᵢ`` (Golub-Welsch); ``d (..., k)``, ``e (..., k-1)`` → ``(...,)``.
-	A stacked ``fun`` (:func:`~primate_tpu_torch.special.stacked`) adds its leading axis."""
-	theta, Y = eigh_tridiag(d, e)
-	return torch.sum(fun(theta) * Y[..., 0, :] ** 2, dim=-1)
+	A stacked ``fun`` (:func:`~primate_tpu_torch.special.stacked`) adds its leading axis.
+
+	The derivative with respect to ``d`` and ``e`` is the Daleckii–Krein formula
+	(:class:`_SpectralQuadForm`), finite where Ritz values meet. ``fun`` takes no gradient: under
+	autograd, a ``fun`` that closes over a tensor requiring a gradient raises ``NotImplementedError``."""
+	return _SpectralQuadForm.apply(d, e, fun, torch.is_grad_enabled())
 
 
 def _solve_shifted(d: torch.Tensor, e: torch.Tensor, rhs_last: torch.Tensor, shift) -> torch.Tensor:

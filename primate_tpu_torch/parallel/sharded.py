@@ -25,8 +25,11 @@ a ``psum`` (``primate_tpu/parallel/sharded.py:24-28``). Here a sharded operator 
   without a concatenate. Every sum over n in the sweep is finished by an all-reduce over the op
   group; α, β and the Gauss rules are then identical on every rank. The DIA operator's carry is the
   padded one of the step kernels (``lo`` and ``ld`` whole 128-byte lines), and its steps run them:
-  passes A and B with their sums all-reduced between them, then ``lanczos_dia_advance``; the BSR,
-  CSR and dense operators run the plain step's PyTorch arithmetic around their applies.
+  passes A and B with their sums all-reduced between them, each step's finish left pending and run
+  by the next step's pass A (float32/float64) or B2 (bfloat16); ``lanczos_dia_advance``
+  (:meth:`lanczos_sweep_flush`) runs a pending finish where the sweep reads its state: after the last
+  step, so once an SLQ sweep, and before each coefficient or basis write of a sweep that keeps them.
+  The BSR, CSR and dense operators run the plain step's PyTorch arithmetic around their applies.
 
 Not ported (TPU only): ``_local_bsr_mm``'s 128-lane probe padding and the GSPMD row padding of the
 dense operator to a device multiple; the stacked per-device arrays, their padding to a common
