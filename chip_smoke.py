@@ -190,6 +190,18 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    the same probes within 1e-5 of each other, each format's kernels launched and no other; (c) the CPU
    edge cases (``tests/torch_cases.py``, which the CPU suites run too) with their tensors on the card, and DIA operators of 1 and 3 rows through both stencils and
    both step passes, each held to its plain version.
+27. holds the JAX package's public contract on the card (``tests/test_torch_contract.py`` holds it on the CPU):
+   (a) on phase 7's BSR cell, ``hutchpp(m=240, full=True)`` and ``xnystrace(m=720, full=True)`` keep 480 and 720
+   per-probe estimates in ``result.samples`` and none in ``info``, their records unpack into six, XNysTrace's sample
+   mean is its estimate within 1e-6 and its estimator tracks the variance; (b) on phase 8's FEM cell, ``diag(full=True)``
+   with a callback: 256 callbacks that see one ``MeanEstimator`` (no variance), its estimate the returned array bit for
+   bit, the criterion's message, ``info`` holding ``state`` alone; ``record=True`` at 4 iterations keeps 4·n values in
+   ``result.estimator.values``; ``resume`` from that record to 8 iterations equals a direct run bit for bit; (c) the four
+   special functions given 1M float32 nodes on the card: equal to their closures bit for bit, on the card, within 64
+   float32 ulps of a float64 numpy evaluation; a smoothstep closure through SLQ on the 500k flagship operator within 1%
+   of its closed form, passes A and B 40 times each (a one-probe sweep sizes the closure's output); (d) ``DIAOperator.from_dense`` of a dense 8192² pentadiagonal: the
+   bands and offsets of ``from_scipy``, and the same SLQ logdet bit for bit; (e) ``MeanEstimator(covariance=True)`` on
+   the card fed the flagship's 64 per-probe samples: numpy's ``var(ddof=1)`` within 1e-6, and None without the flag.
 
 Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
 (``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
@@ -229,8 +241,8 @@ numbers under ``bf16_10M_``, ``bf16_padded_500k_`` and ``bf16_padded_10M_``; the
 (``hermitian_grad_launches``) and their complex backward's error, time, its plain version's autograd's
 time and the adjoint build's time from (c) under ``c64_``/``c128_`` keys (``backward_ms``,
 ``backward_plain_ms``, ``adjoint_build_ms``, ``grad_max_abs_err``); every kernel its launches in phase 26
-(``coverage_launches``: the quadrature gradient's forward and backward, the coverage matrix, the edge cases);
-the last line is ``{"ok": true, "device": {...}}``.
+(``coverage_launches``: the quadrature gradient's forward and backward, the coverage matrix, the edge cases) and in
+phase 27 (``contract_launches``); the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing anything.
 """
 
@@ -3973,14 +3985,17 @@ def bf16_applies(torch, ptt, dev) -> dict:
 
 
 def _counted_calls(torch, fn, reps: int) -> dict:
-	"""The counted first call of ``fn`` (its result, launches and bf16 launches), then ``reps`` synced walls, and the peak memory."""
+	"""The counted first call of ``fn`` (its result, launches, bf16 launches and synced wall), then ``reps`` synced walls,
+	and the peak memory."""
 	from primate_tpu_torch.ops import _common
 
 	torch.cuda.synchronize()
 	torch.cuda.reset_peak_memory_stats()
 	_common.reset_launches()
+	t0 = time.perf_counter()
 	result = fn()
 	torch.cuda.synchronize()
+	first = time.perf_counter() - t0
 	launches, bf16 = dict(_common.LAUNCHES), dict(_common.BF16_LAUNCHES)
 	times = []
 	for _ in range(reps):
@@ -3988,8 +4003,8 @@ def _counted_calls(torch, fn, reps: int) -> dict:
 		fn()
 		torch.cuda.synchronize()
 		times.append(time.perf_counter() - t0)
-	return {"result": result, "wall_s": times, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
-		"bf16_launches": bf16}
+	return {"result": result, "first_s": first, "wall_s": times, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+		"launches": launches, "bf16_launches": bf16}
 
 
 def bf16_sharded_one_rank(torch, ptt, dev) -> dict:
@@ -4351,6 +4366,180 @@ def port_gaps(torch, ptt, dev) -> dict:
 		"coverage": cov.get(k, 0), "edge_cases": edge.get(k, 0)}} for k in KERNELS}
 
 
+CONTRACT_DENSE_N = 8192  # phase 27 (d): the dense pentadiagonal matrix
+CONTRACT_SAMPLE_RTOL, CONTRACT_VAR_RTOL, CONTRACT_SMOOTHSTEP_TOL = 1e-6, 1e-6, 0.01
+# Phase 27 (c): a float32 evaluation against float64 numpy on the same nodes, within this many float32 ulps of the
+# largest value.
+CONTRACT_ULPS = 64
+CONTRACT_SPECIAL = {"softsign": dict(q=3), "smoothstep": dict(a=-0.2, b=0.3, deg=5), "exp": dict(t=-0.5), "step": dict(c=0.1)}
+
+
+def _counted(torch, fn) -> tuple:
+	"""One call of ``fn``, its launches counted from zero: (result, launches, synced seconds)."""
+	c = _counted_calls(torch, fn, 0)
+	return c["result"], c["launches"], c["first_s"]
+
+
+def _contract_check(ok: bool, row: dict) -> None:
+	emit(row)
+	if not ok:
+		raise AssertionError(f"contract: {row}")
+
+
+def _contract_sketches(torch, ptt, dev, total: dict) -> None:
+	"""Phase 27 (a): the sketches' records on phase 7's BSR cell (``samples``, unpacking)."""
+	S = _bsr_cell(**BSR_CELL)
+	op = ptt.BSROperator.from_scipy(S, blocksize=(BSR_CELL["bs"], BSR_CELL["bs"]), dtype=torch.float32, device=dev)
+	tr = float(S.diagonal().astype(np.float64).sum())
+	# Sample counts as tests/test_torch_contract.py pins them in both packages: Hutch++ 2·nb, XNysTrace m.
+	for name, m, want_len in (("hutchpp", 240, 480), ("xnystrace", 720, 720)):
+		(est, res), counts, wall = _counted(torch, lambda: getattr(ptt, name)(op, m=m, seed=7, full=True))
+		_, _, e, _, nit, info = res
+		row = {"phase": "contract", "part": "sketch_record", "call": name, "m": m, "samples": len(res.samples),
+			"samples_want": want_len, "samples_in_info": "samples" in info, "unpacked_estimate": e, "nit": nit,
+			"rel_err": abs(est - tr) / tr, "rel_err_tol": TRACE_TOL, "wall_s": wall, "launches": counts}
+		ok = len(res.samples) == want_len and "samples" not in info and e == est and row["rel_err"] < TRACE_TOL
+		if name == "xnystrace":
+			mean = float(np.mean(res.samples.astype(np.float64)))
+			row.update({"samples_mean_rel_err": abs(mean - est) / abs(est), "samples_mean_rel_tol": CONTRACT_SAMPLE_RTOL,
+				"converged_variance_tracked": res.estimator.converged_variance is not None})
+			ok = ok and row["samples_mean_rel_err"] <= CONTRACT_SAMPLE_RTOL and row["converged_variance_tracked"]
+		_add(total, counts)
+		_contract_check(ok and counts["bsr_spmm"] == BSR_APPLIES[name], row)
+
+
+def _contract_diag(torch, ptt, dev, total: dict) -> None:
+	"""Phase 27 (b): ``diag``'s record on phase 8's FEM cell: the estimator the callback sees, the recorded
+	values where JAX keeps them, and ``resume`` from that record."""
+	from benchmarks.matrices import fem_laplacian_3d
+
+	A = fem_laplacian_3d(FEM_SIDE)
+	n = A.shape[0]
+	op = ptt.DIAOperator.from_scipy(A, dtype=torch.float32, device=dev)
+	seen = []
+	kw = dict(batch=64, converge="count", pdf="rademacher", seed=8)
+	(est, res), counts, wall = _counted(torch, lambda: ptt.diag(op, count=256, full=True, callback=lambda r: seen.append(r.estimator), **kw))
+	_add(total, counts)
+	row = {"phase": "contract", "part": "diag_record", "n": n, "count": 256, "estimator": type(res.estimator).__name__,
+		"estimate_equal_bits": bool(np.array_equal(res.estimator.estimate, est)), "callback_estimators": len(seen),
+		"callback_estimators_want": 256, "callback_sees_the_estimator": all(e is res.estimator for e in seen),
+		"converged_variance": res.estimator.converged_variance, "message": res.message, "info": sorted(res.info),
+		"wall_s": wall, "launches": counts}
+	_contract_check(isinstance(res.estimator, ptt.MeanEstimator) and row["estimate_equal_bits"] and len(seen) == 256
+		and row["callback_sees_the_estimator"] and row["converged_variance"] is None and bool(res.message)
+		and row["info"] == ["state"] and counts["dia_stencil_t"] == 256, row)
+	(_, rec), counts, wall = _counted(torch, lambda: ptt.diag(op, count=4, full=True, record=True, **kw))
+	_add(total, counts)
+	(resumed, direct), counts2, wall2 = _counted(torch, lambda: (ptt.diag(op, count=8, resume=rec, **kw), ptt.diag(op, count=8, **kw)))
+	_add(total, counts2)
+	row = {"phase": "contract", "part": "diag_record_resume", "values": len(rec.estimator.values), "values_want": 4 * n,
+		"values_in_info": "values" in rec.info, "resumed_equals_direct_bits": bool(np.array_equal(resumed, direct)),
+		"wall_s": [wall, wall2], "launches": [counts, counts2]}
+	_contract_check(row["values"] == 4 * n and not row["values_in_info"] and row["resumed_equals_direct_bits"], row)
+
+
+def _smoothstep_trace(n: int, a: float, b: float) -> float:
+	"""``Σ S((λ − a)/(b − a))`` over the eigenvalues ``3 − 2cos(kπ/(n+1))`` of tridiag(−1, 3, −1), S the cubic smoothstep."""
+	lam = 3.0 - 2.0 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1))
+	y = np.clip((lam - a) / (b - a), 0.0, 1.0)
+	return float(np.sum(y * y * (3.0 - 2.0 * y)))
+
+
+def _contract_special(torch, ptt, dev, total: dict) -> None:
+	"""Phase 27 (c): the special functions given their nodes on the card, and a closure of one through SLQ."""
+	from primate_tpu_torch import special
+
+	x = torch.linspace(-1.5, 1.5, 1_000_000, dtype=torch.float32, device=dev)
+	x64 = x.cpu().numpy().astype(np.float64)
+	want64 = {
+		"softsign": lambda q: np.sum(np.clip(x64, -1, 1)[:, None] * (1 - np.clip(x64, -1, 1)[:, None] ** 2) ** np.arange(q + 1)
+			* np.append([1.0], np.cumprod([(2 * j - 1) / (2 * j) for j in range(1, q + 1)])), axis=-1),
+		"smoothstep": lambda a, b, deg: (lambda y: y**3 * (10 - 15 * y + 6 * y * y))(np.clip((x64 - a) / (b - a), 0, 1)),
+		"exp": lambda t: np.exp(t * x64),
+		"step": lambda c: np.where(x64 < c, 0.0, 1.0),
+	}
+	for name, kw in CONTRACT_SPECIAL.items():
+		f = getattr(special, name)
+		got = f(x, **kw)
+		want = want64[name](**kw)
+		err = float(np.max(np.abs(got.double().cpu().numpy() - want)))
+		tol = CONTRACT_ULPS * float(np.finfo(np.float32).eps) * max(1.0, float(np.max(np.abs(want))))
+		row = {"phase": "contract", "part": "special", "function": name, "params": kw, "n": x.numel(),
+			"equals_closure_bits": bool(torch.equal(got, f(**kw)(x))), "device": str(got.device), "dtype": str(got.dtype),
+			"max_abs_err_vs_float64": err, "tol": tol}
+		_contract_check(row["equals_closure_bits"] and got.device == x.device and got.dtype == torch.float32 and err <= tol, row)
+	n = N_FLAGSHIP
+	op = ptt.DIAOperator.from_scipy(build_laplacian(n), dtype=torch.float32, device=dev)
+	M = ptt.MatrixFunction(op, special.smoothstep(a=0.5, b=2.0), deg=DEG, orth=ORTH, dtype=torch.float32)
+	est, counts, wall = _counted(torch, lambda: ptt.hutch(M, batch=PROBES, converge="count", count=PROBES, seed=42))
+	_add(total, counts)
+	exact = _smoothstep_trace(n, 0.5, 2.0)
+	row = {"phase": "contract", "part": "smoothstep_slq", "n": n, "estimate": est, "exact": exact,
+		"rel_err": abs(est - exact) / exact, "rel_err_tol": CONTRACT_SMOOTHSTEP_TOL, "wall_s": wall, "launches": counts}
+	# Two sweeps: hutch sizes a callable's output by one quad of a zero probe (JAX traces it), then estimates.
+	_contract_check(row["rel_err"] <= CONTRACT_SMOOTHSTEP_TOL and counts["lanczos_dia_step"] == 2 * DEG
+		and counts["lanczos_dia_residual"] == 2 * DEG, row)
+
+
+def _contract_from_dense(torch, ptt, dev, total: dict) -> None:
+	"""Phase 27 (d): ``DIAOperator.from_dense`` of a dense pentadiagonal SPD matrix against ``from_scipy``."""
+	import scipy.sparse as sps
+
+	n = CONTRACT_DENSE_N
+	diags = {0: 5.0, 1: -1.0, -1: -1.0, 2: -0.5, -2: -0.5}
+	A = sps.diags([np.full(n - abs(o), v, np.float32) for o, v in diags.items()], list(diags), shape=(n, n)).astype(np.float32)
+	t0 = time.perf_counter()
+	D = A.toarray()
+	dense_op = ptt.DIAOperator.from_dense(D, dtype=torch.float32, device=dev)
+	t_dense = time.perf_counter() - t0
+	sparse_op = ptt.DIAOperator.from_scipy(A.tocsr(), dtype=torch.float32, device=dev)
+	del D
+	same = dense_op.offsets == sparse_op.offsets and torch.equal(dense_op.bands, sparse_op.bands)
+	ests, launches = [], []
+	for op in (dense_op, sparse_op):
+		M = ptt.MatrixFunction(op, "log", deg=DEG, orth=0, dtype=torch.float32)
+		est, counts, _ = _counted(torch, lambda: ptt.hutch(M, batch=PROBES, converge="count", count=PROBES, seed=27))
+		_add(total, counts)
+		ests.append(est)
+		launches.append(counts)
+	row = {"phase": "contract", "part": "from_dense", "n": n, "offsets": list(dense_op.offsets), "bands_equal": bool(same),
+		"from_dense_s": t_dense, "estimates": ests, "estimates_equal_bits": ests[0] == ests[1], "launches": launches}
+	_contract_check(same and ests[0] == ests[1] and all(c["lanczos_dia_step"] == DEG and c["lanczos_dia_residual"] == DEG for c in launches), row)
+
+
+def _contract_mean_estimator(torch, ptt, dev, total: dict) -> None:
+	"""Phase 27 (e): ``MeanEstimator(covariance=...)`` on the card, fed the flagship's 64 per-probe samples."""
+	op = ptt.DIAOperator.from_scipy(build_laplacian(N_FLAGSHIP), dtype=torch.float32, device=dev)
+	M = ptt.MatrixFunction(op, fun="log", deg=DEG, orth=ORTH, dtype=torch.float32)
+	(_, res), counts, _ = _counted(torch, lambda: ptt.hutch(M, batch=PROBES, converge="count", count=PROBES, seed=42, full=True, record=True))
+	_add(total, counts)
+	samples = np.asarray(res.estimator.values, dtype=np.float64)
+	with_cov, without = ptt.MeanEstimator(covariance=True, device=dev), ptt.MeanEstimator(device=dev)
+	for est in (with_cov, without):
+		est.update(torch.tensor(samples, device=dev))
+	want = float(np.var(samples, ddof=1))
+	row = {"phase": "contract", "part": "mean_estimator", "samples": len(samples), "converged_variance": with_cov.converged_variance,
+		"numpy_var_ddof1": want, "rel_err": abs(with_cov.converged_variance - want) / want, "rel_tol": CONTRACT_VAR_RTOL,
+		"state_device": str(with_cov.state.mu.device), "without_covariance": without.converged_variance}
+	_contract_check(len(samples) == PROBES and row["rel_err"] <= CONTRACT_VAR_RTOL and without.converged_variance is None
+		and with_cov.state.mu.is_cuda, row)
+
+
+def contract(torch, ptt, dev) -> dict:
+	"""Phase 27: the JAX package's public contract on the card, (a)-(e) above. Returns the kernels' launches over
+	the phase (``contract_launches``)."""
+	t0 = time.perf_counter()
+	total = {}
+	for part in (_contract_sketches, _contract_diag, _contract_special, _contract_from_dense, _contract_mean_estimator):
+		part(torch, ptt, dev, total)
+		torch.cuda.empty_cache()
+	emit({"phase": "contract_done", "seconds": time.perf_counter() - t0, "launches": total})
+	for k in ("bsr_spmm", "dia_stencil_t", "lanczos_dia_step", "lanczos_dia_residual"):
+		if total.get(k, 0) < 1:
+			raise AssertionError(f"the contract phase launched no {k}: {total}")
+	return total
+
+
 def main() -> None:
 	import torch
 
@@ -4467,6 +4656,11 @@ def main() -> None:
 	# Phase 26: the degeneracy-stable quadrature derivative, the coverage matrix and the edge cases.
 	for k, v in port_gaps(torch, ptt, dev).items():
 		kernels[k].update(v)
+
+	# Phase 27: the JAX package's public contract, held on the card.
+	con = contract(torch, ptt, dev)
+	for k in KERNELS:
+		kernels[k]["contract_launches"] = con.get(k, 0)
 
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],

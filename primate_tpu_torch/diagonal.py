@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from .estimators import (
-	ConvergenceCriterion, EstimatorResult, EstSnapshot, convergence_criterion, criterion_needs_values, note_capped,
+	ConvergenceCriterion, EstimatorResult, EstSnapshot, MeanEstimator, convergence_criterion, criterion_needs_values,
+	note_capped,
 )
 from .linalg import full_f32, tall_qr
 from .random import classify_pdf, real_dtype
@@ -57,8 +58,11 @@ def run_diag(
 		state = lambda x: torch.as_tensor(x, device=op.device).to(acc).clone()  # noqa: E731
 		numer, denom, mu, m2, n = state(st["numer"]), state(st["denom"]), state(mean.mu), state(st["m2"]), int(mean.n)
 	delta = torch.full((nout * N,), float("inf"), dtype=acc, device=op.device)
-	values = [] if record else None
-	result = EstimatorResult(criterion=criterion)
+	# The JAX package's record: a mean estimator (no covariance) over the running mean, which
+	# the callback sees and which keeps the recorded ratio estimates in its ``values``.
+	estimator = MeanEstimator.from_state(MeanState(n=n, mu=mu), delta=delta)
+	estimator.values = [] if record else None
+	result = EstimatorResult(estimator=estimator, criterion=criterion)
 
 	def snapshot() -> EstSnapshot:
 		return EstSnapshot(n=n, estimate=mu, delta=delta, var=torch.mean(m2) / max(n - 1, 1))
@@ -75,20 +79,20 @@ def run_diag(
 		new_mu = mu + (est - mu) / (n + 1)
 		m2 = m2 + (est - mu) * (est - new_mu)
 		delta, mu, n = new_mu - mu, new_mu, n + 1
+		estimator.state, estimator.delta = MeanState(n=n, mu=mu), delta
 		if record:
-			values.extend(est.tolist())
+			estimator.values.extend(est.tolist())
 		if callback is not None:
 			result.estimate, result.nit = estimate(), n
 			callback(result)
 	capped = n >= maxiter and not criterion.check(snapshot())
 	result.estimate, result.nit = estimate(), n
-	note_capped(capped, maxiter, result if full else None, name="diag")
 	if not full:
+		note_capped(capped, maxiter, name="diag")
 		return result.estimate
-	result.info["m2"] = m2
+	result.message = criterion.message(estimator) if hasattr(criterion, "message") else ""
 	result.info["state"] = {"batch": batch, "numer": numer, "denom": denom, "mean": MeanState(n=n, mu=mu), "m2": m2}
-	if record:
-		result.info["values"] = values
+	note_capped(capped, maxiter, result, name="diag")
 	return result.estimate, result
 
 
@@ -150,10 +154,12 @@ def diag(
 	operator gives ``(nt, n)``. ``converge`` names a criterion ("tolerance",
 	"count", "confidence") with its keywords, or is one; it and ``maxiter`` count
 	iterations. ``callback(result)`` is called after every iteration with the
-	running estimate; ``record=True`` keeps every iteration's ratio estimate,
-	flattened, in ``result.info["values"]`` (the JAX package's
-	``result.estimator.values``). ``result.info["m2"]`` holds the per-entry
-	Welford sum of squared deviations. ``pdf`` may also be a numpy-style host sampler
+	running estimate. With ``full=True`` the record is the JAX package's:
+	``result.estimator`` is a :class:`~primate_tpu_torch.estimators.MeanEstimator` over
+	the running mean (no covariance), the one the callback sees; ``record=True`` keeps
+	every iteration's ratio estimate, flattened, in ``result.estimator.values``;
+	``result.message`` is the criterion's; ``result.info`` holds ``state`` (and
+	``capped`` after a budget-capped stop). ``pdf`` may also be a numpy-style host sampler
 	``pdf(size=...)``, drawn on the host each iteration as the reference does.
 
 	``resume`` continues a run from its ``full=True`` result or its ``result.info["state"]``

@@ -12,12 +12,12 @@ import inspect
 import typing
 import warnings
 from dataclasses import dataclass, field
-from typing import Callable, NamedTuple, Optional, Union
+from typing import Callable, Iterator, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
-from .stats import CovState, cov_matrix, cov_update, make_cov_state
+from .stats import CovState, MeanState, cov_matrix, cov_update, make_cov_state, make_mean_state, mean_update
 
 __all__ = [
 	"EstSnapshot",
@@ -110,8 +110,8 @@ class EstSnapshot(NamedTuple):
 		return self.n
 
 
-def snapshot_of(state: CovState, delta: torch.Tensor, values: Optional[torch.Tensor] = None) -> EstSnapshot:
-	var = torch.mean(torch.diagonal(cov_matrix(state, ddof=1)))
+def snapshot_of(state: Union[MeanState, CovState], delta: torch.Tensor, values: Optional[torch.Tensor] = None) -> EstSnapshot:
+	var = torch.mean(torch.diagonal(cov_matrix(state, ddof=1))) if isinstance(state, CovState) else None
 	return EstSnapshot(n=state.n, estimate=state.mu, delta=delta, var=var, values=values)
 
 
@@ -243,7 +243,10 @@ class ConfidenceCriterion(ConvergenceCriterion):
 		return moe <= self.atol or rel <= self.rtol
 
 	def message(self, est) -> str:
-		moe, _ = self._error(est.snapshot())
+		snap = est if isinstance(est, EstSnapshot) else est.snapshot()
+		if snap.var is None:  # an estimator without variance tracking
+			return f"Est: {arr_summary(est.estimate)} (#S:{est.n_samples}; variance untracked)"
+		moe, _ = self._error(snap)
 		return f"Est: {arr_summary(est.estimate)} +/- {moe:.3f} ({self.confidence * 100:.0f}% CI, #S:{est.n_samples})"
 
 
@@ -258,6 +261,14 @@ class ToleranceCriterion(ConvergenceCriterion):
 		norm = lambda x: torch.linalg.norm(torch.atleast_1d(x), ord=self.ord)  # noqa: E731
 		err, est = (float(x) for x in torch.stack([norm(snap.delta), norm(snap.estimate)]).cpu())
 		return err < self.atol or err < self.rtol * est
+
+	def message(self, est) -> str:
+		snap = est if isinstance(est, EstSnapshot) else est.snapshot()
+		norm = lambda x: float(torch.linalg.norm(torch.atleast_1d(x), ord=self.ord))  # noqa: E731
+		return (
+			f"Est: {arr_summary(snap.estimate)}(atol={float(self.atol):3f}, rtol={float(self.rtol):3f}, #S:{snap.n})"
+			f"\nnorm(it - est, {self.ord}) = {norm(snap.delta):.3f}, norm(est, {self.ord}) = {norm(snap.estimate):.3f}"
+		)
 
 
 class KneeCriterion(ConvergenceCriterion):
@@ -326,23 +337,35 @@ def default_trace_criterion() -> ConvergenceCriterion:
 
 
 class MeanEstimator:
-	"""Sample-mean estimator over a Welford :class:`~primate_tpu_torch.stats.CovState`.
+	"""Sample-mean estimator over a Welford state (``primate_tpu/estimators.py:513-602``):
+	a :class:`~primate_tpu_torch.stats.MeanState`, or with ``covariance=True`` a
+	:class:`~primate_tpu_torch.stats.CovState`, whose sample variance is
+	``converged_variance`` (None without it). ``record=True`` keeps every sample in
+	``values`` (a list of floats, in order), which knee criteria read. ``device``, after
+	the JAX package's arguments, is where the state lives."""
 
-	``record=True`` keeps every sample in ``values`` (a list of floats, in order),
-	which knee criteria read."""
-
-	def __init__(self, dim: int = 1, dtype=torch.float64, device="cuda", record: bool = False):
-		self.state = make_cov_state(dim, dtype, device)
+	def __init__(self, dim: int = 1, covariance: bool = False, record: bool = False, dtype=torch.float64, device="cuda"):
+		make_state = make_cov_state if covariance else make_mean_state
+		self.state = make_state(dim, dtype, device)
 		self.delta = torch.full((dim,), float("inf"), dtype=dtype, device=device)
 		self.values: Optional[list] = [] if record else None
 
 	@classmethod
-	def from_state(cls, state: CovState, delta: Optional[torch.Tensor] = None, values=None) -> "MeanEstimator":
+	def from_state(
+		cls, state: Union[MeanState, CovState], delta: Optional[torch.Tensor] = None, values=None, n_values: Optional[int] = None
+	) -> "MeanEstimator":
+		"""An estimator over ``state``, tracking the covariance where ``state`` is a
+		:class:`~primate_tpu_torch.stats.CovState`; ``values`` keeps its first ``n_values``
+		(default ``state.n``) samples and makes it record."""
 		obj = cls.__new__(cls)
 		obj.state = state
 		obj.delta = torch.full_like(state.mu, float("inf")) if delta is None else delta
-		obj.values = None if values is None else list(values)
+		obj.values = None if values is None else list(values)[: int(state.n if n_values is None else n_values)]
 		return obj
+
+	@property
+	def covariance(self) -> bool:
+		return isinstance(self.state, CovState)
 
 	@property
 	def dim(self) -> int:
@@ -368,6 +391,8 @@ class MeanEstimator:
 
 	@property
 	def converged_variance(self):
+		if not self.covariance:
+			return None
 		cov = cov_matrix(self.state, ddof=1).cpu().numpy()
 		return float(cov[0, 0]) if self.dim == 1 else cov
 
@@ -375,7 +400,7 @@ class MeanEstimator:
 		x = torch.as_tensor(x, dtype=self.state.mu.dtype, device=self.state.mu.device)
 		x = torch.atleast_1d(x)
 		old_mu = self.state.mu
-		self.state = cov_update(self.state, x[:, None] if x.ndim == 1 else x)
+		self.state = (cov_update if self.covariance else mean_update)(self.state, x[:, None] if x.ndim == 1 else x)
 		self.delta = self.state.mu - old_mu
 		if self.values is not None:
 			self.values.extend(x.reshape(-1).tolist())
@@ -393,7 +418,7 @@ class ConfidenceEstimator(MeanEstimator):
 	def __init__(self, confidence: float = 0.95, dim: int = 1, record: bool = False, dtype=torch.float64, device="cuda"):
 		if not 0 < confidence < 1:
 			raise ValueError("Confidence must be in (0, 1)")
-		super().__init__(dim=dim, dtype=dtype, device=device, record=record)
+		super().__init__(dim=dim, covariance=True, record=record, dtype=dtype, device=device)
 		self.confidence = confidence
 		self._z, self._t = clt_quantiles(confidence)
 
@@ -442,7 +467,7 @@ class ControlVariableEstimator(MeanEstimator):
 			alpha = np.atleast_1d(alpha).ravel()
 			if len(alpha) != len(ecv):
 				raise ValueError("Coefficients alpha must have same length as the control variables.")
-		super().__init__(dim=1, dtype=torch.float64, device="cpu", record=record)
+		super().__init__(dim=1, covariance=False, record=record, dtype=torch.float64, device="cpu")
 		self.ecv, self.alpha = ecv, alpha
 		self._estimate_cor = alpha is None
 		self.cov = make_cov_state(len(ecv) + 1, torch.float64, "cpu")
@@ -501,7 +526,9 @@ class ControlVariableEstimator(MeanEstimator):
 
 @dataclass
 class EstimatorResult:
-	"""Result record for the statistical estimators."""
+	"""Result record for the statistical estimators (``primate_tpu/estimators.py:723-736``).
+	``samples`` holds a sketch estimator's per-probe estimates; the record unpacks as
+	``estimator, criterion, estimate, message, nit, info``."""
 
 	estimator: Optional[MeanEstimator] = None
 	criterion: Union[ConvergenceCriterion, str, None] = None
@@ -509,3 +536,7 @@ class EstimatorResult:
 	message: str = ""
 	nit: int = 0
 	info: dict = field(default_factory=dict)
+	samples: Optional[np.ndarray] = None
+
+	def __iter__(self) -> Iterator:
+		return iter((self.estimator, self.criterion, self.estimate, self.message, self.nit, self.info))

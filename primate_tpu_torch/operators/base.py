@@ -626,3 +626,7 @@ class DeflatedOperator(LinearOperator):
 			AP = self.A.matmat(W - self.V @ C)
 			out = AP - self.V @ self._vh(AP)
 			return out + self.fill * (self.V @ C) if self.fill != 0 else out
+
+	def matmat_t(self, Wt: torch.Tensor) -> torch.Tensor:
+		"""Probe-major apply on a ``(k, n)`` block, under the JAX package's argument name ``Wt``."""
+		return super().matmat_t(Wt)

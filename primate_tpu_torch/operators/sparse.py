@@ -286,7 +286,7 @@ class BSROperator(LinearOperator):
 
 	@classmethod
 	def from_scipy(
-		cls, A, blocksize: Optional[Tuple[int, int]] = None, dtype=None, device="cuda", engine: str = "auto"
+		cls, A, blocksize: Optional[Tuple[int, int]] = None, dtype=None, engine: str = "auto", device="cuda"
 	) -> "BSROperator":
 		"""From a scipy sparse (or dense) matrix (``primate_tpu/operators/sparse.py:528-556``),
 		zero-padded to whole tiles, duplicates summed, each block row's tiles sorted by
@@ -452,7 +452,7 @@ class DIAOperator(LinearOperator):
 		return cls(torch.tensor(np.asarray(bands), dtype=dtype, device=device), offsets, shape)
 
 	@classmethod
-	def from_scipy(cls, A, dtype=None, device="cuda", engine: str = "auto") -> "DIAOperator":
+	def from_scipy(cls, A, dtype=None, engine: str = "auto", device="cuda") -> "DIAOperator":
 		"""From a scipy sparse matrix (``primate_tpu/operators/sparse.py:721-745``): ``engine``
 		``"native"`` through the C++ loader (:mod:`~primate_tpu_torch.native`; raises when it
 		cannot be built), ``"scipy"`` through ``A.todia()``, ``"auto"`` natively when the loader
@@ -477,6 +477,16 @@ class DIAOperator(LinearOperator):
 			inside = (r < rows) & (r + off >= 0) & (r + off < cols)
 			bands[k, inside] = data[k, r[inside] + off]
 		return cls.from_numpy(bands, offsets, A.shape, dtype=dtype, device=device)
+
+	@classmethod
+	def from_dense(cls, A, tol: float = 0.0, dtype=None, device="cuda") -> "DIAOperator":
+		"""From a dense matrix through :meth:`from_scipy` of its ``scipy.sparse.dia_matrix``
+		(``primate_tpu/operators/sparse.py:747-751``): one band per diagonal that holds an entry
+		with ``|a| > tol``, as the CSR and COO ``from_dense`` keep entries."""
+		import scipy.sparse as sps
+
+		A = np.asarray(A)
+		return cls.from_scipy(sps.dia_matrix(np.where(np.abs(A) > tol, A, 0)), dtype=dtype, device=device)
 
 	@property
 	def nnz(self) -> int:

@@ -520,9 +520,15 @@ class ShardedCSROperator(_Sharded):
 		local_indptr = np.concatenate([[0], np.cumsum(np.bincount(rb, minlength=rpd))])
 		local = CSROperator.from_numpy(vb, cb, local_indptr, (rpd, n_cols), dtype=torch_dtype(dtype), device=device)
 		op = cls.__new__(cls)
-		op.rpd, op.halo = rpd, halo
+		op.rpd, op.halo, op._nnz = rpd, halo, int(len(data))
 		op._setup(local, shape, mesh, op_axis, probe_axis, mode, rpd, halo)
 		return op
+
+	@property
+	def nnz(self) -> int:
+		"""The stored entries of the whole matrix (the JAX package's count adds its per-device
+		ELL padding, a layout the port does not build)."""
+		return self._nnz
 
 
 def shard_operator(A, mesh, op_axis: str = "op", probe_axis: Optional[str] = None, comm: str = "auto", **kwargs) -> LinearOperator:

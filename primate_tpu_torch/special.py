@@ -1,8 +1,10 @@
 """Spectral function gallery: builtin ``f`` for matrix functions ``f(A)``.
 
-Counterpart of ``primate_tpu/special.py:104-192``. Every builtin maps a
-tensor of quadrature nodes to a tensor, on the nodes' device. A stacked family
-(:func:`stacked`) maps them to a tensor with one more leading axis.
+Counterpart of ``primate_tpu/special.py``. Every builtin maps a tensor of
+quadrature nodes to a tensor, on the nodes' device. A stacked family
+(:func:`stacked`) maps them to a tensor with one more leading axis. As in the
+JAX package, ``softsign``, ``smoothstep``, ``exp`` and ``step`` take the nodes
+first: given them they return values, without them the function.
 """
 
 from functools import lru_cache
@@ -21,8 +23,18 @@ def identity(x: Any) -> Any:
 	return x
 
 
-def softsign(q: int = 1) -> Callable:
-	"""Degree-``q`` polynomial approximant to sign(x) on [-1, 1]."""
+def _nodes(x, device) -> torch.Tensor:
+	"""``x`` as a tensor: a tensor keeps its device and dtype; a number or array goes through
+	numpy (a Python float is float64, an integer array becomes float64) onto ``device``."""
+	if isinstance(x, torch.Tensor):
+		return x
+	x = np.asarray(x)
+	return torch.as_tensor(x if x.dtype.kind in "fc" else x.astype(np.float64), device=device)
+
+
+def softsign(x=None, q: int = 1, *, device="cuda") -> Union[Callable, torch.Tensor]:
+	"""Degree-``q`` polynomial approximant to sign(x) on [-1, 1]: its values at the nodes ``x``,
+	or without them the function itself (``primate_tpu/special.py:36-53``)."""
 	J = np.append([1.0], np.cumprod([(2 * j - 1) / (2 * j) for j in np.arange(1, q + 1)]))
 
 	def _softsign(x):
@@ -31,11 +43,12 @@ def softsign(q: int = 1) -> Callable:
 		Jc = torch.as_tensor(J, device=xt.device, dtype=xt.dtype)
 		return torch.sum(xt * (1 - xt**2) ** Ic * Jc, dim=-1)
 
-	return _softsign
+	return _softsign if x is None else _softsign(_nodes(x, device))
 
 
-def smoothstep(a: float = 0.0, b: float = 1.0, deg: int = 3) -> Callable:
-	"""Polynomial Hermite step of odd degree ``deg``: 0 below ``a``, 1 above ``b``."""
+def smoothstep(x=None, a: float = 0.0, b: float = 1.0, deg: int = 3, *, device="cuda") -> Union[Callable, torch.Tensor]:
+	"""Polynomial Hermite step of odd degree ``deg``, 0 below ``a`` and 1 above ``b``: its values
+	at the nodes ``x``, or without them the function itself (``primate_tpu/special.py:56-81``)."""
 	if deg % 2 != 1:
 		raise ValueError("Degree must be odd")
 	d = (b - a) if a != b else 1.0
@@ -49,26 +62,27 @@ def smoothstep(a: float = 0.0, b: float = 1.0, deg: int = 3) -> Callable:
 			acc = acc * y + c
 		return acc * y ** (N + 1)
 
-	return _smoothstep
+	return _smoothstep if x is None else _smoothstep(_nodes(x, device))
 
 
-def exp(t: float = 1.0) -> Callable:
-	"""Exponential ``x ↦ exp(t·x)``."""
+def exp(x=None, t: float = 1.0, *, device="cuda") -> Union[Callable, torch.Tensor]:
+	"""Exponential ``x ↦ exp(t·x)``: its values at the nodes ``x``, or without them the function."""
 
 	def _exp(x):
 		return torch.exp(t * x)
 
-	return _exp
+	return _exp if x is None else _exp(_nodes(x, device))
 
 
-def step(c: float = 0.0, nonnegative: bool = False) -> Callable:
-	"""Hard threshold ``x ↦ 1[x ≥ c]`` (optionally on |x|)."""
+def step(x=None, c: float = 0.0, nonnegative: bool = False, *, device="cuda") -> Union[Callable, torch.Tensor]:
+	"""Hard threshold ``x ↦ 1[x ≥ c]`` (optionally on |x|): its values at the nodes ``x``, or
+	without them the function."""
 
 	def _step(x):
 		x = torch.abs(x) if nonnegative else x
 		return torch.where(x < c, 0.0, 1.0).to(x.dtype)
 
-	return _step
+	return _step if x is None else _step(_nodes(x, device))
 
 
 def _log_eps(x):

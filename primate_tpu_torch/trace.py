@@ -385,9 +385,7 @@ def hutchpp(
 	est = float(est)
 	if not full:
 		return est
-	result = EstimatorResult(estimate=est, nit=3 * nb)
-	result.info["samples"] = torch.cat([rng_ests, defl_ests]).cpu().numpy()
-	return est, result
+	return est, EstimatorResult(estimate=est, nit=3 * nb, samples=torch.cat([rng_ests, defl_ests]).cpu().numpy())
 
 
 @full_f32
@@ -435,14 +433,12 @@ def xnystrace(
 		if full:
 			raise ValueError("xnystrace(differentiable=True) returns the estimate only: drop full=")
 		return torch.mean(t)
-	estimator = MeanEstimator(1, acc, op.device)
+	estimator = MeanEstimator(covariance=True, dtype=acc, device=op.device)
 	estimator.update(t.to(acc))
 	est = estimator.estimate
 	if not full:
 		return est
-	result = EstimatorResult(estimator=estimator, estimate=est, nit=m_)
-	result.info["samples"] = t.cpu().numpy()
-	return est, result
+	return est, EstimatorResult(estimator=estimator, estimate=est, nit=m_, samples=t.cpu().numpy())
 
 
 @full_f32
@@ -596,7 +592,7 @@ def run_xtrace(
 	def m_of(state) -> int:
 		return 0 if state is None else state[0].shape[1]
 
-	estimator = MeanEstimator(1, acc, op.device, record=record)
+	estimator = MeanEstimator(covariance=True, record=record, dtype=acc, device=op.device)
 	result = EstimatorResult(criterion=criterion)
 	target = count_only_target(criterion)
 	if target is not None and callback is None:
@@ -611,7 +607,7 @@ def run_xtrace(
 			it0 += 1
 			# The leave-one-out estimates are recomputed wholesale each round, so the estimator is
 			# rebuilt; delta is the round-over-round move of the estimate.
-			estimator = MeanEstimator(1, acc, op.device, record=record)
+			estimator = MeanEstimator(covariance=True, record=record, dtype=acc, device=op.device)
 			estimator.update(xtrace_estimates(*state, sphere).to(acc))
 			cur = estimator.state.mu
 			estimator.delta = torch.full_like(cur, float("inf")) if prev is None else cur - prev

@@ -105,7 +105,7 @@ def test_diag_size_sampler_matches_jax(kind, batch):
 		callback=lambda r: seen.append(np.array(r.estimate)))
 	np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-12)
 	np.testing.assert_allclose(np.array(seen), np.array(jseen), rtol=0, atol=1e-12)
-	np.testing.assert_allclose(np.ravel(res.info["values"]), np.ravel(np.asarray(jres.estimator.values)), rtol=0, atol=1e-12)
+	np.testing.assert_allclose(np.ravel(res.estimator.values), np.ravel(np.asarray(jres.estimator.values)), rtol=0, atol=1e-12)
 
 
 def test_the_sketch_estimators_refuse_a_size_sampler():

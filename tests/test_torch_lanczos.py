@@ -179,7 +179,7 @@ def test_cov_update_matches_jax():
 
 def test_mean_estimator_matches_jax():
 	rng = np.random.default_rng(4)
-	est, jest = MeanEstimator(device="cpu"), pt.estimators.MeanEstimator(covariance=True)
+	est, jest = MeanEstimator(covariance=True, device="cpu"), pt.estimators.MeanEstimator(covariance=True)
 	for b in (3, 9, 1):
 		x = rng.normal(size=b)
 		est.update(x)

@@ -315,7 +315,7 @@ def test_record_and_callback_match_jax():
 		full=True, callback=lambda r: calls.append(np.array(r.estimate)), record=True)
 	assert len(calls) == len(jcalls) == 3
 	_close(calls, jcalls, 1e-12)
-	assert len(dres.info["values"]) == 3 * 40
+	assert len(dres.estimator.values) == 3 * 40
 
 
 def test_confidence_and_control_variable_estimators_match_jax():

@@ -253,7 +253,7 @@ def test_diag_count_path_matches_jax(kind, batch):
 	want, jres = pt.diag(jop, converge="count", count=12, seed=SEED, batch=batch, full=True)
 	assert res.nit == jres.nit == 12
 	_close(got, want)
-	_close(res.info["m2"].numpy(), jres.info["state"]["m2"], rtol=1e-7)
+	_close(res.info["state"]["m2"].numpy(), jres.info["state"]["m2"], rtol=1e-7)
 
 
 def test_diag_on_the_fem_pattern_matches_jax(monkeypatch):
