@@ -21,6 +21,7 @@ import torch
 
 from .ops.dia import row_sq_norm
 from .random import real_dtype
+from .utils.profiling import annotate
 
 __all__ = ["BidiagOutput", "bidiag_jacobi", "lanczos_bidiag", "lanczos_bidiag_op"]
 
@@ -186,10 +187,11 @@ def lanczos_bidiag_op(
 		app_t, rapp_t = op.rmatmat_t, op.matmat_t
 	else:
 		app_t, rapp_t = op.matmat_t, op.rmatmat_t
-	return _bidiag_core(
-		app_t, rapp_t, V0, deg=deg, orth=orth, rtol=rtol, reorth_passes=reorth_passes,
-		return_basis=return_basis, return_residual=return_residual,
-	)
+	with annotate("primate.sweep"):
+		return _bidiag_core(
+			app_t, rapp_t, V0, deg=deg, orth=orth, rtol=rtol, reorth_passes=reorth_passes,
+			return_basis=return_basis, return_residual=return_residual,
+		)
 
 
 def lanczos_bidiag(

@@ -24,6 +24,7 @@ from .linalg import full_f32_matmul
 from .operators.base import aslinop
 from .random import probe_dtype, sample_isotropic
 from .trace import estimate_only
+from .utils.profiling import annotate
 
 __all__ = ["spectral_density", "cumulative_spectral_density", "spectral_quantile"]
 
@@ -74,19 +75,20 @@ def spectral_density(
 	else:
 		out = lanczos_block_op(op, V, deg=deg, ncv=max(2, min(max(orth, 2), deg)), orth=orth, return_basis=False)
 		nodes, weights = quadrature(out.alphas.T, out.betas[: deg - 1].T, deg=deg, quad="gw")  # (nv, deg) each
-	if bounds is None:
-		lo, hi = float(torch.min(nodes)), float(torch.max(nodes))
-		pad = 0.05 * max(hi - lo, 1e-12)
-		bounds = (lo - pad, hi + pad)
-	if np.isscalar(grid):
-		ts = torch.linspace(float(bounds[0]), float(bounds[1]), int(grid), dtype=nodes.dtype, device=nodes.device)
-	else:
-		ts = torch.as_tensor(np.asarray(grid), dtype=nodes.dtype, device=nodes.device)
-	if sigma is None:
-		sigma = float(ts[-1] - ts[0]) / max(deg, 8)
-	with full_f32_matmul():
-		phi = (weights.reshape(-1) / int(nv)) @ _gauss(ts, nodes.reshape(-1), sigma)
-	return ts.cpu().numpy(), phi.cpu().numpy()
+	with annotate("primate.quadrature"):
+		if bounds is None:
+			lo, hi = float(torch.min(nodes)), float(torch.max(nodes))
+			pad = 0.05 * max(hi - lo, 1e-12)
+			bounds = (lo - pad, hi + pad)
+		if np.isscalar(grid):
+			ts = torch.linspace(float(bounds[0]), float(bounds[1]), int(grid), dtype=nodes.dtype, device=nodes.device)
+		else:
+			ts = torch.as_tensor(np.asarray(grid), dtype=nodes.dtype, device=nodes.device)
+		if sigma is None:
+			sigma = float(ts[-1] - ts[0]) / max(deg, 8)
+		with full_f32_matmul():
+			phi = (weights.reshape(-1) / int(nv)) @ _gauss(ts, nodes.reshape(-1), sigma)
+		return ts.cpu().numpy(), phi.cpu().numpy()
 
 
 def cumulative_spectral_density(A, grid: Union[int, np.ndarray] = 256, **kwargs) -> Tuple[np.ndarray, np.ndarray]:

@@ -15,6 +15,7 @@ import torch
 from .fttr import fttr_weights
 from .linalg import full_f32_matmul
 from .tridiag import eigh_tridiag, eigvalsh_tridiag, tridiag_matrix
+from .utils.profiling import annotate
 
 __all__ = ["spectral_quad_form", "quadrature", "lanczos_quadrature", "radau_rule", "lobatto_rule", "spectral_density"]
 
@@ -102,7 +103,8 @@ def spectral_quad_form(d: torch.Tensor, e: torch.Tensor, fun: Callable) -> torch
 	The derivative with respect to ``d`` and ``e`` is the Daleckii–Krein formula
 	(:class:`_SpectralQuadForm`), finite where Ritz values meet. ``fun`` takes no gradient: under
 	autograd, a ``fun`` that closes over a tensor requiring a gradient raises ``NotImplementedError``."""
-	return _SpectralQuadForm.apply(d, e, fun, torch.is_grad_enabled())
+	with annotate("primate.quadrature"):
+		return _SpectralQuadForm.apply(d, e, fun, torch.is_grad_enabled())
 
 
 def _solve_shifted(d: torch.Tensor, e: torch.Tensor, rhs_last: torch.Tensor, shift) -> torch.Tensor:
@@ -182,28 +184,29 @@ def quadrature(
 	``weights`` given, copies of them with the first ``deg`` entries filled are
 	returned, as the JAX package returns its filled copies.
 	"""
-	d, e = torch.as_tensor(d), torch.as_tensor(e)
-	n = d.shape[-1]
-	deg = n if deg is None else int(min(deg, n))
-	if e.shape[-1] == n - 1:
-		e = torch.cat([torch.zeros(e.shape[:-1] + (1,), dtype=e.dtype, device=e.device), e], dim=-1)
-	if e.shape[-1] != n:
-		raise ValueError("Subdiagonal must have length n or n-1")
-	if quad in ("gw", "golub_welsch"):
-		theta, ev = eigh_tridiag(d[..., :deg], e[..., :deg], method=method, maxiter=maxiter)
-		tau = ev[..., 0, :] ** 2
-	elif quad == "fttr":
-		theta = eigvalsh_tridiag(d[..., :deg], e[..., :deg], method=method, maxiter=maxiter)
-		tau = fttr_weights(theta, d[..., :deg], e[..., :deg], k=deg)
-	else:
-		raise ValueError(f"Invalid quadrature method '{quad}' supplied")
-	if nodes is not None and weights is not None:
-		k = theta.shape[-1]
-		nodes, weights = torch.as_tensor(nodes).clone(), torch.as_tensor(weights).clone()
-		nodes[..., :k] = theta
-		weights[..., :k] = tau
-		return nodes, weights
-	return theta, tau
+	with annotate("primate.quadrature"):
+		d, e = torch.as_tensor(d), torch.as_tensor(e)
+		n = d.shape[-1]
+		deg = n if deg is None else int(min(deg, n))
+		if e.shape[-1] == n - 1:
+			e = torch.cat([torch.zeros(e.shape[:-1] + (1,), dtype=e.dtype, device=e.device), e], dim=-1)
+		if e.shape[-1] != n:
+			raise ValueError("Subdiagonal must have length n or n-1")
+		if quad in ("gw", "golub_welsch"):
+			theta, ev = eigh_tridiag(d[..., :deg], e[..., :deg], method=method, maxiter=maxiter)
+			tau = ev[..., 0, :] ** 2
+		elif quad == "fttr":
+			theta = eigvalsh_tridiag(d[..., :deg], e[..., :deg], method=method, maxiter=maxiter)
+			tau = fttr_weights(theta, d[..., :deg], e[..., :deg], k=deg)
+		else:
+			raise ValueError(f"Invalid quadrature method '{quad}' supplied")
+		if nodes is not None and weights is not None:
+			k = theta.shape[-1]
+			nodes, weights = torch.as_tensor(nodes).clone(), torch.as_tensor(weights).clone()
+			nodes[..., :k] = theta
+			weights[..., :k] = tau
+			return nodes, weights
+		return theta, tau
 
 
 lanczos_quadrature = quadrature

@@ -29,6 +29,7 @@ from .operators.base import LinearOperator, aslinop, torch_dtype
 from .ops.dia import row_dot
 from .random import probe_dtype, real_dtype, sample_isotropic
 from .special import param_callable
+from .utils.profiling import annotate
 
 __all__ = [
 	"chebyshev_moments",
@@ -83,17 +84,18 @@ def _moment_scan(op, Vt: torch.Tensor, m: int, c: float, r: float) -> torch.Tens
 	block ``Vt (nv, n)`` → ``(m, nv)``, real (``primate_tpu/kpm.py:48-83``). The
 	recurrence runs in ``Vt``'s dtype, the moments in ``promote_types(dtype, float32)``.
 	Differentiable in the operator's tensors through its applies."""
-	acc = torch.promote_types(Vt.dtype, torch.float32)
-	Vt = Vt.contiguous()
-	bra = Vt.to(acc)
-	moments = [row_dot(bra, Vt.to(acc))]
-	if m > 1:
-		Tm1, Tm = Vt, _scaled_apply(op, Vt, c, r)
-		moments.append(row_dot(bra, Tm.to(acc)))
-		for _ in range(2, m):
-			Tm1, Tm = Tm, _next_term(op, Tm, Tm1, c, r, Vt)
+	with annotate("primate.sweep"):
+		acc = torch.promote_types(Vt.dtype, torch.float32)
+		Vt = Vt.contiguous()
+		bra = Vt.to(acc)
+		moments = [row_dot(bra, Vt.to(acc))]
+		if m > 1:
+			Tm1, Tm = Vt, _scaled_apply(op, Vt, c, r)
 			moments.append(row_dot(bra, Tm.to(acc)))
-	return torch.stack(moments[:m])
+			for _ in range(2, m):
+				Tm1, Tm = Tm, _next_term(op, Tm, Tm1, c, r, Vt)
+				moments.append(row_dot(bra, Tm.to(acc)))
+		return torch.stack(moments[:m])
 
 
 def _spectral_interval(op, seed) -> Tuple[float, float]:
@@ -206,8 +208,9 @@ def kpm_trace_core(op, V: torch.Tensor, fs, m: int, interval: Tuple[float, float
 	lo, hi = float(interval[0]), float(interval[1])
 	c, r = (hi + lo) / 2.0, (hi - lo) / 2.0
 	mus = torch.mean(_moment_scan(op, V.T, int(m), c, r), dim=1)
-	a, g = _series_weights(fs, int(m), c, r, damping)
-	return torch.sum(torch.as_tensor(g * a, dtype=mus.dtype, device=mus.device) * mus, dim=-1)
+	with annotate("primate.quadrature"):
+		a, g = _series_weights(fs, int(m), c, r, damping)
+		return torch.sum(torch.as_tensor(g * a, dtype=mus.dtype, device=mus.device) * mus, dim=-1)
 
 
 def kpm_trace(
@@ -226,22 +229,24 @@ def kpm_trace(
 	differentiable = fun_kwargs.pop("differentiable", False)
 	multi, fs = _resolve_funs(fun, fun_kwargs)
 	op = aslinop(A)
-	if differentiable:
-		if interval is None or isinstance(interval, str):
-			raise ValueError("kpm_trace(differentiable=True) needs an explicit interval=(lmin, lmax)")
+	with annotate("primate.estimate"):
+		if differentiable:
+			if interval is None or isinstance(interval, str):
+				raise ValueError("kpm_trace(differentiable=True) needs an explicit interval=(lmin, lmax)")
+			if m == "auto":
+				raise ValueError("kpm_trace(differentiable=True) needs a fixed Chebyshev degree m")
+			ests = kpm_trace_core(op, _probes(op, nv, pdf, seed), fs, int(m), interval, damping)
+			return ests if multi or ests.shape[0] > 1 else ests[0]
+		interval = _resolve_interval(op, interval, seed)
 		if m == "auto":
-			raise ValueError("kpm_trace(differentiable=True) needs a fixed Chebyshev degree m")
-		ests = kpm_trace_core(op, _probes(op, nv, pdf, seed), fs, int(m), interval, damping)
-		return ests if multi or ests.shape[0] > 1 else ests[0]
-	interval = _resolve_interval(op, interval, seed)
-	if m == "auto":
-		rt = 1e-3 if damping == "jackson" else 1e-8
-		m = max(suggest_chebyshev_degree(f, interval, rtol=rt, damping=damping) for f in fs)
-	mus, (lo, hi) = chebyshev_moments(op, m=m, nv=nv, pdf=pdf, interval=interval, seed=seed)
-	c, r = (hi + lo) / 2.0, (hi - lo) / 2.0
-	a, g = _series_weights(fs, int(m), c, r, damping)
-	ests = (g * a * mus).sum(axis=-1)
-	return ests if multi or a.shape[0] > 1 else float(ests[0])
+			rt = 1e-3 if damping == "jackson" else 1e-8
+			m = max(suggest_chebyshev_degree(f, interval, rtol=rt, damping=damping) for f in fs)
+		mus, (lo, hi) = chebyshev_moments(op, m=m, nv=nv, pdf=pdf, interval=interval, seed=seed)
+		with annotate("primate.quadrature"):
+			c, r = (hi + lo) / 2.0, (hi - lo) / 2.0
+			a, g = _series_weights(fs, int(m), c, r, damping)
+			ests = (g * a * mus).sum(axis=-1)
+			return ests if multi or a.shape[0] > 1 else float(ests[0])
 
 
 def kpm_density(
@@ -252,18 +257,20 @@ def kpm_density(
 	``φ(t) = [g₀μ₀ + 2Σ g_j μ_j T_j(x)] / (π√(1−x²)·n·r)``, mass 1, with ``x`` the mapped grid
 	clamped to ``cos(π/2m)``. Returns ``(ts, phi)`` as numpy arrays."""
 	op = aslinop(A)
-	interval = _resolve_interval(op, interval, seed)
-	mus, (lo, hi) = chebyshev_moments(op, m=m, nv=nv, pdf=pdf, interval=interval, seed=seed)
-	c, r = (hi + lo) / 2.0, (hi - lo) / 2.0
-	ts = np.linspace(lo, hi, int(grid)) if np.isscalar(grid) else np.asarray(grid)
-	xmax = float(np.cos(np.pi / (2 * m)))
-	x = np.clip((ts - c) / r, -xmax, xmax)
-	g = _jackson(m)
-	j = np.arange(m)[:, None]
-	Tjx = np.cos(j * np.arccos(x)[None, :])
-	series = g[0] * mus[0] + 2.0 * (g[1:, None] * mus[1:, None] * Tjx[1:]).sum(axis=0)
-	phi = series / (np.pi * np.sqrt(1.0 - x**2)) / (op.shape[0] * r)
-	return ts, phi
+	with annotate("primate.estimate"):
+		interval = _resolve_interval(op, interval, seed)
+		mus, (lo, hi) = chebyshev_moments(op, m=m, nv=nv, pdf=pdf, interval=interval, seed=seed)
+		with annotate("primate.quadrature"):
+			c, r = (hi + lo) / 2.0, (hi - lo) / 2.0
+			ts = np.linspace(lo, hi, int(grid)) if np.isscalar(grid) else np.asarray(grid)
+			xmax = float(np.cos(np.pi / (2 * m)))
+			x = np.clip((ts - c) / r, -xmax, xmax)
+			g = _jackson(m)
+			j = np.arange(m)[:, None]
+			Tjx = np.cos(j * np.arccos(x)[None, :])
+			series = g[0] * mus[0] + 2.0 * (g[1:, None] * mus[1:, None] * Tjx[1:]).sum(axis=0)
+			phi = series / (np.pi * np.sqrt(1.0 - x**2)) / (op.shape[0] * r)
+			return ts, phi
 
 
 class ChebyshevFunction(LinearOperator):

@@ -57,6 +57,7 @@ from .operators.base import WholeRows
 from .ops.dia import DIV_CUR, DONE, lanczos_state, row_sq_norm
 from .random import real_dtype
 from .tridiag import eigh_tridiag, eigvalsh_tridiag
+from .utils.profiling import annotate
 
 __all__ = ["LanczosOutput", "lanczos_block", "lanczos_block_op", "lanczos", "rayleigh_ritz", "OrthogonalPolynomialBasis"]
 
@@ -124,11 +125,12 @@ def lanczos_block_op(
 	from .operators.base import torch_dtype
 
 	deg, orth, ncv = _validate_params(V0.shape[0], deg, orth, ncv)
-	return _lanczos_core(
-		op, V0.T.contiguous(), deg=deg, ncv=ncv, orth=orth, rtol=rtol, reorth_passes=reorth_passes,
-		return_basis=return_basis, coeffs=coeffs, basis_dtype=torch_dtype(basis_dtype), selective=selective,
-		phys=phys is True,
-	)
+	with annotate("primate.sweep"):
+		return _lanczos_core(
+			op, V0.T.contiguous(), deg=deg, ncv=ncv, orth=orth, rtol=rtol, reorth_passes=reorth_passes,
+			return_basis=return_basis, coeffs=coeffs, basis_dtype=torch_dtype(basis_dtype), selective=selective,
+			phys=phys is True,
+		)
 
 
 def lanczos_block(

@@ -27,6 +27,7 @@ from ..linalg import full_f32_matmul
 from ..ops.dia import row_sq_norm
 from ..special import param_callable
 from ..tridiag import eigh_tridiag
+from ..utils.profiling import annotate
 from .base import LinearOperator, ScaledOperator, aslinop, torch_dtype
 
 __all__ = ["MatrixFunction", "matrix_function", "Toeplitz", "normalize_unit", "ScaledOperator"]
@@ -153,11 +154,12 @@ class MatrixFunction(LinearOperator):
 		from ..integrate import lobatto_rule, radau_rule
 
 		a, b = self._interval
-		if self._quad_rule == "radau_lo":
-			return radau_rule(d, e, beta_end, a)
-		if self._quad_rule == "radau_hi":
-			return radau_rule(d, e, beta_end, b)
-		return lobatto_rule(d, e, beta_end, a, b)
+		with annotate("primate.quadrature"):
+			if self._quad_rule == "radau_lo":
+				return radau_rule(d, e, beta_end, a)
+			if self._quad_rule == "radau_hi":
+				return radau_rule(d, e, beta_end, b)
+			return lobatto_rule(d, e, beta_end, a, b)
 
 	def _use_two_pass(self, nv: int) -> bool:
 		if isinstance(self._two_pass, bool):
@@ -174,10 +176,11 @@ class MatrixFunction(LinearOperator):
 		leading axes those of a stacked family)."""
 		a = out.alphas.T
 		e = out.betas[: self._deg - 1].T
-		rw, Y = eigh_tridiag(a, e)  # (b, deg), (b, deg, deg)
-		w = self.fun(rw) * Y[:, 0, :]
-		with full_f32_matmul():
-			return torch.einsum("bij,...bj->...bi", Y, w)
+		with annotate("primate.quadrature"):
+			rw, Y = eigh_tridiag(a, e)  # (b, deg), (b, deg, deg)
+			w = self.fun(rw) * Y[:, 0, :]
+			with full_f32_matmul():
+				return torch.einsum("bij,...bj->...bi", Y, w)
 
 	def _matmat(self, X: torch.Tensor) -> torch.Tensor:
 		X = torch.as_tensor(X, dtype=self.dtype, device=self.device)

@@ -45,12 +45,14 @@ from .linalg import colwise_dot, full_f32, qr_append, tall_qr, update_trinv_bloc
 from .operators.base import DeflatedOperator, aslinop, is_valid_operator, quad_form
 from .random import classify_pdf, probe_dtype, real_dtype, sample_isotropic
 from .stats import CovState, make_cov_state
+from .utils.profiling import annotate
 
 __all__ = ["hutch", "hutchpp", "xtrace", "xnystrace"]
 
 
 def estimate_only(fn: Callable) -> Callable:
-	"""Run ``fn`` under ``torch.no_grad()`` unless it is called with ``differentiable=True``.
+	"""Run ``fn`` in a ``primate.estimate`` span, under ``torch.no_grad()`` unless it is called with
+	``differentiable=True``.
 
 	An estimator without ``differentiable=True`` returns host floats or arrays, as the JAX
 	package's do from concrete arrays; without this, an operator whose tensors require a
@@ -64,10 +66,11 @@ def estimate_only(fn: Callable) -> Callable:
 		flag = kwargs.get("differentiable", False)
 		if has_flag and not flag:
 			flag = sig.bind_partial(*args, **kwargs).arguments.get("differentiable", False)
-		if flag:
-			return fn(*args, **kwargs)
-		with torch.no_grad():
-			return fn(*args, **kwargs)
+		with annotate("primate.estimate"):
+			if flag:
+				return fn(*args, **kwargs)
+			with torch.no_grad():
+				return fn(*args, **kwargs)
 
 	return wrapper
 

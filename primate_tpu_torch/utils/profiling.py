@@ -1,7 +1,7 @@
 """Tracing, apply counting and kernel cost reports (counterpart of ``primate_tpu/utils/profiling.py``).
 
-* ``annotate`` labels a region for ``torch.profiler`` traces and, on the card, as an
-  NVTX range;
+* ``annotate`` labels a region for ``torch.profiler`` traces (the port's spans:
+  ``primate.estimate``, ``primate.sweep``, ``primate.quadrature``);
 * ``CountingOperator`` counts an operator's applies (columns, forward and adjoint) and
   their wall time;
 * ``kernel_stats`` / ``benchmark_matvec`` give the cost model of one apply (nonzeros,
@@ -9,7 +9,7 @@
 """
 
 import time
-from contextlib import contextmanager
+from contextlib import nullcontext
 from typing import Any, Dict
 
 import torch
@@ -19,18 +19,16 @@ from ..operators.base import LinearOperator, aslinop
 __all__ = ["annotate", "CountingOperator", "kernel_stats", "benchmark_matvec"]
 
 
-@contextmanager
 def annotate(name: str):
-	"""Label a region: a ``torch.profiler.record_function`` range, and an NVTX range when a card is present."""
-	nvtx = torch.cuda.is_available()
-	if nvtx:
-		torch.cuda.nvtx.range_push(name)
-	try:
-		with torch.profiler.record_function(name):
-			yield
-	finally:
-		if nvtx:
-			torch.cuda.nvtx.range_pop()
+	"""Label a region: a ``torch.profiler.record_function`` range while a profiler runs, else a null
+	context, so that a span costs one check when nothing traces. Under
+	``torch.autograd.profiler.emit_nvtx()`` the profiler counts as running and each range is also an
+	NVTX range.
+
+	The port opens three spans on the calling thread, nested: ``primate.estimate`` around each public
+	estimator call, ``primate.sweep`` around each Lanczos, Golub-Kahan or Chebyshev recurrence, and
+	``primate.quadrature`` around each step from a recurrence's coefficients to the call's numbers."""
+	return torch.profiler.record_function(name) if torch.autograd._profiler_enabled() else nullcontext()
 
 
 class CountingOperator(LinearOperator):
