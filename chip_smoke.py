@@ -202,6 +202,13 @@ Builds the kernels of ``primate_tpu_torch/csrc`` with nvcc (sm_90a), then:
    of its closed form, passes A and B 40 times each (a one-probe sweep sizes the closure's output); (d) ``DIAOperator.from_dense`` of a dense 8192² pentadiagonal: the
    bands and offsets of ``from_scipy``, and the same SLQ logdet bit for bit; (e) ``MeanEstimator(covariance=True)`` on
    the card fed the flagship's 64 per-probe samples: numpy's ``var(ddof=1)`` within 1e-6, and None without the flag.
+28. runs the re-orthogonalised cell's configuration (``port_bench/traffic/slq_logdet_orth5.json``): (a) the SLQ logdet
+   at ``orth = 5``, ``reorth_passes = 2`` on the 10M path Laplacian (64 probes, float32), counted from zero: within 5%
+   of the exact logdet, pass A and the CGS window's chain (``cgs_window``) 20 times each, no scalar launch, no pass B;
+   (b) the chain against its plain version (``ops.cgs.cgs_window_ref``, the PyTorch ops it replaced) on the same
+   inputs at that shape (64 × 10M, a window of 5 unit slots, q_cur the window's own slot), at the full window and at a
+   partial one (2 slots), within 1e-5 (max |Δv| over max |v|, and Σ|v|² relative), one launch counted each, each
+   timed beside its plain version and its bound, (3s + 6)·nv·n·4 bytes at s slots over the HBM rate.
 
 Phase 6 ends with the backward check: each kernel's ``torch.autograd.Function``
 (``primate_tpu_torch/ops/autograd.py``) against autograd through its plain version, float32
@@ -242,7 +249,8 @@ numbers under ``bf16_10M_``, ``bf16_padded_500k_`` and ``bf16_padded_10M_``; the
 time and the adjoint build's time from (c) under ``c64_``/``c128_`` keys (``backward_ms``,
 ``backward_plain_ms``, ``adjoint_build_ms``, ``grad_max_abs_err``); every kernel its launches in phase 26
 (``coverage_launches``: the quadrature gradient's forward and backward, the coverage matrix, the edge cases) and in
-phase 27 (``contract_launches``); the last line is ``{"ok": true, "device": {...}}``.
+phase 27 (``contract_launches``); ``cgs_window`` its launches in phase 28 (a) and its numbers from phase 28 (b), the
+full window's under plain keys and the partial one's under ``partial_``; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits non-zero before printing anything.
 """
 
@@ -260,6 +268,7 @@ DEG, PROBES, ORTH = 20, 64, 0
 N_FLAGSHIP, N_LARGE = 500_000, 10_000_000
 KERNELS = (
 	"dia_stencil_t", "lanczos_dia_step", "lanczos_dia_residual", "lanczos_dia_advance", "lanczos_dia_round", "bsr_spmm", "dia_stencil",
+	"cgs_window",
 )
 # Kernels that only a row-sharded sweep launches (phase 23): the phases of unsharded calls launch them no time.
 SHARDED_ONLY = ("lanczos_dia_advance",)
@@ -268,6 +277,9 @@ SHARDED_ONLY = ("lanczos_dia_advance",)
 ADVANCE_A_SWEEP = {}
 # Kernels that only a bfloat16 sweep launches (phase 24): the float32 phases launch them no time.
 BF16_ONLY = ("lanczos_dia_round",)
+# Kernels that only a re-orthogonalised sweep launches: phases 16-18 are not asked to launch them (phase 19's
+# recipes at orth 5, phase 23's sharded flagship at orth 5 and phase 28 are).
+REORTH_ONLY = ("cgs_window",)
 SOURCE = {
 	"dia_stencil_t": "primate_tpu_torch/csrc/dia_stencil.cu",
 	"lanczos_dia_step": "primate_tpu_torch/csrc/dia_stencil.cu",
@@ -276,6 +288,7 @@ SOURCE = {
 	"lanczos_dia_round": "primate_tpu_torch/csrc/dia_stencil.cu",
 	"bsr_spmm": "primate_tpu_torch/csrc/bsr_spmm.cu",
 	"dia_stencil": "primate_tpu_torch/csrc/dia_stencil.cu",
+	"cgs_window": "primate_tpu_torch/csrc/cgs_window.cu",
 }
 REPLACES = {
 	"dia_stencil_t": "primate_tpu/ops/dia_pallas.py:152",  # dia_matmat_t_pallas's pallas_call
@@ -289,6 +302,8 @@ REPLACES = {
 	"lanczos_dia_round": "primate_tpu/ops/dia_pallas.py:273",
 	"bsr_spmm": "primate_tpu/ops/spmm_pallas.py:96",  # bsr_matmat_pallas's pallas_call
 	"dia_stencil": "primate_tpu/ops/dia_pallas.py:93",  # dia_matmat_pallas's pallas_call
+	# The tail of a re-orthogonalised step (v -= αq, the CGS passes, |v|²): _cgs_window's broadcasts, fused by XLA.
+	"cgs_window": "primate_tpu/lanczos.py:294",
 }
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside the
 # tensor cores (the kernels run FP32 FMAs on the CUDA cores), 989 TFLOP/s dense
@@ -2434,7 +2449,7 @@ def _rec_flagship(torch, ptt, dev, total: dict) -> None:
 
 
 def _rec_mesh(torch, ptt, dev, total: dict) -> None:
-	"""The SLQ recipes at their defaults (``orth=5``: pass A and the PyTorch window, no pass B),
+	"""The SLQ recipes at their defaults (``orth=5``: pass A and the CGS window's chain, no pass B),
 	the brackets, the bilinear forms and a weighted trace on phase 10's mesh, against closed forms."""
 	from primate_tpu_torch.ops import dia
 
@@ -4089,13 +4104,14 @@ COV_N, COV_DENSE_N, COV_SEED = 1_048_576, 8192, 26
 COV_TRACE_TOL, COV_DIAG_TOL, COV_AGREE_TOL, COV_SOLVE_RTOL = 1e-3, 0.1, 1e-5, 1e-5
 # Kernels each format must launch in (b), and the family it may launch from: DIA-backed kinds run the DIA
 # kernels (the DIA operator the step passes too, its Lanczos sweeps at orth 0; the identity MatrixFunction,
-# at orth 3, pass A alone), BSR runs bsr_spmm, CSR and COO (cuSPARSE) and the dense kinds (cuBLAS) none.
+# at orth 3, pass A and the CGS window's chain), BSR runs bsr_spmm, CSR and COO (cuSPARSE) and the dense kinds
+# (cuBLAS) none.
 _DIA_FAMILY = ("dia_stencil_t", "dia_stencil", "lanczos_dia_step", "lanczos_dia_residual")
 COV_KERNELS = {
 	"dia": (_DIA_FAMILY, _DIA_FAMILY),
 	"function": (("dia_stencil",), _DIA_FAMILY),
 	"affine": (("dia_stencil_t",), _DIA_FAMILY),
-	"matrix_function": (("lanczos_dia_step",), _DIA_FAMILY),
+	"matrix_function": (("lanczos_dia_step", "cgs_window"), _DIA_FAMILY + ("cgs_window",)),
 	"bsr": (("bsr_spmm",), ("bsr_spmm",)),
 	"csr": ((), ()), "coo": ((), ()), "tensor": ((), ()), "dense_op": ((), ()),
 }
@@ -4540,6 +4556,84 @@ def contract(torch, ptt, dev) -> dict:
 	return total
 
 
+# Phase 28: the re-orthogonalised cell (port_bench/traffic/slq_logdet_orth5.json on the 10M path Laplacian): 64
+# probes × 10M rows float32, a window of 5 slots, 2 passes; the chain held to its plain version at the full window
+# (step 8, 5 slots) and at a partial one (step 1, 2 slots), within the float32 kernel tolerance (max |Δv| over
+# max |v|, and Σ|v|² relative).
+CGS = dict(orth=5, reorth_passes=2, seed=28, steps=(8, 1), reps=5)
+
+
+def cgs_window_phase(torch, ptt, dev) -> tuple:
+	"""Phase 28: (a) the SLQ logdet at ``orth = 5`` at the cell's shape, counted from zero: within 5% of the exact
+	logdet, pass A and the chain once a step (``cgs_window`` 20, no scalar launch), no pass B; (b) the chain against
+	``cgs_window_ref`` on the same inputs (q_cur the window's slot j % 5, as the sweep hands it), each step timed beside
+	its plain version and its bound, (3s + 6)·nv·n·4 bytes at s valid slots over the HBM rate. Returns the launches of
+	(a) and the numbers of (b), the full window's at the top level."""
+	from primate_tpu_torch.ops import _common, cgs, dia
+
+	n, nv, ncv, passes = N_LARGE, PROBES, CGS["orth"], CGS["reorth_passes"]
+	op = ptt.DIAOperator.from_scipy(build_laplacian(n), dtype=torch.float32, device=dev)
+	M = ptt.MatrixFunction(op, fun="log", deg=DEG, orth=ncv, reorth_passes=passes, dtype=torch.float32)
+	torch.cuda.synchronize()
+	torch.cuda.reset_peak_memory_stats()
+	dia.reset_launches()
+	t0 = time.perf_counter()
+	est = ptt.hutch(M, batch=PROBES, converge="count", count=PROBES, seed=42)
+	torch.cuda.synchronize()
+	wall = time.perf_counter() - t0
+	launches, scalar = dict(_common.LAUNCHES), dict(_common.SCALAR_LAUNCHES)
+	exact = exact_logdet(n)
+	rel = abs(est - exact) / abs(exact)
+	emit({"phase": "cgs_window", "part": "orth5_logdet", "n": n, "probes": nv, "orth": ncv, "reorth_passes": passes,
+		"estimate": est, "exact": exact, "rel_err": rel, "wall_s": wall, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+		"launches": launches, "scalar_launches": scalar})
+	if not rel < 0.05:
+		raise AssertionError(f"orth 5 logdet rel err {rel} at n={n}")
+	want = {"cgs_window": DEG, "lanczos_dia_step": DEG, "lanczos_dia_residual": 0}
+	if any(launches[k] != c for k, c in want.items()) or scalar["cgs_window"] != 0:
+		raise AssertionError(f"the orth 5 logdet launched {launches} ({scalar} scalar), expected {want} and no scalar cgs_window")
+	del op, M
+	torch.cuda.empty_cache()
+
+	g = torch.Generator(device=dev)
+	g.manual_seed(CGS["seed"])
+	Q = torch.randn((ncv, nv, n), generator=g, device=dev)
+	Q.div_(torch.linalg.vector_norm(Q, dim=-1, keepdim=True))
+	v0 = torch.randn((nv, n), generator=g, device=dev)
+	alpha = torch.randn(nv, generator=g, device=dev)
+	window = cgs.CgsWindow(Q)
+	out = {}
+	for j in CGS["steps"]:
+		mask, slot = cgs.slot_mask(j, ncv, ncv), j % ncv
+		got_v, want_v = v0.clone(), v0.clone()
+		before, scalar_before = _common.LAUNCHES["cgs_window"], _common.SCALAR_LAUNCHES["cgs_window"]
+		got = window(got_v, mask, passes, alpha, q_slot=slot)
+		torch.cuda.synchronize()
+		counted = (_common.LAUNCHES["cgs_window"] - before, _common.SCALAR_LAUNCHES["cgs_window"] - scalar_before)
+		want = cgs.cgs_window_ref(want_v, Q, mask, passes, alpha, Q[slot])
+		err, rel_v = _rel_err(torch, got_v, want_v)
+		rel_sq = float(((got - want).abs() / want).max())
+		del want_v
+		ms, plain_ms = _timed_pair(
+			torch, lambda: window(got_v, mask, passes, alpha, q_slot=slot),
+			lambda: cgs.cgs_window_ref(got_v, Q, mask, passes, alpha, Q[slot]), CGS["reps"],
+		)
+		s = bin(mask).count("1")
+		bytes_ = (3 * s + 6) * nv * n * 4
+		b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+		row = {"step": j, "slots": s, "max_abs_err": err, "rel_err": rel_v, "sq_rel_err": rel_sq, "tol": STENCIL_TOL["float32"],
+			"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "hbm", "share_of_bound": b_ms / ms, "GBps": bytes_ / ms / 1e6,
+			"library_ms": None, "chain_launches": counted[0], "chain_scalar_launches": counted[1]}
+		emit({"phase": "cgs_window", "part": "chain", "n": n, "probes": nv, "ncv": ncv, "reorth_passes": passes, **row})
+		if not (rel_v <= STENCIL_TOL["float32"] and rel_sq <= STENCIL_TOL["float32"] and counted == (1, 0)):
+			raise AssertionError(f"the CGS window's chain at step {j}: {row}")
+		out.update(row if j == CGS["steps"][0] else {f"partial_{k}": v for k, v in row.items()})
+		del got_v
+	del Q, v0, window
+	torch.cuda.empty_cache()
+	return launches["cgs_window"], out
+
+
 def main() -> None:
 	import torch
 
@@ -4561,6 +4655,7 @@ def main() -> None:
 
 	kernels = check_kernels(torch, dia, dev)
 	kernels["lanczos_dia_round"] = {}  # bfloat16 only: its numbers come from phase 24
+	kernels["cgs_window"] = {}  # its numbers come from phase 28
 	for k, v in check_padded_kernels(torch, dia, dev).items():
 		kernels.setdefault(k, {}).update(v)
 	flag = flagship(torch, ptt, dia, dev, N_FLAGSHIP, reps=5)
@@ -4600,7 +4695,7 @@ def main() -> None:
 	for k in KERNELS:
 		kernels[k].update({"prep_launches": prep.get(k, 0), "eig_launches": eig.get(k, 0), "gram_launches": gram.get(k, 0)})
 		phases_16_18 = kernels[k]["prep_launches"] + kernels[k]["eig_launches"] + kernels[k]["gram_launches"]
-		if k not in SHARDED_ONLY + BF16_ONLY and phases_16_18 < 1:
+		if k not in SHARDED_ONLY + BF16_ONLY + REORTH_ONLY and phases_16_18 < 1:
 			raise AssertionError(f"{k} launched no time in phases 16-18")
 	torch.cuda.empty_cache()
 	rec = recipes_phase(torch, ptt, dev, X, fro2)
@@ -4661,6 +4756,11 @@ def main() -> None:
 	con = contract(torch, ptt, dev)
 	for k in KERNELS:
 		kernels[k]["contract_launches"] = con.get(k, 0)
+	torch.cuda.empty_cache()
+
+	# Phase 28: the CGS window's chain at the re-orthogonalised cell's shape.
+	window_launches, numbers = cgs_window_phase(torch, ptt, dev)
+	kernels["cgs_window"].update(numbers)
 
 	launches = {
 		"dia_stencil_t": trace["launches"]["dia_stencil_t"],
@@ -4670,6 +4770,7 @@ def main() -> None:
 		"lanczos_dia_round": bf16_flag["lanczos_dia_round"],  # phase 24 (b): the 500k full-bf16 flagship
 		"bsr_spmm": bsr_launches,
 		"dia_stencil": dia_launches,
+		"cgs_window": window_launches,  # phase 28 (a): the orth 5 logdet at 10M
 	}
 	emit({"kernels": [
 		{"name": k, "route": "cuda", "source": SOURCE[k], "replaces": REPLACES[k], "launches": launches[k], **kernels[k]}

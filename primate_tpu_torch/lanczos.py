@@ -18,9 +18,11 @@ step) takes ``op.lanczos_round_step`` a step: on a DIA operator on the card pass
 instantiation (``w`` and α in float32) and the round pair (β', the done flags and ``q_next``
 rounded to bf16), three kernels; on any other operator ``op.lanczos_step`` and the same
 arithmetic as PyTorch ops. With ``orth>0`` or ``selective=True``, each step calls ``op.lanczos_step(q_cur, q_prev, β)``
-(on a DIA operator pass A) and the rest (``v −= α·q``, the CGS window, β = ‖v‖, the
-done flags and ``q_next``) stays in PyTorch. Selective re-orthogonalisation reads one flag
-from the device per step, where the JAX package branches by ``lax.cond``.
+(on a DIA operator pass A), then the CGS window (:class:`~primate_tpu_torch.ops.cgs.CgsWindow`:
+``v −= α·q``, the passes against the valid slots, Σ|v|²; on the card a chain of kernels that reads
+each valid slot once a pass, on the CPU PyTorch ops); β, the done flags and ``q_next = v / β`` stay
+PyTorch ops. Selective re-orthogonalisation reads one flag from the device per step, where the JAX
+package branches by ``lax.cond``.
 
 Reverse mode (``jax.grad`` through the JAX package's ``lax.scan``): while grad mode is on and
 the start block, the coefficients or a tensor of the operator requires a gradient, the sweep runs
@@ -53,7 +55,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .operators.base import WholeRows
+from .ops.cgs import CgsWindow, slot_mask
 from .ops.dia import DIV_CUR, DONE, lanczos_state, row_sq_norm
 from .random import real_dtype
 from .tridiag import eigh_tridiag, eigvalsh_tridiag
@@ -88,6 +90,24 @@ def _validate_params(n: int, deg: int, orth: int, ncv: Optional[int], return_bas
 	return deg, orth, ncv
 
 
+# The dtypes a sweep may keep its basis window in (``basis_dtype``): a real sweep's any real floating width, a
+# complex sweep's either complex width. A real window would drop a complex basis's imaginary parts, and a complex
+# one cannot update a real carry; the CGS window's kernels (``ops.cgs.COMBOS``) take every pair these allow.
+_REAL_BASES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
+_COMPLEX_BASES = (torch.complex64, torch.complex128)
+
+
+def _basis_dtype(basis_dtype: Optional[torch.dtype], dtype: torch.dtype) -> torch.dtype:
+	"""The basis window's dtype: ``basis_dtype``, by default the sweep's ``dtype``. ``TypeError`` where it is not of
+	the sweep's kind (:data:`_REAL_BASES` for a real sweep, :data:`_COMPLEX_BASES` for a complex one), on every device."""
+	b_dtype = basis_dtype or dtype
+	takes = _COMPLEX_BASES if dtype.is_complex else _REAL_BASES
+	if b_dtype not in takes:
+		names = ", ".join(str(t).replace("torch.", "") for t in takes)
+		raise TypeError(f"basis_dtype must be one of {names} for a {str(dtype).replace('torch.', '')} sweep; got {b_dtype}")
+	return b_dtype
+
+
 def lanczos_block_op(
 	op,
 	V0: torch.Tensor,
@@ -108,7 +128,10 @@ def lanczos_block_op(
 	``ncv`` is the basis window's length; the last ``orth`` basis vectors in it
 	are projected out of each new vector (``reorth_passes`` CGS passes). The
 	window is kept when ``return_basis``, ``orth > 0`` or ``selective``, in
-	``basis_dtype`` (default: ``V0``'s dtype). ``coeffs (deg, ..., nv)``
+	``basis_dtype`` (default: ``V0``'s dtype): float16, bfloat16, float32 or float64
+	for a real sweep, complex64 or complex128 for a complex one; any other raises
+	``TypeError`` on every device (the JAX package casts to any, and a real window
+	would drop a complex basis's imaginary parts). ``coeffs (deg, ..., nv)``
 	accumulates ``y = Σ_t coeffs[t]·q_t`` in O(n·nv) memory: the second pass of
 	two-pass f(A)v. ``selective=True`` replaces the fixed window by ω-monitored
 	partial re-orthogonalisation (Simon 1984) against every written slot; use
@@ -169,6 +192,7 @@ def _lanczos_core(
 ) -> LanczosOutput:
 	nv, n = V0t.shape
 	dtype, device = V0t.dtype, V0t.device
+	b_dtype = _basis_dtype(basis_dtype, dtype)
 	# The rows the sweep carries and how it finishes a sum over n: the whole block and local sums,
 	# the block in a padded carry (phys), or a row-sharded operator's rank's rows (and probe slice),
 	# each sum over its op group.
@@ -176,11 +200,10 @@ def _lanczos_core(
 	if _needs_grad(op, V0t, coeffs):
 		return _lanczos_core_ad(
 			op, V0t, deg=deg, ncv=ncv, orth=orth, rtol=rtol, reorth_passes=reorth_passes, return_basis=return_basis,
-			coeffs=coeffs, basis_dtype=basis_dtype, selective=selective,
+			coeffs=coeffs, basis_dtype=b_dtype, selective=selective,
 		)
 	acc = torch.promote_types(dtype, torch.float32)  # f32 accumulation for bf16 storage
 	r_acc = real_dtype(acc)  # α, β and the sweep's state: real for Hermitian operators too
-	b_dtype = basis_dtype or dtype
 	keep_window = return_basis or orth > 0 or selective
 	rows, reduce = layout.rows, layout.reduce_rows
 
@@ -249,21 +272,15 @@ def _lanczos_core(
 				write_slot(j, rows(q_cur).to(b_dtype), state.scal[DONE] == 0)
 		return output()
 
-	# Re-orthogonalisation: each step is ``op.lanczos_step`` and PyTorch ops.
-	slot_ids = torch.arange(ncv, device=device)
-
-	def _cgs_window(v, valid) -> None:
-		# In place on v (the rank's rows of a fresh block). Broadcast products and sums
-		# over n, not matmuls: no contraction of this sweep goes through torch.matmul, so
-		# TF32 never comes into it. A later change that puts a matmul here must pin
-		# float32 precision.
-		Q_bra = Q_win.conj() if Q_win.is_complex() else Q_win
-		for _ in range(max(1, reorth_passes)):
-			proj = reduce(torch.sum(Q_bra * v[None, :, :], dim=2)) * valid[:, None]
-			v.sub_(torch.sum(Q_win * proj[:, :, None].to(acc), dim=0))
-
+	# Re-orthogonalisation: each step is ``op.lanczos_step``, then the rest of the step up to β (``v −= α·q``,
+	# the CGS window, Σ|v|²) in place on the rank's rows of the fresh block v: on the card a chain of kernels,
+	# on the CPU PyTorch ops (``ops.cgs``). The window's slot j % ncv holds q_j exactly where it stores the
+	# sweep's dtype and is not a returned basis (which keeps a finished probe's last vector): the α step reads
+	# q_j there (the slot is named, not handed as rows).
+	window = CgsWindow(Q_win, reduce)
+	q_in_window = b_dtype == dtype and not return_basis
 	if selective:
-		omega = _Omega(nv_l, ncv, n, r_acc, device, reduce)
+		omega = _Omega(nv_l, ncv, n, r_acc, device)
 
 	q_prev, q_cur = torch.zeros_like(q0), q0
 	beta_j = torch.zeros(nv_l, dtype=r_acc, device=device)
@@ -272,17 +289,20 @@ def _lanczos_core(
 		if y is not None:
 			y.addcmul_(coeffs[j][..., None], rows(q_cur).to(acc))
 		v, alpha_j = op.lanczos_step(q_cur, q_prev, beta_j, layout=layout)
-		v.addcmul_(alpha_j[:, None], q_cur.to(acc), value=-1)  # in place: v is a fresh tensor
+		# The chain's kernels read v's rows and α packed: a plain step hands v column-major where matmat_t is a
+		# transpose around matmat, and a complex α as the real view of a complex sum.
+		v, alpha_j = v.contiguous(), alpha_j.contiguous()
 		v_rows = rows(v)
+		q_j, slot_j = (None, j % ncv) if q_in_window else (rows(q_cur), -1)
 		if selective:
-			trigger = omega.breach(j, alpha_j, beta_j, v_rows, done)  # one device read a step
+			sq = window(v_rows, 0, reorth_passes, alpha_j, q_j, slot_j)
+			trigger = omega.breach(j, alpha_j, beta_j, sq, done)  # one device read a step
 			if trigger:
-				_cgs_window(v_rows, (((j - slot_ids) % ncv) <= j).to(r_acc))
+				sq = window(v_rows, slot_mask(j, orth, ncv, selective=True), reorth_passes)
 			omega.advance(j, trigger)
-		elif orth > 0:
-			age = (j - slot_ids) % ncv
-			_cgs_window(v_rows, ((age < orth) & (age <= j)).to(r_acc))
-		beta_next = torch.sqrt(reduce(row_sq_norm(v_rows)))
+		else:
+			sq = window(v_rows, slot_mask(j, orth, ncv), reorth_passes, alpha_j, q_j, slot_j)
+		beta_next = torch.sqrt(sq)
 		newly_done = beta_next < residual_tol
 		alphas[j] = torch.where(done, 0.0, alpha_j)
 		betas[j] = torch.where(done, 0.0, beta_next)
@@ -301,9 +321,9 @@ class _Omega:
 	vector and the next against every written slot. It decides only when to clean, so the
 	out-of-place sweep feeds it detached values."""
 
-	def __init__(self, nv: int, ncv: int, n: int, r_acc: torch.dtype, device, reduce=WholeRows.reduce_rows):
+	def __init__(self, nv: int, ncv: int, n: int, r_acc: torch.dtype, device):
 		eps = torch.finfo(r_acc).eps
-		self.ncv, self.r_acc, self.reduce = ncv, r_acc, reduce
+		self.ncv, self.r_acc = ncv, r_acc
 		self.eps_noise, self.sel_tol = eps * float(np.sqrt(n)), float(np.sqrt(eps))
 		self.slot_ids = torch.arange(ncv, device=device)
 		self.om_pp = torch.zeros((nv, ncv), dtype=r_acc, device=device)
@@ -313,11 +333,12 @@ class _Omega:
 		self.b_win = torch.zeros((nv, ncv), dtype=r_acc, device=device)
 		self.force, self.triggers = False, []
 
-	def breach(self, j: int, alpha_j, beta_j, v, done) -> bool:
-		"""Advance ω to level j + 1 from step j's α, β and residual ``v``; whether to clean ``v``."""
+	def breach(self, j: int, alpha_j, beta_j, sq, done) -> bool:
+		"""Advance ω to level j + 1 from step j's α, β and ``sq``, the residual's Σ|v|² finished over n;
+		whether to clean the residual."""
 		ncv, r_acc, eps_noise = self.ncv, self.r_acc, self.eps_noise
 		om_p, om_pp, a_win, b_win = self.om_p, self.om_pp, self.a_win, self.b_win
-		beta_est = torch.sqrt(self.reduce(row_sq_norm(v)))
+		beta_est = torch.sqrt(sq)
 		slot_j = j % ncv
 		a_win[:, slot_j] = alpha_j
 		b_win[:, slot_j] = beta_j
@@ -415,7 +436,7 @@ def _lanczos_core_ad(
 		alpha_j = torch.sum(v * qc, dim=1)
 		v = v - alpha_j[:, None] * qc
 		if selective:
-			trigger = omega.breach(j, alpha_j.detach(), beta_j.detach(), v.detach(), done)
+			trigger = omega.breach(j, alpha_j.detach(), beta_j.detach(), row_sq_norm(v.detach()), done)
 			if trigger:
 				v = cgs(v, [s for s in range(ncv) if (j - s) % ncv <= j])
 			omega.advance(j, trigger)

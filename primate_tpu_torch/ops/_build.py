@@ -113,7 +113,7 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 		},
 		# blocks, indptr, indices, V, out, n_brow, bm, bn, m, k, n_out, vec, stream
 		"bsr_spmm": {"bsr_spmm": [p, p, p, p, p, i64, i32, i32, i64, i64, i64, i32, p]},
-	}[stem]
+	}.get(stem, {})
 	for name, args in sigs.items():
 		# The two DIA stencils, the BSR SpMM and the two step passes also have complex64 /
 		# complex128 entry points; the stencils, the SpMM and pass A have bfloat16 ones, and the
@@ -135,6 +135,18 @@ def _declare(lib: ctypes.CDLL, stem: str) -> None:
 		if hasattr(lib, "lanczos_round_blocks"):  # the bf16 round pair's grid; a build of an earlier source lacks it
 			lib.lanczos_round_blocks.argtypes = [i64, i64]  # nv, n
 			lib.lanczos_round_blocks.restype = i64
+	if stem == "cgs_window":
+		from .cgs import COMBOS
+
+		for combo in COMBOS:
+			# v, ld_v, q, ld_q, alpha, win, mask, top, ncv, proj_in, proj_out, sq_out, partial, ticket, nv, n, gx, vec,
+			# stream
+			fn = getattr(lib, f"cgs_window_{combo}")
+			fn.argtypes = [p, i64, p, i64, p, p, ctypes.c_uint64, i64, i64, p, p, p, p, p, i64, i64, i64, i32, p]
+			fn.restype = i32
+			blocks = getattr(lib, f"cgs_window_blocks_{combo}")
+			blocks.argtypes = [i64, i64]  # nv, n
+			blocks.restype = i64
 	if hasattr(lib, "bsr_spmm_l2_path"):
 		lib.bsr_spmm_l2_path.argtypes = [i32, i32, i64, i64]  # bm, bn, m, k: whether complex128 takes its L2 path
 		lib.bsr_spmm_l2_path.restype = i32

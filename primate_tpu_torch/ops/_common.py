@@ -6,10 +6,11 @@ __all__ = ["LAUNCHES", "BF16_LAUNCHES", "LAYOUT_COPIES", "SCALAR_LAUNCHES", "L2_
 
 # Kernel launches per wrapper since the last `reset_launches()`. Each wrapper adds
 # one where it launches its kernel and nowhere else; its plain version counts nothing.
-# The round pair (``lanczos_dia_round``, two kernels that finish a bfloat16 step) counts one a pair.
+# The round pair (``lanczos_dia_round``, two kernels that finish a bfloat16 step) counts one a pair, and
+# the CGS window (``cgs_window``, the chain that ends a re-orthogonalised step) one a step.
 LAUNCHES = {
 	"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "lanczos_dia_advance": 0, "lanczos_dia_round": 0,
-	"dia_stencil": 0, "bsr_spmm": 0,
+	"dia_stencil": 0, "bsr_spmm": 0, "cgs_window": 0,
 }
 # The launches of LAUNCHES that ran a kernel's bfloat16 instantiation.
 BF16_LAUNCHES = {"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_round": 0, "dia_stencil": 0, "bsr_spmm": 0}
@@ -21,7 +22,7 @@ LAYOUT_COPIES = {"bsr_spmm": 0, "csr_spmm": 0}
 # allow its 16-byte loads and stores (see `vector_ok`).
 SCALAR_LAUNCHES = {
 	"dia_stencil_t": 0, "lanczos_dia_step": 0, "lanczos_dia_residual": 0, "lanczos_dia_advance": 0, "lanczos_dia_round": 0,
-	"dia_stencil": 0, "bsr_spmm": 0,
+	"dia_stencil": 0, "bsr_spmm": 0, "cgs_window": 0,
 }
 # Launches of ``bsr_spmm`` that took its L2 path (complex128, 8×8 tiles, V small enough for the L2).
 L2_LAUNCHES = {"bsr_spmm": 0}

@@ -15,7 +15,7 @@ density of states, the β sweep of ``tr e^{−βH}`` and the local density of st
 calls of its phases 17 and 18: LOBPCG and thick-restart ``eigsh`` and ``block_slq_trace`` on
 the mesh, ``filtered_eigsh`` on the grid Laplacian, ``svds`` and the nuclear norm (the
 ``AAᵀ`` Gram side) of the rectangular data operator; and three recipes of its phase 19 at their
-defaults: ``recipes.logdet`` (``orth=5``: pass A and the PyTorch re-orthogonalisation window) and
+defaults: ``recipes.logdet`` (``orth=5``: pass A and the CGS window's chain of kernels) and
 ``recipes.trace_bounds`` (full re-orthogonalisation) on the mesh, and
 ``recipes.trace_inv(method="cg", precond="jacobi")`` on ``separated_spectrum``
 (``--recipes`` traces these three alone). ``--grad`` traces phase 20's first call alone: the

@@ -14,9 +14,9 @@ import pytest
 import scipy.sparse as sps
 import torch
 
-from primate_tpu_torch import BSROperator, DIAOperator, MatrixFunction, hutch, lanczos_block_op, xtrace
-from primate_tpu_torch.operators.base import LinearOperator
-from primate_tpu_torch.ops import _common, bsr, dia
+from primate_tpu_torch import BSROperator, CSROperator, DIAOperator, MatrixFunction, hutch, lanczos_block_op, xtrace
+from primate_tpu_torch.operators.base import FunctionOperator, LinearOperator
+from primate_tpu_torch.ops import _common, bsr, cgs, dia
 from primate_tpu_torch.ops import autograd as ptt_autograd
 from primate_tpu_torch.random import real_dtype
 
@@ -310,8 +310,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 		dia.lanczos_dia_step(bands, offs.cpu(), q_cur, q_prev, beta)
 
 
-def test_slq_on_the_card_matches_the_cpu_port(cuda):
-	"""The whole slice, f64, the same numpy probes on both devices."""
+@pytest.mark.parametrize("orth", [0, 5])
+def test_slq_on_the_card_matches_the_cpu_port(cuda, orth):
+	"""The whole slice, f64, the same numpy probes on both devices: without re-orthogonalisation passes
+	A and B a step, at ``orth = 5`` pass A and the CGS window's chain a step."""
 	n = 5000
 	L = sps.diags([-np.ones(n - 1), 3.0 * np.ones(n), -np.ones(n - 1)], [-1, 0, 1]).tocsr()
 
@@ -319,10 +321,13 @@ def test_slq_on_the_card_matches_the_cpu_port(cuda):
 		rng = np.random.default_rng(3)
 		return lambda size: rng.choice([-1.0, 1.0], size=size)
 
-	kw = dict(fun="log", deg=20, orth=0)
+	kw = dict(fun="log", deg=20, orth=orth)
 	dia.reset_launches()
 	got = hutch(MatrixFunction(DIAOperator.from_scipy(L, device=cuda), **kw), batch=16, converge="count", count=32, pdf=sampler())
-	assert dia.LAUNCHES["lanczos_dia_step"] == dia.LAUNCHES["lanczos_dia_residual"] == 20 * 2
+	steps = 20 * 2
+	assert dia.LAUNCHES["lanczos_dia_step"] == steps
+	assert (dia.LAUNCHES["lanczos_dia_residual"], dia.LAUNCHES["cgs_window"]) == ((steps, 0) if orth == 0 else (0, steps))
+	assert _common.SCALAR_LAUNCHES["cgs_window"] == 0
 	want = hutch(MatrixFunction(DIAOperator.from_scipy(L, device="cpu"), **kw), batch=16, converge="count", count=32, pdf=sampler())
 	np.testing.assert_allclose(got, want, rtol=1e-10)
 
@@ -1728,3 +1733,210 @@ def test_complex128_bsr_spmm_l2_path_hub_row_and_cell(cuda):
 		scale = bsr.bsr_spmm_ref(bl.abs(), ip, ix, V.abs(), n) if label == "hub" else want
 		torch.cuda.synchronize()
 		assert float((got - want).abs().max()) <= CPLX_TOL[torch.complex128] * float(scale.abs().max()), label
+
+
+# The CGS window's chain (ops.cgs, csrc/cgs_window.cu) against its plain version, the PyTorch ops the sweep ran,
+# for every (carry, window, q_cur) dtype the kernels take (ops.cgs.COMBOS): the window in the sweep's dtype, a
+# bfloat16 window summed in float32 (a float32 sweep's basis_dtype, and a bfloat16 sweep's window and q_cur), a
+# float16 window summed in float32 (a real sweep's basis_dtype), and a window of another width (basis_dtype). Tolerance, by the carry's dtype, max |Δv| over max |v| and the relative
+# error of Σ|v|²: the dots, the slot sum of the update and Σ|v|² are sums in another order than PyTorch's;
+# everything else rounds as PyTorch rounds it: float32 and complex64 carries 1e-5, float64 and complex128 1e-12, a
+# few units of their rounding over n = 4,096 and three passes. The α step is held bit for bit, and two runs of
+# the chain give the same bits.
+F16, F32, F64, C64, C128 = torch.float16, torch.float32, torch.float64, torch.complex64, torch.complex128
+CGS_CASES = {
+	"float32": (F32, F32, F32), "float64": (F64, F64, F64), "complex64": (C64, C64, C64), "complex128": (C128, C128, C128),
+	"bf16_window": (F32, BF16, F32), "bf16_sweep": (F32, BF16, BF16), "bf16_sweep_f32_window": (F32, F32, BF16),
+	"f32_f64_window": (F32, F64, F32), "bf16_sweep_f64_window": (F32, F64, BF16), "f64_f32_window": (F64, F32, F64),
+	"f64_bf16_window": (F64, BF16, F64), "c64_c128_window": (C64, C128, C64), "c128_c64_window": (C128, C64, C128),
+	"f16_window": (F32, F16, F32), "bf16_sweep_f16_window": (F32, F16, BF16), "f64_f16_window": (F64, F16, F64),
+}
+CGS_TOL = {F32: 1e-5, F64: 1e-12, C64: 1e-5, C128: 1e-12}
+
+
+def _cgs_inputs(dev, case, ncv, nv=6, n=4096, seed=0):
+	carry, win, qdt = CGS_CASES[case]
+	g = torch.Generator(device=dev)
+	g.manual_seed(seed)
+	unit = lambda X: X / torch.linalg.vector_norm(X, dim=-1, keepdim=True)  # noqa: E731
+	Q = unit(torch.randn((ncv, nv, n), generator=g, device=dev, dtype=carry)).to(win)
+	v = torch.randn((nv, n), generator=g, device=dev, dtype=carry)
+	alpha = torch.randn(nv, generator=g, device=dev, dtype=real_dtype(carry))
+	q = unit(torch.randn((nv, n), generator=g, device=dev, dtype=carry)).to(qdt)
+	return Q, v, alpha, q
+
+
+def _cgs_close(got_v, want_v, got_sq, want_sq):
+	torch.cuda.synchronize()
+	tol = CGS_TOL[want_v.dtype]
+	assert float((got_v - want_v).abs().max()) <= tol * float(want_v.abs().max())
+	assert float(((got_sq - want_sq).abs() / want_sq).max()) <= tol
+
+
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("ncv", [2, 5, 20])
+@pytest.mark.parametrize("case", list(CGS_CASES))
+def test_cgs_window_chain_matches_the_pytorch_window(cuda, case, ncv, passes):
+	"""Every step j of a window that fills (orth = min(5, ncv) and the full window: the partial masks), and
+	the selective mask, with q_cur taken from the window's slot where it is stored in q_cur's dtype (else
+	from q_cur's rows), and the continuation without the α step that selective re-orthogonalisation runs;
+	on the vector path, one launch counted a step."""
+	Q, v0, alpha, q_rows = _cgs_inputs(cuda, case, ncv)
+	window = cgs.CgsWindow(Q)
+	before, scalar = _common.LAUNCHES["cgs_window"], _common.SCALAR_LAUNCHES["cgs_window"]
+	calls = 0
+	for j in range(ncv + 2):
+		slot = j % ncv if Q.dtype == q_rows.dtype else -1
+		q = Q[slot] if slot >= 0 else q_rows
+		for mask in (cgs.slot_mask(j, min(5, ncv), ncv), cgs.slot_mask(j, ncv, ncv), cgs.slot_mask(j, 0, ncv, selective=True)):
+			got_v, want_v = v0.clone(), v0.clone()
+			got = window(got_v, mask, passes, alpha, None if slot >= 0 else q, slot)
+			want = cgs.cgs_window_ref(want_v, Q, mask, passes, alpha, q)
+			_cgs_close(got_v, want_v, got, want)
+			got, want = window(got_v, mask, passes), cgs.cgs_window_ref(want_v, Q, mask, passes)
+			_cgs_close(got_v, want_v, got, want)
+			calls += 1
+	assert _common.LAUNCHES["cgs_window"] == before + calls and _common.SCALAR_LAUNCHES["cgs_window"] == scalar
+
+
+@pytest.mark.parametrize("case", list(CGS_CASES))
+def test_cgs_window_alpha_step_is_bit_for_bit(cuda, case):
+	"""``v −= α·q`` equals ``addcmul_`` bit for bit: alone (q from q_cur's rows, with Σ|v|²), and in the first
+	kernel of the chain with q taken from the window's slot where it is stored in q_cur's dtype (its dots then
+	within the tolerance of the sums)."""
+	Q, v0, alpha, q = _cgs_inputs(cuda, case, 5)
+	window = cgs.CgsWindow(Q)
+	want_v = v0.addcmul(alpha[:, None], q.to(v0.dtype), value=-1)
+	got_v = v0.clone()
+	sq = window(got_v, 0, 2, alpha, q)
+	torch.cuda.synchronize()
+	assert torch.equal(got_v, want_v)
+	assert float(((sq - dia.row_sq_norm(want_v)).abs() / sq).max()) <= CGS_TOL[v0.dtype]
+	if Q.dtype == q.dtype:
+		slot = 3
+		want_v = v0.addcmul(alpha[:, None], Q[slot].to(v0.dtype), value=-1)
+		got_v = v0.clone()
+		launch, vec = window._launcher(got_v, alpha, Q[slot], slot)
+		proj = torch.full((5, Q.shape[1]), float("nan"), dtype=torch.promote_types(v0.dtype, Q.dtype), device=cuda)
+		launch(cgs.slot_groups(cgs.slot_mask(4, 5, 5), 5, slot)[0], alpha, proj_out=proj)
+		torch.cuda.synchronize()
+		assert vec and torch.equal(got_v, want_v)
+		want = torch.sum((Q.conj() if Q.is_complex() else Q).to(proj.dtype) * want_v[None], dim=2)
+		assert float((proj - want).abs().max()) <= CGS_TOL[v0.dtype] * float(want.abs().max()) * 10
+
+
+@pytest.mark.parametrize("case", ["float32", "complex128", "bf16_sweep"])
+def test_cgs_window_runs_twice_to_the_same_bits(cuda, case):
+	"""The sums across blocks are finished in a fixed order: the same inputs give the same bits, with a
+	window of more slots than one launch holds too (the split chain)."""
+	for ncv in (5, 20):
+		Q, v0, alpha, q = _cgs_inputs(cuda, case, ncv, seed=ncv)
+		window = cgs.CgsWindow(Q)
+		mask = cgs.slot_mask(ncv + 1, ncv, ncv)
+		runs = []
+		for _ in range(2):
+			v = v0.clone()
+			runs.append((v, window(v, mask, 2, alpha, q)))
+		torch.cuda.synchronize()
+		assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("case", list(CGS_CASES))
+def test_cgs_window_scalar_path(cuda, case):
+	"""A length that is no whole number of 16-byte vectors (n = 4,001) and a carry that starts one element into
+	its buffer take the element loads, counted in ``SCALAR_LAUNCHES`` (a complex128 carry keeps its vectors where every
+	operand's do); the same tolerance."""
+	for n, lead in ((4001, 0), (4096, 1)):
+		Q, v0, alpha, q = _cgs_inputs(cuda, case, 5, n=n, seed=n + lead)
+		# A thread's rows are whole 16-byte vectors of every operand: a length or a start that is no whole number of
+		# them takes the element loads (a complex128 carry one element into its buffer still starts on a vector).
+		elems = max(16 // t.element_size() for t in (v0, Q, q))
+		scalar_path = n % elems != 0 or lead * v0.element_size() % 16 != 0
+		buf = torch.zeros(lead + v0.numel(), dtype=v0.dtype, device=cuda)
+		got_v = buf[lead:].view(v0.shape)
+		got_v.copy_(v0)
+		want_v = v0.clone()
+		window = cgs.CgsWindow(Q)
+		mask = cgs.slot_mask(6, 5, 5)
+		scalar = _common.SCALAR_LAUNCHES["cgs_window"]
+		got = window(got_v, mask, 2, alpha, q)
+		want = cgs.cgs_window_ref(want_v, Q, mask, 2, alpha, q)
+		_cgs_close(got_v, want_v, got, want)
+		assert _common.SCALAR_LAUNCHES["cgs_window"] == scalar + scalar_path
+
+
+@pytest.mark.parametrize("case", ["float32", "float64", "bf16_sweep"])
+def test_cgs_window_on_a_padded_carry(cuda, case):
+	"""The rows of a padded carry (``dia.carry_spec``: ``lo`` and ``ld`` whole 128-byte lines) at their row
+	stride, no copy: the vector path, the rows as the plain version's, the margins left as they were."""
+	nv, n = 6, 4096
+	Q, v0, alpha, q = _cgs_inputs(cuda, case, 5, nv=nv, n=n, seed=7)
+	spec = dia.carry_spec(n, 3, v0.element_size())
+	carry = torch.full((nv, spec.ld), 7.0, dtype=v0.dtype, device=cuda)
+	rows = spec.rows(carry)
+	rows.copy_(v0)
+	assert rows.stride(0) == spec.ld != n
+	want_v = v0.clone()
+	window = cgs.CgsWindow(Q)
+	mask = cgs.slot_mask(6, 5, 5)
+	scalar = _common.SCALAR_LAUNCHES["cgs_window"]
+	got = window(rows, mask, 2, alpha, q)
+	want = cgs.cgs_window_ref(want_v, Q, mask, 2, alpha, q)
+	_cgs_close(rows, want_v, got, want)
+	assert _common.SCALAR_LAUNCHES["cgs_window"] == scalar
+	assert bool((carry[:, : spec.lo] == 7).all()) and bool((carry[:, spec.lo + n :] == 7).all())
+
+
+# Re-orthogonalised sweeps on the card against the same sweep on the CPU (the PyTorch window): α and β,
+# relative to max |α|, |β|. (dtype, keywords, tolerance[, operator]; a DIA operator where none is named: pass A a
+# step; a CSR one: the plain step, whose complex α is the real view of a complex sum; a FunctionOperator around the
+# DIA apply: the plain step, whose v is column-major).
+REORTH_SWEEPS = {
+	"f64_orth5": (F64, dict(orth=5, ncv=5), 1e-10),
+	"f64_full20": (F64, dict(orth=20, ncv=20, reorth_passes=3), 1e-10),
+	"f64_basis": (F64, dict(orth=5, ncv=20, return_basis=True), 1e-10),
+	"f64_selective": (F64, dict(ncv=20, selective=True), 1e-10),
+	"f32_orth5": (F32, dict(orth=5, ncv=5), 1e-4),
+	"f32_phys": (F32, dict(orth=5, ncv=5, phys=True), 1e-4),
+	"f32_bf16_basis": (F32, dict(orth=5, ncv=5, basis_dtype=torch.bfloat16), 1e-4),
+	"f32_f16_basis": (F32, dict(orth=5, ncv=5, basis_dtype=torch.float16), 1e-4),
+	"f64_f16_basis": (F64, dict(orth=5, ncv=5, basis_dtype=torch.float16), 1e-10),
+	"c128_orth5": (C128, dict(orth=5, ncv=5), 1e-10),
+	"c64_orth5": (C64, dict(orth=5, ncv=5), 1e-4),
+	"f32_csr_orth5": (F32, dict(orth=5, ncv=5), 1e-4, CSROperator.from_scipy),
+	"c64_csr_orth5": (C64, dict(orth=5, ncv=5), 1e-4, CSROperator.from_scipy),
+	"c128_csr_selective": (C128, dict(ncv=20, selective=True), 1e-10, CSROperator.from_scipy),
+	"f32_function_orth5": (F32, dict(orth=5, ncv=5), 1e-4, lambda L, **kw: _function_op(DIAOperator.from_scipy(L, **kw))),
+	"c64_function_basis": (C64, dict(orth=5, ncv=5, return_basis=True), 1e-4, lambda L, **kw: _function_op(DIAOperator.from_scipy(L, **kw))),
+}
+
+
+def _function_op(D):
+	"""``D`` seen only through its node-major apply: the plain step, around two transposes."""
+	return FunctionOperator(D.matmat, D.shape, dtype=D.dtype, device=D.device)
+
+
+@pytest.mark.parametrize("name", list(REORTH_SWEEPS))
+def test_reorthogonalised_sweep_on_the_card_matches_the_cpu(cuda, name):
+	"""``lanczos_block_op`` at ``orth > 0`` (or selective) on a DIA operator (pass A and the chain a step on the
+	card), a CSR one or a FunctionOperator (the plain step and the chain), the same start block; α and β against the
+	CPU sweep's."""
+	dtype, kw, tol, *kind = REORTH_SWEEPS[name]
+	build = kind[0] if kind else DIAOperator.from_scipy
+	n = 3000
+	L = sps.diags([-np.ones(n - 1), 3.0 * np.ones(n), -np.ones(n - 1)], [-1, 0, 1]).tocsr()
+	V0 = torch.from_numpy(np.random.default_rng(5).standard_normal((n, 8)))
+	if dtype.is_complex:
+		L = L.astype(np.complex128)
+		V0 = V0 + 1j * torch.from_numpy(np.random.default_rng(6).standard_normal((n, 8)))
+	outs = []
+	for dev in (cuda, "cpu"):
+		op = build(L, device=dev, dtype=dtype)
+		before = _common.LAUNCHES["cgs_window"]
+		out = lanczos_block_op(op, V0.to(dtype).to(dev), deg=20, **kw)
+		outs.append(out)
+		if dev == cuda:
+			assert _common.LAUNCHES["cgs_window"] == before + 20
+	(a, b), (a_ref, b_ref) = ((o.alphas.cpu(), o.betas.cpu()) for o in outs)
+	assert float((a - a_ref).abs().max()) <= tol * float(a_ref.abs().max())
+	assert float((b - b_ref).abs().max()) <= tol * float(b_ref.abs().max())
