@@ -9,30 +9,37 @@ the faults its cells can have in ``faults(traffic, limit)``.
 """
 
 
-def unchanged_sweep_step(patch) -> None:
-	"""The Lanczos sweep's step (passes A and B) hands back its input vector."""
+def _step_owners() -> tuple:
+	"""The classes whose Lanczos steps an operator of any format runs: DIA's own (the step kernels),
+	and the base class's, which BSR and CSR operators take."""
+	from primate_tpu_torch.operators.base import LinearOperator
 	from primate_tpu_torch.operators.sparse import DIAOperator
 
-	real = DIAOperator.lanczos_sweep_step
+	return DIAOperator, LinearOperator
 
-	def step(self, v_cur, v_prev, state, alpha_out, beta_out, tol, layout=None, **kw):
-		real(self, v_cur, v_prev, state, alpha_out, beta_out, tol, **({"layout": layout} if layout else {}), **kw)
-		return v_cur
 
-	patch(DIAOperator, "lanczos_sweep_step", step)
+def unchanged_sweep_step(patch) -> None:
+	"""The Lanczos sweep's step (passes A and B on a DIA operator) hands back its input vector."""
+	for owner in _step_owners():
+		real = owner.lanczos_sweep_step
+
+		def step(self, v_cur, v_prev, state, alpha_out, beta_out, tol, layout=None, _real=real, **kw):
+			_real(self, v_cur, v_prev, state, alpha_out, beta_out, tol, **({"layout": layout} if layout else {}), **kw)
+			return v_cur
+
+		patch(owner, "lanczos_sweep_step", step)
 
 
 def unchanged_window_step(patch) -> None:
 	"""The re-orthogonalised Lanczos step hands back its input vector."""
-	from primate_tpu_torch.operators.sparse import DIAOperator
+	for owner in _step_owners():
+		real = owner.lanczos_step
 
-	real = DIAOperator.lanczos_step
+		def step(self, q_cur, q_prev, beta, *a, _real=real, **kw):
+			v, alpha = _real(self, q_cur, q_prev, beta, *a, **kw)
+			return q_cur.to(v.dtype).clone(), alpha
 
-	def step(self, q_cur, q_prev, beta, *a, **kw):
-		v, alpha = real(self, q_cur, q_prev, beta, *a, **kw)
-		return q_cur.to(v.dtype).clone(), alpha
-
-	patch(DIAOperator, "lanczos_step", step)
+		patch(owner, "lanczos_step", step)
 
 
 def unchanged_chebyshev_step(patch) -> None:

@@ -3,9 +3,10 @@
 A cell (an entry of ``workloads`` in ``BENCHMARK.json``) names a configuration and a traffic
 file; the harness finds each by that name, and the cell's limits in ``cells/<cell>.json``, the
 call the traffic names in ``calls/<call>.py``, the operator the configuration names in
-``operators/<kind>.py`` and each metric in ``metrics/<metric>.py``. A run builds the operator
-on the device, warms the call up once, repeats it in a closed loop of one caller for the window,
-then checks a sample of the window's answers, drawn from the seed, against the plain reference.
+``operators/<kind>.py`` (built in the configuration's ``format``, by ``FORMATS``) and each metric
+in ``metrics/<metric>.py``. A run builds the operator on the device, warms the call up once,
+repeats it in a closed loop of one caller for the window, then checks a sample of the window's
+answers, drawn from the seed, against the plain reference.
 """
 
 import contextlib
@@ -17,6 +18,7 @@ import time
 import traceback
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -24,6 +26,43 @@ ROOT = Path(__file__).resolve().parent
 REPO = ROOT.parent
 # The warm-up call's index: no window reaches it, so its probes are none of the window's.
 WARMUP_INDEX = 2**32
+
+
+class Format(NamedTuple):
+	"""How the harness builds an operator of one format: the operator module's function, which takes
+	``(params, dtype, device)`` and returns the program's inputs built on the device; the port's
+	constructor, which takes them as they come; and the operator's sizes, from the same inputs, that
+	the metrics find on ``run``."""
+
+	builder: str
+	program: str
+	sizes: Callable[..., dict]
+
+
+# A configuration's ``format`` picks its row here.
+FORMATS = {
+	"dia": Format("bands", "DIAOperator", lambda bands, offsets, shape: dict(
+		n=shape[0], n_d=len(offsets), itemsize=bands.element_size())),
+	"bsr": Format("tiles", "BSROperator", lambda blocks, indices, indptr, shape: dict(
+		n=shape[0], nnzb=blocks.shape[0], bm=blocks.shape[1], bn=blocks.shape[2], itemsize=blocks.element_size())),
+	"csr": Format("entries", "CSROperator", lambda data, indices, indptr, shape: dict(
+		n=shape[0], nnz=data.shape[0], itemsize=data.element_size())),
+}
+
+
+def operator_format(cfg: dict) -> Format:
+	"""The row of ``FORMATS`` that the configuration's ``format`` names."""
+	if cfg.get("format") not in FORMATS:
+		raise KeyError(f"configuration {cfg.get('name')!r} names format {cfg.get('format')!r}; "
+			f"the harness builds {sorted(FORMATS)}")
+	return FORMATS[cfg["format"]]
+
+
+def operator_inputs(cfg: dict, dtype, device) -> tuple:
+	"""``(format, inputs)``: the configuration's row of ``FORMATS`` and what its operator module
+	builds on the device for the port's constructor."""
+	fmt = operator_format(cfg)
+	return fmt, getattr(load_module("operators", cfg["operator"]), fmt.builder)(cfg["params"], dtype, device)
 
 
 def log(**fields) -> None:
@@ -92,16 +131,17 @@ class Cell:
 		self.dtype = getattr(torch, self.control.get("program_dtype", self.cfg["dtype"]))
 
 	def build(self, ptt) -> None:
-		"""The program's operator from bands built on the device, and the call on it."""
+		"""The program's operator in the configuration's format, from inputs built on the device, and
+		the call on it."""
 		from . import reference
 
-		bands, offsets, shape = load_module("operators", self.cfg["operator"]).bands(self.cfg["params"], self.dtype, self.device)
-		self.sizes = dict(n=shape[0], n_d=len(offsets), itemsize=bands.element_size())
+		fmt, parts = operator_inputs(self.cfg, self.dtype, self.device)
+		self.sizes = fmt.sizes(*parts)
 		if "reference_precision" in self.control:
 			ref = reference.operator(self.cfg, self.control["reference_precision"], self.device)
 			self.fn = lambda seed: self.call.reference(ref, self.traffic, seed)
 			return
-		self.op = ptt.DIAOperator(bands, offsets, shape)
+		self.op = getattr(ptt, fmt.program)(*parts)
 		self.fn = self.call.program(ptt, self.op, self.traffic)
 
 	def faults(self) -> dict:

@@ -6,7 +6,7 @@ import pytest
 
 from port_bench import harness, readings
 
-from .conftest import CELLS, CONTROL_SIZES, tiny
+from .conftest import CELLS, tiny
 
 SEEDS = [2**31 + 101, 2**31 + 102, 2**31 + 103]
 
@@ -14,8 +14,8 @@ SEEDS = [2**31 + 101, 2**31 + 102, 2**31 + 103]
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_fails_and_program_passes(cell):
 	limits = harness.load_json(harness.ROOT / "cells" / f"{cell}.json")["limits"]
-	program = readings.readings(cell, SEEDS, False, device="cpu", params=tiny(cell, CONTROL_SIZES))
-	control = readings.readings(cell, SEEDS, True, device="cpu", params=tiny(cell, CONTROL_SIZES))
+	program = readings.readings(cell, SEEDS, False, device="cpu", params=tiny(cell, "control_params"))
+	control = readings.readings(cell, SEEDS, True, device="cpu", params=tiny(cell, "control_params"))
 	for key, lim in limits.items():
 		assert max(r[key] for r in program) <= lim
 		assert min(r[key] for r in control) > lim

@@ -64,11 +64,40 @@ def test_cell_files_found_by_name(cell):
 	call = harness.load_module("calls", traffic["call"])
 	for fn in ("program", "reference", "compare", "sweep", "faults"):
 		assert callable(getattr(call, fn))
-	assert callable(harness.load_module("operators", cfg["operator"]).bands)
 	ref = reference.operator(cfg, "float64", "cpu")
 	assert ref.n > 0 and callable(ref.apply)
 	limits = harness.load_json(harness.ROOT / "cells" / f"{cell}.json")
 	assert limits["checked_calls"] >= 1 and limits["limits"]
+
+
+def config_problems(cfg: dict) -> list:
+	"""What keeps a configuration from running through the harness and the benchmark's CPU tests."""
+	problems = []
+	if cfg.get("format") not in harness.FORMATS:
+		problems.append(f"format {cfg.get('format')!r} is none of the harness's {sorted(harness.FORMATS)}")
+	else:
+		builder = harness.FORMATS[cfg["format"]].builder
+		if not callable(getattr(harness.load_module("operators", cfg["operator"]), builder, None)):
+			problems.append(f"operators/{cfg['operator']}.py has no {builder}(), "
+				f"which format {cfg['format']!r} builds with")
+	cpu = cfg.get("cpu")
+	if not (isinstance(cpu, dict) and all(isinstance(cpu.get(k), dict) for k in ("params", "control_params"))):
+		problems.append("no 'cpu' key with 'params' and 'control_params': the sizes its CPU tests run at")
+	return problems
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
+def test_configuration_has_its_format_and_cpu_sizes(name):
+	cfg = harness.load_json(harness.REPO / harness.by_name(BENCH["configs"], name, "config")["file"])
+	assert not config_problems(cfg), config_problems(cfg)
+
+
+def test_configuration_problems_are_named():
+	cfg = harness.load_json(harness.REPO / BENCH["configs"][0]["file"])
+	assert config_problems(cfg) == []
+	assert [p for p in config_problems({k: v for k, v in cfg.items() if k != "cpu"}) if "'cpu'" in p]
+	assert [p for p in config_problems({**cfg, "format": "ell"}) if "'ell'" in p]
+	assert [p for p in config_problems({**cfg, "format": "bsr"}) if "tiles()" in p]
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]])
@@ -81,3 +110,5 @@ def test_missing_names_raise():
 		harness.load_module("metrics", "no_such_metric")
 	with pytest.raises(KeyError):
 		harness.by_name(BENCH["workloads"], "no_such.cell", "workload")
+	with pytest.raises(KeyError, match="'ell'"):
+		harness.operator_format({"name": "c", "format": "ell"})

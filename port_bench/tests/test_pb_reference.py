@@ -8,6 +8,8 @@ import torch
 from port_bench import harness, reference
 from port_bench.reference import chebyshev, hofstadter, lanczos, path_laplacian, probes
 
+from .conftest import BENCH
+
 PATH = {"n": 64, "diagonal": 3.0, "off_diagonal": -1.0}
 LATTICE = {"nx": 10, "ny": 12, "alpha": 0.2, "hopping": 1.0}
 
@@ -57,14 +59,43 @@ def test_kpm_density_has_unit_mass():
 	assert np.trapezoid(phi, ts) == pytest.approx(1.0, abs=2e-2)
 
 
-@pytest.mark.parametrize("kind,params,dtype", [("path_laplacian", PATH, torch.float32), ("hofstadter", LATTICE, torch.complex64)])
-def test_bands_handed_to_the_program_match_the_reference(kind, params, dtype):
+def operator_cases() -> dict:
+	"""Small operators of every module in ``operators/``, by id, as configurations: the two DIA kinds
+	above; each configuration in ``BENCHMARK.json`` at its CPU size; each module's ``EXAMPLE``."""
+	cases = {
+		"path_laplacian-small": {"operator": "path_laplacian", "format": "dia", "params": PATH, "dtype": "float32"},
+		"hofstadter-small": {"operator": "hofstadter", "format": "dia", "params": LATTICE, "dtype": "complex64"},
+	}
+	for entry in BENCH["configs"]:
+		cfg = harness.load_json(harness.REPO / entry["file"])
+		cases[f"{cfg['operator']}-{cfg['name']}"] = {**cfg, "params": {**cfg["params"], **cfg["cpu"]["params"]}}
+	for kind in KINDS:
+		example = getattr(harness.load_module("operators", kind), "EXAMPLE", None)
+		if example is not None:
+			cases[f"{kind}-example"] = {"operator": kind, **example}
+	return cases
+
+
+KINDS = sorted(p.stem for p in (harness.ROOT / "operators").glob("*.py") if not p.stem.startswith("_"))
+CASES = operator_cases()
+
+
+def test_every_operator_module_has_a_case():
+	assert set(KINDS) <= {c["operator"] for c in CASES.values()}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bands_handed_to_the_program_match_the_reference(case):
+	"""The bands, tiles or entries the operator module builds, handed to the port's constructor of
+	the format (by ``harness.FORMATS``), apply as the reference does."""
 	import primate_tpu_torch as ptt
 
-	bands, offsets, shape = harness.load_module("operators", kind).bands(params, dtype, "cpu")
-	op = ptt.DIAOperator(bands, offsets, shape)
-	X = torch.randn(3, shape[0], dtype=dtype)
-	ref = reference.operator({"operator": kind, "params": params, "dtype": str(dtype).removeprefix("torch.")}, "float64", "cpu")
+	cfg = CASES[case]
+	dtype = getattr(torch, cfg["dtype"])
+	fmt, parts = harness.operator_inputs(cfg, dtype, "cpu")
+	op = getattr(ptt, fmt.program)(*parts)
+	X = torch.randn(3, op.shape[0], dtype=dtype)
+	ref = reference.operator(cfg, "float64", "cpu")
 	want = ref.apply(X.to(ref.work))
 	assert torch.allclose(op.matmat_t(X).to(ref.work), want, atol=1e-5)
 

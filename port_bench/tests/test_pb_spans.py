@@ -102,7 +102,8 @@ def test_spans_move_none_of_the_older_metrics(tmp_path):
 	assert bare.breakdown()["device_ops"] == spanned.breakdown()["device_ops"]
 
 
-# (estimate, sweep, quadrature) spans a call of each cell opens
+# (estimate, sweep, quadrature) spans a call of each cell opens; the call of a traffic not listed here
+# opens at least its estimate's span
 CALL_SPANS = {"slq_logdet": (1, 1, 1), "slq_logdet_orth5": (1, 1, 1), "kpm_dos": (1, 1, 1), "slq_dos": (1, 1, 2)}
 
 
@@ -115,8 +116,13 @@ def test_tiny_traced_run_splits_its_idle_to_the_nanosecond(cell, capsys):
 	assert len(split) == 1
 	split = split[0]
 	assert sum(split["span_idle_ns"].values()) == split["window_idle_ns"]
-	counts = tuple(split["spans_per_estimate"][f"primate.{k}"]["count"] for k in ("estimate", "sweep", "quadrature"))
-	assert counts == CALL_SPANS[harness.by_name(BENCH["workloads"], cell, "workload")["traffic"]]
+	per = split["spans_per_estimate"]
+	counts = tuple(per.get(f"primate.{k}", {}).get("count", 0) for k in ("estimate", "sweep", "quadrature"))
+	traffic = harness.by_name(BENCH["workloads"], cell, "workload")["traffic"]
+	if traffic in CALL_SPANS:
+		assert counts == CALL_SPANS[traffic]
+	else:
+		assert counts[0] >= 1
 	assert not set(NEW) & set(r["metrics"])  # no device operation on the CPU: nothing to read
 
 
